@@ -3,8 +3,12 @@
 
     pipe = StableDiffusion1_x.from_config(device="cuda")
     pipe.quantize({"w_bit": 8, "a_bit": 8, "version": "real",
-                   "quantize_act": True}, quantType="sq")
+                   "quantize_act": True}, quantType="sq")       # W8A8
     images = pipe.generate("a cat on a table", num_inference_steps=20)
+
+``quantType="awq"`` with ``{"version": "real", "w_bit": 4}`` gives W4A16
+(int4 weights, group 128), and ``quantType="rtn"`` with ``{"version":
+"real", "w_bit": 4, "a_bit": 8, "quantize_act": True}`` W4A8.
 
 Components are ``nn.Module``s built from a config and a ``QuantPlan``;
 quantization transforms their param trees (``module_tree``) and rebuilds
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -29,11 +34,13 @@ from qdm_tpu_torch.calib.stats import RunningMeanMax, load_stats, save_stats
 from qdm_tpu_torch.config import QuantConfig
 from qdm_tpu_torch.convert import convert_leaf, oihw_to_hwio_shape
 from qdm_tpu_torch.models import clip_text, schedulers, unet as unet_lib, vae as vae_lib
-from qdm_tpu_torch.models.layers import (QDense, W8A8GEGLUProj, capture_stats,
-                                         flatten_tree, load_tree, module_tree,
-                                         unflatten_tree)
+from qdm_tpu_torch.models.layers import (QDense, W8A8GEGLUProj, capture_inputs,
+                                         capture_stats, flatten_tree, load_tree,
+                                         module_tree, unflatten_tree)
 from qdm_tpu_torch.models.shims import sd_unet_scaling_groups
+from qdm_tpu_torch.ops import quant_matmul as qmm
 from qdm_tpu_torch.quant import apply as qapply
+from qdm_tpu_torch.quant import awq as awq_lib
 from qdm_tpu_torch.quant import smooth as smooth_lib
 from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan, spec_from_config
 from qdm_tpu_torch.utils.tokenizer import SimpleTokenizer
@@ -41,8 +48,9 @@ from qdm_tpu_torch.utils.tokenizer import SimpleTokenizer
 QUANTIZABLE_COMPONENTS = ("unet", "text_encoder", "vae", "transformer")
 
 _ROADMAP_QUANT = ("is not ported yet (ROADMAP.md Queue 1 items 2, 7 and 11: "
-                  "RTN/AWQ/GPTQ/codebook, fake quant, text-encoder and VAE "
-                  "quantization)")
+                  "GPTQ/codebook, fake quant, static act scales, text-encoder "
+                  "and VAE quantization)")
+_SQ = ("sq", "smooth", "smoothquant")
 
 
 def resolve_device(device) -> torch.device:
@@ -71,6 +79,8 @@ class BaseDiffusionPipeline:
         self.quant_config: Optional[QuantConfig] = None
         self.quantized_components: List[str] = []
         self.is_quantized = False
+        # host seconds of the last quantize() by phase (calibrate, search, pack)
+        self.quantize_seconds: Dict[str, float] = {}
 
     # ------------------------------------------------------------------ build
 
@@ -153,11 +163,13 @@ class BaseDiffusionPipeline:
                  calib_prompts: Optional[Sequence[str]] = None,
                  calib_cache: Optional[str] = None,
                  calib_latents: Optional[Sequence] = None):
-        """Quantize the UNet (reference base.py:215-528).  Ported: SmoothQuant
-        with real W8A8 kernels.  calib_cache: a stats file (this package's
-        or the JAX package's ``save_stats``) read if it exists, written
-        otherwise.  calib_latents: one (B, h, w, C) array per calibration
-        batch instead of seeded noise."""
+        """Quantize the UNet (reference base.py:215-528).  Ported, all with
+        real kernels: SmoothQuant (``sq``, W8A8), AWQ and RTN (``awq``,
+        ``rtn``: W4A16, or W4A8 with ``quantize_act``; RTN also W8A8).
+        calib_cache (SmoothQuant): a stats file (this package's or the JAX
+        package's ``save_stats``) read if it exists, written otherwise.
+        calib_latents: one (B, h, w, C) array per calibration batch instead
+        of seeded noise (AWQ calibrates on one batch)."""
         self.checkQuantStatus(quantUnet, quantTextEncoder, quantVAE, quantTransformer)
         cfg = quant_config if isinstance(quant_config, QuantConfig) \
             else QuantConfig.from_dict(quant_config)
@@ -166,20 +178,29 @@ class BaseDiffusionPipeline:
             cfg.quantize_act = quant_act
         if cfg.quantize_act and cfg.version == "fake":
             cfg.version = "fake_act"
-        if cfg.quant_method not in ("sq", "smooth", "smoothquant"):
+        method = cfg.quant_method
+        if method not in _SQ + ("awq", "rtn"):
             raise NotImplementedError(f"quantType {quantType!r} {_ROADMAP_QUANT}")
         if cfg.version != "real" or quantTextEncoder or quantVAE:
             raise NotImplementedError(f"version {cfg.version!r} / text encoder / VAE "
                                       f"quantization {_ROADMAP_QUANT}")
-        if cfg.act_per_step_scales:
-            raise NotImplementedError(f"act_per_step_scales {_ROADMAP_QUANT}")
+        if cfg.act_per_step_scales or (
+                method == "rtn" and cfg.quantize_act
+                and "static" in (cfg.act_quant_type, cfg.act_quant_conv_type)):
+            raise NotImplementedError(f"static / per-step act scales {_ROADMAP_QUANT}")
         self.quant_config = cfg
+        self.quantize_seconds = {}
         targets = ["unet"] if quantUnet and self.has_unet else []
         for name in targets:
             plan = self._make_plan(cfg, name)
-            act_stats = self._smoothquant_component(
-                name, cfg, calib_cache=calib_cache, calib_prompts=calib_prompts,
-                calib_latents=calib_latents)
+            act_stats = None
+            if method in _SQ:
+                act_stats = self._smoothquant_component(
+                    name, cfg, calib_cache=calib_cache, calib_prompts=calib_prompts,
+                    calib_latents=calib_latents)
+            elif method == "awq":
+                self._awq_component(name, cfg, calib_prompts, calib_latents)
+            t0 = time.perf_counter()
             tree = module_tree(self.components[name])
             if plan.fuse_qkv:
                 # after scale migration (its groups address unfused paths)
@@ -191,6 +212,7 @@ class BaseDiffusionPipeline:
             self.plans[name] = plan
             self.components[name] = self._module(name)
             load_tree(self.components[name], tree)
+            self.quantize_seconds["pack"] = time.perf_counter() - t0
             self.quantized_components.append(name)
         self.is_quantized = True
         return self
@@ -276,6 +298,55 @@ class BaseDiffusionPipeline:
         # activations entering a migrated layer are act / s from now on
         return {k: (v / mig[k] if k in mig else v) for k, v in stats.items()}
 
+    def _awq_component(self, name: str, cfg: QuantConfig, calib_prompts=None,
+                       calib_latents=None) -> None:
+        """AWQ scale and clip search on sampled layer inputs, applied to the
+        component's float weights (pipeline.py:577-585)."""
+        t0 = time.perf_counter()
+        feats = self._calibrate_unet_with_inputs(cfg, name, calib_prompts, calib_latents)
+        t1 = time.perf_counter()
+        module = self.components[name]
+        tree = module_tree(module)
+        load_tree(module, awq_lib.awq_search_and_apply(
+            tree, sd_unet_scaling_groups(tree), feats, cfg))
+        self.quantize_seconds.update(calibrate=t1 - t0, search=time.perf_counter() - t1)
+
+    def _calibrate_unet_with_inputs(self, cfg: QuantConfig, name: str = "unet",
+                                    calib_prompts: Optional[Sequence[str]] = None,
+                                    calib_latents: Optional[Sequence] = None
+                                    ) -> Dict[str, torch.Tensor]:
+        """Sampled layer inputs over a few denoise steps on the current
+        (float, unfused) plan: one batch of
+        ``max(2, min(n_samples, 8))`` prompts, ``min(n_steps, 4)`` steps, the
+        first ``capture_rows`` rows of each QDense input per step,
+        concatenated step by step (pipeline.py:605-664).  calib_latents[0],
+        if given, replaces the seeded initial noise."""
+        from qdm_tpu_torch.calib.data import get_calib_prompts
+
+        calib = cfg.calib
+        prompts = (list(calib_prompts)[:max(2, min(calib.n_samples, 8))] if calib_prompts
+                   else get_calib_prompts(calib.dataset, min(calib.n_samples, 8)))
+        unet = self.components[name]
+        steps = max(1, min(calib.n_steps, 4))
+        tables = schedulers.make_ddim(self.scheduler_config, steps, self.device)
+        h = w = self.default_sample_size()
+        ctx, uctx = self._encode_prompts(prompts, None)
+        if calib_latents is not None:
+            lat = torch.tensor(np.asarray(calib_latents[0]), dtype=torch.float32,
+                               device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(calib.seed)
+            lat = torch.randn((len(prompts), h, w, self.latent_channels()),
+                              generator=gen, device=self.device)
+        feats: Dict[str, List[torch.Tensor]] = {}
+        for s in range(steps):
+            with capture_inputs(unet, self.plans[name].capture_rows) as rows:
+                lat = self._cfg_step(unet, tables, lat, ctx, uctx, s, steps,
+                                     calib.guidance_scale)
+            for k, v in rows.items():
+                feats.setdefault(k, []).append(v)
+        return {k: torch.cat(v, dim=0) for k, v in feats.items()}
+
     # -------------------------------------------------------------- generate
 
     def default_sample_size(self) -> int:
@@ -339,12 +410,17 @@ class BaseDiffusionPipeline:
         return img.cpu().numpy()
 
     def kernel_calls_per_unet_forward(self) -> Dict[str, int]:
-        """Launches of each W8A8 kernel wrapper in one UNet call under the
-        current plan: one per QDense in mode w8a8 and one per fused GEGLU."""
-        mods = list(self.components["unet"].modules())
-        return {"w8a8_matmul_fused_epi": sum(isinstance(m, QDense) and m.mode == "w8a8"
-                                             for m in mods),
-                "w8a8_geglu_fused": sum(isinstance(m, W8A8GEGLUProj) for m in mods)}
+        """Launches of each kernel wrapper in one UNet call under the
+        current plan: one per QDense that runs a kernel (w8a8 -> K1;
+        w4a16, and w4a8 whose group is not 128 -> K3; w4a8 with group 128
+        -> K4) and one per fused GEGLU (K2)."""
+        counts = dict.fromkeys(qmm.LAUNCHES, 0)
+        for m in self.components["unet"].modules():
+            if isinstance(m, QDense) and m.kernel_name is not None:
+                counts[m.kernel_name] += 1
+            elif isinstance(m, W8A8GEGLUProj):
+                counts["w8a8_geglu_fused"] += 1
+        return counts
 
 
 class StableDiffusion1_x(BaseDiffusionPipeline):

@@ -3,8 +3,9 @@
 The port keeps the Flax tree's keys and maps each leaf 1:1:
 
 * dense ``kernel`` (in, out), ``bias``, norm ``scale``, ``embedding``, the
-  packed dense ``qweight`` (K', N') int8 and its ``scales`` (1, N') pass
-  through unchanged (the int8 bytes stay identical);
+  packed dense ``qweight`` (K', N') int8 and its ``scales`` (1, N'), and the
+  int4 packs ``qweight`` (K'/8, N') int32, ``scales`` and ``zeros``
+  (K'/G, N') pass through unchanged (the packed bytes stay identical);
 * 4-D conv ``kernel`` / ``qweight`` arrive HWIO and become PyTorch's
   (out, in, kh, kw).
 
@@ -24,7 +25,7 @@ from qdm_tpu_torch.models.layers import flatten_tree, unflatten_tree
 
 # leaf name -> the ranks it may have
 LEAF_RANKS = {"kernel": (2, 4), "qweight": (2, 4), "bias": (1,), "scale": (1,),
-              "embedding": (2,), "scales": (1, 2)}
+              "embedding": (2,), "scales": (1, 2), "zeros": (2,)}
 
 
 def hwio_to_oihw(t: torch.Tensor) -> torch.Tensor:

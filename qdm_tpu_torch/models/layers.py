@@ -8,10 +8,20 @@ layer declares the parameters its mode needs, as the Flax module does:
 
 * ``QDense`` mode "none": ``kernel`` (in, out) [+ ``bias``]; mode "w8a8":
   ``qweight`` (K', N') int8, ``scales`` (1, N') f32 [+ ``bias``], run by the
-  fused W8A8 kernel (the TPU dispatch of ``QDense``, layers.py:243-264).
-* ``QConv`` mode "none": ``kernel`` (out, in, kh, kw); mode "w8a8":
-  ``qweight`` int8 of that shape and ``scales`` (out,), with a dynamic
-  per-tensor activation scale, im2col and an int8 GEMM (layers.py:352-354).
+  fused W8A8 kernel (the TPU dispatch of ``QDense``, layers.py:243-264);
+  modes "w4a16" / "w4a8": ``qweight`` (K'/8, N') int32, ``scales`` (K'/G, N')
+  f32, ``zeros`` of that shape under ``zero_point`` [+ ``bias``], run by the
+  W4A8 kernel where the group is 128 and the mode is w4a8, else by the
+  W4A16 kernel on (for w4a8) per-token fake-quantized activations
+  (layers.py:138-169).  Bias and residual are added after the kernel, in
+  the layer's dtype, as on the TPU.
+* ``QConv`` mode "none" / "fake": ``kernel`` (out, in, kh, kw); "fake_act"
+  also fake-quantizes its input (per channel by default, layers.py:370-371);
+  a conv planned "w4a16" / "w4a8" (the 1x1 ``proj_in``/``proj_out`` that no
+  conv rule matches) runs its pack-time fake-quantized float kernel; mode
+  "w8a8": ``qweight`` int8 of that shape and ``scales`` (out,), with a
+  dynamic per-tensor activation scale, im2col and an int8 GEMM
+  (layers.py:352-354).
 
 Parameters are declared on the ``meta`` device and filled by
 :func:`load_tree` from a nested dict keyed like the Flax param tree.
@@ -20,12 +30,14 @@ Activations are channels-last (NHWC) at every module boundary.
 Calibration: inside ``with capture_stats(model) as stats`` every
 QDense/QConv max-reduces the per-channel absmax of its input into
 ``stats[path]`` (the Flax ``sow('calib', 'act_absmax')`` of
-layers.py:100-106).
+layers.py:100-106); inside ``capture_inputs`` every QDense keeps the
+first rows of its input (``sow('calib_x')``, layers.py:112-116).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -33,14 +45,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from qdm_tpu_torch.ops import quant_matmul as qmm
-from qdm_tpu_torch.quant.plan import QuantPlan
+from qdm_tpu_torch.quant import rtn
+from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan
 
 NO_PLAN = QuantPlan()
 META = torch.device("meta")
 
 _ROADMAP_MODES = (
     "ROADMAP.md Queue 1 item 3 (remaining QDense/QConv modes: fake, fake_act, "
-    "w8a8_xla, w8a16, w4a16, w4a16_xla, w4a8, static conv act scales)")
+    "w8a8_xla, w8a16, w4a16_xla, static conv act scales, per-group conv act quant)")
+W4_MODES = ("w4a16", "w4a8")
 
 
 def _declare(module: nn.Module, name: str, shape, dtype=torch.float32) -> None:
@@ -54,6 +68,20 @@ def _unsupported(kind: str, mode: str, path: str):
         f"{kind} mode {mode!r} at {path!r} is not ported yet: {_ROADMAP_MODES}")
 
 
+def _act_fake_quant_dense(x: torch.Tensor, spec: LayerQuantSpec) -> torch.Tensor:
+    if spec.act_quant == "per_tensor":
+        return rtn.quantize_activation_per_tensor_absmax(x, spec.a_bits)
+    return rtn.quantize_activation_per_token_absmax(x, spec.a_bits)
+
+
+def _act_fake_quant_conv(x: torch.Tensor, spec: LayerQuantSpec) -> torch.Tensor:
+    if spec.act_quant == "per_tensor":
+        return rtn.quantize_activation_per_tensor_absmax(x, spec.a_bits)
+    if spec.act_quant == "per_token":
+        return rtn.quantize_activation_per_token_absmax(x, spec.a_bits)
+    return rtn.quantize_activation_per_channel_absmax(x, spec.a_bits)
+
+
 class QuantLayer(nn.Module):
     """Base of the layers that capture calibration stats."""
 
@@ -61,6 +89,8 @@ class QuantLayer(nn.Module):
         super().__init__()
         self.path = path
         self.stats: Optional[Dict[str, torch.Tensor]] = None
+        self.inputs: Optional[Dict[str, torch.Tensor]] = None
+        self.input_rows = 0
 
     def _record(self, x: torch.Tensor) -> None:
         if self.stats is None:
@@ -75,16 +105,32 @@ class QuantLayer(nn.Module):
 
 
 @contextlib.contextmanager
-def capture_stats(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
-    stats: Dict[str, torch.Tensor] = {}
+def _capturing(model: nn.Module, stats, inputs, rows: int) -> Iterator[None]:
     layers = [m for m in model.modules() if isinstance(m, QuantLayer)]
     for m in layers:
-        m.stats = stats
+        m.stats, m.inputs, m.input_rows = stats, inputs, rows
     try:
-        yield stats
+        yield
     finally:
         for m in layers:
-            m.stats = None
+            m.stats = m.inputs = None
+
+
+@contextlib.contextmanager
+def capture_stats(model: nn.Module) -> Iterator[Dict[str, torch.Tensor]]:
+    stats: Dict[str, torch.Tensor] = {}
+    with _capturing(model, stats, None, 0):
+        yield stats
+
+
+@contextlib.contextmanager
+def capture_inputs(model: nn.Module, rows: int = 64) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yields inputs: ``inputs[path]`` holds the first ``rows`` rows of
+    each QDense's flattened input in f32, the last call within the context
+    winning (the ``calib_x`` sow of layers.py:112-116)."""
+    inputs: Dict[str, torch.Tensor] = {}
+    with _capturing(model, None, inputs, rows):
+        yield inputs
 
 
 class QDense(QuantLayer):
@@ -95,13 +141,21 @@ class QDense(QuantLayer):
         super().__init__(path)
         self.in_features, self.features = in_features, features
         self.use_bias, self.dtype = use_bias, dtype
-        self.mode = plan.spec_for(path).mode
+        self.spec = plan.spec_for(path)
+        self.mode = self.spec.mode
+        np_ = qmm._round_up(features, qmm.LANE)
         if self.mode == "none":
             _declare(self, "kernel", (in_features, features))
         elif self.mode == "w8a8":
-            kp, np_ = qmm._round_up(in_features, 32), qmm._round_up(features, qmm.LANE)
-            _declare(self, "qweight", (kp, np_), torch.int8)
+            _declare(self, "qweight", (qmm._round_up(in_features, 32), np_), torch.int8)
             _declare(self, "scales", (1, np_))
+        elif self.mode in W4_MODES:
+            self.group_size = rtn.w4_group_size(in_features, self.spec.group_size)
+            kp = qmm._round_up(in_features, math.lcm(qmm.PACK_BLOCK_K, self.group_size))
+            _declare(self, "qweight", (kp // 8, np_), torch.int32)
+            _declare(self, "scales", (kp // self.group_size, np_))
+            if self.spec.zero_point:
+                _declare(self, "zeros", (kp // self.group_size, np_))
         else:
             raise _unsupported("QDense", self.mode, path)
         if use_bias:
@@ -113,10 +167,31 @@ class QDense(QuantLayer):
             self._w_t, self._bias_p = _w8a8_operands(self.qweight, self.bias
                                                      if self.use_bias else None)
 
+    @property
+    def kernel_name(self) -> Optional[str]:
+        """The ``quant_matmul.LAUNCHES`` key of the kernel this layer runs."""
+        if self.mode == "w8a8":
+            return "w8a8_matmul_fused_epi"
+        if self.mode == "w4a8" and self.group_size == qmm.PACK_BLOCK_K:
+            return "w4a8_matmul"
+        return "w4a16_matmul" if self.mode in W4_MODES else None
+
+    def _forward_w4(self, x2: torch.Tensor) -> torch.Tensor:
+        zeros = self.zeros if self.spec.zero_point else None
+        if self.kernel_name == "w4a8_matmul":
+            return qmm.w4a8_matmul(x2.to(self.dtype), self.qweight, self.scales, zeros,
+                                   self.group_size, n_out=self.features)
+        if self.spec.quantize_act and self.spec.a_bits < 16:
+            x2 = _act_fake_quant_dense(x2, self.spec)
+        return qmm.w4a16_matmul(x2.to(self.dtype), self.qweight, self.scales, zeros,
+                                self.group_size, n_out=self.features)
+
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None):
         self._record(x)
         batch_shape = x.shape[:-1]
         x2 = x.reshape(-1, self.in_features)
+        if self.inputs is not None:
+            self.inputs[self.path] = x2[:self.input_rows].to(torch.float32, copy=True)
         res2 = residual.reshape(-1, self.features) if residual is not None else None
         if self.mode == "w8a8":
             # act quantization, bias and residual fused into the kernel
@@ -125,7 +200,10 @@ class QDense(QuantLayer):
                 residual=res2.to(self.dtype) if res2 is not None else None,
                 out_dtype=self.dtype, n_out=self.features, w_t=self._w_t)
             return y.reshape(*batch_shape, self.features)
-        y = torch.matmul(x2.to(self.dtype), self.kernel.to(self.dtype))
+        if self.mode in W4_MODES:
+            y = self._forward_w4(x2)
+        else:
+            y = torch.matmul(x2.to(self.dtype), self.kernel.to(self.dtype))
         if self.use_bias:
             y = y + self.bias.to(y.dtype)
         if res2 is not None:
@@ -181,10 +259,13 @@ class QConv(QuantLayer):
         self.in_features, self.features = in_features, features
         self.kernel_size, self.strides = _pair(kernel_size), _pair(strides)
         self.padding, self.use_bias, self.dtype = padding, use_bias, dtype
-        spec = plan.spec_for(path)
+        spec = self.spec = plan.spec_for(path)
         self.mode = spec.mode
         shape = (features, in_features, *self.kernel_size)
-        if self.mode == "none":
+        if self.mode in ("none", "fake", "fake_act") + W4_MODES:
+            if (self.mode == "fake_act" and spec.act_quant == "per_group"
+                    and spec.act_group_size > 1):
+                raise _unsupported("QConv", f"{self.mode}/per_group", path)
             _declare(self, "kernel", shape)
         elif self.mode == "w8a8" and spec.act_quant not in ("static", "static_channel"):
             _declare(self, "qweight", shape, torch.int8)
@@ -223,6 +304,8 @@ class QConv(QuantLayer):
         self._record(x)
         if self.mode == "w8a8":
             return self._forward_w8a8(x)
+        if self.mode == "fake_act" and self.spec.quantize_act and self.spec.a_bits < 16:
+            x = _act_fake_quant_conv(x, self.spec)
         w = self.kernel.to(self.dtype).contiguous(memory_format=torch.channels_last)
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, stride=self.strides,
                      padding=self.padding).permute(0, 2, 3, 1)
@@ -348,7 +431,8 @@ def load_tree(model: nn.Module, tree: dict) -> nn.Module:
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, "
                              f"module declares {tuple(p.shape)}")
-        if (p.dtype == torch.int8) != (t.dtype == torch.int8):
+        if p.dtype.is_floating_point != t.dtype.is_floating_point or (
+                not p.dtype.is_floating_point and p.dtype != t.dtype):
             raise TypeError(f"{'/'.join(path)}: dtype {t.dtype} vs {p.dtype}")
         parent = model.get_submodule(".".join(path[:-1])) if len(path) > 1 else model
         setattr(parent, path[-1], nn.Parameter(t, requires_grad=False))

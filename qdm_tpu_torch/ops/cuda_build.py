@@ -34,6 +34,10 @@ ENTRY_POINTS = {
                        (P, I, P, P, P, P, P, I, P, P, I, I, I, I, P)),
     "w8a8_geglu": ("qdm_w8a8_geglu",
                    (P, I, P, P, P, P, I, P, P, I, I, I, I, P)),
+    "w4a16_matmul": ("qdm_w4a16_matmul",
+                     (P, I, P, P, P, P, I, I, I, I, I, I, P)),
+    "w4a8_matmul": ("qdm_w4a8_matmul",
+                    (P, I, P, P, P, P, P, P, I, I, I, I, I, P)),
 }
 
 _LOCK = threading.Lock()

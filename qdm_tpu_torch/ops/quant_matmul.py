@@ -1,6 +1,7 @@
-"""W8A8 quantized matmuls: the two Hopper kernels and their plain versions.
+"""Quantized matmuls: the Hopper kernels and their plain versions.
 
-Counterpart of ``qdm_tpu/ops/quant_matmul.py`` for the SD1.5 W8A8 path:
+Counterpart of ``qdm_tpu/ops/quant_matmul.py`` for the SD1.5 W8A8, W4A16
+and W4A8 paths:
 
 * :func:`w8a8_matmul_fused_epi` — per-token int8 quantization of x, int8
   GEMM, ``acc * (xs * ws) + bias (+ residual)``.  CUDA kernel
@@ -8,15 +9,29 @@ Counterpart of ``qdm_tpu/ops/quant_matmul.py`` for the SD1.5 W8A8 path:
 * :func:`w8a8_geglu_fused` — the same quantization, two int8 GEMMs on the
   ``[hidden | gate]`` column halves, ``h * gelu_tanh(g)``.  CUDA kernel
   ``csrc/w8a8_geglu.cu`` (replaces the Pallas ``_w8a8_geglu_kernel``).
+* :func:`w4a16_matmul` — block-strided int4 weights, group dequant
+  ``(code - zero) * scale`` rounded to x's dtype, GEMM with f32
+  accumulation.  CUDA kernel ``csrc/w4a16_matmul.cu`` (replaces
+  ``w4a16_matmul_pallas``).
+* :func:`w4a8_matmul` — the same weights, per-token int8 x, exact int32
+  partial per 128-row K block, ``acc += partial * scale`` in f32, then
+  ``acc * xs``.  CUDA kernel ``csrc/w4a8_matmul.cu`` (replaces
+  ``w4a8_matmul_pallas``).
 
 Each wrapper computes its plain PyTorch version for a tensor on the CPU,
 launches its kernel for a CUDA tensor, and raises for anything else; there
 is no fallback from the kernel to the plain version.  ``LAUNCHES`` counts
 the kernel launches of each wrapper.
 
-Packed weight layout (identical bytes to the JAX package): int8 codes
-(K', N') with K' = round_up(K, 32), N' = round_up(N, 128), zero padded, and
-per-output-channel scales (1, N') f32 (:func:`pack_linear_int8`).
+Packed weight layouts (identical bytes to the JAX package):
+
+* int8: codes (K', N') with K' = round_up(K, 32), N' = round_up(N, 128),
+  zero padded, and per-output-channel scales (1, N') f32
+  (:func:`pack_linear_int8`).
+* int4: codes packed 8 per int32 word, block-strided: within each block of
+  ``PACK_BLOCK_K`` = 128 K rows, nibble j of word w holds K row
+  ``j * 16 + w``.  qweight (K'/8, N') int32, scales and zeros (K'/G, N')
+  f32, K' = round_up(K, lcm(128, G)) (:func:`pack_linear_int4`).
 """
 
 from __future__ import annotations
@@ -29,9 +44,11 @@ import torch
 from qdm_tpu_torch.ops import cuda_build
 
 LANE = 128
+PACK_BLOCK_K = 128   # K rows per int4 packing block == the kernels' K block
 
 # kernel launches per wrapper; chip_smoke.py zeroes and reads these
-LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_geglu_fused": 0}
+LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_geglu_fused": 0,
+            "w4a16_matmul": 0, "w4a8_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +78,72 @@ def pack_linear_int8(icodes_kn: torch.Tensor, scale_n: torch.Tensor,
     s = torch.zeros((1, np_), dtype=torch.float32, device=scale_n.device)
     s[0, :n] = scale_n.reshape(-1).to(torch.float32)
     return w, s
+
+
+def align_group_size(k: int, gs: int) -> int:
+    """Shrink gs by 32 until group boundaries align with the 128-row K
+    blocks (128 % gs == 0 or gs % 128 == 0) while still dividing k."""
+    g = gs
+    while g > 0 and not ((PACK_BLOCK_K % g == 0 or g % PACK_BLOCK_K == 0) and k % g == 0):
+        g -= 32
+    return g if g > 0 else k
+
+
+def pack_rows_strided(codes: torch.Tensor) -> torch.Tensor:
+    """Unsigned 4-bit codes (K, N) -> (K/8, N) int32, block-strided: within
+    each 128-row K block, word w holds codes[j * 16 + w] at nibble j."""
+    k, n = codes.shape
+    if k % PACK_BLOCK_K:
+        raise ValueError(f"K={k} is not a multiple of the packing block {PACK_BLOCK_K}")
+    c = codes.to(torch.int64).reshape(k // PACK_BLOCK_K, 8, PACK_BLOCK_K // 8, n)
+    shifts = torch.arange(8, device=codes.device, dtype=torch.int64) * 4
+    packed = (c << shifts[None, :, None, None]).sum(dim=1)        # < 2**32
+    packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+    return packed.reshape(k // 8, n).to(torch.int32)
+
+
+def unpack_rows_strided(qweight: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_rows_strided`: (K/8, N) -> (K, N) int32."""
+    kw, n = qweight.shape
+    p = (qweight.to(torch.int64) & 0xFFFFFFFF).reshape(-1, 1, PACK_BLOCK_K // 8, n)
+    shifts = torch.arange(8, device=qweight.device, dtype=torch.int64) * 4
+    codes = (p >> shifts[None, :, None, None]) & 0xF
+    return codes.reshape(kw * 8, n).to(torch.int32)
+
+
+def pack_linear_int4(icodes_kn: torch.Tensor, scales_gn: torch.Tensor,
+                     zeros_gn: Optional[torch.Tensor], group_size: int):
+    """Integer codes (K, N) and per-group scales / zeros (K/G, N) -> padded
+    kernel buffers (qweight (K'/8, N') int32, scales (K'/G, N') f32,
+    zeros (K'/G, N') f32 or None).  Symmetric codes (zeros None) are signed
+    in [-8, 7] and biased by +8 here; the kernels subtract 8.  Padded rows
+    and columns get scale 0, so they dequantize to exactly 0."""
+    k, n = icodes_kn.shape
+    kp = _round_up(k, math.lcm(PACK_BLOCK_K, group_size))
+    np_ = _round_up(n, LANE)
+    gp = kp // group_size
+    g_rows = scales_gn.shape[0]
+    dev = icodes_kn.device
+    zeros_p = None
+    if zeros_gn is None:
+        icodes_kn = icodes_kn + 8
+    else:
+        zeros_p = torch.zeros((gp, np_), dtype=torch.float32, device=dev)
+        zeros_p[:g_rows, :n] = zeros_gn.to(torch.float32)
+    codes_p = torch.zeros((kp, np_), dtype=torch.int32, device=dev)
+    codes_p[:k, :n] = icodes_kn.to(torch.int32)
+    scales_p = torch.zeros((gp, np_), dtype=torch.float32, device=dev)
+    scales_p[:g_rows, :n] = scales_gn.to(torch.float32)
+    return pack_rows_strided(codes_p), scales_p, zeros_p
+
+
+def w4_dequant(qweight: torch.Tensor, scales: torch.Tensor,
+               zeros: Optional[torch.Tensor], group_size: int) -> torch.Tensor:
+    """The packed int4 weight as f32 (K', N'): ``(code - zero) * scale``."""
+    codes = unpack_rows_strided(qweight).to(torch.float32)
+    s = scales.repeat_interleave(group_size, dim=0)
+    z = zeros.repeat_interleave(group_size, dim=0) if zeros is not None else 8.0
+    return (codes - z) * s
 
 
 # ---------------------------------------------------------------------------
@@ -245,4 +328,150 @@ def w8a8_geglu_fused(x, w_i8, w_scale, bias, out_dtype=None,
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w8a8_geglu_fused")
     LAUNCHES["w8a8_geglu_fused"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# W4A16 and W4A8: int4 weights
+# ---------------------------------------------------------------------------
+
+
+def w4a16_matmul_plain(x, qweight, scales, zeros, group_size: int = 128,
+                       n_out: Optional[int] = None):
+    """Plain version of :func:`w4a16_matmul`: the weight dequantized in f32
+    and rounded to x's dtype, the product accumulated in f32, the result
+    in x's dtype."""
+    n_out = n_out or qweight.shape[1]
+    w = w4_dequant(qweight, scales, zeros, group_size)[:x.shape[1], :n_out]
+    y = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
+    return y.to(x.dtype)
+
+
+def _check_w4_group(group_size: int, kp: int, n_groups: int) -> None:
+    if not ((PACK_BLOCK_K % group_size == 0 or group_size % PACK_BLOCK_K == 0)
+            and kp % group_size == 0 and kp // group_size == n_groups):
+        raise ValueError(f"group size {group_size} does not tile K'={kp} in "
+                         f"{n_groups} groups aligned to {PACK_BLOCK_K}-row blocks")
+
+
+def w4a8_matmul_plain(x, qweight, scales, zeros, group_size: int = 128,
+                      n_out: Optional[int] = None):
+    """Plain version of :func:`w4a8_matmul`, block by block in the TPU
+    kernel's order: ``acc = acc + f32(xi_b @ (code_b - zero_b)) * scale_b``,
+    then ``acc * xs`` in x's dtype."""
+    if group_size != PACK_BLOCK_K:
+        raise ValueError(f"w4a8 requires group_size == {PACK_BLOCK_K}, got {group_size}")
+    n_out = n_out or qweight.shape[1]
+    kp = qweight.shape[0] * 8
+    xi, xs = quantize_rows_int8(x, kp)
+    codes = unpack_rows_strided(qweight)[:, :n_out]
+    z = (zeros[:, :n_out].to(torch.int32) if zeros is not None
+         else torch.full_like(scales[:, :n_out], 8, dtype=torch.int32))
+    acc = torch.zeros((x.shape[0], n_out), dtype=torch.float32, device=x.device)
+    for b in range(kp // PACK_BLOCK_K):
+        rows = slice(b * PACK_BLOCK_K, (b + 1) * PACK_BLOCK_K)
+        wi = (codes[rows] - z[b]).to(torch.int8)
+        acc = acc + int8_matmul_exact(xi[:, rows], wi).to(torch.float32) * scales[b, :n_out]
+    return (acc * xs).to(x.dtype)
+
+
+def w4a8_code_order(kp: int, device=None) -> torch.Tensor:
+    """Column order of K4's int8 scratch: column p holds the code of K row
+    ``order[p]``.  Within each 128-row block, position
+    ``s*32 + h*16 + t*4 + i`` holds row ``(2i + h)*16 + 4s + t``, so that one
+    packed word (8 nibbles, rows 16 apart) unpacks into the two int8
+    registers of an m16n8k32 B fragment that match 4 consecutive A bytes."""
+    p = torch.arange(PACK_BLOCK_K, device=device)
+    s, h, t, i = p // 32, (p // 16) % 2, (p // 4) % 4, p % 4
+    within = (2 * i + h) * 16 + 4 * s + t
+    blocks = torch.arange(0, kp, PACK_BLOCK_K, device=device)
+    return (blocks[:, None] + within[None, :]).reshape(-1)
+
+
+def _check_w4_operands(x, qweight, scales, zeros, group_size, what):
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x must be 2-D bf16/f32, got {tuple(x.shape)} {x.dtype}")
+    kw, np_ = qweight.shape
+    kp = kw * 8
+    if (qweight.dtype != torch.int32 or kp % PACK_BLOCK_K or np_ % LANE
+            or x.shape[1] > kp or not qweight.is_contiguous()):
+        raise ValueError(f"qweight must be contiguous int32 (K'/8, N') with K' % 128 == 0, "
+                         f"N' % 128 == 0 and K <= K', got {tuple(qweight.shape)} "
+                         f"{qweight.dtype} for K={x.shape[1]}")
+    _check_w4_group(group_size, kp, scales.shape[0])
+    for name, t in (("scales", scales), ("zeros", zeros)):
+        if t is None:
+            continue
+        if (t.dtype != torch.float32 or tuple(t.shape) != (kp // group_size, np_)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 ({kp // group_size}, {np_})")
+    for t in (qweight, scales, zeros):
+        if t is not None and t.device != x.device:
+            raise ValueError("all operands must be on one device")
+    return kp, np_
+
+
+def w4a16_matmul(x, qweight, scales, zeros, group_size: int = 128,
+                 n_out: Optional[int] = None):
+    """x (M, K) through a packed int4 weight (K'/8, N') -> (M, n_out) in
+    x's dtype (n_out defaults to N').  zeros None means symmetric codes
+    (zero point 8)."""
+    n_out = n_out or qweight.shape[1]
+    if x.device.type == "cpu":
+        _check_w4_group(group_size, qweight.shape[0] * 8, scales.shape[0])
+        return w4a16_matmul_plain(x, qweight, scales, zeros, group_size, n_out)
+    kp, np_ = _check_w4_operands(x, qweight, scales, zeros, group_size, "w4a16_matmul")
+    if n_out > np_:
+        raise ValueError(f"n_out {n_out} > N' {np_}")
+    x = x.contiguous()
+    m, k = x.shape
+    # the kernel copies x in 16-byte chunks: pad K to whole chunks
+    chunk = 16 // x.element_size()
+    if k % chunk:
+        x = torch.nn.functional.pad(x, (0, _round_up(k, chunk) - k))
+        k = x.shape[1]
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    fn = cuda_build.kernel("w4a16_matmul")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], qweight.data_ptr(), scales.data_ptr(),
+                 zeros.data_ptr() if zeros is not None else None, out.data_ptr(),
+                 m, k, kp, np_, n_out, group_size,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "w4a16_matmul")
+    LAUNCHES["w4a16_matmul"] += 1
+    return out
+
+
+def w4a8_matmul(x, qweight, scales, zeros, group_size: int = 128,
+                n_out: Optional[int] = None, scratch=None):
+    """x (M, K) quantized per token to int8, through a packed int4 weight
+    (K'/8, N') with group size 128 -> (M, n_out) in x's dtype.  scratch, if
+    given, is the (xi (M, K') int8, xs (M,) f32) pair the kernel's
+    quantization pass writes, xi in :func:`w4a8_code_order`."""
+    if group_size != PACK_BLOCK_K:
+        raise ValueError(f"w4a8 requires group_size == {PACK_BLOCK_K}, got {group_size}")
+    n_out = n_out or qweight.shape[1]
+    if x.device.type == "cpu":
+        return w4a8_matmul_plain(x, qweight, scales, zeros, group_size, n_out)
+    kp, np_ = _check_w4_operands(x, qweight, scales, zeros, group_size, "w4a8_matmul")
+    if n_out > np_:
+        raise ValueError(f"n_out {n_out} > N' {np_}")
+    x = x.contiguous()
+    m, k = x.shape
+    out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    xi, xs = _scratch(scratch, m, kp, x.device)
+    fn = cuda_build.kernel("w4a8_matmul")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], qweight.data_ptr(), scales.data_ptr(),
+                 zeros.data_ptr() if zeros is not None else None, out.data_ptr(),
+                 xi.data_ptr(), xs.data_ptr(), m, k, kp, np_, n_out,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "w4a8_matmul")
+    LAUNCHES["w4a8_matmul"] += 1
     return out

@@ -3,12 +3,14 @@
 
 The trees are nested dicts of tensors keyed like the Flax param tree (the
 port's ``models.layers.module_tree``).  Dense kernels are (in, out); conv
-kernels are (out, in, kh, kw).  The W8A8 packing gives the same int8 bytes
-and f32 scales as the JAX package (conv codes in the transposed layout).
+kernels are (out, in, kh, kw).  The packing gives the same int8 and int4
+bytes and f32 scales as the JAX package (conv codes in the transposed
+layout).
 
-Only what the SD1.5 W8A8 path needs is ported: dense ``w8a8`` and conv
-``w8a8`` with dynamic activation scales.  The other modes raise and are
-ROADMAP items.
+Ported: dense ``w8a8``, ``w4a16`` and ``w4a8``; conv ``w8a8`` with dynamic
+activation scales; and the fake-quantized kernel of a 4-D layer planned
+with another real mode (the SD UNet's 1x1 ``proj_in``/``proj_out``, which
+no conv rule matches).  The other modes raise and are ROADMAP items.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 from qdm_tpu_torch.ops import quant_matmul as qmm
+from qdm_tpu_torch.quant import pseudo, rtn
 from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan
 
-_NOT_PORTED = ("is not ported yet: ROADMAP.md Queue 1 items 2 and 11 "
-               "(RTN / fake quant, w4 packing, static act scales)")
+_NOT_PORTED = ("is not ported yet: ROADMAP.md Queue 1 items 2, 3 and 11 "
+               "(fake quant versions, w8a16, w4a16_xla, w8a8_xla, static act scales)")
 
 
 def iter_layers(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], dict]]:
@@ -49,14 +52,33 @@ def _set_at(tree: dict, path: Tuple[str, ...], value) -> dict:
 
 def pack_dense_layer(layer: dict, spec: LayerQuantSpec) -> dict:
     """Replace a {'kernel', 'bias'?} dense layer with its packed params."""
+    kernel = layer["kernel"]                             # (K, N)
+    new = {k: v for k, v in layer.items() if k != "kernel"}
+    if spec.mode in ("w4a16", "w4a8"):
+        gs = rtn.w4_group_size(kernel.shape[0], spec.group_size)
+        q = pseudo.quantize_tensor(kernel.t(), n_bits=4, group_size=gs,
+                                   zero_point=spec.zero_point)
+        qweight, scales, zeros = qmm.pack_linear_int4(
+            q.iweight.t(), q.scales.t(), q.zeros.t() if q.zeros is not None else None, gs)
+        new["qweight"], new["scales"] = qweight, scales
+        if zeros is not None:
+            new["zeros"] = zeros
+        return new
     if spec.mode != "w8a8":
         raise NotImplementedError(f"pack_dense_layer mode {spec.mode!r} {_NOT_PORTED}")
-    kernel = layer["kernel"].to(torch.float32)           # (K, N)
-    new = {k: v for k, v in layer.items() if k != "kernel"}
+    kernel = kernel.to(torch.float32)
     scale_n = qmm.div_exact(kernel.abs().amax(dim=0).clamp_min(1e-5), 127.0)
     codes = torch.round(kernel / scale_n[None, :]).clamp(-128, 127)
     new["qweight"], new["scales"] = qmm.pack_linear_int8(codes, scale_n)
     return new
+
+
+def _fake_quant_conv_kernel(kernel: torch.Tensor, spec: LayerQuantSpec) -> torch.Tensor:
+    """RTN fake quant of a (out, in, kh, kw) kernel: per tensor, or per
+    output channel for per_channel and group (apply.py:79-86)."""
+    if spec.weight_quant == "per_tensor":
+        return rtn.quantize_weight_per_tensor_absmax(kernel, spec.w_bits)
+    return rtn.quantize_weight_per_channel_absmax(kernel, spec.w_bits)
 
 
 def _pack_conv_layer(layer: dict, spec: LayerQuantSpec) -> dict:
@@ -73,16 +95,23 @@ def _pack_conv_layer(layer: dict, spec: LayerQuantSpec) -> dict:
 
 def pack_params(params: dict, plan: QuantPlan) -> dict:
     """The packed-params tree of a plan with real modes: dense layers
-    planned w8a8 get (K', N') int8 buffers, convs planned w8a8 int8 codes."""
+    planned w8a8 get (K', N') int8 buffers, w4a16 / w4a8 the int4 packs;
+    convs planned w8a8 int8 codes.  A 4-D layer planned with another real
+    mode keeps a float kernel, RTN fake-quantized per output channel
+    (apply.py:300-302).  Layers not planned real stay as they are."""
     out = params
     for path, layer in iter_layers(params):
         spec = plan.spec_for(path_str(path))
         if not spec.is_real:
             continue
-        if spec.mode != "w8a8":
-            raise NotImplementedError(f"pack_params mode {spec.mode!r} {_NOT_PORTED}")
-        pack = pack_dense_layer if layer["kernel"].dim() == 2 else _pack_conv_layer
-        out = _set_at(out, path, pack(layer, spec))
+        kernel = layer["kernel"]
+        if kernel.dim() == 2:
+            out = _set_at(out, path, pack_dense_layer(layer, spec))
+        elif spec.mode == "w8a8":
+            out = _set_at(out, path, _pack_conv_layer(layer, spec))
+        else:
+            out = _set_at(out, path + ("kernel",),
+                          _fake_quant_conv_kernel(kernel, spec).to(kernel.dtype))
     return out
 
 

@@ -33,6 +33,7 @@ from qdm_tpu_torch.models import layers as tl
 from qdm_tpu_torch.models import unet as tunet
 
 W8A8 = {"w_bit": 8, "a_bit": 8, "version": "real", "quantize_act": True}
+W4A8 = {"w_bit": 4, "a_bit": 8, "version": "real", "quantize_act": True}
 
 
 def _inputs():
@@ -60,9 +61,9 @@ def _float_params():
     return jax.tree_util.tree_map_with_path(leaf, shapes["params"])
 
 
-def _plans():
-    jplan = JPipe()._make_plan(JQuantConfig.from_dict(W8A8), "unet")
-    tplan = TPipe(device="cpu")._make_plan(TQuantConfig.from_dict(W8A8), "unet")
+def _plans(cfg=W8A8):
+    jplan = JPipe()._make_plan(JQuantConfig.from_dict(cfg), "unet")
+    tplan = TPipe(device="cpu")._make_plan(TQuantConfig.from_dict(cfg), "unet")
     return jplan, tplan
 
 
@@ -126,7 +127,8 @@ def _layer_errors(tm, calls):
 
 def _tpu_dispatch(monkeypatch):
     monkeypatch.setattr(jqmm, "on_tpu", lambda: True)
-    for name in ("w8a8_matmul_fused_epi", "w8a8_geglu_fused"):
+    for name in ("w8a8_matmul_fused_epi", "w8a8_geglu_fused", "w4a16_matmul_pallas",
+                 "w4a8_matmul_pallas"):
         monkeypatch.setattr(jqmm, name, functools.partial(getattr(jqmm, name),
                                                           interpret=True))
 
@@ -163,6 +165,28 @@ def jax_tpu_dispatch(packed):
     with pytest.MonkeyPatch.context() as mp:
         _tpu_dispatch(mp)
         return _jax_run(jplan, params)
+
+
+def test_unet_w4a8_layers_against_tpu_dispatch():
+    """The W4A8 plan (int4 dense layers on the W4A8 kernel where the group is
+    128 and on the W4A16 kernel with per-token fake-quantized inputs where it
+    is not, 8-bit per-channel act fake quant in the convs, fake-quantized
+    1x1 proj_in / proj_out): every layer, fed the activations the JAX UNet
+    gives it, matches the TPU dispatch to 1e-5, and so does the whole UNet
+    here (one flipped 8-bit code would move a layer by ~1e-3)."""
+    jplan, tplan = _plans(W4A8)
+    params = jax.device_get(japply.pack_params(japply.fuse_qkv_params(_float_params()), jplan))
+    with pytest.MonkeyPatch.context() as mp:
+        _tpu_dispatch(mp)
+        calls, want = _jax_run(jplan, params)
+    tm = _port_unet(tplan, params)
+    errs, mods = _layer_errors(tm, calls)
+    kernels = {getattr(m, "kernel_name", None) for m in mods.values()}
+    assert {"w4a16_matmul", "w4a8_matmul"} <= kernels
+    assert {getattr(m, "mode", None) for m in mods.values()} >= {"fake_act", "w4a8"}
+    bad = {p: e for p, e in errs.items() if e > 1e-5}
+    assert not bad, bad
+    assert _rel_err(_port_out(tm), want) < 1e-5
 
 
 def test_plan_matches_jax():
