@@ -1,30 +1,44 @@
 """On-card smoke run of the PyTorch/H100 port (qdm_tpu_torch).
 
-    python3 chip_smoke.py             # all three phases, one CUDA card
-    python3 chip_smoke.py --profile   # all phases, then a profile
+    python3 chip_smoke.py             # every phase, one CUDA card
+    python3 chip_smoke.py --profile   # every phase, then a profile
 
-Phase 1 builds the four CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
+Phase 1 builds the eight CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
-Phase 2 holds each kernel against its plain PyTorch version on the card at
-the SD1.5 shapes: K1/K2 (W8A8) and K4 (W4A8) must give int8 codes
-identical to the plain version's and outputs within 1 bf16 ulp; K3 (W4A16)
-outputs within 1 bf16 ulp or 1e-5 of the output's magnitude (its f32 sums
-run in another order than the plain version's).  It times the kernel, the
-plain version and a library yardstick (``torch._int_mm`` for W8A8,
-``torch.matmul`` with the weight dequantized to bf16 beforehand for W4;
-timed here only, the port never calls them).
-Phase 3 drives the port's three paths at full SD1.5 width with random
-weights drawn once: ``from_config -> quantize -> generate`` of two 512 px
-images in 20 DDIM steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8.  For
-each it checks the images and that each kernel was launched as often as
-the quantized plan says, with the counts set to 0 just before its
-``generate``.  Then it runs the tiny pipeline on the card and on the CPU
-from one seed and compares them (float, W8A8, RTN W4A16), and holds tiny
-RTN W4A8 on the card to the CPU layer by layer, with planted faults to
-show that the check sees them.
-With ``--profile`` it also times warm ``generate`` calls of the W4A16, the
-W8A8 and the bf16 pipeline in turn (median and range of five each) and
-prints the device time by kernel of two W4A16 denoising steps.
+Phase 2 holds each kernel against its plain PyTorch version on the card:
+K1-K4 at the SD1.5 shapes (K1/K2 and K4 with int8 codes identical to the
+plain version's and outputs within 1 bf16 ulp; K3 within 1 bf16 ulp or
+1e-5 of the output's magnitude, its f32 sums run in another order), and
+the decode kernels K5-K8 at the TinyLlama-1.1B serving shapes (batch 32,
+prompt 512, 64 new tokens) plus one shape per remaining option: K6 and K8
+with int8 codes identical and outputs equal, K5 and K7 within 1 bf16 ulp
+wherever the difference exceeds 1e-5 of the output's magnitude.  It times
+the kernel, the plain version and a library yardstick (timed here only,
+the port never calls them): ``torch._int_mm`` for W8A8 and for K6 / K8
+(with elementwise quant and dequant), ``torch.matmul`` with the weight
+dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
+for K5, SDPA with ``enable_gqa`` on a pre-laid-out cache for K7.  Decode
+kernels are timed over enough weight / cache copies to exceed the 50 MB
+L2 cache, as a decode step finds them cold.
+Phase 3 drives the port's paths with random weights: at full SD1.5 width
+``from_config -> quantize -> generate`` of two 512 px images in 20 DDIM
+steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8, checking the images
+and that each kernel was launched as often as the quantized plan says;
+then the LLM path at full TinyLlama-1.1B width: ``CausalLM.from_config ->
+serve(calib_ids (8, 512), mode="w8a8_static", smooth=True) ->
+generate((32, 512), max_new_tokens=64)``, checking the tokens and that K6,
+K7, K8 and K5 were launched exactly 22 layers x 63 decode steps x (2, 1,
+1) and 63 times.  Each path's launch counts are set to 0 just before its
+``generate`` and read just after.  Then the tiny pipelines and the tiny
+f32 LLM engine run on the card and on the CPU from one seed: SD float,
+W8A8 and W4A16 compared end to end, RTN W4A8 and the LLM engine layer by
+layer (each kernel call on the card fed the CPU call's inputs), with
+planted faults that those layer witnesses must flag.
+With ``--profile`` it also times warm ``generate`` calls in turn (median
+and range of five each): the W4A16, W8A8 and bf16 SD pipelines, and the
+w8a8 engine against the bf16 module ``generate``; and prints the device
+time by kernel of two W4A16 denoising steps and of three engine decode
+steps.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -46,6 +60,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12     # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12       # f32 outside the tensor cores
 PROFILE_REPEATS = 5           # warm generate runs per pipeline under --profile
 W4A8_LAYER_TOL = 1e-5         # tiny W4A8 card vs CPU, each layer on the same inputs
 W4A8_STEP_TOL = 5e-3          # tiny W4A8 card vs CPU, latents after one DDIM step
@@ -91,6 +106,14 @@ W4_SHAPES = {
         ("attn2/to_kv", 4 * 77, 768, 640, 128),
     ],
 }
+# the LLM path (TinyLlama-1.1B geometry, qdm_tpu_torch.models.llama.BENCH_1B)
+LLM_BATCH, LLM_PROMPT, LLM_NEW = 32, 512, 64
+LLM_CALIB = (8, 512)
+LLM_TOL = 1e-5                # tiny LLM engine card vs CPU, each kernel call on the same inputs
+LLM_FAULT = 1e-3              # relative error planted into K6's weight scales
+L2_BYTES = 50 * 2 ** 20       # H100 L2: decode timings cycle over copies beyond it
+DECODE_KERNELS = ("fused_dense_decode_i8", "decode_attention_kv", "fused_mlp_decode_i8",
+                  "fused_dense_decode")
 KERNEL_INFO = {
     "w8a8_matmul_fused_epi": ("qdm_tpu_torch/csrc/w8a8_fused_epi.cu",
                               "qdm_tpu/ops/quant_matmul.py:592"),
@@ -100,6 +123,14 @@ KERNEL_INFO = {
                      "qdm_tpu/ops/quant_matmul.py:202"),
     "w4a8_matmul": ("qdm_tpu_torch/csrc/w4a8_matmul.cu",
                     "qdm_tpu/ops/quant_matmul.py:404"),
+    "fused_dense_decode": ("qdm_tpu_torch/csrc/decode_dense.cu",
+                           "qdm_tpu/ops/decode_kernels.py:145"),
+    "fused_dense_decode_i8": ("qdm_tpu_torch/csrc/decode_dense.cu",
+                              "qdm_tpu/ops/decode_kernels.py:224"),
+    "decode_attention_kv": ("qdm_tpu_torch/csrc/decode_attention_kv.cu",
+                            "qdm_tpu/ops/decode_kernels.py:700"),
+    "fused_mlp_decode_i8": ("qdm_tpu_torch/csrc/decode_mlp_i8.cu",
+                            "qdm_tpu/ops/decode_kernels.py:1484"),
 }
 
 
@@ -341,6 +372,340 @@ def phase_w4_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the decode kernels K5-K8 against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor) -> Tuple[bool, float]:
+    """Every element within one bf16 ulp of the plain value, or within 1e-5
+    of the output's magnitude; returns (ok, max abs err)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    mag = float(w.abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    ok = bool(((diff <= ulp) | (diff <= 1e-5 * mag)).all()) and bool(torch.isfinite(g).all())
+    return ok, float(diff.max())
+
+
+def cold_ms(fns, calls: int = 20) -> float:
+    """Device time of one call: the CUDA kernels' time in a profiled loop
+    over closures that each hold their own copy of the operands (together
+    beyond the L2 cache), over the number of calls.  A decode-sized call
+    runs shorter than its Python wrapper takes to issue it, so CUDA events
+    around the loop would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    n = max(calls, len(fns))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / n
+
+
+def _copies(nbytes: int) -> int:
+    return max(1, -(-2 * L2_BYTES // max(nbytes, 1)))
+
+
+def _bound(nbytes: int, ops: int, peak: float) -> Tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _rope_rows(n_qkv: int, n_rot: int, hd: int, pos: int, dev):
+    """cos / sin rows as the engine builds them for position pos."""
+    freqs = 1.0 / (10000.0 ** (torch.arange(0, hd, 2, dtype=torch.float32, device=dev) / hd))
+    col = torch.arange(n_qkv, device=dev)
+    cj = col % hd
+    ang = float(pos) * freqs
+    rot = col < n_rot
+    cos = torch.where(rot, torch.cos(ang)[cj % (hd // 2)], 1.0)
+    sin = torch.where(rot, torch.where(cj < hd // 2, -1.0, 1.0) * torch.sin(ang)[cj % (hd // 2)],
+                      0.0)
+    return cos, sin
+
+
+def _dense_case(rng, dev, m, k, n, x_dtype):
+    f = lambda *s, sc=1.0: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    return dict(x=f(m, k).to(x_dtype), w=f(k, n, sc=k ** -0.5), ns=f(k).abs() + 0.5,
+                nb=f(k, sc=0.1), bias=f(n, sc=0.1), res=f(m, n).to(x_dtype))
+
+
+def _static_scale(t: torch.Tensor) -> torch.Tensor:
+    """A calibrated per-tensor scale: the absmax over 127."""
+    return (t.float().abs().amax() / 127.0).reshape(1)
+
+
+def _check_dense_i8(label, o, hd, norm, rope, res, out_dtype, dev, timed):
+    from qdm_tpu_torch.api.serve import _quant_w
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    m, k = o["x"].shape
+    n = o["w"].shape[1]
+    codes, scales = _quant_w(o["w"])
+    w_t = dk.transposed_weight(codes)
+    xn = dk._prologue(o["x"], o["ns"] if norm else None, o["nb"] if norm == "layernorm" else None,
+                      1e-6, norm or "rmsnorm")
+    a = _static_scale(xn)
+    cos, sin = _rope_rows(n, (n * 9) // 10 // hd * hd, hd, LLM_PROMPT + 31, dev) if rope \
+        else (None, None)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=cos, rope_sin=sin, head_dim=hd, norm_type=norm or "rmsnorm",
+              norm_bias=o["nb"] if norm == "layernorm" else None, out_dtype=out_dtype)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    got = dk.fused_dense_decode_i8(o["x"], codes, scales, a, w_t=w_t, scratch=xi, **kw)
+    torch.cuda.synchronize()
+    want = dk.fused_dense_decode_i8_plain(o["x"], codes, scales, a, **kw)
+    if not torch.equal(xi, dk._quant_static(xn, a)):
+        fail(f"fused_dense_decode_i8 {label}: int8 codes differ from the plain version in "
+             f"{int((xi != dk._quant_static(xn, a)).sum())} places")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"fused_dense_decode_i8 {label}: output differs from the plain version "
+             f"(max abs err {err}); tolerance 0 ulp")
+    row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": 0}
+    if timed:
+        xb, ob = o["x"].element_size(), torch.empty((), dtype=out_dtype).element_size()
+        nbytes = (m * k * xb + k * n + m * n * ob + 4 * n + 4 * k * bool(norm)
+                  + (m * n * xb if res else 0) + (8 * n if rope else 0))
+        copies = _copies(k * n)
+        cw = [(codes.clone(), dk.transposed_weight(codes)) for _ in range(copies)]
+        kern = [lambda c=c, t=t: dk.fused_dense_decode_i8(o["x"], c, scales, a, w_t=t, **kw)
+                for c, t in cw]
+        plain = [lambda c=c: dk.fused_dense_decode_i8_plain(o["x"], c, scales, a, **kw)
+                 for c, _ in cw]
+
+        def library(c):
+            wc = c.t().contiguous().t()          # column-major: cuBLASLt's fast int8 layout
+
+            def fn():
+                xq = torch.clamp(torch.round(dk._prologue(o["x"], kw["norm_scale"],
+                                                          kw["norm_bias"], 1e-6,
+                                                          kw["norm_type"]) * (1.0 / a)), -127, 127)
+                y = torch._int_mm(xq.to(torch.int8), wc).float() * (a * scales)
+                if rope:
+                    y = dk.rope_epilogue(y, cos, sin, hd)
+                if res:
+                    y = y + o["res"].float()
+                return y.to(out_dtype)
+            return fn
+        lib = [library(c) for c, _ in cw]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=2 * m * k * n)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+    return row
+
+
+def _check_dense(label, o, hd, norm, rope, res, out_dtype, w_dtype, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    m, k = o["x"].shape
+    w = o["w"].to(w_dtype)
+    n = w.shape[1]
+    w_t = dk.transposed_weight(w)
+    cos, sin = _rope_rows(n, (n * 9) // 10 // hd * hd, hd, 17, dev) if rope else (None, None)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=cos, rope_sin=sin, head_dim=hd, norm_type=norm or "rmsnorm",
+              norm_bias=o["nb"] if norm == "layernorm" else None, out_dtype=out_dtype)
+    got = dk.fused_dense_decode(o["x"], w, w_t=w_t, **kw)
+    torch.cuda.synchronize()
+    want = dk.fused_dense_decode_plain(o["x"], w, **kw)
+    ok, err = within_bf16_ulp(got, want)
+    if not ok or got.dtype != want.dtype:
+        fail(f"fused_dense_decode {label}: max abs err {err} from the plain version, beyond "
+             "1 bf16 ulp and 1e-5 of the magnitude")
+    row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": 1}
+    if timed:
+        nbytes = (m * k * o["x"].element_size() + k * n * w.element_size()
+                  + m * n * torch.empty((), dtype=out_dtype).element_size() + 4 * k)
+        copies = _copies(k * n * w.element_size())
+        ws = [w] + [w.clone() for _ in range(copies - 1)]
+        wts = [w_t] + [dk.transposed_weight(x) for x in ws[1:]]
+        kern = [lambda a=a, b=b: dk.fused_dense_decode(o["x"], a, w_t=b, **kw)
+                for a, b in zip(ws, wts)]
+        plain = [lambda a=a: dk.fused_dense_decode_plain(o["x"], a, **kw) for a in ws]
+        lib = [lambda a=a: torch.matmul(torch.nn.functional.rms_norm(
+            o["x"], (k,), o["ns"].to(o["x"].dtype), 1e-6), a).float() for a in ws]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=2 * m * k * n)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, 2 * m * k * n, BF16_FLOPS_PER_S)
+    return row
+
+
+def _check_attention(label, b, hkv, g, d, t, pos, starts, softcap, sm_scale, dtype, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(b + t + pos)
+    wide = torch.randn((b, hkv * g * d + 2 * hkv * d), generator=gen, device=dev).to(dtype)
+    q = wide[:, :hkv * g * d].view(b, hkv, g, d)        # the engine's view of its qkv output
+    kv = torch.randn((b, 2 * hkv, d, t), generator=gen, device=dev).to(dtype)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    got = dk.decode_attention_kv(q, kv, pos, starts=st, sm_scale=sm_scale, softcap=softcap)
+    torch.cuda.synchronize()
+    want = dk.decode_attention_kv_plain(q, kv, pos, starts=st, sm_scale=sm_scale, softcap=softcap)
+    ok, err = within_bf16_ulp(got, want)
+    if not ok:
+        fail(f"decode_attention_kv {label}: max abs err {err} from the plain version, beyond "
+             "1 bf16 ulp and 1e-5 of the magnitude")
+    row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
+           "max_abs_err": err, "ulps": 1}
+    if timed:
+        cols = pos + 1
+        eb = kv.element_size()
+        nbytes = 2 * b * hkv * g * d * eb + 2 * b * hkv * d * cols * eb
+        ops = 4 * b * hkv * g * d * cols
+        kvs = [kv] + [kv.clone() for _ in range(_copies(kv.numel() * eb) - 1)]
+        kern = [lambda c=c: dk.decode_attention_kv(q, c, pos) for c in kvs]
+        plain = [lambda c=c: dk.decode_attention_kv_plain(q, c, pos) for c in kvs]
+        qh = q.reshape(b, hkv * g, 1, d)
+        lay = [(c[:, :hkv, :, :cols].transpose(2, 3).contiguous(),
+                c[:, hkv:, :, :cols].transpose(2, 3).contiguous()) for c in kvs]
+        lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+            qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(
+            nbytes, ops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    return row
+
+
+def _check_mlp(label, rng, m, k, i, bj, norm, act, residual, out_dtype, x_dtype, dev, timed):
+    from qdm_tpu_torch.api.serve import _quant_w
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    f = lambda *s, sc=1.0: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    x = f(m, k).to(x_dtype)
+    (cg, sg), (cu, su), (cd, sd) = [_quant_w(f(*s, sc=s[0] ** -0.5))
+                                    for s in ((k, i), (k, i), (i, k))]
+    ns, nb = f(k).abs() + 0.5, f(k, sc=0.1)
+    xn = dk._prologue(x, ns if norm else None, nb if norm == "layernorm" else None, 1e-6,
+                      norm or "rmsnorm")
+    s_in = _static_scale(xn)
+    xq = dk._quant_static(xn, s_in)
+    g = qmm.int8_matmul_exact(xq, cg).float() * (s_in * sg)
+    u = qmm.int8_matmul_exact(xq, cu).float() * (s_in * su)
+    mid = dk._act(act, g) * u
+    scl = torch.cat([s_in, _static_scale(mid)])
+    kw = dict(act=act, block_j=bj, residual=residual, norm_type=norm or "rmsnorm",
+              norm_bias=nb if norm == "layernorm" else None, out_dtype=out_dtype)
+    wts = tuple(dk.transposed_weight(c) for c in (cg, cu, cd))
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    ai = torch.empty((m, i), dtype=torch.int8, device=dev)
+    got = dk.fused_mlp_decode_i8(x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None,
+                                 w_t=wts, scratch=(xi, ai), **kw)
+    torch.cuda.synchronize()
+    want = dk.fused_mlp_decode_i8_plain(x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None,
+                                        **kw)
+    if not (torch.equal(xi, xq) and torch.equal(ai, dk._quant_static(mid, scl[1:2]))):
+        fail(f"fused_mlp_decode_i8 {label}: int8 codes differ from the plain version")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"fused_mlp_decode_i8 {label}: output differs from the plain version "
+             f"(max abs err {err}); tolerance 0 ulp")
+    row = {"layer": label, "M": m, "K": k, "I": i, "bj": dk.pick_block(i, bj),
+           "max_abs_err": err, "ulps": 0}
+    if timed:
+        eb = x.element_size()
+        nbytes = m * k * eb + 3 * k * i + m * k * torch.empty((), dtype=out_dtype).element_size() \
+            + 4 * (2 * i + k) + 4 * k + 8
+        ops = 6 * m * k * i
+        sets = [((cg, cu, cd), wts)] + [
+            (tuple(c.clone() for c in (cg, cu, cd)), tuple(t.clone() for t in wts))
+            for _ in range(_copies(3 * k * i) - 1)]
+        kern = [lambda c=c, t=t: dk.fused_mlp_decode_i8(x, *c, (sg, su, sd), scl, ns, w_t=t, **kw)
+                for c, t in sets]
+        plain = [lambda c=c: dk.fused_mlp_decode_i8_plain(x, *c, (sg, su, sd), scl, ns, **kw)
+                 for c, _ in sets]
+
+        def library(c):
+            wcg, wcu, wcd = (w.t().contiguous().t() for w in c)
+
+            def fn():
+                q1 = dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), scl[0:1])
+                gg = torch._int_mm(q1, wcg).float() * (scl[0:1] * sg)
+                uu = torch._int_mm(q1, wcu).float() * (scl[0:1] * su)
+                q2 = dk._quant_static(torch.nn.functional.silu(gg) * uu, scl[1:2])
+                return (torch._int_mm(q2, wcd).float() * (scl[1:2] * sd) + x.float()).to(out_dtype)
+            return fn
+        lib = [library(c) for c, _ in sets]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+    return row
+
+
+def phase_decode_kernels(dev) -> dict:
+    """K5-K8 at the TinyLlama-1.1B serving shapes (timed; the first row of
+    each kernel is its main shape) and one shape per remaining option."""
+    from qdm_tpu_torch.models.llama import BENCH_1B as C
+
+    rng = np.random.default_rng(2)
+    bf, f32 = torch.bfloat16, torch.float32
+    B, K, I, V = LLM_BATCH, C.hidden_size, C.intermediate_size, C.vocab_size
+    hd = C.head_dim
+    n_qkv = (C.num_attention_heads + 2 * C.num_key_value_heads) * hd
+    T = -(-(LLM_PROMPT + LLM_NEW) // 128) * 128
+    res = {name: [] for name in DECODE_KERNELS}
+    # K6: qkv (norm + rope) and o_proj (+ residual) at width, then options
+    for label, n, norm, rope, r, od, xd, timed in (
+            ("qkv (norm, rope)", n_qkv, "rmsnorm", True, False, bf, bf, True),
+            ("o_proj (+res)", K, None, False, True, bf, bf, True),
+            ("layernorm + f32", 384, "layernorm", False, True, f32, f32, False),
+            ("tiny f32 qkv, rope 16", 128, "rmsnorm", True, False, f32, f32, False),
+            ("rope 128, f32 out", 512, "rmsnorm", True, True, f32, bf, False)):
+        k = K if n >= 2048 else 256
+        o = _dense_case(rng, dev, B if timed else 7, k, n, xd)
+        head = 128 if "128" in label else (16 if "16" in label else hd)
+        res["fused_dense_decode_i8"].append(
+            _check_dense_i8(label, o, head, norm, rope, r, od, dev, timed))
+    # K7: the last and the first decode step at width, then options
+    for label, b, hkv, g, d, t, pos, st, sc, sm, dt, timed in (
+            ("last step", B, C.num_key_value_heads, C.num_attention_heads // C.num_key_value_heads,
+             hd, T, LLM_PROMPT + LLM_NEW - 2, None, 0.0, None, bf, True),
+            ("first step", B, C.num_key_value_heads, C.num_attention_heads // C.num_key_value_heads,
+             hd, T, LLM_PROMPT, None, 0.0, None, bf, True),
+            ("starts (one row fully masked)", 4, 2, 4, 64, 256, 100, (0, 7, 101, 64), 0.0, None,
+             f32, False),
+            ("softcap + sm_scale", 3, 2, 3, 128, 384, 300, None, 30.0, 0.07, bf, False),
+            ("f32, g 16", 2, 1, 16, 32, 128, 127, None, 0.0, None, f32, False)):
+        res["decode_attention_kv"].append(
+            _check_attention(label, b, hkv, g, d, t, pos, st, sc, sm, dt, dev, timed))
+    # K8: the MLP at width, then options
+    for label, m, k, i, bj, norm, act, rr, od, xd, timed in (
+            ("mlp (norm, silu, +res)", B, K, I, 512, "rmsnorm", "silu", True, bf, bf, True),
+            ("layernorm + gelu, f32", 9, 256, 384, 128, "layernorm", "gelu", True, f32, f32, False),
+            ("no norm, no residual", 5, 128, 256, 256, None, "silu", False, f32, bf, False)):
+        res["fused_mlp_decode_i8"].append(
+            _check_mlp(label, rng, m, k, i, bj, norm, act, rr, od, xd, dev, timed))
+    # K5: the final norm + lm_head at width, then options
+    for label, m, k, n, norm, rope, r, od, xd, wd, timed in (
+            ("lm_head (norm, f32 out)", B, K, V, "rmsnorm", False, False, f32, bf, bf, True),
+            ("layernorm + rope + res", 5, 64, 96, "layernorm", True, True, f32, f32, f32, False),
+            ("bf16 x, f32 weight", 9, 128, 200, "rmsnorm", False, False, bf, bf, f32, False)):
+        o = _dense_case(rng, dev, m, k, n, xd)
+        res["fused_dense_decode"].append(
+            _check_dense(label, o, 16 if rope else hd, norm, rope, r, od, wd, dev, timed))
+    for name, rows in res.items():
+        for row in rows:
+            timing = (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+                      f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})" if "ms" in row else "")
+            tol = "codes identical, 0 ulp" if row["ulps"] == 0 else \
+                "within 1 bf16 ulp or 1e-5 of the magnitude"
+            shape = {k_: v for k_, v in row.items() if k_ in ("M", "K", "N", "I", "B", "hkv", "g",
+                                                             "d", "T", "pos")}
+            print(f"phase 2: {name} {row['layer']} {shape}: {tol}, max_abs_err="
+                  f"{row['max_abs_err']:.3g}{timing}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -578,6 +943,236 @@ def phase_w4a8_witness(dev) -> None:
             fail(f"the W4A8 layer witness misses a planted scale fault of {rel}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the LLM path
+# ---------------------------------------------------------------------------
+
+LLM_WANT = {"fused_dense_decode_i8": 2, "decode_attention_kv": 1, "fused_mlp_decode_i8": 1}
+
+
+def phase_llm_path(dev, seed: int) -> dict:
+    """TinyLlama-1.1B width, random weights from seed 0: from_config ->
+    serve(w8a8_static, smooth) -> generate((32, 512), 64), with the launch
+    counts set to 0 just before generate and read just after; then the
+    bf16 module's greedy generate on the same smoothed weights, whose
+    token agreement is printed as a reading."""
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import BENCH_1B
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = BENCH_1B
+    t0 = time.perf_counter()
+    lm = CausalLM.from_config(cfg, dtype=torch.bfloat16, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    calib = rng.integers(0, cfg.vocab_size, LLM_CALIB).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    qmm.reset_launches()
+    t0 = time.perf_counter()
+    engine = lm.serve(calib, mode="w8a8_static", smooth=True)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    if any(qmm.LAUNCHES.values()):
+        fail(f"LLM: kernels launched by serve: {qmm.LAUNCHES}")
+    qmm.reset_launches()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, max_new_tokens=LLM_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = dict(qmm.LAUNCHES)
+    steps = LLM_NEW - 1
+    want = {k: 0 for k in launches}
+    want.update({k: v * cfg.num_hidden_layers * steps for k, v in LLM_WANT.items()})
+    want["fused_dense_decode"] = steps
+    if launches != want:
+        fail(f"LLM launches {launches} != expected {want} ({cfg.num_hidden_layers} layers x "
+             f"{steps} decode steps)")
+    new = toks[:, LLM_PROMPT:]
+    if (toks.shape != (LLM_BATCH, LLM_PROMPT + LLM_NEW) or not np.array_equal(toks[:, :LLM_PROMPT],
+                                                                             prompts)
+            or new.min() < 0 or new.max() >= cfg.vocab_size):
+        fail(f"LLM tokens: shape {toks.shape}, range [{new.min()}, {new.max()}]")
+    t0 = time.perf_counter()
+    ref = lm.generate(prompts, max_new_tokens=LLM_NEW)
+    torch.cuda.synchronize()
+    t_mod = time.perf_counter() - t0
+    same = new == ref[:, LLM_PROMPT:]
+    first = np.where(same.all(axis=1), LLM_NEW, np.argmin(same, axis=1))
+    print(f"phase 3: LLM {LLM_BATCH} x {LLM_PROMPT} -> +{LLM_NEW} tokens at TinyLlama-1.1B width: "
+          f"from_config {t_init:.1f} s, quantize (smooth + calibrate + pack) {t_quant:.2f} s, "
+          f"first engine generate {t_gen:.2f} s ({LLM_BATCH * LLM_NEW / t_gen:.1f} tokens/s), "
+          f"first module bf16 generate {t_mod:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"phase 3: LLM tokens {toks.shape} in [{new.min()}, {new.max()}]; greedy agreement with "
+          f"the bf16 module on the same smoothed weights {float(same.mean()):.4f}, first "
+          f"divergence at step {float(first.mean()):.2f} on average (median "
+          f"{float(np.median(first)):.1f}, {int((first == LLM_NEW).sum())} of {LLM_BATCH} rows "
+          "agree throughout)", flush=True)
+    return {"launches": launches, "engine": engine, "lm": lm, "prompts": prompts,
+            "generate_s": t_gen, "quantize_s": t_quant}
+
+
+def _clone(v, dev=None):
+    if isinstance(v, torch.Tensor):
+        return v.detach().clone() if dev is None else v.detach().to(dev)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_clone(x, dev) for x in v)
+    if isinstance(v, dict):
+        return {k: _clone(x, dev) for k, x in v.items()}
+    return v
+
+
+@contextlib.contextmanager
+def _recording(calls: list) -> Iterator[None]:
+    """Record every decode-kernel wrapper call (inputs cloned, output)."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    saved = {name: getattr(dk, name) for name in DECODE_KERNELS}
+
+    def wrap(name, fn):
+        def rec(*a, **k):
+            args, kw = _clone(a), _clone(k)
+            out = fn(*a, **k)
+            calls.append((name, args, kw, out.detach().clone()))
+            return out
+        return rec
+    for name, fn in saved.items():
+        setattr(dk, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(dk, name, fn)
+
+
+@contextlib.contextmanager
+def _planted_k6_fault(rel: float) -> Iterator[None]:
+    """Every K6 launch on the card gets weight scales off by 1 + rel."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    kernel = dk.fused_dense_decode_i8
+
+    def faulty(x, w_i8, w_scale, *a, **k):
+        if x.device.type == "cuda":
+            w_scale = w_scale * (1.0 + rel)
+        return kernel(x, w_i8, w_scale, *a, **k)
+    dk.fused_dense_decode_i8 = faulty
+    try:
+        yield
+    finally:
+        dk.fused_dense_decode_i8 = kernel
+
+
+def _replay(calls, dev) -> dict:
+    """Each recorded CPU call repeated on the card on the same inputs:
+    largest error relative to the output's magnitude, by kernel."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    worst = {}
+    with torch.inference_mode():
+        for name, args, kw, out in calls:
+            got = getattr(dk, name)(*_clone(args, dev), **_clone(kw, dev))
+            err = _rel_err(got, out)
+            worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def phase_llm_witness(dev) -> None:
+    """The tiny f32 LLM engine (tiny_llama_config) on the card and on the
+    CPU from one seed.  Layer witness: every K5-K8 call of the CPU
+    engine's generate, repeated on the card on the same inputs, within
+    LLM_TOL of its output's magnitude; a fault of LLM_FAULT planted into
+    K6's weight scales must read above it.  The two engines' greedy tokens
+    are printed as a reading."""
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_llama_config
+
+    cfg = tiny_llama_config()
+    rng = np.random.default_rng(1)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 24)).astype(np.int32)
+    engines = {d: CausalLM.from_config(cfg, dtype=torch.float32, seed=0, device=d).serve(
+        calib, mode="w8a8_static", smooth=True) for d in ("cpu", dev)}
+    calls: list = []
+    with _recording(calls):
+        want = engines["cpu"].generate(prompts, max_new_tokens=8)
+    got = engines[dev].generate(prompts, max_new_tokens=8)
+    sound = _replay(calls, dev)
+    with _planted_k6_fault(LLM_FAULT):
+        planted = _replay(calls, dev)
+    n = {k: sum(c[0] == k for c in calls) for k in DECODE_KERNELS}
+    print(f"phase 3: tiny f32 LLM engine, card vs CPU: greedy tokens agree "
+          f"{float((got[:, 24:] == want[:, 24:]).mean()):.4f}; each kernel call on the CPU's "
+          "inputs, largest error relative to the output's magnitude: "
+          + ", ".join(f"{k} {sound[k]:.2e} ({n[k]} calls)" for k in DECODE_KERNELS)
+          + f" (limit {LLM_TOL:g}); K6 weight scales off by {LLM_FAULT:g} (planted): "
+          f"{planted['fused_dense_decode_i8']:.2e}", flush=True)
+    if max(sound.values()) > LLM_TOL or set(sound) != set(DECODE_KERNELS):
+        fail(f"tiny LLM engine card vs CPU: {sound}")
+    if planted["fused_dense_decode_i8"] <= LLM_TOL:
+        fail("the LLM layer witness misses a planted K6 scale fault")
+
+
+def phase_llm_profile(dev, llm: dict) -> None:
+    """Warm engine and bf16 module generate, five each in turn; the
+    engine's prefill and decode loop timed apart; device time by kernel of
+    three engine decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, lm, prompts = llm["engine"], llm["lm"], llm["prompts"]
+    steps = LLM_NEW - 1
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def engine_parts():
+        t_pre, (tok0, caches) = timed(lambda: eng.prefill(prompts, LLM_PROMPT + LLM_NEW))
+        run = eng._make_run(steps)
+        t_dec, _ = timed(lambda: run(tok0, caches, LLM_PROMPT))
+        return t_pre, t_dec
+
+    times = {"engine": [], "engine prefill": [], "engine decode": [], "module": []}
+    engine_parts()
+    timed(lambda: lm.generate(prompts, max_new_tokens=LLM_NEW))
+    for _ in range(PROFILE_REPEATS):
+        t_gen, _ = timed(lambda: eng.generate(prompts, max_new_tokens=LLM_NEW))
+        t_pre, t_dec = engine_parts()
+        t_mod, _ = timed(lambda: lm.generate(prompts, max_new_tokens=LLM_NEW))
+        for k, v in (("engine", t_gen), ("engine prefill", t_pre), ("engine decode", t_dec),
+                     ("module", t_mod)):
+            times[k].append(v)
+    for k, ts in times.items():
+        n_tok = LLM_BATCH * (steps if k == "engine decode" else LLM_NEW)
+        extra = "" if k == "engine prefill" else \
+            f"; tokens/s at the median {n_tok / float(np.median(ts)):.1f}"
+        print(f"profile: LLM {k} ({LLM_BATCH} x {LLM_PROMPT} -> +{LLM_NEW}), s: {_spread(ts)}"
+              f"{extra}", flush=True)
+    ratios = [e / m for e, m in zip(times["engine"], times["module"])]
+    print(f"profile: LLM engine / bf16 module generate time, run by run: {_spread(ratios)}",
+          flush=True)
+
+    tok0, caches = eng.prefill(prompts, LLM_PROMPT + LLM_NEW)
+    run = eng._make_run(3)
+    run(tok0, caches, LLM_PROMPT)
+    wall, _ = timed(lambda: run(tok0, caches, LLM_PROMPT))
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        run(tok0, caches, LLM_PROMPT)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=20), flush=True)
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"profile: LLM engine, 3 decode steps take {wall * 1e3:.2f} ms of wall time untraced; "
+          f"the traced run keeps the device busy {busy_ms:.2f} ms (idle share "
+          f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
+
+
 def _generate_s(pipe) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -641,8 +1236,11 @@ def phase_profile(dev, runs: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also time warm generate runs (W4A16, W8A8 and bf16 in turn) "
-                         "and profile two W4A16 denoising steps")
+                    help="also time warm generate runs (SD W4A16, W8A8 and bf16 in turn; the "
+                         "LLM engine and the bf16 module in turn) and profile two W4A16 "
+                         "denoising steps and three engine decode steps")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LLM path's calibration and prompt tokens")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -657,18 +1255,22 @@ def main() -> int:
     phase_build()
     kres = phase_kernels(dev)
     kres.update(phase_w4_kernels(dev))
+    kres.update(phase_decode_kernels(dev))
     runs = phase_main_path(dev)
+    runs["LLM"] = phase_llm_path(dev, args.seed)
     phase_small_reference(dev)
     phase_w4a8_witness(dev)
+    phase_llm_witness(dev)
     if args.profile:
         phase_profile(dev, runs)
+        phase_llm_profile(dev, runs["LLM"])
 
     record = []
     for name, rows in kres.items():
         first = rows[0]
         source, replaces = KERNEL_INFO[name]
-        by_path = {label: runs[label]["launches"][name] for label in PATHS
-                   if runs[label]["launches"][name]}
+        by_path = {label: runs[label]["launches"].get(name, 0) for label in (*PATHS, "LLM")
+                   if runs[label]["launches"].get(name, 0)}
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

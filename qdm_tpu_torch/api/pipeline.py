@@ -43,6 +43,7 @@ from qdm_tpu_torch.quant import apply as qapply
 from qdm_tpu_torch.quant import awq as awq_lib
 from qdm_tpu_torch.quant import smooth as smooth_lib
 from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan, spec_from_config
+from qdm_tpu_torch.utils.device import resolve_device
 from qdm_tpu_torch.utils.tokenizer import SimpleTokenizer
 
 QUANTIZABLE_COMPONENTS = ("unet", "text_encoder", "vae", "transformer")
@@ -51,14 +52,6 @@ _ROADMAP_QUANT = ("is not ported yet (ROADMAP.md Queue 1 items 2, 7 and 11: "
                   "GPTQ/codebook, fake quant, static act scales, text-encoder "
                   "and VAE quantization)")
 _SQ = ("sq", "smooth", "smoothquant")
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("qdm_tpu_torch runs on a CUDA device by default and none "
-                           "is available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class BaseDiffusionPipeline:

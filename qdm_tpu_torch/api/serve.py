@@ -1,0 +1,266 @@
+"""Decode engine for LLM serving (counterpart of ``qdm_tpu/api/serve.py``).
+
+The ``w8a8_static`` engine on one device: int8 per-output-channel weights
+and calibrated static per-tensor activation scales, a bf16 (the model
+dtype) combined ``[K | V]`` depth-major KV cache ``(B, 2*hkv, d, T)``
+per layer, and four kernel calls per decoder layer plus one for the head
+(``ops/decode_kernels.py``):
+
+    qkv  = K6(x; RMSNorm ln1, int8 qkv, rope epilogue)
+    attn = K7(q, cache, pos)                  after writing k, v at pos
+    x    = K6(attn; int8 o_proj, + x)
+    x    = K8(x; RMSNorm ln2, int8 gate/up, silu * up, int8 down, + x)
+    logits = K5(x; final RMSNorm, bf16 lm_head) -> f32, greedy argmax
+
+The prompt is prefilled through the float module (``prefill_quant=False``,
+``serve.py:2885-2958``), which writes the combined cache directly.  Batch
+rows are not padded to a sublane granule (the TPU engine pads to 8; its
+padded rows never reach an output).
+
+Ported from ``DecodeEngine``: ``__init__`` for the canonical llama block
+in ``w8a8_static`` with ``merge_o=False`` and ``head_quant=None``,
+``calibrate_scales``, ``smooth_lm``, ``prefill``, ``_layer``,
+``_head_logits``, ``_make_run`` (a loop over steps of one memoized step
+function) and greedy ``generate``.  Every other option raises
+``NotImplementedError`` naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from qdm_tpu_torch.api.causal_lm import check_greedy, mask_after_eos
+from qdm_tpu_torch.config import QuantConfig
+from qdm_tpu_torch.models import llama as llama_lib
+from qdm_tpu_torch.models.layers import capture_stats
+from qdm_tpu_torch.models.shims import llama_scaling_groups
+from qdm_tpu_torch.ops import decode_kernels as dk
+from qdm_tpu_torch.ops import quant_matmul as qmm
+from qdm_tpu_torch.quant import smooth as smooth_lib
+
+_ROADMAP = "ROADMAP.md Queue 1 item 13 (serving)"
+
+
+def _quant_w(w: torch.Tensor):
+    """Per-out-channel symmetric int8: w (K, N) -> (codes (K, N) int8,
+    scales (1, N) f32) (``serve.py:97-101``)."""
+    wf = w.to(torch.float32)
+    s = qmm.div_exact(wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-8), 127.0)
+    return torch.clamp(torch.round(torch.div(wf, s)), -127, 127).to(torch.int8), s
+
+
+def _rope_consts(cfg: llama_lib.LlamaConfig, device=None):
+    """Per-column rope tables over the fused [q | k | v] layout
+    (``serve.py:209-239``, full rotary): (freqs (d/2,), is_rope (n_qkv,),
+    sign (n_qkv,), base_idx (n_qkv,)).  v columns do not rotate (cos 1,
+    sin 0); q and k columns pair with the column d/2 away in their head."""
+    h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    half = d // 2
+    col = np.arange((h + 2 * hkv) * d)
+    col_j = col % d
+    rotated = col < (h + hkv) * d
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return (llama_lib.rope_freqs(d, cfg.rope_theta, device), as_t(rotated, torch.bool),
+            as_t(np.where(col_j < half, -1.0, 1.0), torch.float32),
+            as_t(col_j % half, torch.int64))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class DecodeEngine:
+    """Extracted-weight decode engine over the decode kernels: greedy,
+    equal-length batches, one device."""
+
+    def __init__(self, lm, mode: str = "bf16", act_stats: Optional[Dict[str, torch.Tensor]] = None,
+                 act_margin: float = 1.0, kv_dtype=None, merge_o: bool = False, mesh=None,
+                 prefill_quant: bool = False, head_quant: Optional[str] = None,
+                 kv_scale_mode: str = "token", gptq_grams=None):
+        if mode not in ("bf16", "w8a8_static", "w4a8_static"):
+            raise ValueError(mode)
+        if mode != "w8a8_static":
+            raise NotImplementedError(f"engine mode {mode!r} is not ported yet: {_ROADMAP}")
+        if act_stats is None:
+            raise ValueError(f"{mode} needs act_stats (see DecodeEngine.calibrate_scales)")
+        unported = {"kv_dtype": kv_dtype is not None, "merge_o": merge_o, "mesh": mesh is not None,
+                    "prefill_quant": bool(prefill_quant), "head_quant": head_quant is not None,
+                    "kv_scale_mode": kv_scale_mode != "token", "gptq_grams": bool(gptq_grams)}
+        if any(unported.values()):
+            raise NotImplementedError(
+                f"engine options {[k for k, v in unported.items() if v]} are not ported yet: "
+                f"{_ROADMAP}")
+        cfg = lm.config
+        llama_lib.check_canonical(cfg)
+        self.lm, self.cfg, self.mode, self.dtype = lm, cfg, mode, lm.dtype
+        self.device = lm.device
+        p = lm.params
+
+        def scale_of(key):
+            s = qmm.div_exact(act_stats[key].to(torch.float32).amax().clamp_min(1e-5), 127.0)
+            return (s * act_margin).to(torch.float32).reshape(1)
+
+        def qw8(w):
+            codes, s = _quant_w(w.to(self.dtype))
+            return dk.transposed_weight(codes), s
+
+        self.layers: List[Dict[str, torch.Tensor]] = []
+        for l in range(cfg.num_hidden_layers):
+            lp, pre = p[f"layers_{l}"], f"layers_{l}"
+            at, mp = lp["self_attn"], lp["mlp"]
+            w_qkv = torch.cat([at["q_proj"]["kernel"], at["k_proj"]["kernel"],
+                               at["v_proj"]["kernel"]], dim=1)
+            e = {"ln1": lp["input_layernorm"]["scale"].to(torch.float32),
+                 "ln2": lp["post_attention_layernorm"]["scale"].to(torch.float32)}
+            # int8 codes kept transposed, (N, K): the kernels' operand layout
+            e["w_qkv_t"], e["s_qkv"] = qw8(w_qkv)
+            e["w_o_t"], e["s_o"] = qw8(at["o_proj"]["kernel"])
+            e["wg_t"], e["sg"] = qw8(mp["gate_proj"]["kernel"])
+            e["wu_t"], e["su"] = qw8(mp["up_proj"]["kernel"])
+            e["wd_t"], e["sd"] = qw8(mp["down_proj"]["kernel"])
+            e["a_qkv"] = scale_of(f"{pre}/self_attn/q_proj")
+            e["a_o"] = scale_of(f"{pre}/self_attn/o_proj")
+            e["a_mlp"] = torch.cat([scale_of(f"{pre}/mlp/gate_proj"),
+                                    scale_of(f"{pre}/mlp/down_proj")])
+            self.layers.append(e)
+        self.embed = p["embed_tokens"]["embedding"].to(self.dtype)
+        self.final_norm = p["norm"]["scale"].to(torch.float32)
+        self.head_t = dk.transposed_weight(p["lm_head"]["kernel"].to(self.dtype))   # (V, K)
+        # snapshot of the module (and its params) for the prefill
+        self._prefill_model = lm.model
+        self._run_cache: Dict = {}
+
+    # ------------------------------------------------------------- calibration
+
+    @staticmethod
+    def smooth_lm(lm, calib_ids, alpha: float = 0.5):
+        """SmoothQuant-migrate ``lm.params`` (norm / s, fc * s) before the
+        engine is built (``serve.py:1474-1500``)."""
+        stats, _ = lm._calibrate(QuantConfig(w_bit=8, a_bit=8), np.asarray(calib_ids))
+        groups = llama_scaling_groups(lm.params, include_fc_groups=False,
+                                      norm_plus_one=lm.config.norm_plus_one)
+        lm.params = smooth_lib.smooth_params(lm.params, groups, stats, alpha=alpha)
+        return lm
+
+    @staticmethod
+    @torch.inference_mode()
+    def calibrate_scales(lm, calib_ids) -> Dict[str, torch.Tensor]:
+        """Per-layer input absmax over one forward of all of calib_ids
+        (``serve.py:1545-1562``), keyed like ``layers_0/self_attn/q_proj``."""
+        model = lm.model
+        with capture_stats(model) as stats:
+            model(torch.as_tensor(np.asarray(calib_ids), device=lm.device))
+        return stats
+
+    # ------------------------------------------------------------------ layers
+
+    def _layer(self, x, cache, w, pos: int, cosv, sinv):
+        """One decoder layer of the decode step; writes k, v at ``pos``."""
+        cfg = self.cfg
+        h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        b = x.shape[0]
+        eps = cfg.rms_norm_eps
+        qkv = dk.fused_dense_decode_i8(x, w["w_qkv_t"].t(), w["s_qkv"], w["a_qkv"],
+                                       norm_scale=w["ln1"], rope_cos=cosv, rope_sin=sinv,
+                                       head_dim=d, eps=eps, w_t=w["w_qkv_t"])
+        q = qkv[:, :h * d].view(b, hkv, h // hkv, d)
+        (kv,) = cache
+        kv[:, :, :, pos] = qkv[:, h * d:].reshape(b, 2 * hkv, d)
+        attn = dk.decode_attention_kv(q, kv, pos).reshape(b, h * d)
+        x = dk.fused_dense_decode_i8(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], residual=x,
+                                     w_t=w["w_o_t"])
+        return dk.fused_mlp_decode_i8(x, w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t(),
+                                      (w["sg"], w["su"], w["sd"]), w["a_mlp"], w["ln2"], eps=eps,
+                                      act=cfg.mlp_act, w_t=(w["wg_t"], w["wu_t"], w["wd_t"]))
+
+    def _head_logits(self, x):
+        """Final norm + bf16 lm_head in one launch, f32 logits."""
+        return dk.fused_dense_decode(x, self.head_t.t(), norm_scale=self.final_norm,
+                                     eps=self.cfg.rms_norm_eps, out_dtype=torch.float32,
+                                     w_t=self.head_t)
+
+    # ------------------------------------------------------------------ decode
+
+    def init_cache(self, batch: int, max_len: int):
+        """Combined [K | V] cache (B, 2*hkv, d, round_up(max_len, 128)) per layer."""
+        cfg = self.cfg
+        shape = (batch, 2 * cfg.num_key_value_heads, cfg.head_dim, _round_up(max_len, 128))
+        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),)
+                for _ in range(cfg.num_hidden_layers)]
+
+    def _make_run(self, n_tokens: int, sampler=()):
+        """The decode loop of ``n_tokens`` greedy steps, as one memoized
+        step function called once per step (``serve.py:2269-2350``)."""
+        if sampler not in self._run_cache:
+            freqs, is_rope, sign, base_idx = _rope_consts(self.cfg, self.device)
+
+            def trig(positions):
+                """(cos, sin) rows (n_steps, n_qkv) of the rope epilogue."""
+                ang = positions.to(torch.float32)[:, None] * freqs[None, :]
+                cos = torch.where(is_rope, torch.cos(ang)[:, base_idx], 1.0)
+                sin = torch.where(is_rope, sign * torch.sin(ang)[:, base_idx], 0.0)
+                return cos.contiguous(), sin.contiguous()
+
+            def step(tok, caches, pos: int, cosv, sinv):
+                x = self.embed[tok]
+                for l, w in enumerate(self.layers):
+                    x = self._layer(x, caches[l], w, pos, cosv, sinv)
+                return torch.argmax(self._head_logits(x), dim=-1)
+
+            self._run_cache[sampler] = (step, trig)
+        step, trig = self._run_cache[sampler]
+
+        @torch.inference_mode()
+        def run(tok0, caches, start_pos: int):
+            positions = torch.arange(start_pos, start_pos + n_tokens, device=self.device)
+            cos, sin = trig(positions)
+            tok, toks = tok0, []
+            for i in range(n_tokens):
+                tok = step(tok, caches, start_pos + i, cos[i], sin[i])
+                toks.append(tok)
+            if not toks:
+                return tok0.new_zeros((tok0.shape[0], 0))
+            return torch.stack(toks, dim=1)
+        return run
+
+    @torch.inference_mode()
+    def prefill(self, ids, max_len: int):
+        """Module-path prefill writing the combined cache, on a
+        round_up(s, 128)-long cache padded afterwards to round_up(max_len,
+        128).  Returns (first generated token, engine caches)."""
+        ids = torch.as_tensor(np.asarray(ids), device=self.device)
+        b, s = ids.shape
+        cfg = self.cfg
+        sp, tp = _round_up(s, 128), _round_up(max_len, 128)
+        assert tp >= sp, (max_len, s)
+        caches = [(torch.zeros((b, 2 * cfg.num_key_value_heads, cfg.head_dim, sp),
+                               dtype=self.dtype, device=self.device),)
+                  for _ in range(cfg.num_hidden_layers)]
+        logits, caches = self._prefill_model(ids, kv_caches=caches, cache_index=0,
+                                             last_logits_only=True)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        return tok, [(F.pad(kv, (0, tp - sp)),) for (kv,) in caches]
+
+    @torch.inference_mode()
+    def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0, eos_token_id: Optional[int] = None,
+                 stop_early: bool = False, prefix=None,
+                 prefill_chunk: Optional[int] = None) -> np.ndarray:
+        """Greedy decode: the prompt followed by max_new_tokens tokens per row."""
+        check_greedy(temperature, top_k, top_p)
+        if stop_early or prefix is not None or prefill_chunk:
+            raise NotImplementedError(f"stop_early, prefix caching and chunked prefill are not "
+                                      f"ported yet: {_ROADMAP}")
+        ids = np.asarray(input_ids)
+        b, s = ids.shape
+        tok0, caches = self.prefill(ids, s + max_new_tokens)
+        toks = self._make_run(max_new_tokens - 1)(tok0, caches, s)
+        out = torch.cat([tok0[:, None], toks], dim=1)[:, :max_new_tokens]
+        out = out.cpu().numpy().astype(ids.dtype)
+        if eos_token_id is not None:
+            out = mask_after_eos(out, eos_token_id)
+        return np.concatenate([ids, out], axis=1)

@@ -366,6 +366,28 @@ class GroupNorm(nn.Module):
         return out.reshape(x.shape).to(self.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis (layers.py:454-472): f32 statistics,
+    ``x * rsqrt(mean(x^2) + eps) * scale`` in the layer's dtype.
+    ``plus_one`` (Gemma's (1 + w) convention) is declared for parity and
+    not ported yet: it raises."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-6, dtype=torch.bfloat16,
+                 plus_one: bool = False):
+        super().__init__()
+        if plus_one:
+            raise NotImplementedError(
+                "RMSNorm plus_one (Gemma (1 + w) norms) is not ported yet: "
+                "ROADMAP.md Queue 1 item 14 (more LLM families)")
+        self.epsilon, self.dtype = epsilon, dtype
+        _declare(self, "scale", (channels,))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.epsilon)
+        return (y * self.scale.to(torch.float32)).to(self.dtype)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with affine params, f32 statistics."""
 

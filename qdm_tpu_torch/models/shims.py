@@ -1,5 +1,5 @@
-"""SD UNet SmoothQuant groups (counterpart of ``qdm_tpu/models/shims.py``),
-found by walking the param tree."""
+"""SmoothQuant groups of the SD UNet and the LLaMA block (counterpart of
+``qdm_tpu/models/shims.py``), found by walking the param tree."""
 
 from __future__ import annotations
 
@@ -35,4 +35,33 @@ def sd_unet_scaling_groups(params: dict) -> List[ScalingGroup]:
         groups.append(ScalingGroup(
             prev_path=b + ("norm3",),
             layer_paths=(b + ("ff", "net_0", "proj"),)))
+    return groups
+
+
+def llama_scaling_groups(params: dict, include_fc_groups: bool = False,
+                         norm_plus_one: bool = False) -> List[ScalingGroup]:
+    """LLaMA norm-prev groups (``shims.py::llama_scaling_groups``):
+    input_layernorm -> q/k/v_proj and post_attention_layernorm ->
+    gate/up_proj of every ``layers_N``.  The fc -> fc groups, Gemma's
+    (1 + w) norms, MoE and MLA are not ported yet and raise."""
+    if include_fc_groups or norm_plus_one:
+        raise NotImplementedError(
+            "llama_scaling_groups: fc -> fc groups (AWQ) and (1 + w) norm prevs are not "
+            "ported yet: ROADMAP.md Queue 1 items 11 and 14")
+    groups = []
+    for path, sub in _walk(params):
+        if not (path and re.fullmatch(r"layers_\d+", path[-1]) and "self_attn" in sub):
+            continue
+        mlp, at = sub.get("mlp", {}), sub["self_attn"]
+        if ("q_proj" not in at or "gate_proj" not in mlp or "post_attention_layernorm" not in sub
+                or "block_sparse_moe" in sub):
+            raise NotImplementedError(
+                f"{'/'.join(path)}: only the canonical LLaMA block (q/k/v_proj, "
+                "post_attention_layernorm -> gate/up_proj) is ported: ROADMAP.md Queue 1 item 14")
+        groups.append(ScalingGroup(
+            prev_path=path + ("input_layernorm",),
+            layer_paths=tuple(path + ("self_attn", n) for n in ("q_proj", "k_proj", "v_proj"))))
+        groups.append(ScalingGroup(
+            prev_path=path + ("post_attention_layernorm",),
+            layer_paths=(path + ("mlp", "gate_proj"), path + ("mlp", "up_proj"))))
     return groups

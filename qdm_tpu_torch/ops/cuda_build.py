@@ -27,8 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "qdm_tpu_t
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
-# C entry point of each source and its argument types
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point of each kernel and its argument types; the kernel's source is
+# csrc/<name>.cu unless SOURCE_OF names another
 ENTRY_POINTS = {
     "w8a8_fused_epi": ("qdm_w8a8_fused_epi",
                        (P, I, P, P, P, P, P, I, P, P, I, I, I, I, P)),
@@ -38,7 +39,17 @@ ENTRY_POINTS = {
                      (P, I, P, P, P, P, I, I, I, I, I, I, P)),
     "w4a8_matmul": ("qdm_w4a8_matmul",
                     (P, I, P, P, P, P, P, P, I, I, I, I, I, P)),
+    "decode_dense": ("qdm_decode_dense",
+                     (P, I, P, I, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
+    "decode_dense_i8": ("qdm_decode_dense_i8",
+                        (P, I, P, P, P, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
+    "decode_attention_kv": ("qdm_decode_attention_kv",
+                            (P, I, I, P, P, I, F, F, P, I, I, I, I, I, P)),
+    "decode_mlp_i8": ("qdm_decode_mlp_i8",
+                      (P, I, P, P, P, P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I,
+                       P)),
 }
+SOURCE_OF = {"decode_dense_i8": "decode_dense"}
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}
@@ -56,7 +67,13 @@ def find_nvcc() -> str:
                        "first use")
 
 
+def source(name: str) -> str:
+    """The csrc/*.cu source (without suffix) that holds kernel ``name``."""
+    return SOURCE_OF.get(name, name)
+
+
 def _lib_path(name: str) -> Path:
+    name = source(name)
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
@@ -70,7 +87,7 @@ def build_all() -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     procs = {}
-    for name in ENTRY_POINTS:
+    for name in dict.fromkeys(source(n) for n in ENTRY_POINTS):
         out = _lib_path(name)
         if out.exists():
             continue

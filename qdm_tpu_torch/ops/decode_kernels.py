@@ -1,0 +1,549 @@
+"""Decode-step kernels of the serving engine: the Hopper kernels and their
+plain versions.
+
+Counterpart of ``qdm_tpu/ops/decode_kernels.py`` for the ``w8a8_static``
+engine with a bf16 KV cache:
+
+* :func:`fused_dense_decode` — optional RMSNorm / LayerNorm prologue, the
+  normed rows rounded to x's dtype, ``xn @ W`` with f32 accumulation, then
+  bias, the rope epilogue and a residual.  CUDA kernel
+  ``csrc/decode_dense.cu`` (K5; replaces ``fused_dense_decode_pallas``).
+  The engine's final norm + lm_head.
+* :func:`fused_dense_decode_i8` — the same with a static activation scale:
+  ``xi = clip(round(xn * (1/a)), +-127)`` int8, int8 weights with
+  per-column scales, ``acc * (a * ws)``.  CUDA kernel
+  ``csrc/decode_dense.cu`` (K6; replaces ``fused_dense_decode_i8_pallas``).
+  The engine's qkv (norm + rope) and o_proj (+ residual).
+* :func:`decode_attention_kv` — one-token GQA over the combined
+  depth-major cache ``(B, 2*hkv, d, T)`` = [K | V]: ``t <= pos`` (and
+  ``t >= starts[b]``) mask, softcap, softmax, PV.  CUDA kernel
+  ``csrc/decode_attention_kv.cu`` (K7; replaces
+  ``decode_attention_kv_pallas``).  The dispatcher routes caches above
+  ``_FLASH_BYTES`` per row to the T-blocked flash kernel on the TPU; that
+  kernel is not ported, so there it raises.
+* :func:`fused_mlp_decode_i8` — norm, int8 quant with ``s_in``, int8 gate
+  and up, ``act(g) * u``, int8 quant with ``s_mid``, int8 down, the f32
+  partial of each ``bj``-wide inner block added in block order, residual.
+  CUDA kernel ``csrc/decode_mlp_i8.cu`` (K8; replaces
+  ``fused_mlp_decode_i8_pallas``).
+
+Arithmetic shared by the kernels and their plain versions, so that both
+give the same bits on the card and the plain version the same bits on the
+CPU (the TPU kernels' formulas, where XLA's own rounding is not portable):
+
+* quantize by the reciprocal, ``x * (1/a)``, as the TPU kernels do (the
+  JAX refs divide, ``x / a``);
+* the norm's sums of f32 values are taken in f64 and rounded once to f32
+  (any order gives the same f32), and ``rsqrt(v)`` is ``1 / sqrt(v)``
+  with IEEE sqrt and division;
+* ``silu(g) = g * (1 / (1 + exp(-g)))`` and the tanh GELU with ``exp``
+  and ``tanh`` taken in f64 and rounded to f32 (the same on every
+  device).
+
+Each wrapper computes its plain version for CPU tensors, launches its
+kernel for CUDA tensors and raises for anything else; no fallback.
+``qmm.LAUNCHES`` counts the kernel launches of each wrapper.
+
+Weights are passed as the JAX package keeps them, (K, N); the kernels read
+the transposed copy ``w_t`` (N, K) (``transposed_weight``), which a caller
+may cache and pass (the engine keeps only ``w_t`` and passes ``w_t.t()``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from qdm_tpu_torch.ops import cuda_build
+from qdm_tpu_torch.ops import quant_matmul as qmm
+
+LANE = qmm.LANE
+_FLASH_BYTES = 3 * 2 ** 20    # decode_kernels.py:1071: above it the TPU runs the flash kernel
+_NORMS = {None: 0, "rmsnorm": 1, "layernorm": 2}
+_ACTS = {"silu": 0, "gelu": 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_ATTN_SMEM = 200 * 1024
+
+for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
+           "fused_mlp_decode_i8"):
+    qmm.LAUNCHES.setdefault(_k, 0)
+
+_ROADMAP_FLASH = ("decode_attention_kv_flash_pallas (ROADMAP.md Queue 2 item 12) is not "
+                  "ported: the one-pass kernel takes caches of at most _FLASH_BYTES per row")
+
+
+def pick_block(n: int, pref: int, mult: int = LANE) -> int:
+    """Largest multiple of ``mult`` that divides n and is <= pref
+    (``quant_matmul._pick_block``)."""
+    b = min(pref, n)
+    b -= b % mult
+    b = max(b, mult)
+    while n % b:
+        b -= mult
+        if b <= 0:
+            raise ValueError(f"no multiple of {mult} divides {n}")
+    return b
+
+
+def transposed_weight(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> (N, K) contiguous: the kernels' weight layout."""
+    return w.t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# shared arithmetic (plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _sum_f32(t: torch.Tensor) -> torch.Tensor:
+    """Last-axis sum of f32 values, in f64, rounded once to f32."""
+    return t.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+
+
+def inv_sqrt(v: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(v)`` with IEEE sqrt and division on every device."""
+    return torch.div(torch.ones_like(v), torch.sqrt(v))
+
+
+def reciprocal(v: torch.Tensor) -> torch.Tensor:
+    return torch.div(torch.ones_like(v), v)
+
+
+def norm_f32(xf, scale, bias, eps: float, norm_type: str):
+    """f32 RMSNorm / LayerNorm of ``decode_kernels._norm_f32`` (LayerNorm
+    eps 1e-5, affine scale + bias)."""
+    k = float(xf.shape[-1])
+    if norm_type == "layernorm":
+        mean = qmm.div_exact(_sum_f32(xf), k)
+        xc = xf - mean
+        var = qmm.div_exact(_sum_f32(xc * xc), k)
+        return xc * inv_sqrt(var + 1e-5) * scale + bias
+    if norm_type != "rmsnorm":
+        raise ValueError(f"norm_type {norm_type!r}")
+    ms = qmm.div_exact(_sum_f32(xf * xf), k)
+    return xf * inv_sqrt(ms + eps) * scale
+
+
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """``g * (1 / (1 + exp(-g)))``, exp in f64 rounded to f32."""
+    e = torch.exp(-(g.to(torch.float64))).to(torch.float32)
+    return g * reciprocal(1.0 + e)
+
+
+def gelu_tanh(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` in its order of operations, tanh
+    in f64 rounded to f32."""
+    inner = math.sqrt(2.0 / math.pi) * (g + 0.044715 * (g * g * g))
+    return g * (0.5 * (1.0 + torch.tanh(inner.to(torch.float64)).to(torch.float32)))
+
+
+def _act(name: str, g: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return silu(g)
+    if name == "gelu":
+        return gelu_tanh(g)
+    raise ValueError(f"act {name!r}")
+
+
+def _quant_static(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(xf * (1/scale)), -127, 127)`` as int8."""
+    return torch.clamp(torch.round(xf * reciprocal(scale)), -127, 127).to(torch.int8)
+
+
+def rope_epilogue(y, rope_cos, rope_sin, head_dim: int):
+    """``y * cos + partner * sin``, the partner d/2 away within each head
+    (``decode_kernels._rope_ref``)."""
+    half = head_dim // 2
+    n = y.shape[1]
+    first = (torch.arange(n, device=y.device) % head_dim < half)[None, :]
+    partner = torch.where(first, torch.roll(y, -half, 1), torch.roll(y, half, 1))
+    return (y * rope_cos.reshape(1, n).to(torch.float32)
+            + partner * rope_sin.reshape(1, n).to(torch.float32))
+
+
+def _prologue(x, norm_scale, norm_bias, eps, norm_type):
+    xf = x.to(torch.float32)
+    if norm_scale is None:
+        return xf
+    nb = (norm_bias.to(torch.float32) if norm_bias is not None
+          else torch.zeros((), dtype=torch.float32, device=x.device))
+    return norm_f32(xf, norm_scale.reshape(1, -1).to(torch.float32), nb, eps, norm_type)
+
+
+def _epilogue(y, bias, rope_cos, rope_sin, head_dim, residual, out_dtype):
+    if bias is not None:
+        y = y + bias.reshape(1, -1).to(torch.float32)
+    if rope_cos is not None:
+        y = rope_epilogue(y, rope_cos, rope_sin, head_dim)
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    return y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def fused_dense_decode_plain(x, w, norm_scale=None, residual=None, rope_cos=None,
+                             rope_sin=None, head_dim: int = 0, eps: float = 1e-6,
+                             out_dtype=None, bias=None, norm_bias=None,
+                             norm_type: str = "rmsnorm"):
+    """Plain version of :func:`fused_dense_decode`."""
+    xn = _prologue(x, norm_scale, norm_bias, eps, norm_type).to(x.dtype)
+    y = torch.matmul(xn.to(torch.float32), w.to(torch.float32))
+    return _epilogue(y, bias, rope_cos, rope_sin, head_dim, residual, out_dtype or x.dtype)
+
+
+def fused_dense_decode_i8_plain(x, w_i8, w_scale, act_scale, norm_scale=None,
+                                residual=None, rope_cos=None, rope_sin=None,
+                                head_dim: int = 0, eps: float = 1e-6, out_dtype=None,
+                                bias=None, norm_bias=None, norm_type: str = "rmsnorm"):
+    """Plain version of :func:`fused_dense_decode_i8`."""
+    a = act_scale.reshape(1).to(torch.float32)
+    xi = _quant_static(_prologue(x, norm_scale, norm_bias, eps, norm_type), a)
+    acc = qmm.int8_matmul_exact(xi, w_i8)
+    y = acc.to(torch.float32) * (a * w_scale.reshape(1, -1).to(torch.float32))
+    return _epilogue(y, bias, rope_cos, rope_sin, head_dim, residual, out_dtype or x.dtype)
+
+
+def decode_attention_kv_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                              softcap: float = 0.0):
+    """Plain version of :func:`decode_attention_kv`: q (B, hkv, g, d)
+    against kv (B, 2*hkv, d, T) over every column, masked columns at -1e9
+    (``_decode_attn_kv_kernel``)."""
+    b, hkv, g, d = q.shape
+    t = kv_cache.shape[-1]
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    qf = q.to(torch.float32) * scale
+    logits = torch.einsum("bhgd,bhdt->bhgt", qf, kv_cache[:, :hkv].to(torch.float32))
+    if softcap:
+        logits = softcap * torch.tanh(qmm.div_exact(logits, float(softcap)))
+    t_ids = torch.arange(t, device=q.device)
+    ok = (t_ids <= int(pos))[None, :]
+    if starts is not None:
+        ok = ok & (t_ids[None, :] >= starts.to(q.device).reshape(-1, 1))
+    logits = torch.where(ok[:, None, None, :], logits,
+                         torch.full_like(logits, -1e9))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    p = torch.div(p, p.sum(dim=-1, keepdim=True))
+    o = torch.einsum("bhgt,bhdt->bhgd", p, kv_cache[:, hkv:].to(torch.float32))
+    return o.to(q.dtype)
+
+
+def fused_mlp_decode_i8_plain(x, w_gate, w_up, w_down, w_scales, act_scales, norm_scale,
+                              eps: float = 1e-6, act: str = "silu", block_j: int = 512,
+                              out_dtype=None, residual: bool = True, norm_bias=None,
+                              norm_type: str = "rmsnorm"):
+    """Plain version of :func:`fused_mlp_decode_i8`, inner block by inner
+    block in the TPU kernel's order (``_fused_mlp_i8_kernel``)."""
+    xf = x.to(torch.float32)
+    s = act_scales.reshape(2).to(torch.float32)
+    s_in, s_mid = s[0:1], s[1:2]
+    sg, su, sd = (t.reshape(1, -1).to(torch.float32) for t in w_scales)
+    xi = _quant_static(_prologue(x, norm_scale, norm_bias, eps, norm_type), s_in)
+    inner = w_gate.shape[1]
+    bj = pick_block(inner, block_j)
+    acc = torch.zeros((x.shape[0], w_down.shape[1]), dtype=torch.float32, device=x.device)
+    for j in range(inner // bj):
+        cols = slice(j * bj, (j + 1) * bj)
+        gate = qmm.int8_matmul_exact(xi, w_gate[:, cols]).to(torch.float32) * (s_in * sg[:, cols])
+        up = qmm.int8_matmul_exact(xi, w_up[:, cols]).to(torch.float32) * (s_in * su[:, cols])
+        ai = _quant_static(_act(act, gate) * up, s_mid)
+        pd = qmm.int8_matmul_exact(ai, w_down[cols])
+        acc = acc + pd.to(torch.float32) * (s_mid * sd)
+    if residual:
+        acc = acc + xf
+    return acc.to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what} runs on CUDA or CPU tensors, got {x.device}")
+    return True
+
+
+def _f32_vec(t: Optional[torch.Tensor], n: int, name: str, dev) -> Optional[torch.Tensor]:
+    if t is None:
+        return None
+    t = t.reshape(-1).to(torch.float32).contiguous()
+    if t.numel() != n or t.device != dev:
+        raise ValueError(f"{name} must hold {n} values on {dev}, got {t.numel()} on {t.device}")
+    return t
+
+
+def _scratch(t: Optional[torch.Tensor], shape, dev) -> torch.Tensor:
+    if t is None:
+        return torch.empty(shape, dtype=torch.int8, device=dev)
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.int8 or not t.is_contiguous() \
+            or t.device != dev:
+        raise ValueError(f"scratch must be a contiguous int8 {tuple(shape)} tensor on {dev}")
+    return t
+
+
+def _dense_common(x, w, w_t, norm_scale, norm_bias, norm_type, residual, rope_cos,
+                  rope_sin, head_dim, bias, out_dtype, what):
+    """Checks shared by K5 and K6; returns the kernel operands."""
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: x must be 2-D bf16/f32 with a bf16/f32 output, got "
+                         f"{tuple(x.shape)} {x.dtype} -> {out_dtype}")
+    m, k = x.shape
+    n = w.shape[1] if w_t is None else w_t.shape[0]
+    if w.shape != (k, n):
+        raise ValueError(f"{what}: weight {tuple(w.shape)} does not take x {tuple(x.shape)}")
+    if k % 16:
+        raise ValueError(f"{what}: K={k} must be a multiple of 16 (16-byte weight rows)")
+    w_t = transposed_weight(w) if w_t is None else w_t
+    if (tuple(w_t.shape) != (n, k) or not w_t.is_contiguous() or w_t.data_ptr() % 16
+            or w_t.device != x.device):
+        raise ValueError(f"{what}: w_t must be the contiguous 16-byte aligned (N, K) "
+                         "transpose of the weight on x's device")
+    dev = x.device
+    if norm_scale is None and norm_bias is not None:
+        raise ValueError(f"{what}: norm_bias without norm_scale")
+    norm = norm_type if norm_scale is not None else None
+    if norm not in _NORMS:
+        raise ValueError(f"{what}: norm_type {norm_type!r}")
+    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    nb = _f32_vec(norm_bias, k, "norm_bias", dev) if norm == "layernorm" else None
+    if norm == "layernorm" and nb is None:
+        nb = torch.zeros(k, dtype=torch.float32, device=dev)
+    bi = _f32_vec(bias, n, "bias", dev)
+    cos = sin = None
+    if rope_cos is not None:
+        if head_dim <= 0 or head_dim % 2 or (64 % head_dim and head_dim != 128):
+            raise NotImplementedError(
+                f"{what}: the rope epilogue takes head_dim dividing 64, or 128; got {head_dim}")
+        cos = _f32_vec(rope_cos, n, "rope_cos", dev)
+        sin = _f32_vec(rope_sin, n, "rope_sin", dev)
+    res = None
+    if residual is not None:
+        res = residual.contiguous()
+        if tuple(res.shape) != (m, n) or res.dtype not in _DTYPE_CODE or res.device != dev:
+            raise ValueError(f"{what}: residual must be ({m}, {n}) bf16/f32 on {dev}")
+    return x.contiguous(), w_t, ns, nb, bi, cos, sin, res, m, k, n
+
+
+def fused_dense_decode(x, w, norm_scale=None, residual=None, rope_cos=None, rope_sin=None,
+                       head_dim: int = 0, eps: float = 1e-6, out_dtype=None, bias=None,
+                       norm_bias=None, norm_type: str = "rmsnorm",
+                       w_t: Optional[torch.Tensor] = None):
+    """x (B, K) -> norm?(x) @ w (K, N) (+bias) (+rope) (+residual).
+
+    w bf16 or f32; bf16 x with a bf16 weight runs on the tensor cores,
+    anything else in f32 FMA.  rope_cos / rope_sin (N,) carry the sign
+    and the identity of non-rotated columns (``_rope_consts``)."""
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, "fused_dense_decode"):
+        return fused_dense_decode_plain(x, w, norm_scale, residual, rope_cos, rope_sin,
+                                        head_dim, eps, out_dtype, bias, norm_bias, norm_type)
+    if w.dtype not in _DTYPE_CODE or (w_t is not None and w_t.dtype != w.dtype):
+        raise ValueError(f"fused_dense_decode: weight must be bf16/f32, got {w.dtype}")
+    x, w_t, ns, nb, bi, cos, sin, res, m, k, n = _dense_common(
+        x, w, w_t, norm_scale, norm_bias, norm_type, residual, rope_cos, rope_sin,
+        head_dim, bias, out_dtype, "fused_dense_decode")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    xn = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    fn = cuda_build.kernel("decode_dense")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), _DTYPE_CODE[w_t.dtype],
+                 _ptr(ns), _ptr(nb), _NORMS[norm_type if ns is not None else None],
+                 ctypes.c_float(eps), _ptr(bi), _ptr(cos), _ptr(sin), int(head_dim),
+                 _ptr(res), _DTYPE_CODE[res.dtype] if res is not None else 0,
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], xn.data_ptr(), m, k, n, _stream(x))
+    cuda_build.check(err, "fused_dense_decode")
+    qmm.LAUNCHES["fused_dense_decode"] += 1
+    return out
+
+
+def fused_dense_decode_i8(x, w_i8, w_scale, act_scale, norm_scale=None, residual=None,
+                          rope_cos=None, rope_sin=None, head_dim: int = 0, eps: float = 1e-6,
+                          out_dtype=None, bias=None, norm_bias=None,
+                          norm_type: str = "rmsnorm", w_t: Optional[torch.Tensor] = None,
+                          scratch: Optional[torch.Tensor] = None):
+    """int8 :func:`fused_dense_decode`: static act scale (1,), int8
+    weight (K, N) with per-column scales (1, N).  scratch, if given, is
+    the (B, K) int8 tensor that receives the activation codes (for a
+    caller that checks them)."""
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, "fused_dense_decode_i8"):
+        return fused_dense_decode_i8_plain(x, w_i8, w_scale, act_scale, norm_scale, residual,
+                                           rope_cos, rope_sin, head_dim, eps, out_dtype, bias,
+                                           norm_bias, norm_type)
+    if w_i8.dtype != torch.int8 or (w_t is not None and w_t.dtype != torch.int8):
+        raise ValueError(f"fused_dense_decode_i8: weight must be int8, got {w_i8.dtype}")
+    x, w_t, ns, nb, bi, cos, sin, res, m, k, n = _dense_common(
+        x, w_i8, w_t, norm_scale, norm_bias, norm_type, residual, rope_cos, rope_sin,
+        head_dim, bias, out_dtype, "fused_dense_decode_i8")
+    ws = _f32_vec(w_scale, n, "w_scale", x.device)
+    a = _f32_vec(act_scale, 1, "act_scale", x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    xi = _scratch(scratch, (m, k), x.device)
+    fn = cuda_build.kernel("decode_dense_i8")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), ws.data_ptr(), a.data_ptr(),
+                 _ptr(ns), _ptr(nb), _NORMS[norm_type if ns is not None else None],
+                 ctypes.c_float(eps), _ptr(bi), _ptr(cos), _ptr(sin), int(head_dim),
+                 _ptr(res), _DTYPE_CODE[res.dtype] if res is not None else 0,
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), m, k, n, _stream(x))
+    cuda_build.check(err, "fused_dense_decode_i8")
+    qmm.LAUNCHES["fused_dense_decode_i8"] += 1
+    return out
+
+
+def kv_block_bytes(kv_cache: torch.Tensor) -> int:
+    """Bytes of one batch row of the cache (``_kv_block_bytes``)."""
+    return int(np.prod(kv_cache.shape[1:])) * kv_cache.element_size()
+
+
+def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                               softcap: float = 0.0):
+    """One-pass decode attention (K7): q (B, hkv, g, d) — rows may be
+    strided, each (hkv, g, d) row contiguous — against the combined cache
+    kv (B, 2*hkv, d, T); keys 0..pos (and from starts[b]) attended.
+    Returns (B, hkv, g, d) in q's dtype."""
+    b, hkv, g, d = q.shape
+    if (kv_cache.dim() != 4 or kv_cache.shape[0] != b or kv_cache.shape[1] != 2 * hkv
+            or kv_cache.shape[2] != d):
+        raise ValueError(f"kv cache {tuple(kv_cache.shape)} does not match q {tuple(q.shape)}")
+    t = kv_cache.shape[-1]
+    if not 0 <= int(pos) < t:
+        raise ValueError(f"pos {pos} outside the cache length {t}")
+    if not _on_card(q, "decode_attention_kv"):
+        return decode_attention_kv_plain(q, kv_cache, pos, starts, sm_scale, softcap)
+    if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
+        raise ValueError(f"q and the cache must share a bf16/f32 dtype, got {q.dtype}, "
+                         f"{kv_cache.dtype}")
+    if (q.stride(3) != 1 or q.stride(2) != d or q.stride(1) != g * d
+            or not kv_cache.is_contiguous() or kv_cache.device != q.device):
+        raise ValueError("q rows must be contiguous (hkv, g, d) blocks and the cache "
+                         "contiguous on q's device")
+    if g > 16:
+        raise NotImplementedError(f"decode attention takes at most 16 query heads per kv "
+                                  f"head, got {g}")
+    st = None
+    if starts is not None:
+        st = starts.to(device=q.device, dtype=torch.int32).contiguous()
+        if st.numel() != b:
+            raise ValueError(f"starts must hold {b} values")
+    smem = 4 * g * (d + t)
+    if smem > _MAX_ATTN_SMEM:
+        raise NotImplementedError(f"decode attention needs {smem} bytes of shared memory "
+                                  f"(g={g}, d={d}, T={t}); at most {_MAX_ATTN_SMEM}")
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return out
+    fn = cuda_build.kernel("decode_attention_kv")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv_cache.data_ptr(), _ptr(st),
+                 int(pos), ctypes.c_float(scale), ctypes.c_float(softcap), out.data_ptr(),
+                 b, hkv, g, d, t, _stream(q))
+    cuda_build.check(err, "decode_attention_kv")
+    qmm.LAUNCHES["decode_attention_kv"] += 1
+    return out
+
+
+def decode_attention_kv(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                        softcap: float = 0.0):
+    """Combined-cache dispatcher (``decode_kernels.decode_attention_kv``):
+    the one-pass kernel up to ``_FLASH_BYTES`` of cache per row; above it
+    the TPU runs the T-blocked flash kernel, which is not ported, so the
+    card raises (the CPU computes the plain version at any length)."""
+    if q.device.type == "cuda" and kv_block_bytes(kv_cache) > _FLASH_BYTES:
+        raise NotImplementedError(_ROADMAP_FLASH)
+    return decode_attention_kv_single(q, kv_cache, pos, starts, sm_scale, softcap)
+
+
+def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor],
+                        act_scales, norm_scale, eps: float = 1e-6, act: str = "silu",
+                        block_j: int = 512, out_dtype=None, residual: bool = True,
+                        norm_bias=None, norm_type: str = "rmsnorm",
+                        w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                        scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """int8 fused MLP: x (B, K) -> x + down(act(gate(n)) * up(n)).
+    w_gate / w_up (K, I) and w_down (I, K) int8; w_scales = (sg (1, I),
+    su (1, I), sd (1, K)); act_scales (2,) = [s_in, s_mid].  w_t, if
+    given, holds the transposed copies (gate (I, K), up (I, K), down
+    (K, I)); scratch, if given, the (B, K) and (B, I) int8 tensors that
+    receive the input and mid codes."""
+    out_dtype = out_dtype or x.dtype
+    if act not in _ACTS:
+        raise ValueError(f"act {act!r}")
+    if not _on_card(x, "fused_mlp_decode_i8"):
+        return fused_mlp_decode_i8_plain(x, w_gate, w_up, w_down, w_scales, act_scales,
+                                         norm_scale, eps, act, block_j, out_dtype, residual,
+                                         norm_bias, norm_type)
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_mlp_decode_i8: x must be 2-D bf16/f32, got "
+                         f"{tuple(x.shape)} {x.dtype} -> {out_dtype}")
+    m, k = x.shape
+    inner = w_gate.shape[1]
+    if w_gate.shape != (k, inner) or w_up.shape != (k, inner) or w_down.shape != (inner, k):
+        raise ValueError(f"fused_mlp_decode_i8: weights {tuple(w_gate.shape)}, "
+                         f"{tuple(w_up.shape)}, {tuple(w_down.shape)} for K={k}")
+    if k % 16 or inner % LANE:
+        raise ValueError(f"fused_mlp_decode_i8: K={k} must be a multiple of 16 and "
+                         f"I={inner} of {LANE}")
+    wts = w_t or (transposed_weight(w_gate), transposed_weight(w_up), transposed_weight(w_down))
+    for t, shape in zip(wts, ((inner, k), (inner, k), (k, inner))):
+        if (t.dtype != torch.int8 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != x.device):
+            raise ValueError("fused_mlp_decode_i8: transposed weights must be contiguous, "
+                             f"16-byte aligned int8 {shape} on x's device")
+    dev = x.device
+    norm = norm_type if norm_scale is not None else None
+    if norm not in _NORMS:
+        raise ValueError(f"norm_type {norm_type!r}")
+    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    nb = _f32_vec(norm_bias, k, "norm_bias", dev) if norm == "layernorm" else None
+    if norm == "layernorm" and nb is None:
+        nb = torch.zeros(k, dtype=torch.float32, device=dev)
+    sg = _f32_vec(w_scales[0], inner, "gate scales", dev)
+    su = _f32_vec(w_scales[1], inner, "up scales", dev)
+    sd = _f32_vec(w_scales[2], k, "down scales", dev)
+    scl = _f32_vec(act_scales, 2, "act_scales", dev)
+    bj = pick_block(inner, block_j)
+    n_j = inner // bj
+    x = x.contiguous()
+    out = torch.empty((m, k), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    xi = _scratch(scratch and scratch[0], (m, k), dev)
+    ai = _scratch(scratch and scratch[1], (m, inner), dev)
+    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    fn = cuda_build.kernel("decode_mlp_i8")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], wts[0].data_ptr(), wts[1].data_ptr(),
+                 wts[2].data_ptr(), sg.data_ptr(), su.data_ptr(), sd.data_ptr(), scl.data_ptr(),
+                 _ptr(ns), _ptr(nb), _NORMS[norm], ctypes.c_float(eps), _ACTS[act],
+                 int(bool(residual)), out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(),
+                 ai.data_ptr(), part.data_ptr(), m, k, inner, bj, _stream(x))
+    cuda_build.check(err, "fused_mlp_decode_i8")
+    qmm.LAUNCHES["fused_mlp_decode_i8"] += 1
+    return out
+

@@ -5,9 +5,9 @@
     s = act_absmax**alpha / weight_scales**(1-alpha)   (clamped 1e-5)
     ln.weight /= s ; ln.bias /= s ; fc.weight *= s (per in-channel)
 
-Only the LayerNorm-prev groups of the SD UNet are ported; the linear,
-AdaLN, ScaledActivation and Gemma-norm prevs of the LLM and MMDiT
-families are a ROADMAP item.
+Only norm-prev groups are ported (the SD UNet's LayerNorms, the LLaMA
+block's RMSNorms); the linear, AdaLN, ScaledActivation and Gemma-norm
+prevs of the LLM and MMDiT families are a ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def apply_smooth_scales(params: dict, group: ScalingGroup, s: torch.Tensor) -> d
     prev = _get_at(params, group.prev_path)
     if "kernel" in prev or "scale" not in prev:
         raise NotImplementedError(
-            f"smoothing prev {'/'.join(group.prev_path)!r}: only LayerNorm prevs "
+            f"smoothing prev {'/'.join(group.prev_path)!r}: only norm prevs "
             "are ported (ROADMAP.md Queue 1 item 11)")
     out = params
     for leaf in ("scale", "bias"):

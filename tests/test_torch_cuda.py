@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from qdm_tpu_torch.api.serve import _quant_w
+from qdm_tpu_torch.ops import decode_kernels as dk
 from qdm_tpu_torch.ops import quant_matmul as qmm
 
 # (M, K, N, geglu): K < K', M off the tile sizes, and SD1.5 widths
@@ -147,3 +149,186 @@ def test_w4a8_kernel_matches_plain_on_card(m, k, k_pack, n, dtype, zero_point):
     assert torch.equal(xs, scales.reshape(-1))
     assert got.shape == want.shape == (m, n) and got.dtype == dtype
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# decode kernels K5-K8 (ops/decode_kernels.py).  K6 and K8 repeat their
+# plain versions' arithmetic: int8 codes identical, outputs equal.  K5 and
+# K7 sum in other orders: f32 outputs within 1e-5 of the output's
+# magnitude, bf16 outputs within 1 bf16 ulp or 1e-5 of the magnitude.
+# ---------------------------------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rope_tables(n, hd, n_rot, seed):
+    ang = np.random.default_rng(seed).random(n).astype(np.float32) * 6
+    col = np.arange(n)
+    cos = np.where(col < n_rot, np.cos(ang), 1.0).astype(np.float32)
+    sin = np.where(col < n_rot, np.where(col % hd < hd // 2, -1.0, 1.0) * np.sin(ang),
+                   0.0).astype(np.float32)
+    return torch.from_numpy(cos), torch.from_numpy(sin)
+
+
+def _dense_operands(m, k, n, seed, dev, x_dtype, hd):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32))
+    x = f(m, k, s=0.5)
+    x[0, :3] = torch.tensor([3.0, -3.0, 0.0])
+    ops = dict(w=f(k, n, s=0.05), ns=f(k).abs() + 0.5, nb=f(k, s=0.1), bias=f(n, s=0.1),
+               res=f(m, n))
+    cos, sin = _rope_tables(n, hd or 2, (n * 2) // 3 // (hd or 2) * (hd or 2), seed)
+    ops.update(cos=cos, sin=sin)
+    out = {k_: v.to(dev) for k_, v in ops.items()}
+    out["x"] = x.to(dev, x_dtype)
+    return out
+
+
+def _close_on_card(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 * float(want.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        assert bool(((_ulps(got, want) <= 1) | (diff <= tol)).all()), float(diff.max())
+    else:
+        assert float(diff.max()) <= tol, float(diff.max())
+
+
+# (M, K, N, norm, bias, rope head_dim, residual, out f32, x bf16)
+DEC_DENSE_CASES = [
+    (32, 2048, 2560, "rmsnorm", False, 64, False, False, True),   # TinyLlama qkv
+    (32, 2048, 2048, None, False, 0, True, False, True),          # TinyLlama o_proj
+    (5, 64, 96, "rmsnorm", False, 16, False, True, False),        # tiny qkv, f32
+    (40, 256, 384, "layernorm", True, 0, True, True, False),
+    (7, 128, 256, "rmsnorm", True, 128, True, False, True),       # 128-wide heads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,norm,bias,hd,res,f32_out,x_bf16", DEC_DENSE_CASES)
+def test_decode_dense_i8_kernel_matches_plain_on_card(m, k, n, norm, bias, hd, res, f32_out,
+                                                      x_bf16):
+    dev = _card()
+    o = _dense_operands(m, k, n, m + k + n, dev, torch.bfloat16 if x_bf16 else torch.float32, hd)
+    codes, scales = _quant_w(o["w"])
+    a = torch.tensor([0.015], device=dev)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=o["cos"] if hd else None, rope_sin=o["sin"] if hd else None, head_dim=hd,
+              bias=o["bias"] if bias else None, norm_bias=o["nb"] if norm == "layernorm" else None,
+              norm_type=norm or "rmsnorm", out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    before = qmm.LAUNCHES["fused_dense_decode_i8"]
+    got = dk.fused_dense_decode_i8(o["x"], codes, scales, a, scratch=xi, **kw)
+    want = dk.fused_dense_decode_i8_plain(o["x"], codes, scales, a, **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_dense_decode_i8"] == before + 1
+    want_codes = dk._quant_static(dk._prologue(o["x"], kw["norm_scale"], kw["norm_bias"], 1e-6,
+                                               kw["norm_type"]), a)
+    assert torch.equal(xi, want_codes)
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        float((got.float() - want.float()).abs().max())
+
+
+# (M, K, N, norm, bias, rope head_dim, residual, out f32, x bf16, w bf16)
+DEC_BF16_CASES = [
+    (32, 2048, 4000, "rmsnorm", False, 0, False, True, True, True),   # lm_head-like
+    (5, 64, 96, "layernorm", True, 16, True, True, False, False),     # tiny, f32
+    (9, 128, 200, "rmsnorm", False, 0, False, False, True, False),    # bf16 x, f32 head
+    (33, 256, 128, None, True, 64, True, False, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,norm,bias,hd,res,f32_out,x_bf16,w_bf16", DEC_BF16_CASES)
+def test_decode_dense_kernel_matches_plain_on_card(m, k, n, norm, bias, hd, res, f32_out, x_bf16,
+                                                   w_bf16):
+    dev = _card()
+    o = _dense_operands(m, k, n, m * 3 + k + n, dev,
+                        torch.bfloat16 if x_bf16 else torch.float32, hd)
+    w = o["w"].to(torch.bfloat16 if w_bf16 else torch.float32)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=o["cos"] if hd else None, rope_sin=o["sin"] if hd else None, head_dim=hd,
+              bias=o["bias"] if bias else None, norm_bias=o["nb"] if norm == "layernorm" else None,
+              norm_type=norm or "rmsnorm", out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    before = qmm.LAUNCHES["fused_dense_decode"]
+    got = dk.fused_dense_decode(o["x"], w, **kw)
+    want = dk.fused_dense_decode_plain(o["x"], w, **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_dense_decode"] == before + 1
+    _close_on_card(got, want)
+
+
+# (B, hkv, g, d, T, pos, starts, softcap, sm_scale, bf16)
+DEC_ATTN_CASES = [
+    (32, 4, 8, 64, 640, 575, None, 0.0, None, True),    # TinyLlama, last decode step
+    (3, 2, 4, 64, 256, 100, None, 0.0, None, False),
+    (4, 1, 16, 32, 128, 60, (0, 10, 61, 3), 0.0, None, False),   # row 2 fully masked
+    (2, 2, 3, 128, 384, 383, None, 30.0, 0.07, True),
+    (5, 2, 1, 64, 128, 0, None, 0.0, None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hkv,g,d,t,pos,starts,softcap,sm_scale,bf16", DEC_ATTN_CASES)
+def test_decode_attention_kernel_matches_plain_on_card(b, hkv, g, d, t, pos, starts, softcap,
+                                                       sm_scale, bf16):
+    dev = _card()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(b + t + pos)
+    wide = torch.from_numpy(rng.standard_normal((b, hkv * g * d + 2 * hkv * d)).astype(np.float32))
+    q = wide.to(dev, dtype)[:, :hkv * g * d].view(b, hkv, g, d)     # the engine's strided q
+    kv = torch.from_numpy(rng.standard_normal((b, 2 * hkv, d, t)).astype(np.float32)).to(dev, dtype)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    before = qmm.LAUNCHES["decode_attention_kv"]
+    got = dk.decode_attention_kv(q, kv, pos, starts=st, sm_scale=sm_scale, softcap=softcap)
+    want = dk.decode_attention_kv_plain(q, kv, pos, starts=st, sm_scale=sm_scale, softcap=softcap)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["decode_attention_kv"] == before + 1
+    _close_on_card(got, want)
+
+
+# (M, K, I, block_j, norm, act, residual, out f32, x bf16)
+DEC_MLP_CASES = [
+    (32, 2048, 5632, 512, "rmsnorm", "silu", True, False, True),   # TinyLlama
+    (5, 64, 128, 512, "rmsnorm", "silu", True, True, False),       # tiny, f32
+    (40, 256, 384, 128, "layernorm", "gelu", True, True, False),
+    (9, 128, 256, 256, None, "silu", False, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,i,bj,norm,act,residual,f32_out,x_bf16", DEC_MLP_CASES)
+def test_decode_mlp_i8_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residual, f32_out,
+                                                    x_bf16):
+    dev = _card()
+    rng = np.random.default_rng(m + k + i)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+    x = f(m, k, s=0.5).to(torch.bfloat16 if x_bf16 else torch.float32)
+    (cg, sg), (cu, su), (cd, sd) = [_quant_w(f(*s, s=0.05)) for s in ((k, i), (k, i), (i, k))]
+    scl = torch.tensor([0.02, 0.004], device=dev)
+    ns, nb = f(k).abs() + 0.5, f(k, s=0.1)
+    kw = dict(act=act, block_j=bj, residual=residual, norm_type=norm or "rmsnorm",
+              norm_bias=nb if norm == "layernorm" else None,
+              out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    ai = torch.empty((m, i), dtype=torch.int8, device=dev)
+    before = qmm.LAUNCHES["fused_mlp_decode_i8"]
+    got = dk.fused_mlp_decode_i8(x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None,
+                                 scratch=(xi, ai), **kw)
+    want = dk.fused_mlp_decode_i8_plain(x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_mlp_decode_i8"] == before + 1
+    want_xi = dk._quant_static(dk._prologue(x, ns if norm else None, kw["norm_bias"], 1e-6,
+                                            kw["norm_type"]), scl[0:1])
+    assert torch.equal(xi, want_xi)
+    g = qmm.int8_matmul_exact(want_xi, cg).float() * (scl[0:1] * sg)
+    u = qmm.int8_matmul_exact(want_xi, cu).float() * (scl[0:1] * su)
+    assert torch.equal(ai, dk._quant_static(dk._act(act, g) * u, scl[1:2]))
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        float((got.float() - want.float()).abs().max())
