@@ -3,42 +3,55 @@
     python3 chip_smoke.py             # every phase, one CUDA card
     python3 chip_smoke.py --profile   # every phase, then a profile
 
-Phase 1 builds the eight CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
+Phase 1 builds the eleven CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 K1-K4 at the SD1.5 shapes (K1/K2 and K4 with int8 codes identical to the
 plain version's and outputs within 1 bf16 ulp; K3 within 1 bf16 ulp or
-1e-5 of the output's magnitude, its f32 sums run in another order), and
-the decode kernels K5-K8 at the TinyLlama-1.1B serving shapes (batch 32,
-prompt 512, 64 new tokens) plus one shape per remaining option: K6 and K8
+1e-5 of the output's magnitude, its f32 sums run in another order), the
+decode kernels K5-K8 at the TinyLlama-1.1B serving shapes (batch 32,
+prompt 512, 64 new tokens) plus one shape per remaining option (K6 and K8
 with int8 codes identical and outputs equal, K5 and K7 within 1 bf16 ulp
-wherever the difference exceeds 1e-5 of the output's magnitude.  It times
-the kernel, the plain version and a library yardstick (timed here only,
-the port never calls them): ``torch._int_mm`` for W8A8 and for K6 / K8
-(with elementwise quant and dequant), ``torch.matmul`` with the weight
-dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
-for K5, SDPA with ``enable_gqa`` on a pre-laid-out cache for K7.  Decode
-kernels are timed over enough weight / cache copies to exceed the 50 MB
-L2 cache, as a decode step finds them cold.
+wherever the difference exceeds 1e-5 of the output's magnitude), and the
+long-prompt kernels at the Llama-2-7B serving shapes (batch 8, prompt
+2048, 64 new tokens) and their options: K9 (flash prefill) within 1 bf16
+ulp + 2^-8 max |v|, K10 (flash decode) within 1 bf16 ulp or 1e-5 of the
+magnitude, K11 (bf16 MLP) with its hidden layer and output held apart,
+and K5, K6, K8 at the 7B shapes.  It times the kernel, the plain version
+and a library yardstick (timed here only, the port never calls them):
+``torch._int_mm`` for W8A8 and for K6 / K8 (with elementwise quant and
+dequant), ``torch.matmul`` with the weight dequantized to bf16 beforehand
+for W4, ``F.rms_norm`` + ``torch.matmul`` for K5 (three matmuls and silu
+for K11), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7 and K10
+and causal SDPA on pre-roped q for K9.  Decode kernels are timed over
+enough weight / cache copies to exceed the 50 MB L2 cache, as a decode
+step finds them cold.
 Phase 3 drives the port's paths with random weights: at full SD1.5 width
 ``from_config -> quantize -> generate`` of two 512 px images in 20 DDIM
 steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8, checking the images
 and that each kernel was launched as often as the quantized plan says;
-then the LLM path at full TinyLlama-1.1B width: ``CausalLM.from_config ->
+the LLM path at full TinyLlama-1.1B width: ``CausalLM.from_config ->
 serve(calib_ids (8, 512), mode="w8a8_static", smooth=True) ->
 generate((32, 512), max_new_tokens=64)``, checking the tokens and that K6,
 K7, K8 and K5 were launched exactly 22 layers x 63 decode steps x (2, 1,
-1) and 63 times.  Each path's launch counts are set to 0 just before its
-``generate`` and read just after.  Then the tiny pipelines and the tiny
-f32 LLM engine run on the card and on the CPU from one seed: SD float,
-W8A8 and W4A16 compared end to end, RTN W4A8 and the LLM engine layer by
-layer (each kernel call on the card fed the CPU call's inputs), with
-planted faults that those layer witnesses must flag.
+1) and 63 times.  Then the tiny pipelines and the tiny f32 LLM engine run
+on the card and on the CPU from one seed: SD float, W8A8 and W4A16
+compared end to end, RTN W4A8 and the LLM engine layer by layer (each
+kernel call on the card fed the CPU call's inputs), the LLM engine once
+more on the long route (flash prefill and flash decode), with planted
+faults that those layer witnesses must flag.  Last, with the SD and
+TinyLlama objects freed, the long-prompt path at full Llama-2-7B width
+(weights drawn on the card): ``serve(mode="w8a8_static", smooth=True)``
+and ``serve(mode="bf16")`` on the same weights, each ``generate`` of
+8 x 2048-token prompts + 64 tokens, with exact launch counts (K9 32 and
+K10 2016 in both, K6 4032, K8 2016 and K5 63 in w8a8, K5 4095 and K11
+2016 in bf16, K7 0).  Each path's launch counts are set to 0 just before
+its ``generate`` and read just after.
 With ``--profile`` it also times warm ``generate`` calls in turn (median
-and range of five each): the W4A16, W8A8 and bf16 SD pipelines, and the
-w8a8 engine against the bf16 module ``generate``; and prints the device
-time by kernel of two W4A16 denoising steps and of three engine decode
-steps.
+and range of five each): the W4A16, W8A8 and bf16 SD pipelines, the
+TinyLlama engine against the bf16 module, and the 7B w8a8 engine against
+the 7B bf16 engine; and prints the device time by kernel of two W4A16
+denoising steps and of three decode steps of each engine.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -131,7 +145,23 @@ KERNEL_INFO = {
                             "qdm_tpu/ops/decode_kernels.py:700"),
     "fused_mlp_decode_i8": ("qdm_tpu_torch/csrc/decode_mlp_i8.cu",
                             "qdm_tpu/ops/decode_kernels.py:1484"),
+    "flash_prefill_gqa": ("qdm_tpu_torch/csrc/flash_prefill.cu",
+                          "qdm_tpu/ops/flash_prefill.py:181"),
+    "decode_attention_kv_flash": ("qdm_tpu_torch/csrc/decode_attention_kv_flash.cu",
+                                  "qdm_tpu/ops/decode_kernels.py:1175"),
+    "fused_mlp_decode": ("qdm_tpu_torch/csrc/decode_mlp.cu",
+                         "qdm_tpu/ops/decode_kernels.py:1430"),
 }
+# the long-prompt path: Llama-2-7B geometry (LlamaConfig() defaults, whole depth)
+L7_BATCH, L7_PROMPT, L7_NEW = 8, 2048, 64
+L7_CALIB = (8, 512)
+# launches per decode step and layer (and per generate for the prefill / head)
+L7_WANT = {
+    "w8a8_static": {"fused_dense_decode_i8": 2, "decode_attention_kv_flash": 1,
+                    "fused_mlp_decode_i8": 1},
+    "bf16": {"fused_dense_decode": 2, "decode_attention_kv_flash": 1, "fused_mlp_decode": 1},
+}
+LONG_KERNELS = ("flash_prefill_gqa", "decode_attention_kv_flash", "fused_mlp_decode")
 
 
 def fail(msg: str) -> None:
@@ -441,6 +471,16 @@ def _static_scale(t: torch.Tensor) -> torch.Tensor:
     return (t.float().abs().amax() / 127.0).reshape(1)
 
 
+def _int_mm_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch._int_mm`` (the int8 yardstick), which takes more than 16 rows:
+    a decode batch of 16 or fewer is padded to 32 rows with zeros (a
+    weight-bound product costs the same) and cut back."""
+    m = a.shape[0]
+    if m > 16:
+        return torch._int_mm(a, b)
+    return torch._int_mm(torch.nn.functional.pad(a, (0, 0, 0, 32 - m)), b)[:m]
+
+
 def _check_dense_i8(label, o, hd, norm, rope, res, out_dtype, dev, timed):
     from qdm_tpu_torch.api.serve import _quant_w
     from qdm_tpu_torch.ops import decode_kernels as dk
@@ -487,7 +527,7 @@ def _check_dense_i8(label, o, hd, norm, rope, res, out_dtype, dev, timed):
                 xq = torch.clamp(torch.round(dk._prologue(o["x"], kw["norm_scale"],
                                                           kw["norm_bias"], 1e-6,
                                                           kw["norm_type"]) * (1.0 / a)), -127, 127)
-                y = torch._int_mm(xq.to(torch.int8), wc).float() * (a * scales)
+                y = _int_mm_rows(xq.to(torch.int8), wc).float() * (a * scales)
                 if rope:
                     y = dk.rope_epilogue(y, cos, sin, hd)
                 if res:
@@ -628,10 +668,10 @@ def _check_mlp(label, rng, m, k, i, bj, norm, act, residual, out_dtype, x_dtype,
 
             def fn():
                 q1 = dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), scl[0:1])
-                gg = torch._int_mm(q1, wcg).float() * (scl[0:1] * sg)
-                uu = torch._int_mm(q1, wcu).float() * (scl[0:1] * su)
+                gg = _int_mm_rows(q1, wcg).float() * (scl[0:1] * sg)
+                uu = _int_mm_rows(q1, wcu).float() * (scl[0:1] * su)
                 q2 = dk._quant_static(torch.nn.functional.silu(gg) * uu, scl[1:2])
-                return (torch._int_mm(q2, wcd).float() * (scl[1:2] * sd) + x.float()).to(out_dtype)
+                return (_int_mm_rows(q2, wcd).float() * (scl[1:2] * sd) + x.float()).to(out_dtype)
             return fn
         lib = [library(c) for c, _ in sets]
         row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
@@ -691,18 +731,243 @@ def phase_decode_kernels(dev) -> dict:
         o = _dense_case(rng, dev, m, k, n, xd)
         res["fused_dense_decode"].append(
             _check_dense(label, o, 16 if rope else hd, norm, rope, r, od, wd, dev, timed))
+    _print_rows(res)
+    return res
+
+
+def _print_rows(res: dict) -> None:
     for name, rows in res.items():
         for row in rows:
             timing = (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
                       f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']})" if "ms" in row else "")
-            tol = "codes identical, 0 ulp" if row["ulps"] == 0 else \
-                "within 1 bf16 ulp or 1e-5 of the magnitude"
-            shape = {k_: v for k_, v in row.items() if k_ in ("M", "K", "N", "I", "B", "hkv", "g",
-                                                             "d", "T", "pos")}
+            tol = row.get("tol") or ("codes identical, 0 ulp" if row["ulps"] == 0 else
+                                     "within 1 bf16 ulp or 1e-5 of the magnitude")
+            shape = {k_: v for k_, v in row.items()
+                     if k_ in ("M", "K", "N", "I", "bj", "B", "H", "hkv", "g", "S", "d", "T",
+                               "pos")}
             print(f"phase 2: {name} {row['layer']} {shape}: {tol}, max_abs_err="
                   f"{row['max_abs_err']:.3g}{timing}", flush=True)
-    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the long-prompt kernels K9-K11, and K5, K6, K8 at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+K9_TOL = ("each element within 1 bf16 ulp + 2^-7 (1 + 2^-6) A, A the plain version on |v|; "
+          "mean |err| <= 2^-12 mean A")
+K9_FAULT = 1.01               # sm_scale factor planted into K9 launches the checks must flag
+
+
+def k9_check(got, want, want_abs) -> Tuple[bool, float, float, float]:
+    """K9 against its plain version within ``flash_prefill.kernel_error``'s
+    limits: (ok, max abs err, largest share of the element bound, mean
+    |err| / mean A)."""
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    share, mean = fp.kernel_error(got, want, want_abs)
+    ok = share <= 1.0 and mean <= fp.MEAN_LIMIT and bool(torch.isfinite(got).all())
+    return ok, float((got.float() - want.float()).abs().max()), share, mean
+
+
+def _k9_reading(share: float, mean: float) -> str:
+    return f"element bound share {share:.3f}, mean |err| / mean A {mean:.3g}"
+
+
+def _check_flash_prefill(label, b, h, hkv, s, d, rope, starts, dev, timed):
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    gen = torch.Generator(device=dev).manual_seed(b * h + s + d)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    # the module's projections (B, S, H, D), read in place as (B, H, S, D)
+    q = f(b, s, h, d).transpose(1, 2)
+    k, v = f(b, s, hkv, d).transpose(1, 2), f(b, s, hkv, d).transpose(1, 2)
+    cos, sin = fp.rope_tables(s, d, 10000.0, device=dev) if rope else (None, None)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    sm = d ** -0.5
+    got = fp.flash_prefill_gqa(q, k, v, sm, cos, sin, starts=st)
+    torch.cuda.synchronize()
+    want = fp.flash_prefill_gqa_plain(q, k, v, sm, cos, sin, starts=st)
+    want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), sm, cos, sin, starts=st)
+    ok, err, share, mean = k9_check(got, want, want_abs)
+    if not ok:
+        fail(f"flash_prefill_gqa {label}: max abs err {err}, {_k9_reading(share, mean)}, beyond "
+             f"{K9_TOL}")
+    bad = fp.flash_prefill_gqa(q, k, v, sm * K9_FAULT, cos, sin, starts=st)
+    bad_ok, _, bad_share, bad_mean = k9_check(bad, want, want_abs)
+    if bad_ok:
+        fail(f"flash_prefill_gqa {label}: the check misses sm_scale x{K9_FAULT} (planted): "
+             f"{_k9_reading(bad_share, bad_mean)}")
+    row = {"layer": label, "B": b, "H": h, "hkv": hkv, "S": s, "d": d, "max_abs_err": err,
+           "ulps": 1, "tol": f"{K9_TOL}; {_k9_reading(share, mean)}; sm_scale x{K9_FAULT} "
+           f"(planted) {_k9_reading(bad_share, bad_mean)}"}
+    del want, want_abs, bad
+    if timed:
+        kern = lambda: fp.flash_prefill_gqa(q, k, v, sm, cos, sin, starts=st)
+        plain = lambda: fp.flash_prefill_gqa_plain(q, k, v, sm, cos, sin, starts=st)
+        qf = q.float()
+        if rope:
+            qf = qf * cos + torch.roll(qf, d // 2, dims=-1) * sin
+        qr, kc, vc = qf.to(torch.bfloat16).contiguous(), k.contiguous(), v.contiguous()
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qr, kc, vc, is_causal=True, scale=sm, enable_gqa=True)
+        flops = 4 * b * h * d * (s * (s + 1) // 2)
+        nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d) + (2 * 4 * s * d if rope else 0)
+        row.update(ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                   library_ms=cuda_ms(lib, iters=10), bytes=nbytes, ops=flops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return row
+
+
+def _check_flash_decode(label, b, hkv, g, d, t, pos, starts, softcap, sm_scale, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(b + t + pos)
+    wide = torch.randn((b, hkv * g * d + 2 * hkv * d), generator=gen, device=dev)
+    q = wide.to(torch.bfloat16)[:, :hkv * g * d].view(b, hkv, g, d)   # the engine's view
+    kv = torch.randn((b, 2 * hkv, d, t), generator=gen, device=dev).to(torch.bfloat16)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    kw = dict(starts=st, sm_scale=sm_scale, softcap=softcap)
+    got = dk.decode_attention_kv_flash(q, kv, pos, **kw)
+    torch.cuda.synchronize()
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, **kw)
+    ok, err = within_bf16_ulp(got, want)
+    if not ok:
+        fail(f"decode_attention_kv_flash {label}: max abs err {err} from the plain version, "
+             "beyond 1 bf16 ulp and 1e-5 of the magnitude")
+    row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
+           "max_abs_err": err, "ulps": 1}
+    if timed:
+        cols = pos + 1
+        nbytes = 2 * b * hkv * g * d * 2 + 2 * b * hkv * d * cols * 2
+        ops = 4 * b * hkv * g * d * cols
+        kvs = [kv] + [kv.clone() for _ in range(_copies(kv.numel() * 2) - 1)]
+        kern = [lambda c=c: dk.decode_attention_kv_flash(q, c, pos) for c in kvs]
+        plain = [lambda c=c: dk.decode_attention_kv_flash_plain(q, c, pos) for c in kvs]
+        qh = q.reshape(b, hkv * g, 1, d)
+        lay = [(c[:, :hkv, :, :cols].transpose(2, 3).contiguous(),
+                c[:, hkv:, :, :cols].transpose(2, 3).contiguous()) for c in kvs]
+        lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+            qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, BF16_FLOPS_PER_S)
+        del lay
+    return row
+
+
+def _check_bf16_mlp(label, m, k, i, bj, act, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + i)
+    f = lambda *shape, sc=1.0: (torch.randn(shape, generator=gen, device=dev) * sc)
+    x = f(m, k, sc=0.5).to(torch.bfloat16)
+    wg, wu, wd = (f(*sh, sc=sh[0] ** -0.5).to(torch.bfloat16) for sh in ((k, i), (k, i), (i, k)))
+    ns = f(k).abs() + 0.5
+    wts = tuple(dk.transposed_weight(w) for w in (wg, wu, wd))
+    kw = dict(act=act, block_j=bj)
+    xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+    mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
+    got = dk.fused_mlp_decode(x, wg, wu, wd, ns, w_t=wts, scratch=(xn, mid), **kw)
+    torch.cuda.synchronize()
+    bjp = dk.pick_block(i, bj)
+    # the normed rows are exact; the gate / up sums run in another order, so
+    # the bf16 hidden layer may round the other way (and a sum near 0 differ
+    # by more ulps); the output is held against the plain down product of
+    # the kernel's own hidden layer
+    if not torch.equal(xn, dk._prologue(x, ns, None, 1e-6, "rmsnorm").to(torch.bfloat16)):
+        fail(f"fused_mlp_decode {label}: normed rows differ from the plain version")
+    mid_ok, mid_err = within_bf16_ulp(mid, dk.mlp_mid_plain(x, wg, wu, ns, 1e-6, act, bjp))
+    want = dk.mlp_down_plain(mid, x, wd, bjp)
+    ok, err = within_bf16_ulp(got, want)
+    whole = float((got.float() - dk.fused_mlp_decode_plain(x, wg, wu, wd, ns, **kw).float())
+                  .abs().max())
+    if not (ok and mid_ok) or got.dtype != want.dtype:
+        fail(f"fused_mlp_decode {label}: hidden layer max abs err {mid_err}, output max abs "
+             f"err {err} from the plain down product of it; tolerance 1 bf16 ulp or 1e-5 of "
+             "the magnitude for each")
+    row = {"layer": label, "M": m, "K": k, "I": i, "bj": bjp, "max_abs_err": whole,
+           "ulps": 1, "tol": f"normed rows equal; hidden layer (max abs err {mid_err:.3g}) "
+           f"and output (max abs err {err:.3g}, from the plain down product of the kernel's "
+           "hidden layer) within 1 bf16 ulp or 1e-5 of the magnitude; max_abs_err against "
+           "the whole plain version"}
+    if timed:
+        nbytes = 3 * k * i * 2 + 2 * m * k * 2 + 4 * k
+        ops = 6 * m * k * i
+        sets = [((wg, wu, wd), wts)] + [
+            (tuple(w.clone() for w in (wg, wu, wd)), tuple(t.clone() for t in wts))
+            for _ in range(_copies(3 * k * i * 2) - 1)]
+        kern = [lambda c=c, t=t: dk.fused_mlp_decode(x, *c, ns, w_t=t, **kw) for c, t in sets]
+        plain = [lambda c=c: dk.fused_mlp_decode_plain(x, *c, ns, **kw) for c, _ in sets]
+        nsb = ns.to(torch.bfloat16)
+
+        def library(c):
+            def fn():
+                xn = torch.nn.functional.rms_norm(x, (k,), nsb, 1e-6)
+                mid = torch.nn.functional.silu(torch.matmul(xn, c[0])) * torch.matmul(xn, c[1])
+                return torch.matmul(mid, c[2]) + x
+            return fn
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
+                   library_ms=cold_ms([library(c) for c, _ in sets]), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, BF16_FLOPS_PER_S)
+    return row
+
+
+def phase_long_kernels(dev, res: dict) -> dict:
+    """K9-K11 at the Llama-2-7B serving shapes (timed; the first row of each
+    kernel is its main shape) and the other shapes and options of the
+    long-prompt path; K5, K6 and K8 at the 7B shapes, appended to their
+    TinyLlama rows in ``res``."""
+    from qdm_tpu_torch.models.llama import LlamaConfig
+
+    C = LlamaConfig()
+    B, K, I, V, hd = L7_BATCH, C.hidden_size, C.intermediate_size, C.vocab_size, C.head_dim
+    h, hkv = C.num_attention_heads, C.num_key_value_heads
+    T = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    long = {name: [] for name in LONG_KERNELS}
+    for args in (("7B prefill (rope)", B, h, hkv, L7_PROMPT, hd, True, None, True),
+                 ("GQA bench (rope)", 32, 32, 4, 1024, 64, True, None, False),
+                 ("starts", 2, 8, 2, 1024, 128, True, (0, 300), False),
+                 ("rope off", 2, 4, 4, 1024, 64, False, None, False)):
+        long["flash_prefill_gqa"].append(_check_flash_prefill(*args[:-1], dev, args[-1]))
+        torch.cuda.empty_cache()
+    for args in (("7B last step", B, hkv, 1, hd, T, L7_PROMPT + L7_NEW - 2, None, 0.0, None,
+                  True),
+                 ("7B first step", B, hkv, 1, hd, T, L7_PROMPT, None, 0.0, None, True),
+                 ("GQA long context", 16, 4, 8, 64, 4224, 4200, None, 0.0, None, False),
+                 # T 1152: TPU blocks of 384, so row 1's first block is all masked
+                 ("starts beyond the first block, softcap, sm_scale", 3, 2, 4, 64, 1152, 900,
+                  (0, 500, 950), 30.0, 0.07, False)):
+        long["decode_attention_kv_flash"].append(_check_flash_decode(*args[:-1], dev, args[-1]))
+    for label, act, timed in (("7B mlp (norm, silu, +res)", "silu", True),
+                              ("7B mlp, tanh-GELU", "gelu", False)):
+        long["fused_mlp_decode"].append(_check_bf16_mlp(label, B, K, I, 256, act, dev, timed))
+    torch.cuda.empty_cache()
+    _print_rows(long)
+    rng = np.random.default_rng(3)
+    bf, f32 = torch.bfloat16, torch.float32
+    n_qkv = (h + 2 * hkv) * hd
+    seven = {name: [] for name in DECODE_KERNELS}
+    for label, n, norm, rope, r in (("7B qkv (norm, rope 128)", n_qkv, "rmsnorm", True, False),
+                                    ("7B o_proj (+res)", K, None, False, True)):
+        o = _dense_case(rng, dev, B, K, n, bf)
+        seven["fused_dense_decode_i8"].append(
+            _check_dense_i8(label, o, hd, norm, rope, r, bf, dev, True))
+        seven["fused_dense_decode"].append(
+            _check_dense(label, o, hd, norm, rope, r, bf, bf, dev, True))
+    seven["fused_mlp_decode_i8"].append(
+        _check_mlp("7B mlp (norm, silu, +res)", rng, B, K, I, 512, "rmsnorm", "silu", True, bf,
+                   bf, dev, True))
+    o = _dense_case(rng, dev, B, K, V, bf)
+    seven["fused_dense_decode"].append(
+        _check_dense("7B lm_head (norm, f32 out)", o, hd, "rmsnorm", False, False, f32, bf, dev,
+                     True))
+    del o
+    torch.cuda.empty_cache()
+    _print_rows(seven)
+    for name, rows in seven.items():
+        res[name].extend(rows)
+    return long
 
 
 # ---------------------------------------------------------------------------
@@ -1024,11 +1289,13 @@ def _clone(v, dev=None):
 
 
 @contextlib.contextmanager
-def _recording(calls: list) -> Iterator[None]:
-    """Record every decode-kernel wrapper call (inputs cloned, output)."""
+def _recording(calls: list, targets=None) -> Iterator[None]:
+    """Record every call of the kernel wrappers ``targets`` ((module, name)
+    pairs; the decode kernels K5-K8 by default): inputs cloned, output."""
     from qdm_tpu_torch.ops import decode_kernels as dk
 
-    saved = {name: getattr(dk, name) for name in DECODE_KERNELS}
+    targets = targets or [(dk, name) for name in DECODE_KERNELS]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def wrap(name, fn):
         def rec(*a, **k):
@@ -1037,13 +1304,13 @@ def _recording(calls: list) -> Iterator[None]:
             calls.append((name, args, kw, out.detach().clone()))
             return out
         return rec
-    for name, fn in saved.items():
-        setattr(dk, name, wrap(name, fn))
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(dk, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -1173,6 +1440,297 @@ def phase_llm_profile(dev, llm: dict) -> None:
           f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 3: the long-prompt path at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+
+def _draw_llama_params(cfg, seed: int, dev) -> dict:
+    """Random weights by ``CausalLM.from_config``'s law, drawn on the card:
+    kernels and embeddings ~ N(0, 1/fan_in) from a seeded
+    ``torch.Generator``, leaf by leaf in the tree's sorted order, norm
+    scales 1 (numpy would take minutes for 6.7 B values)."""
+    from qdm_tpu_torch.models.layers import unflatten_tree
+    from qdm_tpu_torch.models.llama import LlamaForCausalLM
+
+    template = LlamaForCausalLM(cfg, dtype=torch.bfloat16)      # shapes only (meta tensors)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = {}
+    for path, prm in sorted((tuple(n.split(".")), prm) for n, prm in template.named_parameters()):
+        shape = tuple(prm.shape)
+        if path[-1] in ("kernel", "embedding"):
+            fan_in = int(np.prod(shape[:-1])) or 1
+            flat[path] = torch.randn(shape, generator=gen, device=dev).div_(float(np.sqrt(fan_in)))
+        elif path[-1] == "scale":
+            flat[path] = torch.ones(shape, device=dev)
+        else:
+            flat[path] = torch.zeros(shape, device=dev)
+    return unflatten_tree(flat)
+
+
+def _reckon_peak(cfg) -> str:
+    """The 7B path's device memory, reckoned from the shapes before the run."""
+    h, hkv, d, k, i = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                       cfg.hidden_size, cfg.intermediate_size)
+    n_layer = (h + 2 * hkv) * d * k + h * d * k + 3 * k * i
+    n_all = cfg.num_hidden_layers * n_layer + 2 * cfg.vocab_size * k
+    t = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    cache = cfg.num_hidden_layers * L7_BATCH * 2 * hkv * d * t * 2
+    side = 2 * cfg.vocab_size * k * 2            # the engines' bf16 embedding and head
+    parts = {"f32 tree": 4 * n_all, "int8 engine": cfg.num_hidden_layers * n_layer + side,
+             "bf16 engine": 2 * cfg.num_hidden_layers * n_layer + side, "caches": cache}
+    total = sum(parts.values())
+    return (", ".join(f"{k_} {v / 1e9:.1f} GB" for k_, v in parts.items())
+            + f"; both engines alive {total / 1e9:.1f} GB plus prefill activations (the "
+            "prompt-long caches are padded layer by layer)")
+
+
+def _l7_want(mode: str, cfg) -> dict:
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    steps = L7_NEW - 1
+    want = {k: 0 for k in qmm.LAUNCHES}
+    want.update({k: v * cfg.num_hidden_layers * steps for k, v in L7_WANT[mode].items()})
+    want["flash_prefill_gqa"] = cfg.num_hidden_layers
+    want["fused_dense_decode"] = want.get("fused_dense_decode", 0) + steps
+    return want
+
+
+def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
+    """Llama-2-7B geometry, random weights from seed 0 drawn on the card:
+    from_config -> serve(w8a8_static, smooth) -> generate((8, 2048), 64),
+    then serve(bf16) on the same smoothed weights -> generate of the same
+    prompts, each with the launch counts set to 0 just before generate and
+    read just after; the two engines' greedy agreement is a reading."""
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import LlamaConfig
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = LlamaConfig()
+    print(f"phase 3: Llama-2-7B path, device memory reckoned: {_reckon_peak(cfg)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = _draw_llama_params(cfg, 0, dev)
+    lm = CausalLM.from_config(cfg, dtype=torch.bfloat16, device=dev, params=tree)
+    del tree            # the smoothing replaces leaves: no second reference to the old ones
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    calib = rng.integers(0, cfg.vocab_size, L7_CALIB).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (L7_BATCH, L7_PROMPT)).astype(np.int32)
+    qmm.reset_launches()
+    t0 = time.perf_counter()
+    engines = {"w8a8_static": lm.serve(calib, mode="w8a8_static", smooth=True)}
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    if any(qmm.LAUNCHES.values()):
+        fail(f"7B: kernels launched by serve: {qmm.LAUNCHES}")
+    out = {"lm": lm, "prompts": prompts, "engines": engines, "launches": {}, "tokens": {}}
+    for mode in ("w8a8_static", "bf16"):
+        if mode == "bf16":
+            if not keep_both:
+                del engines["w8a8_static"]
+                torch.cuda.empty_cache()
+            engines["bf16"] = lm.serve(mode="bf16")
+        eng = engines[mode]
+        qmm.reset_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=L7_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(qmm.LAUNCHES)
+        want = _l7_want(mode, cfg)
+        if launches != want:
+            fail(f"7B {mode} launches {launches} != expected {want} ({cfg.num_hidden_layers} "
+                 f"layers x {L7_NEW - 1} decode steps)")
+        new = toks[:, L7_PROMPT:]
+        if (toks.shape != (L7_BATCH, L7_PROMPT + L7_NEW)
+                or not np.array_equal(toks[:, :L7_PROMPT], prompts)
+                or new.min() < 0 or new.max() >= cfg.vocab_size):
+            fail(f"7B {mode} tokens: shape {toks.shape}, range [{new.min()}, {new.max()}]")
+        t0 = time.perf_counter()
+        eng.prefill(prompts, L7_PROMPT + L7_NEW)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        print(f"phase 3: Llama-2-7B {mode} engine, {L7_BATCH} x {L7_PROMPT} -> +{L7_NEW} tokens: "
+              + (f"from_config {t_init:.1f} s, quantize (smooth + calibrate + pack) "
+                 f"{t_quant:.2f} s, " if mode == "w8a8_static" else "")
+              + f"first generate {t_gen:.2f} s ({L7_BATCH * L7_NEW / t_gen:.1f} tokens/s), "
+              f"prefill (second call) {t_pre:.3f} s; tokens {toks.shape} in [{new.min()}, "
+              f"{new.max()}]; launches { {k: v for k, v in launches.items() if v} } (K7 "
+              f"{launches['decode_attention_kv']})", flush=True)
+        out["launches"][mode] = launches
+        out["tokens"][mode] = new
+    same = out["tokens"]["w8a8_static"] == out["tokens"]["bf16"]
+    first = np.where(same.all(axis=1), L7_NEW, np.argmin(same, axis=1))
+    print(f"phase 3: Llama-2-7B greedy agreement of the w8a8 engine with the bf16 engine on the "
+          f"same smoothed weights {float(same.mean()):.4f}, first divergence at step "
+          f"{float(first.mean()):.2f} on average (median {float(np.median(first)):.1f}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    return out
+
+
+def _k9_replay(calls, dev, dtype, fault: float = 1.0) -> Tuple[bool, float, float]:
+    """Each recorded K9 call, its inputs cast to ``dtype``, on the card
+    (sm_scale times ``fault``) against the CPU's plain version on the same
+    inputs: (all within k9_check, largest element bound share, largest
+    mean |err| / mean A)."""
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    ok, share, mean = True, 0.0, 0.0
+    for _, args, kw, _ in calls:
+        q, k, v = (t.to(dtype) for t in args)
+        kw = dict(kw)
+        want = fp.flash_prefill_gqa_plain(q, k, v, **kw)
+        want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), **kw)
+        kw = _clone(kw, dev)
+        kw["sm_scale"] = kw["sm_scale"] * fault
+        got = fp.flash_prefill_gqa(*_clone((q, k, v), dev), **kw)
+        c_ok, _, c_share, c_mean = k9_check(got.cpu(), want, want_abs)
+        ok, share, mean = ok and c_ok, max(share, c_share), max(mean, c_mean)
+    return ok, share, mean
+
+
+def phase_long_witness(dev) -> None:
+    """The long route on a tiny f32 w8a8 engine (tiny_llama_config at
+    hidden 128, head_dim 32), card against CPU: with
+    QDM_FLASH_PREFILL_MIN lowered to 128 and _FLASH_BYTES to 16 KiB, a
+    128-token prompt takes the flash prefill (K9) and every decode step
+    the flash decode (K10).  Every kernel call of the CPU engine's
+    generate, repeated on the card on the same inputs: K5-K8 and K10
+    within LLM_TOL of the output's magnitude, K9 within k9_check, on its
+    f32 inputs (the per-row path) and on them cast to bf16 (the mma.sync
+    path of the 7B prefill).  Planted faults must be flagged: the cache
+    K10 reads off by LLM_FAULT, and K9's sm_scale times K9_FAULT on both
+    paths.  The two engines' greedy tokens are printed as a reading."""
+    import dataclasses
+    import os
+
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_llama_config
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import flash_prefill as fp
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = dataclasses.replace(tiny_llama_config(), hidden_size=128, intermediate_size=256)
+    rng = np.random.default_rng(2)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    saved_env, saved_bytes = os.environ.get("QDM_FLASH_PREFILL_MIN"), dk._FLASH_BYTES
+    os.environ["QDM_FLASH_PREFILL_MIN"] = "128"
+    dk._FLASH_BYTES = 16 * 2 ** 10
+    try:
+        engines = {d: CausalLM.from_config(cfg, dtype=torch.float32, seed=0, device=d).serve(
+            calib, mode="w8a8_static", smooth=True) for d in ("cpu", dev)}
+        calls: list = []
+        with _recording(calls, [(dk, n) for n in DECODE_KERNELS] + [(fp, "flash_prefill_gqa")]):
+            want = engines["cpu"].generate(prompts, max_new_tokens=8)
+        qmm.reset_launches()
+        got = engines[dev].generate(prompts, max_new_tokens=8)
+        runs = dict(qmm.LAUNCHES)
+        if runs["flash_prefill_gqa"] != cfg.num_hidden_layers or runs["decode_attention_kv"] \
+                or runs["decode_attention_kv_flash"] != 7 * cfg.num_hidden_layers:
+            fail(f"tiny long route: the card's engine launched {runs}")
+        sound = _replay([c for c in calls if c[0] != "flash_prefill_gqa"], dev)
+        k9 = [c for c in calls if c[0] == "flash_prefill_gqa"]
+        k9_read = {(dt, fault): _k9_replay(k9, dev, dt, fault)
+                   for dt in (torch.float32, torch.bfloat16) for fault in (1.0, K9_FAULT)}
+        flash = dk.decode_attention_kv_flash
+
+        def faulty(q, kv, *a, **k):
+            return flash(q, kv * (1.0 + LLM_FAULT) if kv.device.type == "cuda" else kv, *a, **k)
+        dk.decode_attention_kv_flash = faulty
+        try:
+            planted = _replay([c for c in calls if c[0] == "decode_attention_kv"], dev)
+        finally:
+            dk.decode_attention_kv_flash = flash
+    finally:
+        dk._FLASH_BYTES = saved_bytes
+        if saved_env is None:
+            os.environ.pop("QDM_FLASH_PREFILL_MIN", None)
+        else:
+            os.environ["QDM_FLASH_PREFILL_MIN"] = saved_env
+    n = {k: sum(c[0] == k for c in calls) for k in (*DECODE_KERNELS, "flash_prefill_gqa")}
+    k9_text = "; ".join(
+        f"flash_prefill_gqa on {'f32 (per-row path)' if dt == torch.float32 else 'bf16 (mma path)'}"
+        f" inputs{'' if fault == 1.0 else f', sm_scale x{fault} (planted)'}: "
+        f"{_k9_reading(*k9_read[dt, fault][1:])}" for dt, fault in k9_read)
+    print(f"phase 3: tiny f32 LLM engine on the long route (flash prefill of 128 tokens, flash "
+          f"decode), card vs CPU: greedy tokens agree "
+          f"{float((got[:, 128:] == want[:, 128:]).mean()):.4f}; each kernel call on the CPU's "
+          "inputs, largest error relative to the output's magnitude: "
+          + ", ".join(f"{k} {sound[k]:.2e} ({n[k]} calls)" for k in DECODE_KERNELS)
+          + f" (limit {LLM_TOL:g}); {n['flash_prefill_gqa']} flash prefill calls ({K9_TOL}): "
+          f"{k9_text}; cache read by K10 off by {LLM_FAULT:g} (planted): "
+          f"{planted['decode_attention_kv']:.2e}", flush=True)
+    k9_sound = all(k9_read[dt, 1.0][0] for dt in (torch.float32, torch.bfloat16))
+    if max(sound.values()) > LLM_TOL or set(sound) != set(DECODE_KERNELS) or not k9_sound:
+        fail(f"tiny long route card vs CPU: {sound}, K9 {k9_read}")
+    if planted["decode_attention_kv"] <= LLM_TOL:
+        fail("the long-route layer witness misses a planted K10 cache fault")
+    if any(k9_read[dt, K9_FAULT][0] for dt in (torch.float32, torch.bfloat16)):
+        fail(f"the long-route layer witness misses K9's sm_scale x{K9_FAULT} (planted): {k9_read}")
+
+
+def phase_long_profile(dev, long: dict) -> None:
+    """Warm generate of the 7B w8a8 and bf16 engines, five each in turn; the
+    prefill and the decode loop timed apart; device time by kernel of three
+    decode steps of each engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engines, prompts = long["engines"], long["prompts"]
+    steps = L7_NEW - 1
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def parts(eng):
+        t_pre, (tok0, caches) = timed(lambda: eng.prefill(prompts, L7_PROMPT + L7_NEW))
+        t_dec, _ = timed(lambda: eng._make_run(steps)(tok0, caches, L7_PROMPT))
+        return t_pre, t_dec
+
+    times = {(m, k): [] for m in engines for k in ("generate", "prefill", "decode")}
+    for eng in engines.values():
+        parts(eng)
+    for _ in range(PROFILE_REPEATS):
+        for mode, eng in engines.items():
+            t_gen, _ = timed(lambda: eng.generate(prompts, max_new_tokens=L7_NEW))
+            t_pre, t_dec = parts(eng)
+            for k, v in (("generate", t_gen), ("prefill", t_pre), ("decode", t_dec)):
+                times[(mode, k)].append(v)
+    for (mode, k), ts in times.items():
+        n_tok = L7_BATCH * (steps if k == "decode" else L7_NEW)
+        extra = "" if k == "prefill" else \
+            f"; tokens/s at the median {n_tok / float(np.median(ts)):.1f}"
+        print(f"profile: Llama-2-7B {mode} engine {k} ({L7_BATCH} x {L7_PROMPT} -> +{L7_NEW}), "
+              f"s: {_spread(ts)}{extra}", flush=True)
+    ratios = [w / b for w, b in zip(times[("w8a8_static", "generate")],
+                                    times[("bf16", "generate")])]
+    print(f"profile: Llama-2-7B w8a8 engine / bf16 engine generate time, run by run: "
+          f"{_spread(ratios)}", flush=True)
+    for mode, eng in engines.items():
+        tok0, caches = eng.prefill(prompts, L7_PROMPT + L7_NEW)
+        run = eng._make_run(3)
+        run(tok0, caches, L7_PROMPT)
+        wall, _ = timed(lambda: run(tok0, caches, L7_PROMPT))
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA]) as prof:
+            run(tok0, caches, L7_PROMPT)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        print(events.table(sort_by="self_cuda_time_total", row_limit=15), flush=True)
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        print(f"profile: Llama-2-7B {mode} engine, 3 decode steps take {wall * 1e3:.2f} ms of "
+              f"wall time untraced; the traced run keeps the device busy {busy_ms:.2f} ms (idle "
+              f"share {1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
+        del caches
+
+
 def _generate_s(pipe) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1237,10 +1795,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also time warm generate runs (SD W4A16, W8A8 and bf16 in turn; the "
-                         "LLM engine and the bf16 module in turn) and profile two W4A16 "
-                         "denoising steps and three engine decode steps")
+                         "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8 "
+                         "and bf16 engines in turn) and profile two W4A16 denoising steps and "
+                         "three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the LLM path's calibration and prompt tokens")
+                    help="seed of the LLM paths' calibration and prompt tokens")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -1256,21 +1815,35 @@ def main() -> int:
     kres = phase_kernels(dev)
     kres.update(phase_w4_kernels(dev))
     kres.update(phase_decode_kernels(dev))
+    kres.update(phase_long_kernels(dev, kres))
     runs = phase_main_path(dev)
     runs["LLM"] = phase_llm_path(dev, args.seed)
     phase_small_reference(dev)
     phase_w4a8_witness(dev)
     phase_llm_witness(dev)
+    phase_long_witness(dev)
     if args.profile:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])
+    # the SD pipelines and the TinyLlama objects go before the 7B path
+    for label in (*PATHS, "LLM"):
+        runs[label] = {"launches": runs[label]["launches"]}
+    runs.pop("base")
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = phase_long_path(dev, args.seed, keep_both=args.profile)
+    for mode, launches in long["launches"].items():
+        runs[f"LLM-7B {mode}"] = {"launches": launches}
+    if args.profile:
+        phase_long_profile(dev, long)
+    del long
 
     record = []
     for name, rows in kres.items():
         first = rows[0]
         source, replaces = KERNEL_INFO[name]
-        by_path = {label: runs[label]["launches"].get(name, 0) for label in (*PATHS, "LLM")
-                   if runs[label]["launches"].get(name, 0)}
+        by_path = {label: run["launches"].get(name, 0) for label, run in runs.items()
+                   if run["launches"].get(name, 0)}
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -3,11 +3,12 @@
     lm = CausalLM.from_config(BENCH_1B, dtype=torch.bfloat16, seed=0)
     engine = lm.serve(calib_ids, mode="w8a8_static", smooth=True)
     tokens = engine.generate(prompts, max_new_tokens=64)
+    bf16 = lm.serve(mode="bf16")       # the yardstick, on the same weights
 
 Ported: ``from_config`` (the JAX package's seeded weights), ``logits``,
 greedy ``generate`` through the module with its (k, v) cache,
-``_calibrate`` (activation stats), and ``serve`` for the SmoothQuant
-``w8a8_static`` engine.  Params are a nested dict keyed like the Flax
+``_calibrate`` (activation stats), and ``serve`` for the ``bf16`` engine
+and the SmoothQuant ``w8a8_static`` engine.  Params are a nested dict keyed like the Flax
 tree, in f32 as Flax keeps them; the module computes in ``dtype``.
 
 Entry points run on ``device="cuda"`` unless the caller passes
@@ -139,13 +140,19 @@ class CausalLM:
               smooth_alpha: float = 0.5, awq: bool = False, gptq: bool = False, **engine_kw):
         """The decode engine for this model (``causal_lm.py::serve``):
         optional SmoothQuant migration of ``self.params``, static
-        activation-scale calibration, engine construction.  Only
-        ``mode="w8a8_static"`` is ported."""
+        activation-scale calibration, engine construction.  ``mode="bf16"``
+        and ``mode="w8a8_static"`` are ported."""
         from qdm_tpu_torch.api.serve import DecodeEngine
 
+        if mode == "bf16":
+            if smooth or awq or gptq:
+                raise ValueError("smooth/awq/gptq target the quantized serve modes; they would "
+                                 "be a silent no-op (smooth/gptq) or an unmeasured clip (awq) "
+                                 "on bf16")
+            return DecodeEngine(self, mode="bf16", **engine_kw)
         if mode != "w8a8_static":
-            raise NotImplementedError(f"serve mode {mode!r} is not ported yet (w8a8_static "
-                                      f"is): {_ROADMAP}")
+            raise NotImplementedError(f"serve mode {mode!r} is not ported yet (bf16 and "
+                                      f"w8a8_static are): {_ROADMAP}")
         if awq or gptq:
             raise NotImplementedError(f"AWQ / GPTQ engine weights are not ported yet: {_ROADMAP}")
         if calib_ids is None:

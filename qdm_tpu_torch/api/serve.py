@@ -1,28 +1,42 @@
 """Decode engine for LLM serving (counterpart of ``qdm_tpu/api/serve.py``).
 
-The ``w8a8_static`` engine on one device: int8 per-output-channel weights
-and calibrated static per-tensor activation scales, a bf16 (the model
-dtype) combined ``[K | V]`` depth-major KV cache ``(B, 2*hkv, d, T)``
-per layer, and four kernel calls per decoder layer plus one for the head
-(``ops/decode_kernels.py``):
+Two engines on one device, each with a combined ``[K | V]`` depth-major KV
+cache ``(B, 2*hkv, d, T)`` per layer in the model dtype and four kernel
+calls per decoder layer plus one for the head (``ops/decode_kernels.py``):
+
+* ``w8a8_static``: int8 per-output-channel weights and calibrated static
+  per-tensor activation scales::
 
     qkv  = K6(x; RMSNorm ln1, int8 qkv, rope epilogue)
-    attn = K7(q, cache, pos)                  after writing k, v at pos
+    attn = K7 / K10(q, cache, pos)            after writing k, v at pos
     x    = K6(attn; int8 o_proj, + x)
     x    = K8(x; RMSNorm ln2, int8 gate/up, silu * up, int8 down, + x)
-    logits = K5(x; final RMSNorm, bf16 lm_head) -> f32, greedy argmax
+
+* ``bf16``: the model's weights in its dtype (``serve.py:764``, the
+  branches at ``:1819-1826`` and ``:2107-2111``)::
+
+    qkv  = K5(x; RMSNorm ln1, qkv, rope epilogue)
+    attn = K7 / K10(q, cache, pos)
+    x    = K5(attn; o_proj, + x)
+    x    = K11(x; RMSNorm ln2, gate/up, silu * up, down, + x)
+
+and for both ``logits = K5(x; final RMSNorm, lm_head) -> f32``, greedy
+argmax.  The attention is K7 up to ``_FLASH_BYTES`` of cache per row and
+the flash decode K10 above it, as the TPU dispatcher routes.
 
 The prompt is prefilled through the float module (``prefill_quant=False``,
-``serve.py:2885-2958``), which writes the combined cache directly.  Batch
-rows are not padded to a sublane granule (the TPU engine pads to 8; its
-padded rows never reach an output).
+``serve.py:2885-2958``), which writes the combined cache directly (a long
+prompt through the flash prefill K9).  Batch rows are not padded to a
+sublane granule (the TPU engine pads to 8; its padded rows never reach an
+output).
 
 Ported from ``DecodeEngine``: ``__init__`` for the canonical llama block
-in ``w8a8_static`` with ``merge_o=False`` and ``head_quant=None``,
-``calibrate_scales``, ``smooth_lm``, ``prefill``, ``_layer``,
-``_head_logits``, ``_make_run`` (a loop over steps of one memoized step
-function) and greedy ``generate``.  Every other option raises
-``NotImplementedError`` naming ROADMAP.md.
+in ``bf16`` and ``w8a8_static`` with ``merge_o=False`` and
+``head_quant=None``, ``calibrate_scales``, ``smooth_lm``, ``prefill``,
+``_layer``, ``_head_logits``, ``_make_run`` (a loop over steps of one
+memoized step function) and greedy ``generate``.  The bf16 engine at
+batch 1 (the TPU engine's XLA-layer variant, ``_xla_ok_b1``) and every
+other option raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -83,10 +97,13 @@ class DecodeEngine:
                  kv_scale_mode: str = "token", gptq_grams=None):
         if mode not in ("bf16", "w8a8_static", "w4a8_static"):
             raise ValueError(mode)
-        if mode != "w8a8_static":
+        if mode == "w4a8_static":
             raise NotImplementedError(f"engine mode {mode!r} is not ported yet: {_ROADMAP}")
-        if act_stats is None:
+        if mode != "bf16" and act_stats is None:
             raise ValueError(f"{mode} needs act_stats (see DecodeEngine.calibrate_scales)")
+        if gptq_grams and mode == "bf16":
+            raise ValueError("gptq_grams places quantized weight codes; bf16 mode has none "
+                             "(use w8a8/w4a8_static)")
         unported = {"kv_dtype": kv_dtype is not None, "merge_o": merge_o, "mesh": mesh is not None,
                     "prefill_quant": bool(prefill_quant), "head_quant": head_quant is not None,
                     "kv_scale_mode": kv_scale_mode != "token", "gptq_grams": bool(gptq_grams)}
@@ -108,6 +125,9 @@ class DecodeEngine:
             codes, s = _quant_w(w.to(self.dtype))
             return dk.transposed_weight(codes), s
 
+        def tw(w):
+            return dk.transposed_weight(w.to(self.dtype))
+
         self.layers: List[Dict[str, torch.Tensor]] = []
         for l in range(cfg.num_hidden_layers):
             lp, pre = p[f"layers_{l}"], f"layers_{l}"
@@ -116,7 +136,13 @@ class DecodeEngine:
                                at["v_proj"]["kernel"]], dim=1)
             e = {"ln1": lp["input_layernorm"]["scale"].to(torch.float32),
                  "ln2": lp["post_attention_layernorm"]["scale"].to(torch.float32)}
-            # int8 codes kept transposed, (N, K): the kernels' operand layout
+            # weights kept transposed, (N, K): the kernels' operand layout
+            if mode == "bf16":
+                e["w_qkv_t"], e["w_o_t"] = tw(w_qkv), tw(at["o_proj"]["kernel"])
+                e["wg_t"], e["wu_t"] = tw(mp["gate_proj"]["kernel"]), tw(mp["up_proj"]["kernel"])
+                e["wd_t"] = tw(mp["down_proj"]["kernel"])
+                self.layers.append(e)
+                continue
             e["w_qkv_t"], e["s_qkv"] = qw8(w_qkv)
             e["w_o_t"], e["s_o"] = qw8(at["o_proj"]["kernel"])
             e["wg_t"], e["sg"] = qw8(mp["gate_proj"]["kernel"])
@@ -164,18 +190,27 @@ class DecodeEngine:
         h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         b = x.shape[0]
         eps = cfg.rms_norm_eps
-        qkv = dk.fused_dense_decode_i8(x, w["w_qkv_t"].t(), w["s_qkv"], w["a_qkv"],
-                                       norm_scale=w["ln1"], rope_cos=cosv, rope_sin=sinv,
-                                       head_dim=d, eps=eps, w_t=w["w_qkv_t"])
+        bf16 = self.mode == "bf16"
+        if bf16:
+            qkv = dk.fused_dense_decode(x, w["w_qkv_t"].t(), norm_scale=w["ln1"], rope_cos=cosv,
+                                        rope_sin=sinv, head_dim=d, eps=eps, w_t=w["w_qkv_t"])
+        else:
+            qkv = dk.fused_dense_decode_i8(x, w["w_qkv_t"].t(), w["s_qkv"], w["a_qkv"],
+                                           norm_scale=w["ln1"], rope_cos=cosv, rope_sin=sinv,
+                                           head_dim=d, eps=eps, w_t=w["w_qkv_t"])
         q = qkv[:, :h * d].view(b, hkv, h // hkv, d)
         (kv,) = cache
         kv[:, :, :, pos] = qkv[:, h * d:].reshape(b, 2 * hkv, d)
         attn = dk.decode_attention_kv(q, kv, pos).reshape(b, h * d)
+        mlp_w = (w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t())
+        mlp_t = (w["wg_t"], w["wu_t"], w["wd_t"])
+        if bf16:
+            x = dk.fused_dense_decode(attn, w["w_o_t"].t(), residual=x, w_t=w["w_o_t"])
+            return dk.fused_mlp_decode(x, *mlp_w, w["ln2"], eps=eps, act=cfg.mlp_act, w_t=mlp_t)
         x = dk.fused_dense_decode_i8(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], residual=x,
                                      w_t=w["w_o_t"])
-        return dk.fused_mlp_decode_i8(x, w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t(),
-                                      (w["sg"], w["su"], w["sd"]), w["a_mlp"], w["ln2"], eps=eps,
-                                      act=cfg.mlp_act, w_t=(w["wg_t"], w["wu_t"], w["wd_t"]))
+        return dk.fused_mlp_decode_i8(x, *mlp_w, (w["sg"], w["su"], w["sd"]), w["a_mlp"],
+                                      w["ln2"], eps=eps, act=cfg.mlp_act, w_t=mlp_t)
 
     def _head_logits(self, x):
         """Final norm + bf16 lm_head in one launch, f32 logits."""
@@ -243,7 +278,10 @@ class DecodeEngine:
         logits, caches = self._prefill_model(ids, kv_caches=caches, cache_index=0,
                                              last_logits_only=True)
         tok = torch.argmax(logits[:, -1], dim=-1)
-        return tok, [(F.pad(kv, (0, tp - sp)),) for (kv,) in caches]
+        # padded layer by layer, each prompt-long cache freed as its copy is made
+        for l in range(len(caches)):
+            caches[l] = (F.pad(caches[l][0], (0, tp - sp)),)
+        return tok, caches
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
@@ -257,6 +295,10 @@ class DecodeEngine:
                                       f"ported yet: {_ROADMAP}")
         ids = np.asarray(input_ids)
         b, s = ids.shape
+        if b == 1 and self.mode == "bf16":
+            raise NotImplementedError(
+                f"the bf16 engine at batch 1 runs the TPU engine's XLA-layer variant "
+                f"(_xla_ok_b1, _layer_xla_b1), which is not ported yet: {_ROADMAP}")
         tok0, caches = self.prefill(ids, s + max_new_tokens)
         toks = self._make_run(max_new_tokens - 1)(tok0, caches, s)
         out = torch.cat([tok0[:, None], toks], dim=1)[:, :max_new_tokens]

@@ -27,8 +27,8 @@
 // f32, so it adds nothing to the sum or to the output, and the function is
 // the same.  The logits
 // and probabilities stay in shared memory (g x T f32).  Not yet
-// split-T (flash decoding) or tensor cores; caches above 3 MiB per row are
-// the flash kernel's and raise in the wrapper.
+// split-T (flash decoding) or tensor cores; caches above 3 MiB per row go
+// to the flash decode (K10, decode_attention_kv_flash.cu).
 
 #include <math.h>
 

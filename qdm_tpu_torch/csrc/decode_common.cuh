@@ -1,5 +1,6 @@
 // Shared pieces of the decode-step kernels (decode_dense.cu: K5 and K6,
-// decode_mlp_i8.cu: K8).
+// decode_mlp_i8.cu: K8, decode_mlp.cu: K11; flash_prefill.cu takes the bf16
+// mma).
 //
 // * norm_rows_kernel: one block per row of x (B, K).  Optional RMSNorm or
 //   LayerNorm in f32, with the row sums taken in f64 and rounded once to
@@ -14,7 +15,9 @@
 //   int8 operands (exact int32 sums), m16n8k16 bf16 with f32 sums.  The
 //   two fragment layouts read the same bytes of a 64-byte stage (4t and
 //   4t + 16 of each 32-byte step), so one loader serves both.  NB weight
-//   matrices share the A tile (K8's gate and up).
+//   matrices share the A tile (K8's and K11's gate and up).
+// * act_fn and ordered_sum_kernel: the fused MLPs' activation and their
+//   sum of the inner blocks' f32 partials in block order.
 // * finish_tile: the dense epilogue from a shared-memory f32 tile: the
 //   rope rotation y * cos + partner * sin (partner d/2 away in the same
 //   head, within the tile since BN is a multiple of head_dim), residual,
@@ -255,6 +258,43 @@ __device__ __forceinline__ void frag_rc(int mi, int nj, int e, int& r, int& c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   r = mi * 16 + (lane >> 2) + (e >> 1) * 8;
   c = warp * NJ * 8 + nj * 8 + (lane & 3) * 2 + (e & 1);
+}
+
+// ---------------------------------------------------------------------------
+// fused MLP pieces (K8, K11)
+// ---------------------------------------------------------------------------
+
+constexpr int kActSilu = 0, kActGelu = 1;
+
+// silu(g) = g * (1 / (1 + exp(-g))), or the tanh GELU, exp / tanh in f64
+// rounded to f32: the plain version's bits on every device.
+__device__ __forceinline__ float act_fn(float g, int act) {
+  if (act == kActSilu) {
+    const float e = (float)exp(-(double)g);
+    return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
+  }
+  // jax.nn.gelu(approximate=True) in its order of operations, tanh in f64
+  const float k = 0.7978845608028654f;
+  const float g3 = __fmul_rn(__fmul_rn(g, g), g);
+  const float inner = __fmul_rn(k, __fadd_rn(g, __fmul_rn(0.044715f, g3)));
+  const float th = (float)tanh((double)inner);
+  return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.0f, th)));
+}
+
+// y = ((0 + p_0) + p_1) + ... (+ x): the inner blocks' f32 partials (n_j,
+// M, K) summed in the TPU kernel's order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+ordered_sum_kernel(const float* __restrict__ part, int n_j, const T* __restrict__ x,
+                   int residual, void* __restrict__ out, int out_dtype, int M, int K) {
+  const size_t n = (size_t)M * K;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float acc = 0.0f;
+    for (int j = 0; j < n_j; ++j) acc = __fadd_rn(acc, part[(size_t)j * n + i]);
+    if (residual) acc = __fadd_rn(acc, to_f32(x[i]));
+    store_f32(out, out_dtype, i, acc);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -37,21 +37,6 @@
 namespace qdm {
 namespace dec {
 
-constexpr int kActSilu = 0, kActGelu = 1;
-
-__device__ __forceinline__ float act_fn(float g, int act) {
-  if (act == kActSilu) {
-    const float e = (float)exp(-(double)g);
-    return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
-  }
-  // jax.nn.gelu(approximate=True) in its order of operations, tanh in f64
-  const float k = 0.7978845608028654f;
-  const float g3 = __fmul_rn(__fmul_rn(g, g), g);
-  const float inner = __fmul_rn(k, __fadd_rn(g, __fmul_rn(0.044715f, g3)));
-  const float th = (float)tanh((double)inner);
-  return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.0f, th)));
-}
-
 // (2) gate and up over a 64-column slice of I -> mid codes.
 __global__ void __launch_bounds__(kThreads)
 gate_up_kernel(const int8_t* __restrict__ xi, const int8_t* __restrict__ wg,
@@ -112,21 +97,6 @@ down_partial_kernel(const int8_t* __restrict__ ai, const int8_t* __restrict__ wd
         pj[(size_t)row * K + col] =
             __fmul_rn((float)acc[0][mi][nj][e], __fmul_rn(s_mid, sd[col]));
       }
-}
-
-// (4) y = ((0 + p_0) + p_1) + ... (+ x), in the TPU kernel's order.
-template <typename T>
-__global__ void __launch_bounds__(256)
-ordered_sum_kernel(const float* __restrict__ part, int n_j, const T* __restrict__ x,
-                   int residual, void* __restrict__ out, int out_dtype, int M, int K) {
-  const size_t n = (size_t)M * K;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.0f;
-    for (int j = 0; j < n_j; ++j) acc = __fadd_rn(acc, part[(size_t)j * n + i]);
-    if (residual) acc = __fadd_rn(acc, to_f32(x[i]));
-    store_f32(out, out_dtype, i, acc);
-  }
 }
 
 }  // namespace dec

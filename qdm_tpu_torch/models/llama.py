@@ -7,11 +7,17 @@ by a prefill through the module (``llama.py:351-366``).  Every linear is
 a :class:`QDense` with the Flax module's path (``layers_0/self_attn/q_proj``),
 so the plan's rules and the calibration stats key the same layers.
 
+A long prefill (S >= ``QDM_FLASH_PREFILL_MIN``, default 1024, a multiple
+of 128, cache index 0) runs its attention through
+``ops/flash_prefill.flash_prefill_gqa`` on the local k / v, with the q
+rope in the kernel on standard positions, as the JAX module does on its
+accelerator (``llama.py:256-271``, ``:401-436``).  The route depends on
+the shapes alone, on every device: the CPU computes the kernel's plain
+version where the card runs the kernel.
+
 The other architectures of the JAX config space raise
 ``NotImplementedError`` naming ROADMAP.md where a config or a call
-reaches them.  So does a prefill that the JAX module would route to
-``flash_prefill_gqa`` on its accelerator (``llama.py:256-271``): that
-kernel is the next slice's.
+reaches them.
 
 Caches are written in place (the JAX module returns updated copies); the
 forward returns the same cache tuples it was given.
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from qdm_tpu_torch.models.layers import NO_PLAN, QDense, RMSNorm, _declare
+from qdm_tpu_torch.ops import flash_prefill as fp
 from qdm_tpu_torch.quant.plan import QuantPlan
 
 _ROADMAP = "ROADMAP.md Queue 1 items 12-14 (the LLM module path and more LLM families)"
@@ -166,13 +173,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def flash_routed(s: int, cache_index, device: torch.device) -> bool:
-    """True where the JAX module would run ``flash_prefill_gqa`` on its
-    accelerator (``llama.py:256-271``, with the card for the TPU)."""
+def flash_routed(s: int, cache_index) -> bool:
+    """True where the JAX module runs ``flash_prefill_gqa`` on its
+    accelerator (``llama.py:256-271``); the port routes so on every
+    device."""
     flash_min = int(os.environ.get("QDM_FLASH_PREFILL_MIN", "1024"))
     return (s > 1 and s % 128 == 0 and s >= flash_min
             and isinstance(cache_index, int) and cache_index == 0
-            and device.type == "cuda"
             and not os.environ.get("QDM_DISABLE_FLASH_PREFILL"))
 
 
@@ -192,15 +199,17 @@ class LlamaAttention(nn.Module):
                              path=f"{path}/v_proj")
         self.o_proj = QDense(h * d, k, use_bias=False, dtype=dtype, plan=plan, path=f"{path}/o_proj")
 
-    def forward(self, x, positions, kv_cache=None, cache_index=None):
+    def forward(self, x, positions, kv_cache=None, cache_index=None,
+                std_positions: bool = False):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        if flash_routed(s, cache_index, x.device) and (kv_cache is None or len(kv_cache) < 4):
-            raise NotImplementedError(
-                f"a prefill of {s} tokens routes to flash_prefill_gqa on the accelerator "
-                "(QDM_FLASH_PREFILL_MIN), which is not ported yet: ROADMAP.md Queue 2 item 8")
-        q = rope(self.q_proj(x).reshape(b, s, h, d), positions, cfg.rope_theta)
+        flash = flash_routed(s, cache_index) and (kv_cache is None or len(kv_cache) < 4)
+        # the kernel ropes q on standard positions (llama.py:311-313)
+        kernel_rope = flash and std_positions
+        q = self.q_proj(x).reshape(b, s, h, d)
+        if not kernel_rope:
+            q = rope(q, positions, cfg.rope_theta)
         k = rope(self.k_proj(x).reshape(b, s, hkv, d), positions, cfg.rope_theta)
         v = self.v_proj(x).reshape(b, s, hkv, d)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)           # (B, hkv, S, d)
@@ -224,6 +233,15 @@ class LlamaAttention(nn.Module):
             raise NotImplementedError(f"the int8 module KV cache is not ported yet: {_ROADMAP}")
         else:
             kv_len = s
+        if flash:
+            # the local k / v: with cache index 0 the window is the prompt
+            rc = rs = None
+            if kernel_rope:
+                rc, rs = fp.rope_tables(s, d, cfg.rope_theta, device=x.device)
+            of = fp.flash_prefill_gqa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      sm_scale=cfg.attn_scale, rope_cos=rc, rope_sin=rs)
+            out = of.transpose(1, 2).reshape(b, s, h * d).to(self.dtype)
+            return self.o_proj(out), kv_cache
         k_pos = torch.arange(kv_len, device=x.device)[None, :]
         q_pos = ci + torch.arange(s, device=x.device)[:, None]
         mask = (k_pos <= q_pos)[None, None, None]               # (1, 1, 1, S, T)
@@ -264,8 +282,10 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, dtype)
         self.mlp = LlamaMLP(cfg, dtype, plan, f"{path}/mlp")
 
-    def forward(self, x, positions, kv_cache=None, cache_index=None):
-        h, cache = self.self_attn(self.input_layernorm(x), positions, kv_cache, cache_index)
+    def forward(self, x, positions, kv_cache=None, cache_index=None,
+                std_positions: bool = False):
+        h, cache = self.self_attn(self.input_layernorm(x), positions, kv_cache, cache_index,
+                                  std_positions)
         x = x + h
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, cache
@@ -308,6 +328,10 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(f"input_embeds (the VLM path) is not ported yet: {_ROADMAP}")
         x = self.embed_tokens(input_ids)
         b, s = x.shape[:2]
+        # the canonical per-slot arange from slot 0: the flash prefill's
+        # shared in-kernel rope tables (llama.py:622-628)
+        std_positions = positions is None and (
+            cache_index is None or (isinstance(cache_index, int) and cache_index == 0))
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
             if cache_index is not None:
@@ -315,7 +339,7 @@ class LlamaForCausalLM(nn.Module):
         new_caches = []
         for i, layer in enumerate(self.layers()):
             x, nc = layer(x, positions, kv_caches[i] if kv_caches is not None else None,
-                          cache_index)
+                          cache_index, std_positions)
             new_caches.append(nc)
         if last_logits_only:
             x = x[:, s - 1:s]

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "qdm_tpu_t
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry point of each kernel and its argument types; the kernel's source is
 # csrc/<name>.cu unless SOURCE_OF names another
 ENTRY_POINTS = {
@@ -48,6 +48,13 @@ ENTRY_POINTS = {
     "decode_mlp_i8": ("qdm_decode_mlp_i8",
                       (P, I, P, P, P, P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I,
                        P)),
+    "flash_prefill": ("qdm_flash_prefill",
+                      (P, P, P, I, L, L, L, L, L, L, L, L, L, P, L, L, L, P, P, P, I, I, I, I, I,
+                       F, I, P)),
+    "decode_attention_kv_flash": ("qdm_decode_attention_kv_flash",
+                                  (P, I, L, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, P)),
+    "decode_mlp": ("qdm_decode_mlp",
+                   (P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense"}
 

@@ -19,8 +19,18 @@ engine with a bf16 KV cache:
   ``t >= starts[b]``) mask, softcap, softmax, PV.  CUDA kernel
   ``csrc/decode_attention_kv.cu`` (K7; replaces
   ``decode_attention_kv_pallas``).  The dispatcher routes caches above
-  ``_FLASH_BYTES`` per row to the T-blocked flash kernel on the TPU; that
-  kernel is not ported, so there it raises.
+  ``_FLASH_BYTES`` per row to :func:`decode_attention_kv_flash`.
+* :func:`decode_attention_kv_flash` — the same function T-blocked: ``q *
+  scale`` in f32 before the dot, an online softmax over ``bt``-column
+  blocks (``_pick_bt``) with f32 ``m``, ``l``, ``acc`` and f32 p against
+  f32 V, ``acc / l`` in q's dtype.  CUDA kernel
+  ``csrc/decode_attention_kv_flash.cu`` (K10; replaces
+  ``decode_attention_kv_flash_pallas``, bf16 cache format).
+* :func:`fused_mlp_decode` — norm, bf16 gate and up with f32 sums,
+  ``act(g) * u`` rounded to x's dtype, down, the f32 partial of each
+  ``bj``-wide inner block added in block order, residual.  CUDA kernel
+  ``csrc/decode_mlp.cu`` (K11; replaces ``fused_mlp_decode_pallas``).  The
+  bf16 engine's MLP.
 * :func:`fused_mlp_decode_i8` — norm, int8 quant with ``s_in``, int8 gate
   and up, ``act(g) * u``, int8 quant with ``s_mid``, int8 down, the f32
   partial of each ``bj``-wide inner block added in block order, residual.
@@ -69,11 +79,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ATTN_SMEM = 200 * 1024
 
 for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
-           "fused_mlp_decode_i8"):
+           "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode"):
     qmm.LAUNCHES.setdefault(_k, 0)
 
-_ROADMAP_FLASH = ("decode_attention_kv_flash_pallas (ROADMAP.md Queue 2 item 12) is not "
-                  "ported: the one-pass kernel takes caches of at most _FLASH_BYTES per row")
+_ROADMAP_FLASH = ("the {mode!r} cache format of decode_attention_kv_flash_pallas is not ported "
+                  "yet (bf16 is): ROADMAP.md Queue 2 item 12")
+_FLASH_CHUNK = 1024     # K10: most cache columns one block reads (128 threads x 8)
+_FLASH_CTAS = 264       # K10: split T until about two blocks per SM of the H100
 
 
 def pick_block(n: int, pref: int, mult: int = LANE) -> int:
@@ -236,6 +248,53 @@ def decode_attention_kv_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
     return o.to(q.dtype)
 
 
+def _pick_bt(t: int, target: int = 1024) -> int:
+    """The TPU flash decode's T block: the largest multiple of 128 that
+    divides T and is at most ``target`` (``decode_kernels._pick_bt``)."""
+    for bt in range(min(target, t), 0, -LANE):
+        if t % bt == 0:
+            return bt
+    return LANE
+
+
+def decode_attention_kv_flash_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                                    softcap: float = 0.0, block_t: int = 1024):
+    """Plain version of :func:`decode_attention_kv_flash`: the TPU kernel's
+    online softmax over every ``bt``-column block in order
+    (``_decode_attn_kv_flash_kernel``, bf16 format).  A block that is all
+    masked before the first valid one (starts beyond it) takes p =
+    exp(0) = 1 on every column, as the TPU kernel does, and the next valid
+    block wipes it with alpha = 0; a row masked throughout averages V over
+    all T columns."""
+    b, hkv, g, d = q.shape
+    t = kv_cache.shape[-1]
+    bt = _pick_bt(t, block_t)
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    qf = q.to(torch.float32) * scale
+    kf = kv_cache[:, :hkv].to(torch.float32)
+    vf = kv_cache[:, hkv:].to(torch.float32)
+    st = None if starts is None else starts.to(q.device).reshape(b, 1, 1, 1)
+    m = torch.full((b, hkv, g, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    for t0 in range(0, t, bt):
+        logits = torch.matmul(qf, kf[..., t0:t0 + bt])
+        if softcap:
+            logits = softcap * torch.tanh(qmm.div_exact(logits, float(softcap)))
+        t_ids = torch.arange(t0, t0 + bt, device=q.device).reshape(1, 1, 1, -1)
+        ok = t_ids <= int(pos)
+        if st is not None:
+            ok = ok & (t_ids >= st)
+        logits = torch.where(ok, logits, torch.full_like(logits, -1e30))
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p, vf[..., t0:t0 + bt].transpose(-1, -2))
+        m = m_new
+    return torch.div(acc, l).to(q.dtype)
+
+
 def fused_mlp_decode_i8_plain(x, w_gate, w_up, w_down, w_scales, act_scales, norm_scale,
                               eps: float = 1e-6, act: str = "silu", block_j: int = 512,
                               out_dtype=None, residual: bool = True, norm_bias=None,
@@ -259,6 +318,44 @@ def fused_mlp_decode_i8_plain(x, w_gate, w_up, w_down, w_scales, act_scales, nor
         acc = acc + pd.to(torch.float32) * (s_mid * sd)
     if residual:
         acc = acc + xf
+    return acc.to(out_dtype or x.dtype)
+
+
+def fused_mlp_decode_plain(x, w_gate, w_up, w_down, norm_scale, eps: float = 1e-6,
+                           act: str = "silu", block_j: int = 256, out_dtype=None,
+                           residual: bool = True, norm_bias=None, norm_type: str = "rmsnorm"):
+    """Plain version of :func:`fused_mlp_decode`, inner block by inner block
+    in the TPU kernel's order (``_fused_mlp_kernel``): the normed rows and
+    each block's ``act(g) * u`` rounded to x's dtype, f32 sums."""
+    bj = pick_block(w_gate.shape[1], block_j)
+    mid = mlp_mid_plain(x, w_gate, w_up, norm_scale, eps, act, bj, norm_bias, norm_type)
+    return mlp_down_plain(mid, x, w_down, bj, residual, out_dtype)
+
+
+def mlp_mid_plain(x, w_gate, w_up, norm_scale, eps: float, act: str, bj: int, norm_bias=None,
+                  norm_type: str = "rmsnorm"):
+    """The fused MLP's hidden layer ``act(g) * u`` in x's dtype (B, I),
+    computed block by block as :func:`fused_mlp_decode_plain` does."""
+    xn = _prologue(x, norm_scale, norm_bias, eps, norm_type).to(x.dtype).to(torch.float32)
+    blocks = []
+    for j in range(w_gate.shape[1] // bj):
+        cols = slice(j * bj, (j + 1) * bj)
+        gate = torch.matmul(xn, w_gate[:, cols].to(torch.float32))
+        up = torch.matmul(xn, w_up[:, cols].to(torch.float32))
+        blocks.append((_act(act, gate) * up).to(x.dtype))
+    return torch.cat(blocks, dim=1)
+
+
+def mlp_down_plain(mid, x, w_down, bj: int, residual: bool = True, out_dtype=None):
+    """The fused MLP's down product from its hidden layer ``mid``: the f32
+    partial of each ``bj``-wide inner block added in order, then the
+    residual x."""
+    acc = torch.zeros((x.shape[0], w_down.shape[1]), dtype=torch.float32, device=x.device)
+    for j in range(mid.shape[1] // bj):
+        cols = slice(j * bj, (j + 1) * bj)
+        acc = acc + torch.matmul(mid[:, cols].to(torch.float32), w_down[cols].to(torch.float32))
+    if residual:
+        acc = acc + x.to(torch.float32)
     return acc.to(out_dtype or x.dtype)
 
 
@@ -468,14 +565,74 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     return out
 
 
+def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                              softcap: float = 0.0, mode: str = "bf16"):
+    """T-blocked decode attention (K10): q (B, hkv, g, d) — rows may be
+    strided, each (hkv, g, d) row contiguous — against the combined cache
+    kv (B, 2*hkv, d, T); keys 0..pos (and from starts[b]) attended.
+    The plain version follows the TPU kernel's T blocks (``_pick_bt``);
+    the kernel splits T its own way.  Only the bf16 cache format
+    (``mode="bf16"``, a bf16 or f32 cache) is ported."""
+    if mode != "bf16":
+        raise NotImplementedError(_ROADMAP_FLASH.format(mode=mode))
+    b, hkv, g, d = q.shape
+    if (kv_cache.dim() != 4 or kv_cache.shape[0] != b or kv_cache.shape[1] != 2 * hkv
+            or kv_cache.shape[2] != d):
+        raise ValueError(f"kv cache {tuple(kv_cache.shape)} does not match q {tuple(q.shape)}")
+    t = kv_cache.shape[-1]
+    if not 0 <= int(pos) < t:
+        raise ValueError(f"pos {pos} outside the cache length {t}")
+    if not _on_card(q, "decode_attention_kv_flash"):
+        return decode_attention_kv_flash_plain(q, kv_cache, pos, starts, sm_scale, softcap)
+    if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
+        raise ValueError(f"q and the cache must share a bf16/f32 dtype, got {q.dtype}, "
+                         f"{kv_cache.dtype}")
+    if (q.stride(3) != 1 or q.stride(2) != d or q.stride(1) != g * d
+            or not kv_cache.is_contiguous() or kv_cache.device != q.device
+            or kv_cache.data_ptr() % 16):
+        raise ValueError("q rows must be contiguous (hkv, g, d) blocks and the cache "
+                         "contiguous and 16-byte aligned on q's device")
+    if g not in (1, 2, 4, 8, 16) or d > 256 or d % 4 or t % 8:
+        raise NotImplementedError(f"the flash decode kernel takes g in (1, 2, 4, 8, 16), "
+                                  f"d <= 256 a multiple of 4 and T a multiple of 8; got g={g}, "
+                                  f"d={d}, T={t}")
+    st = None
+    if starts is not None:
+        st = starts.to(device=q.device, dtype=torch.int32).contiguous()
+        if st.numel() != b:
+            raise ValueError(f"starts must hold {b} values")
+    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return out
+    # columns one row may attend: [starts, pos], or all T when a row is masked throughout;
+    # each block's first column is rounded down to a multiple of 8 (16-byte loads)
+    span = (t if st is not None else int(pos) + 1) + 7
+    n_chunks = max(qmm._cdiv(span, _FLASH_CHUNK),
+                   min(qmm._cdiv(_FLASH_CTAS, b * hkv), qmm._cdiv(span, 128)))
+    chunk = qmm._cdiv(qmm._cdiv(span, n_chunks), 8) * 8
+    part_o = torch.empty((b * hkv, n_chunks, g, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b * hkv, n_chunks, g, 2), dtype=torch.float32, device=q.device)
+    fn = cuda_build.kernel("decode_attention_kv_flash")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv_cache.data_ptr(), _ptr(st),
+                 int(pos), ctypes.c_float(scale), ctypes.c_float(softcap), out.data_ptr(),
+                 part_o.data_ptr(), part_ml.data_ptr(), b, hkv, g, d, t, chunk, n_chunks,
+                 _stream(q))
+    cuda_build.check(err, "decode_attention_kv_flash")
+    qmm.LAUNCHES["decode_attention_kv_flash"] += 1
+    return out
+
+
 def decode_attention_kv(q, kv_cache, pos: int, starts=None, sm_scale=None,
                         softcap: float = 0.0):
     """Combined-cache dispatcher (``decode_kernels.decode_attention_kv``):
-    the one-pass kernel up to ``_FLASH_BYTES`` of cache per row; above it
-    the TPU runs the T-blocked flash kernel, which is not ported, so the
-    card raises (the CPU computes the plain version at any length)."""
-    if q.device.type == "cuda" and kv_block_bytes(kv_cache) > _FLASH_BYTES:
-        raise NotImplementedError(_ROADMAP_FLASH)
+    the one-pass kernel (K7) up to ``_FLASH_BYTES`` of cache per row, the
+    T-blocked flash kernel (K10) above it.  The route depends on the
+    cache's shape alone, on every device, so the CPU's plain versions
+    compute what the card's kernels compute."""
+    if kv_block_bytes(kv_cache) > _FLASH_BYTES:
+        return decode_attention_kv_flash(q, kv_cache, pos, starts, sm_scale, softcap)
     return decode_attention_kv_single(q, kv_cache, pos, starts, sm_scale, softcap)
 
 
@@ -547,3 +704,73 @@ def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor
     qmm.LAUNCHES["fused_mlp_decode_i8"] += 1
     return out
 
+
+
+def fused_mlp_decode(x, w_gate, w_up, w_down, norm_scale, eps: float = 1e-6,
+                     act: str = "silu", block_j: int = 256, out_dtype=None,
+                     residual: bool = True, norm_bias=None, norm_type: str = "rmsnorm",
+                     w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                     scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """bf16 fused MLP (K11): x (B, K) -> x + down(act(gate(n)) * up(n)),
+    n = norm(x).  w_gate / w_up (K, I), w_down (I, K), bf16; w_t, if given,
+    holds the transposed copies (gate (I, K), up (I, K), down (K, I));
+    scratch, if given, the (B, K) and (B, I) bf16 tensors that receive the
+    normed rows and the hidden layer (for a caller that checks them).  On
+    the card x is bf16 (the tensor cores' operand type)."""
+    out_dtype = out_dtype or x.dtype
+    if act not in _ACTS:
+        raise ValueError(f"act {act!r}")
+    if not _on_card(x, "fused_mlp_decode"):
+        return fused_mlp_decode_plain(x, w_gate, w_up, w_down, norm_scale, eps, act, block_j,
+                                      out_dtype, residual, norm_bias, norm_type)
+    if x.dim() != 2 or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_mlp_decode: x must be 2-D with a bf16/f32 output, got "
+                         f"{tuple(x.shape)} -> {out_dtype}")
+    if x.dtype != torch.bfloat16 or w_gate.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the bf16 fused MLP kernel takes bf16 x and weights, got {x.dtype} x and "
+            f"{w_gate.dtype} weights: ROADMAP.md Queue 2 item 13")
+    m, k = x.shape
+    inner = w_gate.shape[1]
+    if w_gate.shape != (k, inner) or w_up.shape != (k, inner) or w_down.shape != (inner, k):
+        raise ValueError(f"fused_mlp_decode: weights {tuple(w_gate.shape)}, "
+                         f"{tuple(w_up.shape)}, {tuple(w_down.shape)} for K={k}")
+    if k % 8 or inner % LANE:
+        raise ValueError(f"fused_mlp_decode: K={k} must be a multiple of 8 and I={inner} "
+                         f"of {LANE}")
+    wts = w_t or (transposed_weight(w_gate), transposed_weight(w_up), transposed_weight(w_down))
+    for t, shape in zip(wts, ((inner, k), (inner, k), (k, inner))):
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != x.device):
+            raise ValueError("fused_mlp_decode: transposed weights must be contiguous, "
+                             f"16-byte aligned bf16 {shape} on x's device")
+    dev = x.device
+    norm = norm_type if norm_scale is not None else None
+    if norm not in _NORMS:
+        raise ValueError(f"norm_type {norm_type!r}")
+    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    nb = _f32_vec(norm_bias, k, "norm_bias", dev) if norm == "layernorm" else None
+    if norm == "layernorm" and nb is None:
+        nb = torch.zeros(k, dtype=torch.float32, device=dev)
+    bj = pick_block(inner, block_j)
+    n_j = inner // bj
+    x = x.contiguous()
+    out = torch.empty((m, k), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    xn, mid = scratch or (torch.empty((m, k), dtype=x.dtype, device=dev),
+                          torch.empty((m, inner), dtype=x.dtype, device=dev))
+    for t, shape in ((xn, (m, k)), (mid, (m, inner))):
+        if (t.dtype != x.dtype or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"fused_mlp_decode: scratch must be contiguous bf16 {shape} on {dev}")
+    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    fn = cuda_build.kernel("decode_mlp")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), wts[0].data_ptr(), wts[1].data_ptr(), wts[2].data_ptr(),
+                 _ptr(ns), _ptr(nb), _NORMS[norm], ctypes.c_float(eps), _ACTS[act],
+                 int(bool(residual)), out.data_ptr(), _DTYPE_CODE[out_dtype], xn.data_ptr(),
+                 mid.data_ptr(), part.data_ptr(), m, k, inner, bj, _stream(x))
+    cuda_build.check(err, "fused_mlp_decode")
+    qmm.LAUNCHES["fused_mlp_decode"] += 1
+    return out

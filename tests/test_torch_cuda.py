@@ -332,3 +332,126 @@ def test_decode_mlp_i8_kernel_matches_plain_on_card(m, k, i, bj, norm, act, resi
     assert torch.equal(ai, dk._quant_static(dk._act(act, g) * u, scl[1:2]))
     assert got.dtype == want.dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the long-prompt kernels K9-K11.  K9 (flash prefill) rounds p to bf16
+# against other running maxima than its plain version's TPU blocks: it is
+# held to ``flash_prefill.kernel_error``'s limits (each element within one
+# bf16 ulp plus 2^-7 (1 + 2^-6) of the p-weighted mean of |v|, derived;
+# the mean error within MEAN_LIMIT of that mean's, from the readings).  K10 (flash decode) sums
+# in other chunks: f32 outputs within 1e-5 of the output's magnitude,
+# bf16 within 1 bf16 ulp or 1e-5 of the magnitude.  K11 (bf16 MLP) sums
+# on the tensor cores in another order: its normed rows equal the plain
+# version's, its bf16 hidden layer is within 1 bf16 ulp or 1e-5 of the
+# magnitude of it (an f32 ulp of a gate or up sum can round it the other
+# way, and a sum near 0 differs by more ulps), and its output is within 1
+# bf16 ulp or 1e-5 of the magnitude of the plain down product of that
+# hidden layer.
+# ---------------------------------------------------------------------------
+
+from qdm_tpu_torch.ops import flash_prefill as fp   # noqa: E402
+
+# (b, h, hkv, S, d, rope, starts, bf16)
+FLASH_PREFILL_CASES = [
+    (2, 4, 4, 256, 128, True, None, True),          # MHA, head_dim 128
+    (2, 8, 2, 512, 64, True, (0, 100), True),       # GQA, pad rows in one TPU block
+    (1, 4, 1, 1152, 64, False, (300,), True),       # TPU blocks of 128: pad rows over three
+    (2, 4, 2, 128, 32, True, None, True),
+    (2, 4, 2, 128, 16, True, (5, 0), False),        # f32: the per-row path
+    (1, 2, 2, 256, 80, False, None, True),          # head_dim 80: the per-row path
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,s,d,rope,starts,bf16", FLASH_PREFILL_CASES)
+def test_flash_prefill_kernel_matches_plain_on_card(b, h, hkv, s, d, rope, starts, bf16):
+    dev = _card()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(b + h + s + d)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev,
+                                                                                         dtype)
+    q = f(b, s, h, d).transpose(1, 2)                  # the module's projections, read in place
+    k, v = f(b, s, hkv, d).transpose(1, 2), f(b, s, hkv, d).transpose(1, 2)
+    cos, sin = fp.rope_tables(s, d, 10000.0, device=dev) if rope else (None, None)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    before = qmm.LAUNCHES["flash_prefill_gqa"]
+    got = fp.flash_prefill_gqa(q, k, v, d ** -0.5, cos, sin, starts=st)
+    want = fp.flash_prefill_gqa_plain(q, k, v, d ** -0.5, cos, sin, starts=st)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["flash_prefill_gqa"] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), d ** -0.5, cos, sin, starts=st)
+    share, mean = fp.kernel_error(got, want, want_abs)
+    assert share <= 1.0 and mean <= fp.MEAN_LIMIT, (share, mean)
+
+
+# (B, hkv, g, d, T, pos, starts, softcap, sm_scale, bf16)
+FLASH_DECODE_CASES = [
+    (8, 32, 1, 128, 2176, 2110, None, 0.0, None, True),   # Llama-2-7B, the last decode step
+    (4, 4, 8, 64, 4224, 4100, None, 0.0, None, True),     # GQA, long context
+    # TPU blocks of 384: row 1's first block all masked, row 2 masked throughout
+    (3, 2, 4, 64, 1152, 900, (0, 500, 950), 0.0, None, False),
+    (2, 2, 2, 128, 512, 511, None, 30.0, 0.07, True),
+    (2, 1, 16, 32, 256, 0, None, 0.0, None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hkv,g,d,t,pos,starts,softcap,sm_scale,bf16", FLASH_DECODE_CASES)
+def test_flash_decode_kernel_matches_plain_on_card(b, hkv, g, d, t, pos, starts, softcap,
+                                                   sm_scale, bf16):
+    dev = _card()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(b + t + pos)
+    wide = torch.from_numpy(rng.standard_normal((b, hkv * g * d + 2 * hkv * d)).astype(np.float32))
+    q = wide.to(dev, dtype)[:, :hkv * g * d].view(b, hkv, g, d)
+    kv = torch.from_numpy(rng.standard_normal((b, 2 * hkv, d, t)).astype(np.float32)).to(dev, dtype)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    before = qmm.LAUNCHES["decode_attention_kv_flash"]
+    got = dk.decode_attention_kv_flash(q, kv, pos, starts=st, sm_scale=sm_scale, softcap=softcap)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, starts=st, sm_scale=sm_scale,
+                                              softcap=softcap)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["decode_attention_kv_flash"] == before + 1
+    _close_on_card(got, want)
+
+
+# (M, K, I, block_j, norm, act, residual, out f32)
+DEC_MLP_BF16_CASES = [
+    (8, 4096, 11008, 256, "rmsnorm", "silu", True, False),   # Llama-2-7B
+    (5, 256, 384, 128, "layernorm", "gelu", True, True),
+    (9, 128, 256, 256, None, "silu", False, False),
+    (33, 512, 1024, 512, "rmsnorm", "silu", True, True),      # two row tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,i,bj,norm,act,residual,f32_out", DEC_MLP_BF16_CASES)
+def test_decode_mlp_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residual, f32_out):
+    dev = _card()
+    rng = np.random.default_rng(m + k + i)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+    x = f(m, k, s=0.5).to(torch.bfloat16)
+    wg, wu, wd = (f(*s_, s=s_[0] ** -0.5).to(torch.bfloat16) for s_ in ((k, i), (k, i), (i, k)))
+    ns, nb = f(k).abs() + 0.5, f(k, s=0.1)
+    kw = dict(act=act, block_j=bj, residual=residual, norm_type=norm or "rmsnorm",
+              norm_bias=nb if norm == "layernorm" else None,
+              out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+    mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
+    before = qmm.LAUNCHES["fused_mlp_decode"]
+    got = dk.fused_mlp_decode(x, wg, wu, wd, ns if norm else None, scratch=(xn, mid), **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_mlp_decode"] == before + 1
+    ns_ = ns if norm else None
+    assert torch.equal(xn, dk._prologue(x, ns_, kw["norm_bias"], 1e-6,
+                                        kw["norm_type"]).to(torch.bfloat16))
+    bj_ = dk.pick_block(i, bj)
+    want_mid = dk.mlp_mid_plain(x, wg, wu, ns_, 1e-6, act, bj_, kw["norm_bias"], kw["norm_type"])
+    _close_on_card(mid, want_mid)
+    want = dk.mlp_down_plain(mid, x, wd, bj_, residual, kw["out_dtype"])
+    _close_on_card(got, want)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dk.fused_mlp_decode(x.float(), wg.float(), wu.float(), wd.float(), ns)

@@ -23,6 +23,7 @@ from qdm_tpu_torch.convert import params_from_jax
 from qdm_tpu_torch.models import llama
 from qdm_tpu_torch.models.layers import RMSNorm, flatten_tree, load_tree
 from qdm_tpu_torch.models.shims import llama_scaling_groups
+from qdm_tpu_torch.ops import flash_prefill as fp
 
 GEOM = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
@@ -41,6 +42,11 @@ def _flat_jax(params):
 
 def _ids(seed, shape):
     return np.random.default_rng(seed).integers(0, GEOM["vocab_size"], shape).astype(np.int32)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -142,13 +148,92 @@ def test_unported_architectures_raise(field, value):
         llama.LlamaForCausalLM(cfg)
 
 
-def test_flash_routed_prefill_raises_on_the_card_only():
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert llama.flash_routed(1024, 0, cuda)
-    assert not llama.flash_routed(1024, 0, cpu)          # the JAX CPU path: einsum
-    assert not llama.flash_routed(512, 0, cuda)          # the slice's prompts
-    assert not llama.flash_routed(1024, None, cuda)      # no cache: CausalLM.logits
-    assert not llama.flash_routed(1000, 0, cuda)         # not a multiple of 128
+def test_flash_prefill_routes_by_shape_on_every_device(monkeypatch):
+    """The route depends on S and the cache index only: a CPU prefill
+    routed to the flash prefill computes its plain version, q roped in
+    it on standard positions."""
+    assert llama.flash_routed(1024, 0)
+    assert not llama.flash_routed(512, 0)            # the TinyLlama path's prompts
+    assert not llama.flash_routed(1024, None)        # no cache: CausalLM.logits
+    assert not llama.flash_routed(1000, 0)           # not a multiple of 128
+    monkeypatch.setenv("QDM_DISABLE_FLASH_PREFILL", "1")
+    assert not llama.flash_routed(1024, 0)
+    monkeypatch.delenv("QDM_DISABLE_FLASH_PREFILL")
+    monkeypatch.setenv("QDM_FLASH_PREFILL_MIN", "128")
+    calls = []
+    real = fp.flash_prefill_gqa
+
+    def spy(*a, **k):
+        calls.append(k)
+        return real(*a, **k)
+    monkeypatch.setattr(fp, "flash_prefill_gqa", spy)
+    _, tlm = _pair(0)
+    model = tlm.model
+    with torch.inference_mode():
+        model(torch.as_tensor(_ids(1, (1, 128))), kv_caches=model.init_cache(1, 128),
+              cache_index=0, last_logits_only=True)
+        model(torch.as_tensor(_ids(1, (1, 128))), positions=torch.arange(128)[None],
+              kv_caches=model.init_cache(1, 128), cache_index=0)
+    n = GEOM["num_hidden_layers"]
+    assert len(calls) == 2 * n
+    assert all(c["rope_cos"] is not None for c in calls[:n])    # standard positions
+    assert all(c["rope_cos"] is None for c in calls[n:])        # explicit positions
+
+
+@pytest.mark.parametrize("combined", [True, False])
+def test_flash_routed_module_prefill_matches_jax(monkeypatch, combined):
+    """S = 256 >= QDM_FLASH_PREFILL_MIN = 128 in both packages: the port's
+    flash route (the plain version on the CPU) against the JAX module's
+    flash route (its Pallas kernel in interpret mode), for the engine's
+    combined [K | V] cache and the module's (k, v) cache.  Both round q, p
+    and the attention output to bf16 where the TPU kernel does; an f32 ulp
+    that flips one of those roundings moves an element by a bf16 ulp, and
+    one such element moves the layer's output by about 3e-4 of its
+    magnitude through o_proj.  Layer by layer (each decoder layer fed the
+    JAX layer's input): outputs within 1e-3 of their magnitude (below a
+    bf16 ulp, 3.9e-3), the caches written before the attention within
+    1e-5.  End to end the
+    flips compound (an input moved by 1e-3 of a bf16 ulp flips more
+    roundings in the next layer): logits within 1e-2 of their magnitude
+    (flash and einsum differ by 6.4e-3 on these inputs, the port and JAX
+    by 1.8e-3) and the same top-1 token at the last position."""
+    monkeypatch.setenv("QDM_FLASH_PREFILL_MIN", "128")
+    monkeypatch.setenv("QDM_FLASH_PREFILL_FORCE", "interpret")
+    jlm, tlm = _pair(7)
+    b, s = 2, 256
+    ids = _ids(8, (b, s))
+    cfg = tlm.config
+    hkv, d, n = cfg.num_key_value_heads, cfg.head_dim, cfg.num_hidden_layers
+
+    def caches(jax_side):
+        if combined:
+            return [((jnp.zeros if jax_side else torch.zeros)((b, 2 * hkv, d, s)),)
+                    for _ in range(n)]
+        return (jlm.model if jax_side else tlm.model).init_cache(b, s)
+
+    jcfg = jax_llama.LlamaConfig(**GEOM)
+    pos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+    x = jnp.asarray(jlm.params["embed_tokens"]["embedding"])[ids]
+    jc, tc = caches(True), caches(False)
+    for i, layer in enumerate(tlm.model.layers()):
+        want, jci = jax_llama.LlamaDecoderLayer(jcfg, dtype=jnp.float32, layer_idx=i).apply(
+            {"params": jlm.params[f"layers_{i}"]}, x, pos, jc[i], 0, None, None,
+            std_positions=True)
+        with torch.inference_mode():
+            got, tci = layer(torch.from_numpy(np.array(x)), torch.from_numpy(np.array(pos)),
+                             tc[i], 0, std_positions=True)
+        assert _rel(got.numpy(), want) <= 1e-3, i
+        for jt, tt in zip(jci, tci):
+            assert _rel(tt.numpy(), jt) <= 1e-5, i
+        x = want
+    want, _ = jlm.model.apply({"params": jlm.params}, jnp.asarray(ids), kv_caches=caches(True),
+                              cache_index=0)
+    with torch.inference_mode():
+        got, _ = tlm.model(torch.as_tensor(ids), kv_caches=caches(False), cache_index=0)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (b, s, GEOM["vocab_size"])
+    assert _rel(got.numpy(), want) <= 1e-2
+    np.testing.assert_array_equal(got[:, -1].argmax(-1).numpy(), want[:, -1].argmax(-1))
 
 
 def test_generate_is_greedy_only():

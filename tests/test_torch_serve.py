@@ -1,13 +1,16 @@
-"""Parity of the port's serving engine (qdm_tpu_torch/api/serve.py,
-``w8a8_static`` with SmoothQuant) with the JAX ``DecodeEngine`` on the
-CPU, in f32.
+"""Parity of the port's serving engines (qdm_tpu_torch/api/serve.py,
+``w8a8_static`` with SmoothQuant, and ``bf16``) with the JAX
+``DecodeEngine`` on the CPU, in f32.
 
 The JAX engine dispatches its decode kernels to the jnp references off the
 TPU; these tests monkeypatch ``dk.fused_dense_decode``,
-``dk.fused_dense_decode_i8``, ``dk.decode_attention_kv`` and
-``dk.fused_mlp_decode_i8`` to the Pallas kernels in interpret mode (the
-TPU dispatch), so both engines compute the TPU kernels' formulas.  The
-Pallas kernels block in 128 lanes, so the geometry is 128 wide.
+``dk.fused_dense_decode_i8``, ``dk.decode_attention_kv`` (the one-pass
+kernel up to ``_FLASH_BYTES`` of cache per row, the flash decode above),
+``dk.fused_mlp_decode_i8`` and ``dk.fused_mlp_decode`` to the Pallas
+kernels in interpret mode (the TPU dispatch), so both engines compute the
+TPU kernels' formulas.  The Pallas kernels block in 128 lanes, so the
+geometry is 128 wide.  The flash decode tests lower ``_FLASH_BYTES`` in
+both packages so that the tiny caches take it.
 
 Tolerances: calibration stats and SmoothQuant params within 2e-6 of their
 magnitude (XLA's f32 pow against PyTorch's, 1 ulp on some inputs); the
@@ -42,6 +45,17 @@ GEOM = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_l
             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128)
 
 
+def _tpu_attention_kv(q, kv_cache, pos, starts=None, sm_scale=None, softcap=0.0, **kw):
+    """``decode_kernels.decode_attention_kv`` as it dispatches on the TPU,
+    interpreted: the flash kernel above ``_FLASH_BYTES`` of cache per row."""
+    if jdk._kv_block_bytes(kv_cache) > jdk._FLASH_BYTES:
+        return jdk.decode_attention_kv_flash_pallas(q, kv_cache, pos, starts, mode="bf16",
+                                                    sm_scale=sm_scale, softcap=softcap,
+                                                    interpret=True, **kw)
+    return jdk.decode_attention_kv_pallas(q, kv_cache, pos, starts, sm_scale=sm_scale,
+                                          softcap=softcap, interpret=True, **kw)
+
+
 @pytest.fixture
 def tpu_dispatch(monkeypatch):
     """The JAX engine's decode kernels as on the TPU: Pallas, interpreted."""
@@ -49,10 +63,19 @@ def tpu_dispatch(monkeypatch):
                         functools.partial(jdk.fused_dense_decode_pallas, interpret=True))
     monkeypatch.setattr(jdk, "fused_dense_decode_i8",
                         functools.partial(jdk.fused_dense_decode_i8_pallas, interpret=True))
-    monkeypatch.setattr(jdk, "decode_attention_kv",
-                        functools.partial(jdk.decode_attention_kv_pallas, interpret=True))
+    monkeypatch.setattr(jdk, "decode_attention_kv", _tpu_attention_kv)
     monkeypatch.setattr(jdk, "fused_mlp_decode_i8",
                         functools.partial(jdk.fused_mlp_decode_i8_pallas, interpret=True))
+    monkeypatch.setattr(jdk, "fused_mlp_decode",
+                        functools.partial(jdk.fused_mlp_decode_pallas, interpret=True))
+
+
+@pytest.fixture
+def flash_decode(monkeypatch):
+    """Caches above 16 KiB per row take the flash decode in both packages
+    (the tests' caches hold 32-64 KiB per row)."""
+    monkeypatch.setattr(jdk, "_FLASH_BYTES", 16 * 2 ** 10)
+    monkeypatch.setattr(tdk, "_FLASH_BYTES", 16 * 2 ** 10)
 
 
 def _ids(seed, shape):
@@ -121,14 +144,13 @@ def test_engine_weights_match_jax():
     assert np.array_equal(np.asarray(je.w_head), te.head_t.t().numpy())
 
 
-def test_engine_layers_match_jax_layer_by_layer(tpu_dispatch):
-    """One decode step: each decoder layer and the head of the port's
-    engine, fed the JAX engine's inputs (and a copy of its cache),
-    against the JAX engine's TPU-dispatch layer."""
-    je, te = _engines()
+def _layer_by_layer(je, te, ids, max_len):
+    """One decode step after a prefill of ids: each decoder layer and the
+    head of the port's engine, fed the JAX engine's inputs (and a copy of
+    its cache), against the JAX engine's layer; returns the largest error
+    relative to the output's magnitude (layers, new cache columns, head)."""
     cfg = te.cfg
-    ids = _ids(4, (4, 40))
-    tok, caches = je.prefill(ids, 48)
+    tok, caches = je.prefill(ids, max_len)
     pos = ids.shape[1]
     freqs, is_rope, sign, base_idx, _ = jax_rope_consts(je.cfg)
     ang = jnp.float32(pos) * freqs
@@ -141,14 +163,16 @@ def test_engine_layers_match_jax_layer_by_layer(tpu_dispatch):
         for l in range(cfg.num_hidden_layers):
             tcache = (torch.from_numpy(np.array(caches[l][0])),)
             tx = torch.from_numpy(np.array(x))
-            # the qkv kernel's int8 codes on both sides
             w = je.layers[l]
-            xf = jdk._norm_f32(x.astype(jnp.float32), w["ln1"], 0.0, cfg.rms_norm_eps, "rmsnorm")
-            jcodes = np.asarray(jnp.clip(jnp.round(xf * (1.0 / w["a_qkv"][0])), -127, 127))
-            tcodes = tdk._quant_static(tdk._prologue(tx, te.layers[l]["ln1"], None,
-                                                     cfg.rms_norm_eps, "rmsnorm"),
-                                       te.layers[l]["a_qkv"])
-            assert np.array_equal(jcodes.astype(np.int8), tcodes.numpy()), l
+            if te.mode == "w8a8_static":
+                # the qkv kernel's int8 codes on both sides
+                xf = jdk._norm_f32(x.astype(jnp.float32), w["ln1"], 0.0, cfg.rms_norm_eps,
+                                   "rmsnorm")
+                jcodes = np.asarray(jnp.clip(jnp.round(xf * (1.0 / w["a_qkv"][0])), -127, 127))
+                tcodes = tdk._quant_static(tdk._prologue(tx, te.layers[l]["ln1"], None,
+                                                         cfg.rms_norm_eps, "rmsnorm"),
+                                           te.layers[l]["a_qkv"])
+                assert np.array_equal(jcodes.astype(np.int8), tcodes.numpy()), l
             got = te._layer(tx, tcache, te.layers[l], pos, tcos, tsin)
             x, (kv,) = je._layer(x, caches[l], w, pos, cosv, sinv)
             # the new k, v column comes out of the qkv kernel: f32 ulps
@@ -156,8 +180,15 @@ def test_engine_layers_match_jax_layer_by_layer(tpu_dispatch):
                         _rel(tcache[0].numpy(), np.asarray(kv)))
         logits = je._head_logits(x, je._head, je.final_norm)
         got = te._head_logits(torch.from_numpy(np.array(x)))
-    assert worst <= 1e-5, worst
-    assert _rel(got.numpy(), np.asarray(logits)) <= 1e-5
+    return max(worst, _rel(got.numpy(), np.asarray(logits)))
+
+
+def test_engine_layers_match_jax_layer_by_layer(tpu_dispatch):
+    """One decode step: each decoder layer and the head of the port's
+    engine, fed the JAX engine's inputs (and a copy of its cache),
+    against the JAX engine's TPU-dispatch layer."""
+    je, te = _engines()
+    assert _layer_by_layer(je, te, _ids(4, (4, 40)), 48) <= 1e-5
 
 
 def test_engine_greedy_matches_jax_tpu_dispatch(tpu_dispatch):
@@ -181,7 +212,7 @@ def test_engine_on_cpu_runs_the_plain_versions():
     assert ((0 <= out) & (out < GEOM["vocab_size"])).all()
 
 
-@pytest.mark.parametrize("kw", [dict(mode="bf16"), dict(mode="w4a8_static"),
+@pytest.mark.parametrize("kw", [dict(kv_scale_mode="channel"), dict(mode="w4a8_static"),
                                 dict(merge_o=True), dict(kv_dtype="int8"),
                                 dict(head_quant="int8"), dict(prefill_quant=True)])
 def test_unported_engine_options_raise(kw):
@@ -194,7 +225,7 @@ def test_unported_engine_options_raise(kw):
 def test_unported_serve_and_generate_options_raise():
     _, tlm = _lms(0)
     calib = _ids(1, (2, 8))
-    for kw in (dict(awq=True), dict(gptq=True), dict(mode="bf16")):
+    for kw in (dict(awq=True), dict(gptq=True), dict(mode="w4a8_static")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.serve(calib, **{"mode": "w8a8_static", **kw})
     eng = tlm.serve(calib, mode="w8a8_static")
@@ -202,3 +233,78 @@ def test_unported_serve_and_generate_options_raise():
                dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.generate(_ids(2, (1, 8)), max_new_tokens=2, **kw)
+
+
+def test_flash_decode_engine_matches_jax_layer_by_layer(tpu_dispatch, flash_decode):
+    """The w8a8 engine with its caches above _FLASH_BYTES (the flash decode
+    in both packages): every layer within 1e-5 of the JAX layer's output,
+    identical int8 activation codes."""
+    je, te = _engines()
+    assert tdk.kv_block_bytes(te.init_cache(1, 48)[0][0]) > tdk._FLASH_BYTES
+    assert _layer_by_layer(je, te, _ids(4, (4, 40)), 48) <= 1e-5
+
+
+def test_flash_decode_engine_greedy_matches_jax(tpu_dispatch, flash_decode):
+    """The whole w8a8 lifecycle with the flash decode on each side:
+    identical greedy tokens."""
+    jlm, tlm = _lms(5)
+    calib, ids = _ids(6, (4, 32)), _ids(7, (4, 24))
+    want = jlm.serve(calib, mode="w8a8_static", smooth=True).generate(ids, max_new_tokens=16)
+    before = dict(qmm.LAUNCHES)
+    got = tlm.serve(calib, mode="w8a8_static", smooth=True).generate(ids, max_new_tokens=16)
+    np.testing.assert_array_equal(got, want)
+    assert qmm.LAUNCHES == before
+
+
+def test_bf16_engine_weights_match_jax():
+    jlm, tlm = _lms(3)
+    je, te = jlm.serve(mode="bf16"), tlm.serve(mode="bf16")
+    pairs = {"w_qkv": "w_qkv_t", "w_o": "w_o_t", "wg": "wg_t", "wu": "wu_t", "wd": "wd_t"}
+    for jw, tw in zip(je.layers, te.layers):
+        for jk, tk in pairs.items():
+            assert np.array_equal(np.asarray(jw[jk]), tw[tk].t().numpy()), jk
+        for k in ("ln1", "ln2"):
+            assert np.array_equal(np.asarray(jw[k]), tw[k].numpy()), k
+        assert "s_qkv" not in tw and "a_mlp" not in tw
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_bf16_engine_layers_match_jax_layer_by_layer(tpu_dispatch, monkeypatch, flash):
+    """The bf16 engine's decode step (K5 qkv + rope, attention, K5
+    o_proj + residual, K11 MLP; the head) layer by layer against the JAX
+    bf16 engine under the TPU dispatch, with the one-pass and the flash
+    decode: within 1e-5 of each output's magnitude."""
+    if flash:
+        monkeypatch.setattr(jdk, "_FLASH_BYTES", 16 * 2 ** 10)
+        monkeypatch.setattr(tdk, "_FLASH_BYTES", 16 * 2 ** 10)
+    jlm, tlm = _lms(4)
+    je, te = jlm.serve(mode="bf16"), tlm.serve(mode="bf16")
+    assert _layer_by_layer(je, te, _ids(8, (4, 40)), 48) <= 1e-5
+
+
+def test_bf16_engine_greedy_matches_jax_tpu_dispatch(tpu_dispatch, flash_decode):
+    """serve(mode="bf16") -> generate on each side, the flash decode
+    included: identical greedy tokens."""
+    jlm, tlm = _lms(6)
+    ids = _ids(9, (4, 24))
+    want = jlm.serve(mode="bf16").generate(ids, max_new_tokens=16)
+    got = tlm.serve(mode="bf16").generate(ids, max_new_tokens=16)
+    assert got.shape == (4, 40)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(smooth=True), dict(awq=True), dict(gptq=True)])
+def test_serve_bf16_rejects_the_quantized_options(kw):
+    """smooth / awq / gptq target the quantized modes (JAX
+    causal_lm.py:757-763)."""
+    _, tlm = _lms(0)
+    with pytest.raises(ValueError, match="bf16"):
+        tlm.serve(_ids(1, (2, 8)), mode="bf16", **kw)
+
+
+def test_bf16_engine_at_batch_one_raises():
+    """The TPU engine runs batch 1 in bf16 through XLA ops (_xla_ok_b1);
+    that variant is not ported."""
+    _, tlm = _lms(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.serve(mode="bf16").generate(_ids(2, (1, 8)), max_new_tokens=2)
