@@ -3,7 +3,7 @@
     python3 chip_smoke.py             # every phase, one CUDA card
     python3 chip_smoke.py --profile   # every phase, then a profile
 
-Phase 1 builds the eleven CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
+Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 K1-K4 at the SD1.5 shapes (K1/K2 and K4 with int8 codes identical to the
@@ -12,20 +12,31 @@ plain version's and outputs within 1 bf16 ulp; K3 within 1 bf16 ulp or
 decode kernels K5-K8 at the TinyLlama-1.1B serving shapes (batch 32,
 prompt 512, 64 new tokens) plus one shape per remaining option (K6 and K8
 with int8 codes identical and outputs equal, K5 and K7 within 1 bf16 ulp
-wherever the difference exceeds 1e-5 of the output's magnitude), and the
+wherever the difference exceeds 1e-5 of the output's magnitude), the
 long-prompt kernels at the Llama-2-7B serving shapes (batch 8, prompt
-2048, 64 new tokens) and their options: K9 (flash prefill) within 1 bf16
-ulp + 2^-8 max |v|, K10 (flash decode) within 1 bf16 ulp or 1e-5 of the
-magnitude, K11 (bf16 MLP) with its hidden layer and output held apart,
-and K5, K6, K8 at the 7B shapes.  It times the kernel, the plain version
-and a library yardstick (timed here only, the port never calls them):
+2048, 64 new tokens) and their options: K9 (flash prefill) within
+``flash_prefill.kernel_error``'s limits (each element within 1 bf16 ulp +
+2^-7 (1 + 2^-6) A, A the plain version on |v|; mean |err| within 2^-12 of
+A's mean; sm_scale x1.01 planted and flagged), K10 (flash decode) within
+1 bf16 ulp or 1e-5 of the magnitude, K11 (bf16 MLP) with its hidden layer
+and output held apart, and K5, K6, K8 at the 7B shapes; and the
+quantized-cache decode attentions, outputs equal to their plain versions:
+K12-K14 (int8 per-token, int8 channel, packed int4 channel) at the
+TinyLlama shapes (T 640, pos 574) plus ragged starts with a row masked
+throughout and g 1 at d 128, and K10's ``i8`` / ``i8c`` / ``i4c`` formats
+at the 7B shapes (T 2176, pos 2110) and at T 1152 with starts (TPU blocks
+of 384, an all-masked leading block), each with a fault planted into the
+K channel or V token scales, and p quantized over half the TPU blocks,
+that the check must flag.  It times the kernel, the plain version and a
+library yardstick (timed here only, the port never calls them):
 ``torch._int_mm`` for W8A8 and for K6 / K8 (with elementwise quant and
 dequant), ``torch.matmul`` with the weight dequantized to bf16 beforehand
 for W4, ``F.rms_norm`` + ``torch.matmul`` for K5 (three matmuls and silu
 for K11), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7 and K10
-and causal SDPA on pre-roped q for K9.  Decode kernels are timed over
-enough weight / cache copies to exceed the 50 MB L2 cache, as a decode
-step finds them cold.
+(for K12-K14 and K10's quantized formats a cache dequantized to bf16
+beforehand) and causal SDPA on pre-roped q for K9.  Decode kernels are
+timed over enough weight / cache copies to exceed the 50 MB L2 cache, as
+a decode step finds them cold.
 Phase 3 drives the port's paths with random weights: at full SD1.5 width
 ``from_config -> quantize -> generate`` of two 512 px images in 20 DDIM
 steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8, checking the images
@@ -34,24 +45,33 @@ the LLM path at full TinyLlama-1.1B width: ``CausalLM.from_config ->
 serve(calib_ids (8, 512), mode="w8a8_static", smooth=True) ->
 generate((32, 512), max_new_tokens=64)``, checking the tokens and that K6,
 K7, K8 and K5 were launched exactly 22 layers x 63 decode steps x (2, 1,
-1) and 63 times.  Then the tiny pipelines and the tiny f32 LLM engine run
-on the card and on the CPU from one seed: SD float, W8A8 and W4A16
-compared end to end, RTN W4A8 and the LLM engine layer by layer (each
-kernel call on the card fed the CPU call's inputs), the LLM engine once
-more on the long route (flash prefill and flash decode), with planted
-faults that those layer witnesses must flag.  Last, with the SD and
-TinyLlama objects freed, the long-prompt path at full Llama-2-7B width
-(weights drawn on the card): ``serve(mode="w8a8_static", smooth=True)``
-and ``serve(mode="bf16")`` on the same weights, each ``generate`` of
-8 x 2048-token prompts + 64 tokens, with exact launch counts (K9 32 and
-K10 2016 in both, K6 4032, K8 2016 and K5 63 in w8a8, K5 4095 and K11
-2016 in bf16, K7 0).  Each path's launch counts are set to 0 just before
-its ``generate`` and read just after.
+1) and 63 times; then the same from the float weights with each quantized
+KV cache (``kv_dtype="int4"``; ``torch.int8`` with ``kv_scale_mode``
+``"channel"`` and ``"token"``), one engine at a time: the format's kernel
+(K14, K13, K12) 1386 times, K7 and K10 never.  Then the tiny pipelines and
+the tiny f32 LLM engine run on the card and on the CPU from one seed: SD
+float, W8A8 and W4A16 compared end to end, RTN W4A8 and the LLM engine
+layer by layer (each kernel call on the card fed the CPU call's inputs),
+the LLM engine once more on the long route (flash prefill and flash
+decode), and tiny engines with each quantized KV cache on the short and
+the long route in ``w8a8_static`` and ``bf16``, with planted faults that
+those layer witnesses must flag.  Last, with the SD and TinyLlama objects
+freed, the long-prompt path at full Llama-2-7B width (weights drawn on the
+card): ``serve(mode="w8a8_static", smooth=True)``; on its smoothed weights
+the w8a8 engine with the KV caches ``recommended_kv(2112)`` picks (int4
+channel), then int8 channel and int8 token, one at a time; and
+``serve(mode="bf16")``; each ``generate`` of 8 x 2048-token prompts + 64
+tokens, with exact launch counts (K9 32; K10 2016 in the bf16-KV engines,
+and in a quantized-KV engine its format of K10 2016 and K10's bf16 format
+0; K6 4032, K8 2016 and K5 63 in w8a8, K5 4095 and K11 2016 in bf16; K7
+0).  Each path's launch counts are set to 0 just before its ``generate``
+and read just after.
 With ``--profile`` it also times warm ``generate`` calls in turn (median
 and range of five each): the W4A16, W8A8 and bf16 SD pipelines, the
-TinyLlama engine against the bf16 module, and the 7B w8a8 engine against
-the 7B bf16 engine; and prints the device time by kernel of two W4A16
-denoising steps and of three decode steps of each engine.
+TinyLlama engine against the bf16 module, and the 7B w8a8 engine, the 7B
+w8a8 engine with the int4 KV cache and the 7B bf16 engine; and prints the
+device time by kernel of two W4A16 denoising steps and of three decode
+steps of each engine.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -151,7 +171,22 @@ KERNEL_INFO = {
                                   "qdm_tpu/ops/decode_kernels.py:1175"),
     "fused_mlp_decode": ("qdm_tpu_torch/csrc/decode_mlp.cu",
                          "qdm_tpu/ops/decode_kernels.py:1430"),
+    "decode_attention_kv_i8": ("qdm_tpu_torch/csrc/decode_attention_kv_q.cu",
+                               "qdm_tpu/ops/decode_kernels.py:766"),
+    "decode_attention_kv_i8c": ("qdm_tpu_torch/csrc/decode_attention_kv_q.cu",
+                                "qdm_tpu/ops/decode_kernels.py:880"),
+    "decode_attention_kv_i4c": ("qdm_tpu_torch/csrc/decode_attention_kv_q.cu",
+                                "qdm_tpu/ops/decode_kernels.py:1004"),
+    **{f"decode_attention_kv_flash_{m}": ("qdm_tpu_torch/csrc/decode_attention_kv_flash_q.cu",
+                                          "qdm_tpu/ops/decode_kernels.py:1175")
+       for m in ("i8", "i8c", "i4c")},
 }
+# the quantized KV caches: (kv_dtype, kv_scale_mode) of serve() and the cache
+# format of the attention kernels; the 7B path runs them in this order
+KV_FORMATS = {"int4": ("int4", "channel", "i4c"), "int8 channel": (torch.int8, "channel", "i8c"),
+              "int8 token": (torch.int8, "token", "i8")}
+KVQ_FAULT = 1e-3              # relative error planted into K or V scales of quantized caches
+KV_ATTENTION = tuple(f"decode_attention_kv_{m}" for m in ("i8", "i8c", "i4c"))
 # the long-prompt path: Llama-2-7B geometry (LlamaConfig() defaults, whole depth)
 L7_BATCH, L7_PROMPT, L7_NEW = 8, 2048, 64
 L7_CALIB = (8, 512)
@@ -971,6 +1006,163 @@ def phase_long_kernels(dev, res: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the quantized-cache decode attentions K12-K14 and K10's formats
+# ---------------------------------------------------------------------------
+
+KVQ_TOL = "outputs equal to the plain version's (the same q and p codes, sums and rounding)"
+
+
+def _kvq_case(b, hkv, g, d, t, mode, seed, dev):
+    """q viewed out of a wider qkv row (bf16 for the token format, f32 for
+    the channel formats, as the engine passes it) and a cache in ``mode``'s
+    format, written as the engine writes one: (q, codes, token scales)."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = torch.randn((b, hkv * g * d + 2 * hkv * d), generator=gen, device=dev)
+    q = wide.to(torch.bfloat16 if mode == "i8" else torch.float32)[:, :hkv * g * d]
+    q = q.view(b, hkv, g, d)
+    kvf = torch.randn((b, 2 * hkv, d, t), generator=gen, device=dev)
+    if mode == "i8":
+        sc = kvf.abs().amax(dim=2, keepdim=True).clamp_min(1e-8) * dk.INV127
+        return q, torch.round(kvf / sc).to(torch.int8), sc
+    qmax = 7.0 if mode == "i4c" else 127.0
+    sc = kvf.abs().amax(dim=3, keepdim=True).clamp_min(1e-8) * (2.0 / qmax)
+    codes = torch.clamp(torch.round(kvf / sc), -qmax, qmax)
+    return q, dk.pack_kv_int4(codes) if mode == "i4c" else codes.to(torch.int8), None
+
+
+def _kvq_fns(kernel: str, mode: str, pos: int, st):
+    """(kernel wrapper, plain version), each called as f(q, codes, token scales)."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    if kernel == "flash":
+        return (lambda q, kv, sc: dk.decode_attention_kv_flash(q, kv, pos, starts=st, mode=mode,
+                                                               kv_scale=sc),
+                lambda q, kv, sc: dk.decode_attention_kv_flash_plain(q, kv, pos, starts=st,
+                                                                     mode=mode, kv_scale=sc))
+    return (lambda q, kv, sc: dk.decode_attention_kv_q_single(q, kv, pos, mode, sc, st),
+            lambda q, kv, sc: dk.decode_attention_kv_q_plain(q, kv, pos, mode, sc, st))
+
+
+def _check_kvq(label, kernel, mode, b, hkv, g, d, t, pos, starts, dev, timed):
+    """One shape of K12-K14 (``kernel="single"``) or of K10's quantized
+    formats (``"flash"``): equal to the plain version; a fault planted
+    into the scales (the K channel scales that ride on q, or the V token
+    scales) must be flagged."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    q, kv, sc = _kvq_case(b, hkv, g, d, t, mode, b + t + pos, dev)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    run, plain = _kvq_fns(kernel, mode, pos, st)
+    got = run(q, kv, sc)
+    torch.cuda.synchronize()
+    want = plain(q, kv, sc)
+    err = float((got.float() - want.float()).abs().max())
+    name = f"decode_attention_kv_{'flash_' if kernel == 'flash' else ''}{mode}"
+    if got.dtype != q.dtype or not torch.equal(got, want):
+        fail(f"{name} {label}: max abs err {err} from the plain version; {KVQ_TOL}")
+    if mode == "i8":
+        what = "V token scales"
+        bad = run(q, kv, torch.cat([sc[:, :hkv], sc[:, hkv:] * (1.0 + KVQ_FAULT)], dim=1))
+    else:
+        what = "K channel scales (folded into q)"
+        bad = run(q * (1.0 + KVQ_FAULT), kv, sc)
+    bad_err = float((bad.float() - want.float()).abs().max())
+    if torch.equal(bad, want):
+        fail(f"{name} {label}: the check misses {what} off by {KVQ_FAULT:g} (planted)")
+    row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
+           "max_abs_err": err, "ulps": 0,
+           "tol": f"{KVQ_TOL}; {what} off by {KVQ_FAULT:g} (planted): max abs err {bad_err:.3g}"}
+    if timed:
+        cols = pos + 1
+        rows = d // 2 if mode == "i4c" else d
+        nbytes = (2 * b * hkv * g * d * q.element_size() + 2 * b * hkv * rows * cols
+                  + (2 * b * hkv * cols * 4 if sc is not None else 0))
+        ops = 4 * b * hkv * g * d * cols
+        copies = _copies(kv.numel() + (4 * sc.numel() if sc is not None else 0))
+        sets = [(kv, sc)] + [(kv.clone(), None if sc is None else sc.clone())
+                             for _ in range(copies - 1)]
+        kern = [lambda c=c, s_=s_: run(q, c, s_) for c, s_ in sets]
+        plains = [lambda c=c, s_=s_: plain(q, c, s_) for c, s_ in sets]
+
+        def laid(c, s_):
+            """The cache dequantized to bf16 beforehand, (B, hkv, pos + 1, d)."""
+            kc, vc = dk.kv_codes(c, mode, hkv)
+            kf, vf = kc[..., :cols].float(), vc[..., :cols].float()
+            if s_ is not None:
+                kf, vf = kf * s_[:, :hkv, :, :cols], vf * s_[:, hkv:, :, :cols]
+            return (kf.transpose(2, 3).to(torch.bfloat16).contiguous(),
+                    vf.transpose(2, 3).to(torch.bfloat16).contiguous())
+        qh = q.reshape(b, hkv * g, 1, d).to(torch.bfloat16)
+        lay = [laid(c, s_) for c, s_ in sets]
+        lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+            qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+        del lay, sets
+    return row
+
+
+def _half_blocks(mode: str, dev) -> str:
+    """A kernel that quantizes p over half the TPU blocks (bt / 2 columns
+    sharing each ps) must be flagged: (2, 2, 4, 64), T 1024, pos 1000."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    q, kv, sc = _kvq_case(2, 2, 4, 64, 1024, mode, 11, dev)
+    run, plain = _kvq_fns("flash", mode, 1000, None)
+    want = plain(q, kv, sc)
+    pick = dk._pick_bt
+    dk._pick_bt = lambda t, target=1024: pick(t, target) // 2
+    try:
+        bad = run(q, kv, sc)
+        torch.cuda.synchronize()
+    finally:
+        dk._pick_bt = pick
+    err = float((bad.float() - want.float()).abs().max())
+    if torch.equal(bad, want):
+        fail(f"decode_attention_kv_flash_{mode}: the check misses p quantized over half TPU "
+             "blocks (planted)")
+    return f"p quantized over half TPU blocks (planted): max abs err {err:.3g}"
+
+
+def phase_kv_quant_kernels(dev) -> dict:
+    """K12-K14 at the TinyLlama-1.1B serving shapes (timed) and one shape
+    per option; K10's quantized formats at the Llama-2-7B shapes (timed)
+    and at T 1152 with starts."""
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+
+    c1, c7 = BENCH_1B, LlamaConfig()
+    t1 = -(-(LLM_PROMPT + LLM_NEW) // 128) * 128
+    t7 = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    h1, g1, d1 = (c1.num_key_value_heads, c1.num_attention_heads // c1.num_key_value_heads,
+                  c1.head_dim)
+    h7, g7, d7 = (c7.num_key_value_heads, c7.num_attention_heads // c7.num_key_value_heads,
+                  c7.head_dim)
+    res = {}
+    for _, _, mode in KV_FORMATS.values():
+        rows = [_check_kvq("TinyLlama last step", "single", mode, LLM_BATCH, h1, g1, d1, t1,
+                           LLM_PROMPT + LLM_NEW - 2, None, dev, True)]
+        if mode != "i8":            # the TPU's per-token kernel takes no starts
+            rows.append(_check_kvq("starts (row 2 masked throughout)", "single", mode, 4, 2, 4,
+                                   64, 256, 100, (0, 7, 101, 64), dev, False))
+        rows.append(_check_kvq("g 1, d 128", "single", mode, 3, 2, 1, 128, 384, 300, None, dev,
+                               False))
+        res[f"decode_attention_kv_{mode}"] = rows
+        rows = [_check_kvq("7B last step", "flash", mode, L7_BATCH, h7, g7, d7, t7,
+                           L7_PROMPT + L7_NEW - 2, None, dev, True),
+                _check_kvq("T 1152, starts (TPU blocks of 384: an all-masked leading block, a "
+                           "row masked throughout)", "flash", mode, 3, 2, 4, 64, 1152, 900,
+                           (0, 500, 950), dev, False)]
+        rows[1]["tol"] += "; " + _half_blocks(mode, dev)
+        res[f"decode_attention_kv_flash_{mode}"] = rows
+        torch.cuda.empty_cache()
+    _print_rows(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1215,6 +1407,18 @@ def phase_w4a8_witness(dev) -> None:
 LLM_WANT = {"fused_dense_decode_i8": 2, "decode_attention_kv": 1, "fused_mlp_decode_i8": 1}
 
 
+def new_tokens(what: str, toks: np.ndarray, prompts: np.ndarray, n_new: int,
+               vocab: int) -> np.ndarray:
+    """The new tokens of a greedy generate, after checking that it kept the
+    prompts and gave n_new tokens per row, each in the vocabulary."""
+    b, s = prompts.shape
+    new = toks[:, s:]
+    if (toks.shape != (b, s + n_new) or not np.array_equal(toks[:, :s], prompts)
+            or new.min() < 0 or new.max() >= vocab):
+        fail(f"{what} tokens: shape {toks.shape}, range [{new.min()}, {new.max()}]")
+    return new
+
+
 def phase_llm_path(dev, seed: int) -> dict:
     """TinyLlama-1.1B width, random weights from seed 0: from_config ->
     serve(w8a8_static, smooth) -> generate((32, 512), 64), with the launch
@@ -1233,6 +1437,7 @@ def phase_llm_path(dev, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     calib = rng.integers(0, cfg.vocab_size, LLM_CALIB).astype(np.int32)
     prompts = rng.integers(0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)).astype(np.int32)
+    base = lm.params            # smoothing replaces leaves: the float tree stays as drawn
     qmm.reset_launches()
     t0 = time.perf_counter()
     engine = lm.serve(calib, mode="w8a8_static", smooth=True)
@@ -1253,11 +1458,7 @@ def phase_llm_path(dev, seed: int) -> dict:
     if launches != want:
         fail(f"LLM launches {launches} != expected {want} ({cfg.num_hidden_layers} layers x "
              f"{steps} decode steps)")
-    new = toks[:, LLM_PROMPT:]
-    if (toks.shape != (LLM_BATCH, LLM_PROMPT + LLM_NEW) or not np.array_equal(toks[:, :LLM_PROMPT],
-                                                                             prompts)
-            or new.min() < 0 or new.max() >= cfg.vocab_size):
-        fail(f"LLM tokens: shape {toks.shape}, range [{new.min()}, {new.max()}]")
+    new = new_tokens("LLM", toks, prompts, LLM_NEW, cfg.vocab_size)
     t0 = time.perf_counter()
     ref = lm.generate(prompts, max_new_tokens=LLM_NEW)
     torch.cuda.synchronize()
@@ -1275,7 +1476,61 @@ def phase_llm_path(dev, seed: int) -> dict:
           f"{float(np.median(first)):.1f}, {int((first == LLM_NEW).sum())} of {LLM_BATCH} rows "
           "agree throughout)", flush=True)
     return {"launches": launches, "engine": engine, "lm": lm, "prompts": prompts,
-            "generate_s": t_gen, "quantize_s": t_quant}
+            "generate_s": t_gen, "quantize_s": t_quant, "base": base, "calib": calib,
+            "tokens": new}
+
+
+def _agreement(new: np.ndarray, ref: np.ndarray) -> str:
+    """Greedy agreement of two engines' new tokens (a reading)."""
+    same = new == ref
+    first = np.where(same.all(axis=1), same.shape[1], np.argmin(same, axis=1))
+    return (f"{float(same.mean()):.4f}, first divergence at step {float(first.mean()):.2f} on "
+            f"average (median {float(np.median(first)):.1f})")
+
+
+def phase_llm_kv_paths(dev, llm: dict) -> dict:
+    """The TinyLlama path with each quantized KV cache: from the float
+    weights as drawn, serve(calib, "w8a8_static", smooth=True, kv_dtype,
+    kv_scale_mode) -> generate((32, 512), 64), one engine at a time, with
+    the launch counts set to 0 just before generate and read just after:
+    the format's one-pass kernel 22 x 63 times, K7 and K10 never.  Greedy
+    agreement with the bf16-KV engine is a reading."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    lm, prompts, cfg = llm["lm"], llm["prompts"], llm["lm"].config
+    smoothed = lm.params
+    steps = LLM_NEW - 1
+    runs = {}
+    for label, (kv_dtype, scale_mode, mode) in KV_FORMATS.items():
+        lm.params = llm["base"]
+        t0 = time.perf_counter()
+        eng = lm.serve(llm["calib"], mode="w8a8_static", smooth=True, kv_dtype=kv_dtype,
+                       kv_scale_mode=scale_mode)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        qmm.reset_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=LLM_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(qmm.LAUNCHES)
+        per = dict(LLM_WANT, decode_attention_kv=0, **{f"decode_attention_kv_{mode}": 1})
+        want = {k: 0 for k in launches}
+        want.update({k: v * cfg.num_hidden_layers * steps for k, v in per.items()})
+        want["fused_dense_decode"] = steps
+        if launches != want:
+            fail(f"LLM kv {label} launches {launches} != expected {want}")
+        new = new_tokens(f"LLM kv {label}", toks, prompts, LLM_NEW, cfg.vocab_size)
+        print(f"phase 3: LLM {LLM_BATCH} x {LLM_PROMPT} -> +{LLM_NEW} tokens, {label} KV cache "
+              f"(kv_dtype={kv_dtype}, kv_scale_mode={scale_mode!r}): quantize {t_quant:.2f} s, "
+              f"first generate {t_gen:.2f} s ({LLM_BATCH * LLM_NEW / t_gen:.1f} tokens/s); "
+              f"launches { {k: v for k, v in launches.items() if v} }; greedy agreement with "
+              f"the bf16-KV engine {_agreement(new, llm['tokens'])}", flush=True)
+        runs[f"LLM kv {label}"] = {"launches": launches}
+        del eng
+        torch.cuda.empty_cache()
+    lm.params = smoothed
+    return runs
 
 
 def _clone(v, dev=None):
@@ -1485,12 +1740,17 @@ def _reckon_peak(cfg) -> str:
             "prompt-long caches are padded layer by layer)")
 
 
-def _l7_want(mode: str, cfg) -> dict:
+def _l7_want(mode: str, cfg, kv_mode=None) -> dict:
+    """Exact launches of one 7B generate; ``kv_mode`` names the flash
+    decode's quantized format that replaces K10's bf16 one."""
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
     steps = L7_NEW - 1
     want = {k: 0 for k in qmm.LAUNCHES}
-    want.update({k: v * cfg.num_hidden_layers * steps for k, v in L7_WANT[mode].items()})
+    per = dict(L7_WANT[mode])
+    if kv_mode:
+        per[f"decode_attention_kv_flash_{kv_mode}"] = per.pop("decode_attention_kv_flash")
+    want.update({k: v * cfg.num_hidden_layers * steps for k, v in per.items()})
     want["flash_prefill_gqa"] = cfg.num_hidden_layers
     want["fused_dense_decode"] = want.get("fused_dense_decode", 0) + steps
     return want
@@ -1499,9 +1759,10 @@ def _l7_want(mode: str, cfg) -> dict:
 def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
     """Llama-2-7B geometry, random weights from seed 0 drawn on the card:
     from_config -> serve(w8a8_static, smooth) -> generate((8, 2048), 64),
-    then serve(bf16) on the same smoothed weights -> generate of the same
-    prompts, each with the launch counts set to 0 just before generate and
-    read just after; the two engines' greedy agreement is a reading."""
+    then on the same smoothed weights the w8a8 engine with each quantized
+    KV cache (``_long_kv_paths``) and serve(bf16), each generate of the
+    same prompts with the launch counts set to 0 just before generate and
+    read just after; the engines' greedy agreement is a reading."""
     from qdm_tpu_torch.api.causal_lm import CausalLM
     from qdm_tpu_torch.models.llama import LlamaConfig
     from qdm_tpu_torch.ops import quant_matmul as qmm
@@ -1528,9 +1789,11 @@ def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
     out = {"lm": lm, "prompts": prompts, "engines": engines, "launches": {}, "tokens": {}}
     for mode in ("w8a8_static", "bf16"):
         if mode == "bf16":
+            eng = None                  # the w8a8 engine goes unless the profile keeps it
             if not keep_both:
                 del engines["w8a8_static"]
                 torch.cuda.empty_cache()
+            _long_kv_paths(lm, calib, prompts, out, keep_int4=keep_both)
             engines["bf16"] = lm.serve(mode="bf16")
         eng = engines[mode]
         qmm.reset_launches()
@@ -1543,11 +1806,7 @@ def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
         if launches != want:
             fail(f"7B {mode} launches {launches} != expected {want} ({cfg.num_hidden_layers} "
                  f"layers x {L7_NEW - 1} decode steps)")
-        new = toks[:, L7_PROMPT:]
-        if (toks.shape != (L7_BATCH, L7_PROMPT + L7_NEW)
-                or not np.array_equal(toks[:, :L7_PROMPT], prompts)
-                or new.min() < 0 or new.max() >= cfg.vocab_size):
-            fail(f"7B {mode} tokens: shape {toks.shape}, range [{new.min()}, {new.max()}]")
+        new = new_tokens(f"7B {mode}", toks, prompts, L7_NEW, cfg.vocab_size)
         t0 = time.perf_counter()
         eng.prefill(prompts, L7_PROMPT + L7_NEW)
         torch.cuda.synchronize()
@@ -1568,6 +1827,48 @@ def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
           f"{float(first.mean()):.2f} on average (median {float(np.median(first)):.1f}); peak "
           f"device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
     return out
+
+
+def _long_kv_paths(lm, calib, prompts, out: dict, keep_int4: bool) -> None:
+    """The 7B w8a8 engine with each quantized KV cache, the int4 one first
+    (``recommended_kv`` of the 2112-token serving length), on the smoothed
+    weights: serve(calib, "w8a8_static", kv_dtype, kv_scale_mode) ->
+    generate((8, 2048), 64), one engine at a time (the int4 one kept for
+    the profile with ``keep_int4``), with exact launch counts: the format's
+    flash decode 32 x 63, K10's bf16 format and K7 never."""
+    from qdm_tpu_torch.api.serve import recommended_kv
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = lm.config
+    if recommended_kv(L7_PROMPT + L7_NEW) != KV_FORMATS["int4"][:2]:
+        fail(f"recommended_kv({L7_PROMPT + L7_NEW}) = {recommended_kv(L7_PROMPT + L7_NEW)}")
+    for label, (kv_dtype, scale_mode, mode) in KV_FORMATS.items():
+        t0 = time.perf_counter()
+        eng = lm.serve(calib, mode="w8a8_static", kv_dtype=kv_dtype, kv_scale_mode=scale_mode)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        qmm.reset_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=L7_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(qmm.LAUNCHES)
+        want = _l7_want("w8a8_static", cfg, mode)
+        if launches != want:
+            fail(f"7B kv {label} launches {launches} != expected {want}")
+        new = new_tokens(f"7B kv {label}", toks, prompts, L7_NEW, cfg.vocab_size)
+        print(f"phase 3: Llama-2-7B w8a8_static engine, {label} KV cache (kv_dtype={kv_dtype}, "
+              f"kv_scale_mode={scale_mode!r}), {L7_BATCH} x {L7_PROMPT} -> +{L7_NEW} tokens: "
+              f"quantize {t_quant:.2f} s, first generate {t_gen:.2f} s "
+              f"({L7_BATCH * L7_NEW / t_gen:.1f} tokens/s); launches "
+              f"{ {k: v for k, v in launches.items() if v} }; greedy agreement with the bf16-KV "
+              f"w8a8 engine {_agreement(new, out['tokens']['w8a8_static'])}; device memory "
+              f"peak so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+        out["launches"][f"w8a8_static kv {label}"] = launches
+        if keep_int4 and mode == "i4c":
+            out["engines"]["w8a8_static int4 KV"] = eng
+        del eng
+        torch.cuda.empty_cache()
 
 
 def _k9_replay(calls, dev, dtype, fault: float = 1.0) -> Tuple[bool, float, float]:
@@ -1672,10 +1973,105 @@ def phase_long_witness(dev) -> None:
         fail(f"the long-route layer witness misses K9's sm_scale x{K9_FAULT} (planted): {k9_read}")
 
 
+def _replay_planted_kv(calls, dev, fmt: str) -> float:
+    """The recorded quantized-cache attention calls repeated on the card
+    with the K channel scales (which ride on q) or, for the token format,
+    the V token scales off by KVQ_FAULT: largest error relative to the CPU
+    output's magnitude."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    worst = 0.0
+    with torch.inference_mode():
+        for name, args, kw, out in calls:
+            if name not in KV_ATTENTION:
+                continue
+            a = list(_clone(args, dev))
+            if fmt == "i8":                      # (q, codes, token scales, pos)
+                hkv = a[0].shape[1]
+                a[2] = torch.cat([a[2][:, :hkv], a[2][:, hkv:] * (1.0 + KVQ_FAULT)], dim=1)
+            else:                                # (q folded with the K scales, codes, pos)
+                a[0] = a[0] * (1.0 + KVQ_FAULT)
+            worst = max(worst, _rel_err(getattr(dk, name)(*a, **_clone(kw, dev)), out))
+    return worst
+
+
+def phase_kv_witness(dev) -> None:
+    """The quantized KV caches on tiny engines (tiny_llama_config at hidden
+    128, head_dim 32), card against CPU from one seed: each format, on the
+    short route (the one-pass kernels K12-K14) and on the long route
+    (_FLASH_BYTES lowered to 1 KiB: the flash decode's formats), in
+    w8a8_static (f32: every K5, K6, K8 and attention call of the CPU
+    engine's generate repeated on the card on the same inputs) and in bf16
+    (bf16 weights, which the card's K11 takes: the attention calls
+    repeated), each within LLM_TOL of the output's magnitude.  The card
+    engine's launches of the format's kernel are exact; the K channel
+    scales (folded into q) or the V token scales off by KVQ_FAULT
+    (planted) must read above LLM_TOL.  Greedy agreement is a reading."""
+    import dataclasses
+
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_llama_config
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = dataclasses.replace(tiny_llama_config(), hidden_size=128, intermediate_size=256)
+    rng = np.random.default_rng(3)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 24)).astype(np.int32)
+    saved, failed = dk._FLASH_BYTES, []
+    try:
+        for route, flash_bytes in (("short", saved), ("long", 2 ** 10)):
+            dk._FLASH_BYTES = flash_bytes
+            for mode, dtype in (("w8a8_static", torch.float32), ("bf16", torch.bfloat16)):
+                for label, (kv_dtype, scale_mode, fmt) in KV_FORMATS.items():
+                    kw = dict(kv_dtype=kv_dtype, kv_scale_mode=scale_mode)
+                    engines = {}
+                    for d in ("cpu", dev):
+                        lm = CausalLM.from_config(cfg, dtype=dtype, seed=0, device=d)
+                        engines[d] = (lm.serve(calib, mode=mode, smooth=True, **kw)
+                                      if mode == "w8a8_static" else lm.serve(mode=mode, **kw))
+                    attn = f"decode_attention_kv_{fmt}"
+                    names = [attn] + (["fused_dense_decode_i8", "fused_mlp_decode_i8",
+                                       "fused_dense_decode"] if mode == "w8a8_static" else [])
+                    calls: list = []
+                    with _recording(calls, [(dk, n) for n in names]):
+                        want = engines["cpu"].generate(prompts, max_new_tokens=8)
+                    qmm.reset_launches()
+                    got = engines[dev].generate(prompts, max_new_tokens=8)
+                    kernel = f"decode_attention_kv_{'flash_' if route == 'long' else ''}{fmt}"
+                    runs = {k: v for k, v in qmm.LAUNCHES.items() if v}
+                    if (runs.get(kernel) != 7 * cfg.num_hidden_layers
+                            or "decode_attention_kv" in runs or "decode_attention_kv_flash" in runs):
+                        fail(f"tiny {label} KV, {mode}, {route} route: the card's engine "
+                             f"launched {runs}")
+                    sound = _replay(calls, dev)
+                    planted = _replay_planted_kv(calls, dev, fmt)
+                    n = {k: sum(c[0] == k for c in calls) for k in names}
+                    print(f"phase 3: tiny {label} KV cache, {mode} engine ({dtype}), {route} route "
+                          f"({kernel}), card vs CPU: greedy tokens agree "
+                          f"{float((got[:, 24:] == want[:, 24:]).mean()):.4f}; each kernel call "
+                          "on the CPU's inputs, largest error relative to the output's magnitude: "
+                          + ", ".join(f"{k} {sound.get(k, float('nan')):.2e} ({n[k]} calls)"
+                                      for k in names)
+                          + f" (limit {LLM_TOL:g}); "
+                          + ("V token" if fmt == "i8" else "K channel")
+                          + f" scales off by {KVQ_FAULT:g} (planted): {planted:.2e}", flush=True)
+                    if set(sound) != set(names) or max(sound.values()) > LLM_TOL:
+                        failed.append(f"{label} {mode} {route}: {sound}")
+                    if planted <= LLM_TOL:
+                        failed.append(f"{label} {mode} {route}: planted fault read {planted}")
+                    del engines, calls
+    finally:
+        dk._FLASH_BYTES = saved
+    if failed:
+        fail(f"quantized KV witness: {failed}")
+
+
 def phase_long_profile(dev, long: dict) -> None:
-    """Warm generate of the 7B w8a8 and bf16 engines, five each in turn; the
-    prefill and the decode loop timed apart; device time by kernel of three
-    decode steps of each engine."""
+    """Warm generate of the 7B w8a8 engine, the w8a8 engine with the int4
+    KV cache and the bf16 engine, five each in turn; the prefill and the
+    decode loop timed apart; device time by kernel of three decode steps of
+    each engine."""
     from torch.profiler import ProfilerActivity, profile
 
     engines, prompts = long["engines"], long["prompts"]
@@ -1712,6 +2108,11 @@ def phase_long_profile(dev, long: dict) -> None:
                                     times[("bf16", "generate")])]
     print(f"profile: Llama-2-7B w8a8 engine / bf16 engine generate time, run by run: "
           f"{_spread(ratios)}", flush=True)
+    for k in ("generate", "decode"):
+        ratios = [q / w for q, w in zip(times[("w8a8_static int4 KV", k)],
+                                        times[("w8a8_static", k)])]
+        print(f"profile: Llama-2-7B w8a8 engine, int4 KV cache / bf16 KV cache {k} time, run "
+              f"by run: {_spread(ratios)}", flush=True)
     for mode, eng in engines.items():
         tok0, caches = eng.prefill(prompts, L7_PROMPT + L7_NEW)
         run = eng._make_run(3)
@@ -1795,9 +2196,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also time warm generate runs (SD W4A16, W8A8 and bf16 in turn; the "
-                         "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8 "
-                         "and bf16 engines in turn) and profile two W4A16 denoising steps and "
-                         "three decode steps of each engine")
+                         "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8, "
+                         "w8a8 int4-KV and bf16 engines in turn) and profile two W4A16 "
+                         "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     args = ap.parse_args()
@@ -1816,12 +2217,15 @@ def main() -> int:
     kres.update(phase_w4_kernels(dev))
     kres.update(phase_decode_kernels(dev))
     kres.update(phase_long_kernels(dev, kres))
+    kres.update(phase_kv_quant_kernels(dev))
     runs = phase_main_path(dev)
     runs["LLM"] = phase_llm_path(dev, args.seed)
+    runs.update(phase_llm_kv_paths(dev, runs["LLM"]))
     phase_small_reference(dev)
     phase_w4a8_witness(dev)
     phase_llm_witness(dev)
     phase_long_witness(dev)
+    phase_kv_witness(dev)
     if args.profile:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])

@@ -4,6 +4,7 @@
     engine = lm.serve(calib_ids, mode="w8a8_static", smooth=True)
     tokens = engine.generate(prompts, max_new_tokens=64)
     bf16 = lm.serve(mode="bf16")       # the yardstick, on the same weights
+    kv4 = lm.serve(calib_ids, mode="w8a8_static", kv_dtype="int4")   # int4 KV cache
 
 Ported: ``from_config`` (the JAX package's seeded weights), ``logits``,
 greedy ``generate`` through the module with its (k, v) cache,
@@ -141,7 +142,9 @@ class CausalLM:
         """The decode engine for this model (``causal_lm.py::serve``):
         optional SmoothQuant migration of ``self.params``, static
         activation-scale calibration, engine construction.  ``mode="bf16"``
-        and ``mode="w8a8_static"`` are ported."""
+        and ``mode="w8a8_static"`` are ported.  Extra keyword arguments
+        (``kv_dtype``, ``kv_scale_mode``, ``kv_margin``, ...) go to
+        :class:`~qdm_tpu_torch.api.serve.DecodeEngine` in both modes."""
         from qdm_tpu_torch.api.serve import DecodeEngine
 
         if mode == "bf16":

@@ -1,7 +1,7 @@
 """Decode engine for LLM serving (counterpart of ``qdm_tpu/api/serve.py``).
 
 Two engines on one device, each with a combined ``[K | V]`` depth-major KV
-cache ``(B, 2*hkv, d, T)`` per layer in the model dtype and four kernel
+cache ``(B, 2*hkv, d, T)`` per layer (the model dtype by default) and four kernel
 calls per decoder layer plus one for the head (``ops/decode_kernels.py``):
 
 * ``w8a8_static``: int8 per-output-channel weights and calibrated static
@@ -24,19 +24,40 @@ and for both ``logits = K5(x; final RMSNorm, lm_head) -> f32``, greedy
 argmax.  The attention is K7 up to ``_FLASH_BYTES`` of cache per row and
 the flash decode K10 above it, as the TPU dispatcher routes.
 
+Either engine may keep a quantized KV cache instead (``kv_dtype``,
+``kv_scale_mode``, ``kv_margin``; ``recommended_kv`` picks one from the
+serving length):
+
+* ``kv_dtype=torch.int8, kv_scale_mode="token"``: int8 codes with a scale
+  per token and head, written with each new column; attention K12
+  (``decode_attention_kv_i8``);
+* ``kv_dtype=torch.int8, kv_scale_mode="channel"``: int8 codes with
+  static per-(head, channel) scales set at prefill (prompt absmax x
+  ``kv_margin`` / 127; decode writes clip); the K scales fold into q (in
+  f32), the V scales into the attention output; attention K13
+  (``decode_attention_kv_i8c``);
+* ``kv_dtype="int4"``: the channel scheme with int4 codes, two depth
+  channels per byte (``pack_kv_int4``); attention K14
+  (``decode_attention_kv_i4c``).
+
+Above ``_FLASH_BYTES`` of codes per row each format takes its flash decode
+(``decode_attention_kv_flash``, ``mode`` ``i8`` / ``i8c`` / ``i4c``).
+
 The prompt is prefilled through the float module (``prefill_quant=False``,
 ``serve.py:2885-2958``), which writes the combined cache directly (a long
-prompt through the flash prefill K9).  Batch rows are not padded to a
-sublane granule (the TPU engine pads to 8; its padded rows never reach an
-output).
+prompt through the flash prefill K9); the cache is then quantized and
+padded layer by layer.  Batch rows are not padded to a sublane granule
+(the TPU engine pads to 8; its padded rows never reach an output).
 
 Ported from ``DecodeEngine``: ``__init__`` for the canonical llama block
 in ``bf16`` and ``w8a8_static`` with ``merge_o=False`` and
-``head_quant=None``, ``calibrate_scales``, ``smooth_lm``, ``prefill``,
-``_layer``, ``_head_logits``, ``_make_run`` (a loop over steps of one
-memoized step function) and greedy ``generate``.  The bf16 engine at
-batch 1 (the TPU engine's XLA-layer variant, ``_xla_ok_b1``) and every
-other option raise ``NotImplementedError`` naming ROADMAP.md.
+``head_quant=None``, the KV-cache options, ``calibrate_scales``,
+``smooth_lm``, ``init_cache``, ``prefill`` with the quantizing half of
+``_kv_finalize``, ``_layer``, ``_head_logits``, ``_make_run`` (a loop over
+steps of one memoized step function), greedy ``generate`` and
+``recommended_kv``.  The bf16 engine at batch 1 (the TPU engine's
+XLA-layer variant, ``_xla_ok_b1``) and every other option raise
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -87,6 +108,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def recommended_kv(ctx_len: int, sliding_window: Optional[int] = None):
+    """The JAX engine's KV-cache policy (``serve.py:275-293``, measured on a
+    TPU): bf16 KV below a 2048-token serving context, channel-static int4
+    KV from 2048 on; a sliding-window model reads at most ``window``
+    columns.  Returns (kv_dtype, kv_scale_mode)."""
+    if sliding_window:
+        ctx_len = min(ctx_len, sliding_window)
+    return ("int4", "channel") if ctx_len >= 2048 else (None, "token")
+
+
 class DecodeEngine:
     """Extracted-weight decode engine over the decode kernels: greedy,
     equal-length batches, one device."""
@@ -94,7 +125,7 @@ class DecodeEngine:
     def __init__(self, lm, mode: str = "bf16", act_stats: Optional[Dict[str, torch.Tensor]] = None,
                  act_margin: float = 1.0, kv_dtype=None, merge_o: bool = False, mesh=None,
                  prefill_quant: bool = False, head_quant: Optional[str] = None,
-                 kv_scale_mode: str = "token", gptq_grams=None):
+                 kv_scale_mode: str = "token", kv_margin: float = 2.0, gptq_grams=None):
         if mode not in ("bf16", "w8a8_static", "w4a8_static"):
             raise ValueError(mode)
         if mode == "w4a8_static":
@@ -104,15 +135,36 @@ class DecodeEngine:
         if gptq_grams and mode == "bf16":
             raise ValueError("gptq_grams places quantized weight codes; bf16 mode has none "
                              "(use w8a8/w4a8_static)")
-        unported = {"kv_dtype": kv_dtype is not None, "merge_o": merge_o, "mesh": mesh is not None,
+        unported = {"merge_o": merge_o, "mesh": mesh is not None,
                     "prefill_quant": bool(prefill_quant), "head_quant": head_quant is not None,
-                    "kv_scale_mode": kv_scale_mode != "token", "gptq_grams": bool(gptq_grams)}
+                    "gptq_grams": bool(gptq_grams)}
         if any(unported.values()):
             raise NotImplementedError(
                 f"engine options {[k for k, v in unported.items() if v]} are not ported yet: "
                 f"{_ROADMAP}")
         cfg = lm.config
         llama_lib.check_canonical(cfg)
+        # quantized KV cache (serve.py:396-431): int8 codes with per-token
+        # scales, or int8 / packed int4 codes with per-(head, channel)
+        # static scales set at prefill (x kv_margin headroom; decode writes
+        # clip), K scales folded into q and V scales into the output
+        if kv_dtype == "auto":
+            raise ValueError("kv_dtype='auto' needs the serving context length: use "
+                             "recommended_kv(ctx_len) -> (kv_dtype, kv_scale_mode)")
+        if kv_dtype not in (None, torch.int8, "int4"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: None, torch.int8 or 'int4'")
+        if kv_dtype == "int4":
+            if cfg.head_dim % 2:
+                raise ValueError(f"int4 KV packs depth-channel pairs; head_dim={cfg.head_dim} "
+                                 "must be even")
+            kv_scale_mode = "channel"
+        if kv_scale_mode not in ("token", "channel"):
+            raise ValueError(f"kv_scale_mode: {kv_scale_mode!r}")
+        if kv_scale_mode == "channel" and kv_dtype is None:
+            raise ValueError("kv_scale_mode='channel' requires kv_dtype=torch.int8 or 'int4'")
+        self.kv_dtype, self.kv_scale_mode = kv_dtype, kv_scale_mode
+        self.kv_margin = float(kv_margin)
+        self._kv_qmax = 7.0 if kv_dtype == "int4" else 127.0
         self.lm, self.cfg, self.mode, self.dtype = lm, cfg, mode, lm.dtype
         self.device = lm.device
         p = lm.params
@@ -199,9 +251,8 @@ class DecodeEngine:
                                            norm_scale=w["ln1"], rope_cos=cosv, rope_sin=sinv,
                                            head_dim=d, eps=eps, w_t=w["w_qkv_t"])
         q = qkv[:, :h * d].view(b, hkv, h // hkv, d)
-        (kv,) = cache
-        kv[:, :, :, pos] = qkv[:, h * d:].reshape(b, 2 * hkv, d)
-        attn = dk.decode_attention_kv(q, kv, pos).reshape(b, h * d)
+        attn = self._attend(q, qkv[:, h * d:].reshape(b, 2 * hkv, d), cache, pos)
+        attn = attn.reshape(b, h * d)
         mlp_w = (w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t())
         mlp_t = (w["wg_t"], w["wu_t"], w["wd_t"])
         if bf16:
@@ -212,6 +263,33 @@ class DecodeEngine:
         return dk.fused_mlp_decode_i8(x, *mlp_w, (w["sg"], w["su"], w["sd"]), w["a_mlp"],
                                       w["ln2"], eps=eps, act=cfg.mlp_act, w_t=mlp_t)
 
+    def _attend(self, q, kv_new, cache, pos: int):
+        """Write the new k, v column at ``pos`` into the cache, in its
+        format, and attend (``serve.py:1869-1921``)."""
+        hkv = self.cfg.num_key_value_heads
+        if self.kv_dtype is None:
+            (kv,) = cache
+            kv[:, :, :, pos] = kv_new
+            return dk.decode_attention_kv(q, kv, pos)
+        newf = kv_new.to(torch.float32)
+        if self.kv_scale_mode == "channel":
+            kv, csc = cache                     # csc (B, 2*hkv, d, 1), static
+            qmax = self._kv_qmax
+            codes = torch.clamp(torch.round(torch.div(newf, csc[..., 0])), -qmax, qmax)
+            kv[:, :, :, pos] = (dk.pack_kv_int4(codes[..., None])[..., 0]
+                                if self.kv_dtype == "int4" else codes.to(torch.int8))
+            # K channel scales fold into q (QK contracts over d), V channel
+            # scales into the output (d is free in PV); q goes in f32
+            attend = (dk.decode_attention_kv_i4c if self.kv_dtype == "int4"
+                      else dk.decode_attention_kv_i8c)
+            attn = attend(q.to(torch.float32) * csc[:, :hkv].transpose(-1, -2), kv, pos)
+            return (attn * csc[:, hkv:].transpose(-1, -2)).to(q.dtype)
+        kv, kvs = cache                         # kvs (B, 2*hkv, 1, T)
+        sn = torch.clamp(newf.abs().amax(dim=-1), min=1e-8) * dk.INV127
+        kv[:, :, :, pos] = torch.round(torch.div(newf, sn[..., None])).to(torch.int8)
+        kvs[:, :, 0, pos] = sn
+        return dk.decode_attention_kv_i8(q, kv, kvs, pos)
+
     def _head_logits(self, x):
         """Final norm + bf16 lm_head in one launch, f32 logits."""
         return dk.fused_dense_decode(x, self.head_t.t(), norm_scale=self.final_norm,
@@ -221,11 +299,44 @@ class DecodeEngine:
     # ------------------------------------------------------------------ decode
 
     def init_cache(self, batch: int, max_len: int):
-        """Combined [K | V] cache (B, 2*hkv, d, round_up(max_len, 128)) per layer."""
+        """Combined [K | V] cache (B, 2*hkv, d, round_up(max_len, 128)) per
+        layer in the model dtype; with a quantized KV cache the int8 codes
+        (int4: (B, 2*hkv, d/2, T) packed) and their scales, channel-static
+        (B, 2*hkv, d, 1) of ones or per-token (B, 2*hkv, 1, T) of zeros
+        (``serve.py:2575-2608``)."""
         cfg = self.cfg
-        shape = (batch, 2 * cfg.num_key_value_heads, cfg.head_dim, _round_up(max_len, 128))
-        return [(torch.zeros(shape, dtype=self.dtype, device=self.device),)
-                for _ in range(cfg.num_hidden_layers)]
+        b, r, d, t = batch, 2 * cfg.num_key_value_heads, cfg.head_dim, _round_up(max_len, 128)
+        dev, f32 = self.device, torch.float32
+
+        def layer():
+            if self.kv_dtype is None:
+                return (torch.zeros((b, r, d, t), dtype=self.dtype, device=dev),)
+            rows = d // 2 if self.kv_dtype == "int4" else d
+            codes = torch.zeros((b, r, rows, t), dtype=torch.int8, device=dev)
+            if self.kv_scale_mode == "channel":
+                return codes, torch.ones((b, r, d, 1), dtype=f32, device=dev)
+            return codes, torch.zeros((b, r, 1, t), dtype=f32, device=dev)
+        return [layer() for _ in range(cfg.num_hidden_layers)]
+
+    def _kv_finalize(self, kvdm, pad: int):
+        """One layer's prompt-long module cache (B, 2*hkv, d, S') in the
+        engine's format, padded by ``pad`` columns (the quantizing half of
+        ``serve.py:2690-2712``): channel scales ``clip(max_T |kv|, 1e-8) *
+        (kv_margin / qmax)`` with clipped codes (int4 packed), or token
+        scales ``clip(max_d |kv|, 1e-8) / 127`` padded with 1.0."""
+        widen = lambda t, fill=0.0: F.pad(t, (0, pad), value=fill)
+        if self.kv_dtype is None:
+            return (widen(kvdm),)
+        kvf = kvdm.to(torch.float32)
+        if self.kv_scale_mode == "channel":
+            qmax = self._kv_qmax
+            sc = (torch.clamp(kvf.abs().amax(dim=3, keepdim=True), min=1e-8)
+                  * float(np.float32(self.kv_margin / qmax)))
+            codes = torch.clamp(torch.round(torch.div(kvf, sc)), -qmax, qmax)
+            codes = dk.pack_kv_int4(codes) if self.kv_dtype == "int4" else codes.to(torch.int8)
+            return widen(codes), sc
+        ss = torch.clamp(kvf.abs().amax(dim=2, keepdim=True), min=1e-8) * dk.INV127
+        return widen(torch.round(torch.div(kvf, ss)).to(torch.int8)), widen(ss, 1.0)
 
     def _make_run(self, n_tokens: int, sampler=()):
         """The decode loop of ``n_tokens`` greedy steps, as one memoized
@@ -278,9 +389,10 @@ class DecodeEngine:
         logits, caches = self._prefill_model(ids, kv_caches=caches, cache_index=0,
                                              last_logits_only=True)
         tok = torch.argmax(logits[:, -1], dim=-1)
-        # padded layer by layer, each prompt-long cache freed as its copy is made
+        # quantized and padded layer by layer, each prompt-long cache freed as
+        # its copy is made
         for l in range(len(caches)):
-            caches[l] = (F.pad(caches[l][0], (0, tp - sp)),)
+            caches[l] = self._kv_finalize(caches[l][0], tp - sp)
         return tok, caches
 
     @torch.inference_mode()

@@ -55,6 +55,11 @@ ENTRY_POINTS = {
                                   (P, I, L, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, P)),
     "decode_mlp": ("qdm_decode_mlp",
                    (P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I, P)),
+    "decode_attention_kv_q": ("qdm_decode_attention_kv_q",
+                              (P, I, L, P, P, P, I, F, I, P, I, I, I, I, I, P)),
+    "decode_attention_kv_flash_q": ("qdm_decode_attention_kv_flash_q",
+                                    (P, I, L, P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I,
+                                     I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense"}
 

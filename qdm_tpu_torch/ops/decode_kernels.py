@@ -26,6 +26,16 @@ engine with a bf16 KV cache:
   f32 V, ``acc / l`` in q's dtype.  CUDA kernel
   ``csrc/decode_attention_kv_flash.cu`` (K10; replaces
   ``decode_attention_kv_flash_pallas``, bf16 cache format).
+* :func:`decode_attention_kv_i8`, :func:`decode_attention_kv_i8c`,
+  :func:`decode_attention_kv_i4c` — the same attention over a quantized
+  cache: int8 codes with per-token scales ``(B, 2*hkv, 1, T)``, int8 or
+  packed int4 codes (``pack_kv_int4``) with per-(head, channel) static
+  scales folded into q and the output by the caller.  q is quantized per
+  (row, head), QK and PV run on integer codes, p is quantized per row.
+  CUDA kernels ``csrc/decode_attention_kv_q.cu`` (K12-K14; replace
+  ``decode_attention_kv_{i8,i8c,i4c}_pallas``); above ``_FLASH_BYTES``
+  the flash decode's quantized formats (``decode_attention_kv_flash_q.cu``,
+  p quantized per ``bt``-column block against the running maximum).
 * :func:`fused_mlp_decode` — norm, bf16 gate and up with f32 sums,
   ``act(g) * u`` rounded to x's dtype, down, the f32 partial of each
   ``bj``-wide inner block added in block order, residual.  CUDA kernel
@@ -48,7 +58,11 @@ CPU (the TPU kernels' formulas, where XLA's own rounding is not portable):
   with IEEE sqrt and division;
 * ``silu(g) = g * (1 / (1 + exp(-g)))`` and the tanh GELU with ``exp``
   and ``tanh`` taken in f64 and rounded to f32 (the same on every
-  device).
+  device);
+* the quantized attentions divide as XLA compiles the TPU kernels'
+  formulas: ``x / 127.0`` is ``x * f32(1/127)``, a division by a tensor
+  is IEEE; their softmax takes ``exp`` in f64 rounded to f32 and each
+  row or block sum of p in f64 rounded once.
 
 Each wrapper computes its plain version for CPU tensors, launches its
 kernel for CUDA tensors and raises for anything else; no fallback.
@@ -78,14 +92,20 @@ _ACTS = {"silu": 0, "gelu": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ATTN_SMEM = 200 * 1024
 
+# quantized cache formats: kernel code of each (csrc/decode_attn_q.cuh) and
+# its launch counters (one-pass kernel, flash decode)
+KV_MODES = {"i8": 0, "i8c": 1, "i4c": 2}
 for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
-           "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode"):
+           "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode",
+           *(f"decode_attention_kv_{m}" for m in KV_MODES),
+           *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
 
-_ROADMAP_FLASH = ("the {mode!r} cache format of decode_attention_kv_flash_pallas is not ported "
-                  "yet (bf16 is): ROADMAP.md Queue 2 item 12")
 _FLASH_CHUNK = 1024     # K10: most cache columns one block reads (128 threads x 8)
 _FLASH_CTAS = 264       # K10: split T until about two blocks per SM of the H100
+# ``x / 127.0`` as XLA compiles it in the TPU kernels: times the f32 reciprocal
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+_MASK_ONE_PASS, _MASK_FLASH = -1e9, -1e30    # the TPU kernels' masked logits
 
 
 def pick_block(n: int, pref: int, mult: int = LANE) -> int:
@@ -257,40 +277,144 @@ def _pick_bt(t: int, target: int = 1024) -> int:
     return LANE
 
 
+def pack_kv_int4(codes: torch.Tensor) -> torch.Tensor:
+    """int4-valued codes (..., d, T) -> bytes (..., d/2, T): channel c in
+    the low nibble, channel c + d/2 in the high nibble
+    (``decode_kernels.pack_kv_int4``)."""
+    c = codes.to(torch.int32)
+    half = c.shape[-2] // 2
+    return ((c[..., half:, :] << 4) | (c[..., :half, :] & 0xF)).to(torch.int8)
+
+
+def unpack_kv_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_kv_int4`: bytes (..., d/2, T) -> int8 codes
+    (..., d, T), each nibble sign-extended (``_nibbles``)."""
+    p32 = packed.to(torch.int32)
+    return torch.cat([(p32 << 28) >> 28, p32 >> 4], dim=-2).to(torch.int8)
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` in f64 rounded to f32 (the same on every device)."""
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
+
+
+def quant_rows(x: torch.Tensor):
+    """Per-row int8 codes of f32 x (as f32 values) and their scale, as the
+    TPU kernels quantize q and p: ``s = clip(max|x|, 1e-8) / 127``,
+    ``round(x / s)`` half to even."""
+    s = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8) * INV127
+    return torch.round(torch.div(x, s)), s
+
+
+def _codes_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Integer-valued a @ b, exact in f64 (below 2**53), rounded once to
+    f32 as the TPU kernels' int32 sums convert."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.float32)
+
+
+def kv_codes(kv: torch.Tensor, mode: str, hkv: int):
+    """(K codes, V codes), each (B, hkv, d, T), of a quantized combined cache."""
+    codes = unpack_kv_int4(kv) if mode == "i4c" else kv
+    return codes[:, :hkv], codes[:, hkv:]
+
+
+def _f32_scale(d: int, sm_scale) -> float:
+    """The softmax scale as the f32 value the kernels multiply by."""
+    return float(np.float32(d ** -0.5 if sm_scale is None else sm_scale))
+
+
+def decode_attention_kv_q_plain(q, kv, pos: int, mode: str, kv_scale=None, starts=None):
+    """Plain version of the one-pass quantized decode attentions (K12-K14,
+    ``_decode_attn_kv_{i8,i8c,i4c}_kernel``): q (B, hkv, g, d) times d^-0.5
+    quantized per (row, head); int QK times ``qs`` (and the K token scales,
+    ``i8``); columns outside [starts, pos] at -1e9; softmax normalised over
+    T; p times the V token scales (``i8``), quantized per row; int PV times
+    ``ps``; out in q's dtype.  ``i8c`` / ``i4c`` take q pre-folded with the
+    K channel scales and leave the V channel scales to the caller."""
+    b, hkv, g, d = q.shape
+    t = kv.shape[-1]
+    kc, vc = kv_codes(kv, mode, hkv)
+    qi, qs = quant_rows(q.to(torch.float32) * _f32_scale(d, None))
+    logits = _codes_dot(qi, kc) * qs
+    if mode == "i8":
+        logits = logits * kv_scale[:, :hkv]
+    t_ids = torch.arange(t, device=q.device)
+    ok = (t_ids <= int(pos))[None, :]
+    if starts is not None:
+        ok = ok & (t_ids[None, :] >= starts.to(q.device).reshape(-1, 1))
+    logits = torch.where(ok[:, None, None, :], logits, torch.full_like(logits, _MASK_ONE_PASS))
+    p = _exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = torch.div(p, _sum_f32(p))
+    if mode == "i8":
+        p = p * kv_scale[:, hkv:]
+    pi, ps = quant_rows(p)
+    return (_codes_dot(pi, vc.transpose(-1, -2)) * ps).to(q.dtype)
+
+
 def decode_attention_kv_flash_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
-                                    softcap: float = 0.0, block_t: int = 1024):
+                                    softcap: float = 0.0, block_t: int = 1024,
+                                    mode: str = "bf16", kv_scale=None):
     """Plain version of :func:`decode_attention_kv_flash`: the TPU kernel's
     online softmax over every ``bt``-column block in order
-    (``_decode_attn_kv_flash_kernel``, bf16 format).  A block that is all
-    masked before the first valid one (starts beyond it) takes p =
-    exp(0) = 1 on every column, as the TPU kernel does, and the next valid
-    block wipes it with alpha = 0; a row masked throughout averages V over
-    all T columns."""
+    (``_decode_attn_kv_flash_kernel``).  A block that is all masked before
+    the first valid one (starts beyond it) takes p = exp(0) = 1 on every
+    column, as the TPU kernel does, and the next valid block wipes it with
+    alpha = 0; a row masked throughout averages V over all T columns.
+
+    The quantized formats (``i8``: int8 codes with per-token scales
+    kv_scale (B, 2*hkv, 1, T); ``i8c``: int8 codes; ``i4c``: packed int4
+    codes) quantize q per (row, head), take int QK times ``qs`` (times the
+    K token scales), and quantize p per block, unnormalised, against the
+    running maximum, after ``l`` is updated (times the V token scales
+    first); their ``exp`` and block sums are taken in f64 and rounded to
+    f32."""
     b, hkv, g, d = q.shape
     t = kv_cache.shape[-1]
     bt = _pick_bt(t, block_t)
-    scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    qf = q.to(torch.float32) * scale
-    kf = kv_cache[:, :hkv].to(torch.float32)
-    vf = kv_cache[:, hkv:].to(torch.float32)
+    quant = mode != "bf16"
+    if quant:
+        qi, qs = quant_rows(q.to(torch.float32) * _f32_scale(d, sm_scale))
+        kf, vf = kv_codes(kv_cache, mode, hkv)
+    else:
+        qf = q.to(torch.float32) * (d ** -0.5 if sm_scale is None else float(sm_scale))
+        kf = kv_cache[:, :hkv].to(torch.float32)
+        vf = kv_cache[:, hkv:].to(torch.float32)
     st = None if starts is None else starts.to(q.device).reshape(b, 1, 1, 1)
-    m = torch.full((b, hkv, g, 1), -1e30, dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, g, 1), _MASK_FLASH, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
     for t0 in range(0, t, bt):
-        logits = torch.matmul(qf, kf[..., t0:t0 + bt])
+        cols = slice(t0, t0 + bt)
+        if quant:
+            logits = _codes_dot(qi, kf[..., cols]) * qs
+            if mode == "i8":
+                logits = logits * kv_scale[:, :hkv, :, cols]
+        else:
+            logits = torch.matmul(qf, kf[..., cols])
         if softcap:
-            logits = softcap * torch.tanh(qmm.div_exact(logits, float(softcap)))
+            capped = qmm.div_exact(logits, float(softcap))
+            logits = softcap * (torch.tanh(capped.to(torch.float64)).to(torch.float32) if quant
+                                else torch.tanh(capped))
         t_ids = torch.arange(t0, t0 + bt, device=q.device).reshape(1, 1, 1, -1)
         ok = t_ids <= int(pos)
         if st is not None:
             ok = ok & (t_ids >= st)
-        logits = torch.where(ok, logits, torch.full_like(logits, -1e30))
+        logits = torch.where(ok, logits, torch.full_like(logits, _MASK_FLASH))
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p, vf[..., t0:t0 + bt].transpose(-1, -2))
+        if quant:
+            alpha = _exp(m - m_new)
+            p = _exp(logits - m_new)
+            l = l * alpha + _sum_f32(p)
+            if mode == "i8":
+                p = p * kv_scale[:, hkv:, :, cols]
+            pi, ps = quant_rows(p)
+            pv = _codes_dot(pi, vf[..., cols].transpose(-1, -2)) * ps
+        else:
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            pv = torch.matmul(p, vf[..., cols].transpose(-1, -2))
+        acc = acc * alpha + pv
         m = m_new
     return torch.div(acc, l).to(q.dtype)
 
@@ -517,6 +641,36 @@ def kv_block_bytes(kv_cache: torch.Tensor) -> int:
     return int(np.prod(kv_cache.shape[1:])) * kv_cache.element_size()
 
 
+def _check_kv(q, kv_cache, pos: int, mode: str = "bf16", kv_scale=None) -> int:
+    """Shape checks shared by the decode attentions on every device;
+    returns T."""
+    b, hkv, g, d = q.shape
+    dd = d // 2 if mode == "i4c" else d
+    if (kv_cache.dim() != 4 or kv_cache.shape[0] != b or kv_cache.shape[1] != 2 * hkv
+            or kv_cache.shape[2] != dd or (mode == "i4c" and d % 2)):
+        raise ValueError(f"{mode} kv cache {tuple(kv_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    t = kv_cache.shape[-1]
+    if not 0 <= int(pos) < t:
+        raise ValueError(f"pos {pos} outside the cache length {t}")
+    if mode != "bf16" and kv_cache.dtype != torch.int8:
+        raise ValueError(f"the {mode} cache holds int8 codes, got {kv_cache.dtype}")
+    if (mode == "i8") != (kv_scale is not None):
+        raise ValueError("per-token scales go with the i8 format, and only with it")
+    if kv_scale is not None and tuple(kv_scale.shape) != (b, 2 * hkv, 1, t):
+        raise ValueError(f"kv_scale {tuple(kv_scale.shape)} is not ({b}, {2 * hkv}, 1, {t})")
+    return t
+
+
+def _starts_i32(starts, b: int, dev):
+    if starts is None:
+        return None
+    st = starts.to(device=dev, dtype=torch.int32).contiguous()
+    if st.numel() != b:
+        raise ValueError(f"starts must hold {b} values")
+    return st
+
+
 def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None,
                                softcap: float = 0.0):
     """One-pass decode attention (K7): q (B, hkv, g, d) — rows may be
@@ -524,12 +678,7 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     kv (B, 2*hkv, d, T); keys 0..pos (and from starts[b]) attended.
     Returns (B, hkv, g, d) in q's dtype."""
     b, hkv, g, d = q.shape
-    if (kv_cache.dim() != 4 or kv_cache.shape[0] != b or kv_cache.shape[1] != 2 * hkv
-            or kv_cache.shape[2] != d):
-        raise ValueError(f"kv cache {tuple(kv_cache.shape)} does not match q {tuple(q.shape)}")
-    t = kv_cache.shape[-1]
-    if not 0 <= int(pos) < t:
-        raise ValueError(f"pos {pos} outside the cache length {t}")
+    t = _check_kv(q, kv_cache, pos)
     if not _on_card(q, "decode_attention_kv"):
         return decode_attention_kv_plain(q, kv_cache, pos, starts, sm_scale, softcap)
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
@@ -542,11 +691,7 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     if g > 16:
         raise NotImplementedError(f"decode attention takes at most 16 query heads per kv "
                                   f"head, got {g}")
-    st = None
-    if starts is not None:
-        st = starts.to(device=q.device, dtype=torch.int32).contiguous()
-        if st.numel() != b:
-            raise ValueError(f"starts must hold {b} values")
+    st = _starts_i32(starts, b, q.device)
     smem = 4 * g * (d + t)
     if smem > _MAX_ATTN_SMEM:
         raise NotImplementedError(f"decode attention needs {smem} bytes of shared memory "
@@ -565,25 +710,110 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     return out
 
 
-def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
-                              softcap: float = 0.0, mode: str = "bf16"):
-    """T-blocked decode attention (K10): q (B, hkv, g, d) — rows may be
-    strided, each (hkv, g, d) row contiguous — against the combined cache
-    kv (B, 2*hkv, d, T); keys 0..pos (and from starts[b]) attended.
-    The plain version follows the TPU kernel's T blocks (``_pick_bt``);
-    the kernel splits T its own way.  Only the bf16 cache format
-    (``mode="bf16"``, a bf16 or f32 cache) is ported."""
-    if mode != "bf16":
-        raise NotImplementedError(_ROADMAP_FLASH.format(mode=mode))
+def _q_operands(q, kv, kv_scale, what: str):
+    """Card checks shared by the quantized-cache kernels."""
     b, hkv, g, d = q.shape
-    if (kv_cache.dim() != 4 or kv_cache.shape[0] != b or kv_cache.shape[1] != 2 * hkv
-            or kv_cache.shape[2] != d):
-        raise ValueError(f"kv cache {tuple(kv_cache.shape)} does not match q {tuple(q.shape)}")
-    t = kv_cache.shape[-1]
-    if not 0 <= int(pos) < t:
-        raise ValueError(f"pos {pos} outside the cache length {t}")
-    if not _on_card(q, "decode_attention_kv_flash"):
-        return decode_attention_kv_flash_plain(q, kv_cache, pos, starts, sm_scale, softcap)
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what}: q must be bf16 or f32, got {q.dtype}")
+    if (q.stride(3) != 1 or q.stride(2) != d or q.stride(1) != g * d
+            or not kv.is_contiguous() or kv.device != q.device or kv.data_ptr() % 16):
+        raise ValueError(f"{what}: q rows must be contiguous (hkv, g, d) blocks and the cache "
+                         "contiguous and 16-byte aligned on q's device")
+    if g not in (1, 2, 4, 8) or d % 8 or d > 256 or kv.shape[-1] % LANE:
+        raise NotImplementedError(f"{what} takes g in (1, 2, 4, 8), d <= 256 a multiple of 8 "
+                                  f"and T a multiple of {LANE}; got g={g}, d={d}, "
+                                  f"T={kv.shape[-1]}")
+    if kv_scale is None:
+        return None
+    ks = kv_scale.to(torch.float32).contiguous()
+    if ks.device != q.device:
+        raise ValueError(f"{what}: kv_scale must lie on q's device")
+    return ks
+
+
+def decode_attention_kv_q_single(q, kv, pos: int, mode: str, kv_scale=None, starts=None):
+    """One-pass decode attention over a quantized combined cache (K12
+    ``i8``, K13 ``i8c``, K14 ``i4c``): q (B, hkv, g, d) — rows may be
+    strided, each (hkv, g, d) row contiguous — against int8 codes
+    (B, 2*hkv, d, T) (``i4c``: packed (B, 2*hkv, d/2, T)), keys 0..pos (and
+    from starts[b]) attended.  Returns (B, hkv, g, d) in q's dtype."""
+    t = _check_kv(q, kv, pos, mode, kv_scale)
+    name = f"decode_attention_kv_{mode}"
+    if not _on_card(q, name):
+        return decode_attention_kv_q_plain(q, kv, pos, mode, kv_scale, starts)
+    ks = _q_operands(q, kv, kv_scale, name)
+    b, hkv, g, d = q.shape
+    st = _starts_i32(starts, b, q.device)
+    cols = t if st is not None else min(t, (int(pos) // 16 + 1) * 16)
+    smem = 64 + qmm._cdiv(g * d, 16) * 16 + 5 * g * cols
+    if smem > _MAX_ATTN_SMEM:
+        raise NotImplementedError(f"{name} needs {smem} bytes of shared memory (g={g}, "
+                                  f"T={t}); at most {_MAX_ATTN_SMEM}")
+    out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return out
+    fn = cuda_build.kernel("decode_attention_kv_q")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv.data_ptr(), _ptr(ks),
+                 _ptr(st), int(pos), ctypes.c_float(_f32_scale(d, None)), KV_MODES[mode],
+                 out.data_ptr(), b, hkv, g, d, t, _stream(q))
+    cuda_build.check(err, name)
+    qmm.LAUNCHES[name] += 1
+    return out
+
+
+def _flash_q(q, kv, pos: int, starts, sm_scale, softcap: float, mode: str, kv_scale):
+    """The quantized formats of the flash decode on the card: a logits
+    pass, a pass per TPU block (its softmax, p codes and PV) and an
+    in-order combine (``csrc/decode_attention_kv_flash_q.cu``)."""
+    name = f"decode_attention_kv_flash_{mode}"
+    ks = _q_operands(q, kv, kv_scale, name)
+    b, hkv, g, d = q.shape
+    t = kv.shape[-1]
+    st = _starts_i32(starts, b, q.device)
+    bt = _pick_bt(t)
+    nb = t // bt
+    out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return out
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lg = torch.empty((b * hkv, g, t), **f32)
+    bmax = torch.empty((b * hkv, g, nb), **f32)
+    part_o = torch.empty((b * hkv, nb, g, d), **f32)
+    part_s = torch.empty((b * hkv, nb, g, 2), **f32)
+    fn = cuda_build.kernel("decode_attention_kv_flash_q")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv.data_ptr(), _ptr(ks),
+                 _ptr(st), int(pos), ctypes.c_float(_f32_scale(d, sm_scale)),
+                 ctypes.c_float(softcap), KV_MODES[mode], out.data_ptr(), lg.data_ptr(),
+                 bmax.data_ptr(), part_o.data_ptr(), part_s.data_ptr(), b, hkv, g, d, t, bt,
+                 _stream(q))
+    cuda_build.check(err, name)
+    qmm.LAUNCHES[name] += 1
+    return out
+
+
+def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                              softcap: float = 0.0, mode: str = "bf16", kv_scale=None):
+    """T-blocked decode attention: q (B, hkv, g, d) — rows may be strided,
+    each (hkv, g, d) row contiguous — against the combined cache kv
+    (B, 2*hkv, d, T) in the ``mode``'s format; keys 0..pos (and from
+    starts[b]) attended.  ``bf16`` (a bf16 or f32 cache, K10): the plain
+    version follows the TPU kernel's T blocks (``_pick_bt``), the kernel
+    splits T its own way.  ``i8`` / ``i8c`` / ``i4c`` (int8 codes, with
+    per-token scales kv_scale for ``i8``; packed int4 codes for ``i4c``):
+    the kernel keeps the TPU blocks, so its p codes are the plain
+    version's."""
+    if mode != "bf16" and mode not in KV_MODES:
+        raise ValueError(f"mode {mode!r}")
+    t = _check_kv(q, kv_cache, pos, mode, kv_scale)
+    name = "decode_attention_kv_flash" + ("" if mode == "bf16" else f"_{mode}")
+    if not _on_card(q, name):
+        return decode_attention_kv_flash_plain(q, kv_cache, pos, starts, sm_scale, softcap,
+                                               mode=mode, kv_scale=kv_scale)
+    if mode != "bf16":
+        return _flash_q(q, kv_cache, pos, starts, sm_scale, softcap, mode, kv_scale)
+    b, hkv, g, d = q.shape
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
         raise ValueError(f"q and the cache must share a bf16/f32 dtype, got {q.dtype}, "
                          f"{kv_cache.dtype}")
@@ -596,11 +826,7 @@ def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
         raise NotImplementedError(f"the flash decode kernel takes g in (1, 2, 4, 8, 16), "
                                   f"d <= 256 a multiple of 4 and T a multiple of 8; got g={g}, "
                                   f"d={d}, T={t}")
-    st = None
-    if starts is not None:
-        st = starts.to(device=q.device, dtype=torch.int32).contiguous()
-        if st.numel() != b:
-            raise ValueError(f"starts must hold {b} values")
+    st = _starts_i32(starts, b, q.device)
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
     if b == 0:
@@ -634,6 +860,35 @@ def decode_attention_kv(q, kv_cache, pos: int, starts=None, sm_scale=None,
     if kv_block_bytes(kv_cache) > _FLASH_BYTES:
         return decode_attention_kv_flash(q, kv_cache, pos, starts, sm_scale, softcap)
     return decode_attention_kv_single(q, kv_cache, pos, starts, sm_scale, softcap)
+
+
+def _decode_attention_kv_q(q, kv, pos: int, mode: str, kv_scale=None, starts=None):
+    """Quantized-cache dispatcher: the one-pass kernel up to
+    ``_FLASH_BYTES`` of codes per row, the flash decode's format above it,
+    by shape on every device as :func:`decode_attention_kv` routes."""
+    if kv_block_bytes(kv) > _FLASH_BYTES:
+        return decode_attention_kv_flash(q, kv, pos, starts, mode=mode, kv_scale=kv_scale)
+    return decode_attention_kv_q_single(q, kv, pos, mode, kv_scale, starts)
+
+
+def decode_attention_kv_i8(q, kv_i8, kv_scale, pos: int):
+    """int8 cache with per-token scales (``decode_kernels.decode_attention_kv_i8``):
+    kv_i8 (B, 2*hkv, d, T) int8, kv_scale (B, 2*hkv, 1, T) f32."""
+    return _decode_attention_kv_q(q, kv_i8, pos, "i8", kv_scale=kv_scale)
+
+
+def decode_attention_kv_i8c(q, kv_i8, pos: int, starts=None):
+    """int8 cache with channel-static scales
+    (``decode_kernels.decode_attention_kv_i8c``): q pre-folded with the K
+    channel scales, the output to be folded with the V channel scales."""
+    return _decode_attention_kv_q(q, kv_i8, pos, "i8c", starts=starts)
+
+
+def decode_attention_kv_i4c(q, kv_p, pos: int, starts=None):
+    """Packed int4 cache (B, 2*hkv, d/2, T) (``pack_kv_int4``) with
+    channel-static scales (``decode_kernels.decode_attention_kv_i4c``), the
+    :func:`decode_attention_kv_i8c` contract."""
+    return _decode_attention_kv_q(q, kv_p, pos, "i4c", starts=starts)
 
 
 def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor],

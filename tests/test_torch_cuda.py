@@ -455,3 +455,95 @@ def test_decode_mlp_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residua
     _close_on_card(got, want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dk.fused_mlp_decode(x.float(), wg.float(), wu.float(), wd.float(), ns)
+
+
+def _kv_q_operands(b, hkv, g, d, t, mode, bf16, seed, dev):
+    """q viewed out of a wider qkv row, as the engine passes it, and a cache
+    in ``mode``'s format: random codes, per-token scales for i8."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy(rng.standard_normal((b, hkv * g * d + 2 * hkv * d)).astype(np.float32))
+    q = wide.to(dev, torch.bfloat16 if bf16 else torch.float32)[:, :hkv * g * d].view(b, hkv, g, d)
+    qmax = 7 if mode == "i4c" else 127
+    codes = torch.from_numpy(rng.integers(-qmax, qmax + 1, (b, 2 * hkv, d, t)).astype(np.int8))
+    kv = (dk.pack_kv_int4(codes) if mode == "i4c" else codes).to(dev)
+    sc = None
+    if mode == "i8":
+        sc = torch.from_numpy((rng.random((b, 2 * hkv, 1, t)) * 0.05 + 1e-3).astype(np.float32))
+        sc = sc.to(dev)
+    return q, kv, sc
+
+
+# (mode, B, hkv, g, d, T, pos, starts, bf16 q)
+KV_Q_CASES = [
+    ("i8", 32, 4, 8, 64, 640, 574, None, True),        # TinyLlama, the last decode step
+    ("i8c", 32, 4, 8, 64, 640, 574, None, False),
+    ("i4c", 32, 4, 8, 64, 640, 574, None, False),
+    ("i8c", 4, 2, 4, 64, 256, 100, (0, 7, 101, 64), False),   # row 2 masked throughout
+    ("i4c", 4, 2, 4, 64, 256, 100, (0, 7, 101, 64), True),
+    ("i8", 3, 2, 1, 128, 384, 300, None, False),       # g 1 at d 128
+    ("i4c", 2, 1, 2, 256, 128, 0, None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,b,hkv,g,d,t,pos,starts,bf16", KV_Q_CASES)
+def test_kv_quant_kernel_matches_plain_on_card(mode, b, hkv, g, d, t, pos, starts, bf16):
+    """K12-K14 repeat their plain version's arithmetic: outputs equal."""
+    dev = _card()
+    q, kv, sc = _kv_q_operands(b, hkv, g, d, t, mode, bf16, b + t + pos, dev)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    name = f"decode_attention_kv_{mode}"
+    before = qmm.LAUNCHES[name]
+    got = dk.decode_attention_kv_q_single(q, kv, pos, mode, sc, st)
+    want = dk.decode_attention_kv_q_plain(q, kv, pos, mode, sc, st)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    assert got.dtype == q.dtype and torch.equal(got, want), float((got - want).abs().max())
+
+
+# (mode, B, hkv, g, d, T, pos, starts, softcap, sm_scale, bf16 q)
+FLASH_Q_CASES = [
+    ("i8", 8, 32, 1, 128, 2176, 2110, None, 0.0, None, True),    # Llama-2-7B, the last step
+    ("i8c", 8, 32, 1, 128, 2176, 2110, None, 0.0, None, False),
+    ("i4c", 8, 32, 1, 128, 2176, 2110, None, 0.0, None, False),
+    # TPU blocks of 384: row 1's first block all masked, row 2 masked throughout
+    ("i8", 3, 2, 4, 64, 1152, 900, (0, 500, 950), 0.0, None, False),
+    ("i8c", 3, 2, 4, 64, 1152, 900, (0, 500, 950), 0.0, None, False),
+    ("i4c", 3, 2, 4, 64, 1152, 900, (0, 500, 950), 0.0, None, True),
+    ("i8c", 4, 4, 8, 64, 4224, 4100, None, 30.0, 0.07, False),   # GQA, softcap, sm_scale
+    ("i4c", 2, 2, 2, 32, 8192, 5000, None, 0.0, None, False),    # bt 1024
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,b,hkv,g,d,t,pos,starts,softcap,sm_scale,bf16", FLASH_Q_CASES)
+def test_flash_q_kernel_matches_plain_on_card(mode, b, hkv, g, d, t, pos, starts, softcap,
+                                              sm_scale, bf16):
+    """The flash decode's quantized formats keep the TPU blocks and their
+    running maxima: outputs equal to the plain version's."""
+    dev = _card()
+    q, kv, sc = _kv_q_operands(b, hkv, g, d, t, mode, bf16, b + t + pos, dev)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    kw = dict(starts=st, sm_scale=sm_scale, softcap=softcap, mode=mode, kv_scale=sc)
+    name = f"decode_attention_kv_flash_{mode}"
+    before = qmm.LAUNCHES[name]
+    got = dk.decode_attention_kv_flash(q, kv, pos, **kw)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    assert got.dtype == q.dtype and torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["i8", "i8c", "i4c"])
+def test_flash_q_check_flags_half_blocks_on_card(mode, monkeypatch):
+    """A kernel whose p codes share ps over half the TPU blocks (bt / 2)
+    differs from the plain version."""
+    dev = _card()
+    q, kv, sc = _kv_q_operands(2, 2, 4, 64, 1024, mode, False, 11, dev)
+    want = dk.decode_attention_kv_flash_plain(q, kv, 1000, mode=mode, kv_scale=sc)
+    pick = dk._pick_bt
+    monkeypatch.setattr(dk, "_pick_bt", lambda t, target=1024: pick(t, target) // 2)
+    got = dk.decode_attention_kv_flash(q, kv, 1000, mode=mode, kv_scale=sc)
+    torch.cuda.synchronize()
+    assert not torch.equal(got, want)

@@ -88,9 +88,12 @@ def test_dispatcher_routes_long_caches_to_the_flash_decode(monkeypatch):
     monkeypatch.setattr(tdk, "_FLASH_BYTES", tdk.kv_block_bytes(kv) - 1)
     long = tdk.decode_attention_kv(q, kv, 200)
     assert torch.equal(long, tdk.decode_attention_kv_flash_plain(q, kv, 200))
+    codes = kv.mul(40).round().clamp(-127, 127).to(torch.int8)
+    assert torch.equal(tdk.decode_attention_kv_flash(q, codes, 200, mode="i8c"),
+                       tdk.decode_attention_kv_flash_plain(q, codes, 200, mode="i8c"))
     assert qmm.LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdk.decode_attention_kv_flash(q, kv.to(torch.int8), 200, mode="i8")
+    with pytest.raises(ValueError, match="per-token scales"):
+        tdk.decode_attention_kv_flash(q, codes, 200, mode="i8")
 
 
 # (M, K, I, block_j, norm, act, residual, out f32, bf16 x and weights)

@@ -12,11 +12,19 @@ TPU kernels' formulas.  The Pallas kernels block in 128 lanes, so the
 geometry is 128 wide.  The flash decode tests lower ``_FLASH_BYTES`` in
 both packages so that the tiny caches take it.
 
+The quantized KV caches (``kv_dtype``, ``kv_scale_mode``) are held the same
+way, with ``dk.decode_attention_kv_i8`` / ``_i8c`` / ``_i4c`` dispatched
+to their Pallas kernels (the one-pass kernels, or the flash decode's
+formats above ``_FLASH_BYTES``), not to the JAX ``*_ref`` functions the
+JAX engine calls off the TPU.
+
 Tolerances: calibration stats and SmoothQuant params within 2e-6 of their
 magnitude (XLA's f32 pow against PyTorch's, 1 ulp on some inputs); the
-engine's int8 weight codes and act scales identical; every decoder layer,
-fed the JAX layer's inputs, within 1e-5 of its output's magnitude with
-identical int8 activation codes; greedy tokens identical.
+engine's int8 weight codes and act scales identical; the prompt cache's
+codes and scales identical to ``_kv_finalize``'s on the same module cache;
+every decoder layer, fed the JAX layer's inputs, within 1e-5 of its
+output's magnitude with identical int8 activation codes (the new cache
+column's codes and scales included); greedy tokens identical.
 """
 
 import functools
@@ -56,6 +64,25 @@ def _tpu_attention_kv(q, kv_cache, pos, starts=None, sm_scale=None, softcap=0.0,
                                           softcap=softcap, interpret=True, **kw)
 
 
+def _tpu_attention_kv_i8(q, kv_i8, kv_scale, pos, **kw):
+    """``decode_kernels.decode_attention_kv_i8`` as it dispatches on the TPU."""
+    if jdk._kv_block_bytes(kv_i8) > jdk._FLASH_BYTES:
+        return jdk.decode_attention_kv_flash_pallas(q, kv_i8, pos, kv_scale=kv_scale, mode="i8",
+                                                    interpret=True, **kw)
+    return jdk.decode_attention_kv_i8_pallas(q, kv_i8, kv_scale, pos, interpret=True, **kw)
+
+
+def _tpu_attention_kv_channel(mode, single):
+    """``decode_kernels.decode_attention_kv_i8c`` / ``_i4c`` as they
+    dispatch on the TPU."""
+    def attend(q, kv, pos, starts=None, **kw):
+        if jdk._kv_block_bytes(kv) > jdk._FLASH_BYTES:
+            return jdk.decode_attention_kv_flash_pallas(q, kv, pos, starts, mode=mode,
+                                                        interpret=True, **kw)
+        return single(q, kv, pos, starts, interpret=True, **kw)
+    return attend
+
+
 @pytest.fixture
 def tpu_dispatch(monkeypatch):
     """The JAX engine's decode kernels as on the TPU: Pallas, interpreted."""
@@ -64,6 +91,11 @@ def tpu_dispatch(monkeypatch):
     monkeypatch.setattr(jdk, "fused_dense_decode_i8",
                         functools.partial(jdk.fused_dense_decode_i8_pallas, interpret=True))
     monkeypatch.setattr(jdk, "decode_attention_kv", _tpu_attention_kv)
+    monkeypatch.setattr(jdk, "decode_attention_kv_i8", _tpu_attention_kv_i8)
+    monkeypatch.setattr(jdk, "decode_attention_kv_i8c",
+                        _tpu_attention_kv_channel("i8c", jdk.decode_attention_kv_i8c_pallas))
+    monkeypatch.setattr(jdk, "decode_attention_kv_i4c",
+                        _tpu_attention_kv_channel("i4c", jdk.decode_attention_kv_i4c_pallas))
     monkeypatch.setattr(jdk, "fused_mlp_decode_i8",
                         functools.partial(jdk.fused_mlp_decode_i8_pallas, interpret=True))
     monkeypatch.setattr(jdk, "fused_mlp_decode",
@@ -76,6 +108,15 @@ def flash_decode(monkeypatch):
     (the tests' caches hold 32-64 KiB per row)."""
     monkeypatch.setattr(jdk, "_FLASH_BYTES", 16 * 2 ** 10)
     monkeypatch.setattr(tdk, "_FLASH_BYTES", 16 * 2 ** 10)
+
+
+# the quantized KV formats: (JAX engine kwargs, port engine kwargs)
+KV_FORMATS = {
+    "int8 token": (dict(kv_dtype=jnp.int8), dict(kv_dtype=torch.int8)),
+    "int8 channel": (dict(kv_dtype=jnp.int8, kv_scale_mode="channel"),
+                     dict(kv_dtype=torch.int8, kv_scale_mode="channel")),
+    "int4": (dict(kv_dtype="int4"), dict(kv_dtype="int4")),
+}
 
 
 def _ids(seed, shape):
@@ -119,17 +160,20 @@ def test_smooth_lm_params_match_jax():
     assert moved > 0       # the migration changed the norms and kernels
 
 
-def _engines(calib_seed=3):
-    """Both engines from the JAX lifecycle's smoothed params and stats."""
+def _engines(calib_seed=3, kv=None):
+    """Both engines from the JAX lifecycle's smoothed params and stats;
+    ``kv`` names a quantized KV cache (a key of ``KV_FORMATS``)."""
+    jkw, tkw = KV_FORMATS[kv] if kv else ({}, {})
     jlm, _ = _lms(2)
     calib = _ids(calib_seed, (4, 32))
-    je = jlm.serve(calib, mode="w8a8_static", smooth=True)
+    je = jlm.serve(calib, mode="w8a8_static", smooth=True, **jkw)
     stats = JaxEngine.calibrate_scales(jlm, calib)
     tlm = CausalLM.from_config(llama.LlamaConfig(**GEOM), device="cpu",
                                params=params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                                              jlm.params)))
     te = DecodeEngine(tlm, mode="w8a8_static",
-                      act_stats={k: torch.from_numpy(np.array(v)) for k, v in stats.items()})
+                      act_stats={k: torch.from_numpy(np.array(v)) for k, v in stats.items()},
+                      **tkw)
     return je, te
 
 
@@ -161,7 +205,7 @@ def _layer_by_layer(je, te, ids, max_len):
     worst = 0.0
     with torch.inference_mode():
         for l in range(cfg.num_hidden_layers):
-            tcache = (torch.from_numpy(np.array(caches[l][0])),)
+            tcache = tuple(torch.from_numpy(np.array(c)) for c in caches[l])
             tx = torch.from_numpy(np.array(x))
             w = je.layers[l]
             if te.mode == "w8a8_static":
@@ -174,10 +218,11 @@ def _layer_by_layer(je, te, ids, max_len):
                                            te.layers[l]["a_qkv"])
                 assert np.array_equal(jcodes.astype(np.int8), tcodes.numpy()), l
             got = te._layer(tx, tcache, te.layers[l], pos, tcos, tsin)
-            x, (kv,) = je._layer(x, caches[l], w, pos, cosv, sinv)
-            # the new k, v column comes out of the qkv kernel: f32 ulps
+            x, jcache = je._layer(x, caches[l], w, pos, cosv, sinv)
+            # the new k, v column comes out of the qkv kernel: f32 ulps (a
+            # quantized cache's codes and scales compared as they are)
             worst = max(worst, _rel(got.numpy(), np.asarray(x)),
-                        _rel(tcache[0].numpy(), np.asarray(kv)))
+                        *(_rel(t.numpy(), np.asarray(j)) for t, j in zip(tcache, jcache)))
         logits = je._head_logits(x, je._head, je.final_norm)
         got = te._head_logits(torch.from_numpy(np.array(x)))
     return max(worst, _rel(got.numpy(), np.asarray(logits)))
@@ -212,13 +257,19 @@ def test_engine_on_cpu_runs_the_plain_versions():
     assert ((0 <= out) & (out < GEOM["vocab_size"])).all()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_scale_mode="channel"), dict(mode="w4a8_static"),
-                                dict(merge_o=True), dict(kv_dtype="int8"),
-                                dict(head_quant="int8"), dict(prefill_quant=True)])
-def test_unported_engine_options_raise(kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(kv_scale_mode="channel"), ValueError, "requires kv_dtype"),
+    (dict(mode="w4a8_static"), NotImplementedError, "ROADMAP"),
+    (dict(merge_o=True), NotImplementedError, "ROADMAP"),
+    (dict(kv_dtype="auto"), ValueError, "recommended_kv"),
+    (dict(head_quant="int8"), NotImplementedError, "ROADMAP"),
+    (dict(prefill_quant=True), NotImplementedError, "ROADMAP")])
+def test_unported_engine_options_raise(kw, exc, match):
+    """The options still to port raise naming ROADMAP.md; the KV-cache
+    options reject what the JAX engine rejects (``serve.py:412-427``)."""
     _, tlm = _lms(0)
     stats = DecodeEngine.calibrate_scales(tlm, _ids(1, (2, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         DecodeEngine(tlm, **{"mode": "w8a8_static", "act_stats": stats, **kw})
 
 
@@ -308,3 +359,141 @@ def test_bf16_engine_at_batch_one_raises():
     _, tlm = _lms(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.serve(mode="bf16").generate(_ids(2, (1, 8)), max_new_tokens=2)
+
+
+def test_recommended_kv_matches_jax():
+    from qdm_tpu.api.serve import recommended_kv as jax_recommended
+    from qdm_tpu_torch.api.serve import recommended_kv
+
+    for ctx in (512, 1024, 2047, 2048, 2112, 4096, 32768):
+        for window in (None, 0, 1024, 2048, 4096):
+            assert recommended_kv(ctx, window) == jax_recommended(ctx, window), (ctx, window)
+    assert recommended_kv(2112) == ("int4", "channel")
+
+
+@pytest.mark.parametrize("kv", list(KV_FORMATS))
+def test_kv_finalize_matches_jax(kv):
+    """The engine's prompt cache in each quantized format (codes, packed
+    for int4, and scales) byte-identical to the JAX ``_kv_finalize``'s,
+    jitted as the JAX prefill runs it, on the same module cache."""
+    je, te = _engines(kv=kv)
+    rng = np.random.default_rng(5)
+    kvdm = (rng.standard_normal((4, 4, 32, 128)) * rng.random((4, 4, 32, 1)) * 3
+            ).astype(np.float32)
+    kvdm[..., 100:] = 0.0                         # the prompt's padding columns
+    want = jax.jit(lambda c: je._kv_finalize([(c,)], 64))(jnp.asarray(kvdm))[0]
+    got = te._kv_finalize(torch.from_numpy(kvdm), 64)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.dtype == {jnp.int8: torch.int8, jnp.float32: torch.float32}[w.dtype.type]
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    init = te.init_cache(3, 130)[0]
+    assert [tuple(c.shape) for c in init] == [tuple(c.shape) for c in je.init_cache(3, 130)[0]]
+
+
+@pytest.mark.parametrize("flash", [False, True])
+@pytest.mark.parametrize("kv", list(KV_FORMATS))
+def test_quantized_kv_engine_layers_match_jax_layer_by_layer(tpu_dispatch, monkeypatch, kv,
+                                                            flash):
+    """The w8a8 engine with each quantized KV cache, on the one-pass
+    kernels and on the flash decode: every layer within 1e-5 of the JAX
+    TPU-dispatch layer's output, the new cache column's codes and scales
+    included."""
+    if flash:
+        monkeypatch.setattr(jdk, "_FLASH_BYTES", 4 * 2 ** 10)
+        monkeypatch.setattr(tdk, "_FLASH_BYTES", 4 * 2 ** 10)
+    je, te = _engines(kv=kv)
+    assert (tdk.kv_block_bytes(te.init_cache(1, 48)[0][0]) > tdk._FLASH_BYTES) == flash
+    assert _layer_by_layer(je, te, _ids(4, (4, 40)), 48) <= 1e-5
+
+
+def _decode_from_jax_prefill(je, te, ids, n: int) -> np.ndarray:
+    """The port engine's n greedy tokens decoded from the JAX engine's
+    prefill (its first token and caches)."""
+    tok0, caches = je.prefill(ids, ids.shape[1] + n)
+    tcaches = [tuple(torch.from_numpy(np.array(c)) for c in layer) for layer in caches]
+    tok0 = torch.from_numpy(np.array(tok0)).long()
+    toks = te._make_run(n - 1)(tok0, tcaches, ids.shape[1])
+    return torch.cat([tok0[:, None], toks], dim=1).numpy()
+
+
+@pytest.mark.parametrize("kv,flash", [("int8 token", False), ("int8 channel", True),
+                                     ("int4", True)])
+def test_quantized_kv_engine_greedy_matches_jax(tpu_dispatch, monkeypatch, kv, flash):
+    """The whole lifecycle with each quantized KV cache,
+    ``serve(calib, "w8a8_static", smooth=True, kv_dtype=...)`` then 15
+    greedy decode steps, on the one-pass kernels or on the flash decode:
+    decoded from the JAX prefill's caches, tokens identical to the JAX
+    engine's; the port's own generate identical too for the int8 formats,
+    no launch on the CPU.  The int4 prompt codes (seven levels a side)
+    flip at rounding boundaries under the module prefill's f32 ulps
+    (PyTorch's matmuls against XLA's), and the tiny random model's greedy
+    tokens part after one or two steps."""
+    if flash:
+        monkeypatch.setattr(jdk, "_FLASH_BYTES", 4 * 2 ** 10)
+        monkeypatch.setattr(tdk, "_FLASH_BYTES", 4 * 2 ** 10)
+    jkw, tkw = KV_FORMATS[kv]
+    jlm, tlm = _lms(5)
+    calib, ids = _ids(6, (4, 32)), _ids(7, (4, 24))
+    je = jlm.serve(calib, mode="w8a8_static", smooth=True, **jkw)
+    want = je.generate(ids, max_new_tokens=16)
+    before = dict(qmm.LAUNCHES)
+    te = tlm.serve(calib, mode="w8a8_static", smooth=True, **tkw)
+    np.testing.assert_array_equal(_decode_from_jax_prefill(je, te, ids, 16), want[:, 24:])
+    got = te.generate(ids, max_new_tokens=16)
+    assert got.shape == want.shape and qmm.LAUNCHES == before
+    if kv != "int4":
+        np.testing.assert_array_equal(got, want)
+
+
+def test_bf16_engine_with_int4_kv_matches_jax(tpu_dispatch):
+    """``serve(mode="bf16", kv_dtype="int4")`` (the JAX serve passes the
+    KV options in both modes): layer by layer within 1e-5, and identical
+    greedy tokens decoded from the JAX prefill."""
+    jlm, tlm = _lms(4)
+    je, te = jlm.serve(mode="bf16", kv_dtype="int4"), tlm.serve(mode="bf16", kv_dtype="int4")
+    assert te.kv_scale_mode == "channel" and te.init_cache(1, 8)[0][0].dtype == torch.int8
+    assert _layer_by_layer(je, te, _ids(8, (4, 40)), 48) <= 1e-5
+    ids = _ids(9, (4, 24))
+    np.testing.assert_array_equal(_decode_from_jax_prefill(je, te, ids, 8),
+                                  je.generate(ids, max_new_tokens=8)[:, 24:])
+
+
+def _ref_gap() -> None:
+    """The JAX engine off the TPU attends its quantized caches through the
+    jnp references (``decode_attention_kv_i8c_ref`` / ``_i4c_ref`` quantize
+    neither q nor p; ``decode_attention_dm_i8_ref`` divides where the TPU
+    kernel multiplies), the port through the TPU kernels' formulas.  Prints,
+    for each format on the tiny engine: the port's layer-by-layer distance
+    to the TPU dispatch and to the JAX CPU references (every other kernel
+    on the TPU dispatch), and the JAX engine's greedy agreement between the
+    two dispatches (16 tokens x 4 rows).  Run as
+    ``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_serve.py``."""
+    refs = {k: getattr(jdk, k) for k in ("decode_attention_kv_i8", "decode_attention_kv_i8c",
+                                         "decode_attention_kv_i4c")}
+    for kv in KV_FORMATS:
+        mp = pytest.MonkeyPatch()
+        try:
+            tpu_dispatch.__wrapped__(mp)
+            je, te = _engines(kv=kv)
+            to_tpu = _layer_by_layer(je, te, _ids(4, (4, 40)), 48)
+            jkw, _ = KV_FORMATS[kv]
+            jlm, _ = _lms(5)
+            calib, ids = _ids(6, (4, 32)), _ids(7, (4, 24))
+            tpu = jlm.serve(calib, mode="w8a8_static", smooth=True, **jkw).generate(
+                ids, max_new_tokens=16)
+            for k, f in refs.items():
+                mp.setattr(jdk, k, f)
+            to_ref = _layer_by_layer(je, te, _ids(4, (4, 40)), 48)
+            jlm, _ = _lms(5)
+            ref = jlm.serve(calib, mode="w8a8_static", smooth=True, **jkw).generate(
+                ids, max_new_tokens=16)
+        finally:
+            mp.undo()
+        print(f"{kv}: port layer by layer vs the TPU dispatch {to_tpu:.3g}, vs the JAX CPU "
+              f"references {to_ref:.3g}; JAX greedy tokens, references vs TPU dispatch, agree "
+              f"{float((ref[:, 24:] == tpu[:, 24:]).mean()):.4f}")
+
+
+if __name__ == "__main__":
+    _ref_gap()
