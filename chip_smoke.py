@@ -27,12 +27,21 @@ throughout and g 1 at d 128, and K10's ``i8`` / ``i8c`` / ``i4c`` formats
 at the 7B shapes (T 2176, pos 2110) and at T 1152 with starts (TPU blocks
 of 384, an all-masked leading block), each with a fault planted into the
 K channel or V token scales, and p quantized over half the TPU blocks,
-that the check must flag.  It times the kernel, the plain version and a
+that the check must flag; and the w4a8 engine's int4 kernels and the
+fused int8 prefill's kernels at the Llama-2-7B and TinyLlama shapes:
+K16 (qkv with norm and rope, o_proj with residual) and K17 (the MLP, inner
+blocks of 256 and 512), int8 codes identical to and outputs equal to
+their plain versions, one group-scale row off by 1e-3 and the down scale
+rows shifted by one block planted and flagged; K15 (the prefill's qkv,
+o_proj and down at 16384 tokens) and K2 with silu ([up | gate]), codes
+identical and outputs within 1 bf16 ulp, weight scales 1e-2 off planted
+and flagged.  It times the kernel, the plain version and a
 library yardstick (timed here only, the port never calls them):
-``torch._int_mm`` for W8A8 and for K6 / K8 (with elementwise quant and
-dequant), ``torch.matmul`` with the weight dequantized to bf16 beforehand
-for W4, ``F.rms_norm`` + ``torch.matmul`` for K5 (three matmuls and silu
-for K11), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7 and K10
+``torch._int_mm`` for W8A8, K15 and K2-silu and for K6 / K8 (with
+elementwise quant and dequant), ``torch.matmul`` with the weight
+dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
+for K5 and, on bf16-dequantized int4 weights, K16 (three matmuls and silu
+for K11 and K17), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7 and K10
 (for K12-K14 and K10's quantized formats a cache dequantized to bf16
 beforehand) and causal SDPA on pre-roped q for K9.  Decode kernels are
 timed over enough weight / cache copies to exceed the 50 MB L2 cache, as
@@ -48,30 +57,36 @@ K7, K8 and K5 were launched exactly 22 layers x 63 decode steps x (2, 1,
 1) and 63 times; then the same from the float weights with each quantized
 KV cache (``kv_dtype="int4"``; ``torch.int8`` with ``kv_scale_mode``
 ``"channel"`` and ``"token"``), one engine at a time: the format's kernel
-(K14, K13, K12) 1386 times, K7 and K10 never.  Then the tiny pipelines and
+(K14, K13, K12) 1386 times, K7 and K10 never; and from the same float
+weights the default ``serve(calib)`` (w4a8_static): K16 2772, K17 and K7
+1386, K5 63 launches.  Then the tiny pipelines and
 the tiny f32 LLM engine run on the card and on the CPU from one seed: SD
 float, W8A8 and W4A16 compared end to end, RTN W4A8 and the LLM engine
 layer by layer (each kernel call on the card fed the CPU call's inputs),
 the LLM engine once more on the long route (flash prefill and flash
 decode), and tiny engines with each quantized KV cache on the short and
-the long route in ``w8a8_static`` and ``bf16``, with planted faults that
-those layer witnesses must flag.  Last, with the SD and TinyLlama objects
+the long route in ``w8a8_static`` and ``bf16``, the tiny w4a8 engine
+(int4 group 128, two inner blocks), and the fused int8 prefill of tiny
+``w4a8_static`` and ``w8a8_static`` engines (each K15, K2 and K9 call),
+with planted faults that those layer witnesses must flag.  Last, with the SD and TinyLlama objects
 freed, the long-prompt path at full Llama-2-7B width (weights drawn on the
 card): ``serve(mode="w8a8_static", smooth=True)``; on its smoothed weights
 the w8a8 engine with the KV caches ``recommended_kv(2112)`` picks (int4
-channel), then int8 channel and int8 token, one at a time; and
-``serve(mode="bf16")``; each ``generate`` of 8 x 2048-token prompts + 64
-tokens, with exact launch counts (K9 32; K10 2016 in the bf16-KV engines,
-and in a quantized-KV engine its format of K10 2016 and K10's bf16 format
-0; K6 4032, K8 2016 and K5 63 in w8a8, K5 4095 and K11 2016 in bf16; K7
-0).  Each path's launch counts are set to 0 just before its ``generate``
-and read just after.
+channel), then int8 channel and int8 token, one at a time;
+``serve(mode="bf16")``; and ``serve(calib, mode="w4a8_static",
+prefill_quant="fused")``; each ``generate`` of 8 x 2048-token prompts +
+64 tokens, with exact launch counts (K9 32; K10 2016 in the bf16-KV
+engines, and in a quantized-KV engine its format of K10 2016 and K10's
+bf16 format 0; K6 4032, K8 2016 and K5 63 in w8a8, K5 4095 and K11 2016
+in bf16; K15 96, K2 32, K16 4032, K17 2016 and K5 63 in w4a8; K7 0).
+Each path's launch counts are set to 0 just before its ``generate`` and
+read just after.
 With ``--profile`` it also times warm ``generate`` calls in turn (median
 and range of five each): the W4A16, W8A8 and bf16 SD pipelines, the
-TinyLlama engine against the bf16 module, and the 7B w8a8 engine, the 7B
-w8a8 engine with the int4 KV cache and the 7B bf16 engine; and prints the
-device time by kernel of two W4A16 denoising steps and of three decode
-steps of each engine.
+TinyLlama engine against the bf16 module, and the 7B w8a8, bf16 and w4a8
+fused-prefill engines (the last one's fused prefill against its module
+prefill); and prints the device time by kernel of two W4A16 denoising
+steps and of three decode steps of each engine.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -83,10 +98,15 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
 from typing import Iterator, Tuple
+
+# the 7B path frees and allocates tensors of many sizes (engines, caches,
+# prefill activations): growable segments keep freed memory usable
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np
 import torch
@@ -180,6 +200,12 @@ KERNEL_INFO = {
     **{f"decode_attention_kv_flash_{m}": ("qdm_tpu_torch/csrc/decode_attention_kv_flash_q.cu",
                                           "qdm_tpu/ops/decode_kernels.py:1175")
        for m in ("i8", "i8c", "i4c")},
+    "fused_dense_decode_i4": ("qdm_tpu_torch/csrc/decode_dense_i4.cu",
+                              "qdm_tpu/ops/decode_kernels.py:1739"),
+    "fused_mlp_decode_i4": ("qdm_tpu_torch/csrc/decode_mlp_i4.cu",
+                            "qdm_tpu/ops/decode_kernels.py:1843"),
+    "w8a8_matmul_fused": ("qdm_tpu_torch/csrc/w8a8_matmul.cu",
+                          "qdm_tpu/ops/quant_matmul.py:665"),
 }
 # the quantized KV caches: (kv_dtype, kv_scale_mode) of serve() and the cache
 # format of the attention kernels; the 7B path runs them in this order
@@ -194,9 +220,13 @@ L7_CALIB = (8, 512)
 L7_WANT = {
     "w8a8_static": {"fused_dense_decode_i8": 2, "decode_attention_kv_flash": 1,
                     "fused_mlp_decode_i8": 1},
+    "w4a8_static": {"fused_dense_decode_i4": 2, "decode_attention_kv_flash": 1,
+                    "fused_mlp_decode_i4": 1},
     "bf16": {"fused_dense_decode": 2, "decode_attention_kv_flash": 1, "fused_mlp_decode": 1},
 }
 LONG_KERNELS = ("flash_prefill_gqa", "decode_attention_kv_flash", "fused_mlp_decode")
+I4_FAULT = 1e-3               # relative error planted into one int4 group-scale row of K16
+PREFILL_FAULT = 1e-2          # relative error planted into K15's / K2-silu's weight scales
 
 
 def fail(msg: str) -> None:
@@ -1163,6 +1193,254 @@ def phase_kv_quant_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the w4a8 engine's int4 kernels K16-K17, the fused prefill's K15
+# and K2's silu half
+# ---------------------------------------------------------------------------
+
+
+def _i4_pack(w: torch.Tensor, group: int, block: int = 0):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    codes, scales = dk.quantize_int4_group(w, group)
+    return dk.pack_int4_planar(codes, block), scales
+
+
+def _i4_bf16(w_p: torch.Tensor, scales: torch.Tensor, group: int, block: int = 0):
+    """A planar int4 pack dequantized to bf16 (the library yardstick's weight)."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    codes = dk.unpack_int4_planar(w_p, block).float()
+    return (codes * scales.repeat_interleave(group, dim=0)).to(torch.bfloat16)
+
+
+def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    m, k = o["x"].shape
+    n = o["w"].shape[1]
+    w_p, ws = _i4_pack(o["w"], group)
+    w_t = dk.transposed_weight(w_p)
+    xn = dk._prologue(o["x"], o["ns"] if norm else None, None, 1e-6, "rmsnorm")
+    a = _static_scale(xn)
+    cos, sin = _rope_rows(n, (n * 9) // 10 // hd * hd, hd, LLM_PROMPT + 31, dev) if rope \
+        else (None, None)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=cos, rope_sin=sin, head_dim=hd, group=group)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    got = dk.fused_dense_decode_i4(o["x"], w_p, ws, a, w_t=w_t, scratch=xi, **kw)
+    torch.cuda.synchronize()
+    want = dk.fused_dense_decode_i4_plain(o["x"], w_p, ws, a, **kw)
+    if not torch.equal(xi, dk._quant_static(xn, a)):
+        fail(f"fused_dense_decode_i4 {label}: int8 codes differ from the plain version")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"fused_dense_decode_i4 {label}: output differs from the plain version "
+             f"(max abs err {err}); tolerance 0 ulp")
+    bad_ws = ws.clone()
+    bad_ws[ws.shape[0] // 2] *= 1.0 + I4_FAULT
+    bad = dk.fused_dense_decode_i4(o["x"], w_p, bad_ws, a, w_t=w_t, **kw)
+    if torch.equal(bad, want):
+        fail(f"fused_dense_decode_i4 {label}: the check misses a group-scale row off by "
+             f"{I4_FAULT:g} (planted)")
+    row = {"layer": label, "M": m, "K": k, "N": n, "G": group, "max_abs_err": err, "ulps": 0,
+           "tol": f"codes identical, outputs equal; a group-scale row off by {I4_FAULT:g} "
+                  f"(planted): max abs err {float((bad.float() - want.float()).abs().max()):.3g}"}
+    if timed:
+        xb = o["x"].element_size()
+        nbytes = (m * k * xb + k // 2 * n + 4 * (k // group) * n + m * n * xb
+                  + 4 * k * bool(norm) + (m * n * xb if res else 0) + (8 * n if rope else 0))
+        ops = 2 * m * k * n
+        sets = [(w_p, w_t)] + [(w_p.clone(), w_t.clone()) for _ in range(_copies(k // 2 * n) - 1)]
+        kern = [lambda p=p, t=t: dk.fused_dense_decode_i4(o["x"], p, ws, a, w_t=t, **kw)
+                for p, t in sets]
+        plain = [lambda p=p: dk.fused_dense_decode_i4_plain(o["x"], p, ws, a, **kw)
+                 for p, _ in sets]
+        wb = _i4_bf16(w_p, ws, group)
+        wbs = [wb] + [wb.clone() for _ in range(_copies(2 * k * n) - 1)]
+        nsb = o["ns"].to(torch.bfloat16)
+
+        def library(w):
+            def fn():
+                xin = torch.nn.functional.rms_norm(o["x"], (k,), nsb, 1e-6) if norm else o["x"]
+                y = torch.matmul(xin, w)
+                return y + o["res"] if res else y
+            return fn
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
+                   library_ms=cold_ms([library(w) for w in wbs]), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+        del wbs, sets
+    return row
+
+
+def _check_mlp_i4(label, rng, m, k, i, block_j, group, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    f = lambda *s, sc=1.0: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    x = f(m, k).to(torch.bfloat16)
+    bj = dk.mlp_i4_block(i, block_j)
+    (pg, sg), (pu, su), (pd, sd) = [_i4_pack(f(*s, sc=s[0] ** -0.5), group, b)
+                                    for s, b in (((k, i), 0), ((k, i), 0), ((i, k), bj))]
+    ns = f(k).abs() + 0.5
+    xn = dk._prologue(x, ns, None, 1e-6, "rmsnorm")
+    s_in = _static_scale(xn)
+    xq = dk._quant_static(xn, s_in)
+    g = dk.i4_group_dot_plain(xq, pg, sg, s_in, group)
+    u = dk.i4_group_dot_plain(xq, pu, su, s_in, group)
+    mid = dk._act("silu", g) * u
+    scl = torch.cat([s_in, _static_scale(mid)])
+    kw = dict(block_j=block_j, group=group)
+    wts = tuple(dk.transposed_weight(t) for t in (pg, pu, pd))
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    ai = torch.empty((m, i), dtype=torch.int8, device=dev)
+    got = dk.fused_mlp_decode_i4(x, pg, pu, pd, (sg, su, sd), scl, ns, w_t=wts, scratch=(xi, ai),
+                                 **kw)
+    torch.cuda.synchronize()
+    want = dk.fused_mlp_decode_i4_plain(x, pg, pu, pd, (sg, su, sd), scl, ns, **kw)
+    if not (torch.equal(xi, xq) and torch.equal(ai, dk._quant_static(mid, scl[1:2]))):
+        fail(f"fused_mlp_decode_i4 {label}: int8 codes differ from the plain version")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"fused_mlp_decode_i4 {label}: output differs from the plain version "
+             f"(max abs err {err}); tolerance 0 ulp")
+    shifted = torch.roll(sd, bj // group, dims=0)        # each down block reads the next's rows
+    bad = dk.fused_mlp_decode_i4(x, pg, pu, pd, (sg, su, shifted), scl, ns, w_t=wts, **kw)
+    if torch.equal(bad, want):
+        fail(f"fused_mlp_decode_i4 {label}: the check misses the down scale rows shifted by one "
+             "block (planted)")
+    row = {"layer": label, "M": m, "K": k, "I": i, "bj": bj, "G": group, "max_abs_err": err,
+           "ulps": 0,
+           "tol": "codes identical, outputs equal; down scale rows shifted by one block "
+                  f"(planted): max abs err {float((bad.float() - want.float()).abs().max()):.3g}"}
+    if timed:
+        nbytes = (2 * m * k * 2 + 3 * k * i // 2 + 4 * (2 * (k // group) * i + (i // group) * k)
+                  + 4 * k + 8)
+        ops = 6 * m * k * i
+        sets = [((pg, pu, pd), wts)] + [
+            (tuple(t.clone() for t in (pg, pu, pd)), tuple(t.clone() for t in wts))
+            for _ in range(_copies(3 * k * i // 2) - 1)]
+        kern = [lambda c=c, t=t: dk.fused_mlp_decode_i4(x, *c, (sg, su, sd), scl, ns, w_t=t, **kw)
+                for c, t in sets]
+        plain = [lambda c=c: dk.fused_mlp_decode_i4_plain(x, *c, (sg, su, sd), scl, ns, **kw)
+                 for c, _ in sets]
+        wb = (_i4_bf16(pg, sg, group), _i4_bf16(pu, su, group), _i4_bf16(pd, sd, group, bj))
+        wbs = [wb] + [tuple(t.clone() for t in wb) for _ in range(_copies(6 * k * i) - 1)]
+        nsb = ns.to(torch.bfloat16)
+
+        def library(c):
+            def fn():
+                xin = torch.nn.functional.rms_norm(x, (k,), nsb, 1e-6)
+                h = torch.nn.functional.silu(torch.matmul(xin, c[0])) * torch.matmul(xin, c[1])
+                return torch.matmul(h, c[2]) + x
+            return fn
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
+                   library_ms=cold_ms([library(c) for c in wbs]), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+        del wbs, sets
+    return row
+
+
+def _check_prefill_matmul(label, m, k, n, glu, dev):
+    """K15 (``w8a8_matmul_fused``) or K2 with silu on the fused prefill's
+    shapes: codes identical to the plain version's, outputs within 1 bf16
+    ulp; weight scales off by PREFILL_FAULT (planted) must read beyond."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    w, s = qmm.pack_linear_int8(codes, (torch.rand(n, generator=gen, device=dev) + 0.5) * 1e-3)
+    del codes
+    w_t = qmm.transposed_weight(w)
+    zero = torch.zeros((1, n), device=dev)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    name = "w8a8_geglu_fused" if glu else "w8a8_matmul_fused"
+
+    def kern(scale=s):
+        if glu:
+            return qmm.w8a8_geglu_fused(x, w, scale, zero, act="silu", w_t=w_t, scratch=(xi, xs))
+        return qmm.w8a8_matmul_fused(x, w, scale, w_t=w_t, scratch=(xi, xs))
+    plain = (lambda: qmm.w8a8_geglu_fused_plain(x, w, s, zero, act="silu")) if glu else \
+        (lambda: qmm.w8a8_matmul_fused_plain(x, w, s))
+    out = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    xi_ref, xs_ref = qmm.quantize_rows_int8(x, k)
+    if not (torch.equal(xi, xi_ref) and torch.equal(xs, xs_ref.reshape(-1))):
+        fail(f"{name} {label}: int8 codes or row scales differ from the plain version")
+    ulps = bf16_ulp_diff(out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    if ulps > 1 or not torch.isfinite(out).all() or out.shape != ref.shape:
+        fail(f"{name} {label}: {ulps} bf16 ulps from the plain version (max abs err {err}); "
+             "tolerance 1 ulp")
+    bad_ulps = bf16_ulp_diff(kern(s * (1.0 + PREFILL_FAULT)), ref)
+    if bad_ulps <= 1:
+        fail(f"{name} {label}: the check misses weight scales off by {PREFILL_FAULT:g} (planted)")
+    del ref
+    w_k = w.t().contiguous().t()             # column-major: cuBLASLt's fast int8 layout
+
+    def library():
+        q, qs = qmm.quantize_rows_int8(x, k)
+        y = torch._int_mm(q, w_k).to(torch.float32) * (qs * s)
+        if glu:
+            return (y[:, :n // 2] * torch.nn.functional.silu(y[:, n // 2:])).to(x.dtype)
+        return y.to(x.dtype)
+    n_out = n // 2 if glu else n
+    nbytes = m * k * 2 + k * n + 4 * n * (2 if glu else 1) + m * n_out * 2
+    ops = 2 * m * k * n
+    row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": ulps,
+           "tol": f"codes identical, {ulps} ulp (limit 1); weight scales off by "
+                  f"{PREFILL_FAULT:g} (planted): {bad_ulps} ulps",
+           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+           "library_ms": cuda_ms(library), "bytes": nbytes, "ops": ops}
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+    del x, w, w_t, xi, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_w4a8_kernels(dev, res: dict) -> dict:
+    """K16 and K17 at the Llama-2-7B and TinyLlama-1.1B serving shapes (the
+    7B rows first), K15 at the three shapes of the 7B fused prefill (8 x
+    2048 tokens), and K2's silu half at its [up | gate] shape, appended to
+    K2's rows in ``res``; all timed."""
+    from qdm_tpu_torch.api.serve import i4_layout
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+
+    rng = np.random.default_rng(4)
+    bf = torch.bfloat16
+    out = {"fused_dense_decode_i4": [], "fused_mlp_decode_i4": []}
+    for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
+        group, _ = i4_layout(c)
+        k, hd = c.hidden_size, c.head_dim
+        n_qkv = (c.num_attention_heads + 2 * c.num_key_value_heads) * hd
+        for label, n, norm, rope, r in ((f"{tag} qkv (norm, rope {hd})", n_qkv, True, True, False),
+                                        (f"{tag} o_proj (+res)", k, False, False, True)):
+            o = _dense_case(rng, dev, b, k, n, bf)
+            out["fused_dense_decode_i4"].append(
+                _check_dense_i4(label, o, hd, norm, rope, r, group, dev, True))
+            del o
+        out["fused_mlp_decode_i4"].append(
+            _check_mlp_i4(f"{tag} mlp (norm, silu, +res)", rng, b, k, c.intermediate_size, 512,
+                          group, dev, True))
+        torch.cuda.empty_cache()
+    c = LlamaConfig()
+    m, k, i = L7_BATCH * L7_PROMPT, c.hidden_size, c.intermediate_size
+    hd = c.num_attention_heads * c.head_dim
+    n_qkv = hd + 2 * c.num_key_value_heads * c.head_dim
+    out["w8a8_matmul_fused"] = [_check_prefill_matmul(label, m, kk, nn, False, dev)
+                                for label, kk, nn in (("7B prefill qkv", k, n_qkv),
+                                                      ("7B prefill o_proj", hd, k),
+                                                      ("7B prefill down", i, k))]
+    silu = {"w8a8_geglu_fused": [_check_prefill_matmul("7B prefill [up | gate] (silu)", m, k,
+                                                       2 * i, True, dev)]}
+    _print_rows(out)
+    _print_rows(silu)
+    res["w8a8_geglu_fused"].extend(silu["w8a8_geglu_fused"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -1311,23 +1589,28 @@ def _layer_witness(ref_unet, unet, inputs, dev) -> Tuple[float, float]:
 
 
 @contextlib.contextmanager
-def _planted_scale_fault(rel: float) -> Iterator[None]:
-    """Every W4A8 kernel launch on the card gets group scales off by the
-    factor 1 + rel (the CPU's plain version stays sound): a fault the
-    witnesses must see."""
-    from qdm_tpu_torch.ops import quant_matmul as qmm
+def _planted_card_fault(mod, name: str, fault) -> Iterator[None]:
+    """Every card launch of ``mod.name`` gets its positional arguments
+    through ``fault(args) -> args`` (the CPU's plain version stays sound):
+    a fault the witnesses must see."""
+    kernel = getattr(mod, name)
 
-    kernel = qmm.w4a8_matmul
-
-    def faulty(x, qweight, scales, *a, **k):
-        if x.device.type == "cuda":
-            scales = scales * (1.0 + rel)
-        return kernel(x, qweight, scales, *a, **k)
-    qmm.w4a8_matmul = faulty
+    def faulty(*a, **k):
+        if a[0].device.type == "cuda":
+            a = fault(list(a))
+        return kernel(*a, **k)
+    setattr(mod, name, faulty)
     try:
         yield
     finally:
-        qmm.w4a8_matmul = kernel
+        setattr(mod, name, kernel)
+
+
+def _scaled_arg(i: int, rel: float):
+    def fault(a):
+        a[i] = a[i] * (1.0 + rel)
+        return a
+    return fault
 
 
 def phase_w4a8_witness(dev) -> None:
@@ -1348,6 +1631,8 @@ def phase_w4a8_witness(dev) -> None:
     so the one-step limit guards against gross faults only, and the layer
     witness (1.3e-6 sound, 5.5e-4 with scales off by 1e-3) is what holds
     the kernel."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
     pipes = {d: _tiny(d).quantize({"version": "real", "w_bit": 4, "a_bit": 8,
                                    "quantize_act": True}, quantType="rtn")
              for d in ("cpu", dev)}
@@ -1391,7 +1676,7 @@ def phase_w4a8_witness(dev) -> None:
     if layer > W4A8_LAYER_TOL or max(steps) > W4A8_STEP_TOL:
         fail(f"tiny W4A8 card vs CPU: layer error {layer}, one-step errors {steps}")
     for rel in PLANTED_FAULTS:
-        with _planted_scale_fault(rel):
+        with _planted_card_fault(qmm, "w4a8_matmul", _scaled_arg(2, rel)):
             f_layer, f_whole, f_steps = readings()
         print(f"phase 3: tiny W4A8 with group scales off by {rel:g} on the card (planted): "
               f"largest layer error {f_layer:.2e}, whole UNet forward {f_whole:.2e}; "
@@ -1533,6 +1818,52 @@ def phase_llm_kv_paths(dev, llm: dict) -> dict:
     return runs
 
 
+LLM_W4_WANT = {"fused_dense_decode_i4": 2, "decode_attention_kv": 1, "fused_mlp_decode_i4": 1}
+
+
+def phase_llm_w4a8_path(dev, llm: dict) -> dict:
+    """The default serve call at TinyLlama-1.1B width: from the float
+    weights as drawn, ``serve(calib)`` (w4a8_static, the module prefill,
+    bf16 KV) -> generate((32, 512), 64), with the launch counts set to 0
+    just before generate and read just after: K16 22 x 63 x 2 times, K17
+    and K7 22 x 63, K5 63.  Greedy agreement with the w8a8 engine is a
+    reading."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    lm, prompts, cfg = llm["lm"], llm["prompts"], llm["lm"].config
+    smoothed = lm.params
+    lm.params = llm["base"]
+    t0 = time.perf_counter()
+    eng = lm.serve(llm["calib"])
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    if eng.mode != "w4a8_static" or eng.prefill_fused:
+        fail(f"serve(calib) built mode {eng.mode!r}, fused prefill {eng.prefill_fused}")
+    qmm.reset_launches()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, max_new_tokens=LLM_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = dict(qmm.LAUNCHES)
+    steps = LLM_NEW - 1
+    want = {k: 0 for k in launches}
+    want.update({k: v * cfg.num_hidden_layers * steps for k, v in LLM_W4_WANT.items()})
+    want["fused_dense_decode"] = steps
+    if launches != want:
+        fail(f"LLM w4a8 launches {launches} != expected {want}")
+    new = new_tokens("LLM w4a8", toks, prompts, LLM_NEW, cfg.vocab_size)
+    print(f"phase 3: LLM {LLM_BATCH} x {LLM_PROMPT} -> +{LLM_NEW} tokens, serve(calib) "
+          f"(w4a8_static, group {eng.i4_group}, inner block {eng.i4_mlp_block}): quantize "
+          f"{t_quant:.2f} s, first generate {t_gen:.2f} s ({LLM_BATCH * LLM_NEW / t_gen:.1f} "
+          f"tokens/s); launches { {k: v for k, v in launches.items() if v} }; greedy agreement "
+          f"with the w8a8 engine on the smoothed weights {_agreement(new, llm['tokens'])}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    lm.params = smoothed
+    return {"LLM w4a8_static": {"launches": launches}}
+
+
 def _clone(v, dev=None):
     if isinstance(v, torch.Tensor):
         return v.detach().clone() if dev is None else v.detach().to(dev)
@@ -1568,33 +1899,17 @@ def _recording(calls: list, targets=None) -> Iterator[None]:
             setattr(mod, name, fn)
 
 
-@contextlib.contextmanager
-def _planted_k6_fault(rel: float) -> Iterator[None]:
-    """Every K6 launch on the card gets weight scales off by 1 + rel."""
-    from qdm_tpu_torch.ops import decode_kernels as dk
-
-    kernel = dk.fused_dense_decode_i8
-
-    def faulty(x, w_i8, w_scale, *a, **k):
-        if x.device.type == "cuda":
-            w_scale = w_scale * (1.0 + rel)
-        return kernel(x, w_i8, w_scale, *a, **k)
-    dk.fused_dense_decode_i8 = faulty
-    try:
-        yield
-    finally:
-        dk.fused_dense_decode_i8 = kernel
-
-
-def _replay(calls, dev) -> dict:
-    """Each recorded CPU call repeated on the card on the same inputs:
+def _replay(calls, dev, mod=None) -> dict:
+    """Each recorded CPU call repeated on the card on the same inputs (the
+    wrapper of that name in ``mod``, the decode kernels' module by default):
     largest error relative to the output's magnitude, by kernel."""
     from qdm_tpu_torch.ops import decode_kernels as dk
 
+    mod = mod or dk
     worst = {}
     with torch.inference_mode():
         for name, args, kw, out in calls:
-            got = getattr(dk, name)(*_clone(args, dev), **_clone(kw, dev))
+            got = getattr(mod, name)(*_clone(args, dev), **_clone(kw, dev))
             err = _rel_err(got, out)
             worst[name] = max(worst.get(name, 0.0), err)
     return worst
@@ -1609,6 +1924,7 @@ def phase_llm_witness(dev) -> None:
     are printed as a reading."""
     from qdm_tpu_torch.api.causal_lm import CausalLM
     from qdm_tpu_torch.models.llama import tiny_llama_config
+    from qdm_tpu_torch.ops import decode_kernels as dk
 
     cfg = tiny_llama_config()
     rng = np.random.default_rng(1)
@@ -1621,7 +1937,7 @@ def phase_llm_witness(dev) -> None:
         want = engines["cpu"].generate(prompts, max_new_tokens=8)
     got = engines[dev].generate(prompts, max_new_tokens=8)
     sound = _replay(calls, dev)
-    with _planted_k6_fault(LLM_FAULT):
+    with _planted_card_fault(dk, "fused_dense_decode_i8", _scaled_arg(2, LLM_FAULT)):
         planted = _replay(calls, dev)
     n = {k: sum(c[0] == k for c in calls) for k in DECODE_KERNELS}
     print(f"phase 3: tiny f32 LLM engine, card vs CPU: greedy tokens agree "
@@ -1634,6 +1950,123 @@ def phase_llm_witness(dev) -> None:
         fail(f"tiny LLM engine card vs CPU: {sound}")
     if planted["fused_dense_decode_i8"] <= LLM_TOL:
         fail("the LLM layer witness misses a planted K6 scale fault")
+
+
+# a tiny geometry the int4 kernels take: group 128 (hidden / 2 = h * d / 2 =
+# 128), inner blocks of 512 (two of them), MHA so that the [q | k | v] width
+# is a multiple of 128 for K15
+W4_TINY = dict(hidden_size=256, intermediate_size=1024, num_attention_heads=4,
+               num_key_value_heads=4)
+I4_KERNELS = ("fused_dense_decode_i4", "fused_mlp_decode_i4", "decode_attention_kv",
+              "fused_dense_decode")
+PREFILL_KERNELS = ("w8a8_matmul_fused", "w8a8_geglu_fused")
+
+
+def _shifted_down_rows(block_rows: int):
+    def fault(a):
+        sg, su, sd = a[4]
+        a[4] = (sg, su, torch.roll(sd, block_rows, dims=0))
+        return a
+    return fault
+
+
+def phase_llm_w4a8_witness(dev) -> None:
+    """The tiny f32 w4a8 engine (tiny_llama_config at W4_TINY: int4 group
+    128, two inner blocks of 512) from ``serve(calib)``, on the card and on
+    the CPU from one seed.  Every K16, K17, K7 and K5 call of the CPU
+    engine's generate, repeated on the card on the same inputs, within
+    LLM_TOL of its output's magnitude; planted faults must read above it:
+    K16's group scales off by LLM_FAULT, and K17's down scale rows shifted
+    by one inner block.  The two engines' greedy tokens are a reading."""
+    import dataclasses
+
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_llama_config
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    cfg = dataclasses.replace(tiny_llama_config(), **W4_TINY)
+    rng = np.random.default_rng(3)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 24)).astype(np.int32)
+    engines = {d: CausalLM.from_config(cfg, dtype=torch.float32, seed=0, device=d).serve(calib)
+               for d in ("cpu", dev)}
+    eng = engines[dev]
+    if (eng.i4_group, eng.i4_mlp_block) != (128, 512):
+        fail(f"tiny w4a8 layout {(eng.i4_group, eng.i4_mlp_block)}")
+    calls: list = []
+    with _recording(calls, [(dk, n) for n in I4_KERNELS]):
+        want = engines["cpu"].generate(prompts, max_new_tokens=8)
+    got = eng.generate(prompts, max_new_tokens=8)
+    sound = _replay(calls, dev)
+    planted = {}
+    for name, fault in (("fused_dense_decode_i4", _scaled_arg(2, LLM_FAULT)),
+                        ("fused_mlp_decode_i4", _shifted_down_rows(512 // 128))):
+        with _planted_card_fault(dk, name, fault):
+            planted[name] = _replay([c for c in calls if c[0] == name], dev)[name]
+    n = {k: sum(c[0] == k for c in calls) for k in I4_KERNELS}
+    print(f"phase 3: tiny f32 w4a8 engine (serve(calib)), card vs CPU: greedy tokens agree "
+          f"{float((got[:, 24:] == want[:, 24:]).mean()):.4f}; each kernel call on the CPU's "
+          "inputs, largest error relative to the output's magnitude: "
+          + ", ".join(f"{k} {sound[k]:.2e} ({n[k]} calls)" for k in I4_KERNELS)
+          + f" (limit {LLM_TOL:g}); K16 group scales off by {LLM_FAULT:g} (planted): "
+          f"{planted['fused_dense_decode_i4']:.2e}; K17 down scale rows shifted by one block "
+          f"(planted): {planted['fused_mlp_decode_i4']:.2e}", flush=True)
+    if max(sound.values()) > LLM_TOL or set(sound) != set(I4_KERNELS):
+        fail(f"tiny w4a8 engine card vs CPU: {sound}")
+    if min(planted.values()) <= LLM_TOL:
+        fail(f"the w4a8 layer witness misses a planted fault: {planted}")
+
+
+def phase_fused_prefill_witness(dev) -> None:
+    """The fused int8 prefill on tiny f32 engines (W4_TINY), in
+    ``w4a8_static`` and ``w8a8_static``, card against CPU from one seed:
+    ``serve(calib, mode, prefill_quant="fused")`` -> generate of 256-token
+    prompts.  The card's engine launches K15 3 times, K2 and K9 once per
+    layer; every K15 and K2 call of the CPU engine's prefill, repeated on
+    the card on the same inputs, within LLM_TOL of its output's magnitude,
+    and every K9 call within k9_check; K15's weight scales off by
+    LLM_FAULT (planted) must read above LLM_TOL."""
+    import dataclasses
+
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_llama_config
+    from qdm_tpu_torch.ops import flash_prefill as fp
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = dataclasses.replace(tiny_llama_config(), max_position_embeddings=512, **W4_TINY)
+    rng = np.random.default_rng(4)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    n_l = cfg.num_hidden_layers
+    for mode in ("w4a8_static", "w8a8_static"):
+        engines = {d: CausalLM.from_config(cfg, dtype=torch.float32, seed=0, device=d).serve(
+            calib, mode=mode, prefill_quant="fused") for d in ("cpu", dev)}
+        calls: list = []
+        with _recording(calls, [(qmm, n) for n in PREFILL_KERNELS] + [(fp, "flash_prefill_gqa")]):
+            want = engines["cpu"].generate(prompts, max_new_tokens=4)
+        qmm.reset_launches()
+        got = engines[dev].generate(prompts, max_new_tokens=4)
+        runs = dict(qmm.LAUNCHES)
+        if (runs["w8a8_matmul_fused"], runs["w8a8_geglu_fused"],
+                runs["flash_prefill_gqa"]) != (3 * n_l, n_l, n_l):
+            fail(f"tiny fused prefill ({mode}): the card's engine launched {runs}")
+        sound = _replay([c for c in calls if c[0] in PREFILL_KERNELS], dev, qmm)
+        k9_ok, k9_share, k9_mean = _k9_replay([c for c in calls if c[0] == "flash_prefill_gqa"],
+                                              dev, torch.float32)
+        with _planted_card_fault(qmm, "w8a8_matmul_fused", _scaled_arg(2, LLM_FAULT)):
+            planted = _replay([c for c in calls if c[0] == "w8a8_matmul_fused"], dev, qmm)
+        print(f"phase 3: tiny f32 {mode} engine, fused int8 prefill of 256 tokens, card vs CPU: "
+              f"greedy tokens agree {float((got[:, 256:] == want[:, 256:]).mean()):.4f}; each "
+              "kernel call on the CPU's inputs, largest error relative to the output's "
+              "magnitude: " + ", ".join(f"{k} {v:.2e}" for k, v in sound.items())
+              + f" (limit {LLM_TOL:g}); flash_prefill_gqa {_k9_reading(k9_share, k9_mean)}; "
+              f"K15 weight scales off by {LLM_FAULT:g} (planted): "
+              f"{planted['w8a8_matmul_fused']:.2e}", flush=True)
+        if max(sound.values()) > LLM_TOL or set(sound) != set(PREFILL_KERNELS) or not k9_ok:
+            fail(f"tiny fused prefill ({mode}) card vs CPU: {sound}, K9 ok {k9_ok}")
+        if planted["w8a8_matmul_fused"] <= LLM_TOL:
+            fail("the fused-prefill witness misses a planted K15 scale fault")
+        del engines
 
 
 def phase_llm_profile(dev, llm: dict) -> None:
@@ -1732,17 +2165,22 @@ def _reckon_peak(cfg) -> str:
     t = -(-(L7_PROMPT + L7_NEW) // 128) * 128
     cache = cfg.num_hidden_layers * L7_BATCH * 2 * hkv * d * t * 2
     side = 2 * cfg.vocab_size * k * 2            # the engines' bf16 embedding and head
+    # w4a8: int4 packs and f32 scales per 128 rows, plus the fused prefill's int8 matrices
     parts = {"f32 tree": 4 * n_all, "int8 engine": cfg.num_hidden_layers * n_layer + side,
-             "bf16 engine": 2 * cfg.num_hidden_layers * n_layer + side, "caches": cache}
+             "bf16 engine": 2 * cfg.num_hidden_layers * n_layer + side,
+             "w4a8 + fused prefill engine": cfg.num_hidden_layers * n_layer * (1.5 + 4 / 128)
+             + side, "caches": cache}
     total = sum(parts.values())
     return (", ".join(f"{k_} {v / 1e9:.1f} GB" for k_, v in parts.items())
-            + f"; both engines alive {total / 1e9:.1f} GB plus prefill activations (the "
-            "prompt-long caches are padded layer by layer)")
+            + f"; the three engines, the tree and one cache alive {total / 1e9:.1f} GB plus the "
+            "bf16 module and prefill activations (the path frees the tree before the last "
+            "generate, and without --profile each engine before the next is built)")
 
 
-def _l7_want(mode: str, cfg, kv_mode=None) -> dict:
+def _l7_want(mode: str, cfg, kv_mode=None, fused: bool = False) -> dict:
     """Exact launches of one 7B generate; ``kv_mode`` names the flash
-    decode's quantized format that replaces K10's bf16 one."""
+    decode's quantized format that replaces K10's bf16 one; ``fused`` the
+    fused int8 prefill (K15 three times, K2 and K9 once per layer)."""
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
     steps = L7_NEW - 1
@@ -1752,17 +2190,25 @@ def _l7_want(mode: str, cfg, kv_mode=None) -> dict:
         per[f"decode_attention_kv_flash_{kv_mode}"] = per.pop("decode_attention_kv_flash")
     want.update({k: v * cfg.num_hidden_layers * steps for k, v in per.items()})
     want["flash_prefill_gqa"] = cfg.num_hidden_layers
+    if fused:
+        want["w8a8_matmul_fused"] = 3 * cfg.num_hidden_layers
+        want["w8a8_geglu_fused"] = cfg.num_hidden_layers
     want["fused_dense_decode"] = want.get("fused_dense_decode", 0) + steps
     return want
 
 
-def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
+def phase_long_path(dev, seed: int, keep_all: bool) -> dict:
     """Llama-2-7B geometry, random weights from seed 0 drawn on the card:
-    from_config -> serve(w8a8_static, smooth) -> generate((8, 2048), 64),
+    from_config -> serve(w8a8_static, smooth) -> generate((8, 2048), 64);
     then on the same smoothed weights the w8a8 engine with each quantized
-    KV cache (``_long_kv_paths``) and serve(bf16), each generate of the
-    same prompts with the launch counts set to 0 just before generate and
-    read just after; the engines' greedy agreement is a reading."""
+    KV cache (``_long_kv_paths``), serve(bf16), and the default mode with
+    the fused int8 prefill, serve(calib, "w4a8_static",
+    prefill_quant="fused"); each generate of the same prompts with the
+    launch counts set to 0 just before generate and read just after.  An
+    engine goes before the next is built unless ``keep_all`` (the profile
+    times the w8a8, bf16 and w4a8 engines in turn); the f32 tree goes once
+    the last engine is built.  The engines' greedy agreement is a
+    reading."""
     from qdm_tpu_torch.api.causal_lm import CausalLM
     from qdm_tpu_torch.models.llama import LlamaConfig
     from qdm_tpu_torch.ops import quant_matmul as qmm
@@ -1787,14 +2233,25 @@ def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
     if any(qmm.LAUNCHES.values()):
         fail(f"7B: kernels launched by serve: {qmm.LAUNCHES}")
     out = {"lm": lm, "prompts": prompts, "engines": engines, "launches": {}, "tokens": {}}
-    for mode in ("w8a8_static", "bf16"):
+    for mode in ("w8a8_static", "bf16", "w4a8_static"):
+        t_quant = t_quant if mode == "w8a8_static" else None
         if mode == "bf16":
-            eng = None                  # the w8a8 engine goes unless the profile keeps it
-            if not keep_both:
+            if not keep_all:
                 del engines["w8a8_static"]
                 torch.cuda.empty_cache()
-            _long_kv_paths(lm, calib, prompts, out, keep_int4=keep_both)
+            _long_kv_paths(lm, calib, prompts, out)
             engines["bf16"] = lm.serve(mode="bf16")
+        if mode == "w4a8_static":
+            if not keep_all:
+                del engines["bf16"]
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            engines[mode] = lm.serve(calib, mode="w4a8_static", prefill_quant="fused")
+            torch.cuda.synchronize()
+            t_quant = time.perf_counter() - t0
+            lm.params = None        # the f32 tree: no engine reads it after its build
+            gc.collect()
+            torch.cuda.empty_cache()
         eng = engines[mode]
         qmm.reset_launches()
         t0 = time.perf_counter()
@@ -1802,7 +2259,7 @@ def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
         launches = dict(qmm.LAUNCHES)
-        want = _l7_want(mode, cfg)
+        want = _l7_want(mode, cfg, fused=mode == "w4a8_static")
         if launches != want:
             fail(f"7B {mode} launches {launches} != expected {want} ({cfg.num_hidden_layers} "
                  f"layers x {L7_NEW - 1} decode steps)")
@@ -1811,31 +2268,33 @@ def phase_long_path(dev, seed: int, keep_both: bool) -> dict:
         eng.prefill(prompts, L7_PROMPT + L7_NEW)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
-        print(f"phase 3: Llama-2-7B {mode} engine, {L7_BATCH} x {L7_PROMPT} -> +{L7_NEW} tokens: "
-              + (f"from_config {t_init:.1f} s, quantize (smooth + calibrate + pack) "
-                 f"{t_quant:.2f} s, " if mode == "w8a8_static" else "")
+        label = mode + (" + fused int8 prefill" if mode == "w4a8_static" else "")
+        print(f"phase 3: Llama-2-7B {label} engine, {L7_BATCH} x {L7_PROMPT} -> +{L7_NEW} tokens: "
+              + (f"from_config {t_init:.1f} s, " if mode == "w8a8_static" else "")
+              + (f"quantize {t_quant:.2f} s, " if t_quant is not None else "")
               + f"first generate {t_gen:.2f} s ({L7_BATCH * L7_NEW / t_gen:.1f} tokens/s), "
               f"prefill (second call) {t_pre:.3f} s; tokens {toks.shape} in [{new.min()}, "
               f"{new.max()}]; launches { {k: v for k, v in launches.items() if v} } (K7 "
-              f"{launches['decode_attention_kv']})", flush=True)
+              f"{launches['decode_attention_kv']}); device memory peak so far "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
         out["launches"][mode] = launches
         out["tokens"][mode] = new
-    same = out["tokens"]["w8a8_static"] == out["tokens"]["bf16"]
-    first = np.where(same.all(axis=1), L7_NEW, np.argmin(same, axis=1))
-    print(f"phase 3: Llama-2-7B greedy agreement of the w8a8 engine with the bf16 engine on the "
-          f"same smoothed weights {float(same.mean()):.4f}, first divergence at step "
-          f"{float(first.mean()):.2f} on average (median {float(np.median(first)):.1f}); peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    for other in ("bf16", "w4a8_static"):
+        print(f"phase 3: Llama-2-7B greedy agreement of the {other} engine with the w8a8 engine "
+              f"on the same smoothed weights {_agreement(out['tokens'][other], out['tokens']['w8a8_static'])}",
+              flush=True)
+    print(f"phase 3: Llama-2-7B path, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
     return out
 
 
-def _long_kv_paths(lm, calib, prompts, out: dict, keep_int4: bool) -> None:
+def _long_kv_paths(lm, calib, prompts, out: dict) -> None:
     """The 7B w8a8 engine with each quantized KV cache, the int4 one first
     (``recommended_kv`` of the 2112-token serving length), on the smoothed
     weights: serve(calib, "w8a8_static", kv_dtype, kv_scale_mode) ->
-    generate((8, 2048), 64), one engine at a time (the int4 one kept for
-    the profile with ``keep_int4``), with exact launch counts: the format's
-    flash decode 32 x 63, K10's bf16 format and K7 never."""
+    generate((8, 2048), 64), one engine at a time, with exact launch
+    counts: the format's flash decode 32 x 63, K10's bf16 format and K7
+    never."""
     from qdm_tpu_torch.api.serve import recommended_kv
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
@@ -1865,8 +2324,6 @@ def _long_kv_paths(lm, calib, prompts, out: dict, keep_int4: bool) -> None:
               f"w8a8 engine {_agreement(new, out['tokens']['w8a8_static'])}; device memory "
               f"peak so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
         out["launches"][f"w8a8_static kv {label}"] = launches
-        if keep_int4 and mode == "i4c":
-            out["engines"]["w8a8_static int4 KV"] = eng
         del eng
         torch.cuda.empty_cache()
 
@@ -1905,7 +2362,6 @@ def phase_long_witness(dev) -> None:
     K10 reads off by LLM_FAULT, and K9's sm_scale times K9_FAULT on both
     paths.  The two engines' greedy tokens are printed as a reading."""
     import dataclasses
-    import os
 
     from qdm_tpu_torch.api.causal_lm import CausalLM
     from qdm_tpu_torch.models.llama import tiny_llama_config
@@ -2068,9 +2524,10 @@ def phase_kv_witness(dev) -> None:
 
 
 def phase_long_profile(dev, long: dict) -> None:
-    """Warm generate of the 7B w8a8 engine, the w8a8 engine with the int4
-    KV cache and the bf16 engine, five each in turn; the prefill and the
-    decode loop timed apart; device time by kernel of three decode steps of
+    """Warm generate of the 7B w8a8 engine, the bf16 engine and the w4a8
+    engine with the fused int8 prefill, five each in turn; the prefill and
+    the decode loop timed apart, and the w4a8 engine's module prefill
+    beside its fused one; device time by kernel of three decode steps of
     each engine."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2089,18 +2546,30 @@ def phase_long_profile(dev, long: dict) -> None:
         t_dec, _ = timed(lambda: eng._make_run(steps)(tok0, caches, L7_PROMPT))
         return t_pre, t_dec
 
+    fused = engines["w4a8_static"]
+
+    def module_prefill():
+        fused.prefill_fused = False
+        try:
+            return timed(lambda: fused.prefill(prompts, L7_PROMPT + L7_NEW))[0]
+        finally:
+            fused.prefill_fused = True
+
     times = {(m, k): [] for m in engines for k in ("generate", "prefill", "decode")}
+    times[("w4a8_static", "module prefill")] = []
     for eng in engines.values():
         parts(eng)
+    module_prefill()
     for _ in range(PROFILE_REPEATS):
         for mode, eng in engines.items():
             t_gen, _ = timed(lambda: eng.generate(prompts, max_new_tokens=L7_NEW))
             t_pre, t_dec = parts(eng)
             for k, v in (("generate", t_gen), ("prefill", t_pre), ("decode", t_dec)):
                 times[(mode, k)].append(v)
+        times[("w4a8_static", "module prefill")].append(module_prefill())
     for (mode, k), ts in times.items():
         n_tok = L7_BATCH * (steps if k == "decode" else L7_NEW)
-        extra = "" if k == "prefill" else \
+        extra = "" if "prefill" in k else \
             f"; tokens/s at the median {n_tok / float(np.median(ts)):.1f}"
         print(f"profile: Llama-2-7B {mode} engine {k} ({L7_BATCH} x {L7_PROMPT} -> +{L7_NEW}), "
               f"s: {_spread(ts)}{extra}", flush=True)
@@ -2108,11 +2577,15 @@ def phase_long_profile(dev, long: dict) -> None:
                                     times[("bf16", "generate")])]
     print(f"profile: Llama-2-7B w8a8 engine / bf16 engine generate time, run by run: "
           f"{_spread(ratios)}", flush=True)
-    for k in ("generate", "decode"):
-        ratios = [q / w for q, w in zip(times[("w8a8_static int4 KV", k)],
-                                        times[("w8a8_static", k)])]
-        print(f"profile: Llama-2-7B w8a8 engine, int4 KV cache / bf16 KV cache {k} time, run "
-              f"by run: {_spread(ratios)}", flush=True)
+    for other in ("w8a8_static", "bf16"):
+        for k in ("generate", "decode"):
+            ratios = [q / w for q, w in zip(times[("w4a8_static", k)], times[(other, k)])]
+            print(f"profile: Llama-2-7B w4a8 engine (fused prefill) / {other} engine {k} time, "
+                  f"run by run: {_spread(ratios)}", flush=True)
+    ratios = [f / m for f, m in zip(times[("w4a8_static", "prefill")],
+                                    times[("w4a8_static", "module prefill")])]
+    print(f"profile: Llama-2-7B w4a8 engine, fused int8 prefill / module prefill time, run by "
+          f"run: {_spread(ratios)}", flush=True)
     for mode, eng in engines.items():
         tok0, caches = eng.prefill(prompts, L7_PROMPT + L7_NEW)
         run = eng._make_run(3)
@@ -2197,7 +2670,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also time warm generate runs (SD W4A16, W8A8 and bf16 in turn; the "
                          "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8, "
-                         "w8a8 int4-KV and bf16 engines in turn) and profile two W4A16 "
+                         "bf16 and w4a8 fused-prefill engines in turn) and profile two W4A16 "
                          "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
@@ -2218,14 +2691,18 @@ def main() -> int:
     kres.update(phase_decode_kernels(dev))
     kres.update(phase_long_kernels(dev, kres))
     kres.update(phase_kv_quant_kernels(dev))
+    kres.update(phase_w4a8_kernels(dev, kres))
     runs = phase_main_path(dev)
     runs["LLM"] = phase_llm_path(dev, args.seed)
     runs.update(phase_llm_kv_paths(dev, runs["LLM"]))
+    runs.update(phase_llm_w4a8_path(dev, runs["LLM"]))
     phase_small_reference(dev)
     phase_w4a8_witness(dev)
     phase_llm_witness(dev)
     phase_long_witness(dev)
     phase_kv_witness(dev)
+    phase_llm_w4a8_witness(dev)
+    phase_fused_prefill_witness(dev)
     if args.profile:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])
@@ -2235,7 +2712,7 @@ def main() -> int:
     runs.pop("base")
     gc.collect()
     torch.cuda.empty_cache()
-    long = phase_long_path(dev, args.seed, keep_both=args.profile)
+    long = phase_long_path(dev, args.seed, keep_all=args.profile)
     for mode, launches in long["launches"].items():
         runs[f"LLM-7B {mode}"] = {"launches": launches}
     if args.profile:

@@ -1,16 +1,19 @@
 """Causal-LM lifecycle (counterpart of ``qdm_tpu/api/causal_lm.py``):
 
     lm = CausalLM.from_config(BENCH_1B, dtype=torch.bfloat16, seed=0)
-    engine = lm.serve(calib_ids, mode="w8a8_static", smooth=True)
+    engine = lm.serve(calib_ids)       # w4a8_static: int4 weights, int8 activations
     tokens = engine.generate(prompts, max_new_tokens=64)
+    w8 = lm.serve(calib_ids, mode="w8a8_static", smooth=True)
+    fused = lm.serve(calib_ids, prefill_quant="fused")   # the fused int8 prefill
     bf16 = lm.serve(mode="bf16")       # the yardstick, on the same weights
     kv4 = lm.serve(calib_ids, mode="w8a8_static", kv_dtype="int4")   # int4 KV cache
 
 Ported: ``from_config`` (the JAX package's seeded weights), ``logits``,
 greedy ``generate`` through the module with its (k, v) cache,
-``_calibrate`` (activation stats), and ``serve`` for the ``bf16`` engine
-and the SmoothQuant ``w8a8_static`` engine.  Params are a nested dict keyed like the Flax
-tree, in f32 as Flax keeps them; the module computes in ``dtype``.
+``_calibrate`` (activation stats), and ``serve`` for the ``bf16``,
+``w8a8_static`` and ``w4a8_static`` engines with optional SmoothQuant.
+Params are a nested dict keyed like the Flax tree, in f32 as Flax keeps
+them; the module computes in ``dtype``.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
@@ -31,6 +34,7 @@ from qdm_tpu_torch.quant.plan import QuantPlan
 from qdm_tpu_torch.utils.device import resolve_device
 
 _ROADMAP = "ROADMAP.md Queue 1 items 12-13 (the LLM module path and serving)"
+_ROADMAP_AWQ = "ROADMAP.md Queue 1 item 11 (AWQ / GPTQ on the LLM)"
 
 
 def mask_after_eos(tokens: np.ndarray, eos_token_id: int) -> np.ndarray:
@@ -141,10 +145,12 @@ class CausalLM:
               smooth_alpha: float = 0.5, awq: bool = False, gptq: bool = False, **engine_kw):
         """The decode engine for this model (``causal_lm.py::serve``):
         optional SmoothQuant migration of ``self.params``, static
-        activation-scale calibration, engine construction.  ``mode="bf16"``
-        and ``mode="w8a8_static"`` are ported.  Extra keyword arguments
-        (``kv_dtype``, ``kv_scale_mode``, ``kv_margin``, ...) go to
-        :class:`~qdm_tpu_torch.api.serve.DecodeEngine` in both modes."""
+        activation-scale calibration, engine construction.  ``mode``:
+        ``"w4a8_static"`` (the default: int4 weights, int8 activations),
+        ``"w8a8_static"`` or ``"bf16"``.  Extra keyword arguments
+        (``kv_dtype``, ``kv_scale_mode``, ``kv_margin``,
+        ``prefill_quant="fused"``, ...) go to
+        :class:`~qdm_tpu_torch.api.serve.DecodeEngine`."""
         from qdm_tpu_torch.api.serve import DecodeEngine
 
         if mode == "bf16":
@@ -153,11 +159,11 @@ class CausalLM:
                                  "be a silent no-op (smooth/gptq) or an unmeasured clip (awq) "
                                  "on bf16")
             return DecodeEngine(self, mode="bf16", **engine_kw)
-        if mode != "w8a8_static":
-            raise NotImplementedError(f"serve mode {mode!r} is not ported yet (bf16 and "
-                                      f"w8a8_static are): {_ROADMAP}")
+        if mode not in ("w8a8_static", "w4a8_static"):
+            raise ValueError(f"serve mode {mode!r}: 'w4a8_static', 'w8a8_static' or 'bf16'")
         if awq or gptq:
-            raise NotImplementedError(f"AWQ / GPTQ engine weights are not ported yet: {_ROADMAP}")
+            raise NotImplementedError(f"AWQ / GPTQ engine weights are not ported yet: "
+                                      f"{_ROADMAP_AWQ}")
         if calib_ids is None:
             raise ValueError(f"mode={mode!r} needs calib_ids for static activation-scale "
                              "calibration")

@@ -1,8 +1,19 @@
 """Decode engine for LLM serving (counterpart of ``qdm_tpu/api/serve.py``).
 
-Two engines on one device, each with a combined ``[K | V]`` depth-major KV
+Three engines on one device, each with a combined ``[K | V]`` depth-major KV
 cache ``(B, 2*hkv, d, T)`` per layer (the model dtype by default) and four kernel
 calls per decoder layer plus one for the head (``ops/decode_kernels.py``):
+
+* ``w4a8_static`` (``CausalLM.serve``'s default): planar int4 weights
+  with f32 scales per group of ``i4_group`` K rows (``i4_layout``; the
+  down projection packed per ``i4_mlp_block`` inner block) and calibrated
+  static per-tensor activation scales (``serve.py:781-805``, the branches
+  at ``:1833-1838`` and ``:2120-2136``)::
+
+    qkv  = K16(x; RMSNorm ln1, int4 qkv, rope epilogue)
+    attn = K7 / K10(q, cache, pos)            after writing k, v at pos
+    x    = K16(attn; int4 o_proj, + x)
+    x    = K17(x; RMSNorm ln2, int4 gate/up, silu * up, int4 down, + x)
 
 * ``w8a8_static``: int8 per-output-channel weights and calibrated static
   per-tensor activation scales::
@@ -46,15 +57,21 @@ Above ``_FLASH_BYTES`` of codes per row each format takes its flash decode
 The prompt is prefilled through the float module (``prefill_quant=False``,
 ``serve.py:2885-2958``), which writes the combined cache directly (a long
 prompt through the flash prefill K9); the cache is then quantized and
-padded layer by layer.  Batch rows are not padded to a sublane granule
-(the TPU engine pads to 8; its padded rows never reach an output).
+padded layer by layer.  With ``prefill_quant="fused"`` a quantized engine
+prefills a prompt whose length is a multiple of 128 from 256 on through
+the fused int8 prefill instead (``serve.py:2715-2893``; bf16 KV only):
+per layer K15 for [q | k | v], o_proj and down with per-token int8
+activations, K2 with silu for [up | gate], and K9 with the q rope in the
+kernel.  Batch rows are not padded to a sublane granule (the TPU engine
+pads to 8; its padded rows never reach an output).
 
 Ported from ``DecodeEngine``: ``__init__`` for the canonical llama block
-in ``bf16`` and ``w8a8_static`` with ``merge_o=False`` and
-``head_quant=None``, the KV-cache options, ``calibrate_scales``,
-``smooth_lm``, ``init_cache``, ``prefill`` with the quantizing half of
-``_kv_finalize``, ``_layer``, ``_head_logits``, ``_make_run`` (a loop over
-steps of one memoized step function), greedy ``generate`` and
+in ``bf16``, ``w8a8_static`` and ``w4a8_static`` with ``merge_o=False``
+and ``head_quant=None``, the KV-cache options, ``prefill_quant="fused"``,
+``calibrate_scales``, ``smooth_lm``, ``init_cache``, ``prefill`` with the
+quantizing half of ``_kv_finalize``, ``_build_fused_prefill`` and
+``_prefill_fused_run``, ``_layer``, ``_head_logits``, ``_make_run`` (a
+loop over steps of one memoized step function), greedy ``generate`` and
 ``recommended_kv``.  The bf16 engine at batch 1 (the TPU engine's
 XLA-layer variant, ``_xla_ok_b1``) and every other option raise
 ``NotImplementedError`` naming ROADMAP.md.
@@ -62,6 +79,7 @@ XLA-layer variant, ``_xla_ok_b1``) and every other option raise
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -74,6 +92,7 @@ from qdm_tpu_torch.models import llama as llama_lib
 from qdm_tpu_torch.models.layers import capture_stats
 from qdm_tpu_torch.models.shims import llama_scaling_groups
 from qdm_tpu_torch.ops import decode_kernels as dk
+from qdm_tpu_torch.ops import flash_prefill as fp
 from qdm_tpu_torch.ops import quant_matmul as qmm
 from qdm_tpu_torch.quant import smooth as smooth_lib
 
@@ -86,6 +105,24 @@ def _quant_w(w: torch.Tensor):
     wf = w.to(torch.float32)
     s = qmm.div_exact(wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-8), 127.0)
     return torch.clamp(torch.round(torch.div(wf, s)), -127, 127).to(torch.int8), s
+
+
+def _quant_w4(w: torch.Tensor, group: int, block: int = 0):
+    """Group-wise symmetric int4 in the planar pack: w (K, N) -> (packed
+    (K/2, N) int8, scales (K/group, N) f32) (``serve.py:113-119``)."""
+    codes, s = dk.quantize_int4_group(w, group)
+    return dk.pack_int4_planar(codes, block=block), s
+
+
+def i4_layout(cfg: llama_lib.LlamaConfig):
+    """(i4_group, i4_mlp_block) of the w4a8 engine on one device
+    (``serve.py:193-206``): the group is 128 shrunk to divide every planar
+    half-contraction the kernels see (hidden/2 for qkv, gate and up,
+    h*d/2 for o_proj, mlp_block/2 for the down blocks)."""
+    mlp_block = dk.mlp_i4_block(cfg.intermediate_size)
+    hd = cfg.num_attention_heads * cfg.head_dim
+    group = math.gcd(math.gcd(cfg.hidden_size // 2, mlp_block // 2), math.gcd(hd // 2, 128))
+    return group, mlp_block
 
 
 def _rope_consts(cfg: llama_lib.LlamaConfig, device=None):
@@ -128,16 +165,17 @@ class DecodeEngine:
                  kv_scale_mode: str = "token", kv_margin: float = 2.0, gptq_grams=None):
         if mode not in ("bf16", "w8a8_static", "w4a8_static"):
             raise ValueError(mode)
-        if mode == "w4a8_static":
-            raise NotImplementedError(f"engine mode {mode!r} is not ported yet: {_ROADMAP}")
         if mode != "bf16" and act_stats is None:
             raise ValueError(f"{mode} needs act_stats (see DecodeEngine.calibrate_scales)")
         if gptq_grams and mode == "bf16":
             raise ValueError("gptq_grams places quantized weight codes; bf16 mode has none "
                              "(use w8a8/w4a8_static)")
+        # prefill_quant="fused" is the fused int8 prefill (quantized modes;
+        # bf16 keeps the module prefill, serve.py:929-932); True, "static",
+        # "dynamic" and "static_i8attn" quantize the module prefill instead
         unported = {"merge_o": merge_o, "mesh": mesh is not None,
-                    "prefill_quant": bool(prefill_quant), "head_quant": head_quant is not None,
-                    "gptq_grams": bool(gptq_grams)}
+                    "prefill_quant": prefill_quant not in (False, None, "fused"),
+                    "head_quant": head_quant is not None, "gptq_grams": bool(gptq_grams)}
         if any(unported.values()):
             raise NotImplementedError(
                 f"engine options {[k for k, v in unported.items() if v]} are not ported yet: "
@@ -173,8 +211,18 @@ class DecodeEngine:
             s = qmm.div_exact(act_stats[key].to(torch.float32).amax().clamp_min(1e-5), 127.0)
             return (s * act_margin).to(torch.float32).reshape(1)
 
-        def qw8(w):
-            codes, s = _quant_w(w.to(self.dtype))
+        if mode == "w4a8_static":
+            self.i4_group, self.i4_mlp_block = i4_layout(cfg)
+
+        def qw(w, down: bool = False):
+            """The weight's codes kept transposed, (N, K) int8 or (N, K/2)
+            planar int4 packs (the down projection packed per inner block),
+            and their scales."""
+            w = w.to(self.dtype)
+            if mode == "w8a8_static":
+                codes, s = _quant_w(w)
+            else:
+                codes, s = _quant_w4(w, self.i4_group, self.i4_mlp_block if down else 0)
             return dk.transposed_weight(codes), s
 
         def tw(w):
@@ -195,11 +243,11 @@ class DecodeEngine:
                 e["wd_t"] = tw(mp["down_proj"]["kernel"])
                 self.layers.append(e)
                 continue
-            e["w_qkv_t"], e["s_qkv"] = qw8(w_qkv)
-            e["w_o_t"], e["s_o"] = qw8(at["o_proj"]["kernel"])
-            e["wg_t"], e["sg"] = qw8(mp["gate_proj"]["kernel"])
-            e["wu_t"], e["su"] = qw8(mp["up_proj"]["kernel"])
-            e["wd_t"], e["sd"] = qw8(mp["down_proj"]["kernel"])
+            e["w_qkv_t"], e["s_qkv"] = qw(w_qkv)
+            e["w_o_t"], e["s_o"] = qw(at["o_proj"]["kernel"])
+            e["wg_t"], e["sg"] = qw(mp["gate_proj"]["kernel"])
+            e["wu_t"], e["su"] = qw(mp["up_proj"]["kernel"])
+            e["wd_t"], e["sd"] = qw(mp["down_proj"]["kernel"], down=True)
             e["a_qkv"] = scale_of(f"{pre}/self_attn/q_proj")
             e["a_o"] = scale_of(f"{pre}/self_attn/o_proj")
             e["a_mlp"] = torch.cat([scale_of(f"{pre}/mlp/gate_proj"),
@@ -210,6 +258,9 @@ class DecodeEngine:
         self.head_t = dk.transposed_weight(p["lm_head"]["kernel"].to(self.dtype))   # (V, K)
         # snapshot of the module (and its params) for the prefill
         self._prefill_model = lm.model
+        self.prefill_fused = prefill_quant == "fused" and mode != "bf16"
+        if self.prefill_fused:
+            self._build_fused_prefill(p)
         self._run_cache: Dict = {}
 
     # ------------------------------------------------------------- calibration
@@ -242,26 +293,36 @@ class DecodeEngine:
         h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         b = x.shape[0]
         eps = cfg.rms_norm_eps
-        bf16 = self.mode == "bf16"
-        if bf16:
+        if self.mode == "bf16":
             qkv = dk.fused_dense_decode(x, w["w_qkv_t"].t(), norm_scale=w["ln1"], rope_cos=cosv,
                                         rope_sin=sinv, head_dim=d, eps=eps, w_t=w["w_qkv_t"])
-        else:
+        elif self.mode == "w8a8_static":
             qkv = dk.fused_dense_decode_i8(x, w["w_qkv_t"].t(), w["s_qkv"], w["a_qkv"],
                                            norm_scale=w["ln1"], rope_cos=cosv, rope_sin=sinv,
                                            head_dim=d, eps=eps, w_t=w["w_qkv_t"])
+        else:
+            qkv = dk.fused_dense_decode_i4(x, w["w_qkv_t"].t(), w["s_qkv"], w["a_qkv"],
+                                           norm_scale=w["ln1"], rope_cos=cosv, rope_sin=sinv,
+                                           head_dim=d, eps=eps, group=self.i4_group,
+                                           w_t=w["w_qkv_t"])
         q = qkv[:, :h * d].view(b, hkv, h // hkv, d)
         attn = self._attend(q, qkv[:, h * d:].reshape(b, 2 * hkv, d), cache, pos)
         attn = attn.reshape(b, h * d)
         mlp_w = (w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t())
         mlp_t = (w["wg_t"], w["wu_t"], w["wd_t"])
-        if bf16:
+        if self.mode == "bf16":
             x = dk.fused_dense_decode(attn, w["w_o_t"].t(), residual=x, w_t=w["w_o_t"])
             return dk.fused_mlp_decode(x, *mlp_w, w["ln2"], eps=eps, act=cfg.mlp_act, w_t=mlp_t)
-        x = dk.fused_dense_decode_i8(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], residual=x,
-                                     w_t=w["w_o_t"])
-        return dk.fused_mlp_decode_i8(x, *mlp_w, (w["sg"], w["su"], w["sd"]), w["a_mlp"],
-                                      w["ln2"], eps=eps, act=cfg.mlp_act, w_t=mlp_t)
+        scales = (w["sg"], w["su"], w["sd"])
+        if self.mode == "w8a8_static":
+            x = dk.fused_dense_decode_i8(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], residual=x,
+                                         w_t=w["w_o_t"])
+            return dk.fused_mlp_decode_i8(x, *mlp_w, scales, w["a_mlp"], w["ln2"], eps=eps,
+                                          act=cfg.mlp_act, w_t=mlp_t)
+        x = dk.fused_dense_decode_i4(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], residual=x,
+                                     group=self.i4_group, w_t=w["w_o_t"])
+        return dk.fused_mlp_decode_i4(x, *mlp_w, scales, w["a_mlp"], w["ln2"], eps=eps,
+                                      act=cfg.mlp_act, group=self.i4_group, w_t=mlp_t)
 
     def _attend(self, q, kv_new, cache, pos: int):
         """Write the new k, v column at ``pos`` into the cache, in its
@@ -373,13 +434,110 @@ class DecodeEngine:
             return torch.stack(toks, dim=1)
         return run
 
+    # ---------------------------------------------------------- fused prefill
+
+    def _build_fused_prefill(self, p):
+        """The fused int8 prefill's weights (``serve.py:2715-2776``): per
+        layer the [q | k | v], [up | gate], o_proj and down matrices as
+        int8 codes with per-output-channel scales (1, N), kept transposed
+        (N, K) for the kernels.  The activations are quantized per token
+        inside the kernels, so no calibration is needed.  Held in a list,
+        one dict per layer (the JAX engine stacks them for a ``lax.scan``)."""
+        if self.kv_dtype is not None:
+            raise NotImplementedError(
+                "prefill_quant='fused' covers the canonical llama family (rmsnorm, full rope, "
+                "no biases/window/MoE, bf16 KV, single-device), as in the JAX engine; a "
+                "quantized KV cache takes the module prefill")
+
+        def qi8(w):
+            codes, s = _quant_w(w)
+            return qmm.transposed_weight(codes), s
+
+        self._fp_layers = []
+        for l in range(self.cfg.num_hidden_layers):
+            lp = p[f"layers_{l}"]
+            at, ml = lp["self_attn"], lp["mlp"]
+            e = {"ln1": lp["input_layernorm"]["scale"].to(torch.float32),
+                 "ln2": lp["post_attention_layernorm"]["scale"].to(torch.float32)}
+            e["qkv_t"], e["qkv_s"] = qi8(torch.cat(
+                [at["q_proj"]["kernel"], at["k_proj"]["kernel"], at["v_proj"]["kernel"]], dim=1))
+            e["ug_t"], e["ug_s"] = qi8(torch.cat(
+                [ml["up_proj"]["kernel"], ml["gate_proj"]["kernel"]], dim=1))
+            e["o_t"], e["o_s"] = qi8(at["o_proj"]["kernel"])
+            e["dn_t"], e["dn_s"] = qi8(ml["down_proj"]["kernel"])
+            self._fp_layers.append(e)
+        self._fp_zero = torch.zeros((1, 2 * self.cfg.intermediate_size), dtype=torch.float32,
+                                    device=self.device)
+
+    def _fp_norm(self, x, scale):
+        """The fused prefill's RMSNorm in f32, rounded to the model dtype."""
+        return dk.norm_f32(x.to(torch.float32), scale, 0.0, self.cfg.rms_norm_eps,
+                           "rmsnorm").to(self.dtype)
+
+    def _fused_layer(self, x, w, cos, sin, tp: int):
+        """One decoder layer of the fused int8 prefill (``serve.py:2839-2866``)
+        on x (B, S, hidden): RMSNorm, [q | k | v] through K15, k roped from
+        the rope tables, the combined cache (B, 2*hkv, d, tp) written,
+        attention by K9 with the q rope in the kernel, o_proj through K15
+        and the residual, RMSNorm, [up | gate] through K2 with silu, down
+        through K15 and the residual.  Returns (x, cache)."""
+        cfg, dt = self.cfg, self.dtype
+        h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        b, s, _ = x.shape
+        m = b * s
+        qkv = qmm.w8a8_matmul_fused(self._fp_norm(x, w["ln1"]).reshape(m, -1), w["qkv_t"].t(),
+                                    w["qkv_s"], w_t=w["qkv_t"])
+        q = qkv[:, :h * d].reshape(b, s, h, d)
+        k = qkv[:, h * d:(h + hkv) * d].reshape(b, s, hkv, d).to(torch.float32)
+        v = qkv[:, (h + hkv) * d:].reshape(b, s, hkv, d)
+        k = (k * cos[None, :, None, :]
+             + torch.roll(k, d // 2, dims=-1) * sin[None, :, None, :]).to(dt)
+        cache = torch.zeros((b, 2 * hkv, d, tp), dtype=dt, device=x.device)
+        cache[:, :hkv, :, :s] = k.permute(0, 2, 3, 1)
+        cache[:, hkv:, :, :s] = v.permute(0, 2, 3, 1)
+        of = fp.flash_prefill_gqa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  sm_scale=cfg.attn_scale, rope_cos=cos, rope_sin=sin)
+        del qkv, q, k, v
+        o = qmm.w8a8_matmul_fused(of.transpose(1, 2).reshape(m, h * d).to(dt), w["o_t"].t(),
+                                  w["o_s"], w_t=w["o_t"])
+        x = (x.to(torch.float32) + o.reshape(b, s, -1).to(torch.float32)).to(dt)
+        del of, o
+        mid = qmm.w8a8_geglu_fused(self._fp_norm(x, w["ln2"]).reshape(m, -1), w["ug_t"].t(),
+                                   w["ug_s"], self._fp_zero, act="silu", w_t=w["ug_t"])
+        dn = qmm.w8a8_matmul_fused(mid.to(dt), w["dn_t"].t(), w["dn_s"], w_t=w["dn_t"])
+        return (x.to(torch.float32) + dn.reshape(b, s, -1).to(torch.float32)).to(dt), cache
+
+    @torch.inference_mode()
+    def _prefill_fused_run(self, ids, max_len: int):
+        """The fused int8 prefill (``serve.py:2778-2883``): the embedding,
+        :meth:`_fused_layer` layer after layer (each layer's temporaries go
+        when it returns), the final norm and the head as one matmul in the
+        head's dtype, cast to f32.  Returns (tok0, caches) like
+        :meth:`prefill`."""
+        cfg = self.cfg
+        b, s = ids.shape
+        tp = _round_up(max_len, 128)
+        cos, sin = fp.rope_tables(s, cfg.head_dim, cfg.rope_theta, device=self.device)
+        x = self.embed[ids.long()]
+        caches = []
+        for w in self._fp_layers:
+            x, cache = self._fused_layer(x, w, cos, sin, tp)
+            caches.append((cache,))
+        xl = self._fp_norm(x[:, -1], self.final_norm)
+        logits = torch.matmul(xl.to(self.head_t.dtype), self.head_t.t()).to(torch.float32)
+        return torch.argmax(logits, dim=-1), caches
+
     @torch.inference_mode()
     def prefill(self, ids, max_len: int):
         """Module-path prefill writing the combined cache, on a
         round_up(s, 128)-long cache padded afterwards to round_up(max_len,
-        128).  Returns (first generated token, engine caches)."""
+        128); the fused int8 prefill instead where the engine has it and s
+        is a multiple of 128 from 256 on (``serve.py:2893``).  Returns
+        (first generated token, engine caches)."""
         ids = torch.as_tensor(np.asarray(ids), device=self.device)
         b, s = ids.shape
+        if self.prefill_fused and s % 128 == 0 and s >= 256:
+            return self._prefill_fused_run(ids, max_len)
         cfg = self.cfg
         sp, tp = _round_up(s, 128), _round_up(max_len, 128)
         assert tp >= sp, (max_len, s)

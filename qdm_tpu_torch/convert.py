@@ -12,11 +12,17 @@ The port keeps the Flax tree's keys and maps each leaf 1:1:
 Any other leaf (a packed layout this port does not run yet) raises, and
 ``load_tree`` raises on a leaf the module does not declare, so nothing is
 dropped silently.
+
+:func:`engine_layers_from_jax` and :func:`fused_prefill_from_jax` carry a
+JAX ``DecodeEngine``'s extracted weights into the port engine's layout:
+the int8 codes (K, N) and the planar int4 packs (K/2, N) transposed to
+the kernels' (N, K) and (N, K/2), their scales ((1, N) per channel,
+(K/group, N) per int4 group) and the norms as they are.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -59,3 +65,38 @@ def params_from_jax(flax_params: dict) -> dict:
     out: Dict[Tuple[str, ...], torch.Tensor] = {
         path: convert_leaf(path, arr) for path, arr in flatten_tree(flax_params).items()}
     return unflatten_tree(out)
+
+
+# JAX engine key -> port engine key of the weights the kernels read transposed
+_ENGINE_WEIGHTS = {"w_qkv": "w_qkv_t", "w_o": "w_o_t", "wg": "wg_t", "wu": "wu_t", "wd": "wd_t"}
+_FUSED_WEIGHTS = {"qkv_w": "qkv_t", "ug_w": "ug_t", "o_w": "o_t", "dn_w": "dn_t"}
+
+
+def engine_layers_from_jax(layers) -> List[Dict[str, torch.Tensor]]:
+    """A JAX ``DecodeEngine``'s ``layers`` (one dict per decoder layer, any
+    mode) -> the port engine's: weights transposed, act scales flattened,
+    everything else as it is."""
+    out = []
+    for entry in layers:
+        e = {}
+        for key, arr in entry.items():
+            t = _to_tensor(arr)
+            if key in _ENGINE_WEIGHTS:
+                e[_ENGINE_WEIGHTS[key]] = t.t().contiguous()
+            elif key in ("a_qkv", "a_o", "a_mlp"):
+                e[key] = t.reshape(-1)
+            else:
+                e[key] = t
+        out.append(e)
+    return out
+
+
+def fused_prefill_from_jax(fp_weights: dict) -> List[Dict[str, torch.Tensor]]:
+    """A JAX engine's fused-prefill weights (``_fp_weights``, each leaf
+    stacked over the layers) -> the port engine's ``_fp_layers``, one dict
+    per layer with the int8 matrices transposed."""
+    stacked = {key: _to_tensor(arr) for key, arr in fp_weights["layers"].items()}
+    n_layers = stacked["ln1"].shape[0]
+    return [{_FUSED_WEIGHTS.get(key, key): (t[l].t().contiguous() if key in _FUSED_WEIGHTS
+                                            else t[l])
+             for key, t in stacked.items()} for l in range(n_layers)]

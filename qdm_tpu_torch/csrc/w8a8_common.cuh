@@ -12,8 +12,9 @@
 //      not quantize_act_per_token_int's x / (absmax / 127).
 //   2. w8a8_gemm: a tiled int8 x int8 -> int32 product on the tensor cores
 //      (mma.sync m16n8k32 s8.s8.s32), with the f32 dequant epilogue fused:
-//      y = acc * (xs * ws) + b (+ residual), or for GEGLU
-//      h * gelu_tanh(g) from two column halves accumulated in one block.
+//      y = acc * (xs * ws) + b (+ residual), y = acc * (xs * ws) without a
+//      bias (BIAS false: w8a8_matmul.cu), or for GEGLU h * act(g) from two
+//      column halves accumulated in one block, act the tanh GELU or silu.
 //
 // The weight arrives transposed, (N', K') with K contiguous, which is the
 // "col" operand layout mma.sync wants; the Python wrapper caches that copy.
@@ -124,6 +125,15 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+constexpr int kGluSilu = 0, kGluGelu = 1;
+
+// silu(g) = g * (1 / (1 + exp(-g))), exp in f64 rounded to f32: the plain
+// version's bits on every device.
+__device__ __forceinline__ float silu_f64exp(float g) {
+  const float e = (float)exp(-(double)g);
+  return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
+}
+
 __device__ __forceinline__ float gelu_tanh(float g) {
   // jax.nn.gelu(approximate=True): g * 0.5 * (1 + tanh(sqrt(2/pi) * (g + 0.044715 g^3)))
   const float k = 0.7978845608028654f;
@@ -139,7 +149,7 @@ __device__ __forceinline__ float gelu_tanh(float g) {
 //   [0, BN/2) hold the hidden columns and [BN/2, BN) the gate columns
 //   half + n0 + r.  Each warp takes 16 hidden and the matching 16 gate
 //   columns, so one thread holds h and g of the same output element.
-template <typename OutT, bool GEGLU>
+template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu>
 __global__ void __launch_bounds__(kGemmThreads)
 w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
                  const int8_t* __restrict__ wt, const float* __restrict__ ws,
@@ -242,7 +252,8 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
                 __fmul_rn((float)acc[mi][nj][hr * 2 + e], __fmul_rn(xsr, ws[col])), bias[col]);
             const float gg = __fadd_rn(
                 __fmul_rn((float)acc[mi][nj + 2][hr * 2 + e], __fmul_rn(xsr, ws[gcol])), bias[gcol]);
-            out[(size_t)row * half + col] = from_f32<OutT>(__fmul_rn(h, gelu_tanh(gg)));
+            const float a = ACT == kGluSilu ? silu_f64exp(gg) : gelu_tanh(gg);
+            out[(size_t)row * half + col] = from_f32<OutT>(__fmul_rn(h, a));
           }
         }
       } else {
@@ -252,8 +263,8 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
           for (int e = 0; e < 2; ++e) {
             const int col = n0 + wn * 32 + nj * 8 + t * 2 + e;
             if (col >= n_out) continue;
-            float y = __fadd_rn(
-                __fmul_rn((float)acc[mi][nj][hr * 2 + e], __fmul_rn(xsr, ws[col])), bias[col]);
+            float y = __fmul_rn((float)acc[mi][nj][hr * 2 + e], __fmul_rn(xsr, ws[col]));
+            if (BIAS) y = __fadd_rn(y, bias[col]);
             if (res != nullptr) y = __fadd_rn(y, to_f32(res[(size_t)row * n_out + col]));
             out[(size_t)row * n_out + col] = from_f32<OutT>(y);
           }
@@ -263,14 +274,14 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
   }
 }
 
-template <typename OutT, bool GEGLU>
+template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu>
 cudaError_t launch_gemm(const int8_t* xi, const float* xs, const int8_t* wt, const float* ws,
                         const float* bias, const void* res, void* out, int M, int Kp,
                         int n_out, int half, cudaStream_t stream) {
   const int cols_per_block = GEGLU ? BN / 2 : BN;
   const int n_cols = GEGLU ? half : n_out;
   dim3 grid((n_cols + cols_per_block - 1) / cols_per_block, (M + BM - 1) / BM);
-  w8a8_gemm_kernel<OutT, GEGLU><<<grid, kGemmThreads, 0, stream>>>(
+  w8a8_gemm_kernel<OutT, GEGLU, BIAS, ACT><<<grid, kGemmThreads, 0, stream>>>(
       xi, xs, wt, ws, bias, static_cast<const OutT*>(res), static_cast<OutT*>(out), M, Kp,
       n_out, half);
   return cudaGetLastError();

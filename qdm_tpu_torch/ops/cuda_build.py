@@ -34,7 +34,9 @@ ENTRY_POINTS = {
     "w8a8_fused_epi": ("qdm_w8a8_fused_epi",
                        (P, I, P, P, P, P, P, I, P, P, I, I, I, I, P)),
     "w8a8_geglu": ("qdm_w8a8_geglu",
-                   (P, I, P, P, P, P, I, P, P, I, I, I, I, P)),
+                   (P, I, P, P, P, P, I, P, P, I, I, I, I, I, P)),
+    "w8a8_matmul_fused": ("qdm_w8a8_matmul_fused",
+                          (P, I, P, P, P, I, P, P, I, I, I, I, P)),
     "w4a16_matmul": ("qdm_w4a16_matmul",
                      (P, I, P, P, P, P, I, I, I, I, I, I, P)),
     "w4a8_matmul": ("qdm_w4a8_matmul",
@@ -60,8 +62,12 @@ ENTRY_POINTS = {
     "decode_attention_kv_flash_q": ("qdm_decode_attention_kv_flash_q",
                                     (P, I, L, P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I,
                                      I, P)),
+    "decode_dense_i4": ("qdm_decode_dense_i4",
+                        (P, I, P, P, P, P, F, P, P, I, P, I, P, I, P, I, I, I, I, P)),
+    "decode_mlp_i4": ("qdm_decode_mlp_i4",
+                      (P, I, P, P, P, P, P, P, P, P, F, I, I, P, I, P, P, P, I, I, I, I, I, P)),
 }
-SOURCE_OF = {"decode_dense_i8": "decode_dense"}
+SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}

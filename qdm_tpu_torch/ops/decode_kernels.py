@@ -46,6 +46,14 @@ engine with a bf16 KV cache:
   partial of each ``bj``-wide inner block added in block order, residual.
   CUDA kernel ``csrc/decode_mlp_i8.cu`` (K8; replaces
   ``fused_mlp_decode_i8_pallas``).
+* :func:`fused_dense_decode_i4`, :func:`fused_mlp_decode_i4` — the
+  ``w4a8_static`` engine's dense layers and MLP: K6's and K8's functions
+  with planar int4 weights (:func:`pack_int4_planar`) and f32 scales per
+  group of K rows; each group's exact int32 dot times its scale, the low
+  plane's groups first, then the high plane's, added in that order.  CUDA
+  kernels ``csrc/decode_dense_i4.cu`` (K16; replaces
+  ``fused_dense_decode_i4_pallas``) and ``csrc/decode_mlp_i4.cu`` (K17;
+  replaces ``fused_mlp_decode_i4_pallas``).
 
 Arithmetic shared by the kernels and their plain versions, so that both
 give the same bits on the card and the plain version the same bits on the
@@ -97,6 +105,7 @@ _MAX_ATTN_SMEM = 200 * 1024
 KV_MODES = {"i8": 0, "i8c": 1, "i4c": 2}
 for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
            "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode",
+           "fused_dense_decode_i4", "fused_mlp_decode_i4",
            *(f"decode_attention_kv_{m}" for m in KV_MODES),
            *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
@@ -160,10 +169,7 @@ def norm_f32(xf, scale, bias, eps: float, norm_type: str):
     return xf * inv_sqrt(ms + eps) * scale
 
 
-def silu(g: torch.Tensor) -> torch.Tensor:
-    """``g * (1 / (1 + exp(-g)))``, exp in f64 rounded to f32."""
-    e = torch.exp(-(g.to(torch.float64))).to(torch.float32)
-    return g * reciprocal(1.0 + e)
+silu = qmm.silu        # ``g * (1 / (1 + exp(-g)))``, exp in f64 rounded to f32
 
 
 def gelu_tanh(g: torch.Tensor) -> torch.Tensor:
@@ -484,6 +490,120 @@ def mlp_down_plain(mid, x, w_down, bj: int, residual: bool = True, out_dtype=Non
 
 
 # ---------------------------------------------------------------------------
+# int4 weights: group quantization, planar packs and their plain versions
+# ---------------------------------------------------------------------------
+#
+# Symmetric int4 codes in [-7, 7] with f32 scales per (group of K rows,
+# output column), two codes per byte in a planar split: byte row r of a
+# block of ``b`` K rows holds row r in its low nibble and row r + b/2 in its
+# high nibble (``decode_kernels.py:1616-1670``).  Block 0 splits the whole
+# contraction at K/2 (qkv, o_proj, gate, up); the down projection packs
+# each ``mlp_i4_block``-row inner block on its own.
+
+
+def quantize_int4_group(w: torch.Tensor, group: int = 128):
+    """(K, N) float -> (int4-valued int8 codes (K, N), f32 scales (K/group,
+    N)) with ``s = clip(max |w| over the group, 1e-8) / 7`` and codes
+    ``clip(round(w / s), -7, 7)`` (``decode_kernels.quantize_int4_group``)."""
+    k, n = w.shape
+    if k % group:
+        raise ValueError(f"K={k} is not a multiple of the int4 group {group}")
+    wg = w.to(torch.float32).reshape(k // group, group, n)
+    s = qmm.div_exact(wg.abs().amax(dim=1).clamp_min(1e-8), 7.0)
+    q = torch.clamp(torch.round(torch.div(wg, s[:, None, :])), -7, 7).to(torch.int8)
+    return q.reshape(k, n), s
+
+
+def pack_int4_planar(wq: torch.Tensor, block: int = 0) -> torch.Tensor:
+    """int4-valued int8 (K, N) -> packed bytes (K/2, N), the planar split
+    within each ``block`` rows (the whole of K for block 0)
+    (``decode_kernels.pack_int4_planar``)."""
+    k, n = wq.shape
+    b = block or k
+    if k % b or b % 2:
+        raise ValueError(f"K={k} does not split into planar blocks of {b} rows")
+    w3 = wq.to(torch.int32).reshape(k // b, b, n)
+    lo, hi = w3[:, :b // 2], w3[:, b // 2:]
+    return ((hi << 4) | (lo & 0xF)).to(torch.int8).reshape(k // 2, n)
+
+
+def unpack_int4_planar(packed: torch.Tensor, block: int = 0) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_planar`: bytes (K/2, N) -> int8 codes
+    (K, N), each nibble sign-extended."""
+    k2, n = packed.shape
+    b2 = block // 2 if block else k2
+    p3 = packed.to(torch.int32).reshape(k2 // b2, b2, n)
+    return torch.cat([(p3 << 28) >> 28, p3 >> 4], dim=1).reshape(2 * k2, n).to(torch.int8)
+
+
+def mlp_i4_block(inner: int, block_j: int = 512) -> int:
+    """The inner block of the int4 MLP, which its down projection must be
+    packed with: the largest multiple of 128 dividing ``inner`` up to
+    ``block_j``, or the whole of an inner width below the 128 granule
+    (``decode_kernels.mlp_i4_block`` / ``_pick_block_i4``)."""
+    if inner % LANE:
+        return inner
+    return pick_block(inner, block_j)
+
+
+def i4_group_dot_plain(xi, w_p, w_scale, s, group: int, row0: int = 0):
+    """``_i4_group_dot``: xi (B, k) int8 codes against one planar block
+    w_p (k/2, n): for the low plane and then the high plane, group by
+    group, the exact int32 dot times its f32 scale row ``row0 + plane *
+    k/(2 group) + gi`` of w_scale, the first partial taken as it is and
+    each next one added in that order; the sum times s."""
+    half = w_p.shape[0]
+    if half % group:
+        raise ValueError(f"the planar half {half} is not a multiple of the group {group}")
+    gpp = half // group
+    p32 = w_p.to(torch.int32)
+    y = None
+    for plane, w in enumerate(((p32 << 28) >> 28, p32 >> 4)):
+        for gi in range(gpp):
+            r0 = gi * group
+            a = xi[:, plane * half + r0:plane * half + r0 + group]
+            acc = qmm.int8_matmul_exact(a, w[r0:r0 + group].to(torch.int8))
+            c = acc.to(torch.float32) * w_scale[row0 + plane * gpp + gi]
+            y = c if y is None else y + c
+    return y * s
+
+
+def fused_dense_decode_i4_plain(x, w_p, w_scale, act_scale, norm_scale=None, residual=None,
+                                rope_cos=None, rope_sin=None, head_dim: int = 0,
+                                eps: float = 1e-6, group: int = 128, out_dtype=None):
+    """Plain version of :func:`fused_dense_decode_i4`, in the TPU kernel's
+    order (``_fused_dense_i4_kernel``)."""
+    a = act_scale.reshape(1).to(torch.float32)
+    xi = _quant_static(_prologue(x, norm_scale, None, eps, "rmsnorm"), a)
+    y = i4_group_dot_plain(xi, w_p, w_scale.to(torch.float32), a, group)
+    return _epilogue(y, None, rope_cos, rope_sin, head_dim, residual, out_dtype or x.dtype)
+
+
+def fused_mlp_decode_i4_plain(x, wg_p, wu_p, wd_p, w_scales, act_scales, norm_scale,
+                              eps: float = 1e-6, act: str = "silu", block_j: int = 512,
+                              group: int = 128, out_dtype=None, residual: bool = True):
+    """Plain version of :func:`fused_mlp_decode_i4`, inner block by inner
+    block in the TPU kernel's order (``_fused_mlp_i4_kernel``)."""
+    s = act_scales.reshape(2).to(torch.float32)
+    s_in, s_mid = s[0:1], s[1:2]
+    sg, su, sd = (t.to(torch.float32) for t in w_scales)
+    xi = _quant_static(_prologue(x, norm_scale, None, eps, "rmsnorm"), s_in)
+    inner = wg_p.shape[1]
+    bj = mlp_i4_block(inner, block_j)
+    acc = torch.zeros((x.shape[0], wd_p.shape[1]), dtype=torch.float32, device=x.device)
+    for j in range(inner // bj):
+        cols = slice(j * bj, (j + 1) * bj)
+        gate = i4_group_dot_plain(xi, wg_p[:, cols], sg[:, cols], s_in, group)
+        up = i4_group_dot_plain(xi, wu_p[:, cols], su[:, cols], s_in, group)
+        ai = _quant_static(_act(act, gate) * up, s_mid)
+        acc = acc + i4_group_dot_plain(ai, wd_p[j * bj // 2:(j + 1) * bj // 2], sd, s_mid,
+                                       group, row0=j * (bj // group))
+    if residual:
+        acc = acc + x.to(torch.float32)
+    return acc.to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -523,21 +643,24 @@ def _scratch(t: Optional[torch.Tensor], shape, dev) -> torch.Tensor:
 
 
 def _dense_common(x, w, w_t, norm_scale, norm_bias, norm_type, residual, rope_cos,
-                  rope_sin, head_dim, bias, out_dtype, what):
-    """Checks shared by K5 and K6; returns the kernel operands."""
+                  rope_sin, head_dim, bias, out_dtype, what, rows_per_k: int = 1):
+    """Checks shared by K5, K6 and K16 (whose weight holds K / rows_per_k
+    rows of packed bytes); returns the kernel operands."""
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise ValueError(f"{what}: x must be 2-D bf16/f32 with a bf16/f32 output, got "
                          f"{tuple(x.shape)} {x.dtype} -> {out_dtype}")
     m, k = x.shape
+    kw = k // rows_per_k
     n = w.shape[1] if w_t is None else w_t.shape[0]
-    if w.shape != (k, n):
+    if w.shape != (kw, n) or k % rows_per_k:
         raise ValueError(f"{what}: weight {tuple(w.shape)} does not take x {tuple(x.shape)}")
-    if k % 16:
-        raise ValueError(f"{what}: K={k} must be a multiple of 16 (16-byte weight rows)")
+    if kw % 16:
+        raise ValueError(f"{what}: weight rows of {kw} values; must be a multiple of 16 "
+                         "(16-byte rows)")
     w_t = transposed_weight(w) if w_t is None else w_t
-    if (tuple(w_t.shape) != (n, k) or not w_t.is_contiguous() or w_t.data_ptr() % 16
+    if (tuple(w_t.shape) != (n, kw) or not w_t.is_contiguous() or w_t.data_ptr() % 16
             or w_t.device != x.device):
-        raise ValueError(f"{what}: w_t must be the contiguous 16-byte aligned (N, K) "
+        raise ValueError(f"{what}: w_t must be the contiguous 16-byte aligned (N, {kw}) "
                          "transpose of the weight on x's device")
     dev = x.device
     if norm_scale is None and norm_bias is not None:
@@ -957,6 +1080,122 @@ def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor
                  ai.data_ptr(), part.data_ptr(), m, k, inner, bj, _stream(x))
     cuda_build.check(err, "fused_mlp_decode_i8")
     qmm.LAUNCHES["fused_mlp_decode_i8"] += 1
+    return out
+
+
+def _i4_kernel_group(group: int, half: int, what: str) -> None:
+    """The int4 kernels' tiling: K rows flow in 64-byte stages of one
+    plane, a group flushes after a whole number of 32-byte mma steps."""
+    if group <= 0 or group % 32 or half % 64 or half % group:
+        raise NotImplementedError(
+            f"{what}: the kernel takes a group that is a multiple of 32 and divides a planar "
+            f"half that is a multiple of 64; got group {group}, half {half}")
+
+
+def fused_dense_decode_i4(x, w_p, w_scale, act_scale, norm_scale=None, residual=None,
+                          rope_cos=None, rope_sin=None, head_dim: int = 0, eps: float = 1e-6,
+                          group: int = 128, out_dtype=None, w_t: Optional[torch.Tensor] = None,
+                          scratch: Optional[torch.Tensor] = None):
+    """int4 :func:`fused_dense_decode` (K16): x (B, K), optional RMSNorm,
+    int8 codes with the static act scale (1,), planar int4 weight w_p
+    (K/2, N) (:func:`pack_int4_planar`, block 0) with f32 group scales
+    (K/group, N); then the rope epilogue and a residual.  w_t, if given,
+    is the (N, K/2) transpose of w_p; scratch the (B, K) int8 tensor that
+    receives the activation codes."""
+    out_dtype = out_dtype or x.dtype
+    if not _on_card(x, "fused_dense_decode_i4"):
+        return fused_dense_decode_i4_plain(x, w_p, w_scale, act_scale, norm_scale, residual,
+                                           rope_cos, rope_sin, head_dim, eps, group, out_dtype)
+    if w_p.dtype != torch.int8 or (w_t is not None and w_t.dtype != torch.int8):
+        raise ValueError(f"fused_dense_decode_i4: packed weight must be int8, got {w_p.dtype}")
+    x, w_t, ns, _, _, cos, sin, res, m, k, n = _dense_common(
+        x, w_p, w_t, norm_scale, None, "rmsnorm", residual, rope_cos, rope_sin, head_dim, None,
+        out_dtype, "fused_dense_decode_i4", rows_per_k=2)
+    _i4_kernel_group(group, k // 2, "fused_dense_decode_i4")
+    ws = w_scale.to(torch.float32).contiguous()
+    if tuple(ws.shape) != (k // group, n) or ws.device != x.device:
+        raise ValueError(f"fused_dense_decode_i4: w_scale {tuple(w_scale.shape)} is not "
+                         f"({k // group}, {n}) on x's device")
+    a = _f32_vec(act_scale, 1, "act_scale", x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    xi = _scratch(scratch, (m, k), x.device)
+    fn = cuda_build.kernel("decode_dense_i4")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), ws.data_ptr(), a.data_ptr(),
+                 _ptr(ns), ctypes.c_float(eps), _ptr(cos), _ptr(sin), int(head_dim), _ptr(res),
+                 _DTYPE_CODE[res.dtype] if res is not None else 0, out.data_ptr(),
+                 _DTYPE_CODE[out_dtype], xi.data_ptr(), m, k, n, int(group), _stream(x))
+    cuda_build.check(err, "fused_dense_decode_i4")
+    qmm.LAUNCHES["fused_dense_decode_i4"] += 1
+    return out
+
+
+def fused_mlp_decode_i4(x, wg_p, wu_p, wd_p, w_scales: Sequence[torch.Tensor], act_scales,
+                        norm_scale, eps: float = 1e-6, act: str = "silu", block_j: int = 512,
+                        group: int = 128, out_dtype=None, residual: bool = True,
+                        w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                        scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """int4 fused MLP (K17): x (B, K) -> x + down(act(gate(n)) * up(n)).
+    wg_p / wu_p (K/2, I) planar-packed with block 0, wd_p (I/2, K) packed
+    with block ``mlp_i4_block(I, block_j)``; w_scales = (sg (K/g, I),
+    su (K/g, I), sd (I/g, K)); act_scales (2,) = [s_in, s_mid].  w_t, if
+    given, holds the transposed packs (gate (I, K/2), up (I, K/2), down
+    (K, I/2)); scratch the (B, K) and (B, I) int8 tensors that receive the
+    input and mid codes."""
+    out_dtype = out_dtype or x.dtype
+    if act not in _ACTS:
+        raise ValueError(f"act {act!r}")
+    if not _on_card(x, "fused_mlp_decode_i4"):
+        return fused_mlp_decode_i4_plain(x, wg_p, wu_p, wd_p, w_scales, act_scales, norm_scale,
+                                         eps, act, block_j, group, out_dtype, residual)
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_mlp_decode_i4: x must be 2-D bf16/f32, got "
+                         f"{tuple(x.shape)} {x.dtype} -> {out_dtype}")
+    m, k = x.shape
+    inner = wg_p.shape[1]
+    if (wg_p.shape != (k // 2, inner) or wu_p.shape != (k // 2, inner)
+            or wd_p.shape != (inner // 2, k) or k % 2 or inner % 2):
+        raise ValueError(f"fused_mlp_decode_i4: packed weights {tuple(wg_p.shape)}, "
+                         f"{tuple(wu_p.shape)}, {tuple(wd_p.shape)} for K={k}")
+    bj = mlp_i4_block(inner, block_j)
+    _i4_kernel_group(group, k // 2, "fused_mlp_decode_i4")
+    _i4_kernel_group(group, bj // 2, "fused_mlp_decode_i4 (down blocks)")
+    wts = w_t or tuple(transposed_weight(t) for t in (wg_p, wu_p, wd_p))
+    for t, shape in zip(wts, ((inner, k // 2), (inner, k // 2), (k, inner // 2))):
+        if (t.dtype != torch.int8 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != x.device):
+            raise ValueError("fused_mlp_decode_i4: transposed packs must be contiguous, "
+                             f"16-byte aligned int8 {shape} on x's device")
+    dev = x.device
+    sc = []
+    for t, shape, name in zip(w_scales, ((k // group, inner), (k // group, inner),
+                                         (inner // group, k)), ("gate", "up", "down")):
+        t = t.to(torch.float32).contiguous()
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"fused_mlp_decode_i4: {name} scales {tuple(t.shape)} are not "
+                             f"{shape} on x's device")
+        sc.append(t)
+    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    scl = _f32_vec(act_scales, 2, "act_scales", dev)
+    n_j = inner // bj
+    x = x.contiguous()
+    out = torch.empty((m, k), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    xi = _scratch(scratch and scratch[0], (m, k), dev)
+    ai = _scratch(scratch and scratch[1], (m, inner), dev)
+    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    fn = cuda_build.kernel("decode_mlp_i4")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], wts[0].data_ptr(), wts[1].data_ptr(),
+                 wts[2].data_ptr(), sc[0].data_ptr(), sc[1].data_ptr(), sc[2].data_ptr(),
+                 scl.data_ptr(), _ptr(ns), ctypes.c_float(eps), _ACTS[act], int(bool(residual)),
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), ai.data_ptr(),
+                 part.data_ptr(), m, k, inner, bj, int(group), _stream(x))
+    cuda_build.check(err, "fused_mlp_decode_i4")
+    qmm.LAUNCHES["fused_mlp_decode_i4"] += 1
     return out
 
 

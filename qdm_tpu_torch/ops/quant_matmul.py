@@ -6,8 +6,13 @@ and W4A8 paths:
 * :func:`w8a8_matmul_fused_epi` — per-token int8 quantization of x, int8
   GEMM, ``acc * (xs * ws) + bias (+ residual)``.  CUDA kernel
   ``csrc/w8a8_fused_epi.cu`` (replaces the Pallas ``_w8a8_fused_epi_kernel``).
+* :func:`w8a8_matmul_fused` — the same quantization and GEMM,
+  ``acc * (xs * ws)`` with no bias and no residual.  CUDA kernel
+  ``csrc/w8a8_matmul.cu`` (replaces the Pallas ``_w8a8_fused_kernel``); the
+  LLM engine's fused int8 prefill (qkv, o_proj, down).
 * :func:`w8a8_geglu_fused` — the same quantization, two int8 GEMMs on the
-  ``[hidden | gate]`` column halves, ``h * gelu_tanh(g)``.  CUDA kernel
+  ``[hidden | gate]`` column halves, ``h * act(g)`` with the tanh GELU
+  (the SD UNet) or silu (the LLM prefill's ``[up | gate]``).  CUDA kernel
   ``csrc/w8a8_geglu.cu`` (replaces the Pallas ``_w8a8_geglu_kernel``).
 * :func:`w4a16_matmul` — block-strided int4 weights, group dequant
   ``(code - zero) * scale`` rounded to x's dtype, GEMM with f32
@@ -47,10 +52,11 @@ LANE = 128
 PACK_BLOCK_K = 128   # K rows per int4 packing block == the kernels' K block
 
 # kernel launches per wrapper; chip_smoke.py zeroes and reads these
-LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_geglu_fused": 0,
+LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_matmul_fused": 0, "w8a8_geglu_fused": 0,
             "w4a16_matmul": 0, "w4a8_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_GLU_ACTS = {"silu": 0, "gelu": 1}
 
 
 def reset_launches() -> None:
@@ -189,6 +195,23 @@ def gelu_tanh(g: torch.Tensor) -> torch.Tensor:
     return g * (0.5 * (1.0 + torch.tanh(k * (g + 0.044715 * (g * g * g)))))
 
 
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """``g * (1 / (1 + exp(-g)))``, exp in f64 rounded to f32: the same bits
+    on every device (``jax.nn.silu`` / ``g * logistic(g)`` within an f32
+    ulp or two)."""
+    e = torch.exp(-(g.to(torch.float64))).to(torch.float32)
+    one = 1.0 + e
+    return g * torch.div(torch.ones_like(one), one)
+
+
+def _glu_act(act: str, g: torch.Tensor) -> torch.Tensor:
+    if act == "gelu":
+        return gelu_tanh(g)
+    if act == "silu":
+        return silu(g)
+    raise ValueError(f"act {act!r}: 'gelu' or 'silu'")
+
+
 def _dequant(acc, xs, w_scale, bias):
     return acc.to(torch.float32) * (xs * w_scale) + bias
 
@@ -206,7 +229,14 @@ def w8a8_matmul_fused_epi_plain(x, w_i8, w_scale, bias, residual=None,
     return y.to(out_dtype)
 
 
-def w8a8_geglu_fused_plain(x, w_i8, w_scale, bias, out_dtype=None):
+def w8a8_matmul_fused_plain(x, w_i8, w_scale, out_dtype=None):
+    """Plain version of :func:`w8a8_matmul_fused`."""
+    xi, xs = quantize_rows_int8(x, w_i8.shape[0])
+    acc = int8_matmul_exact(xi, w_i8)
+    return (acc.to(torch.float32) * (xs * w_scale.reshape(1, -1))).to(out_dtype or x.dtype)
+
+
+def w8a8_geglu_fused_plain(x, w_i8, w_scale, bias, out_dtype=None, act: str = "gelu"):
     """Plain version of :func:`w8a8_geglu_fused`."""
     out_dtype = out_dtype or x.dtype
     half = w_i8.shape[1] // 2
@@ -214,7 +244,7 @@ def w8a8_geglu_fused_plain(x, w_i8, w_scale, bias, out_dtype=None):
     acc = int8_matmul_exact(xi, w_i8)
     y = _dequant(acc, xs, w_scale.reshape(1, -1), bias.reshape(1, -1))
     h, g = y[:, :half], y[:, half:]
-    return (h * gelu_tanh(g)).to(out_dtype)
+    return (h * _glu_act(act, g)).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +258,7 @@ def transposed_weight(w_i8: torch.Tensor) -> torch.Tensor:
 
 
 def _check_operands(x, w_i8, w_scale, bias, w_t, out_dtype):
+    """Card checks of the W8A8 kernels (bias None for K15)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"W8A8 kernels run on CUDA or CPU tensors, got {x.device}")
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
@@ -242,10 +273,11 @@ def _check_operands(x, w_i8, w_scale, bias, w_t, out_dtype):
         raise ValueError("w_t must be the contiguous, 16-byte aligned (N', K') "
                          "transpose of w_i8")
     for name, t in (("w_scale", w_scale), ("bias", bias)):
-        if t.dtype != torch.float32 or t.numel() != np_ or not t.is_contiguous():
+        if t is not None and (t.dtype != torch.float32 or t.numel() != np_
+                              or not t.is_contiguous()):
             raise ValueError(f"{name} must be {np_} contiguous f32 values")
     for t in (w_i8, w_scale, bias, w_t):
-        if t.device != x.device:
+        if t is not None and t.device != x.device:
             raise ValueError("all operands must be on one device")
 
 
@@ -300,14 +332,44 @@ def w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=None,
     return out
 
 
-def w8a8_geglu_fused(x, w_i8, w_scale, bias, out_dtype=None,
-                     w_t: Optional[torch.Tensor] = None, scratch=None):
-    """x (M, K) through an int8 gated projection (K', 2*half) ->
-    (M, half) = h * gelu_tanh(g), columns laid out [hidden | gate].
-    w_t and scratch as in :func:`w8a8_matmul_fused_epi`."""
+def w8a8_matmul_fused(x, w_i8, w_scale, out_dtype=None, w_t: Optional[torch.Tensor] = None,
+                      scratch=None):
+    """x (M, K) through int8 weights (K', N') -> (M, N') = ``acc * (xs *
+    ws)``, no bias (K15).  w_scale (1, N') f32; w_t and scratch as in
+    :func:`w8a8_matmul_fused_epi`."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return w8a8_geglu_fused_plain(x, w_i8, w_scale, bias, out_dtype)
+        return w8a8_matmul_fused_plain(x, w_i8, w_scale, out_dtype)
+    x = x.contiguous()
+    w_t = transposed_weight(w_i8) if w_t is None else w_t
+    _check_operands(x, w_i8, w_scale, None, w_t, out_dtype)
+    m, k = x.shape
+    kp, n = w_i8.shape
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    xi, xs = _scratch(scratch, m, kp, x.device)
+    fn = cuda_build.kernel("w8a8_matmul_fused")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), w_scale.data_ptr(),
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), xs.data_ptr(),
+                 m, k, kp, n, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "w8a8_matmul_fused")
+    LAUNCHES["w8a8_matmul_fused"] += 1
+    return out
+
+
+def w8a8_geglu_fused(x, w_i8, w_scale, bias, out_dtype=None, act: str = "gelu",
+                     w_t: Optional[torch.Tensor] = None, scratch=None):
+    """x (M, K) through an int8 gated projection (K', 2*half) ->
+    (M, half) = h * act(g), columns laid out [hidden | gate]; act the tanh
+    GELU (``"gelu"``) or :func:`silu` (``"silu"``, the LLM's ``[up |
+    gate]``).  w_t and scratch as in :func:`w8a8_matmul_fused_epi`."""
+    out_dtype = out_dtype or x.dtype
+    if act not in _GLU_ACTS:
+        raise ValueError(f"act {act!r}: 'gelu' or 'silu'")
+    if x.device.type == "cpu":
+        return w8a8_geglu_fused_plain(x, w_i8, w_scale, bias, out_dtype, act)
     x = x.contiguous()
     w_t = transposed_weight(w_i8) if w_t is None else w_t
     _check_operands(x, w_i8, w_scale, bias, w_t, out_dtype)
@@ -324,7 +386,7 @@ def w8a8_geglu_fused(x, w_i8, w_scale, bias, out_dtype=None,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), w_scale.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(),
-                 xs.data_ptr(), m, k, kp, half,
+                 xs.data_ptr(), m, k, kp, half, _GLU_ACTS[act],
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w8a8_geglu_fused")
     LAUNCHES["w8a8_geglu_fused"] += 1

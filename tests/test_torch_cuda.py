@@ -547,3 +547,155 @@ def test_flash_q_check_flags_half_blocks_on_card(mode, monkeypatch):
     got = dk.decode_attention_kv_flash(q, kv, 1000, mode=mode, kv_scale=sc)
     torch.cuda.synchronize()
     assert not torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the w4a8 engine's int4 decode kernels K16 and K17, and the fused int8
+# prefill's K15 (w8a8_matmul_fused) and K2 with silu.  K16 and K17 repeat
+# their plain versions' arithmetic (the group partials added in the TPU
+# kernel's order): int8 codes identical, outputs equal.  K15 and K2-silu
+# quantize as K1 does: codes identical, bf16 outputs within 1 ulp (f32
+# within 1e-6 of the magnitude), as K1 and K2.
+# ---------------------------------------------------------------------------
+
+
+def _i4_pack(w, group, block=0):
+    codes, scales = dk.quantize_int4_group(w, group)
+    return dk.pack_int4_planar(codes, block), scales
+
+
+# (M, K, N, group, rope head_dim, norm, residual, out f32, x bf16)
+DEC_I4_DENSE_CASES = [
+    (8, 4096, 768, 128, 128, True, False, False, True),     # 7B-wide qkv slice
+    (32, 2048, 640, 128, 64, True, False, False, True),     # TinyLlama-wide qkv slice
+    (8, 4096, 512, 128, 0, False, True, False, True),       # o_proj (+res)
+    (5, 128, 96, 64, 16, True, True, True, False),          # tiny f32, group 64
+    (33, 256, 128, 32, 0, False, False, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group,hd,norm,res,f32_out,x_bf16", DEC_I4_DENSE_CASES)
+def test_decode_dense_i4_kernel_matches_plain_on_card(m, k, n, group, hd, norm, res, f32_out,
+                                                      x_bf16):
+    dev = _card()
+    o = _dense_operands(m, k, n, m + k + n + group, dev,
+                        torch.bfloat16 if x_bf16 else torch.float32, hd)
+    w_p, ws = _i4_pack(o["w"], group)
+    a = torch.tensor([0.015], device=dev)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=o["cos"] if hd else None, rope_sin=o["sin"] if hd else None, head_dim=hd,
+              group=group, out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    before = qmm.LAUNCHES["fused_dense_decode_i4"]
+    got = dk.fused_dense_decode_i4(o["x"], w_p, ws, a, scratch=xi, **kw)
+    want = dk.fused_dense_decode_i4_plain(o["x"], w_p, ws, a, **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_dense_decode_i4"] == before + 1
+    assert torch.equal(xi, dk._quant_static(dk._prologue(o["x"], kw["norm_scale"], None, 1e-6,
+                                                         "rmsnorm"), a))
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        float((got.float() - want.float()).abs().max())
+
+
+# (M, K, I, block_j, group, norm, act, residual, out f32, x bf16)
+DEC_I4_MLP_CASES = [
+    (8, 4096, 11008, 512, 128, True, "silu", True, False, True),    # 7B (bj 256)
+    (32, 2048, 5632, 512, 128, True, "silu", True, False, True),    # TinyLlama (bj 512)
+    (5, 128, 256, 512, 64, True, "silu", True, True, False),        # tiny f32, group 64
+    (9, 256, 384, 128, 32, False, "gelu", False, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,i,bj,group,norm,act,residual,f32_out,x_bf16", DEC_I4_MLP_CASES)
+def test_decode_mlp_i4_kernel_matches_plain_on_card(m, k, i, bj, group, norm, act, residual,
+                                                    f32_out, x_bf16):
+    dev = _card()
+    rng = np.random.default_rng(m + k + i + group)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+    x = f(m, k, s=0.5).to(torch.bfloat16 if x_bf16 else torch.float32)
+    blk = dk.mlp_i4_block(i, bj)
+    (pg, sg), (pu, su), (pd, sd) = [_i4_pack(f(*s, s=0.05), group, b)
+                                    for s, b in (((k, i), 0), ((k, i), 0), ((i, k), blk))]
+    scl = torch.tensor([0.02, 0.004], device=dev)
+    ns = f(k).abs() + 0.5
+    kw = dict(act=act, block_j=bj, group=group, residual=residual,
+              out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    ai = torch.empty((m, i), dtype=torch.int8, device=dev)
+    before = qmm.LAUNCHES["fused_mlp_decode_i4"]
+    got = dk.fused_mlp_decode_i4(x, pg, pu, pd, (sg, su, sd), scl, ns if norm else None,
+                                 scratch=(xi, ai), **kw)
+    want = dk.fused_mlp_decode_i4_plain(x, pg, pu, pd, (sg, su, sd), scl, ns if norm else None,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_mlp_decode_i4"] == before + 1
+    want_xi = dk._quant_static(dk._prologue(x, ns if norm else None, None, 1e-6, "rmsnorm"),
+                               scl[0:1])
+    assert torch.equal(xi, want_xi)
+    g = dk.i4_group_dot_plain(want_xi, pg, sg, scl[0:1], group)
+    u = dk.i4_group_dot_plain(want_xi, pu, su, scl[0:1], group)
+    assert torch.equal(ai, dk._quant_static(dk._act(act, g) * u, scl[1:2]))
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        float((got.float() - want.float()).abs().max())
+
+
+# (M, K, N, silu GEGLU?): the 7B prefill's shapes cut in M, and odd sizes
+PREFILL_CASES = [(300, 4096, 1536, False), (37, 11008, 512, False), (130, 256, 384, False),
+                 (300, 4096, 1024, True), (37, 96, 256, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,glu", PREFILL_CASES)
+def test_prefill_matmuls_match_plain_on_card(m, k, n, glu, dtype):
+    dev = _card()
+    x, w, s, _, _ = _operands(m, k, n, dev, dtype)
+    kp = w.shape[0]
+    zero = torch.zeros((1, w.shape[1]), device=dev)
+    xi = torch.empty((m, kp), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    name = "w8a8_geglu_fused" if glu else "w8a8_matmul_fused"
+    before = qmm.LAUNCHES[name]
+    if glu:
+        got = qmm.w8a8_geglu_fused(x, w, s, zero, act="silu", scratch=(xi, xs))
+        want = qmm.w8a8_geglu_fused_plain(x, w, s, zero, act="silu")
+    else:
+        got = qmm.w8a8_matmul_fused(x, w, s, scratch=(xi, xs))
+        want = qmm.w8a8_matmul_fused_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    codes, scales = qmm.quantize_rows_int8(x, kp)
+    assert torch.equal(xi, codes) and torch.equal(xs, scales.reshape(-1))
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert int(_ulps(got, want).max()) <= 1
+    else:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_i4_checks_flag_planted_faults_on_card():
+    """A group scale 1e-3 off, and the down blocks' scale rows shifted by
+    one block, make the kernels differ from their plain versions."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    f = lambda *shape: torch.from_numpy(
+        (rng.standard_normal(shape) * 0.05).astype(np.float32)).to(dev)
+    x = f(8, 512).to(torch.bfloat16) * 10
+    w_p, ws = _i4_pack(f(512, 256), 128)
+    a = torch.tensor([0.01], device=dev)
+    want = dk.fused_dense_decode_i4_plain(x, w_p, ws, a)
+    bad = ws.clone()
+    bad[1] *= 1.0 + 1e-3
+    assert not torch.equal(dk.fused_dense_decode_i4(x, w_p, bad, a), want)
+    (pg, sg), (pu, su), (pd, sd) = [_i4_pack(f(*s), 128, b)
+                                    for s, b in (((512, 512), 0), ((512, 512), 0), ((512, 512), 256))]
+    scl = torch.tensor([0.01, 0.002], device=dev)
+    want = dk.fused_mlp_decode_i4_plain(x, pg, pu, pd, (sg, su, sd), scl, None, block_j=256)
+    shifted = torch.roll(sd, 256 // 128, dims=0)
+    got = dk.fused_mlp_decode_i4(x, pg, pu, pd, (sg, su, shifted), scl, None, block_j=256)
+    torch.cuda.synchronize()
+    assert not torch.equal(got, want)

@@ -1,12 +1,13 @@
 """Parity of the port's serving engines (qdm_tpu_torch/api/serve.py,
-``w8a8_static`` with SmoothQuant, and ``bf16``) with the JAX
-``DecodeEngine`` on the CPU, in f32.
+``w4a8_static`` and ``w8a8_static`` with SmoothQuant, and ``bf16``) with
+the JAX ``DecodeEngine`` on the CPU, in f32.
 
 The JAX engine dispatches its decode kernels to the jnp references off the
 TPU; these tests monkeypatch ``dk.fused_dense_decode``,
-``dk.fused_dense_decode_i8``, ``dk.decode_attention_kv`` (the one-pass
-kernel up to ``_FLASH_BYTES`` of cache per row, the flash decode above),
-``dk.fused_mlp_decode_i8`` and ``dk.fused_mlp_decode`` to the Pallas
+``dk.fused_dense_decode_i8``, ``dk.fused_dense_decode_i4``,
+``dk.decode_attention_kv`` (the one-pass kernel up to ``_FLASH_BYTES`` of
+cache per row, the flash decode above), ``dk.fused_mlp_decode_i8``,
+``dk.fused_mlp_decode_i4`` and ``dk.fused_mlp_decode`` to the Pallas
 kernels in interpret mode (the TPU dispatch), so both engines compute the
 TPU kernels' formulas.  The Pallas kernels block in 128 lanes, so the
 geometry is 128 wide.  The flash decode tests lower ``_FLASH_BYTES`` in
@@ -22,6 +23,7 @@ Tolerances: calibration stats and SmoothQuant params within 2e-6 of their
 magnitude (XLA's f32 pow against PyTorch's, 1 ulp on some inputs); the
 engine's int8 weight codes and act scales identical; the prompt cache's
 codes and scales identical to ``_kv_finalize``'s on the same module cache;
+the w4a8 engine's planar int4 packs and group scales byte-identical;
 every decoder layer, fed the JAX layer's inputs, within 1e-5 of its
 output's magnitude with identical int8 activation codes (the new cache
 column's codes and scales included); greedy tokens identical.
@@ -43,7 +45,7 @@ from qdm_tpu.models import llama as jax_llama
 from qdm_tpu.ops import decode_kernels as jdk
 from qdm_tpu_torch.api.causal_lm import CausalLM
 from qdm_tpu_torch.api.serve import DecodeEngine
-from qdm_tpu_torch.convert import params_from_jax
+from qdm_tpu_torch.convert import engine_layers_from_jax, params_from_jax
 from qdm_tpu_torch.models import llama
 from qdm_tpu_torch.models.layers import flatten_tree
 from qdm_tpu_torch.ops import decode_kernels as tdk
@@ -100,6 +102,10 @@ def tpu_dispatch(monkeypatch):
                         functools.partial(jdk.fused_mlp_decode_i8_pallas, interpret=True))
     monkeypatch.setattr(jdk, "fused_mlp_decode",
                         functools.partial(jdk.fused_mlp_decode_pallas, interpret=True))
+    monkeypatch.setattr(jdk, "fused_dense_decode_i4",
+                        functools.partial(jdk.fused_dense_decode_i4_pallas, interpret=True))
+    monkeypatch.setattr(jdk, "fused_mlp_decode_i4",
+                        functools.partial(jdk.fused_mlp_decode_i4_pallas, interpret=True))
 
 
 @pytest.fixture
@@ -160,18 +166,18 @@ def test_smooth_lm_params_match_jax():
     assert moved > 0       # the migration changed the norms and kernels
 
 
-def _engines(calib_seed=3, kv=None):
+def _engines(calib_seed=3, kv=None, mode="w8a8_static"):
     """Both engines from the JAX lifecycle's smoothed params and stats;
     ``kv`` names a quantized KV cache (a key of ``KV_FORMATS``)."""
     jkw, tkw = KV_FORMATS[kv] if kv else ({}, {})
     jlm, _ = _lms(2)
     calib = _ids(calib_seed, (4, 32))
-    je = jlm.serve(calib, mode="w8a8_static", smooth=True, **jkw)
+    je = jlm.serve(calib, mode=mode, smooth=True, **jkw)
     stats = JaxEngine.calibrate_scales(jlm, calib)
     tlm = CausalLM.from_config(llama.LlamaConfig(**GEOM), device="cpu",
                                params=params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                                              jlm.params)))
-    te = DecodeEngine(tlm, mode="w8a8_static",
+    te = DecodeEngine(tlm, mode=mode,
                       act_stats={k: torch.from_numpy(np.array(v)) for k, v in stats.items()},
                       **tkw)
     return je, te
@@ -208,7 +214,7 @@ def _layer_by_layer(je, te, ids, max_len):
             tcache = tuple(torch.from_numpy(np.array(c)) for c in caches[l])
             tx = torch.from_numpy(np.array(x))
             w = je.layers[l]
-            if te.mode == "w8a8_static":
+            if te.mode != "bf16":
                 # the qkv kernel's int8 codes on both sides
                 xf = jdk._norm_f32(x.astype(jnp.float32), w["ln1"], 0.0, cfg.rms_norm_eps,
                                    "rmsnorm")
@@ -248,6 +254,81 @@ def test_engine_greedy_matches_jax_tpu_dispatch(tpu_dispatch):
     np.testing.assert_array_equal(got, want)
 
 
+def test_w4a8_engine_weights_match_jax():
+    """The w4a8 engine's layer entries byte-identical to the JAX engine's,
+    carried across by engine_layers_from_jax: planar int4 packs (the down
+    projection packed per inner block) with their group scales, the act
+    scales and norms."""
+    je, te = _engines(mode="w4a8_static")
+    assert (te.i4_group, te.i4_mlp_block) == (je.i4_group, je.i4_mlp_block) == (64, 256)
+    want = engine_layers_from_jax(je.layers)
+    for got, w in zip(te.layers, want):
+        assert set(got) == set(w)
+        for k in w:
+            assert got[k].dtype == w[k].dtype and torch.equal(got[k], w[k]), k
+    h = GEOM["hidden_size"]
+    assert te.layers[0]["w_qkv_t"].shape == (256, h // 2)
+    assert te.layers[0]["s_qkv"].shape == (h // 64, 256)
+    assert te.layers[0]["wd_t"].shape == (h, GEOM["intermediate_size"] // 2)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_w4a8_engine_layers_match_jax_layer_by_layer(tpu_dispatch, monkeypatch, flash):
+    """The w4a8 engine's decode step (K16 qkv + rope, attention, K16 o_proj
+    + residual, K17 MLP; the head) layer by layer against the JAX w4a8
+    engine under the TPU dispatch, on the one-pass and the flash decode:
+    identical int8 activation codes, each output within 1e-5 of its
+    magnitude."""
+    if flash:
+        monkeypatch.setattr(jdk, "_FLASH_BYTES", 16 * 2 ** 10)
+        monkeypatch.setattr(tdk, "_FLASH_BYTES", 16 * 2 ** 10)
+    je, te = _engines(mode="w4a8_static")
+    assert (tdk.kv_block_bytes(te.init_cache(1, 48)[0][0]) > tdk._FLASH_BYTES) == flash
+    assert _layer_by_layer(je, te, _ids(4, (4, 40)), 48) <= 1e-5
+
+
+def test_serve_default_is_w4a8_and_matches_jax(tpu_dispatch):
+    """``lm.serve(calib)`` with no mode is the w4a8_static engine on each
+    side (causal_lm.py:736): the whole lifecycle, calibration, engine,
+    prefill and 15 greedy decode steps, gives identical tokens; no kernel
+    launch on the CPU."""
+    jlm, tlm = _lms(5)
+    calib, ids = _ids(6, (4, 32)), _ids(7, (4, 24))
+    je = jlm.serve(calib)
+    want = je.generate(ids, max_new_tokens=16)
+    before = dict(qmm.LAUNCHES)
+    te = tlm.serve(calib)
+    assert te.mode == je.mode == "w4a8_static"
+    got = te.generate(ids, max_new_tokens=16)
+    assert qmm.LAUNCHES == before and got.shape == (4, 40)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["w4a8_static", "w8a8_static"])
+def test_fused_prefill_engine_decodes_from_jax_prefill(tpu_dispatch, monkeypatch, mode):
+    """``serve(calib, mode, smooth=True, prefill_quant="fused")`` on each
+    side, the JAX fused prefill on its TPU kernels (interpreted): the
+    port's engine decoding 8 greedy tokens from the JAX prefill's first
+    token and caches gives the JAX generate's tokens."""
+    from qdm_tpu.ops import flash_prefill as jfp
+    from qdm_tpu.ops import quant_matmul as jqmm
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jqmm, "w8a8_matmul_fused",
+                        functools.partial(jqmm.w8a8_matmul_fused, interpret=True))
+    monkeypatch.setattr(jqmm, "w8a8_geglu_fused",
+                        functools.partial(jqmm.w8a8_geglu_fused, interpret=True))
+    monkeypatch.setattr(jfp, "flash_prefill_gqa",
+                        functools.partial(jfp.flash_prefill_gqa, interpret=True))
+    jlm, tlm = _lms(5)
+    calib, ids = _ids(6, (4, 32)), _ids(7, (2, 256))
+    je = jlm.serve(calib, mode=mode, smooth=True, prefill_quant="fused")
+    te = tlm.serve(calib, mode=mode, smooth=True, prefill_quant="fused")
+    assert je.prefill_fused and te.prefill_fused
+    want = je.generate(ids, max_new_tokens=8)
+    np.testing.assert_array_equal(_decode_from_jax_prefill(je, te, ids, 8), want[:, 256:])
+
+
 def test_engine_on_cpu_runs_the_plain_versions():
     _, tlm = _lms(0)
     eng = tlm.serve(_ids(1, (2, 16)), mode="w8a8_static", smooth=True)
@@ -259,7 +340,7 @@ def test_engine_on_cpu_runs_the_plain_versions():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(kv_scale_mode="channel"), ValueError, "requires kv_dtype"),
-    (dict(mode="w4a8_static"), NotImplementedError, "ROADMAP"),
+    (dict(prefill_quant="static_i8attn"), NotImplementedError, "ROADMAP"),
     (dict(merge_o=True), NotImplementedError, "ROADMAP"),
     (dict(kv_dtype="auto"), ValueError, "recommended_kv"),
     (dict(head_quant="int8"), NotImplementedError, "ROADMAP"),
@@ -276,7 +357,7 @@ def test_unported_engine_options_raise(kw, exc, match):
 def test_unported_serve_and_generate_options_raise():
     _, tlm = _lms(0)
     calib = _ids(1, (2, 8))
-    for kw in (dict(awq=True), dict(gptq=True), dict(mode="w4a8_static")):
+    for kw in (dict(awq=True), dict(gptq=True), dict(head_quant="int4")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.serve(calib, **{"mode": "w8a8_static", **kw})
     eng = tlm.serve(calib, mode="w8a8_static")
