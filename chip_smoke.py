@@ -35,8 +35,17 @@ their plain versions, one group-scale row off by 1e-3 and the down scale
 rows shifted by one block planted and flagged; K15 (the prefill's qkv,
 o_proj and down at 16384 tokens) and K2 with silu ([up | gate]), codes
 identical and outputs within 1 bf16 ulp, weight scales 1e-2 off planted
-and flagged.  It times the kernel, the plain version and a
-library yardstick (timed here only, the port never calls them):
+and flagged; the merged o_proj + MLP kernels K25 (int8) and K26 (int4) at
+the 7B and TinyLlama decode shapes (attention codes, x2, MLP input and
+mid codes identical, outputs equal; an o_proj scale row 1e-3 off, the
+down scales shifted by a block and a_o x1.01 planted and flagged; CUDA
+launches per call counted against the unmerged pair's), the int8 flash
+prefill K8b at the 7B prefill and a GQA shape with a masked row (q and p
+codes identical, output within ``flash_prefill.kernel_error_i8``'s
+limits, v scales 1e-2 off planted and flagged), and K6 / K16 at the
+lm_head's shape (8 x 4096 -> 32000, f32 logits).  It times the kernel, the
+plain version and a library yardstick (timed here only, the port never
+calls them):
 ``torch._int_mm`` for W8A8, K15 and K2-silu and for K6 / K8 (with
 elementwise quant and dequant), ``torch.matmul`` with the weight
 dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
@@ -66,27 +75,39 @@ layer by layer (each kernel call on the card fed the CPU call's inputs),
 the LLM engine once more on the long route (flash prefill and flash
 decode), and tiny engines with each quantized KV cache on the short and
 the long route in ``w8a8_static`` and ``bf16``, the tiny w4a8 engine
-(int4 group 128, two inner blocks), and the fused int8 prefill of tiny
+(int4 group 128, two inner blocks), the fused int8 prefill of tiny
 ``w4a8_static`` and ``w8a8_static`` engines (each K15, K2 and K9 call),
-with planted faults that those layer witnesses must flag.  Last, with the SD and TinyLlama objects
+and tiny engines with ``merge_o`` in both modes, both quantized heads and
+the four ``prefill_quant`` values (each K25, K26, K6, K16, K8b call and
+each int8 product of the prefill's w8a8_xla layers), with planted faults
+that those layer witnesses must flag.  Last, with the SD and TinyLlama objects
 freed, the long-prompt path at full Llama-2-7B width (weights drawn on the
 card): ``serve(mode="w8a8_static", smooth=True)``; on its smoothed weights
 the w8a8 engine with the KV caches ``recommended_kv(2112)`` picks (int4
 channel), then int8 channel and int8 token, one at a time;
 ``serve(mode="bf16")``; and ``serve(calib, mode="w4a8_static",
-prefill_quant="fused")``; each ``generate`` of 8 x 2048-token prompts +
-64 tokens, with exact launch counts (K9 32; K10 2016 in the bf16-KV
-engines, and in a quantized-KV engine its format of K10 2016 and K10's
-bf16 format 0; K6 4032, K8 2016 and K5 63 in w8a8, K5 4095 and K11 2016
-in bf16; K15 96, K2 32, K16 4032, K17 2016 and K5 63 in w4a8; K7 0).
+prefill_quant="fused")``; and the merged engines ``serve(calib,
+"w8a8_static", merge_o=True, head_quant="int8",
+prefill_quant="static_i8attn")`` and ``serve(calib, "w4a8_static",
+merge_o=True, head_quant="int4", prefill_quant=True)``; each ``generate``
+of 8 x 2048-token prompts + 64 tokens, with exact launch counts (K9 32;
+K10 2016 in the bf16-KV engines, and in a quantized-KV engine its format
+of K10 2016 and K10's bf16 format 0; K6 4032, K8 2016 and K5 63 in w8a8,
+K5 4095 and K11 2016 in bf16; K15 96, K2 32, K16 4032, K17 2016 and K5 63
+in w4a8; K25 2016, K6 2079, K8b 32 and K8 / K9 / K5 0 in the merged
+w8a8 engine; K26 2016, K16 2079, K9 32 and K17 / K5 0 in the merged w4a8
+engine; K7 0).
 Each path's launch counts are set to 0 just before its ``generate`` and
-read just after.
+read just after.  At TinyLlama width ``serve(calib, merge_o=True,
+head_quant="int4")`` runs too: K26 1386, K16 1449, K7 1386, K17 and K5 0.
 With ``--profile`` it also times warm ``generate`` calls in turn (median
 and range of five each): the W4A16, W8A8 and bf16 SD pipelines, the
 TinyLlama engine against the bf16 module, and the 7B w8a8, bf16 and w4a8
 fused-prefill engines (the last one's fused prefill against its module
-prefill); and prints the device time by kernel of two W4A16 denoising
-steps and of three decode steps of each engine.
+prefill), each 7B merged engine's decode loop and prefill against an
+unmerged engine of its mode on the same weights, with CUDA launches per
+layer and step; and prints the device time by kernel of two W4A16
+denoising steps and of three decode steps of each engine.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -206,6 +227,12 @@ KERNEL_INFO = {
                             "qdm_tpu/ops/decode_kernels.py:1843"),
     "w8a8_matmul_fused": ("qdm_tpu_torch/csrc/w8a8_matmul.cu",
                           "qdm_tpu/ops/quant_matmul.py:665"),
+    "fused_o_mlp_decode_i8": ("qdm_tpu_torch/csrc/decode_o_mlp_i8.cu",
+                              "qdm_tpu/ops/decode_kernels.py:2063"),
+    "fused_o_mlp_decode_i4": ("qdm_tpu_torch/csrc/decode_o_mlp_i4.cu",
+                              "qdm_tpu/ops/decode_kernels.py:2183"),
+    "flash_prefill_gqa_i8": ("qdm_tpu_torch/csrc/flash_prefill_i8.cu",
+                             "qdm_tpu/ops/flash_prefill.py:116"),
 }
 # the quantized KV caches: (kv_dtype, kv_scale_mode) of serve() and the cache
 # format of the attention kernels; the 7B path runs them in this order
@@ -226,6 +253,11 @@ L7_WANT = {
 }
 LONG_KERNELS = ("flash_prefill_gqa", "decode_attention_kv_flash", "fused_mlp_decode")
 I4_FAULT = 1e-3               # relative error planted into one int4 group-scale row of K16
+O_MLP_FAULT = 1e-3            # relative error planted into one o_proj scale row of K25 / K26
+AO_FAULT = 1.01               # factor planted into K25 / K26's a_o
+K8B_FAULT = 1e-2              # relative error planted into K8b's v scales
+K8B_TOL = ("each element within 1 bf16 ulp + max |v| / 127 of its kv head, mean |err| <= "
+           "2^-12 of the mean |output|")
 PREFILL_FAULT = 1e-2          # relative error planted into K15's / K2-silu's weight scales
 
 
@@ -1213,7 +1245,7 @@ def _i4_bf16(w_p: torch.Tensor, scales: torch.Tensor, group: int, block: int = 0
     return (codes * scales.repeat_interleave(group, dim=0)).to(torch.bfloat16)
 
 
-def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed):
+def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed, out_dtype=None):
     from qdm_tpu_torch.ops import decode_kernels as dk
 
     m, k = o["x"].shape
@@ -1224,8 +1256,9 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed):
     a = _static_scale(xn)
     cos, sin = _rope_rows(n, (n * 9) // 10 // hd * hd, hd, LLM_PROMPT + 31, dev) if rope \
         else (None, None)
+    out_dtype = out_dtype or o["x"].dtype
     kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
-              rope_cos=cos, rope_sin=sin, head_dim=hd, group=group)
+              rope_cos=cos, rope_sin=sin, head_dim=hd, group=group, out_dtype=out_dtype)
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
     got = dk.fused_dense_decode_i4(o["x"], w_p, ws, a, w_t=w_t, scratch=xi, **kw)
     torch.cuda.synchronize()
@@ -1246,8 +1279,8 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed):
            "tol": f"codes identical, outputs equal; a group-scale row off by {I4_FAULT:g} "
                   f"(planted): max abs err {float((bad.float() - want.float()).abs().max()):.3g}"}
     if timed:
-        xb = o["x"].element_size()
-        nbytes = (m * k * xb + k // 2 * n + 4 * (k // group) * n + m * n * xb
+        xb, ob = o["x"].element_size(), torch.empty((), dtype=out_dtype).element_size()
+        nbytes = (m * k * xb + k // 2 * n + 4 * (k // group) * n + m * n * ob
                   + 4 * k * bool(norm) + (m * n * xb if res else 0) + (8 * n if rope else 0))
         ops = 2 * m * k * n
         sets = [(w_p, w_t)] + [(w_p.clone(), w_t.clone()) for _ in range(_copies(k // 2 * n) - 1)]
@@ -1263,7 +1296,7 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed):
             def fn():
                 xin = torch.nn.functional.rms_norm(o["x"], (k,), nsb, 1e-6) if norm else o["x"]
                 y = torch.matmul(xin, w)
-                return y + o["res"] if res else y
+                return (y + o["res"] if res else y).to(out_dtype)
             return fn
         row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
                    library_ms=cold_ms([library(w) for w in wbs]), bytes=nbytes, ops=ops)
@@ -1437,6 +1470,319 @@ def phase_w4a8_kernels(dev, res: dict) -> dict:
     _print_rows(out)
     _print_rows(silu)
     res["w8a8_geglu_fused"].extend(silu["w8a8_geglu_fused"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the merged o_proj + MLP (K25, K26), the int8 flash prefill (K8b)
+# and the quantized heads (K6, K16 at the lm_head's shape)
+# ---------------------------------------------------------------------------
+
+
+def _o_mlp_case(rng, m, hd, k, i, group, dev):
+    """attn (m, hd) and residual (m, k) in bf16, the o_proj and MLP weights
+    (int8 codes, or planar int4 packs with group scales, the down projection
+    packed per inner block), a_o, [s_in, s_mid] as calibration sets them
+    (absmax / 127 of what each quantizes), the norm scale, the inner block."""
+    from qdm_tpu_torch.api.serve import _quant_w
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    f = lambda *s, sc=1.0: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    attn, res = f(m, hd).to(torch.bfloat16), f(m, k).to(torch.bfloat16)
+    bj = dk.mlp_i4_block(i) if group else dk.pick_block(i, 512)
+    ws = [f(hd, k, sc=hd ** -0.5), f(k, i, sc=k ** -0.5), f(k, i, sc=k ** -0.5),
+          f(i, k, sc=i ** -0.5)]
+    q = ([_i4_pack(w, group, b) for w, b in zip(ws, (0, 0, 0, bj))] if group
+         else [_quant_w(w) for w in ws])
+    del ws
+    ns = f(k).abs() + 0.5
+    a_o = _static_scale(attn)
+    x2, _ = (dk.o_proj_x2_i4_plain(attn, *q[0], a_o, res, group) if group
+             else dk.o_proj_x2_i8_plain(attn, *q[0], a_o, res))
+    xn = dk._prologue(x2, ns, None, 1e-6, "rmsnorm")
+    s_in = _static_scale(xn)
+    xq = dk._quant_static(xn, s_in)
+    if group:
+        g, u = (dk.i4_group_dot_plain(xq, *q[j], s_in, group) for j in (1, 2))
+    else:
+        g, u = (qmm.int8_matmul_exact(xq, q[j][0]).float() * (s_in * q[j][1]) for j in (1, 2))
+    scl = torch.cat([s_in, _static_scale(dk._act("silu", g) * u)])
+    return attn, res, q, a_o, scl, ns, bj
+
+
+def _cuda_launches(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches: the nodes of a CUDA graph
+    captured around the call (``cudaGraphGetNodes``), after one call outside
+    the capture (allocations, one-time set-up)."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcudart.so.12").cudaGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err or n.value == 0:
+        fail(f"counting a call's CUDA launches: cudaGraphGetNodes error {err}, {n.value} nodes")
+    del graph
+    return n.value
+
+
+def _check_o_mlp(label, rng, m, hd, k, i, group, dev, timed):
+    """K25 (group 0) or K26 against its plain version: the attention codes,
+    x2, the MLP input and mid codes identical, outputs equal; planted
+    faults (an o_proj scale row off by O_MLP_FAULT, the down scales shifted
+    by an inner block (int8: by a 64-column tile), a_o x AO_FAULT) must make
+    the output differ.  Launches per call against the unmerged pair's."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    name = "fused_o_mlp_decode_i4" if group else "fused_o_mlp_decode_i8"
+    fn, plain = getattr(dk, name), getattr(dk, name + "_plain")
+    attn, res, q, a_o, scl, ns, bj = _o_mlp_case(rng, m, hd, k, i, group, dev)
+    (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+    kw = dict(group=group) if group else {}
+    wts = tuple(dk.transposed_weight(t) for t in (wo, wg, wu, wd))
+    args = lambda so=so, sd=sd, a=a_o, w=(wo, wg, wu, wd): (attn, w[0], so, a, res, w[1], w[2],
+                                                           w[3], (sg, su, sd), scl, ns)
+    scratch = tuple(torch.empty(sh, dtype=dt, device=dev) for sh, dt in (
+        ((m, hd), torch.int8), ((m, k), torch.float32), ((m, k), torch.int8),
+        ((m, i), torch.int8)))
+    got = fn(*args(), w_t=wts, scratch=scratch, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args(), **kw)
+    x2, a_codes = (dk.o_proj_x2_i4_plain(attn, wo, so, a_o, res, group) if group
+                   else dk.o_proj_x2_i8_plain(attn, wo, so, a_o, res))
+    xi = dk._quant_static(dk._prologue(x2, ns, None, 1e-6, "rmsnorm"), scl[0:1])
+    if group:
+        g, u = (dk.i4_group_dot_plain(xi, w, s_, scl[0:1], group) for w, s_ in ((wg, sg), (wu, su)))
+    else:
+        g, u = (qmm.int8_matmul_exact(xi, w).float() * (scl[0:1] * s_) for w, s_ in ((wg, sg), (wu, su)))
+    mid = dk._quant_static(dk._act("silu", g) * u, scl[1:2])
+    for what, t, ref in (("attention codes", scratch[0], a_codes), ("x2", scratch[1], x2),
+                         ("MLP input codes", scratch[2], xi), ("mid codes", scratch[3], mid)):
+        if not torch.equal(t, ref):
+            fail(f"{name} {label}: {what} differ from the plain version in "
+                 f"{int((t != ref).sum())} places")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"{name} {label}: output differs from the plain version (max abs err {err}); "
+             "tolerance 0 ulp")
+    bad_o = so.clone()
+    bad_o[so.shape[0] // 2] *= 1.0 + O_MLP_FAULT
+    shifted = torch.roll(sd, bj // group, dims=0) if group else torch.roll(sd, 64, dims=-1)
+    planted = {}
+    for fault, a in ((f"an o_proj scale row off by {O_MLP_FAULT:g}", args(so=bad_o)),
+                     ("the down scales shifted by " + ("one inner block" if group else
+                                                       "a 64-column tile"), args(sd=shifted)),
+                     (f"a_o x{AO_FAULT:g}", args(a=a_o * AO_FAULT))):
+        bad = fn(*a, w_t=wts, **kw)
+        torch.cuda.synchronize()
+        if torch.equal(bad, want):
+            fail(f"{name} {label}: the check misses {fault} (planted)")
+        planted[fault] = float((bad.float() - want.float()).abs().max())
+    if group:
+        pair = lambda: dk.fused_mlp_decode_i4(
+            dk.fused_dense_decode_i4(attn, wo, so, a_o, residual=res, group=group, w_t=wts[0]),
+            wg, wu, wd, (sg, su, sd), scl, ns, group=group, w_t=wts[1:])
+    else:
+        pair = lambda: dk.fused_mlp_decode_i8(
+            dk.fused_dense_decode_i8(attn, wo, so, a_o, residual=res, w_t=wts[0]),
+            wg, wu, wd, (sg, su, sd), scl, ns, w_t=wts[1:])
+    n_merged, n_pair = _cuda_launches(lambda: fn(*args(), w_t=wts, **kw)), _cuda_launches(pair)
+    if n_merged >= n_pair:
+        fail(f"{name} {label}: {n_merged} CUDA launches per call, the unmerged pair "
+             f"{n_pair}: merge_o must take fewer")
+    row = {"layer": label, "M": m, "K": k, "I": i, "bj": bj, "max_abs_err": err, "ulps": 0,
+           "hd": hd, "launches_per_call": n_merged, "unmerged_launches_per_call": n_pair,
+           "tol": "codes and x2 identical, outputs equal; planted: "
+                  + "; ".join(f"{f_} max abs err {e:.3g}" for f_, e in planted.items())
+                  + f"; CUDA launches per call {n_merged} (the unmerged pair {n_pair})"}
+    if group:
+        row["G"] = group
+    if timed:
+        w_bytes = (hd * k + 3 * k * i) // (2 if group else 1)
+        s_bytes = 4 * ((hd // group) * k + 2 * (k // group) * i + (i // group) * k if group
+                       else 2 * k + 2 * i)
+        nbytes = 2 * m * hd + 2 * 2 * m * k + w_bytes + s_bytes + 4 * k + 12
+        ops = 2 * m * (hd * k + 3 * k * i)
+        sets = [((wo, wg, wu, wd), wts)] + [
+            (tuple(t.clone() for t in (wo, wg, wu, wd)), tuple(t.clone() for t in wts))
+            for _ in range(_copies(w_bytes) - 1)]
+        kern = [lambda c=c, t=t: fn(*args(w=c), w_t=t, **kw) for c, t in sets]
+        plains = [lambda c=c: plain(*args(w=c), **kw) for c, _ in sets]
+        nsb = ns.to(torch.bfloat16)
+        if group:
+            lib_w = [(_i4_bf16(wo, so, group), _i4_bf16(wg, sg, group), _i4_bf16(wu, su, group),
+                      _i4_bf16(wd, sd, group, bj))]
+
+            def library(c):
+                def fn_():
+                    x2_ = torch.matmul(attn, c[0]) + res
+                    xin = torch.nn.functional.rms_norm(x2_, (k,), nsb, 1e-6)
+                    h = torch.nn.functional.silu(torch.matmul(xin, c[1])) * torch.matmul(xin, c[2])
+                    return torch.matmul(h, c[3]) + x2_
+                return fn_
+        else:
+            lib_w = [tuple(w.t().contiguous().t() for w in (wo, wg, wu, wd))]
+
+            def library(c):
+                def fn_():
+                    aq = dk._quant_static(attn.float(), a_o)
+                    x2_ = _int_mm_rows(aq, c[0]).float() * (a_o * so) + res.float()
+                    xq = dk._quant_static(torch.nn.functional.rms_norm(x2_, (k,), ns, 1e-6),
+                                          scl[0:1])
+                    gg = _int_mm_rows(xq, c[1]).float() * (scl[0:1] * sg)
+                    uu = _int_mm_rows(xq, c[2]).float() * (scl[0:1] * su)
+                    q2 = dk._quant_static(torch.nn.functional.silu(gg) * uu, scl[1:2])
+                    return (_int_mm_rows(q2, c[3]).float() * (scl[1:2] * sd) + x2_).to(res.dtype)
+                return fn_
+        lib_w += [tuple(t.clone() for t in lib_w[0])
+                  for _ in range(_copies(sum(t.numel() * t.element_size() for t in lib_w[0])) - 1)]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4),
+                   library_ms=cold_ms([library(c) for c in lib_w]), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+        del sets, lib_w
+    return row
+
+
+@contextlib.contextmanager
+def _planted_v_scales(rel: float) -> Iterator[None]:
+    """The int8 flash prefill's v scales off by ``rel`` on the card: the
+    kernel gets v times (1 + rel), so its per-(head, channel) scales are
+    off by rel and its codes stay (the plain version's stay sound); a fault
+    its check must see."""
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    card = fp._flash_i8
+
+    def faulty(q, k, v, *a, **kw):
+        return card(q, k, v * (1.0 + rel), *a, **kw)
+    fp._flash_i8 = faulty
+    try:
+        yield
+    finally:
+        fp._flash_i8 = card
+
+
+def k8b_check(got, want, v) -> Tuple[bool, float, float, float]:
+    """K8b against its plain version within ``flash_prefill.kernel_error_i8``'s
+    limits: (ok, max abs err, element bound share, mean |err| / mean)."""
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    share, mean = fp.kernel_error_i8(got, want, v)
+    ok = share <= 1.0 and mean <= fp.MEAN_LIMIT and bool(torch.isfinite(got).all())
+    return ok, float((got.float() - want.float()).abs().max()), share, mean
+
+
+def _check_flash_i8(label, b, h, hkv, s, d, rope, starts, dev, timed):
+    """K8b against its plain version: q, k and v codes and scales and the p
+    codes of batch row 0, head 0 identical, output within
+    ``kernel_error_i8``'s limits; v scales off by K8B_FAULT (planted) must
+    read beyond them."""
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    gen = torch.Generator(device=dev).manual_seed(b * h + s + d + 8)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = f(b, s, h, d).transpose(1, 2)
+    k, v = f(b, s, hkv, d).transpose(1, 2), f(b, s, hkv, d).transpose(1, 2)
+    cos, sin = fp.rope_tables(s, d, 10000.0, device=dev) if rope else (None, None)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    sm = d ** -0.5
+    trace, want_trace = {}, {}
+    got = fp._flash_i8(q, k, v, sm, cos, sin, st, trace=trace)
+    torch.cuda.synchronize()
+    want = fp.flash_prefill_gqa_i8_plain(q, k, v, sm, cos, sin, st, trace=want_trace)
+    # the kernel skips the TPU key blocks wholly before starts[0] in the rows of
+    # tiles without pad rows, where the plain version's running maximum is
+    # still -1e30 (its p codes there are garbage the next block wipes)
+    rows, cols = torch.arange(s, device=dev)[:, None], torch.arange(s, device=dev)[None, :]
+    st0 = 0 if starts is None else starts[0]
+    keep = ~(((rows // 64) * 64 >= st0) & (cols < (st0 // fp.prefill_block(s)) * fp.prefill_block(s)))
+    for what, sel in (("q_codes", ...), ("k_codes", ...), ("k_scales", ...), ("v_codes", ...),
+                      ("v_scales", ...), ("p_codes", keep)):
+        if not torch.equal(trace[what][sel], want_trace[what][sel]):
+            fail(f"flash_prefill_gqa(qk_int8) {label}: {what} differ from the plain version in "
+                 f"{int((trace[what][sel] != want_trace[what][sel]).sum())} places")
+    del trace, want_trace
+    ok, err, share, mean = k8b_check(got, want, v)
+    if not ok:
+        fail(f"flash_prefill_gqa(qk_int8) {label}: max abs err {err}, element bound share "
+             f"{share:.3f}, mean ratio {mean:.3g}, beyond {K8B_TOL}")
+    with _planted_v_scales(K8B_FAULT):
+        bad = fp.flash_prefill_gqa(q, k, v, sm, cos, sin, starts=st, qk_int8=True)
+    bad_ok, _, bad_share, bad_mean = k8b_check(bad, want, v)
+    if bad_ok:
+        fail(f"flash_prefill_gqa(qk_int8) {label}: the check misses v scales off by "
+             f"{K8B_FAULT:g} (planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}")
+    n_equal = int((got == want).sum())
+    row = {"layer": label, "B": b, "H": h, "hkv": hkv, "S": s, "d": d, "max_abs_err": err,
+           "ulps": 1, "tol": f"q, k, v and p codes identical; {K8B_TOL}: element bound share "
+           f"{share:.3f}, mean ratio {mean:.3g} ({n_equal} of {got.numel()} elements equal); v "
+           f"scales off by {K8B_FAULT:g} (planted): share {bad_share:.3f}, mean ratio "
+           f"{bad_mean:.3g}"}
+    del want, bad
+    if timed:
+        kern = lambda: fp.flash_prefill_gqa(q, k, v, sm, cos, sin, starts=st, qk_int8=True)
+        plain = lambda: fp.flash_prefill_gqa_i8_plain(q, k, v, sm, cos, sin, st)
+        qf = q.float()
+        if rope:
+            qf = qf * cos + torch.roll(qf, d // 2, dims=-1) * sin
+        qr, kc, vc = qf.to(torch.bfloat16).contiguous(), k.contiguous(), v.contiguous()
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qr, kc, vc, is_causal=True, scale=sm, enable_gqa=True)
+        ops = 4 * b * h * d * (s * (s + 1) // 2)
+        # the function's inputs q, k, v in bf16 (k / v quantized in the call), the rope
+        # tables and the bf16 output
+        nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d) + (2 * 4 * s * d if rope else 0)
+        row.update(ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                   library_ms=cuda_ms(lib, iters=10), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+    return row
+
+
+def phase_merged_kernels(dev, res: dict) -> dict:
+    """K25 and K26 at the Llama-2-7B and TinyLlama-1.1B decode shapes, K8b
+    at the 7B prefill and a GQA shape with a masked row, all of the first
+    shape of each timed; and K6 / K16 at the lm_head's shape (8 x 4096 ->
+    32000, f32 logits), timed and appended to their rows in ``res``."""
+    from qdm_tpu_torch.api.serve import i4_layout
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+
+    rng = np.random.default_rng(5)
+    out = {"fused_o_mlp_decode_i8": [], "fused_o_mlp_decode_i4": [], "flash_prefill_gqa_i8": []}
+    for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
+        group, _ = i4_layout(c)
+        hd = c.num_attention_heads * c.head_dim
+        for name, g in (("fused_o_mlp_decode_i8", 0), ("fused_o_mlp_decode_i4", group)):
+            out[name].append(_check_o_mlp(f"{tag} o_proj + mlp", rng, b, hd, c.hidden_size,
+                                          c.intermediate_size, g, dev, True))
+            torch.cuda.empty_cache()
+    c = LlamaConfig()
+    for args in (("7B prefill (rope)", L7_BATCH, c.num_attention_heads, c.num_key_value_heads,
+                  L7_PROMPT, c.head_dim, True, None, True),
+                 ("GQA, a masked row", 2, 32, 4, 1024, 64, True, (0, 300), False)):
+        out["flash_prefill_gqa_i8"].append(_check_flash_i8(*args[:-1], dev, args[-1]))
+        torch.cuda.empty_cache()
+    _print_rows(out)
+    o = _dense_case(rng, dev, L7_BATCH, c.hidden_size, c.vocab_size, torch.bfloat16)
+    heads = {"fused_dense_decode_i8": [_check_dense_i8(
+                 "7B lm_head int8 (norm, f32 out)", o, c.head_dim, "rmsnorm", False, False,
+                 torch.float32, dev, True)],
+             "fused_dense_decode_i4": [_check_dense_i4(
+                 "7B lm_head int4 (norm, f32 out)", o, c.head_dim, True, False, False, 128, dev,
+                 True, out_dtype=torch.float32)]}
+    del o
+    torch.cuda.empty_cache()
+    _print_rows(heads)
+    for name, rows in heads.items():
+        res[name].extend(rows)
     return out
 
 
@@ -1819,6 +2165,8 @@ def phase_llm_kv_paths(dev, llm: dict) -> dict:
 
 
 LLM_W4_WANT = {"fused_dense_decode_i4": 2, "decode_attention_kv": 1, "fused_mlp_decode_i4": 1}
+LLM_W4_MERGED_WANT = {"fused_dense_decode_i4": 1, "decode_attention_kv": 1,
+                      "fused_o_mlp_decode_i4": 1}
 
 
 def phase_llm_w4a8_path(dev, llm: dict) -> dict:
@@ -1826,8 +2174,10 @@ def phase_llm_w4a8_path(dev, llm: dict) -> dict:
     weights as drawn, ``serve(calib)`` (w4a8_static, the module prefill,
     bf16 KV) -> generate((32, 512), 64), with the launch counts set to 0
     just before generate and read just after: K16 22 x 63 x 2 times, K17
-    and K7 22 x 63, K5 63.  Greedy agreement with the w8a8 engine is a
-    reading."""
+    and K7 22 x 63, K5 63.  Then ``serve(calib, merge_o=True,
+    head_quant="int4")``: K26 22 x 63, K16 22 x 63 + 63 (the head), K7
+    22 x 63, K17 and K5 never.  Greedy agreements (with the w8a8 engine,
+    the merged engine with the unmerged one) are readings."""
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
     lm, prompts, cfg = llm["lm"], llm["prompts"], llm["lm"].config
@@ -1860,8 +2210,32 @@ def phase_llm_w4a8_path(dev, llm: dict) -> dict:
           flush=True)
     del eng
     torch.cuda.empty_cache()
+    # the merged layer tail and the int4 head on the same float weights
+    eng = lm.serve(llm["calib"], merge_o=True, head_quant="int4")
+    if not eng.merge_o or eng.head_quant != "int4" or eng._head_group != 128:
+        fail(f"serve(calib, merge_o=True, head_quant='int4') built merge_o {eng.merge_o}, "
+             f"head {eng.head_quant}")
+    qmm.reset_launches()
+    t0 = time.perf_counter()
+    toks_m = eng.generate(prompts, max_new_tokens=LLM_NEW)
+    torch.cuda.synchronize()
+    t_gen_m = time.perf_counter() - t0
+    merged = dict(qmm.LAUNCHES)
+    want = {k: 0 for k in merged}
+    want.update({k: v * cfg.num_hidden_layers * steps for k, v in LLM_W4_MERGED_WANT.items()})
+    want["fused_dense_decode_i4"] += steps
+    if merged != want:
+        fail(f"LLM w4a8 merge_o + int4 head launches {merged} != expected {want}")
+    new_m = new_tokens("LLM w4a8 merge_o", toks_m, prompts, LLM_NEW, cfg.vocab_size)
+    print(f"phase 3: LLM {LLM_BATCH} x {LLM_PROMPT} -> +{LLM_NEW} tokens, serve(calib, "
+          f"merge_o=True, head_quant='int4'): first generate {t_gen_m:.2f} s; launches "
+          f"{ {k: v for k, v in merged.items() if v} }; greedy agreement with the unmerged w4a8 "
+          f"engine {_agreement(new_m, new)}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
     lm.params = smoothed
-    return {"LLM w4a8_static": {"launches": launches}}
+    return {"LLM w4a8_static": {"launches": launches},
+            "LLM w4a8_static merge_o + int4 head": {"launches": merged}}
 
 
 def _clone(v, dev=None):
@@ -2069,6 +2443,125 @@ def phase_fused_prefill_witness(dev) -> None:
         del engines
 
 
+# the tiny engines of the merged / quantized-head / quantized-prefill witness:
+# (mode, serve options); the flash prefill takes their 128-token prompts
+MERGED_WITNESS = (
+    ("w8a8_static", dict(merge_o=True, head_quant="int8", prefill_quant="static_i8attn")),
+    ("w4a8_static", dict(merge_o=True, head_quant="int4", prefill_quant=True)),
+    ("w8a8_static", dict(prefill_quant="static")),
+    ("w4a8_static", dict(prefill_quant="dynamic")),
+)
+MERGED_KERNELS = ("fused_o_mlp_decode_i8", "fused_o_mlp_decode_i4", "fused_dense_decode_i8",
+                  "fused_dense_decode_i4")
+
+
+def phase_merged_witness(dev) -> None:
+    """Tiny f32 engines (W4_TINY: int4 group 128, two inner blocks of 512)
+    on the card and on the CPU from one seed, for each of MERGED_WITNESS:
+    ``serve(calib, mode, smooth=True, **options)`` -> generate of 128-token
+    prompts (the flash prefill's route at QDM_FLASH_PREFILL_MIN=128).  Every
+    call of K25, K26, K6 and K16 (qkv and the quantized heads) and every int8
+    product of the w8a8_xla prefill layers (``int8_matmul_xla``) in the CPU
+    engine's generate, repeated on the card on the same inputs, within
+    LLM_TOL of its output's magnitude, and every K8b call within
+    ``kernel_error_i8``'s limits.  Planted faults must read above them:
+    K25 / K26 o_proj scales off by LLM_FAULT, the heads' weight scales off
+    by LLM_FAULT, K8b's v scales off by K8B_FAULT."""
+    import dataclasses
+
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_llama_config
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import flash_prefill as fp
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = dataclasses.replace(tiny_llama_config(), max_position_embeddings=512, **W4_TINY)
+    rng = np.random.default_rng(6)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 128)).astype(np.int32)
+    n_l, steps = cfg.num_hidden_layers, 3
+    flash_min = os.environ.get("QDM_FLASH_PREFILL_MIN")
+    os.environ["QDM_FLASH_PREFILL_MIN"] = "128"
+    try:
+        for mode, kw in MERGED_WITNESS:
+            engines = {d: CausalLM.from_config(cfg, dtype=torch.float32, seed=0, device=d).serve(
+                calib, mode=mode, smooth=True, **kw) for d in ("cpu", dev)}
+            calls: list = []
+            targets = ([(dk, n) for n in MERGED_KERNELS] + [(fp, "flash_prefill_gqa"),
+                                                           (qmm, "int8_matmul_xla")])
+            with _recording(calls, targets):
+                want = engines["cpu"].generate(prompts, max_new_tokens=steps + 1)
+            qmm.reset_launches()
+            got = engines[dev].generate(prompts, max_new_tokens=steps + 1)
+            runs = {k: v for k, v in qmm.LAUNCHES.items() if v}
+            i4 = mode == "w4a8_static"
+            merged = "fused_o_mlp_decode_i4" if i4 else "fused_o_mlp_decode_i8"
+            unmerged = "fused_mlp_decode_i4" if i4 else "fused_mlp_decode_i8"
+            want_runs = {merged: n_l * steps} if kw.get("merge_o") else {unmerged: n_l * steps}
+            want_runs["flash_prefill_gqa_i8" if kw["prefill_quant"] == "static_i8attn"
+                      else "flash_prefill_gqa"] = n_l
+            if kw.get("head_quant") is None:
+                want_runs["fused_dense_decode"] = steps
+            if any(runs.get(k) != v for k, v in want_runs.items()):
+                fail(f"tiny {mode} {kw}: the card's engine launched {runs}, want {want_runs}")
+            decode = [c for c in calls if c[0] in MERGED_KERNELS + ("int8_matmul_xla",)]
+            sound = _replay([c for c in decode if c[0] != "int8_matmul_xla"], dev)
+            sound.update(_replay([c for c in decode if c[0] == "int8_matmul_xla"], dev, qmm))
+            k8b = [c for c in calls if c[0] == "flash_prefill_gqa"]
+            i8attn = bool(k8b) and k8b[0][2].get("qk_int8", False)
+            reading, planted = "", {}
+            if i8attn:
+                ok, share, mean = _k8b_replay(k8b, dev)
+                with _planted_v_scales(K8B_FAULT):
+                    bad_ok, bad_share, bad_mean = _k8b_replay(k8b, dev)
+                reading = (f"; K8b element bound share {share:.3f}, mean ratio {mean:.3g}, v "
+                           f"scales off by {K8B_FAULT:g} (planted): share {bad_share:.3f}, mean "
+                           f"ratio {bad_mean:.3g}")
+                if not ok or bad_ok:
+                    fail(f"tiny {mode} {kw}: K8b card vs CPU within limits {ok}, planted fault "
+                         f"passed {bad_ok}")
+            if kw.get("merge_o"):
+                with _planted_card_fault(dk, merged, _scaled_arg(2, LLM_FAULT)):
+                    planted[f"{merged} o_proj scales"] = _replay(
+                        [c for c in calls if c[0] == merged], dev)[merged]
+            if kw.get("head_quant"):
+                head = "fused_dense_decode_i4" if i4 else "fused_dense_decode_i8"
+                heads = [c for c in calls if c[0] == head and c[3].shape[1] == cfg.vocab_size]
+                with _planted_card_fault(dk, head, _scaled_arg(2, LLM_FAULT)):
+                    planted[f"{head} head scales"] = _replay(heads, dev)[head]
+            n = {k: sum(c[0] == k for c in calls) for k in sound}
+            print(f"phase 3: tiny f32 {mode} engine {kw}, card vs CPU: greedy tokens agree "
+                  f"{float((got[:, 128:] == want[:, 128:]).mean()):.4f}; each call on the CPU's "
+                  "inputs, largest error relative to the output's magnitude: "
+                  + ", ".join(f"{k} {v:.2e} ({n[k]} calls)" for k, v in sound.items())
+                  + f" (limit {LLM_TOL:g}){reading}; planted faults ({LLM_FAULT:g}): "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in planted.items()), flush=True)
+            if max(sound.values()) > LLM_TOL:
+                fail(f"tiny {mode} {kw} card vs CPU: {sound}")
+            if planted and min(planted.values()) <= LLM_TOL:
+                fail(f"the {mode} {kw} witness misses a planted fault: {planted}")
+            del engines
+    finally:
+        if flash_min is None:
+            os.environ.pop("QDM_FLASH_PREFILL_MIN", None)
+        else:
+            os.environ["QDM_FLASH_PREFILL_MIN"] = flash_min
+
+
+def _k8b_replay(calls, dev) -> Tuple[bool, float, float]:
+    """Each recorded K8b call on the card against the CPU's plain version
+    on the same inputs: (all within k8b_check, largest element bound
+    share, largest mean ratio)."""
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    ok, share, mean = True, 0.0, 0.0
+    for _, args, kw, out in calls:
+        got = fp.flash_prefill_gqa(*_clone(args, dev), **_clone(kw, dev))
+        c_ok, _, c_share, c_mean = k8b_check(got.cpu(), out, args[2])
+        ok, share, mean = ok and c_ok, max(share, c_share), max(mean, c_mean)
+    return ok, share, mean
+
+
 def phase_llm_profile(dev, llm: dict) -> None:
     """Warm engine and bf16 module generate, five each in turn; the
     engine's prefill and decode loop timed apart; device time by kernel of
@@ -2197,11 +2690,137 @@ def _l7_want(mode: str, cfg, kv_mode=None, fused: bool = False) -> dict:
     return want
 
 
+# the 7B merged engines: (mode, serve options); launches per decode step and
+# layer, and per generate for the prefill (the head's launch is added apart)
+L7_MERGED = {
+    "w8a8_static merge_o": ("w8a8_static", dict(merge_o=True, head_quant="int8",
+                                                prefill_quant="static_i8attn"),
+                            {"fused_dense_decode_i8": 1, "decode_attention_kv_flash": 1,
+                             "fused_o_mlp_decode_i8": 1}, "flash_prefill_gqa_i8",
+                            "fused_dense_decode_i8"),
+    "w4a8_static merge_o": ("w4a8_static", dict(merge_o=True, head_quant="int4",
+                                                prefill_quant=True),
+                            {"fused_dense_decode_i4": 1, "decode_attention_kv_flash": 1,
+                             "fused_o_mlp_decode_i4": 1}, "flash_prefill_gqa",
+                            "fused_dense_decode_i4"),
+}
+
+
+def _long_merged_paths(lm, calib, prompts, out: dict, profile: bool) -> None:
+    """The 7B merged engines on the smoothed weights, one at a time:
+    ``serve(calib, "w8a8_static", merge_o=True, head_quant="int8",
+    prefill_quant="static_i8attn")`` (K25 2016, K6 2016 + 63, K10 2016,
+    K8b 32 launches; K8, K9, K5 never) and ``serve(calib, "w4a8_static",
+    merge_o=True, head_quant="int4", prefill_quant=True)`` (K26 2016, K16
+    2016 + 63, K10 2016, K9 32; K17, K5 never), each generate of the 7B
+    prompts.  With ``profile``, each merged engine's decode loop and
+    prefill against an unmerged engine of its mode on the same weights (the
+    w8a8 one from ``out``, a w4a8 one built here), medians of
+    PROFILE_REPEATS taken in turn, and the CUDA launches per layer and
+    decode step of each."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = lm.config
+    steps = L7_NEW - 1
+    for label, (mode, kw, per, prefill_kernel, head_kernel) in L7_MERGED.items():
+        t0 = time.perf_counter()
+        eng = lm.serve(calib, mode=mode, **kw)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        if not (eng.merge_o and eng.prefill_quant and eng.head_quant == kw["head_quant"]):
+            fail(f"7B {label}: serve built merge_o {eng.merge_o}, prefill_quant "
+                 f"{eng.prefill_quant}, head {eng.head_quant}")
+        qmm.reset_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=L7_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(qmm.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want.update({k: v * cfg.num_hidden_layers * steps for k, v in per.items()})
+        want[prefill_kernel] = cfg.num_hidden_layers
+        want[head_kernel] += steps
+        if launches != want:
+            fail(f"7B {label} launches {launches} != expected {want} ({cfg.num_hidden_layers} "
+                 f"layers x {steps} decode steps)")
+        new = new_tokens(f"7B {label}", toks, prompts, L7_NEW, cfg.vocab_size)
+        t0 = time.perf_counter()
+        eng.prefill(prompts, L7_PROMPT + L7_NEW)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        print(f"phase 3: Llama-2-7B {label} engine ({kw}), {L7_BATCH} x {L7_PROMPT} -> "
+              f"+{L7_NEW} tokens: quantize {t_quant:.2f} s, first generate {t_gen:.2f} s, "
+              f"prefill (second call) {t_pre:.3f} s; tokens {toks.shape} in [{new.min()}, "
+              f"{new.max()}]; launches { {k: v for k, v in launches.items() if v} }; greedy "
+              f"agreement with the w8a8 engine {_agreement(new, out['tokens']['w8a8_static'])}; "
+              f"device memory peak so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+              flush=True)
+        out["launches"][label] = launches
+        if profile:
+            base = out["engines"].get(mode) or lm.serve(calib, mode=mode)
+            _merged_profile(label, eng, base, prompts)
+            del base
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _merged_profile(label, eng, base, prompts) -> None:
+    """--profile: the merged engine against its unmerged one on the same
+    weights: the decode loop (63 steps from one prefill of each) and the
+    prefill, PROFILE_REPEATS each in turn; CUDA launches per layer and
+    decode step, counted by the profiler over three steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = L7_NEW - 1
+    n_layers = eng.cfg.num_hidden_layers
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    runs = {"merged": eng, "unmerged": base}
+    times = {(w, k): [] for w in runs for k in ("prefill", "decode")}
+    for _ in range(PROFILE_REPEATS + 1):
+        for w, e in runs.items():
+            t_pre, (tok0, caches) = timed(lambda: e.prefill(prompts, L7_PROMPT + L7_NEW))
+            t_dec, _ = timed(lambda: e._make_run(steps)(tok0, caches, L7_PROMPT))
+            times[(w, "prefill")].append(t_pre)
+            times[(w, "decode")].append(t_dec)
+            del caches
+    for k in ("prefill", "decode"):
+        ratios = [m / u for m, u in zip(times[("merged", k)][1:], times[("unmerged", k)][1:])]
+        print(f"profile: Llama-2-7B {label} / unmerged engine {k} time, run by run: "
+              f"{_spread(ratios)} (merged {_spread(times[('merged', k)][1:])}, unmerged "
+              f"{_spread(times[('unmerged', k)][1:])})", flush=True)
+    for w, e in runs.items():
+        tok0, caches = e.prefill(prompts, L7_PROMPT + L7_NEW)
+        run = e._make_run(3)
+        run(tok0, caches, L7_PROMPT)
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(tok0, caches, L7_PROMPT)
+            torch.cuda.synchronize()
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        step, trig = e._run_cache[()]
+        cos, sin = trig(torch.arange(L7_PROMPT, L7_PROMPT + 1, device=tok0.device))
+        with torch.inference_mode():
+            n = _cuda_launches(lambda: step(tok0, caches, L7_PROMPT, cos[0], sin[0]))
+        print(f"profile: Llama-2-7B {label}, {w} engine: {n} CUDA launches per decode step "
+              f"(embedding, head and argmax included), {n / n_layers:.2f} per layer; device "
+              f"busy {busy:.2f} ms over 3 steps", flush=True)
+        del caches
+
+
 def phase_long_path(dev, seed: int, keep_all: bool) -> dict:
     """Llama-2-7B geometry, random weights from seed 0 drawn on the card:
     from_config -> serve(w8a8_static, smooth) -> generate((8, 2048), 64);
     then on the same smoothed weights the w8a8 engine with each quantized
-    KV cache (``_long_kv_paths``), serve(bf16), and the default mode with
+    KV cache (``_long_kv_paths``), the merged engines
+    (``_long_merged_paths``), serve(bf16), and the default mode with
     the fused int8 prefill, serve(calib, "w4a8_static",
     prefill_quant="fused"); each generate of the same prompts with the
     launch counts set to 0 just before generate and read just after.  An
@@ -2240,6 +2859,7 @@ def phase_long_path(dev, seed: int, keep_all: bool) -> dict:
                 del engines["w8a8_static"]
                 torch.cuda.empty_cache()
             _long_kv_paths(lm, calib, prompts, out)
+            _long_merged_paths(lm, calib, prompts, out, profile=keep_all)
             engines["bf16"] = lm.serve(mode="bf16")
         if mode == "w4a8_static":
             if not keep_all:
@@ -2338,7 +2958,7 @@ def _k9_replay(calls, dev, dtype, fault: float = 1.0) -> Tuple[bool, float, floa
     ok, share, mean = True, 0.0, 0.0
     for _, args, kw, _ in calls:
         q, k, v = (t.to(dtype) for t in args)
-        kw = dict(kw)
+        kw = {k_: v_ for k_, v_ in kw.items() if k_ != "qk_int8"}
         want = fp.flash_prefill_gqa_plain(q, k, v, **kw)
         want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), **kw)
         kw = _clone(kw, dev)
@@ -2692,6 +3312,7 @@ def main() -> int:
     kres.update(phase_long_kernels(dev, kres))
     kres.update(phase_kv_quant_kernels(dev))
     kres.update(phase_w4a8_kernels(dev, kres))
+    kres.update(phase_merged_kernels(dev, kres))
     runs = phase_main_path(dev)
     runs["LLM"] = phase_llm_path(dev, args.seed)
     runs.update(phase_llm_kv_paths(dev, runs["LLM"]))
@@ -2703,6 +3324,7 @@ def main() -> int:
     phase_kv_witness(dev)
     phase_llm_w4a8_witness(dev)
     phase_fused_prefill_witness(dev)
+    phase_merged_witness(dev)
     if args.profile:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])

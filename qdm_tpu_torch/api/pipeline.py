@@ -218,6 +218,9 @@ class BaseDiffusionPipeline:
             raise NotImplementedError(f"a {cfg.version!r} plan for {component!r} "
                                       f"{_ROADMAP_QUANT}")
         dense_spec = spec_from_config(cfg, conv=False)
+        if dense_spec.mode == "w8a8_xla":
+            raise NotImplementedError(f"the W8A8-static UNet plan (dense w8a8_xla) "
+                                      f"{_ROADMAP_QUANT}")
         conv_spec = spec_from_config(cfg, conv=True)
         noq = LayerQuantSpec(mode="none")
         rules = [("conv", conv_spec), ("kernel4d", conv_spec),

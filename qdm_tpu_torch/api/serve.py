@@ -62,19 +62,36 @@ prefills a prompt whose length is a multiple of 128 from 256 on through
 the fused int8 prefill instead (``serve.py:2715-2893``; bf16 KV only):
 per layer K15 for [q | k | v], o_proj and down with per-token int8
 activations, K2 with silu for [up | gate], and K9 with the q rope in the
-kernel.  Batch rows are not padded to a sublane granule (the TPU engine
-pads to 8; its padded rows never reach an output).
+kernel.  ``prefill_quant=True`` / ``"static"`` / ``"dynamic"`` /
+``"static_i8attn"`` instead prefill through a copy of the module whose
+dense layers (all but the lm_head) are ``w8a8_xla`` int8 with calibrated
+static act scales (per-token scales for ``"dynamic"``), and for
+``"static_i8attn"`` the flash prefill's int8 QK / PV (K8b); the bf16 engine
+ignores them.  Batch rows are not padded to a sublane granule (the TPU
+engine pads to 8; its padded rows never reach an output).
+
+``merge_o=True`` (quantized modes) runs a layer's o_proj, residual, RMSNorm,
+MLP and residual as one call, K25 (int8) or K26 (int4), with x2 = o_proj
++ x kept in f32 (``serve.py:1977-1989``)::
+
+    qkv  = K6 / K16(x; RMSNorm ln1, qkv, rope epilogue)
+    attn = K7 / K10(q, cache, pos)
+    x    = K25 / K26(attn; o_proj, + x, RMSNorm ln2, gate/up, silu * up, down, + x2)
+
+``head_quant="int8"`` / ``"int4"`` puts the final norm and the lm_head
+through K6 / K16 (int4 groups of 128, or hidden/2 where 128 does not
+divide it) with the calibrated static scale of ``act_stats["lm_head"]``.
 
 Ported from ``DecodeEngine``: ``__init__`` for the canonical llama block
-in ``bf16``, ``w8a8_static`` and ``w4a8_static`` with ``merge_o=False``
-and ``head_quant=None``, the KV-cache options, ``prefill_quant="fused"``,
-``calibrate_scales``, ``smooth_lm``, ``init_cache``, ``prefill`` with the
-quantizing half of ``_kv_finalize``, ``_build_fused_prefill`` and
+in ``bf16``, ``w8a8_static`` and ``w4a8_static`` with every one-device
+option (``merge_o``, ``head_quant``, ``prefill_quant``, the KV-cache
+options), ``calibrate_scales``, ``smooth_lm``, ``init_cache``, ``prefill``
+with the quantizing half of ``_kv_finalize``, ``_build_fused_prefill`` and
 ``_prefill_fused_run``, ``_layer``, ``_head_logits``, ``_make_run`` (a
 loop over steps of one memoized step function), greedy ``generate`` and
-``recommended_kv``.  The bf16 engine at batch 1 (the TPU engine's
-XLA-layer variant, ``_xla_ok_b1``) and every other option raise
-``NotImplementedError`` naming ROADMAP.md.
+``recommended_kv``.  ``mesh``, ``gptq_grams``, the bf16 engine at batch 1
+(the TPU engine's XLA-layer variant, ``_xla_ok_b1``) and the other
+generate options raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -89,12 +106,14 @@ import torch.nn.functional as F
 from qdm_tpu_torch.api.causal_lm import check_greedy, mask_after_eos
 from qdm_tpu_torch.config import QuantConfig
 from qdm_tpu_torch.models import llama as llama_lib
-from qdm_tpu_torch.models.layers import capture_stats
+from qdm_tpu_torch.models.layers import capture_stats, load_tree
 from qdm_tpu_torch.models.shims import llama_scaling_groups
 from qdm_tpu_torch.ops import decode_kernels as dk
 from qdm_tpu_torch.ops import flash_prefill as fp
 from qdm_tpu_torch.ops import quant_matmul as qmm
+from qdm_tpu_torch.quant import apply as qapply
 from qdm_tpu_torch.quant import smooth as smooth_lib
+from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan
 
 _ROADMAP = "ROADMAP.md Queue 1 item 13 (serving)"
 
@@ -170,12 +189,7 @@ class DecodeEngine:
         if gptq_grams and mode == "bf16":
             raise ValueError("gptq_grams places quantized weight codes; bf16 mode has none "
                              "(use w8a8/w4a8_static)")
-        # prefill_quant="fused" is the fused int8 prefill (quantized modes;
-        # bf16 keeps the module prefill, serve.py:929-932); True, "static",
-        # "dynamic" and "static_i8attn" quantize the module prefill instead
-        unported = {"merge_o": merge_o, "mesh": mesh is not None,
-                    "prefill_quant": prefill_quant not in (False, None, "fused"),
-                    "head_quant": head_quant is not None, "gptq_grams": bool(gptq_grams)}
+        unported = {"mesh": mesh is not None, "gptq_grams": bool(gptq_grams)}
         if any(unported.values()):
             raise NotImplementedError(
                 f"engine options {[k for k, v in unported.items() if v]} are not ported yet: "
@@ -211,6 +225,10 @@ class DecodeEngine:
             s = qmm.div_exact(act_stats[key].to(torch.float32).amax().clamp_min(1e-5), 127.0)
             return (s * act_margin).to(torch.float32).reshape(1)
 
+        # o_proj + residual + MLP in one kernel call per layer (serve.py:543-552):
+        # the quantized modes with an RMSNorm and no parallel residual; off in bf16
+        self.merge_o = bool(merge_o and mode in ("w8a8_static", "w4a8_static")
+                            and cfg.norm_type == "rmsnorm" and not cfg.parallel_residual)
         if mode == "w4a8_static":
             self.i4_group, self.i4_mlp_block = i4_layout(cfg)
 
@@ -255,13 +273,60 @@ class DecodeEngine:
             self.layers.append(e)
         self.embed = p["embed_tokens"]["embedding"].to(self.dtype)
         self.final_norm = p["norm"]["scale"].to(torch.float32)
-        self.head_t = dk.transposed_weight(p["lm_head"]["kernel"].to(self.dtype))   # (V, K)
-        # snapshot of the module (and its params) for the prefill
-        self._prefill_model = lm.model
+        w_head = p["lm_head"]["kernel"].to(self.dtype)
+        self.head_t = dk.transposed_weight(w_head)                                 # (V, K)
+        # opt-in quantized lm_head (serve.py:860-899): int8 codes per output
+        # channel through K6, or planar int4 groups through K16, with the
+        # calibrated static scale of the final norm's output
+        self.head_quant = head_quant
+        if head_quant is not None:
+            if head_quant not in ("int8", "int4"):
+                raise ValueError(f"head_quant: {head_quant!r} (supported: 'int8', 'int4')")
+            if act_stats is None or "lm_head" not in act_stats:
+                raise ValueError("head_quant needs 'lm_head' act stats — calibrate with "
+                                 "DecodeEngine.calibrate_scales on a model with an untied "
+                                 "lm_head")
+            if head_quant == "int4":
+                if cfg.norm_type != "rmsnorm":
+                    raise NotImplementedError("head_quant='int4' requires an rmsnorm final "
+                                              "norm (the i4 kernel has no layernorm prologue)")
+                hs = cfg.hidden_size
+                self._head_group = 128 if (hs // 2) % 128 == 0 else hs // 2
+                codes, s_h = _quant_w4(w_head, self._head_group)
+            else:
+                codes, s_h = _quant_w(w_head)
+            self._head = (dk.transposed_weight(codes), s_h, scale_of("lm_head"))
+        del w_head
         self.prefill_fused = prefill_quant == "fused" and mode != "bf16"
         if self.prefill_fused:
             self._build_fused_prefill(p)
+        if prefill_quant == "fused":
+            prefill_quant = False
+        self.prefill_quant = bool(prefill_quant) and mode != "bf16"
+        if self.prefill_quant:
+            self._prefill_model = self._quantized_prefill_model(p, prefill_quant, act_stats,
+                                                                act_margin)
+        else:
+            # snapshot of the module (and its params) for the prefill
+            self._prefill_model = lm.model
         self._run_cache: Dict = {}
+
+    def _quantized_prefill_model(self, p, prefill_quant, act_stats, act_margin: float):
+        """The int8 module prefill (``serve.py:914-960``): the LLaMA module
+        under a plan of ``w8a8_xla`` dense layers, the lm_head left float,
+        with calibrated static act scales (``True``, ``"static"``,
+        ``"static_i8attn"``) or per-token ones (``"dynamic"``), and for
+        ``"static_i8attn"`` the int8 QK / PV flash prefill
+        (``plan.int8_bmm``).  Packed from the engine's float kernels ``p``."""
+        static = prefill_quant != "dynamic" and act_stats is not None
+        w8 = LayerQuantSpec(mode="w8a8_xla", w_bits=8, a_bits=8, quantize_act=True,
+                            act_quant="static" if static else "per_token")
+        plan = QuantPlan(default=w8, int8_bmm=(prefill_quant == "static_i8attn")
+                         ).with_rule("lm_head", None)
+        pp = qapply.pack_params(p, plan)
+        if static:
+            pp = qapply.fill_static_act_scales(pp, act_stats, margin=act_margin)
+        return load_tree(llama_lib.LlamaForCausalLM(self.cfg, dtype=self.dtype, plan=plan), pp)
 
     # ------------------------------------------------------------- calibration
 
@@ -310,6 +375,16 @@ class DecodeEngine:
         attn = attn.reshape(b, h * d)
         mlp_w = (w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t())
         mlp_t = (w["wg_t"], w["wu_t"], w["wd_t"])
+        if self.merge_o:
+            # the merged tail returns x itself (no separate residual add)
+            merged = dict(eps=eps, act=cfg.mlp_act, w_t=(w["w_o_t"], *mlp_t))
+            if self.mode == "w4a8_static":
+                return dk.fused_o_mlp_decode_i4(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], x,
+                                                *mlp_w, (w["sg"], w["su"], w["sd"]), w["a_mlp"],
+                                                w["ln2"], group=self.i4_group, **merged)
+            return dk.fused_o_mlp_decode_i8(attn, w["w_o_t"].t(), w["s_o"], w["a_o"], x, *mlp_w,
+                                            (w["sg"], w["su"], w["sd"]), w["a_mlp"], w["ln2"],
+                                            **merged)
         if self.mode == "bf16":
             x = dk.fused_dense_decode(attn, w["w_o_t"].t(), residual=x, w_t=w["w_o_t"])
             return dk.fused_mlp_decode(x, *mlp_w, w["ln2"], eps=eps, act=cfg.mlp_act, w_t=mlp_t)
@@ -352,10 +427,20 @@ class DecodeEngine:
         return dk.decode_attention_kv_i8(q, kv, kvs, pos)
 
     def _head_logits(self, x):
-        """Final norm + bf16 lm_head in one launch, f32 logits."""
-        return dk.fused_dense_decode(x, self.head_t.t(), norm_scale=self.final_norm,
-                                     eps=self.cfg.rms_norm_eps, out_dtype=torch.float32,
-                                     w_t=self.head_t)
+        """Final norm + lm_head in one launch, f32 logits (``serve.py:2242-2266``):
+        K5 on the bf16 head, or with ``head_quant`` K6 (int8) / K16 (int4)."""
+        eps = self.cfg.rms_norm_eps
+        if self.head_quant == "int8":
+            wh_t, whs, ah = self._head
+            return dk.fused_dense_decode_i8(x, wh_t.t(), whs, ah, norm_scale=self.final_norm,
+                                            eps=eps, out_dtype=torch.float32, w_t=wh_t)
+        if self.head_quant == "int4":
+            wh_t, whs, ah = self._head
+            return dk.fused_dense_decode_i4(x, wh_t.t(), whs, ah, norm_scale=self.final_norm,
+                                            eps=eps, group=self._head_group,
+                                            out_dtype=torch.float32, w_t=wh_t)
+        return dk.fused_dense_decode(x, self.head_t.t(), norm_scale=self.final_norm, eps=eps,
+                                     out_dtype=torch.float32, w_t=self.head_t)
 
     # ------------------------------------------------------------------ decode
 

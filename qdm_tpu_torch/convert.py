@@ -3,7 +3,8 @@
 The port keeps the Flax tree's keys and maps each leaf 1:1:
 
 * dense ``kernel`` (in, out), ``bias``, norm ``scale``, ``embedding``, the
-  packed dense ``qweight`` (K', N') int8 and its ``scales`` (1, N'), and the
+  packed dense ``qweight`` (K', N') int8 and its ``scales`` (1, N') (or,
+  ``w8a8_xla``, unpadded (K, N), (N,) and a static ``act_scale`` (1,)), the
   int4 packs ``qweight`` (K'/8, N') int32, ``scales`` and ``zeros``
   (K'/G, N') pass through unchanged (the packed bytes stay identical);
 * 4-D conv ``kernel`` / ``qweight`` arrive HWIO and become PyTorch's
@@ -13,8 +14,9 @@ Any other leaf (a packed layout this port does not run yet) raises, and
 ``load_tree`` raises on a leaf the module does not declare, so nothing is
 dropped silently.
 
-:func:`engine_layers_from_jax` and :func:`fused_prefill_from_jax` carry a
-JAX ``DecodeEngine``'s extracted weights into the port engine's layout:
+:func:`engine_layers_from_jax`, :func:`engine_head_from_jax` and
+:func:`fused_prefill_from_jax` carry a JAX ``DecodeEngine``'s extracted
+weights into the port engine's layout:
 the int8 codes (K, N) and the planar int4 packs (K/2, N) transposed to
 the kernels' (N, K) and (N, K/2), their scales ((1, N) per channel,
 (K/group, N) per int4 group) and the norms as they are.
@@ -31,7 +33,7 @@ from qdm_tpu_torch.models.layers import flatten_tree, unflatten_tree
 
 # leaf name -> the ranks it may have
 LEAF_RANKS = {"kernel": (2, 4), "qweight": (2, 4), "bias": (1,), "scale": (1,),
-              "embedding": (2,), "scales": (1, 2), "zeros": (2,)}
+              "embedding": (2,), "scales": (1, 2), "zeros": (2,), "act_scale": (1,)}
 
 
 def hwio_to_oihw(t: torch.Tensor) -> torch.Tensor:
@@ -89,6 +91,15 @@ def engine_layers_from_jax(layers) -> List[Dict[str, torch.Tensor]]:
                 e[key] = t
         out.append(e)
     return out
+
+
+def engine_head_from_jax(head) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A JAX engine's quantized head (``_head`` under ``head_quant``: int8
+    codes (K, V) or planar int4 packs (K/2, V), their scales, the static act
+    scale) -> the port engine's ``_head``: the codes transposed, the scales
+    as they are, the act scale flattened."""
+    codes, scales, act = (_to_tensor(a) for a in head)
+    return codes.t().contiguous(), scales, act.reshape(-1)
 
 
 def fused_prefill_from_jax(fp_weights: dict) -> List[Dict[str, torch.Tensor]]:

@@ -38,11 +38,11 @@ __device__ __forceinline__ unsigned nibbles_x16(unsigned w, int plane) {
 //     c = f32(A[:, a0 + p * a_plane + gi*group, +group] . nibbles_p(B_q[:, b0 + gi*group, +group]))
 //         * ws_q[(ws_row0 + p * half/group + gi) * ws_ld + col]
 //     y = first ? c : y + c
-// A (M, lda) int8 codes; B_q (N, ldb) packed bytes; half a multiple of TK,
-// group a multiple of 32 dividing half; 16-byte aligned rows and offsets.
-template <int NJ, int NB>
-__device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
-                                                  const int8_t* __restrict__ A, size_t lda,
+// A (M, lda) int8 codes (or bf16 / f32 values quantized as their stage is
+// consumed, TileA); B_q (N, ldb) packed bytes; half a multiple of TK, group
+// a multiple of 32 dividing half; 16-byte aligned rows and offsets.
+template <int NJ, int NB, typename TA>
+__device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4], const TileA<TA>& a,
                                                   int a0, int a_plane,
                                                   const unsigned char* const* B, size_t ldb,
                                                   int b0, int half, int group,
@@ -68,16 +68,10 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
 
   const int per_plane = half / TK;
   const int gpp = half / group;
+  const int a_end = a0 + a_plane + half;   // one past A's last column
   auto load_stage = [&](int buf, int s) {
     const int plane = s / per_plane, kb = (s % per_plane) * TK;
-    {  // A: TM rows x 4 chunks of 16 bytes, one chunk per thread
-      const int r = tid >> 2, c = (tid & 3) * 16;
-      const bool ok = m0 + r < M;
-      cp_async16(&sm.a[buf][r][c],
-                 ok ? (const void*)(A + (size_t)(m0 + r) * lda + a0 + plane * a_plane + kb + c)
-                    : (const void*)A,
-                 ok);
-    }
+    load_a_stage(a, sm.a[buf], buf, m0, M, a0 + plane * a_plane + kb, a_end);
 #pragma unroll
     for (int q = 0; q < NB; ++q) {
 #pragma unroll
@@ -108,17 +102,18 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
     cp_async_commit();
     const int buf = kt % kStages;
     const int plane = kt / per_plane, kb_stage = (kt % per_plane) * TK;
+    quant_a_stage(a, sm.a[buf], buf, m0, M, a0 + plane * a_plane + kb_stage);
 #pragma unroll
     for (int ks = 0; ks < TK / 32; ++ks) {
       const int kb = ks * 32 + t * 4;
-      unsigned a[2][4];
+      unsigned af[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const int r = mi * 16 + g;
-        a[mi][0] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r][kb]);
-        a[mi][1] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r + 8][kb]);
-        a[mi][2] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r][kb + 16]);
-        a[mi][3] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r + 8][kb + 16]);
+        af[mi][0] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r][kb]);
+        af[mi][1] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r + 8][kb]);
+        af[mi][2] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r][kb + 16]);
+        af[mi][3] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r + 8][kb + 16]);
       }
 #pragma unroll
       for (int q = 0; q < NB; ++q) {
@@ -130,7 +125,7 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
           b[1] = nibbles_x16(*reinterpret_cast<const unsigned*>(&sm.b[q][buf][r][kb + 16]),
                              plane);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_s8(acc[q][mi][nj], a[mi], b);
+          for (int mi = 0; mi < 2; ++mi) mma_s8(acc[q][mi][nj], af[mi], b);
         }
       }
       const int done = kb_stage + ks * 32 + 32;   // bytes of this plane taken so far
@@ -159,6 +154,22 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for the caller's epilogue
+}
+
+// A given as int8 codes (A + (m0 + r) * lda + k).
+template <int NJ, int NB>
+__device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
+                                                  const int8_t* __restrict__ A, size_t lda,
+                                                  int a0, int a_plane,
+                                                  const unsigned char* const* B, size_t ldb,
+                                                  int b0, int half, int group,
+                                                  const float* const* ws, size_t ws_ld,
+                                                  int ws_row0, int m0, int M, int n0, int N,
+                                                  TileSmem<NJ, NB>& sm) {
+  const TileA<unsigned char> a{reinterpret_cast<const unsigned char*>(A), lda, 0.0f, nullptr,
+                               nullptr};
+  i4_group_dot_tile<NJ, NB>(y, a, a0, a_plane, B, ldb, b0, half, group, ws, ws_ld, ws_row0, m0,
+                            M, n0, N, sm);
 }
 
 }  // namespace dec

@@ -31,78 +31,7 @@
 // scratch; (4) the partials summed in j order plus the residual, the TPU
 // kernel's accumulator order exactly.  Not yet wgmma / TMA.
 
-#include "decode_i4.cuh"
-
-namespace qdm {
-namespace dec {
-
-// (2) gate and up over a 64-column slice of I -> mid codes.
-__global__ void __launch_bounds__(kThreads)
-gate_up_i4_kernel(const int8_t* __restrict__ xi, const unsigned char* __restrict__ wg,
-                  const unsigned char* __restrict__ wu, const float* __restrict__ sg,
-                  const float* __restrict__ su, const float* __restrict__ scl, int act,
-                  int8_t* __restrict__ ai, int M, int K, int I, int group) {
-  constexpr int NJ = 2;
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 2> sm;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * BN;
-  const int half = K / 2;
-  const unsigned char* B[2] = {wg, wu};
-  const float* W[2] = {sg, su};
-  float y[2][2][NJ][4];
-  i4_group_dot_tile<NJ, 2>(y, xi, (size_t)K, 0, half, B, (size_t)half, 0, half, group, W,
-                           (size_t)I, 0, m0, M, n0, I, sm);
-  const float s_in = scl[0];
-  const float inv_mid = __fdiv_rn(1.0f, scl[1]);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, e, r, c);
-        const int row = m0 + r, col = n0 + c;
-        if (row >= M || col >= I) continue;
-        const float gg = __fmul_rn(y[0][mi][nj][e], s_in);
-        const float uu = __fmul_rn(y[1][mi][nj][e], s_in);
-        ai[(size_t)row * I + col] = quant_i8(__fmul_rn(act_fn(gg, act), uu), inv_mid);
-      }
-}
-
-// (3) one inner block j of the down product over a 64-column slice of K.
-__global__ void __launch_bounds__(kThreads)
-down_partial_i4_kernel(const int8_t* __restrict__ ai, const unsigned char* __restrict__ wd,
-                       const float* __restrict__ sd, const float* __restrict__ scl,
-                       float* __restrict__ part, int M, int K, int I, int bj, int group) {
-  constexpr int NJ = 2;
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 1> sm;
-  const int j = blockIdx.y;
-  const int m0 = blockIdx.z * TM, n0 = blockIdx.x * BN;
-  const unsigned char* B[1] = {wd};
-  const float* W[1] = {sd};
-  float y[1][2][NJ][4];
-  i4_group_dot_tile<NJ, 1>(y, ai, (size_t)I, j * bj, bj / 2, B, (size_t)(I / 2), j * (bj / 2),
-                           bj / 2, group, W, (size_t)K, j * (bj / group), m0, M, n0, K, sm);
-  const float s_mid = scl[1];
-  float* pj = part + (size_t)j * M * K;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, e, r, c);
-        const int row = m0 + r, col = n0 + c;
-        if (row >= M || col >= K) continue;
-        pj[(size_t)row * K + col] = __fmul_rn(y[0][mi][nj][e], s_mid);
-      }
-}
-
-}  // namespace dec
-}  // namespace qdm
+#include "decode_mlp_q.cuh"
 
 extern "C" int qdm_decode_mlp_i4(const void* x, int x_dtype, const void* wg_t, const void* wu_t,
                                  const void* wd_t, const void* sg, const void* su,
@@ -129,9 +58,10 @@ extern "C" int qdm_decode_mlp_i4(const void* x, int x_dtype, const void* wg_t, c
       static_cast<const float*>(su), scl, act, static_cast<int8_t*>(ai), M, K, I, group);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int n_j = I / bj;
-  down_partial_i4_kernel<<<dim3((K + 63) / 64, n_j, mt), kThreads, 0, s>>>(
+  down_partial_i4_kernel<false><<<dim3((K + 63) / 64, n_j, mt), kThreads, 0, s>>>(
       static_cast<const int8_t*>(ai), static_cast<const unsigned char*>(wd_t),
-      static_cast<const float*>(sd), scl, static_cast<float*>(part), M, K, I, bj, group);
+      static_cast<const float*>(sd), scl, static_cast<float*>(part), M, K, I, bj, group,
+      Finish{});
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int blocks = (int)(((size_t)M * K + 255) / 256);
   if (x_dtype == kDtypeBF16)

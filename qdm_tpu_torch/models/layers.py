@@ -21,7 +21,10 @@ layer declares the parameters its mode needs, as the Flax module does:
   conv rule matches) runs its pack-time fake-quantized float kernel; mode
   "w8a8": ``qweight`` int8 of that shape and ``scales`` (out,), with a
   dynamic per-tensor activation scale, im2col and an int8 GEMM
-  (layers.py:352-354).
+  (layers.py:352-354).  ``QDense`` mode "w8a8_xla" (plain XLA on the TPU,
+  the LLM engine's quantized module prefill): unpadded ``qweight`` (K, N)
+  int8, ``scales`` (N,) and, for ``act_quant="static"``, ``act_scale`` (1,);
+  an exact int32 product (``torch._int_mm`` on the card).
 
 Parameters are declared on the ``meta`` device and filled by
 :func:`load_tree` from a nested dict keyed like the Flax param tree.
@@ -53,7 +56,7 @@ META = torch.device("meta")
 
 _ROADMAP_MODES = (
     "ROADMAP.md Queue 1 item 3 (remaining QDense/QConv modes: fake, fake_act, "
-    "w8a8_xla, w8a16, w4a16_xla, static conv act scales, per-group conv act quant)")
+    "w8a16, w4a16_xla, static conv act scales, per-group conv act quant)")
 W4_MODES = ("w4a16", "w4a8")
 
 
@@ -149,6 +152,13 @@ class QDense(QuantLayer):
         elif self.mode == "w8a8":
             _declare(self, "qweight", (qmm._round_up(in_features, 32), np_), torch.int8)
             _declare(self, "scales", (1, np_))
+        elif self.mode == "w8a8_xla":
+            # unpadded int8 codes and per-column scales; a static act scale
+            # (fill_static_act_scales) or per-token scales at run time
+            _declare(self, "qweight", (in_features, features), torch.int8)
+            _declare(self, "scales", (features,))
+            if self.spec.act_quant == "static":
+                _declare(self, "act_scale", (1,))
         elif self.mode in W4_MODES:
             self.group_size = rtn.w4_group_size(in_features, self.spec.group_size)
             kp = qmm._round_up(in_features, math.lcm(qmm.PACK_BLOCK_K, self.group_size))
@@ -166,6 +176,10 @@ class QDense(QuantLayer):
         if self.mode == "w8a8":
             self._w_t, self._bias_p = _w8a8_operands(self.qweight, self.bias
                                                      if self.use_bias else None)
+        elif self.mode == "w8a8_xla" and self.qweight.device.type == "cuda":
+            # the same codes laid out column-major, the layout on which
+            # cuBLASLt's int8 product (torch._int_mm) runs fast (PERF.md, PR 7)
+            self.qweight = nn.Parameter(self.qweight.t().contiguous().t(), requires_grad=False)
 
     @property
     def kernel_name(self) -> Optional[str]:
@@ -202,6 +216,9 @@ class QDense(QuantLayer):
             return y.reshape(*batch_shape, self.features)
         if self.mode in W4_MODES:
             y = self._forward_w4(x2)
+        elif self.mode == "w8a8_xla":
+            y = w8a8_xla(x2, self.qweight, self.scales,
+                         self.act_scale if self.spec.act_quant == "static" else None)
         else:
             y = torch.matmul(x2.to(self.dtype), self.kernel.to(self.dtype))
         if self.use_bias:
@@ -209,6 +226,24 @@ class QDense(QuantLayer):
         if res2 is not None:
             y = y + res2.to(y.dtype)
         return y.reshape(*batch_shape, self.features).to(self.dtype)
+
+
+def w8a8_xla(x2: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+             act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``w8a8_xla`` dense product (``layers.py:170-192``, plain XLA on
+    the TPU): the static scale ``act_scale[0]``, or per row ``clip(max |x|,
+    1e-5) / 127`` (times XLA's f32 reciprocal of 127, as the jitted module
+    computes it); ``xi = clip(round(x / xs), +-127)`` by IEEE division;
+    ``y = acc_int32 * (xs * scales)`` in f32."""
+    if act_scale is not None:
+        xs = act_scale.to(torch.float32).reshape(1, 1)
+    else:
+        xs = torch.clamp(x2.abs().amax(dim=-1, keepdim=True).to(torch.float32),
+                         min=1e-5) * qmm.INV127
+    # x / xs and acc * s promote to f32 inside one elementwise pass each
+    xi = torch.div(x2, xs).round_().clamp_(-127, 127).to(torch.int8)
+    acc = qmm.int8_matmul_xla(xi, qweight)
+    return acc * (xs * scales.reshape(1, -1).to(torch.float32))
 
 
 def _w8a8_operands(qweight, bias) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,9 +11,11 @@ A long prefill (S >= ``QDM_FLASH_PREFILL_MIN``, default 1024, a multiple
 of 128, cache index 0) runs its attention through
 ``ops/flash_prefill.flash_prefill_gqa`` on the local k / v, with the q
 rope in the kernel on standard positions, as the JAX module does on its
-accelerator (``llama.py:256-271``, ``:401-436``).  The route depends on
-the shapes alone, on every device: the CPU computes the kernel's plain
-version where the card runs the kernel.
+accelerator (``llama.py:256-271``, ``:401-436``); with ``plan.int8_bmm``
+its int8 QK / PV variant (``qk_int8``), which the einsum route ignores, as
+in the JAX module.  The route depends on the shapes alone, on every device:
+the CPU computes the kernel's plain version where the card runs the
+kernel.
 
 The other architectures of the JAX config space raise
 ``NotImplementedError`` naming ROADMAP.md where a config or a call
@@ -190,6 +192,8 @@ class LlamaAttention(nn.Module):
         if plan.fuse_qkv:
             raise NotImplementedError(f"fuse_qkv on the LLM is not ported yet: {_ROADMAP}")
         self.cfg, self.dtype = cfg, dtype
+        # int8 QK / PV attention (quantize_bmm_input), read on the flash route only
+        self.int8_bmm = plan.int8_bmm
         h, hkv, d, k = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
                         cfg.hidden_size)
         self.q_proj = QDense(k, h * d, use_bias=False, dtype=dtype, plan=plan, path=f"{path}/q_proj")
@@ -239,7 +243,8 @@ class LlamaAttention(nn.Module):
             if kernel_rope:
                 rc, rs = fp.rope_tables(s, d, cfg.rope_theta, device=x.device)
             of = fp.flash_prefill_gqa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                      sm_scale=cfg.attn_scale, rope_cos=rc, rope_sin=rs)
+                                      sm_scale=cfg.attn_scale, rope_cos=rc, rope_sin=rs,
+                                      qk_int8=self.int8_bmm)
             out = of.transpose(1, 2).reshape(b, s, h * d).to(self.dtype)
             return self.o_proj(out), kv_cache
         k_pos = torch.arange(kv_len, device=x.device)[None, :]

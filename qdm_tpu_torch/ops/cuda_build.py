@@ -66,6 +66,15 @@ ENTRY_POINTS = {
                         (P, I, P, P, P, P, F, P, P, I, P, I, P, I, P, I, I, I, I, P)),
     "decode_mlp_i4": ("qdm_decode_mlp_i4",
                       (P, I, P, P, P, P, P, P, P, P, F, I, I, P, I, P, P, P, I, I, I, I, I, P)),
+    "decode_o_mlp_i8": ("qdm_decode_o_mlp_i8",
+                        (P, I, P, P, P, I, P, P, P, P, P, P, P, P, P, F, I, P, I, P, P, P, P, P,
+                         P, P, I, I, I, I, I, P)),
+    "decode_o_mlp_i4": ("qdm_decode_o_mlp_i4",
+                        (P, I, P, P, P, I, P, P, P, P, P, P, P, P, P, F, I, P, I, P, P, P, P, P,
+                         P, P, I, I, I, I, I, I, P)),
+    "flash_prefill_i8": ("qdm_flash_prefill_i8",
+                         (P, I, L, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P, L, L, L, P, P, P,
+                          P, P, I, I, I, I, I, F, I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}
 

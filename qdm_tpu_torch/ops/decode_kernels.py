@@ -54,6 +54,12 @@ engine with a bf16 KV cache:
   kernels ``csrc/decode_dense_i4.cu`` (K16; replaces
   ``fused_dense_decode_i4_pallas``) and ``csrc/decode_mlp_i4.cu`` (K17;
   replaces ``fused_mlp_decode_i4_pallas``).
+* :func:`fused_o_mlp_decode_i8`, :func:`fused_o_mlp_decode_i4` — the
+  engine's ``merge_o`` layer tail: o_proj of the static int8 codes of the
+  attention output, ``x2 = o_proj + x`` kept in f32, then the int8 / int4
+  fused MLP on x2 and ``acc + x2``.  CUDA kernels ``csrc/decode_o_mlp_i8.cu``
+  (K25; replaces ``fused_o_mlp_decode_i8_pallas``) and
+  ``csrc/decode_o_mlp_i4.cu`` (K26; replaces ``fused_o_mlp_decode_i4_pallas``).
 
 Arithmetic shared by the kernels and their plain versions, so that both
 give the same bits on the card and the plain version the same bits on the
@@ -99,21 +105,21 @@ _NORMS = {None: 0, "rmsnorm": 1, "layernorm": 2}
 _ACTS = {"silu": 0, "gelu": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ATTN_SMEM = 200 * 1024
+TK_BYTES = 64                 # the tiles' K stage (csrc/decode_common.cuh TK)
 
 # quantized cache formats: kernel code of each (csrc/decode_attn_q.cuh) and
 # its launch counters (one-pass kernel, flash decode)
 KV_MODES = {"i8": 0, "i8c": 1, "i4c": 2}
 for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
            "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode",
-           "fused_dense_decode_i4", "fused_mlp_decode_i4",
-           *(f"decode_attention_kv_{m}" for m in KV_MODES),
+           "fused_dense_decode_i4", "fused_mlp_decode_i4", "fused_o_mlp_decode_i8",
+           "fused_o_mlp_decode_i4", *(f"decode_attention_kv_{m}" for m in KV_MODES),
            *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
 
 _FLASH_CHUNK = 1024     # K10: most cache columns one block reads (128 threads x 8)
 _FLASH_CTAS = 264       # K10: split T until about two blocks per SM of the H100
-# ``x / 127.0`` as XLA compiles it in the TPU kernels: times the f32 reciprocal
-INV127 = float(np.float32(1.0) / np.float32(127.0))
+INV127 = qmm.INV127          # ``x / 127.0`` as XLA compiles it in the TPU kernels
 _MASK_ONE_PASS, _MASK_FLASH = -1e9, -1e30    # the TPU kernels' masked logits
 
 
@@ -601,6 +607,60 @@ def fused_mlp_decode_i4_plain(x, wg_p, wu_p, wd_p, w_scales, act_scales, norm_sc
     if residual:
         acc = acc + x.to(torch.float32)
     return acc.to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# merged o_proj + residual + MLP (plain versions)
+# ---------------------------------------------------------------------------
+#
+# x2 = o_proj(a) + x stays in f32 (the TPU kernel keeps it in scratch), so
+# the merged layer is not the unmerged pair, whose o_proj rounds x2 to the
+# residual's dtype before the MLP reads it.
+
+
+def o_proj_x2_i8_plain(attn, w_o_i8, wo_scale, attn_scale, residual):
+    """The merged kernel's first step (``_fused_o_mlp_i8_kernel``, j == 0):
+    ``a = clip(round(attn * (1/s_ao)), +-127)``, ``x2 = f32(a @ W_o) *
+    (s_ao * wo_scale) + x`` in f32.  Returns (x2, a)."""
+    s_ao = attn_scale.reshape(1).to(torch.float32)
+    ai = _quant_static(attn.to(torch.float32), s_ao)
+    acc = qmm.int8_matmul_exact(ai, w_o_i8).to(torch.float32)
+    return acc * (s_ao * wo_scale.reshape(1, -1).to(torch.float32)) \
+        + residual.to(torch.float32), ai
+
+
+def o_proj_x2_i4_plain(attn, w_o_p, wo_scale, attn_scale, residual, group: int = 128):
+    """``_fused_o_mlp_i4_kernel``'s first step: the planar int4 group dot
+    of the static codes of attn, times s_ao, plus x, in f32.  Returns
+    (x2, a)."""
+    s_ao = attn_scale.reshape(1).to(torch.float32)
+    ai = _quant_static(attn.to(torch.float32), s_ao)
+    y = i4_group_dot_plain(ai, w_o_p, wo_scale.to(torch.float32), s_ao, group)
+    return y + residual.to(torch.float32), ai
+
+
+def fused_o_mlp_decode_i8_plain(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, w_up,
+                                w_down, w_scales, act_scales, norm_scale, eps: float = 1e-6,
+                                act: str = "silu", block_j: int = 512, out_dtype=None):
+    """Plain version of :func:`fused_o_mlp_decode_i8`, in the TPU kernel's
+    order (``_fused_o_mlp_i8_kernel``): x2 in f32, then the int8 MLP on x2
+    block by block, ``acc + x2`` in the residual's dtype."""
+    x2, _ = o_proj_x2_i8_plain(attn, w_o_i8, wo_scale, attn_scale, residual)
+    return fused_mlp_decode_i8_plain(x2, w_gate, w_up, w_down, w_scales, act_scales,
+                                     norm_scale, eps, act, block_j,
+                                     out_dtype or residual.dtype)
+
+
+def fused_o_mlp_decode_i4_plain(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_p, wd_p,
+                                w_scales, act_scales, norm_scale, eps: float = 1e-6,
+                                act: str = "silu", block_j: int = 512, group: int = 128,
+                                out_dtype=None):
+    """Plain version of :func:`fused_o_mlp_decode_i4`, in the TPU kernel's
+    order (``_fused_o_mlp_i4_kernel``): x2 in f32 from the planar int4
+    o_proj, then the int4 MLP on x2 block by block, ``acc + x2``."""
+    x2, _ = o_proj_x2_i4_plain(attn, w_o_p, wo_scale, attn_scale, residual, group)
+    return fused_mlp_decode_i4_plain(x2, wg_p, wu_p, wd_p, w_scales, act_scales, norm_scale,
+                                     eps, act, block_j, group, out_dtype or residual.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1196,6 +1256,197 @@ def fused_mlp_decode_i4(x, wg_p, wu_p, wd_p, w_scales: Sequence[torch.Tensor], a
                  part.data_ptr(), m, k, inner, bj, int(group), _stream(x))
     cuda_build.check(err, "fused_mlp_decode_i4")
     qmm.LAUNCHES["fused_mlp_decode_i4"] += 1
+    return out
+
+
+# zeroed int32 counters of the merged kernels (the o_proj grid's barrier, the
+# down blocks' tickets), per device: each launch sets the counters it used
+# back to 0, so launches on one stream share them
+_COUNTERS: dict = {}
+
+
+def _counters(dev, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return c
+
+
+def _o_mlp_operands(what, attn, residual, norm_scale, act, out_dtype, hd_w, k_w, w_t, shapes,
+                    scratch, inner):
+    """Card checks shared by K25 and K26; returns the contiguous operands
+    and the (attn codes, x2, xi, mid) scratch."""
+    if act not in _ACTS:
+        raise ValueError(f"act {act!r}")
+    if (attn.dim() != 2 or residual.dim() != 2 or attn.dtype not in _DTYPE_CODE
+            or residual.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE):
+        raise ValueError(f"{what}: attn and the residual must be 2-D bf16/f32, got "
+                         f"{tuple(attn.shape)} {attn.dtype}, {tuple(residual.shape)} "
+                         f"{residual.dtype} -> {out_dtype}")
+    m, hd = attn.shape
+    k = residual.shape[1]
+    if residual.shape[0] != m or (hd_w, k_w) != (hd, k):
+        raise ValueError(f"{what}: o_proj weight for ({hd_w} -> {k_w}) does not take attn "
+                         f"{tuple(attn.shape)} and residual {tuple(residual.shape)}")
+    dev = attn.device
+    if residual.device != dev or norm_scale is None:
+        raise ValueError(f"{what}: the residual lies on attn's device and the RMSNorm scale "
+                         "is given (the merged layer norms x2)")
+    for t, shape in zip(w_t, shapes):
+        if (t.dtype != torch.int8 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != dev):
+            raise ValueError(f"{what}: transposed weights must be contiguous, 16-byte aligned "
+                             f"int8 {shape} on attn's device")
+    codes, x2, xi, mid = scratch or (None, None, None, None)
+    if codes is not None:
+        codes = _scratch(codes, (m, hd), dev)
+    attn = attn.contiguous()
+    if attn.data_ptr() % 16 or (codes is not None and codes.data_ptr() % 16):
+        raise ValueError(f"{what}: attn and its codes' scratch must be 16-byte aligned "
+                         "(the o_proj tiles stage and store them 16 bytes at a time)")
+    if x2 is None:
+        x2 = torch.empty((m, k), dtype=torch.float32, device=dev)
+    elif (tuple(x2.shape) != (m, k) or x2.dtype != torch.float32 or not x2.is_contiguous()
+          or x2.device != dev):
+        raise ValueError(f"{what}: x2 scratch must be a contiguous f32 ({m}, {k}) tensor")
+    xi = _scratch(xi, (m, k), dev)
+    mid = _scratch(mid, (m, inner), dev)
+    return attn, residual.contiguous(), codes, x2, xi, mid
+
+
+def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, w_up, w_down,
+                          w_scales: Sequence[torch.Tensor], act_scales, norm_scale,
+                          eps: float = 1e-6, act: str = "silu", block_j: int = 512,
+                          out_dtype=None,
+                          w_t: Optional[Tuple[torch.Tensor, ...]] = None,
+                          scratch: Optional[Tuple] = None):
+    """Merged o_proj + residual + RMSNorm + int8 MLP + residual (K25):
+    attn (B, hd) -> x2 = o_proj(attn) + residual in f32 -> x2 +
+    down(act(gate(n)) * up(n)), n = RMSNorm(x2), in the residual's dtype.
+    w_o_i8 (hd, K) int8 with per-column scales wo_scale (1, K) and the
+    static act scale attn_scale (1,); the MLP as :func:`fused_mlp_decode_i8`
+    (act_scales (2,) = [s_in, s_mid]).  w_t, if given, holds the transposed
+    copies (o (K, hd), gate (I, K), up (I, K), down (K, I)); scratch, if
+    given, (attn codes (B, hd) or None, x2 (B, K) f32, xi (B, K), mid
+    (B, I)) receive what the kernel computes on the way.  The o_proj grid,
+    K/64 x ceil(B/32) blocks, runs as a cooperative launch (a barrier
+    across it): a batch whose grid cannot be resident at once on the card
+    raises."""
+    out_dtype = out_dtype or residual.dtype
+    name = "fused_o_mlp_decode_i8"
+    if not _on_card(attn, name):
+        return fused_o_mlp_decode_i8_plain(attn, w_o_i8, wo_scale, attn_scale, residual,
+                                           w_gate, w_up, w_down, w_scales, act_scales,
+                                           norm_scale, eps, act, block_j, out_dtype)
+    hd_w, k = w_o_i8.shape
+    inner = w_gate.shape[1]
+    if w_gate.shape != (k, inner) or w_up.shape != (k, inner) or w_down.shape != (inner, k):
+        raise ValueError(f"{name}: MLP weights {tuple(w_gate.shape)}, {tuple(w_up.shape)}, "
+                         f"{tuple(w_down.shape)} for K={k}")
+    if hd_w % TK_BYTES or k % 16 or inner % LANE:
+        raise ValueError(f"{name}: hd={hd_w} must be a multiple of {TK_BYTES}, K={k} of 16 "
+                         f"and I={inner} of {LANE}")
+    wts = w_t or tuple(transposed_weight(t) for t in (w_o_i8, w_gate, w_up, w_down))
+    attn, residual, codes, x2, xi, mid = _o_mlp_operands(
+        name, attn, residual, norm_scale, act, out_dtype, hd_w, k, wts,
+        ((k, hd_w), (inner, k), (inner, k), (k, inner)), scratch, inner)
+    dev = attn.device
+    wos = _f32_vec(wo_scale, k, "wo_scale", dev)
+    sg = _f32_vec(w_scales[0], inner, "gate scales", dev)
+    su = _f32_vec(w_scales[1], inner, "up scales", dev)
+    sd = _f32_vec(w_scales[2], k, "down scales", dev)
+    sao = _f32_vec(attn_scale, 1, "attn_scale", dev)
+    scl = _f32_vec(act_scales, 2, "act_scales", dev)
+    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    bj = pick_block(inner, block_j)
+    m = attn.shape[0]
+    out = torch.empty((m, k), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    n_j, mt = inner // bj, qmm._cdiv(m, 32)
+    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    ss = torch.empty((m, qmm._cdiv(k, 64)), dtype=torch.float64, device=dev)
+    cnt = _counters(dev, 2 + qmm._cdiv(k, 64) * mt)
+    fn = cuda_build.kernel("decode_o_mlp_i8")
+    with torch.cuda.device(dev):
+        err = fn(attn.data_ptr(), _DTYPE_CODE[attn.dtype], wts[0].data_ptr(), wos.data_ptr(),
+                 residual.data_ptr(), _DTYPE_CODE[residual.dtype], wts[1].data_ptr(),
+                 wts[2].data_ptr(), wts[3].data_ptr(), sg.data_ptr(), su.data_ptr(),
+                 sd.data_ptr(), sao.data_ptr(), scl.data_ptr(), ns.data_ptr(), ctypes.c_float(eps),
+                 _ACTS[act], out.data_ptr(), _DTYPE_CODE[out_dtype], _ptr(codes), x2.data_ptr(),
+                 ss.data_ptr(), xi.data_ptr(), mid.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                 m, hd_w, k, inner, bj, _stream(attn))
+    cuda_build.check(err, name)
+    qmm.LAUNCHES[name] += 1
+    return out
+
+
+def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_p, wd_p,
+                          w_scales: Sequence[torch.Tensor], act_scales, norm_scale,
+                          eps: float = 1e-6, act: str = "silu", block_j: int = 512,
+                          group: int = 128, out_dtype=None,
+                          w_t: Optional[Tuple[torch.Tensor, ...]] = None,
+                          scratch: Optional[Tuple] = None):
+    """The int4 :func:`fused_o_mlp_decode_i8` (K26): w_o_p (hd/2, K)
+    planar int4 (block 0) with group scales (hd/group, K); the MLP as
+    :func:`fused_mlp_decode_i4` (wd_p packed per ``mlp_i4_block(I,
+    block_j)`` inner block).  w_t, if given, holds the transposed packs
+    (o (K, hd/2), gate (I, K/2), up (I, K/2), down (K, I/2)); scratch as
+    for :func:`fused_o_mlp_decode_i8`."""
+    out_dtype = out_dtype or residual.dtype
+    name = "fused_o_mlp_decode_i4"
+    if not _on_card(attn, name):
+        return fused_o_mlp_decode_i4_plain(attn, w_o_p, wo_scale, attn_scale, residual, wg_p,
+                                           wu_p, wd_p, w_scales, act_scales, norm_scale, eps,
+                                           act, block_j, group, out_dtype)
+    half_o, k = w_o_p.shape
+    inner = wg_p.shape[1]
+    if (wg_p.shape != (k // 2, inner) or wu_p.shape != (k // 2, inner)
+            or wd_p.shape != (inner // 2, k) or k % 2 or inner % 2):
+        raise ValueError(f"{name}: packed MLP weights {tuple(wg_p.shape)}, {tuple(wu_p.shape)}, "
+                         f"{tuple(wd_p.shape)} for K={k}")
+    bj = mlp_i4_block(inner, block_j)
+    _i4_kernel_group(group, half_o, f"{name} (o_proj)")
+    _i4_kernel_group(group, k // 2, name)
+    _i4_kernel_group(group, bj // 2, f"{name} (down blocks)")
+    wts = w_t or tuple(transposed_weight(t) for t in (w_o_p, wg_p, wu_p, wd_p))
+    attn, residual, codes, x2, xi, mid = _o_mlp_operands(
+        name, attn, residual, norm_scale, act, out_dtype, 2 * half_o, k, wts,
+        ((k, half_o), (inner, k // 2), (inner, k // 2), (k, inner // 2)), scratch, inner)
+    dev = attn.device
+    sc = []
+    for t, shape, what in zip((wo_scale, *w_scales),
+                              ((2 * half_o // group, k), (k // group, inner),
+                               (k // group, inner), (inner // group, k)),
+                              ("o_proj", "gate", "up", "down")):
+        t = t.to(torch.float32).contiguous()
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name}: {what} scales {tuple(t.shape)} are not {shape} on "
+                             "attn's device")
+        sc.append(t)
+    sao = _f32_vec(attn_scale, 1, "attn_scale", dev)
+    scl = _f32_vec(act_scales, 2, "act_scales", dev)
+    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    m = attn.shape[0]
+    out = torch.empty((m, k), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    n_j, mt = inner // bj, qmm._cdiv(m, 32)
+    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    ss = torch.empty((m, qmm._cdiv(k, 64)), dtype=torch.float64, device=dev)
+    cnt = _counters(dev, 2 + qmm._cdiv(k, 64) * mt)
+    fn = cuda_build.kernel("decode_o_mlp_i4")
+    with torch.cuda.device(dev):
+        err = fn(attn.data_ptr(), _DTYPE_CODE[attn.dtype], wts[0].data_ptr(), sc[0].data_ptr(),
+                 residual.data_ptr(), _DTYPE_CODE[residual.dtype], wts[1].data_ptr(),
+                 wts[2].data_ptr(), wts[3].data_ptr(), sc[1].data_ptr(), sc[2].data_ptr(),
+                 sc[3].data_ptr(), sao.data_ptr(), scl.data_ptr(), ns.data_ptr(),
+                 ctypes.c_float(eps), _ACTS[act], out.data_ptr(), _DTYPE_CODE[out_dtype],
+                 _ptr(codes), x2.data_ptr(), ss.data_ptr(), xi.data_ptr(), mid.data_ptr(),
+                 part.data_ptr(), cnt.data_ptr(), m, 2 * half_o, k, inner, bj, int(group),
+                 _stream(attn))
+    cuda_build.check(err, name)
+    qmm.LAUNCHES[name] += 1
     return out
 
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from qdm_tpu_torch.ops import cuda_build
@@ -157,6 +158,11 @@ def w4_dequant(qweight: torch.Tensor, scales: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+# ``x / 127.0`` as XLA compiles it inside jit (the TPU kernels, a jitted
+# module): times the f32 reciprocal
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
 def div_exact(t: torch.Tensor, d: float) -> torch.Tensor:
     """``t / d`` by IEEE division on every device (a CUDA tensor divided by
     a python float is multiplied by the reciprocal instead)."""
@@ -179,6 +185,17 @@ def quantize_rows_int8(x: torch.Tensor, kp: int
     if kp > x.shape[1]:
         xi = torch.nn.functional.pad(xi, (0, kp - x.shape[1]))
     return xi, div_exact(absmax, 127.0)
+
+
+def int8_matmul_xla(a_i8: torch.Tensor, b_i8: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of an int8 dot that was plain XLA on the TPU
+    (``QDense`` ``w8a8_xla``, never a Pallas kernel): ``torch._int_mm`` on
+    the card where it takes the shapes (more than 16 rows, K and N multiples
+    of 8), else :func:`int8_matmul_exact`."""
+    m, k = a_i8.shape
+    if a_i8.device.type == "cuda" and m > 16 and k % 8 == 0 and b_i8.shape[1] % 8 == 0:
+        return torch._int_mm(a_i8.contiguous(), b_i8)
+    return int8_matmul_exact(a_i8, b_i8)
 
 
 def int8_matmul_exact(a_i8: torch.Tensor, b_i8: torch.Tensor) -> torch.Tensor:

@@ -7,14 +7,15 @@ kernels are (out, in, kh, kw).  The packing gives the same int8 and int4
 bytes and f32 scales as the JAX package (conv codes in the transposed
 layout).
 
-Ported: dense ``w8a8``, ``w4a16`` and ``w4a8``; conv ``w8a8`` with dynamic
-activation scales; and the fake-quantized kernel of a 4-D layer planned
+Ported: dense ``w8a8``, ``w8a8_xla`` (with ``fill_static_act_scales``),
+``w4a16`` and ``w4a8``; conv ``w8a8`` with dynamic activation scales; and the fake-quantized kernel of a 4-D layer planned
 with another real mode (the SD UNet's 1x1 ``proj_in``/``proj_out``, which
 no conv rule matches).  The other modes raise and are ROADMAP items.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Iterator, Tuple
 
 import torch
@@ -24,7 +25,7 @@ from qdm_tpu_torch.quant import pseudo, rtn
 from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan
 
 _NOT_PORTED = ("is not ported yet: ROADMAP.md Queue 1 items 2, 3 and 11 "
-               "(fake quant versions, w8a16, w4a16_xla, w8a8_xla, static act scales)")
+               "(fake quant versions, w8a16, w4a16_xla, static conv act scales)")
 
 
 def iter_layers(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], dict]]:
@@ -64,12 +65,18 @@ def pack_dense_layer(layer: dict, spec: LayerQuantSpec) -> dict:
         if zeros is not None:
             new["zeros"] = zeros
         return new
-    if spec.mode != "w8a8":
+    if spec.mode not in ("w8a8", "w8a8_xla"):
         raise NotImplementedError(f"pack_dense_layer mode {spec.mode!r} {_NOT_PORTED}")
     kernel = kernel.to(torch.float32)
     scale_n = qmm.div_exact(kernel.abs().amax(dim=0).clamp_min(1e-5), 127.0)
     codes = torch.round(kernel / scale_n[None, :]).clamp(-128, 127)
-    new["qweight"], new["scales"] = qmm.pack_linear_int8(codes, scale_n)
+    if spec.mode == "w8a8":
+        new["qweight"], new["scales"] = qmm.pack_linear_int8(codes, scale_n)
+        return new
+    # w8a8_xla: unpadded buffers, and the static act scale's placeholder
+    new["qweight"], new["scales"] = codes.to(torch.int8), scale_n
+    if spec.act_quant == "static":
+        new["act_scale"] = torch.ones(1, dtype=torch.float32, device=kernel.device)
     return new
 
 
@@ -144,14 +151,20 @@ def fuse_qkv_params(params: dict) -> dict:
 
 # fused projection -> an unfused module sharing its input (the stats were
 # captured on the unfused layout)
-_FUSED_STAT_FALLBACK = (("to_qkv", "to_q"), ("to_kv", "to_k"))
+_FUSED_STAT_FALLBACK = (("to_qkv", "to_q"), ("to_kv", "to_k"), ("add_qkv_proj", "add_q_proj"),
+                        ("qkv_proj", "q_proj"), ("gate_up_proj", "gate_proj"))
 
 
 def fill_static_act_scales(params: dict, act_stats: Dict[str, torch.Tensor],
                            margin: float = 1.0, strict: bool = False) -> dict:
     """Set calibrated per-tensor static act scales (max-over-channels / 127
-    * margin) on packed layers that hold an ``act_scale``.  The SD1.5
-    per-token plan packs none, so this returns the tree unchanged there."""
+    * margin) on packed layers that hold a one-value ``act_scale``
+    (``apply.py:426-471``): the LLM engine's static module prefill
+    (``w8a8_xla``); the SD1.5 per-token plan packs none, so this returns
+    the tree unchanged there.  A fused projection without stats of its own
+    takes its first unfused member's.  A layer without stats keeps its 1.0
+    placeholder, which breaks its int8 activations: it warns, or raises
+    ``KeyError`` if ``strict``."""
     out = params
 
     def rec(tree, prefix):
@@ -171,13 +184,13 @@ def fill_static_act_scales(params: dict, act_stats: Dict[str, torch.Tensor],
                 s = qmm.div_exact(act_stats[key].max().clamp_min(1e-5), 127.0)
                 out = _set_at(out, prefix + ("act_scale",),
                               (s * margin).reshape(1).to(torch.float32))
-            elif strict:
-                raise KeyError(f"no calibration stats for {'/'.join(prefix)!r}")
             else:
-                import warnings
-
-                warnings.warn(f"fill_static_act_scales: no calibration stats for "
-                              f"{'/'.join(prefix)!r}; act_scale stays at 1.0")
+                msg = (f"fill_static_act_scales: no calibration stats for "
+                       f"'{'/'.join(prefix)}' — act_scale stays at the 1.0 placeholder "
+                       "(int8 activation quant broken for this layer)")
+                if strict:
+                    raise KeyError(msg)
+                warnings.warn(msg)
             return
         for k, v in tree.items():
             rec(v, prefix + (str(k),))

@@ -699,3 +699,177 @@ def test_i4_checks_flag_planted_faults_on_card():
     got = dk.fused_mlp_decode_i4(x, pg, pu, pd, (sg, su, shifted), scl, None, block_j=256)
     torch.cuda.synchronize()
     assert not torch.equal(got, want)
+
+
+def _o_mlp_operands(m, hd, k, i, group, seed, dev, dtype):
+    """attn (m, hd), residual (m, k), o_proj and MLP weights (int8 codes and
+    scales, or int4 planar packs and group scales, the down projection
+    packed per inner block), act scales [s_ao] and [s_in, s_mid], norm."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+    attn, res = f(m, hd).to(dtype), f(m, k).to(dtype)
+    ws = [f(hd, k, s=hd ** -0.5), f(k, i, s=k ** -0.5), f(k, i, s=k ** -0.5),
+          f(i, k, s=i ** -0.5)]
+    if group:
+        blk = dk.mlp_i4_block(i)
+        q = [_i4_pack(w, group, b) for w, b in zip(ws, (0, 0, 0, blk))]
+    else:
+        q = [_quant_w(w) for w in ws]
+    a_o = (attn.float().abs().amax() / 127 * 0.9).reshape(1)
+    scl = torch.tensor([2.5 / 127, 0.4 / 127], device=dev)
+    return attn, res, q, a_o, scl, f(k).abs() + 0.5
+
+
+# (M, HD, K, I, group (0: int8), bf16): the 7B and TinyLlama decode shapes, and tiny ones
+O_MLP_CASES = [
+    (8, 4096, 4096, 11008, 0, True), (32, 2048, 2048, 5632, 0, True),
+    (8, 4096, 4096, 11008, 128, True), (32, 2048, 2048, 5632, 128, True),
+    (3, 128, 128, 1024, 0, False), (35, 256, 128, 1024, 64, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,hd,k,i,group,bf16", O_MLP_CASES)
+def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16):
+    """K25 / K26 against their plain versions: the attention codes, x2 (f32),
+    the MLP input and mid codes identical, outputs equal."""
+    dev = _card()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    attn, res, q, a_o, scl, ns = _o_mlp_operands(m, hd, k, i, group, m + hd + i + group, dev,
+                                                 dtype)
+    (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+    codes = torch.empty((m, hd), dtype=torch.int8, device=dev)
+    x2 = torch.empty((m, k), dtype=torch.float32, device=dev)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    mid = torch.empty((m, i), dtype=torch.int8, device=dev)
+    args = (attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd), scl, ns)
+    name = "fused_o_mlp_decode_i4" if group else "fused_o_mlp_decode_i8"
+    before = qmm.LAUNCHES[name]
+    if group:
+        got = dk.fused_o_mlp_decode_i4(*args, group=group, scratch=(codes, x2, xi, mid))
+        want = dk.fused_o_mlp_decode_i4_plain(*args, group=group)
+        want_x2, want_a = dk.o_proj_x2_i4_plain(attn, wo, so, a_o, res, group)
+    else:
+        got = dk.fused_o_mlp_decode_i8(*args, scratch=(codes, x2, xi, mid))
+        want = dk.fused_o_mlp_decode_i8_plain(*args)
+        want_x2, want_a = dk.o_proj_x2_i8_plain(attn, wo, so, a_o, res)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    assert torch.equal(codes, want_a) and torch.equal(x2, want_x2)
+    want_xi = dk._quant_static(dk._prologue(want_x2, ns, None, 1e-6, "rmsnorm"), scl[0:1])
+    assert torch.equal(xi, want_xi)
+    assert got.dtype == dtype and torch.equal(got, want), \
+        float((got.float() - want.float()).abs().max())
+    # a second call on the same counters: they were set back to 0
+    assert torch.equal(dk.fused_o_mlp_decode_i4(*args, group=group) if group
+                       else dk.fused_o_mlp_decode_i8(*args), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 128])
+def test_o_mlp_checks_flag_planted_faults_on_card(group):
+    """An o_proj scale row 1e-3 off, the down scale rows shifted by a block,
+    and a_o x1.01 make K25 / K26 differ from their plain versions."""
+    dev = _card()
+    m, hd, k, i = 8, 512, 512, 1024
+    attn, res, q, a_o, scl, ns = _o_mlp_operands(m, hd, k, i, group, 5, dev, torch.bfloat16)
+    (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+    fn, plain = ((dk.fused_o_mlp_decode_i4, dk.fused_o_mlp_decode_i4_plain) if group
+                 else (dk.fused_o_mlp_decode_i8, dk.fused_o_mlp_decode_i8_plain))
+    kw = dict(group=group) if group else {}
+    want = plain(attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd), scl, ns, **kw)
+    bad_o = so.clone()
+    bad_o[0] *= 1.0 + 1e-3
+    blk = dk.mlp_i4_block(i) if group else dk.pick_block(i, 512)
+    # int4: the down scale rows of the next inner block; int8 (one scale row
+    # for all blocks): the scale columns of the next 64-column tile
+    shifted = torch.roll(sd, blk // group, dims=0) if group else torch.roll(sd, 64, dims=-1)
+    for args in ((attn, wo, bad_o, a_o, res, wg, wu, wd, (sg, su, sd), scl, ns),
+                 (attn, wo, so, a_o, res, wg, wu, wd, (sg, su, shifted), scl, ns),
+                 (attn, wo, so, a_o * 1.01, res, wg, wu, wd, (sg, su, sd), scl, ns)):
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert not torch.equal(got, want)
+
+
+def _p_codes_kept(s, blk, start, dev):
+    """(S, S) mask of the p codes K8b computes: all but the key blocks wholly
+    before ``start`` in the rows of 64-row tiles that hold no pad row."""
+    rows, cols = torch.arange(s, device=dev)[:, None], torch.arange(s, device=dev)[None, :]
+    return ~(((rows // 64) * 64 >= start) & (cols < (start // blk) * blk))
+
+
+# (b, h, hkv, s, d, rope, starts, bf16): the 7B prefill cut in batch, GQA with a
+# masked row, TPU blocks of 128 (s 1152), f32 q
+FLASH_I8_CASES = [
+    (1, 4, 4, 2048, 128, True, None, True),
+    (2, 8, 1, 512, 64, True, (0, 100), True),
+    (1, 4, 2, 1152, 64, False, (300,), True),
+    (2, 4, 2, 256, 64, True, (0, 256), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,s,d,rope,starts,bf16", FLASH_I8_CASES)
+def test_flash_prefill_i8_kernel_matches_plain_on_card(b, h, hkv, s, d, rope, starts, bf16):
+    """K8b against its plain version: q, k and v codes and scales and the p
+    codes of batch row 0, head 0 identical, output within
+    ``kernel_error_i8``'s limits."""
+    dev = _card()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(b + h + s + d)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev,
+                                                                                         dtype)
+    q = f(b, s, h, d).transpose(1, 2)
+    k, v = f(b, s, hkv, d).transpose(1, 2), f(b, s, hkv, d).transpose(1, 2)
+    cos, sin = fp.rope_tables(s, d, 10000.0, device=dev) if rope else (None, None)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    before = qmm.LAUNCHES["flash_prefill_gqa_i8"]
+    trace, want_trace = {}, {}
+    got = fp._flash_i8(q, k, v, d ** -0.5, cos, sin, st, trace=trace)
+    want = fp.flash_prefill_gqa_i8_plain(q, k, v, d ** -0.5, cos, sin, st, trace=want_trace)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["flash_prefill_gqa_i8"] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    for what in ("q_codes", "k_codes", "k_scales", "v_codes", "v_scales"):
+        assert torch.equal(trace[what], want_trace[what]), what
+    # the kernel skips the TPU key blocks wholly before starts[0] for rows of
+    # tiles without pad rows: the plain version's running maximum is still
+    # -1e30 there, its p codes garbage that the next block wipes
+    keep = _p_codes_kept(s, fp.prefill_block(s), 0 if starts is None else starts[0], dev)
+    assert torch.equal(trace["p_codes"][keep], want_trace["p_codes"][keep])
+    share, mean = fp.kernel_error_i8(got, want, v)
+    assert share <= 1.0 and mean <= fp.MEAN_LIMIT, (share, mean)
+    assert torch.equal(fp.flash_prefill_gqa(q, k, v, d ** -0.5, cos, sin, st, qk_int8=True), got)
+
+
+# the quantized heads: (M, K, V, group (0: int8 K6))
+HEAD_CASES = [(8, 4096, 32000, 0), (8, 4096, 32000, 128), (32, 2048, 32000, 128),
+              (3, 128, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,v,group", HEAD_CASES)
+def test_quantized_head_kernels_match_plain_on_card(m, k, v, group):
+    """K6 / K16 at the head's shape (the final norm, f32 logits): codes
+    identical, outputs equal."""
+    dev = _card()
+    rng = np.random.default_rng(m + k + group)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((k, v)) * k ** -0.5).astype(np.float32)).to(dev)
+    ns = torch.from_numpy(np.abs(rng.standard_normal(k)).astype(np.float32) + 0.5).to(dev)
+    a = torch.tensor([4.0 / 127], device=dev)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    kw = dict(norm_scale=ns, out_dtype=torch.float32)
+    if group:
+        w_p, ws = _i4_pack(w, group)
+        got = dk.fused_dense_decode_i4(x, w_p, ws, a, group=group, scratch=xi, **kw)
+        want = dk.fused_dense_decode_i4_plain(x, w_p, ws, a, group=group, **kw)
+    else:
+        codes, ws = _quant_w(w)
+        got = dk.fused_dense_decode_i8(x, codes, ws, a, scratch=xi, **kw)
+        want = dk.fused_dense_decode_i8_plain(x, codes, ws, a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(xi, dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), a))
+    assert got.dtype == torch.float32 and torch.equal(got, want)

@@ -120,8 +120,10 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
     assert qmm.LAUNCHES == before
     assert torch.equal(got, fp.flash_prefill_gqa_plain(q, k, v, 0.17, cos, sin,
                                                        starts=torch.tensor([9])))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fp.flash_prefill_gqa(q, k, v, 0.17, qk_int8=True)
+    # the int8 QK / PV variant (K8b) takes its own plain version on the CPU
+    got = fp.flash_prefill_gqa(q, k, v, 0.17, cos, sin, qk_int8=True)
+    assert qmm.LAUNCHES == before
+    assert torch.equal(got, fp.flash_prefill_gqa_i8_plain(q, k, v, 0.17, cos, sin))
 
 
 # (b, h, hkv, s, d, rope): the Llama-2-7B head (d 128), the JAX

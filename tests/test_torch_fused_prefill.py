@@ -246,16 +246,19 @@ def test_fused_prefill_falls_back_to_the_module(s, monkeypatch):
 
 def test_fused_prefill_refusals():
     """A quantized KV cache with the fused prefill is refused as in JAX
-    (serve.py:2723-2738); the other quantized prefills are not ported; a
-    bf16 engine keeps the module prefill (serve.py:929)."""
+    (serve.py:2723-2738); the other quantized prefills build the int8
+    module prefill instead of the fused one (tests/test_torch_prefill_quant.py
+    holds them against JAX); a bf16 engine keeps the module prefill
+    (serve.py:929)."""
     tlm = CausalLM.from_config(llama.LlamaConfig(**GEOM), device="cpu", seed=2)
     stats = DecodeEngine.calibrate_scales(tlm, _ids(1, (2, 8)))
     for kv in (dict(kv_dtype=torch.int8), dict(kv_dtype="int4")):
         with pytest.raises(NotImplementedError, match="bf16 KV"):
             DecodeEngine(tlm, mode="w4a8_static", act_stats=stats, prefill_quant="fused", **kv)
     for pq in (True, "dynamic", "static", "static_i8attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecodeEngine(tlm, mode="w8a8_static", act_stats=stats, prefill_quant=pq)
+        eng = DecodeEngine(tlm, mode="w8a8_static", act_stats=stats, prefill_quant=pq)
+        assert eng.prefill_quant and not eng.prefill_fused
+        assert eng._prefill_model.plan.int8_bmm == (pq == "static_i8attn")
     assert not DecodeEngine(tlm, mode="bf16", prefill_quant="fused").prefill_fused
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CausalLM.from_config(llama.LlamaConfig(**GEOM, attention_bias=True), device="cpu").serve(

@@ -166,10 +166,12 @@ def test_smooth_lm_params_match_jax():
     assert moved > 0       # the migration changed the norms and kernels
 
 
-def _engines(calib_seed=3, kv=None, mode="w8a8_static"):
+def _engines(calib_seed=3, kv=None, mode="w8a8_static", **ekw):
     """Both engines from the JAX lifecycle's smoothed params and stats;
-    ``kv`` names a quantized KV cache (a key of ``KV_FORMATS``)."""
+    ``kv`` names a quantized KV cache (a key of ``KV_FORMATS``), ``ekw``
+    holds engine options both packages take as they are (``head_quant``)."""
     jkw, tkw = KV_FORMATS[kv] if kv else ({}, {})
+    jkw, tkw = {**jkw, **ekw}, {**tkw, **ekw}
     jlm, _ = _lms(2)
     calib = _ids(calib_seed, (4, 32))
     je = jlm.serve(calib, mode=mode, smooth=True, **jkw)
@@ -340,16 +342,21 @@ def test_engine_on_cpu_runs_the_plain_versions():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(kv_scale_mode="channel"), ValueError, "requires kv_dtype"),
-    (dict(prefill_quant="static_i8attn"), NotImplementedError, "ROADMAP"),
-    (dict(merge_o=True), NotImplementedError, "ROADMAP"),
+    (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+    (dict(gptq_grams={"layers_0/self_attn/q_proj": np.eye(128, dtype=np.float32)}),
+     NotImplementedError, "ROADMAP"),
     (dict(kv_dtype="auto"), ValueError, "recommended_kv"),
-    (dict(head_quant="int8"), NotImplementedError, "ROADMAP"),
-    (dict(prefill_quant=True), NotImplementedError, "ROADMAP")])
+    (dict(head_quant="int5"), ValueError, "head_quant"),
+    (dict(head_quant="int8", drop_stat="lm_head"), ValueError, "lm_head")])
 def test_unported_engine_options_raise(kw, exc, match):
-    """The options still to port raise naming ROADMAP.md; the KV-cache
-    options reject what the JAX engine rejects (``serve.py:412-427``)."""
+    """The options still to port (``mesh``, ``gptq_grams``) raise naming
+    ROADMAP.md; the KV-cache and head options reject what the JAX engine
+    rejects (``serve.py:412-427``, ``:869-880``): an unknown head format,
+    a quantized head without the ``lm_head`` stat."""
     _, tlm = _lms(0)
     stats = DecodeEngine.calibrate_scales(tlm, _ids(1, (2, 8)))
+    kw = dict(kw)
+    stats.pop(kw.pop("drop_stat", None), None)
     with pytest.raises(exc, match=match):
         DecodeEngine(tlm, **{"mode": "w8a8_static", "act_stats": stats, **kw})
 
@@ -357,7 +364,7 @@ def test_unported_engine_options_raise(kw, exc, match):
 def test_unported_serve_and_generate_options_raise():
     _, tlm = _lms(0)
     calib = _ids(1, (2, 8))
-    for kw in (dict(awq=True), dict(gptq=True), dict(head_quant="int4")):
+    for kw in (dict(awq=True), dict(gptq=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.serve(calib, **{"mode": "w8a8_static", **kw})
     eng = tlm.serve(calib, mode="w8a8_static")
@@ -365,6 +372,67 @@ def test_unported_serve_and_generate_options_raise():
                dict(prefill_chunk=8)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.generate(_ids(2, (1, 8)), max_new_tokens=2, **kw)
+
+
+@pytest.mark.parametrize("head,mode", [("int8", "w8a8_static"), ("int4", "w4a8_static"),
+                                       ("int8", "bf16")])
+def test_quantized_head_matches_jax(tpu_dispatch, head, mode):
+    """``head_quant`` (``serve.py:860-899``, ``_head_logits`` ``:2242-2266``):
+    the head's codes or planar int4 packs, scales and static act scale
+    byte-identical to the JAX engine's, carried across by
+    ``engine_head_from_jax``; the int4 group hidden/2 at this width; the
+    final norm's int8 codes identical; each layer and the head's f32
+    logits within 1e-5 of their magnitude (the JAX head under the TPU
+    dispatch, K6 / K16 in interpret mode).  The JAX engine quantizes the
+    head in any mode, bf16 included, when it has the ``lm_head`` stat."""
+    from qdm_tpu_torch.convert import engine_head_from_jax
+
+    if mode == "bf16":
+        jlm, tlm = _lms(2)
+        calib = _ids(3, (4, 32))
+        je = jlm.serve(mode="bf16", head_quant=head,
+                       act_stats=JaxEngine.calibrate_scales(jlm, calib))
+        te = tlm.serve(mode="bf16", head_quant=head,
+                       act_stats=DecodeEngine.calibrate_scales(tlm, calib))
+    else:
+        je, te = _engines(mode=mode, head_quant=head)
+    assert te.head_quant == je.head_quant == head
+    want = engine_head_from_jax(je._head)
+    for g, w in zip(te._head, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if mode != "bf16":            # bf16: each side calibrates its own stats
+            assert torch.equal(g, w)
+    if head == "int4":
+        assert te._head_group == je._head_group == GEOM["hidden_size"] // 2
+        assert te._head[0].shape == (GEOM["vocab_size"], GEOM["hidden_size"] // 2)
+    if mode == "bf16":
+        return
+    x = np.random.default_rng(9).standard_normal((4, GEOM["hidden_size"])).astype(np.float32)
+    a = float(np.asarray(je._head[2]).reshape(-1)[0])
+    xf = jdk._norm_f32(jnp.asarray(x), je.final_norm, 0.0, te.cfg.rms_norm_eps, "rmsnorm")
+    jcodes = np.asarray(jnp.clip(jnp.round(xf * (1.0 / a)), -127, 127)).astype(np.int8)
+    tcodes = tdk._quant_static(tdk._prologue(torch.from_numpy(x), te.final_norm, None,
+                                             te.cfg.rms_norm_eps, "rmsnorm"), te._head[2])
+    assert np.array_equal(jcodes, tcodes.numpy())
+    with torch.inference_mode():
+        got = te._head_logits(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    assert _rel(got.numpy(), np.asarray(je._head_logits(jnp.asarray(x), je._head,
+                                                         je.final_norm))) <= 1e-5
+    assert _layer_by_layer(je, te, _ids(4, (3, 40)), 48) <= 1e-5
+
+
+@pytest.mark.parametrize("head,mode", [("int8", "w8a8_static"), ("int4", "w4a8_static")])
+def test_quantized_head_engine_greedy_matches_jax(tpu_dispatch, head, mode):
+    """``serve(calib, mode, smooth=True, head_quant=...)`` -> 15 greedy
+    decode steps at batch 3 on each side: identical tokens."""
+    jlm, tlm = _lms(5)
+    calib, ids = _ids(6, (4, 32)), _ids(7, (3, 24))
+    want = jlm.serve(calib, mode=mode, smooth=True, head_quant=head).generate(
+        ids, max_new_tokens=16)
+    got = tlm.serve(calib, mode=mode, smooth=True, head_quant=head).generate(
+        ids, max_new_tokens=16)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_flash_decode_engine_matches_jax_layer_by_layer(tpu_dispatch, flash_decode):
