@@ -42,12 +42,19 @@ down scales shifted by a block and a_o x1.01 planted and flagged; CUDA
 launches per call counted against the unmerged pair's), the int8 flash
 prefill K8b at the 7B prefill and a GQA shape with a masked row (q and p
 codes identical, output within ``flash_prefill.kernel_error_i8``'s
-limits, v scales 1e-2 off planted and flagged), and K6 / K16 at the
-lm_head's shape (8 x 4096 -> 32000, f32 logits).  It times the kernel, the
-plain version and a library yardstick (timed here only, the port never
-calls them):
+limits, v scales 1e-2 off planted and flagged), K6 / K16 at the
+lm_head's shape (8 x 4096 -> 32000, f32 logits), and the SD1.5 UNet's plan
+options: K18 (the int8 flash attention of ``int8_bmm``) at its three
+self-attention shapes (batch 4 x 8 heads at S 4096 / D 40, S 1024 / D 80,
+S 256 / D 160; q, k, v and p codes identical, output within
+``flash_int8.kernel_error``'s limits, v scales 1e-2 off planted and
+flagged) and K1 with its LayerNorm prologue (``fuse_ln``) at to_qkv and
+attn2's to_q (16384 rows; codes identical, 0 ulp, a LayerNorm scale 1e-3
+off planted and flagged).  It times the kernel, the plain version and a
+library yardstick (timed here only, the port never calls them):
 ``torch._int_mm`` for W8A8, K15 and K2-silu and for K6 / K8 (with
-elementwise quant and dequant), ``torch.matmul`` with the weight
+elementwise quant and dequant; after ``F.layer_norm`` for K1-LN), SDPA on
+bf16 q, k, v for K18, ``torch.matmul`` with the weight
 dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
 for K5 and, on bf16-dequantized int4 weights, K16 (three matmuls and silu
 for K11 and K17), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7 and K10
@@ -57,8 +64,13 @@ timed over enough weight / cache copies to exceed the 50 MB L2 cache, as
 a decode step finds them cold.
 Phase 3 drives the port's paths with random weights: at full SD1.5 width
 ``from_config -> quantize -> generate`` of two 512 px images in 20 DDIM
-steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8, checking the images
-and that each kernel was launched as often as the quantized plan says;
+steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8, and from the same
+float weights the static plan (a) ``quantize(sq)`` with static act scales,
+(b) the same with per-step scales, (c) the static plan with ``int8_bmm``
+and (d) the per-token plan with ``fuse_ln``, the last two built from their
+``QuantPlan`` (K2 320 in each, K18 300 in (c), K1-LN 640 in (d), K1 in
+none of (a)-(c)), checking the images and that each kernel was launched as
+often as the quantized plan says;
 the LLM path at full TinyLlama-1.1B width: ``CausalLM.from_config ->
 serve(calib_ids (8, 512), mode="w8a8_static", smooth=True) ->
 generate((32, 512), max_new_tokens=64)``, checking the tokens and that K6,
@@ -80,7 +92,10 @@ the long route in ``w8a8_static`` and ``bf16``, the tiny w4a8 engine
 and tiny engines with ``merge_o`` in both modes, both quantized heads and
 the four ``prefill_quant`` values (each K25, K26, K6, K16, K8b call and
 each int8 product of the prefill's w8a8_xla layers), with planted faults
-that those layer witnesses must flag.  Last, with the SD and TinyLlama objects
+that those layer witnesses must flag; and tiny UNets of the static plan
+with and without ``int8_bmm`` and of the ``fuse_ln`` plan at 16 x 16
+latents, layer by layer and each K18 call, each with a planted fault.
+Last, with the SD and TinyLlama objects
 freed, the long-prompt path at full Llama-2-7B width (weights drawn on the
 card): ``serve(mode="w8a8_static", smooth=True)``; on its smoothed weights
 the w8a8 engine with the KV caches ``recommended_kv(2112)`` picks (int4
@@ -101,13 +116,14 @@ Each path's launch counts are set to 0 just before its ``generate`` and
 read just after.  At TinyLlama width ``serve(calib, merge_o=True,
 head_quant="int4")`` runs too: K26 1386, K16 1449, K7 1386, K17 and K5 0.
 With ``--profile`` it also times warm ``generate`` calls in turn (median
-and range of five each): the W4A16, W8A8 and bf16 SD pipelines, the
+and range of five each): the W4A16, W8A8, W8A8-static, W8A8-static with
+``int8_bmm``, W8A8 with ``fuse_ln`` and bf16 SD pipelines, the
 TinyLlama engine against the bf16 module, and the 7B w8a8, bf16 and w4a8
 fused-prefill engines (the last one's fused prefill against its module
 prefill), each 7B merged engine's decode loop and prefill against an
 unmerged engine of its mode on the same weights, with CUDA launches per
-layer and step; and prints the device time by kernel of two W4A16
-denoising steps and of three decode steps of each engine.
+layer and step; and prints the device time by kernel of two W4A16 and two
+W8A8-static denoising steps and of three decode steps of each engine.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -117,6 +133,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -233,6 +250,10 @@ KERNEL_INFO = {
                               "qdm_tpu/ops/decode_kernels.py:2183"),
     "flash_prefill_gqa_i8": ("qdm_tpu_torch/csrc/flash_prefill_i8.cu",
                              "qdm_tpu/ops/flash_prefill.py:116"),
+    "flash_int8_attention": ("qdm_tpu_torch/csrc/flash_int8.cu",
+                             "qdm_tpu/ops/flash_int8.py:116"),
+    "w8a8_matmul_fused_epi+ln": ("qdm_tpu_torch/csrc/w8a8_fused_epi.cu",
+                                 "qdm_tpu/ops/quant_matmul.py:592"),
 }
 # the quantized KV caches: (kv_dtype, kv_scale_mode) of serve() and the cache
 # format of the attention kernels; the 7B path runs them in this order
@@ -259,6 +280,15 @@ K8B_FAULT = 1e-2              # relative error planted into K8b's v scales
 K8B_TOL = ("each element within 1 bf16 ulp + max |v| / 127 of its kv head, mean |err| <= "
            "2^-12 of the mean |output|")
 PREFILL_FAULT = 1e-2          # relative error planted into K15's / K2-silu's weight scales
+# the SD1.5 UNet's plan options: K18 (int8_bmm) at its self-attentions, (B, S, H, D) with
+# batch 4 = 2 prompts x CFG, and K1 with the LayerNorm prologue (fuse_ln) at to_qkv / to_q
+K18_SHAPES = [("down_blocks_0 attn1", 4, 4096, 8, 40), ("down_blocks_1 attn1", 4, 1024, 8, 80),
+              ("down_blocks_2 attn1", 4, 256, 8, 160)]
+K18_FAULT = 1e-2              # relative error planted into K18's v scales
+K18_TOL = ("q, k, v and p codes identical; each element within 1 bf16 ulp + max |v| / 127 of "
+           "its head, mean |err| <= 2^-12 of the mean |output|")
+LN_SHAPES = [("attn1/to_qkv (+res)", 16384, 320, 960, True), ("attn2/to_q", 16384, 320, 320, False)]
+LN_FAULT = 1e-3               # relative error planted into K1's LayerNorm scale
 
 
 def fail(msg: str) -> None:
@@ -1786,6 +1816,134 @@ def phase_merged_kernels(dev, res: dict) -> dict:
     return out
 
 
+def _check_flash_int8(label, b, s, h, d, dev, timed):
+    """K18 against its plain version at the TPU dispatch's blocks (key
+    blocks of min(S, 1024)), q, k, v the strided chunks of one fused qkv
+    projection as the UNet hands them over: q, k, v and p codes and scales
+    identical, output within ``flash_int8.kernel_error``'s limits; v off by
+    K18_FAULT (its scales off, its codes the same; planted) must read
+    beyond them."""
+    from qdm_tpu_torch.ops import flash_int8 as fi8
+
+    gen = torch.Generator(device=dev).manual_seed(b + s + h + d + 18)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+    sm, bk = d ** -0.5, min(s, 1024)
+    trace, want_trace = {}, {}
+    got = fi8.flash_int8_attention(q, k, v, sm, block_q=512, block_k=bk, trace=trace)
+    torch.cuda.synchronize()
+    want = fi8.flash_int8_attention_plain(q, k, v, sm, block_k=bk, trace=want_trace)
+    for what in ("q_codes", "q_scales", "k_codes", "k_scales", "v_codes", "v_scales",
+                 "p_codes"):
+        if not torch.equal(trace[what], want_trace[what]):
+            fail(f"flash_int8_attention {label}: {what} differ from the plain version in "
+                 f"{int((trace[what] != want_trace[what]).sum())} places")
+    del trace, want_trace
+    share, mean = fi8.kernel_error(got, want, v)
+    err = float((got.float() - want.float()).abs().max())
+    if share > 1.0 or mean > fi8.MEAN_LIMIT or not torch.isfinite(got).all():
+        fail(f"flash_int8_attention {label}: max abs err {err}, element bound share "
+             f"{share:.3f}, mean ratio {mean:.3g}, beyond {K18_TOL}")
+    bad = fi8.flash_int8_attention(q, k, v * (1.0 + K18_FAULT), sm, block_q=512, block_k=bk)
+    bad_share, bad_mean = fi8.kernel_error(bad, want, v)
+    if bad_share <= 1.0 and bad_mean <= fi8.MEAN_LIMIT:
+        fail(f"flash_int8_attention {label}: the check misses v scales off by {K18_FAULT:g} "
+             f"(planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}")
+    n_equal = int((got == want).sum())
+    row = {"layer": label, "B": b, "S": s, "H": h, "d": d, "max_abs_err": err, "ulps": 1,
+           "tol": f"{K18_TOL}: element bound share {share:.3f}, mean ratio {mean:.3g} "
+           f"({n_equal} of {got.numel()} elements equal); v scales off by {K18_FAULT:g} "
+           f"(planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}"}
+    del want, bad
+    if timed:
+        kern = lambda: fi8.flash_int8_attention(q, k, v, sm, block_q=512, block_k=bk)
+        plain = lambda: fi8.flash_int8_attention_plain(q, k, v, sm, block_k=bk)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=sm)
+        # QK^T and PV, int8; the bf16 q, k, v read once and the bf16 output written once
+        ops = 4 * b * h * s * s * d
+        nbytes = 2 * 4 * b * s * h * d
+        row.update(ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=2, warmup=1),
+                   library_ms=cuda_ms(lib, iters=10), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+    return row
+
+
+def _check_k1_ln(label, rng, m, k, n, with_res, dev):
+    """K1 with its LayerNorm prologue against its plain version: int8 codes
+    and row scales identical to the plain LayerNorm's, outputs 0 ulp; the
+    LayerNorm scale off by LN_FAULT (planted) must change the codes.
+    Timed against ``F.layer_norm`` + K1's library yardstick."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    x, w_i8, w_scale, bias = _operands(rng, m, k, n, dev)
+    ln = (torch.from_numpy((rng.standard_normal(k) * 0.2 + 1.0).astype(np.float32)).to(dev),
+          torch.from_numpy((rng.standard_normal(k) * 0.1).astype(np.float32)).to(dev))
+    res = torch.from_numpy(rng.standard_normal((m, n), np.float32)).to(dev, torch.bfloat16) \
+        if with_res else None
+    kp = w_i8.shape[0]
+    w_t = qmm.transposed_weight(w_i8)
+    xi = torch.empty((m, kp), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    kern = lambda ln_=ln: qmm.w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=res,
+                                                     n_out=n, w_t=w_t, scratch=(xi, xs), ln=ln_)
+    plain = lambda: qmm.w8a8_matmul_fused_epi_plain(x, w_i8, w_scale, bias, residual=res,
+                                                    n_out=n, ln=ln)
+    out = kern()
+    torch.cuda.synchronize()
+    ref = plain()
+    xi_ref, xs_ref = qmm.quantize_rows_int8(qmm.layer_norm_rows(x, *ln), kp)
+    if not torch.equal(xi, xi_ref):
+        fail(f"w8a8_matmul_fused_epi+ln {label}: int8 codes differ from the plain version "
+             f"in {int((xi != xi_ref).sum())} places")
+    if not torch.equal(xs, xs_ref.reshape(-1)):
+        fail(f"w8a8_matmul_fused_epi+ln {label}: row scales differ from the plain version")
+    ulps = bf16_ulp_diff(out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    if ulps != 0 or not torch.isfinite(out).all():
+        fail(f"w8a8_matmul_fused_epi+ln {label}: {ulps} bf16 ulps from the plain version "
+             f"(max abs err {err}); tolerance is 0 ulp")
+    bad = kern((ln[0] * (1.0 + LN_FAULT), ln[1]))
+    torch.cuda.synchronize()
+    n_bad = int((xi != xi_ref).sum())
+    if n_bad == 0 or torch.equal(bad, ref):
+        fail(f"w8a8_matmul_fused_epi+ln {label}: the check misses a LayerNorm scale off by "
+             f"{LN_FAULT:g} (planted)")
+    w_k = w_i8[:k].t().contiguous().t()
+
+    def lib():
+        xn = torch.nn.functional.layer_norm(x.float(), (k,), ln[0], ln[1], 1e-5)
+        q, s_ = qmm.quantize_rows_int8(xn, k)
+        y = torch._int_mm(q, w_k).to(torch.float32) * (s_ * w_scale) + bias
+        y = y[:, :n] if res is None else y[:, :n] + res.float()
+        return y.to(x.dtype)
+
+    nbytes = (m * k * 2 + w_t.numel() + 2 * w_scale.numel() * 4 + 2 * k * 4 + m * n * 2
+              + (m * n * 2 if res is not None else 0))
+    ops = 2 * m * k * n
+    row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": ulps,
+           "tol": f"codes and row scales identical, 0 ulp; LayerNorm scale off by {LN_FAULT:g} "
+           f"(planted): {n_bad} codes differ",
+           "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+           "library_ms": cuda_ms(lib), "bytes": nbytes, "ops": ops}
+    row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+    return row
+
+
+def phase_sd_option_kernels(dev) -> dict:
+    """K18 at SD1.5's three self-attention shapes and K1 with the LayerNorm
+    prologue at to_qkv and attn2's to_q, all timed."""
+    rng = np.random.default_rng(8)
+    out = {"flash_int8_attention": [], "w8a8_matmul_fused_epi+ln": []}
+    for label, b, s, h, d in K18_SHAPES:
+        out["flash_int8_attention"].append(_check_flash_int8(label, b, s, h, d, dev, True))
+        torch.cuda.empty_cache()
+    for label, m, k, n, with_res in LN_SHAPES:
+        out["w8a8_matmul_fused_epi+ln"].append(_check_k1_ln(label, rng, m, k, n, with_res, dev))
+    _print_rows(out)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1797,6 +1955,15 @@ def run_path(label: str, pipe) -> dict:
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
     cfg, method, kernels = PATHS[label]
+    t_quant = _quantize_checked(label, pipe, cfg, method)
+    phases = ", ".join(f"{k} {v:.1f} s" for k, v in pipe.quantize_seconds.items())
+    return _generate_checked(label, pipe, kernels, f"quantize({method}) {t_quant:.1f} s "
+                                                   f"({phases})", t_quant)
+
+
+def _quantize_checked(label, pipe, cfg, method) -> float:
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
     qmm.reset_launches()
     t0 = time.perf_counter()
     pipe.quantize(cfg, quantType=method)
@@ -1804,6 +1971,14 @@ def run_path(label: str, pipe) -> dict:
     t_quant = time.perf_counter() - t0
     if any(qmm.LAUNCHES.values()):
         fail(f"{label}: kernels launched by quantize: {qmm.LAUNCHES}")
+    return t_quant
+
+
+def _generate_checked(label, pipe, kernels, made: str, t_quant: float) -> dict:
+    """generate with the launch counts set to 0 just before it and read just
+    after, held against the plan's count per UNet forward x STEPS."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
     qmm.reset_launches()
     t0 = time.perf_counter()
     images = pipe.generate(PROMPTS, num_inference_steps=STEPS, seed=0)
@@ -1819,8 +1994,7 @@ def run_path(label: str, pipe) -> dict:
     if launches != want or not all(want[k] for k in kernels):
         fail(f"{label} launches {launches} != expected {want} ({counts} per UNet "
              f"forward x {STEPS} steps; this path must launch {kernels})")
-    phases = ", ".join(f"{k} {v:.1f} s" for k, v in pipe.quantize_seconds.items())
-    print(f"phase 3: {label}: quantize({method}) {t_quant:.1f} s ({phases}), "
+    print(f"phase 3: {label}: {made}, "
           f"generate {len(PROMPTS)} x 512px x {STEPS} steps {t_gen:.2f} s "
           f"({len(PROMPTS) / t_gen:.3f} images/s); launches "
           f"{ {k: v for k, v in launches.items() if v} } (per UNet forward "
@@ -1849,6 +2023,98 @@ def phase_main_path(dev) -> dict:
                                                                         params=base)
         runs[label] = run_path(label, p)
     runs["base"] = base
+    return runs
+
+
+# the static plan (W8A8 SmoothQuant on calibrated per-tensor act scales: w8a8_xla dense
+# layers, static int8 convs, the GEGLU on K2) through quantize(); calibration as W8A8's
+SD_STATIC = {"w_bit": 8, "a_bit": 8, "version": "real", "quantize_act": True,
+             "act_quant_type": "static", "act_quant_conv_type": "static",
+             "calib": {"n_samples": 4, "batch_size": 4, "n_steps": 4}}
+# launches per generate fixed by the plans: 16 transformer blocks, 15 self-attentions at
+# S >= 256 (5 at each of 4096, 1024, 256), 20 steps
+STATIC_WANT = {
+    "W8A8-static": {"w8a8_geglu_fused": 320},
+    "W8A8-static per-step": {"w8a8_geglu_fused": 320},
+    "W8A8-static int8_bmm": {"w8a8_geglu_fused": 320, "flash_int8_attention": 300},
+    "W8A8 fuse_ln": {"w8a8_geglu_fused": 320, "w8a8_matmul_fused_epi+ln": 640,
+                     "w8a8_matmul_fused_epi": 1280},
+}
+
+
+def _sd_plans():
+    """(c) the static plan with int8_bmm: bench_sweep.py's
+    "xla_static_conv_bmm" plan plus bench.py's GEGLU rule; (d) the dynamic
+    W8A8 plan with fused QKV and LayerNorms, bench_sweep.py's "pallas"."""
+    from qdm_tpu_torch.quant.plan import LayerQuantSpec, QuantPlan
+
+    noq = LayerQuantSpec(mode="none")
+    w8x = LayerQuantSpec(mode="w8a8_xla", w_bits=8, a_bits=8, quantize_act=True,
+                         act_quant="static")
+    conv = LayerQuantSpec(mode="w8a8", w_bits=8, a_bits=8, quantize_act=True, act_quant="static")
+    w8 = LayerQuantSpec(mode="w8a8", w_bits=8, a_bits=8, quantize_act=True)
+    noemb = (("time_emb", noq), ("time_embedding", noq))
+    bmm = QuantPlan(default=w8x, fuse_qkv=True, int8_bmm=True,
+                    rules=(("net_0/proj", w8), ("conv", conv)) + noemb)
+    ln = QuantPlan(default=w8, fuse_qkv=True, fuse_ln=True, rules=(("conv", noq),) + noemb)
+    return bmm, ln
+
+
+def _plan_unet(pipe, plan, stats=None) -> None:
+    """Replace the pipeline's float UNet by one built from ``plan``, as the
+    JAX benches build theirs: fused QKV, ``pack_params``, and with stats
+    ``fill_static_act_scales``."""
+    from qdm_tpu_torch.models.layers import load_tree, module_tree
+    from qdm_tpu_torch.quant import apply as qapply
+
+    tree = qapply.pack_params(qapply.fuse_qkv_params(module_tree(pipe.components["unet"])),
+                              plan)
+    if stats is not None:
+        tree = qapply.fill_static_act_scales(tree, stats)
+    pipe.plans["unet"] = plan
+    pipe.components["unet"] = pipe._module("unet")
+    load_tree(pipe.components["unet"], tree)
+
+
+def phase_static_paths(dev, base) -> dict:
+    """The SD1.5 W8A8-static plan at full width from the float weights of
+    phase 3: (a) quantize(sq) with static act scales, (b) the same with one
+    set of scales per denoise step, (c) the static plan with int8_bmm (K18)
+    built from its QuantPlan on the float UNet's calibration, (d) the dynamic
+    plan with fuse_ln (K1's LayerNorm prologue); each generate with exact
+    launch counts, K1 in none of (a)-(c)."""
+    from qdm_tpu_torch.api.pipeline import StableDiffusion1_x
+    from qdm_tpu_torch.config import QuantConfig
+
+    runs = {}
+    for label, per_step in (("W8A8-static", False), ("W8A8-static per-step", True)):
+        pipe = StableDiffusion1_x.from_config(device=dev, params=base)
+        cfg = dict(SD_STATIC, act_per_step_scales=per_step)
+        t_quant = _quantize_checked(label, pipe, cfg, "sq")
+        lut = pipe.act_scale_luts.get("unet", {})
+        rows = {int(t.shape[0]) for t in lut.values()}
+        if per_step != bool(lut) or (per_step and rows != {SD_STATIC["calib"]["n_steps"]}):
+            fail(f"{label}: per-step tables {len(lut)} layers with rows {rows}")
+        made = f"quantize(sq, static) {t_quant:.1f} s" + (
+            f", per-step tables on {len(lut)} layers x {rows.pop()} steps" if per_step else "")
+        runs[label] = _generate_checked(label, pipe, ("w8a8_geglu_fused",), made, t_quant)
+    bmm, ln = _sd_plans()
+    for label, plan, kernels in (
+            ("W8A8-static int8_bmm", bmm, ("w8a8_geglu_fused", "flash_int8_attention")),
+            ("W8A8 fuse_ln", ln, ("w8a8_geglu_fused", "w8a8_matmul_fused_epi+ln"))):
+        pipe = StableDiffusion1_x.from_config(device=dev, params=base)
+        t0 = time.perf_counter()
+        stats = pipe._calibrate_unet(QuantConfig.from_dict(SD_STATIC)) if plan.int8_bmm else None
+        _plan_unet(pipe, plan, stats)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        runs[label] = _generate_checked(label, pipe, kernels, f"QuantPlan (int8_bmm "
+                                        f"{plan.int8_bmm}, fuse_ln {plan.fuse_ln}) calibrated "
+                                        f"and packed in {t_quant:.1f} s", t_quant)
+    for label, run in runs.items():
+        got = {k: v for k, v in run["launches"].items() if v}
+        if got != STATIC_WANT[label]:
+            fail(f"{label}: launches per generate {got}, the plan fixes {STATIC_WANT[label]}")
     return runs
 
 
@@ -1912,6 +2178,8 @@ def _layer_witness(ref_unet, unet, inputs, dev) -> Tuple[float, float]:
     from qdm_tpu_torch.models.layers import QuantLayer
 
     def to(v, d):
+        if isinstance(v, tuple):        # QDense's ln = (scale, bias) under fuse_ln
+            return tuple(to(t, d) for t in v)
         return v.to(d) if isinstance(v, torch.Tensor) else v
 
     calls = []
@@ -2029,6 +2297,172 @@ def phase_w4a8_witness(dev) -> None:
               f"one DDIM step: {', '.join(f'{e:.2e}' for e in f_steps)}", flush=True)
         if f_layer <= W4A8_LAYER_TOL:
             fail(f"the W4A8 layer witness misses a planted scale fault of {rel}")
+
+
+STATIC_LAYER_TOL = 1e-5       # tiny static / int8_bmm / fuse_ln UNets, card vs CPU, per layer
+STATIC_WITNESS_FAULT = 1e-3   # relative error planted into K2's weight scales, the folded
+                              # conv act scales and K1's LayerNorm
+
+
+@contextlib.contextmanager
+def _recorded_attention(calls: list) -> Iterator[None]:
+    """Record every int8 attention call the UNet makes on the CPU (inputs
+    and output)."""
+    from qdm_tpu_torch.ops import flash_int8 as fi8
+
+    fn = fi8.flash_int8_attention
+
+    def rec(q, k, v, scale, **kw):
+        out = fn(q, k, v, scale, **kw)
+        if q.device.type == "cpu":
+            calls.append(((q, k, v), scale, kw, out))
+        return out
+    fi8.flash_int8_attention = rec
+    try:
+        yield
+    finally:
+        fi8.flash_int8_attention = fn
+
+
+@contextlib.contextmanager
+def _planted_card_kw(mod, name: str, key: str, fault) -> Iterator[None]:
+    """Every card launch of ``mod.name`` gets its keyword ``key`` through
+    ``fault`` (the CPU's plain version stays sound)."""
+    kernel = getattr(mod, name)
+
+    def faulty(*a, **k):
+        if a[0].device.type == "cuda" and k.get(key) is not None:
+            k = dict(k, **{key: fault(k[key])})
+        return kernel(*a, **k)
+    setattr(mod, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, name, kernel)
+
+
+def phase_static_witness(dev) -> None:
+    """The tiny UNet (f32) of each new plan on the card and on the CPU with
+    the same packs, one CFG forward at 16 x 16 latents (so its S = 256
+    self-attentions take K18 under int8_bmm): the static plan (w8a8_xla
+    dense layers and static convs on calibrated scales, K2), the static plan
+    with static_channel convs (their act scales folded into the kernels
+    from the same stats), the static plan with int8_bmm, and the dynamic
+    plan with fuse_ln (K1's LayerNorm prologue).  Each QDense / QConv /
+    GEGLU call of the card fed the CPU call's inputs within
+    STATIC_LAYER_TOL of its output's magnitude, each K18 call on the CPU
+    call's q, k, v within ``kernel_error``'s limits; a fault planted into
+    each plan on the card (K2's weight scales, the folded conv act scales,
+    K18's v scales, K1's LayerNorm scale) must read beyond them."""
+    from qdm_tpu_torch.models import unet as unet_lib
+    from qdm_tpu_torch.models.layers import (capture_stats, flatten_tree, load_tree,
+                                             module_tree, unflatten_tree)
+    from qdm_tpu_torch.ops import flash_int8 as fi8
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+    from qdm_tpu_torch.quant import apply as qapply
+
+    ref = _tiny("cpu")
+    ctx, uctx = ref._encode_prompts(["a cat"], None)
+    lat = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(5))
+    inputs = (torch.cat([lat, lat]), torch.full((2,), 951, dtype=torch.int64),
+              torch.cat([uctx, ctx]))
+    with torch.inference_mode(), capture_stats(ref.components["unet"]) as stats:
+        ref.components["unet"](*inputs)
+    tree = qapply.fuse_qkv_params(module_tree(ref.components["unet"]))
+    bmm, ln = _sd_plans()
+    static = dataclasses.replace(bmm, int8_bmm=False)
+    channel = dataclasses.replace(static, rules=tuple(
+        (p, dataclasses.replace(spec, act_quant="static_channel") if p == "conv" else spec)
+        for p, spec in static.rules))
+    cfg = ref.configs["unet"]
+
+    def attention_witness(calls):
+        worst = (0.0, 0.0)
+        with torch.inference_mode():
+            for (q, k, v), scale, kw, out in calls:
+                got = fi8.flash_int8_attention(q.to(dev), k.to(dev), v.to(dev), scale, **kw)
+                worst = max(worst, fi8.kernel_error(got.cpu(), out, v))
+        return worst
+
+    for label, plan, planted in (
+            ("static", static, lambda u: _planted_card_fault(
+                qmm, "w8a8_geglu_fused", _scaled_arg(2, STATIC_WITNESS_FAULT))),
+            ("static_channel", channel,
+             lambda u: _planted_conv_act_scales(u, STATIC_WITNESS_FAULT)),
+            ("static + int8_bmm", bmm, lambda u: _planted_v_scales_k18(K18_FAULT)),
+            ("fuse_ln", ln, lambda u: _planted_card_kw(
+                qmm, "w8a8_matmul_fused_epi", "ln",
+                lambda l: (l[0] * (1.0 + STATIC_WITNESS_FAULT), l[1])))):
+        packed = qapply.pack_params(tree, plan, act_stats=stats)
+        if "static" in label:
+            packed = qapply.fill_static_act_scales(packed, stats)
+        unets = {d: load_tree(unet_lib.UNet2DCondition(cfg, dtype=torch.float32, plan=plan),
+                              unflatten_tree({p: t.to(d) for p, t in flatten_tree(packed).items()}))
+                 for d in ("cpu", dev)}
+
+        def readings():
+            calls = []
+            with _recorded_attention(calls):
+                layer, whole = _layer_witness(unets["cpu"], unets[dev], inputs, dev)
+            return layer, whole, len(calls), attention_witness(calls)
+
+        layer, whole, n_attn, (share, mean) = readings()
+        print(f"phase 3: tiny {label}, card vs CPU at 16 x 16 latents: largest layer error "
+              f"{layer:.2e} (limit {STATIC_LAYER_TOL:g}), whole UNet forward {whole:.2e}; "
+              f"{n_attn} int8 attentions, element bound share {share:.3f}, mean ratio "
+              f"{mean:.3g}", flush=True)
+        if layer > STATIC_LAYER_TOL or share > 1.0 or mean > fi8.MEAN_LIMIT:
+            fail(f"tiny {label} card vs CPU: layer error {layer}, attention share {share}, "
+                 f"mean ratio {mean}")
+        if n_attn != (3 if plan.int8_bmm else 0):
+            fail(f"tiny {label}: {n_attn} int8 attention calls")
+        with planted(unets[dev]):
+            f_layer, f_whole, _, (f_share, f_mean) = readings()
+        print(f"phase 3: tiny {label} with its kernel's planted fault on the card: largest "
+              f"layer error {f_layer:.2e}, whole UNet forward {f_whole:.2e}, attention share "
+              f"{f_share:.3f}, mean ratio {f_mean:.3g}", flush=True)
+        if f_layer <= STATIC_LAYER_TOL and f_share <= 1.0 and f_mean <= fi8.MEAN_LIMIT:
+            fail(f"the tiny {label} witness misses its planted fault")
+
+
+@contextlib.contextmanager
+def _planted_v_scales_k18(rel: float) -> Iterator[None]:
+    """K18's v scales off by ``rel`` on the card: the kernel gets v times (1 +
+    rel), so its per-channel scales are off and its codes stay."""
+    from qdm_tpu_torch.ops import flash_int8 as fi8
+
+    fn = fi8.flash_int8_attention
+
+    def faulty(q, k, v, scale, **kw):
+        if q.device.type == "cuda":
+            v = v * (1.0 + rel)
+        return fn(q, k, v, scale, **kw)
+    fi8.flash_int8_attention = faulty
+    try:
+        yield
+    finally:
+        fi8.flash_int8_attention = fn
+
+
+@contextlib.contextmanager
+def _planted_conv_act_scales(unet, rel: float) -> Iterator[None]:
+    """The card UNet's folded static_channel conv act scales off by ``rel``."""
+    from qdm_tpu_torch.models.layers import QConv
+
+    convs = [m for m in unet.modules()
+             if isinstance(m, QConv) and m.mode == "w8a8" and m.spec.act_quant == "static_channel"]
+    if not convs:
+        fail("no static_channel conv to plant a fault into")
+    saved = [m.act_scale.detach().clone() for m in convs]
+    with torch.no_grad():
+        for m in convs:
+            m.act_scale.mul_(1.0 + rel)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for m, t in zip(convs, saved):
+                m.act_scale.copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -3238,32 +3672,11 @@ def _spread(ts) -> str:
             f"n={len(ts)})")
 
 
-def phase_profile(dev, runs: dict) -> None:
-    """Optional (--profile): warm generate of the W4A16, the W8A8 and the
-    bf16 pipeline (the same weights), timed in turn PROFILE_REPEATS times
-    each, and the device time by kernel and idle share over two CFG
-    denoising steps of the W4A16 pipeline at 512 px."""
+def _profile_steps(label: str, pipe, dev) -> None:
+    """Device time by kernel and idle share over two CFG denoising steps at
+    512 px."""
     from torch.profiler import ProfilerActivity, profile
 
-    from qdm_tpu_torch.api.pipeline import StableDiffusion1_x
-
-    pipes = {"W4A16": runs["W4A16"]["pipe"], "W8A8": runs["W8A8"]["pipe"],
-             "bf16": StableDiffusion1_x.from_config(device=dev, params=runs["base"])}
-    for p in pipes.values():
-        _generate_s(p)                                         # warm-up
-    times = {label: [] for label in pipes}
-    for _ in range(PROFILE_REPEATS):
-        for label, p in pipes.items():
-            times[label].append(_generate_s(p))
-    for label, ts in times.items():
-        print(f"profile: {label} warm generate {len(PROMPTS)} x 512px x {STEPS} steps, "
-              f"s: {_spread(ts)}; images/s at the median "
-              f"{len(PROMPTS) / float(np.median(ts)):.4f}", flush=True)
-    for label in ("W4A16", "W8A8"):
-        ratios = [w / b for w, b in zip(times[label], times["bf16"])]
-        print(f"profile: {label} / bf16 time, run by run: {_spread(ratios)}", flush=True)
-
-    pipe = pipes["W4A16"]
     ctx, uctx = pipe._encode_prompts(PROMPTS, None)
     lat = torch.randn((len(PROMPTS), 64, 64, 4), device=dev)
     pipe.denoise(lat, ctx, uctx, steps=2, guidance=7.5)
@@ -3280,18 +3693,53 @@ def phase_profile(dev, runs: dict) -> None:
     print(events.table(sort_by="self_cuda_time_total", row_limit=25), flush=True)
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    print(f"profile: W4A16, 2 denoising steps take {wall_ms:.2f} ms of wall time untraced; "
+    print(f"profile: {label}, 2 denoising steps take {wall_ms:.2f} ms of wall time untraced; "
           f"the traced run keeps the device busy {busy_ms:.2f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f} of the untraced wall time)", flush=True)
+
+
+# --profile's warm-generate ratios: (numerator, denominator)
+PROFILE_RATIOS = (("W4A16", "bf16"), ("W8A8", "bf16"), ("W8A8-static", "bf16"),
+                  ("W8A8-static int8_bmm", "W8A8-static"), ("W8A8 fuse_ln", "W8A8"))
+
+
+def phase_profile(dev, runs: dict) -> None:
+    """Optional (--profile): warm generate of the W4A16, the W8A8, the three
+    new SD plans (static, static with int8_bmm, fuse_ln) and the bf16
+    pipeline (the same weights), timed in turn PROFILE_REPEATS times each,
+    and the device time by kernel and idle share over two CFG denoising
+    steps of the W4A16 and the W8A8-static pipelines at 512 px."""
+    from qdm_tpu_torch.api.pipeline import StableDiffusion1_x
+
+    pipes = {label: runs[label]["pipe"] for label in
+             ("W4A16", "W8A8", "W8A8-static", "W8A8-static int8_bmm", "W8A8 fuse_ln")}
+    pipes["bf16"] = StableDiffusion1_x.from_config(device=dev, params=runs["base"])
+    for p in pipes.values():
+        _generate_s(p)                                         # warm-up
+    times = {label: [] for label in pipes}
+    for _ in range(PROFILE_REPEATS):
+        for label, p in pipes.items():
+            times[label].append(_generate_s(p))
+    for label, ts in times.items():
+        print(f"profile: {label} warm generate {len(PROMPTS)} x 512px x {STEPS} steps, "
+              f"s: {_spread(ts)}; images/s at the median "
+              f"{len(PROMPTS) / float(np.median(ts)):.4f}", flush=True)
+    for num, den in PROFILE_RATIOS:
+        ratios = [a / b for a, b in zip(times[num], times[den])]
+        print(f"profile: {num} / {den} time, run by run: {_spread(ratios)}", flush=True)
+    for label in ("W4A16", "W8A8-static"):
+        _profile_steps(label, pipes[label], dev)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also time warm generate runs (SD W4A16, W8A8 and bf16 in turn; the "
+                    help="also time warm generate runs (SD W4A16, W8A8, W8A8-static, "
+                         "W8A8-static with int8_bmm, W8A8 with fuse_ln and bf16 in turn; the "
                          "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8, "
                          "bf16 and w4a8 fused-prefill engines in turn) and profile two W4A16 "
-                         "denoising steps and three decode steps of each engine")
+                         "and two W8A8-static denoising steps and three decode steps of each "
+                         "engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     args = ap.parse_args()
@@ -3307,6 +3755,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     kres = phase_kernels(dev)
+    kres.update(phase_sd_option_kernels(dev))
     kres.update(phase_w4_kernels(dev))
     kres.update(phase_decode_kernels(dev))
     kres.update(phase_long_kernels(dev, kres))
@@ -3314,11 +3763,13 @@ def main() -> int:
     kres.update(phase_w4a8_kernels(dev, kres))
     kres.update(phase_merged_kernels(dev, kres))
     runs = phase_main_path(dev)
+    runs.update(phase_static_paths(dev, runs["base"]))
     runs["LLM"] = phase_llm_path(dev, args.seed)
     runs.update(phase_llm_kv_paths(dev, runs["LLM"]))
     runs.update(phase_llm_w4a8_path(dev, runs["LLM"]))
     phase_small_reference(dev)
     phase_w4a8_witness(dev)
+    phase_static_witness(dev)
     phase_llm_witness(dev)
     phase_long_witness(dev)
     phase_kv_witness(dev)
@@ -3329,7 +3780,7 @@ def main() -> int:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])
     # the SD pipelines and the TinyLlama objects go before the 7B path
-    for label in (*PATHS, "LLM"):
+    for label in (*PATHS, *STATIC_WANT, "LLM"):
         runs[label] = {"launches": runs[label]["launches"]}
     runs.pop("base")
     gc.collect()

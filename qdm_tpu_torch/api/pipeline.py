@@ -8,7 +8,11 @@
 
 ``quantType="awq"`` with ``{"version": "real", "w_bit": 4}`` gives W4A16
 (int4 weights, group 128), and ``quantType="rtn"`` with ``{"version":
-"real", "w_bit": 4, "a_bit": 8, "quantize_act": True}`` W4A8.
+"real", "w_bit": 4, "a_bit": 8, "quantize_act": True}`` W4A8.  W8A8 with
+``"act_quant_type": "static", "act_quant_conv_type": "static"`` is the
+static plan (``w8a8_xla`` dense layers and int8 convs on calibrated
+per-tensor act scales, the GEGLU on K2), optionally with one set of scales
+per denoise step (``"act_per_step_scales": True``).
 
 Components are ``nn.Module``s built from a config and a ``QuantPlan``;
 quantization transforms their param trees (``module_tree``) and rebuilds
@@ -38,7 +42,7 @@ from qdm_tpu_torch.models.layers import (QDense, W8A8GEGLUProj, capture_inputs,
                                          capture_stats, flatten_tree, load_tree,
                                          module_tree, unflatten_tree)
 from qdm_tpu_torch.models.shims import sd_unet_scaling_groups
-from qdm_tpu_torch.ops import quant_matmul as qmm
+from qdm_tpu_torch.ops import flash_int8, quant_matmul as qmm
 from qdm_tpu_torch.quant import apply as qapply
 from qdm_tpu_torch.quant import awq as awq_lib
 from qdm_tpu_torch.quant import smooth as smooth_lib
@@ -49,8 +53,7 @@ from qdm_tpu_torch.utils.tokenizer import SimpleTokenizer
 QUANTIZABLE_COMPONENTS = ("unet", "text_encoder", "vae", "transformer")
 
 _ROADMAP_QUANT = ("is not ported yet (ROADMAP.md Queue 1 items 2, 7 and 11: "
-                  "GPTQ/codebook, fake quant, static act scales, text-encoder "
-                  "and VAE quantization)")
+                  "GPTQ/codebook, fake quant, text-encoder and VAE quantization)")
 _SQ = ("sq", "smooth", "smoothquant")
 
 
@@ -72,6 +75,9 @@ class BaseDiffusionPipeline:
         self.quant_config: Optional[QuantConfig] = None
         self.quantized_components: List[str] = []
         self.is_quantized = False
+        # per-denoise-step act scales by component: {layer path: (n_steps,)}
+        self.act_scale_luts: Dict[str, Dict[tuple, torch.Tensor]] = {}
+        self._pending_per_step: Optional[Dict[str, torch.Tensor]] = None
         # host seconds of the last quantize() by phase (calibrate, search, pack)
         self.quantize_seconds: Dict[str, float] = {}
 
@@ -177,31 +183,40 @@ class BaseDiffusionPipeline:
         if cfg.version != "real" or quantTextEncoder or quantVAE:
             raise NotImplementedError(f"version {cfg.version!r} / text encoder / VAE "
                                       f"quantization {_ROADMAP_QUANT}")
-        if cfg.act_per_step_scales or (
-                method == "rtn" and cfg.quantize_act
-                and "static" in (cfg.act_quant_type, cfg.act_quant_conv_type)):
-            raise NotImplementedError(f"static / per-step act scales {_ROADMAP_QUANT}")
         self.quant_config = cfg
         self.quantize_seconds = {}
         targets = ["unet"] if quantUnet and self.has_unet else []
         for name in targets:
             plan = self._make_plan(cfg, name)
             act_stats = None
+            self._pending_per_step = None
             if method in _SQ:
                 act_stats = self._smoothquant_component(
                     name, cfg, calib_cache=calib_cache, calib_prompts=calib_prompts,
                     calib_latents=calib_latents)
             elif method == "awq":
                 self._awq_component(name, cfg, calib_prompts, calib_latents)
+            elif method == "rtn" and cfg.quantize_act and "static" in (
+                    cfg.act_quant_type, cfg.act_quant_conv_type):
+                # capture-only calibration, no scale migration (pipeline.py:323-332)
+                act_stats = self._calibrate_unet(cfg, calib_prompts, calib_latents)
             t0 = time.perf_counter()
             tree = module_tree(self.components[name])
             if plan.fuse_qkv:
                 # after scale migration (its groups address unfused paths)
                 tree = qapply.fuse_qkv_params(tree)
-            tree = qapply.pack_params(tree, plan)
+            tree = qapply.pack_params(tree, plan, act_stats=act_stats,
+                                      act_margin=cfg.static_act_margin)
             if act_stats:
                 tree = qapply.fill_static_act_scales(tree, act_stats,
                                                      margin=cfg.static_act_margin)
+            self.act_scale_luts.pop(name, None)
+            if self._pending_per_step and cfg.act_per_step_scales:
+                lut = qapply.build_act_scale_lut(tree, self._pending_per_step,
+                                                 margin=cfg.static_act_margin)
+                if lut:
+                    self.act_scale_luts[name] = lut
+            self._pending_per_step = None
             self.plans[name] = plan
             self.components[name] = self._module(name)
             load_tree(self.components[name], tree)
@@ -218,9 +233,6 @@ class BaseDiffusionPipeline:
             raise NotImplementedError(f"a {cfg.version!r} plan for {component!r} "
                                       f"{_ROADMAP_QUANT}")
         dense_spec = spec_from_config(cfg, conv=False)
-        if dense_spec.mode == "w8a8_xla":
-            raise NotImplementedError(f"the W8A8-static UNet plan (dense w8a8_xla) "
-                                      f"{_ROADMAP_QUANT}")
         conv_spec = spec_from_config(cfg, conv=True)
         noq = LayerQuantSpec(mode="none")
         rules = [("conv", conv_spec), ("kernel4d", conv_spec),
@@ -249,7 +261,10 @@ class BaseDiffusionPipeline:
                         calib_prompts: Optional[Sequence[str]] = None,
                         calib_latents: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
         """Per-channel absmax of every layer input, mean over denoise steps
-        (quantizer_SQ.py:323-356 + calib_data.py:174-245)."""
+        (quantizer_SQ.py:323-356 + calib_data.py:174-245).  With
+        ``act_per_step_scales`` it also keeps the mean of each step apart
+        ({layer: (n_steps, C)}) for :func:`~qdm_tpu_torch.quant.apply.build_act_scale_lut`
+        (pipeline.py:453-500)."""
         from qdm_tpu_torch.calib.data import get_calib_prompts
 
         calib = cfg.calib
@@ -259,6 +274,7 @@ class BaseDiffusionPipeline:
         run = RunningMeanMax()
         bs = calib.batch_size
         steps = max(1, min(calib.n_steps, 50))
+        runs = [RunningMeanMax() for _ in range(steps)] if cfg.act_per_step_scales else None
         tables = schedulers.make_ddim(self.scheduler_config, steps, self.device)
         h = w = self.default_sample_size()
         gen = torch.Generator(device=self.device).manual_seed(calib.seed)
@@ -276,22 +292,40 @@ class BaseDiffusionPipeline:
                     lat = self._cfg_step(unet, tables, lat, ctx, uctx, s, steps,
                                          calib.guidance_scale)
                 run.update(stats)
-        return run.mean()
+                if runs is not None:
+                    runs[s].update(stats)
+        mean = run.mean()
+        if runs is not None:
+            means = [r.mean() for r in runs]
+            self._pending_per_step = {k: torch.stack([m[k] for m in means]) for k in mean}
+        return mean
 
     def _smoothquant_component(self, name: str, cfg: QuantConfig, calib_cache=None,
                                calib_prompts=None, calib_latents=None):
-        if calib_cache and os.path.exists(calib_cache):
+        """Calibrate (or read ``calib_cache``, and with per-step scales its
+        ``.per_step`` twin), migrate the scales, and return the stats of the
+        migrated activations (pipeline.py:509-545)."""
+        per_step = cfg.act_per_step_scales
+        if calib_cache and os.path.exists(calib_cache) and (
+                not per_step or os.path.exists(calib_cache + ".per_step")):
             stats = load_stats(calib_cache, self.device)
+            if per_step:
+                self._pending_per_step = load_stats(calib_cache + ".per_step", self.device)
         else:
             stats = self._calibrate_unet(cfg, calib_prompts, calib_latents)
             if calib_cache:
                 save_stats(stats, calib_cache)
+                if per_step and self._pending_per_step:
+                    save_stats(self._pending_per_step, calib_cache + ".per_step")
         module = self.components[name]
         tree, mig = smooth_lib.smooth_params(
             module_tree(module), sd_unet_scaling_groups(module_tree(module)), stats,
             alpha=cfg.alpha, return_scales=True)
         load_tree(module, tree)
         # activations entering a migrated layer are act / s from now on
+        if self._pending_per_step:
+            self._pending_per_step = {k: (v / mig[k] if k in mig else v)
+                                      for k, v in self._pending_per_step.items()}
         return {k: (v / mig[k] if k in mig else v) for k, v in stats.items()}
 
     def _awq_component(self, name: str, cfg: QuantConfig, calib_prompts=None,
@@ -389,11 +423,32 @@ class BaseDiffusionPipeline:
 
     @torch.inference_mode()
     def denoise(self, latents, ctx, uctx, steps: int, guidance: float):
+        """The CFG DDIM loop; with per-step act scales each LUT layer's
+        ``act_scale`` is set to :func:`~qdm_tpu_torch.quant.apply.select_step_act_scales`'s
+        row for the step before the UNet call (pipeline.py:770-787) and
+        restored after the loop."""
         unet = self.components["unet"]
         tables = schedulers.make_ddim(self.scheduler_config, steps, self.device)
+        lut = self.act_scale_luts.get("unet")
+        layers, rows = {}, {}
+        if lut:
+            layers = {path: unet.get_submodule(".".join(path)) for path in lut}
+            base = {path: m.act_scale for path, m in layers.items()}
+            n_lut = next(iter(lut.values())).shape[0]
         lat = latents
-        for s in range(steps):
-            lat = self._cfg_step(unet, tables, lat, ctx, uctx, s, steps, guidance)
+        try:
+            for s in range(steps):
+                if layers:
+                    idx = qapply.step_index(s, steps, n_lut)
+                    if idx not in rows:
+                        rows[idx] = {path: nn.Parameter(v.to(self.device), requires_grad=False)
+                                     for path, v in qapply.select_step_act_scales(lut, idx).items()}
+                    for path, m in layers.items():
+                        m.act_scale = rows[idx][path]
+                lat = self._cfg_step(unet, tables, lat, ctx, uctx, s, steps, guidance)
+        finally:
+            for path, m in layers.items():
+                m.act_scale = base[path]
         return lat
 
     @torch.inference_mode()
@@ -405,17 +460,32 @@ class BaseDiffusionPipeline:
             img = torch.round(img * 255).to(torch.uint8)
         return img.cpu().numpy()
 
-    def kernel_calls_per_unet_forward(self) -> Dict[str, int]:
-        """Launches of each kernel wrapper in one UNet call under the
-        current plan: one per QDense that runs a kernel (w8a8 -> K1;
-        w4a16, and w4a8 whose group is not 128 -> K3; w4a8 with group 128
-        -> K4) and one per fused GEGLU (K2)."""
+    def kernel_calls_per_unet_forward(self, latent_hw: Optional[int] = None
+                                      ) -> Dict[str, int]:
+        """Launches of each kernel wrapper in one UNet call on latents of
+        ``latent_hw`` squared (default the config's sample size) under the
+        current plan: one per QDense that runs a kernel (w8a8 -> K1, or K1
+        with the LayerNorm prologue where ``fuse_ln`` hands it the norm and
+        K is unpadded; w4a16, and w4a8 whose group is not 128 -> K3; w4a8
+        with group 128 -> K4), one per fused GEGLU (K2), and under
+        ``int8_bmm`` one per self-attention that takes the int8 flash
+        attention (K18)."""
         counts = dict.fromkeys(qmm.LAUNCHES, 0)
-        for m in self.components["unet"].modules():
+        unet = self.components["unet"]
+        for m in unet.modules():
             if isinstance(m, QDense) and m.kernel_name is not None:
                 counts[m.kernel_name] += 1
             elif isinstance(m, W8A8GEGLUProj):
                 counts["w8a8_geglu_fused"] += 1
+            elif isinstance(m, unet_lib.BasicTransformerBlock) and m.fuse_ln:
+                for proj in m.ln_projections():
+                    if proj.mode == "w8a8" and qmm.ln_in_kernel(proj.qweight, proj.in_features):
+                        counts["w8a8_matmul_fused_epi"] -= 1
+                        counts["w8a8_matmul_fused_epi+ln"] += 1
+        if self.plans["unet"].int8_bmm:
+            hw = latent_hw or self.default_sample_size()
+            counts["flash_int8_attention"] = sum(
+                flash_int8.takes(s, s) for s in unet.self_attention_lengths(hw, hw))
         return counts
 
 

@@ -8,7 +8,11 @@ The port keeps the Flax tree's keys and maps each leaf 1:1:
   int4 packs ``qweight`` (K'/8, N') int32, ``scales`` and ``zeros``
   (K'/G, N') pass through unchanged (the packed bytes stay identical);
 * 4-D conv ``kernel`` / ``qweight`` arrive HWIO and become PyTorch's
-  (out, in, kh, kw).
+  (out, in, kh, kw); a static conv's ``act_scale`` ((1,), or the folded
+  (in,) of ``static_channel``) passes through.
+
+:func:`lut_from_jax` carries a JAX pipeline's per-step act-scale tables
+(``act_scale_luts``) across.
 
 Any other leaf (a packed layout this port does not run yet) raises, and
 ``load_tree`` raises on a leaf the module does not declare, so nothing is
@@ -67,6 +71,12 @@ def params_from_jax(flax_params: dict) -> dict:
     out: Dict[Tuple[str, ...], torch.Tensor] = {
         path: convert_leaf(path, arr) for path, arr in flatten_tree(flax_params).items()}
     return unflatten_tree(out)
+
+
+def lut_from_jax(lut: dict) -> Dict[Tuple[str, ...], torch.Tensor]:
+    """A JAX per-step act-scale table ({layer path tuple: (n_steps,)}) ->
+    the port's: the same keys, f32 CPU tensors."""
+    return {tuple(path): _to_tensor(arr).to(torch.float32) for path, arr in lut.items()}
 
 
 # JAX engine key -> port engine key of the weights the kernels read transposed

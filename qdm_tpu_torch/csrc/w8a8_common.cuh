@@ -85,6 +85,53 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xi,
   if (lane == 0) xs[row] = amax / 127.0f;
 }
 
+// K1's LayerNorm prologue (the Pallas kernel's has_ln branch,
+// quant_matmul.py:566-571), then the same per-row quantization:
+//   mu = mean(x), xc = x - mu, var = mean(xc^2), xf = xc * (1 / sqrt(var + eps)) * s + b
+// in f32, never rounded to the input dtype; the row sums taken in f64 and
+// rounded once to f32, 1 / sqrt(v) by IEEE sqrt and division (the portable
+// statistics of the decode kernels' norms), so any summation order gives the
+// plain version's bits.  One warp per row; the row is read from memory once
+// per pass (it stays in L1 / L2).
+template <typename T>
+__global__ void __launch_bounds__(kQuantWarps * 32)
+ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                     const float* __restrict__ ln_b, float eps, int8_t* __restrict__ xi,
+                     float* __restrict__ xs, int M, int K, int Kp) {
+  const int row = blockIdx.x * kQuantWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * K;
+  double s = 0.0;
+  for (int k = lane; k < K; k += 32) s += (double)to_f32(xr[k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  const float mu = __fdiv_rn((float)s, (float)K);
+  double s2 = 0.0;
+  for (int k = lane; k < K; k += 32) {
+    const float xc = __fsub_rn(to_f32(xr[k]), mu);
+    s2 += (double)__fmul_rn(xc, xc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  const float var = __fdiv_rn((float)s2, (float)K);
+  const float inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+  auto norm = [&](int k) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(to_f32(xr[k]), mu), inv), ln_s[k]), ln_b[k]);
+  };
+  float amax = 0.f;
+  for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(norm(k)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  amax = fmaxf(amax, 1e-5f);
+  const float r = 127.0f / amax;  // IEEE division: no fast-math build
+  int8_t* out = xi + (size_t)row * Kp;
+  for (int k = lane; k < Kp; k += 32)
+    out[k] = (int8_t)(k < K ? __float2int_rn(__fmul_rn(norm(k), r)) : 0);  // half-to-even
+  if (lane == 0) xs[row] = amax / 127.0f;
+}
+
 template <typename T, bool PERM128>
 cudaError_t launch_quant_rows(const void* x, int8_t* xi, float* xs, int M, int K,
                               int Kp, cudaStream_t stream) {
@@ -294,6 +341,21 @@ cudaError_t launch_quant(const void* x, int x_dtype, int8_t* xi, float* xs, int 
     return launch_quant_rows<__nv_bfloat16, PERM128>(x, xi, xs, M, K, Kp, stream);
   if (x_dtype == kDtypeF32) return launch_quant_rows<float, PERM128>(x, xi, xs, M, K, Kp, stream);
   return cudaErrorInvalidValue;
+}
+
+inline cudaError_t launch_ln_quant(const void* x, int x_dtype, const float* ln_s,
+                                   const float* ln_b, float eps, int8_t* xi, float* xs, int M,
+                                   int K, int Kp, cudaStream_t stream) {
+  const int blocks = (M + kQuantWarps - 1) / kQuantWarps;
+  if (x_dtype == kDtypeBF16)
+    ln_quant_rows_kernel<__nv_bfloat16><<<blocks, kQuantWarps * 32, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), ln_s, ln_b, eps, xi, xs, M, K, Kp);
+  else if (x_dtype == kDtypeF32)
+    ln_quant_rows_kernel<float><<<blocks, kQuantWarps * 32, 0, stream>>>(
+        static_cast<const float*>(x), ln_s, ln_b, eps, xi, xs, M, K, Kp);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace qdm

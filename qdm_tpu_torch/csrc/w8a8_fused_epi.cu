@@ -6,6 +6,11 @@
 //   y      = (xi @ W_i8[:K]) * (xs * ws) + bias (+ residual)  -> out dtype
 // W_i8 is the packed (K', N') int8 buffer of pack_linear_int8, passed here
 // transposed as (N', K'); ws and bias are (N',) f32 (the (1, N') buffers).
+// With ln_s / ln_b (K,) f32 (QuantPlan.fuse_ln, the Pallas kernel's has_ln
+// prologue) the quantization pass first LayerNorms each row in f32
+// (ln_quant_rows_kernel, w8a8_common.cuh): mu, then var of x - mu, both
+// from f64 row sums rounded once, xf = (x - mu) * (1 / sqrt(var + eps)) * s
+// + b; the codes are taken from xf, never rounded to x's dtype.
 //
 // What bounds it on the H100: at the UNet's shapes (M = 1k-16k tokens,
 // K = 320-5120, N = 320-1280) the product is 2*M*K*N int8 operations against
@@ -28,13 +33,19 @@
 
 extern "C" int qdm_w8a8_fused_epi(const void* x, int x_dtype, const void* wt, const void* ws,
                                   const void* bias, const void* res, void* out, int out_dtype,
-                                  void* xi_scratch, void* xs_scratch, int M, int K, int Kp,
+                                  void* xi_scratch, void* xs_scratch, const void* ln_s,
+                                  const void* ln_b, float ln_eps, int M, int K, int Kp,
                                   int n_out, void* stream) {
   using namespace qdm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* xi = static_cast<int8_t*>(xi_scratch);
   float* xs = static_cast<float*>(xs_scratch);
-  cudaError_t err = launch_quant(x, x_dtype, xi, xs, M, K, Kp, s);
+  if ((ln_s == nullptr) != (ln_b == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      ln_s != nullptr
+          ? launch_ln_quant(x, x_dtype, static_cast<const float*>(ln_s),
+                            static_cast<const float*>(ln_b), ln_eps, xi, xs, M, K, Kp, s)
+          : launch_quant(x, x_dtype, xi, xs, M, K, Kp, s);
   if (err != cudaSuccess) return (int)err;
   const int8_t* w = static_cast<const int8_t*>(wt);
   const float* wsf = static_cast<const float*>(ws);

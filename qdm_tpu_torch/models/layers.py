@@ -17,11 +17,15 @@ layer declares the parameters its mode needs, as the Flax module does:
   the layer's dtype, as on the TPU.
 * ``QConv`` mode "none" / "fake": ``kernel`` (out, in, kh, kw); "fake_act"
   also fake-quantizes its input (per channel by default, layers.py:370-371);
-  a conv planned "w4a16" / "w4a8" (the 1x1 ``proj_in``/``proj_out`` that no
-  conv rule matches) runs its pack-time fake-quantized float kernel; mode
-  "w8a8": ``qweight`` int8 of that shape and ``scales`` (out,), with a
-  dynamic per-tensor activation scale, im2col and an int8 GEMM
-  (layers.py:352-354).  ``QDense`` mode "w8a8_xla" (plain XLA on the TPU,
+  a conv planned "w4a16" / "w4a8" / "w8a8_xla" (the 1x1 ``proj_in`` /
+  ``proj_out`` that no conv rule matches) runs its pack-time fake-quantized
+  float kernel; mode
+  "w8a8": ``qweight`` int8 of that shape and ``scales`` (out,), im2col and an
+  int8 GEMM, with a dynamic per-tensor activation scale (layers.py:352-354),
+  a calibrated static one (``act_quant="static"``: ``act_scale`` (1,),
+  :func:`qdm_tpu_torch.quant.apply.fill_static_act_scales`) or calibrated
+  per-input-channel ones folded into the weights at pack time
+  (``"static_channel"``: ``act_scale`` (in,)).  ``QDense`` mode "w8a8_xla" (plain XLA on the TPU,
   the LLM engine's quantized module prefill): unpadded ``qweight`` (K, N)
   int8, ``scales`` (N,) and, for ``act_quant="static"``, ``act_scale`` (1,);
   an exact int32 product (``torch._int_mm`` on the card).
@@ -56,7 +60,7 @@ META = torch.device("meta")
 
 _ROADMAP_MODES = (
     "ROADMAP.md Queue 1 item 3 (remaining QDense/QConv modes: fake, fake_act, "
-    "w8a16, w4a16_xla, static conv act scales, per-group conv act quant)")
+    "w8a16, w4a16_xla, per-group conv act quant)")
 W4_MODES = ("w4a16", "w4a8")
 
 
@@ -200,7 +204,13 @@ class QDense(QuantLayer):
         return qmm.w4a16_matmul(x2.to(self.dtype), self.qweight, self.scales, zeros,
                                 self.group_size, n_out=self.features)
 
-    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None, ln=None):
+        """residual, if given, is added to the output; ln = (scale, bias), if
+        given, LayerNorms the input: in K1's prologue in mode w8a8 (the TPU
+        dispatch, on every device), else first, rounded to the input's dtype
+        (``_ln_apply``, layers.py:89-96)."""
+        if ln is not None and self.mode != "w8a8":
+            x, ln = qmm.ln_apply(x, ln[0], ln[1]), None
         self._record(x)
         batch_shape = x.shape[:-1]
         x2 = x.reshape(-1, self.in_features)
@@ -212,7 +222,7 @@ class QDense(QuantLayer):
             y = qmm.w8a8_matmul_fused_epi(
                 x2.to(self.dtype), self.qweight, self.scales, self._bias_p,
                 residual=res2.to(self.dtype) if res2 is not None else None,
-                out_dtype=self.dtype, n_out=self.features, w_t=self._w_t)
+                out_dtype=self.dtype, n_out=self.features, w_t=self._w_t, ln=ln)
             return y.reshape(*batch_shape, self.features)
         if self.mode in W4_MODES:
             y = self._forward_w4(x2)
@@ -297,14 +307,18 @@ class QConv(QuantLayer):
         spec = self.spec = plan.spec_for(path)
         self.mode = spec.mode
         shape = (features, in_features, *self.kernel_size)
-        if self.mode in ("none", "fake", "fake_act") + W4_MODES:
+        if self.mode in ("none", "fake", "fake_act", "w8a8_xla") + W4_MODES:
             if (self.mode == "fake_act" and spec.act_quant == "per_group"
                     and spec.act_group_size > 1):
                 raise _unsupported("QConv", f"{self.mode}/per_group", path)
             _declare(self, "kernel", shape)
-        elif self.mode == "w8a8" and spec.act_quant not in ("static", "static_channel"):
+        elif self.mode == "w8a8":
             _declare(self, "qweight", shape, torch.int8)
             _declare(self, "scales", (features,))
+            if spec.act_quant == "static":
+                _declare(self, "act_scale", (1,))
+            elif spec.act_quant == "static_channel":
+                _declare(self, "act_scale", (in_features,))
         else:
             raise _unsupported("QConv", f"{self.mode}/{spec.act_quant}", path)
         if use_bias:
@@ -348,12 +362,29 @@ class QConv(QuantLayer):
             y = y + self.bias.to(y.dtype)
         return y
 
-    def _forward_w8a8(self, x: torch.Tensor) -> torch.Tensor:
-        # dynamic per-tensor act scale, then int8 x int8 -> int32
+    def _quant_act(self, x: torch.Tensor):
+        """int8 codes of the input and their per-tensor scale (layers.py:340-354):
+        ``static`` ``clip(round(x / act_scale), +-127)``; ``static_channel``
+        ``clip(round(x * (1 / act_scale_c)), +-127)`` with scale 1 (the
+        channel scales live in the folded weights); otherwise dynamic,
+        ``round(x / (max |x| / 127))``.  Divisions by a tensor are IEEE on
+        every device."""
         xf = x.to(torch.float32)
+        act = self.spec.act_quant
+        if act == "static_channel":
+            r = torch.div(torch.ones_like(self.act_scale), self.act_scale.to(torch.float32))
+            xi = torch.clamp(torch.round(xf * r), -127, 127).to(torch.int8)
+            return xi, torch.ones((), dtype=torch.float32, device=x.device)
+        if act == "static":
+            xs = self.act_scale.to(torch.float32).reshape(())
+            return torch.clamp(torch.round(torch.div(xf, xs)), -127, 127).to(torch.int8), xs
         amax = xf.abs().amax().clamp_min(1e-5)
         xs = qmm.div_exact(amax, 127.0)
-        xi = torch.round(xf / xs).to(torch.int8)
+        return torch.round(xf / xs).to(torch.int8), xs
+
+    def _forward_w8a8(self, x: torch.Tensor) -> torch.Tensor:
+        # per-tensor or folded per-channel act codes, then int8 x int8 -> int32
+        xi, xs = self._quant_act(x)
         cols, (b, ho, wo) = self._im2col(xi)
         k8 = self._w_mat.shape[0]
         if cols.shape[1] != k8:

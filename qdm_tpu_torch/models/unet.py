@@ -126,15 +126,21 @@ class CrossAttention(nn.Module):
             dense("to_v", ctx, inner)
         dense("to_out_0", inner, query_dim, bias=True)
 
-    def forward(self, x, context=None, residual=None):
+    def forward(self, x, context=None, residual=None, ln=None):
+        """ln = (scale, bias), if given, LayerNorms the query-side input x
+        inside the q / qkv projections (unet.py:133-156): K1's prologue where
+        they are packed w8a8; the context projections take it only for
+        self-attention."""
+        self_ln = ln if context is None else None
         context = x if context is None else context
         if self.fused and self.is_self:
-            q, k, v = self.to_qkv(x).chunk(3, dim=-1)
+            q, k, v = self.to_qkv(x, ln=ln).chunk(3, dim=-1)
         elif self.fused:
-            q = self.to_q(x)
+            q = self.to_q(x, ln=ln)
             k, v = self.to_kv(context).chunk(2, dim=-1)
         else:
-            q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+            q = self.to_q(x, ln=ln)
+            k, v = self.to_k(context, ln=self_ln), self.to_v(context, ln=self_ln)
         b, sq = q.shape[0], q.shape[1]
         q = q.reshape(b, sq, self.heads, self.dim_head)
         k = k.reshape(b, -1, self.heads, self.dim_head)
@@ -187,9 +193,7 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
                  dtype, plan: QuantPlan, path: str):
         super().__init__()
-        if plan.fuse_ln:
-            raise NotImplementedError("QuantPlan.fuse_ln is not ported yet: ROADMAP.md "
-                                      "Queue 2 item 2 (LayerNorm prologue of K1)")
+        self.fuse_ln = plan.fuse_ln
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn1 = CrossAttention(dim, heads, dim_head, None, dtype, plan,
                                     _join(path, "attn1"))
@@ -199,9 +203,23 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, dtype=dtype)
         self.ff = FeedForward(dim, dtype, plan, _join(path, "ff"))
 
+    def ln_projections(self):
+        """The projections that take a norm under ``fuse_ln``: attn1's q /
+        qkv side (to_k and to_v too when unfused, as they read x) and
+        attn2's to_q."""
+        a1, a2 = self.attn1, self.attn2
+        self_side = [a1.to_qkv] if a1.fused else [a1.to_q, a1.to_k, a1.to_v]
+        return self_side + [a2.to_q]
+
     def forward(self, x, context):
-        x = self.attn1(self.norm1(x), residual=x)
-        x = self.attn2(self.norm2(x), context, residual=x)
+        # with plan.fuse_ln the first two norms fold into the q / qkv
+        # projections (unet.py:238-251; K1's prologue where they are w8a8)
+        if self.fuse_ln:
+            x = self.attn1(x, residual=x, ln=(self.norm1.scale, self.norm1.bias))
+            x = self.attn2(x, context, residual=x, ln=(self.norm2.scale, self.norm2.bias))
+        else:
+            x = self.attn1(self.norm1(x), residual=x)
+            x = self.attn2(self.norm2(x), context, residual=x)
         return self.ff(self.norm3(x), residual=x)
 
 
@@ -297,6 +315,8 @@ class UNet2DCondition(nn.Module):
                                       "are not ported yet: ROADMAP.md Queue 1 item 9")
         cfg = self.config = config
         self.dtype, self.plan = dtype, plan
+        # each Transformer2D's level: how often its input was downsampled
+        self.attention_levels = {}
         boc, g = cfg.block_out_channels, cfg.norm_num_groups
         temb = cfg.time_embed_dim
         add = self.add_module
@@ -316,6 +336,7 @@ class UNet2DCondition(nn.Module):
                     add(p, Transformer2D(out_ch, heads, out_ch // heads,
                                          cfg.transformer_layers_per_block[i],
                                          cfg.cross_attention_dim, g, dtype, plan, p))
+                    self.attention_levels[p] = i
                 res_ch.append(out_ch)
             if i < len(cfg.down_block_types) - 1:
                 p = f"down_blocks_{i}/downsamplers_0"
@@ -328,6 +349,7 @@ class UNet2DCondition(nn.Module):
         add("mid_block/attentions_0", Transformer2D(
             mid, mid_heads, mid // mid_heads, cfg.transformer_layers_per_block[-1],
             cfg.cross_attention_dim, g, dtype, plan, "mid_block/attentions_0"))
+        self.attention_levels["mid_block/attentions_0"] = len(boc) - 1
         add("mid_block/resnets_1", ResnetBlock2D(mid, mid, temb, g, dtype, plan,
                                                  "mid_block/resnets_1"))
         ch = mid
@@ -345,6 +367,7 @@ class UNet2DCondition(nn.Module):
                     p = f"up_blocks_{i}/attentions_{j}"
                     add(p, Transformer2D(out_ch, heads, out_ch // heads, rev_tl[i],
                                          cfg.cross_attention_dim, g, dtype, plan, p))
+                    self.attention_levels[p] = len(boc) - 1 - i
             if i < len(cfg.up_block_types) - 1:
                 p = f"up_blocks_{i}/upsamplers_0"
                 add(p, Upsample2D(out_ch, dtype, plan, p))
@@ -355,6 +378,21 @@ class UNet2DCondition(nn.Module):
 
     def _m(self, name: str) -> nn.Module:
         return self._modules[name]
+
+    def self_attention_lengths(self, h: int, w: int):
+        """The sequence length of each self-attention of one forward on (h, w)
+        latents, in module order: a block at level i sees the latents
+        downsampled i times by the stride-2 convs."""
+
+        def size(level):
+            hh, ww = h, w
+            for _ in range(level):
+                hh, ww = (hh + 1) // 2, (ww + 1) // 2
+            return hh * ww
+
+        return [size(self.attention_levels[name])
+                for name, m in self.named_children() if isinstance(m, Transformer2D)
+                for _ in range(m.depth)]
 
     def forward(self, sample, timesteps, encoder_hidden_states):
         """sample (B, H, W, C_in) latents; timesteps (B,) or scalar;

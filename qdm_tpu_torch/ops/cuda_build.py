@@ -32,7 +32,7 @@ P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # csrc/<name>.cu unless SOURCE_OF names another
 ENTRY_POINTS = {
     "w8a8_fused_epi": ("qdm_w8a8_fused_epi",
-                       (P, I, P, P, P, P, P, I, P, P, I, I, I, I, P)),
+                       (P, I, P, P, P, P, P, I, P, P, P, P, F, I, I, I, I, P)),
     "w8a8_geglu": ("qdm_w8a8_geglu",
                    (P, I, P, P, P, P, I, P, P, I, I, I, I, I, P)),
     "w8a8_matmul_fused": ("qdm_w8a8_matmul_fused",
@@ -75,6 +75,9 @@ ENTRY_POINTS = {
     "flash_prefill_i8": ("qdm_flash_prefill_i8",
                          (P, I, L, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P, L, L, L, P, P, P,
                           P, P, I, I, I, I, I, F, I, P)),
+    "flash_int8": ("qdm_flash_int8",
+                   (P, L, L, L, P, L, L, L, P, L, L, L, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                    F, I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}
 

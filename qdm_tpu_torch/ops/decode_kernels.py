@@ -146,16 +146,6 @@ def transposed_weight(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sum_f32(t: torch.Tensor) -> torch.Tensor:
-    """Last-axis sum of f32 values, in f64, rounded once to f32."""
-    return t.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
-
-
-def inv_sqrt(v: torch.Tensor) -> torch.Tensor:
-    """``1 / sqrt(v)`` with IEEE sqrt and division on every device."""
-    return torch.div(torch.ones_like(v), torch.sqrt(v))
-
-
 def reciprocal(v: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.ones_like(v), v)
 
@@ -163,16 +153,13 @@ def reciprocal(v: torch.Tensor) -> torch.Tensor:
 def norm_f32(xf, scale, bias, eps: float, norm_type: str):
     """f32 RMSNorm / LayerNorm of ``decode_kernels._norm_f32`` (LayerNorm
     eps 1e-5, affine scale + bias)."""
-    k = float(xf.shape[-1])
     if norm_type == "layernorm":
-        mean = qmm.div_exact(_sum_f32(xf), k)
-        xc = xf - mean
-        var = qmm.div_exact(_sum_f32(xc * xc), k)
-        return xc * inv_sqrt(var + 1e-5) * scale + bias
+        return qmm.layer_norm_rows(xf, scale, bias, 1e-5)
+    k = float(xf.shape[-1])
     if norm_type != "rmsnorm":
         raise ValueError(f"norm_type {norm_type!r}")
-    ms = qmm.div_exact(_sum_f32(xf * xf), k)
-    return xf * inv_sqrt(ms + eps) * scale
+    ms = qmm.div_exact(qmm.sum_f64(xf * xf), k)
+    return xf * qmm.inv_sqrt(ms + eps) * scale
 
 
 silu = qmm.silu        # ``g * (1 / (1 + exp(-g)))``, exp in f64 rounded to f32
@@ -356,7 +343,7 @@ def decode_attention_kv_q_plain(q, kv, pos: int, mode: str, kv_scale=None, start
         ok = ok & (t_ids[None, :] >= starts.to(q.device).reshape(-1, 1))
     logits = torch.where(ok[:, None, None, :], logits, torch.full_like(logits, _MASK_ONE_PASS))
     p = _exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = torch.div(p, _sum_f32(p))
+    p = torch.div(p, qmm.sum_f64(p))
     if mode == "i8":
         p = p * kv_scale[:, hkv:]
     pi, ps = quant_rows(p)
@@ -416,7 +403,7 @@ def decode_attention_kv_flash_plain(q, kv_cache, pos: int, starts=None, sm_scale
         if quant:
             alpha = _exp(m - m_new)
             p = _exp(logits - m_new)
-            l = l * alpha + _sum_f32(p)
+            l = l * alpha + qmm.sum_f64(p)
             if mode == "i8":
                 p = p * kv_scale[:, hkv:, :, cols]
             pi, ps = quant_rows(p)

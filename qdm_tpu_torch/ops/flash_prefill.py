@@ -226,7 +226,7 @@ def flash_prefill_gqa_i8_plain(q, k, v, sm_scale: float, rope_cos=None, rope_sin
             m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
             corr = dk._exp(m - m_new)
             p = dk._exp(logits - m_new)
-            l = l * corr + dk._sum_f32(p)
+            l = l * corr + qmm.sum_f64(p)
             m = m_new
             ps = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-20) * qmm.INV127
             pi = torch.round(torch.div(p, ps))

@@ -4,8 +4,11 @@ Counterpart of ``qdm_tpu/ops/quant_matmul.py`` for the SD1.5 W8A8, W4A16
 and W4A8 paths:
 
 * :func:`w8a8_matmul_fused_epi` — per-token int8 quantization of x, int8
-  GEMM, ``acc * (xs * ws) + bias (+ residual)``.  CUDA kernel
-  ``csrc/w8a8_fused_epi.cu`` (replaces the Pallas ``_w8a8_fused_epi_kernel``).
+  GEMM, ``acc * (xs * ws) + bias (+ residual)``; with ``ln=(scale, bias)``
+  (``QuantPlan.fuse_ln``) a LayerNorm prologue in f32 before the
+  quantization (:func:`layer_norm_rows`).  CUDA kernel
+  ``csrc/w8a8_fused_epi.cu`` (replaces the Pallas ``_w8a8_fused_epi_kernel``
+  and its ``has_ln`` prologue).
 * :func:`w8a8_matmul_fused` — the same quantization and GEMM,
   ``acc * (xs * ws)`` with no bias and no residual.  CUDA kernel
   ``csrc/w8a8_matmul.cu`` (replaces the Pallas ``_w8a8_fused_kernel``); the
@@ -41,6 +44,7 @@ Packed weight layouts (identical bytes to the JAX package):
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -53,8 +57,9 @@ LANE = 128
 PACK_BLOCK_K = 128   # K rows per int4 packing block == the kernels' K block
 
 # kernel launches per wrapper; chip_smoke.py zeroes and reads these
-LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_matmul_fused": 0, "w8a8_geglu_fused": 0,
-            "w4a16_matmul": 0, "w4a8_matmul": 0}
+LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_matmul_fused_epi+ln": 0,
+            "w8a8_matmul_fused": 0, "w8a8_geglu_fused": 0, "w4a16_matmul": 0,
+            "w4a8_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GLU_ACTS = {"silu": 0, "gelu": 1}
@@ -187,6 +192,45 @@ def quantize_rows_int8(x: torch.Tensor, kp: int
     return xi, div_exact(absmax, 127.0)
 
 
+def sum_f64(t: torch.Tensor) -> torch.Tensor:
+    """Last-axis sum of f32 values, in f64, rounded once to f32."""
+    return t.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
+
+
+def inv_sqrt(v: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(v)`` with IEEE sqrt and division on every device."""
+    return torch.div(torch.ones_like(v), torch.sqrt(v))
+
+
+def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """K1's LayerNorm prologue (``_w8a8_fused_epi_kernel``'s ``has_ln``
+    branch, quant_matmul.py:566-571) in f32, never rounded to x's dtype:
+    ``mu = mean(x)``, ``xc = x - mu``, ``var = mean(xc^2)``, ``xc * (1 /
+    sqrt(var + eps)) * scale + bias``; the row sums in f64 rounded once, the
+    means and ``1 / sqrt`` by IEEE division (the portable statistics of
+    ROADMAP.md "Decided"), so the card's kernel gives the same bits."""
+    xf = x.to(torch.float32)
+    k = float(xf.shape[-1])
+    mean = div_exact(sum_f64(xf), k)
+    xc = xf - mean
+    var = div_exact(sum_f64(xc * xc), k)
+    return (xc * inv_sqrt(var + eps) * scale.reshape(1, -1).to(torch.float32)
+            + bias.reshape(1, -1).to(torch.float32))
+
+
+def ln_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """The unfused LayerNorm with given (scale, bias) (``layers._ln_apply``
+    and K1's padded-K fallback): f32 statistics, the result rounded to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32) + bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
 def int8_matmul_xla(a_i8: torch.Tensor, b_i8: torch.Tensor) -> torch.Tensor:
     """The exact int32 product of an int8 dot that was plain XLA on the TPU
     (``QDense`` ``w8a8_xla``, never a Pallas kernel): ``torch._int_mm`` on
@@ -234,10 +278,14 @@ def _dequant(acc, xs, w_scale, bias):
 
 
 def w8a8_matmul_fused_epi_plain(x, w_i8, w_scale, bias, residual=None,
-                                out_dtype=None, n_out: Optional[int] = None):
-    """Plain version of :func:`w8a8_matmul_fused_epi`."""
+                                out_dtype=None, n_out: Optional[int] = None, ln=None,
+                                ln_eps: float = 1e-5):
+    """Plain version of :func:`w8a8_matmul_fused_epi` (``ln`` for an
+    unpadded K: the wrapper normalizes a padded one before the call)."""
     out_dtype = out_dtype or x.dtype
     n_out = n_out or w_i8.shape[1]
+    if ln is not None:
+        x = layer_norm_rows(x, ln[0], ln[1], ln_eps)
     xi, xs = quantize_rows_int8(x, w_i8.shape[0])
     acc = int8_matmul_exact(xi, w_i8)
     y = _dequant(acc, xs, w_scale.reshape(1, -1), bias.reshape(1, -1))[:, :n_out]
@@ -310,21 +358,35 @@ def _scratch(scratch, m, kp, device):
     return xi, xs
 
 
+def ln_in_kernel(w_i8: torch.Tensor, k: int) -> bool:
+    """Whether K1 takes a LayerNorm over K = k input features into its
+    prologue: only where the (K', N') weights do not pad K; else the TPU
+    wrapper normalizes outside the kernel (quant_matmul.py:605-612)."""
+    return w_i8.shape[0] == k
+
+
 def w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=None,
                           out_dtype=None, n_out: Optional[int] = None,
-                          w_t: Optional[torch.Tensor] = None, scratch=None):
+                          w_t: Optional[torch.Tensor] = None, scratch=None, ln=None,
+                          ln_eps: float = 1e-5):
     """x (M, K) through int8 weights (K', N') -> (M, n_out).
 
     bias and w_scale are (1, N') f32; residual, if given, is (M, n_out) and
     is added in the epilogue; n_out (default N') drops the padded output
     columns; w_t is the cached :func:`transposed_weight` of w_i8.  scratch,
     if given, is the (xi (M, K') int8, xs (M,) f32) pair the kernel's
-    quantization pass writes, for a caller that checks the codes."""
+    quantization pass writes, for a caller that checks the codes.  ln =
+    (scale (K,), bias (K,)), if given, LayerNorms x in the kernel's
+    prologue (counted as ``"w8a8_matmul_fused_epi+ln"``); where K' pads K
+    the TPU wrapper normalizes outside the kernel instead
+    (quant_matmul.py:605-612, :func:`ln_apply`), and so does this one."""
     out_dtype = out_dtype or x.dtype
     n_out = n_out or w_i8.shape[1]
+    if ln is not None and not ln_in_kernel(w_i8, x.shape[1]):
+        x, ln = ln_apply(x, ln[0], ln[1], ln_eps), None
     if x.device.type == "cpu":
         return w8a8_matmul_fused_epi_plain(x, w_i8, w_scale, bias, residual,
-                                           out_dtype, n_out)
+                                           out_dtype, n_out, ln, ln_eps)
     x = x.contiguous()
     w_t = transposed_weight(w_i8) if w_t is None else w_t
     _check_operands(x, w_i8, w_scale, bias, w_t, out_dtype)
@@ -337,15 +399,23 @@ def w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=None,
     out = torch.empty((m, n_out), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
+    ln_s = ln_b = None
+    if ln is not None:
+        ln_s, ln_b = (t.to(device=x.device, dtype=torch.float32).reshape(-1).contiguous()
+                      for t in ln)
+        if ln_s.numel() != k or ln_b.numel() != k:
+            raise ValueError(f"ln scale and bias must hold {k} values")
     xi, xs = _scratch(scratch, m, kp, x.device)
     fn = cuda_build.kernel("w8a8_fused_epi")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), w_scale.data_ptr(),
                  bias.data_ptr(), residual.data_ptr() if residual is not None else None,
                  out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), xs.data_ptr(),
+                 ln_s.data_ptr() if ln is not None else None,
+                 ln_b.data_ptr() if ln is not None else None, ctypes.c_float(ln_eps),
                  m, k, kp, n_out, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w8a8_matmul_fused_epi")
-    LAUNCHES["w8a8_matmul_fused_epi"] += 1
+    LAUNCHES["w8a8_matmul_fused_epi+ln" if ln is not None else "w8a8_matmul_fused_epi"] += 1
     return out
 
 

@@ -20,6 +20,7 @@ import torch
 
 from qdm_tpu_torch.api.serve import _quant_w
 from qdm_tpu_torch.ops import decode_kernels as dk
+from qdm_tpu_torch.ops import flash_int8 as fi8
 from qdm_tpu_torch.ops import quant_matmul as qmm
 
 # (M, K, N, geglu): K < K', M off the tile sizes, and SD1.5 widths
@@ -873,3 +874,122 @@ def test_quantized_head_kernels_match_plain_on_card(m, k, v, group):
     torch.cuda.synchronize()
     assert torch.equal(xi, dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), a))
     assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K18, the UNet's int8 flash attention (ops/flash_int8.py): q, k, v and p
+# codes and scales identical to the plain version's, output within
+# ``flash_int8.kernel_error``'s limits.  K1 with its LayerNorm prologue
+# (QuantPlan.fuse_ln): codes identical, outputs within 1 bf16 ulp (f32: 1e-6
+# of the magnitude), as K1's.
+# ---------------------------------------------------------------------------
+
+# (B, S, H, D, block_k, bf16, fused): the SD1.5 head widths 40 / 80 / 160 cut
+# in batch, the tiny UNet's 16 and 32, TPU key blocks under S, f32 inputs,
+# and q, k, v as the strided chunks of one fused qkv projection
+FLASH_INT8_CASES = [
+    (2, 512, 2, 40, 128, True, True),
+    (1, 1024, 2, 80, 1024, True, False),
+    (2, 256, 2, 160, 256, True, True),
+    (1, 256, 3, 16, 256, False, False),
+    (1, 512, 2, 32, 256, True, False),
+    (1, 256, 1, 64, 256, True, True),
+    (1, 256, 1, 128, 128, False, False),
+]
+
+
+def _flash_int8_operands(b, s, h, d, bf16, fused, dev, seed):
+    rng = np.random.default_rng(seed)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if fused:
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32))
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.to(dev, dtype).chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+                   .to(dev, dtype) for _ in range(3))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,bk,bf16,fused", FLASH_INT8_CASES)
+def test_flash_int8_kernel_matches_plain_on_card(b, s, h, d, bk, bf16, fused):
+    dev = _card()
+    q, k, v = _flash_int8_operands(b, s, h, d, bf16, fused, dev, b + s + h + d)
+    before = qmm.LAUNCHES["flash_int8_attention"]
+    trace, want_trace = {}, {}
+    got = fi8.flash_int8_attention(q, k, v, d ** -0.5, block_k=bk, trace=trace)
+    want = fi8.flash_int8_attention_plain(q, k, v, d ** -0.5, block_k=bk, trace=want_trace)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["flash_int8_attention"] == before + 1
+    assert got.shape == want.shape == (b, s, h, d) and got.dtype == q.dtype
+    for what in ("q_codes", "q_scales", "k_codes", "k_scales", "v_codes", "v_scales",
+                 "p_codes"):
+        assert torch.equal(trace[what], want_trace[what]), what
+    share, mean = fi8.kernel_error(got, want, v)
+    assert share <= 1.0 and mean <= fi8.MEAN_LIMIT, (share, mean)
+
+
+@pytest.mark.cuda
+def test_flash_int8_check_flags_a_v_scale_fault_on_card():
+    """v off by 1e-2 on the card (its scales 1e-2 off, its codes the same):
+    beyond ``kernel_error``'s limits."""
+    dev = _card()
+    q, k, v = _flash_int8_operands(2, 512, 2, 40, True, True, dev, 5)
+    want = fi8.flash_int8_attention_plain(q, k, v, 40 ** -0.5, block_k=128)
+    bad = fi8.flash_int8_attention(q, k, v * 1.01, 40 ** -0.5, block_k=128)
+    torch.cuda.synchronize()
+    share, mean = fi8.kernel_error(bad, want, v)
+    assert share > 1.0 or mean > fi8.MEAN_LIMIT
+
+
+# (M, K, N, bf16): SD1.5's to_qkv and attn2 to_q widths, off the tiles, f32 x
+LN_CASES = [(37, 320, 960, True), (300, 640, 640, True), (1030, 1280, 1280, False),
+            (19, 64, 256, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bf16", LN_CASES)
+def test_k1_ln_prologue_matches_plain_on_card(m, k, n, bf16):
+    dev = _card()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    x, w, s, b, res = _operands(m, k, n, dev, dtype)
+    rng = np.random.default_rng(m + k)
+    ln = tuple(torch.from_numpy((rng.standard_normal(k) * sc + off).astype(np.float32)).to(dev)
+               for sc, off in ((0.2, 1.0), (0.1, 0.0)))
+    kp = w.shape[0]
+    xi = torch.empty((m, kp), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    before = dict(qmm.LAUNCHES)
+    got = qmm.w8a8_matmul_fused_epi(x, w, s, b, residual=res, n_out=n, scratch=(xi, xs), ln=ln)
+    want = qmm.w8a8_matmul_fused_epi_plain(x, w, s, b, residual=res, n_out=n, ln=ln)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["w8a8_matmul_fused_epi+ln"] == before["w8a8_matmul_fused_epi+ln"] + 1
+    assert qmm.LAUNCHES["w8a8_matmul_fused_epi"] == before["w8a8_matmul_fused_epi"]
+    codes, scales = qmm.quantize_rows_int8(qmm.layer_norm_rows(x, *ln), kp)
+    assert torch.equal(xi, codes) and torch.equal(xs, scales.reshape(-1))
+    assert got.shape == want.shape and got.dtype == dtype
+    if bf16:
+        assert int(_ulps(got, want).max()) <= 1
+    else:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    # the LayerNorm scale 1e-3 off changes codes
+    bad = qmm.w8a8_matmul_fused_epi(x, w, s, b, residual=res, n_out=n, scratch=(xi, xs),
+                                    ln=(ln[0] * 1.001, ln[1]))
+    torch.cuda.synchronize()
+    assert not torch.equal(xi, codes) and not torch.equal(bad, want)
+
+
+@pytest.mark.cuda
+def test_k1_ln_takes_the_fallback_where_k_pads_on_card():
+    """K = 40 under K' = 64: the LayerNorm runs outside the kernel, rounded to
+    x's dtype, and plain K1 runs (as the TPU wrapper does)."""
+    dev = _card()
+    x, w, s, b, _ = _operands(37, 40, 200, dev, torch.bfloat16)
+    ln = (torch.linspace(0.5, 1.5, 40, device=dev), torch.linspace(-0.1, 0.1, 40, device=dev))
+    before = dict(qmm.LAUNCHES)
+    got = qmm.w8a8_matmul_fused_epi(x, w, s, b, n_out=200, ln=ln)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["w8a8_matmul_fused_epi"] == before["w8a8_matmul_fused_epi"] + 1
+    assert qmm.LAUNCHES["w8a8_matmul_fused_epi+ln"] == before["w8a8_matmul_fused_epi+ln"]
+    want = qmm.w8a8_matmul_fused_epi_plain(qmm.ln_apply(x, *ln), w, s, b, n_out=200)
+    assert int(_ulps(got, want).max()) <= 1
