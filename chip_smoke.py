@@ -50,9 +50,17 @@ S 256 / D 160; q, k, v and p codes identical, output within
 ``flash_int8.kernel_error``'s limits, v scales 1e-2 off planted and
 flagged) and K1 with its LayerNorm prologue (``fuse_ln``) at to_qkv and
 attn2's to_q (16384 rows; codes identical, 0 ulp, a LayerNorm scale 1e-3
-off planted and flagged).  It times the kernel, the plain version and a
+off planted and flagged); and K27 (the w4a8 MoE engine's stacked-expert
+int4 MLP with the routing combine) at Mixtral-8x7B width (K 4096, I
+14336, 8 experts, group 128, inner blocks of 512) with bf16 rows at batch 8
+and six zero route columns a row, batch 1, and batch 32 with f32 rows and
+an expert no row routes to, the tanh GELU at K 1024, I 2048, and two inner
+blocks at a tiny width (outputs equal; one routed expert's s_mid 1e-3 off
+and w2's scale rows shifted by one inner block planted and flagged).  It
+times the kernel, the plain version and a
 library yardstick (timed here only, the port never calls them):
-``torch._int_mm`` for W8A8, K15 and K2-silu and for K6 / K8 (with
+the bf16 engine's stacked einsums on weights dequantized to bf16 for
+K27, ``torch._int_mm`` for W8A8, K15 and K2-silu and for K6 / K8 (with
 elementwise quant and dequant; after ``F.layer_norm`` for K1-LN), SDPA on
 bf16 q, k, v for K18, ``torch.matmul`` with the weight
 dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
@@ -112,6 +120,18 @@ K5 4095 and K11 2016 in bf16; K15 96, K2 32, K16 4032, K17 2016 and K5 63
 in w4a8; K25 2016, K6 2079, K8b 32 and K8 / K9 / K5 0 in the merged
 w8a8 engine; K26 2016, K16 2079, K9 32 and K17 / K5 0 in the merged w4a8
 engine; K7 0).
+Then, with the 7B objects freed, the Mixtral path at Mixtral-8x7B widths
+cut to 4 of its 32 layers (weights drawn on the card, the 7B path's
+prompts and calibration): ``serve(calib, "w4a8_static", smooth=True)``
+and on its smoothed weights ``serve(calib, "w8a8_static")`` and
+``serve(mode="bf16")``, one engine at a time, each ``generate`` of 8 x
+2048-token prompts + 64 tokens with exact launch counts (K27 252, K16 504,
+K10 252, K9 4 and K5 63 in w4a8; K6 504 in w8a8; K5 567 in bf16), tokens
+in range, and the quantized engines' greedy agreement with the bf16
+engine as a reading; and a tiny f32 w4a8 MoE engine (4 experts, top-2,
+int4 group 128, two inner blocks) card against CPU, each K27, K16, K7
+and K5 call of the CPU's generate repeated on the card on the same
+inputs, with two planted K27 faults.
 Each path's launch counts are set to 0 just before its ``generate`` and
 read just after.  At TinyLlama width ``serve(calib, merge_o=True,
 head_quant="int4")`` runs too: K26 1386, K16 1449, K7 1386, K17 and K5 0.
@@ -122,8 +142,9 @@ TinyLlama engine against the bf16 module, and the 7B w8a8, bf16 and w4a8
 fused-prefill engines (the last one's fused prefill against its module
 prefill), each 7B merged engine's decode loop and prefill against an
 unmerged engine of its mode on the same weights, with CUDA launches per
-layer and step; and prints the device time by kernel of two W4A16 and two
-W8A8-static denoising steps and of three decode steps of each engine.
+layer and step, and the Mixtral w4a8 and bf16 engines; and prints the
+device time by kernel of two W4A16 and two W8A8-static denoising steps
+and of three decode steps of each engine.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero.
@@ -254,6 +275,8 @@ KERNEL_INFO = {
                              "qdm_tpu/ops/flash_int8.py:116"),
     "w8a8_matmul_fused_epi+ln": ("qdm_tpu_torch/csrc/w8a8_fused_epi.cu",
                                  "qdm_tpu/ops/quant_matmul.py:592"),
+    "fused_moe_mlp_decode_i4": ("qdm_tpu_torch/csrc/decode_moe_i4.cu",
+                                "qdm_tpu/ops/decode_kernels.py:2328"),
 }
 # the quantized KV caches: (kv_dtype, kv_scale_mode) of serve() and the cache
 # format of the attention kernels; the 7B path runs them in this order
@@ -871,8 +894,8 @@ def _print_rows(res: dict) -> None:
             tol = row.get("tol") or ("codes identical, 0 ulp" if row["ulps"] == 0 else
                                      "within 1 bf16 ulp or 1e-5 of the magnitude")
             shape = {k_: v for k_, v in row.items()
-                     if k_ in ("M", "K", "N", "I", "bj", "B", "H", "hkv", "g", "S", "d", "T",
-                               "pos")}
+                     if k_ in ("M", "K", "N", "I", "E", "bj", "B", "H", "hkv", "g", "S", "d",
+                               "T", "pos")}
             print(f"phase 2: {name} {row['layer']} {shape}: {tol}, max_abs_err="
                   f"{row['max_abs_err']:.3g}{timing}", flush=True)
 
@@ -1945,6 +1968,157 @@ def phase_sd_option_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: K27, the w4a8 MoE engine's stacked-expert int4 MLP
+# ---------------------------------------------------------------------------
+
+MOE_FAULT = 1e-3              # relative error planted into one expert's s_mid of K27
+MOE_TOL = "outputs equal to the plain version's (the same codes, products and sums in order)"
+
+
+def _moe_packs(gen, n_e, k, i, group, bj, dev):
+    """Random expert stacks W1 / W3 (E, K, I) and W2 (E, I, K), N(0, 1/fan_in),
+    drawn on the card and packed as the engine packs them: [(pack, scales)]
+    for W1, W3, W2 and the per-expert transposes K27 reads."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    packs = []
+    for shape, block in (((n_e, k, i), 0), ((n_e, k, i), 0), ((n_e, i, k), bj)):
+        w = torch.randn(shape, generator=gen, device=dev).div_(float(np.sqrt(shape[1])))
+        packs.append(dk.pack_moe_expert_i4(w, group, block))
+        del w
+    return packs, tuple(dk.moe_expert_t(p, n_e) for p, _ in packs)
+
+
+def _moe_route(gen, m, n_e, dev, never=()):
+    """Dense top-2 route weights (M, E): two experts a row (none of
+    ``never``), weights summing to 1, zeros elsewhere."""
+    live = torch.tensor([e for e in range(n_e) if e not in never], device=dev)
+    pick = live[torch.stack([torch.randperm(len(live), generator=gen, device=dev)[:2]
+                             for _ in range(m)])]
+    w = torch.rand((m, 2), generator=gen, device=dev) + 0.1
+    return torch.zeros((m, n_e), device=dev).scatter_(1, pick, w / w.sum(dim=1, keepdim=True))
+
+
+def _moe_scales(xn, packs, n_e, group, act):
+    """[s_in, s_mid of each expert]: the absmax / 127 of the input and of
+    each expert's mid activations, as calibration gives them."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    k = xn.shape[1]
+    s_in = _static_scale(xn)
+    xq = dk._quant_static(xn.float(), s_in)
+    (w1, s1), (w3, s3), _ = packs
+    mids = []
+    for e in range(n_e):
+        rows = slice(e * k // 2, (e + 1) * k // 2)
+        g = dk.i4_group_dot_plain(xq, w1[rows], s1, s_in, group, row0=e * (k // group))
+        u = dk.i4_group_dot_plain(xq, w3[rows], s3, s_in, group, row0=e * (k // group))
+        mids.append(_static_scale(dk._act(act, g) * u))
+    return torch.cat([s_in, *mids])
+
+
+def _check_moe_i4(label, xn, rw, packs, wts, scl, bj, group, act, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    (w1, s1), (w3, s3), (w2, s2) = packs
+    m, k = xn.shape
+    n_e, i = rw.shape[1], w1.shape[1]
+    kw = dict(act=act, block_j=bj, group=group)
+    args = (xn, rw, w1, w3, w2, s1, s3, s2)
+    got = dk.fused_moe_mlp_decode_i4(*args, scl, w_t=wts, **kw)
+    torch.cuda.synchronize()
+    want = dk.fused_moe_mlp_decode_i4_plain(*args, scl, **kw)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"fused_moe_mlp_decode_i4 {label}: output differs from the plain version (max abs "
+             f"err {err}); tolerance 0 ulp")
+    routed = int(rw.sum(dim=0).argmax())
+    bad_scl = scl.clone()
+    bad_scl[1 + routed] *= 1.0 + MOE_FAULT
+    faults = {f"expert {routed}'s s_mid off by {MOE_FAULT:g}":
+              dk.fused_moe_mlp_decode_i4(*args, bad_scl, w_t=wts, **kw),
+              "w2's scale rows shifted by one inner block":
+              dk.fused_moe_mlp_decode_i4(*args[:7], torch.roll(s2, bj // group, dims=0), scl,
+                                         w_t=wts, **kw)}
+    read = {f: float((bad - want).abs().max()) for f, bad in faults.items()}
+    if min(read.values()) <= 0.0:
+        fail(f"fused_moe_mlp_decode_i4 {label}: the check misses a planted fault: {read}")
+    row = {"layer": label, "M": m, "K": k, "I": i, "E": n_e, "bj": bj, "G": group, "act": act,
+           "x": str(xn.dtype).replace("torch.", ""),
+           "zero route columns": int((rw.abs().sum(dim=0) == 0).sum()), "max_abs_err": err,
+           "ulps": 0, "tol": MOE_TOL + "; planted: " + ", ".join(f"{f} {v:.3g}"
+                                                               for f, v in read.items())}
+    if timed:
+        nbytes = (m * k * xn.element_size() + 4 * m * n_e + 3 * n_e * k * i // 2
+                  + 4 * (2 * n_e * (k // group) * i + n_e * (i // group) * k) + 4 * (1 + n_e)
+                  + 4 * m * k)
+        ops = 6 * m * k * i * n_e
+        kern = [lambda: dk.fused_moe_mlp_decode_i4(*args, scl, w_t=wts, **kw)]
+        plain = [lambda: dk.fused_moe_mlp_decode_i4_plain(*args, scl, **kw)]
+        # the yardstick: the bf16 engine's stacked einsums on weights
+        # dequantized to bf16 beforehand (2.8 GB at Mixtral width)
+        wb = [torch.stack([_i4_bf16(p[e * rows:(e + 1) * rows], s[e * rows * 2 // group:
+                                                               (e + 1) * rows * 2 // group],
+                                    group, blk)
+                           for e in range(n_e)])
+              for (p, s), rows, blk in zip(packs, (k // 2, k // 2, i // 2), (0, 0, bj))]
+        xb = xn.to(torch.bfloat16)
+
+        def library():
+            g = torch.einsum("bk,ekf->ebf", xb, wb[0])
+            u = torch.einsum("bk,ekf->ebf", xb, wb[1])
+            y = torch.einsum("ebf,efk->ebk", torch.nn.functional.silu(g) * u, wb[2])
+            return torch.einsum("ebk,be->bk", y.float(), rw)
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=1),
+                   library_ms=cold_ms([library]), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+        del wb
+    return row
+
+
+def phase_moe_kernels(dev) -> dict:
+    """K27 against its plain version: at Mixtral-8x7B width (K 4096, I
+    14336, 8 experts, group 128, inner blocks of 512) with bf16 rows at
+    batch 8 (timed cold: one copy of the packs is 749 MB, beyond the L2),
+    batch 1, and batch 32 with f32 rows and an expert no row routes to;
+    the tanh GELU at K 1024, I 2048; two inner blocks at a tiny width
+    (K 256, I 1024).  Outputs equal; one expert's s_mid off by MOE_FAULT
+    and w2's scale rows shifted by one inner block (planted) must differ."""
+    from qdm_tpu_torch.models.llama import MIXTRAL_8X7B
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    c = MIXTRAL_8X7B
+    k, i, n_e = c.hidden_size, c.intermediate_size, c.num_experts
+    group, bj = 128, dk.mlp_i4_block(i)
+    rows = []
+    packs, wts = _moe_packs(gen, n_e, k, i, group, bj, dev)
+    x8 = torch.randn((L7_BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+    scl = _moe_scales(x8, packs, n_e, group, "silu")
+    for label, m, dtype, never, timed in (
+            (f"Mixtral B {L7_BATCH} (bf16, silu)", L7_BATCH, torch.bfloat16, (), True),
+            ("Mixtral B 1", 1, torch.bfloat16, (), False),
+            ("Mixtral B 32 (f32 rows, expert 5 never routed)", 32, torch.float32, (5,), False)):
+        xn = x8 if m == L7_BATCH else torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        rw = _moe_route(gen, m, n_e, dev, never)
+        rows.append(_check_moe_i4(label, xn, rw, packs, wts, scl, bj, group, "silu", timed))
+    del packs, wts
+    torch.cuda.empty_cache()
+    for label, m, k_, i_, e_, act in (("K 1024, I 2048 (tanh GELU)", 8, 1024, 2048, 4, "gelu"),
+                                      ("tiny, two inner blocks", 5, 256, 1024, 4, "silu")):
+        bj_ = dk.mlp_i4_block(i_)
+        packs, wts = _moe_packs(gen, e_, k_, i_, group, bj_, dev)
+        xn = torch.randn((m, k_), generator=gen, device=dev).to(torch.bfloat16)
+        rows.append(_check_moe_i4(label, xn, _moe_route(gen, m, e_, dev), packs, wts,
+                                  _moe_scales(xn, packs, e_, group, act), bj_, group, act,
+                                  False))
+    out = {"fused_moe_mlp_decode_i4": rows}
+    _print_rows(out)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -2996,35 +3170,58 @@ def _k8b_replay(calls, dev) -> Tuple[bool, float, float]:
     return ok, share, mean
 
 
+def _timed(fn):
+    """(host seconds, result) of fn(), the device work synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _profile_decode(label: str, eng, prompts, start: int, max_len: int, rows: int = 15) -> None:
+    """Device time by kernel of three decode steps of ``eng`` after a
+    prefill of ``prompts``, and the device's idle share against the same
+    three steps untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tok0, caches = eng.prefill(prompts, max_len)
+    run = eng._make_run(3)
+    run(tok0, caches, start)
+    wall, _ = _timed(lambda: run(tok0, caches, start))
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        run(tok0, caches, start)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=rows), flush=True)
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"profile: {label}, 3 decode steps take {wall * 1e3:.2f} ms of wall time untraced; "
+          f"the traced run keeps the device busy {busy_ms:.2f} ms (idle share "
+          f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
+
+
 def phase_llm_profile(dev, llm: dict) -> None:
     """Warm engine and bf16 module generate, five each in turn; the
     engine's prefill and decode loop timed apart; device time by kernel of
     three engine decode steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     eng, lm, prompts = llm["engine"], llm["lm"], llm["prompts"]
     steps = LLM_NEW - 1
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
     def engine_parts():
-        t_pre, (tok0, caches) = timed(lambda: eng.prefill(prompts, LLM_PROMPT + LLM_NEW))
+        t_pre, (tok0, caches) = _timed(lambda: eng.prefill(prompts, LLM_PROMPT + LLM_NEW))
         run = eng._make_run(steps)
-        t_dec, _ = timed(lambda: run(tok0, caches, LLM_PROMPT))
+        t_dec, _ = _timed(lambda: run(tok0, caches, LLM_PROMPT))
         return t_pre, t_dec
 
     times = {"engine": [], "engine prefill": [], "engine decode": [], "module": []}
     engine_parts()
-    timed(lambda: lm.generate(prompts, max_new_tokens=LLM_NEW))
+    _timed(lambda: lm.generate(prompts, max_new_tokens=LLM_NEW))
     for _ in range(PROFILE_REPEATS):
-        t_gen, _ = timed(lambda: eng.generate(prompts, max_new_tokens=LLM_NEW))
+        t_gen, _ = _timed(lambda: eng.generate(prompts, max_new_tokens=LLM_NEW))
         t_pre, t_dec = engine_parts()
-        t_mod, _ = timed(lambda: lm.generate(prompts, max_new_tokens=LLM_NEW))
+        t_mod, _ = _timed(lambda: lm.generate(prompts, max_new_tokens=LLM_NEW))
         for k, v in (("engine", t_gen), ("engine prefill", t_pre), ("engine decode", t_dec),
                      ("module", t_mod)):
             times[k].append(v)
@@ -3037,22 +3234,7 @@ def phase_llm_profile(dev, llm: dict) -> None:
     ratios = [e / m for e, m in zip(times["engine"], times["module"])]
     print(f"profile: LLM engine / bf16 module generate time, run by run: {_spread(ratios)}",
           flush=True)
-
-    tok0, caches = eng.prefill(prompts, LLM_PROMPT + LLM_NEW)
-    run = eng._make_run(3)
-    run(tok0, caches, LLM_PROMPT)
-    wall, _ = timed(lambda: run(tok0, caches, LLM_PROMPT))
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
-        run(tok0, caches, LLM_PROMPT)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    print(events.table(sort_by="self_cuda_time_total", row_limit=20), flush=True)
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    print(f"profile: LLM engine, 3 decode steps take {wall * 1e3:.2f} ms of wall time untraced; "
-          f"the traced run keeps the device busy {busy_ms:.2f} ms (idle share "
-          f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
+    _profile_decode("LLM engine", eng, prompts, LLM_PROMPT, LLM_PROMPT + LLM_NEW, rows=20)
 
 
 # ---------------------------------------------------------------------------
@@ -3104,15 +3286,16 @@ def _reckon_peak(cfg) -> str:
             "generate, and without --profile each engine before the next is built)")
 
 
-def _l7_want(mode: str, cfg, kv_mode=None, fused: bool = False) -> dict:
+def _l7_want(mode: str, cfg, kv_mode=None, fused: bool = False, per=None) -> dict:
     """Exact launches of one 7B generate; ``kv_mode`` names the flash
     decode's quantized format that replaces K10's bf16 one; ``fused`` the
-    fused int8 prefill (K15 three times, K2 and K9 once per layer)."""
+    fused int8 prefill (K15 three times, K2 and K9 once per layer); ``per``
+    the launches per layer and decode step, if not ``L7_WANT[mode]``'s."""
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
     steps = L7_NEW - 1
     want = {k: 0 for k in qmm.LAUNCHES}
-    per = dict(L7_WANT[mode])
+    per = dict(per or L7_WANT[mode])
     if kv_mode:
         per[f"decode_attention_kv_flash_{kv_mode}"] = per.pop("decode_attention_kv_flash")
     want.update({k: v * cfg.num_hidden_layers * steps for k, v in per.items()})
@@ -3209,19 +3392,12 @@ def _merged_profile(label, eng, base, prompts) -> None:
     steps = L7_NEW - 1
     n_layers = eng.cfg.num_hidden_layers
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, res
-
     runs = {"merged": eng, "unmerged": base}
     times = {(w, k): [] for w in runs for k in ("prefill", "decode")}
     for _ in range(PROFILE_REPEATS + 1):
         for w, e in runs.items():
-            t_pre, (tok0, caches) = timed(lambda: e.prefill(prompts, L7_PROMPT + L7_NEW))
-            t_dec, _ = timed(lambda: e._make_run(steps)(tok0, caches, L7_PROMPT))
+            t_pre, (tok0, caches) = _timed(lambda: e.prefill(prompts, L7_PROMPT + L7_NEW))
+            t_dec, _ = _timed(lambda: e._make_run(steps)(tok0, caches, L7_PROMPT))
             times[(w, "prefill")].append(t_pre)
             times[(w, "decode")].append(t_dec)
             del caches
@@ -3583,21 +3759,12 @@ def phase_long_profile(dev, long: dict) -> None:
     the decode loop timed apart, and the w4a8 engine's module prefill
     beside its fused one; device time by kernel of three decode steps of
     each engine."""
-    from torch.profiler import ProfilerActivity, profile
-
     engines, prompts = long["engines"], long["prompts"]
     steps = L7_NEW - 1
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
     def parts(eng):
-        t_pre, (tok0, caches) = timed(lambda: eng.prefill(prompts, L7_PROMPT + L7_NEW))
-        t_dec, _ = timed(lambda: eng._make_run(steps)(tok0, caches, L7_PROMPT))
+        t_pre, (tok0, caches) = _timed(lambda: eng.prefill(prompts, L7_PROMPT + L7_NEW))
+        t_dec, _ = _timed(lambda: eng._make_run(steps)(tok0, caches, L7_PROMPT))
         return t_pre, t_dec
 
     fused = engines["w4a8_static"]
@@ -3605,7 +3772,7 @@ def phase_long_profile(dev, long: dict) -> None:
     def module_prefill():
         fused.prefill_fused = False
         try:
-            return timed(lambda: fused.prefill(prompts, L7_PROMPT + L7_NEW))[0]
+            return _timed(lambda: fused.prefill(prompts, L7_PROMPT + L7_NEW))[0]
         finally:
             fused.prefill_fused = True
 
@@ -3616,7 +3783,7 @@ def phase_long_profile(dev, long: dict) -> None:
     module_prefill()
     for _ in range(PROFILE_REPEATS):
         for mode, eng in engines.items():
-            t_gen, _ = timed(lambda: eng.generate(prompts, max_new_tokens=L7_NEW))
+            t_gen, _ = _timed(lambda: eng.generate(prompts, max_new_tokens=L7_NEW))
             t_pre, t_dec = parts(eng)
             for k, v in (("generate", t_gen), ("prefill", t_pre), ("decode", t_dec)):
                 times[(mode, k)].append(v)
@@ -3641,22 +3808,225 @@ def phase_long_profile(dev, long: dict) -> None:
     print(f"profile: Llama-2-7B w4a8 engine, fused int8 prefill / module prefill time, run by "
           f"run: {_spread(ratios)}", flush=True)
     for mode, eng in engines.items():
-        tok0, caches = eng.prefill(prompts, L7_PROMPT + L7_NEW)
-        run = eng._make_run(3)
-        run(tok0, caches, L7_PROMPT)
-        wall, _ = timed(lambda: run(tok0, caches, L7_PROMPT))
-        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                         ProfilerActivity.CUDA]) as prof:
-            run(tok0, caches, L7_PROMPT)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        print(events.table(sort_by="self_cuda_time_total", row_limit=15), flush=True)
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        print(f"profile: Llama-2-7B {mode} engine, 3 decode steps take {wall * 1e3:.2f} ms of "
-              f"wall time untraced; the traced run keeps the device busy {busy_ms:.2f} ms (idle "
-              f"share {1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
-        del caches
+        _profile_decode(f"Llama-2-7B {mode} engine", eng, prompts, L7_PROMPT,
+                        L7_PROMPT + L7_NEW)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the Mixtral path (Mixtral-8x7B widths, depth cut to MX_LAYERS)
+# ---------------------------------------------------------------------------
+
+MX_LAYERS = 4                 # of Mixtral-8x7B's 32: what fits beside the f32 tree on one card
+# launches per decode step and layer (the prefill's K9 and the head's K5 are added apart)
+MX_WANT = {
+    "w4a8_static": {"fused_dense_decode_i4": 2, "decode_attention_kv_flash": 1,
+                    "fused_moe_mlp_decode_i4": 1},
+    "w8a8_static": {"fused_dense_decode_i8": 2, "decode_attention_kv_flash": 1},
+    "bf16": {"fused_dense_decode": 2, "decode_attention_kv_flash": 1},
+}
+MOE_KERNELS = ("fused_moe_mlp_decode_i4", "fused_dense_decode_i4", "decode_attention_kv",
+               "fused_dense_decode")
+
+
+def _mixtral_cfg():
+    from qdm_tpu_torch.models.llama import MIXTRAL_8X7B
+
+    return dataclasses.replace(MIXTRAL_8X7B, num_hidden_layers=MX_LAYERS)
+
+
+def _reckon_moe_peak(cfg) -> str:
+    """The Mixtral path's device memory, reckoned from the shapes before the run."""
+    h, hkv, d, k, i, n_e = (cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
+                            cfg.hidden_size, cfg.intermediate_size, cfg.num_experts)
+    n_attn = (h + 2 * hkv) * d * k + h * d * k
+    n_exp = 3 * n_e * k * i
+    n_layer = n_attn + n_exp + k * n_e
+    n_emb = 2 * cfg.vocab_size * k
+    layers = cfg.num_hidden_layers
+    side = 2 * n_emb                             # the engines' bf16 embedding and head
+    t = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    parts = {"f32 tree": 4 * (layers * n_layer + n_emb),
+             "bf16 module": 2 * (layers * n_layer + n_emb),
+             "bf16 engine": 2 * layers * n_layer + side,
+             "w8a8 engine": layers * (n_attn + n_exp) + side,
+             "w4a8 engine": layers * (n_attn + n_exp) * (0.5 + 4 / 128) + side,
+             "caches": layers * L7_BATCH * 2 * hkv * d * t * 2}
+    one = parts["f32 tree"] + parts["bf16 module"] + parts["w8a8 engine"] + parts["caches"]
+    two = (parts["f32 tree"] + parts["bf16 module"] + parts["bf16 engine"] + parts["w4a8 engine"]
+           + parts["caches"])
+    return (", ".join(f"{k_} {v / 1e9:.1f} GB" for k_, v in parts.items())
+            + f"; the tree, the module, the largest quantized engine and a cache alive "
+            f"{one / 1e9:.1f} GB, with the bf16 and w4a8 engines together (--profile) "
+            f"{two / 1e9:.1f} GB, plus the prefill's activations")
+
+
+def phase_mixtral_path(dev, seed: int, keep: bool) -> dict:
+    """Mixtral-8x7B widths at MX_LAYERS layers, random weights from seed 0
+    drawn on the card: from_config -> serve(calib, "w4a8_static",
+    smooth=True) -> generate((8, 2048), 64); on the same smoothed weights
+    serve(calib, "w8a8_static") and serve(mode="bf16"); each generate of
+    the same prompts as the 7B path with the launch counts set to 0 just
+    before and read just after (K27 MX_LAYERS x 63 in w4a8).  An engine
+    goes before the next is built unless ``keep`` (the profile times the
+    w4a8 and bf16 engines in turn).  The quantized engines' greedy
+    agreement with the bf16 engine is a reading."""
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    cfg = _mixtral_cfg()
+    print(f"phase 3: Mixtral-8x7B path ({MX_LAYERS} of 32 layers), device memory reckoned: "
+          f"{_reckon_moe_peak(cfg)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = _draw_llama_params(cfg, 0, dev)
+    lm = CausalLM.from_config(cfg, dtype=torch.bfloat16, device=dev, params=tree)
+    del tree
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    calib = rng.integers(0, cfg.vocab_size, L7_CALIB).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (L7_BATCH, L7_PROMPT)).astype(np.int32)
+    out = {"lm": lm, "prompts": prompts, "engines": {}, "launches": {}, "tokens": {}}
+    build = {"w4a8_static": lambda: lm.serve(calib, "w4a8_static", smooth=True),
+             "w8a8_static": lambda: lm.serve(calib, "w8a8_static"),
+             "bf16": lambda: lm.serve(mode="bf16")}
+    for mode, make in build.items():
+        qmm.reset_launches()
+        t0 = time.perf_counter()
+        eng = make()
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        if any(qmm.LAUNCHES.values()):
+            fail(f"Mixtral {mode}: kernels launched by serve: {qmm.LAUNCHES}")
+        qmm.reset_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=L7_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(qmm.LAUNCHES)
+        want = _l7_want(mode, cfg, per=MX_WANT[mode])
+        if launches != want:
+            fail(f"Mixtral {mode} launches {launches} != expected {want} ({MX_LAYERS} layers x "
+                 f"{L7_NEW - 1} decode steps)")
+        new = new_tokens(f"Mixtral {mode}", toks, prompts, L7_NEW, cfg.vocab_size)
+        print(f"phase 3: Mixtral-8x7B ({MX_LAYERS} layers) {mode} engine, {L7_BATCH} x "
+              f"{L7_PROMPT} -> +{L7_NEW} tokens: "
+              + (f"from_config {t_init:.1f} s, smooth + " if mode == "w4a8_static" else "")
+              + f"serve {t_quant:.2f} s, first generate {t_gen:.2f} s "
+              f"({L7_BATCH * L7_NEW / t_gen:.1f} tokens/s); tokens {toks.shape} in "
+              f"[{new.min()}, {new.max()}]; launches { {k: v for k, v in launches.items() if v} }; "
+              f"device memory peak so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB",
+              flush=True)
+        out["launches"][mode] = launches
+        out["tokens"][mode] = new
+        if keep and mode != "w8a8_static":
+            out["engines"][mode] = eng
+        del eng
+        torch.cuda.empty_cache()
+    for other in ("w4a8_static", "w8a8_static"):
+        print(f"phase 3: Mixtral-8x7B greedy agreement of the {other} engine with the bf16 "
+              f"engine on the same smoothed weights "
+              f"{_agreement(out['tokens'][other], out['tokens']['bf16'])}", flush=True)
+    print(f"phase 3: Mixtral-8x7B path, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    return out
+
+
+def _moe_mid_fault(a):
+    """One routed expert's s_mid off by LLM_FAULT (K27's act scales)."""
+    a[8] = a[8].clone()
+    a[8][1 + int(a[1].sum(dim=0).argmax())] *= 1.0 + LLM_FAULT
+    return a
+
+
+def _moe_shifted_w2_rows(block_rows: int):
+    def fault(a):
+        a[7] = torch.roll(a[7], block_rows, dims=0)
+        return a
+    return fault
+
+
+def phase_moe_witness(dev) -> None:
+    """The tiny f32 w4a8 MoE engine (tiny_mixtral_config at W4_TINY: 4
+    experts, top-2, int4 group 128, two inner blocks of 512) from
+    ``serve(calib)``, on the card and on the CPU from one seed.  Every K27,
+    K16, K7 and K5 call of the CPU engine's generate, repeated on the card
+    on the same inputs (so a router near-tie cannot pick other experts on
+    the card), within LLM_TOL of its output's magnitude; planted faults
+    must read above it: one routed expert's s_mid off by LLM_FAULT, and
+    w2's scale rows shifted by one inner block.  The engines' greedy tokens
+    are a reading."""
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import tiny_mixtral_config
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    cfg = dataclasses.replace(tiny_mixtral_config(), **W4_TINY)
+    rng = np.random.default_rng(9)
+    calib = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 24)).astype(np.int32)
+    engines = {d: CausalLM.from_config(cfg, dtype=torch.float32, seed=0, device=d).serve(calib)
+               for d in ("cpu", dev)}
+    eng = engines[dev]
+    if (eng.i4_group, eng.i4_mlp_block) != (128, 512) or not eng.moe:
+        fail(f"tiny w4a8 MoE layout {(eng.i4_group, eng.i4_mlp_block)}")
+    calls: list = []
+    with _recording(calls, [(dk, n) for n in MOE_KERNELS]):
+        want = engines["cpu"].generate(prompts, max_new_tokens=8)
+    got = eng.generate(prompts, max_new_tokens=8)
+    sound = _replay(calls, dev)
+    k27 = [c for c in calls if c[0] == "fused_moe_mlp_decode_i4"]
+    planted = {}
+    for label, fault in ((f"one routed expert's s_mid off by {LLM_FAULT:g}", _moe_mid_fault),
+                         ("w2's scale rows shifted by one inner block",
+                          _moe_shifted_w2_rows(512 // 128))):
+        with _planted_card_fault(dk, "fused_moe_mlp_decode_i4", fault):
+            planted[label] = _replay(k27, dev)["fused_moe_mlp_decode_i4"]
+    n = {k: sum(c[0] == k for c in calls) for k in MOE_KERNELS}
+    print(f"phase 3: tiny f32 w4a8 MoE engine (serve(calib), 4 experts, top-2), card vs CPU: "
+          f"greedy tokens agree {float((got[:, 24:] == want[:, 24:]).mean()):.4f}; each kernel "
+          "call on the CPU's inputs, largest error relative to the output's magnitude: "
+          + ", ".join(f"{k} {sound[k]:.2e} ({n[k]} calls)" for k in MOE_KERNELS)
+          + f" (limit {LLM_TOL:g}); K27 planted: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in planted.items()), flush=True)
+    if max(sound.values()) > LLM_TOL or set(sound) != set(MOE_KERNELS):
+        fail(f"tiny w4a8 MoE engine card vs CPU: {sound}")
+    if min(planted.values()) <= LLM_TOL:
+        fail(f"the MoE layer witness misses a planted K27 fault: {planted}")
+
+
+def phase_mixtral_profile(dev, mx: dict) -> None:
+    """Warm generate of the Mixtral w4a8 and bf16 engines, five each in
+    turn, the prefill and the decode loop timed apart; device time by
+    kernel of three decode steps of the w4a8 engine, and its idle share."""
+    engines, prompts = mx["engines"], mx["prompts"]
+    steps = L7_NEW - 1
+
+    def parts(eng):
+        t_pre, (tok0, caches) = _timed(lambda: eng.prefill(prompts, L7_PROMPT + L7_NEW))
+        t_dec, _ = _timed(lambda: eng._make_run(steps)(tok0, caches, L7_PROMPT))
+        return t_pre, t_dec
+
+    times = {(m, k): [] for m in engines for k in ("generate", "prefill", "decode")}
+    for eng in engines.values():
+        parts(eng)
+    for _ in range(PROFILE_REPEATS):
+        for mode, eng in engines.items():
+            t_gen, _ = _timed(lambda: eng.generate(prompts, max_new_tokens=L7_NEW))
+            t_pre, t_dec = parts(eng)
+            for k, v in (("generate", t_gen), ("prefill", t_pre), ("decode", t_dec)):
+                times[(mode, k)].append(v)
+    for (mode, k), ts in times.items():
+        n_tok = L7_BATCH * (steps if k == "decode" else L7_NEW)
+        extra = "" if k == "prefill" else \
+            f"; tokens/s at the median {n_tok / float(np.median(ts)):.1f}"
+        print(f"profile: Mixtral-8x7B ({MX_LAYERS} layers) {mode} engine {k} ({L7_BATCH} x "
+              f"{L7_PROMPT} -> +{L7_NEW}), s: {_spread(ts)}{extra}", flush=True)
+    for k in ("generate", "decode"):
+        ratios = [q / b for q, b in zip(times[("w4a8_static", k)], times[("bf16", k)])]
+        print(f"profile: Mixtral-8x7B w4a8 engine / bf16 engine {k} time, run by run: "
+              f"{_spread(ratios)}", flush=True)
+    _profile_decode("Mixtral-8x7B w4a8 engine", engines["w4a8_static"], prompts, L7_PROMPT,
+                    L7_PROMPT + L7_NEW)
 
 
 def _generate_s(pipe) -> float:
@@ -3737,9 +4107,9 @@ def main() -> int:
                     help="also time warm generate runs (SD W4A16, W8A8, W8A8-static, "
                          "W8A8-static with int8_bmm, W8A8 with fuse_ln and bf16 in turn; the "
                          "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8, "
-                         "bf16 and w4a8 fused-prefill engines in turn) and profile two W4A16 "
-                         "and two W8A8-static denoising steps and three decode steps of each "
-                         "engine")
+                         "bf16 and w4a8 fused-prefill engines in turn; the Mixtral w4a8 and "
+                         "bf16 engines in turn) and profile two W4A16 and two W8A8-static "
+                         "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     args = ap.parse_args()
@@ -3762,6 +4132,7 @@ def main() -> int:
     kres.update(phase_kv_quant_kernels(dev))
     kres.update(phase_w4a8_kernels(dev, kres))
     kres.update(phase_merged_kernels(dev, kres))
+    kres.update(phase_moe_kernels(dev))
     runs = phase_main_path(dev)
     runs.update(phase_static_paths(dev, runs["base"]))
     runs["LLM"] = phase_llm_path(dev, args.seed)
@@ -3776,6 +4147,7 @@ def main() -> int:
     phase_llm_w4a8_witness(dev)
     phase_fused_prefill_witness(dev)
     phase_merged_witness(dev)
+    phase_moe_witness(dev)
     if args.profile:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])
@@ -3791,6 +4163,14 @@ def main() -> int:
     if args.profile:
         phase_long_profile(dev, long)
     del long
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx = phase_mixtral_path(dev, args.seed, keep=args.profile)
+    for mode, launches in mx["launches"].items():
+        runs[f"Mixtral-8x7B ({MX_LAYERS} layers) {mode}"] = {"launches": launches}
+    if args.profile:
+        phase_mixtral_profile(dev, mx)
+    del mx
 
     record = []
     for name, rows in kres.items():

@@ -7,6 +7,7 @@
     fused = lm.serve(calib_ids, prefill_quant="fused")   # the fused int8 prefill
     bf16 = lm.serve(mode="bf16")       # the yardstick, on the same weights
     kv4 = lm.serve(calib_ids, mode="w8a8_static", kv_dtype="int4")   # int4 KV cache
+    moe = CausalLM.from_config(MIXTRAL_8X7B).serve(calib_ids)   # Mixtral-family MoE
 
 Ported: ``from_config`` (the JAX package's seeded weights), ``logits``,
 greedy ``generate`` through the module with its (k, v) cache,

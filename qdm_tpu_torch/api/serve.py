@@ -78,6 +78,24 @@ MLP and residual as one call, K25 (int8) or K26 (int4), with x2 = o_proj
     attn = K7 / K10(q, cache, pos)
     x    = K25 / K26(attn; o_proj, + x, RMSNorm ln2, gate/up, silu * up, down, + x2)
 
+A Mixtral-family MoE model (``num_experts > 0``, ``serve.py:326-345``)
+keeps the attention half of its mode and replaces the MLP kernel by
+``_moe_mlp`` (``serve.py:2142-2195``): the RMSNorm ``ln2`` in f32 rounded to
+the model dtype, the float router, an f32 softmax, top-k, the
+renormalization and the dense ``(B, E)`` route weights; then every
+expert, dense-exact::
+
+    x    = K5 / K6 / K16(attn; o_proj, + x)
+    w4a8_static: out = K27(xn, route; every expert's int4 MLP, combined)
+    w8a8_static: int8 stacked products (torch._int_mm) with one input scale
+                 and a down-projection scale per expert
+    bf16:        stacked einsums in the model dtype
+    x    = x + out                            (in f32)
+
+``merge_o`` and a ``model`` mesh raise as in JAX (no dense MLP kernel to
+merge into; expert parallelism is the module path's), and so does
+``prefill_quant="fused"`` (``_build_fused_prefill``).
+
 ``head_quant="int8"`` / ``"int4"`` puts the final norm and the lm_head
 through K6 / K16 (int4 groups of 128, or hidden/2 where 128 does not
 divide it) with the calibrated static scale of ``act_stats["lm_head"]``.
@@ -87,7 +105,8 @@ in ``bf16``, ``w8a8_static`` and ``w4a8_static`` with every one-device
 option (``merge_o``, ``head_quant``, ``prefill_quant``, the KV-cache
 options), ``calibrate_scales``, ``smooth_lm``, ``init_cache``, ``prefill``
 with the quantizing half of ``_kv_finalize``, ``_build_fused_prefill`` and
-``_prefill_fused_run``, ``_layer``, ``_head_logits``, ``_make_run`` (a
+``_prefill_fused_run``, ``_layer`` and its MoE half (``_moe_mlp``),
+``_head_logits``, ``_make_run`` (a
 loop over steps of one memoized step function), greedy ``generate`` and
 ``recommended_kv``.  ``mesh``, ``gptq_grams``, the bf16 engine at batch 1
 (the TPU engine's XLA-layer variant, ``_xla_ok_b1``) and the other
@@ -107,6 +126,7 @@ from qdm_tpu_torch.api.causal_lm import check_greedy, mask_after_eos
 from qdm_tpu_torch.config import QuantConfig
 from qdm_tpu_torch.models import llama as llama_lib
 from qdm_tpu_torch.models.layers import capture_stats, load_tree
+from qdm_tpu_torch.models.moe import dense_route_weights, route
 from qdm_tpu_torch.models.shims import llama_scaling_groups
 from qdm_tpu_torch.ops import decode_kernels as dk
 from qdm_tpu_torch.ops import flash_prefill as fp
@@ -124,6 +144,14 @@ def _quant_w(w: torch.Tensor):
     wf = w.to(torch.float32)
     s = qmm.div_exact(wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-8), 127.0)
     return torch.clamp(torch.round(torch.div(wf, s)), -127, 127).to(torch.int8), s
+
+
+def _quant_w_stacked(w: torch.Tensor):
+    """Per-(expert, out-channel) symmetric int8 of stacked experts: w (E, K,
+    N) -> (codes (E, K, N) int8, scales (E, 1, N) f32), expert by expert
+    (``serve.py:104-110``)."""
+    codes, scales = zip(*(_quant_w(we) for we in w))
+    return torch.stack(codes), torch.stack(scales)
 
 
 def _quant_w4(w: torch.Tensor, group: int, block: int = 0):
@@ -189,12 +217,24 @@ class DecodeEngine:
         if gptq_grams and mode == "bf16":
             raise ValueError("gptq_grams places quantized weight codes; bf16 mode has none "
                              "(use w8a8/w4a8_static)")
+        cfg = lm.config
+        # Mixtral-family sparse MoE (serve.py:326-345): the attention half as in
+        # the mode, the stacked experts in _moe_mlp
+        self.moe = cfg.num_experts > 0
+        if self.moe:
+            if (mesh is not None and "model" in getattr(mesh, "axis_names", ())
+                    and int(mesh.shape["model"]) > 1):
+                raise NotImplementedError(
+                    "MoE engine serving is dp-only under a mesh; for expert parallelism use "
+                    "parallel.mesh.moe_ep_forward (module path)")
+            if merge_o:
+                raise NotImplementedError("merge_o fuses o_proj into the dense MLP kernel; MoE "
+                                          "has no dense MLP kernel to merge into")
         unported = {"mesh": mesh is not None, "gptq_grams": bool(gptq_grams)}
         if any(unported.values()):
             raise NotImplementedError(
                 f"engine options {[k for k, v in unported.items() if v]} are not ported yet: "
                 f"{_ROADMAP}")
-        cfg = lm.config
         llama_lib.check_canonical(cfg)
         # quantized KV cache (serve.py:396-431): int8 codes with per-token
         # scales, or int8 / packed int4 codes with per-(head, channel)
@@ -249,11 +289,16 @@ class DecodeEngine:
         self.layers: List[Dict[str, torch.Tensor]] = []
         for l in range(cfg.num_hidden_layers):
             lp, pre = p[f"layers_{l}"], f"layers_{l}"
-            at, mp = lp["self_attn"], lp["mlp"]
+            at = lp["self_attn"]
             w_qkv = torch.cat([at["q_proj"]["kernel"], at["k_proj"]["kernel"],
                                at["v_proj"]["kernel"]], dim=1)
             e = {"ln1": lp["input_layernorm"]["scale"].to(torch.float32),
                  "ln2": lp["post_attention_layernorm"]["scale"].to(torch.float32)}
+            if self.moe:
+                self.layers.append(self._moe_entry(e, lp["block_sparse_moe"], w_qkv,
+                                                   at["o_proj"]["kernel"], pre, qw, tw, scale_of))
+                continue
+            mp = lp["mlp"]
             # weights kept transposed, (N, K): the kernels' operand layout
             if mode == "bf16":
                 e["w_qkv_t"], e["w_o_t"] = tw(w_qkv), tw(at["o_proj"]["kernel"])
@@ -310,6 +355,50 @@ class DecodeEngine:
             # snapshot of the module (and its params) for the prefill
             self._prefill_model = lm.model
         self._run_cache: Dict = {}
+
+    def _moe_entry(self, e, mp, w_qkv, w_o, pre: str, qw, tw, scale_of):
+        """One MoE layer's engine entry (``serve.py:619-631``, ``:683-731``):
+        the attention weights as in the mode, the float router (K, E), and
+        the experts stacked and kept transposed per expert: bf16 (E, F, K) /
+        (E, K, F) in the model dtype; w8a8 the int8 codes in that layout
+        with (E, 1, N) scales, ``a_moe`` the ``experts_0/w1`` input scale
+        and ``a_w2`` the experts' down-projection input scales; w4a8 the
+        planar int4 packs (``pack_moe_expert_i4``; w2 with block
+        ``i4_mlp_block``) transposed for K27, (E, F, K/2) / (E, K, F/2),
+        with their group scales and ``a_moe_scl`` = [experts_0/w1, w2 of
+        each expert]."""
+        n_e = self.cfg.num_experts
+        mp_pre = f"{pre}/block_sparse_moe"
+        e["router"] = mp["gate"]["kernel"].to(self.dtype)
+        stack = lambda name: torch.stack([mp[f"experts_{i}"][name]["kernel"].to(self.dtype)
+                                          for i in range(n_e)])
+        if self.mode == "bf16":
+            e["w_qkv_t"], e["w_o_t"] = tw(w_qkv), tw(w_o)
+            for name in ("w1", "w3", "w2"):
+                e[f"{name.upper()}_t"] = stack(name).transpose(1, 2).contiguous()
+            return e
+        e["w_qkv_t"], e["s_qkv"] = qw(w_qkv)
+        e["w_o_t"], e["s_o"] = qw(w_o)
+        e["a_qkv"] = scale_of(f"{pre}/self_attn/q_proj")
+        e["a_o"] = scale_of(f"{pre}/self_attn/o_proj")
+        a_w2 = torch.cat([scale_of(f"{mp_pre}/experts_{i}/w2") for i in range(n_e)])
+        for name in ("w1", "w3", "w2"):
+            w = stack(name)
+            key = name.upper()
+            if self.mode == "w8a8_static":
+                codes, e[f"s{key}"] = _quant_w_stacked(w)
+                e[f"{key}_t"] = codes.transpose(1, 2).contiguous()
+            else:
+                packed, e[f"s{key}"] = dk.pack_moe_expert_i4(
+                    w, self.i4_group, self.i4_mlp_block if name == "w2" else 0)
+                e[f"{key}_t"] = dk.moe_expert_t(packed, n_e)
+            del w
+        if self.mode == "w8a8_static":
+            e["a_moe"] = scale_of(f"{mp_pre}/experts_0/w1")
+            e["a_w2"] = a_w2
+        else:
+            e["a_moe_scl"] = torch.cat([scale_of(f"{mp_pre}/experts_0/w1"), a_w2])
+        return e
 
     def _quantized_prefill_model(self, p, prefill_quant, act_stats, act_margin: float):
         """The int8 module prefill (``serve.py:914-960``): the LLaMA module
@@ -373,6 +462,18 @@ class DecodeEngine:
         q = qkv[:, :h * d].view(b, hkv, h // hkv, d)
         attn = self._attend(q, qkv[:, h * d:].reshape(b, 2 * hkv, d), cache, pos)
         attn = attn.reshape(b, h * d)
+        if self.moe:
+            # o_proj + residual through the dense kernel, then the stacked
+            # experts (serve.py:1923-1935)
+            if self.mode == "bf16":
+                x = dk.fused_dense_decode(attn, w["w_o_t"].t(), residual=x, w_t=w["w_o_t"])
+            elif self.mode == "w8a8_static":
+                x = dk.fused_dense_decode_i8(attn, w["w_o_t"].t(), w["s_o"], w["a_o"],
+                                             residual=x, w_t=w["w_o_t"])
+            else:
+                x = dk.fused_dense_decode_i4(attn, w["w_o_t"].t(), w["s_o"], w["a_o"],
+                                             residual=x, group=self.i4_group, w_t=w["w_o_t"])
+            return self._moe_mlp(x, w)
         mlp_w = (w["wg_t"].t(), w["wu_t"].t(), w["wd_t"].t())
         mlp_t = (w["wg_t"], w["wu_t"], w["wd_t"])
         if self.merge_o:
@@ -398,6 +499,48 @@ class DecodeEngine:
                                      group=self.i4_group, w_t=w["w_o_t"])
         return dk.fused_mlp_decode_i4(x, *mlp_w, scales, w["a_mlp"], w["ln2"], eps=eps,
                                       act=cfg.mlp_act, group=self.i4_group, w_t=mlp_t)
+
+    def _moe_mlp(self, x, w):
+        """Dense-exact sparse-MoE decode MLP (``serve.py:2142-2195``): the
+        router's top-k weights, renormalized, gate every expert's output;
+        returns ``x + out`` in x's dtype, the sum taken in f32."""
+        cfg = self.cfg
+        xin = dk.norm_f32(x.to(torch.float32), w["ln2"], 0.0, cfg.rms_norm_eps,
+                          "rmsnorm").to(x.dtype)
+        logits = torch.matmul(xin, w["router"]).to(torch.float32)          # (B, E)
+        w_be = dense_route_weights(*route(logits, cfg.num_experts_per_tok), cfg.num_experts)
+        w1_t, w3_t, w2_t = w["W1_t"], w["W3_t"], w["W2_t"]
+        if self.mode == "w4a8_static":
+            out = dk.fused_moe_mlp_decode_i4(
+                xin, w_be, w1_t.transpose(1, 2), w3_t.transpose(1, 2), w2_t.transpose(1, 2),
+                w["sW1"], w["sW3"], w["sW2"], w["a_moe_scl"], act=cfg.mlp_act,
+                group=self.i4_group, w_t=(w1_t, w3_t, w2_t))
+            return (x.to(torch.float32) + out).to(x.dtype)
+        n_e, f, k = w1_t.shape
+        b = x.shape[0]
+        if self.mode == "bf16":
+            g = torch.einsum("bk,efk->ebf", xin, w1_t)
+            u = torch.einsum("bk,efk->ebf", xin, w3_t)
+            y = torch.einsum("ebf,ekf->ebk", g * torch.sigmoid(g) * u, w2_t).to(torch.float32)
+        else:
+            # int8 stacked products: one input scale for every expert (each
+            # sees the same normed rows), a down-projection scale per expert
+            a = w["a_moe"]
+            xq = torch.clamp(torch.round(torch.div(xin.to(torch.float32), a)),
+                             -127, 127).to(torch.int8)
+
+            def up_proj(w_t, s):
+                acc = qmm.int8_matmul_xla(xq, w_t.reshape(n_e * f, k).t())
+                return acc.reshape(b, n_e, f).transpose(0, 1).to(torch.float32) * (s * a)
+            g = up_proj(w1_t, w["sW1"])
+            u = up_proj(w3_t, w["sW3"])
+            a2 = w["a_w2"][:, None, None]
+            hq = torch.clamp(torch.round(torch.div(dk._act(cfg.mlp_act, g) * u, a2)),
+                             -127, 127).to(torch.int8)
+            y = torch.stack([qmm.int8_matmul_xla(hq[i], w2_t[i].t()) for i in range(n_e)])
+            y = y.to(torch.float32) * (w["sW2"] * a2)
+        out = torch.einsum("ebk,be->bk", y, w_be)
+        return (x.to(torch.float32) + out).to(x.dtype)
 
     def _attend(self, q, kv_new, cache, pos: int):
         """Write the new k, v column at ``pos`` into the cache, in its
@@ -528,7 +671,7 @@ class DecodeEngine:
         (N, K) for the kernels.  The activations are quantized per token
         inside the kernels, so no calibration is needed.  Held in a list,
         one dict per layer (the JAX engine stacks them for a ``lax.scan``)."""
-        if self.kv_dtype is not None:
+        if self.kv_dtype is not None or self.moe:
             raise NotImplementedError(
                 "prefill_quant='fused' covers the canonical llama family (rmsnorm, full rope, "
                 "no biases/window/MoE, bf16 KV, single-device), as in the JAX engine; a "

@@ -23,7 +23,11 @@ dropped silently.
 weights into the port engine's layout:
 the int8 codes (K, N) and the planar int4 packs (K/2, N) transposed to
 the kernels' (N, K) and (N, K/2), their scales ((1, N) per channel,
-(K/group, N) per int4 group) and the norms as they are.
+(K/group, N) per int4 group) and the norms as they are.  An MoE layer's
+expert stacks (``W1`` / ``W3`` / ``W2``: (E, K, F) weights or int8 codes,
+or the w4a8 engine's stacked packs (E*K/2, F)) become the port's
+per-expert transposes ``W1_t`` / ``W3_t`` / ``W2_t``; the router, the
+expert scales and ``a_moe`` / ``a_w2`` / ``a_moe_scl`` keep their values.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from qdm_tpu_torch.models.layers import flatten_tree, unflatten_tree
+from qdm_tpu_torch.ops import decode_kernels as dk
 
 # leaf name -> the ranks it may have
 LEAF_RANKS = {"kernel": (2, 4), "qweight": (2, 4), "bias": (1,), "scale": (1,),
@@ -81,6 +86,7 @@ def lut_from_jax(lut: dict) -> Dict[Tuple[str, ...], torch.Tensor]:
 
 # JAX engine key -> port engine key of the weights the kernels read transposed
 _ENGINE_WEIGHTS = {"w_qkv": "w_qkv_t", "w_o": "w_o_t", "wg": "wg_t", "wu": "wu_t", "wd": "wd_t"}
+_EXPERT_STACKS = ("W1", "W3", "W2")
 _FUSED_WEIGHTS = {"qkv_w": "qkv_t", "ug_w": "ug_t", "o_w": "o_t", "dn_w": "dn_t"}
 
 
@@ -91,11 +97,15 @@ def engine_layers_from_jax(layers) -> List[Dict[str, torch.Tensor]]:
     out = []
     for entry in layers:
         e = {}
+        n_e = np.asarray(entry["a_moe_scl"]).size - 1 if "a_moe_scl" in entry else 0
         for key, arr in entry.items():
             t = _to_tensor(arr)
             if key in _ENGINE_WEIGHTS:
                 e[_ENGINE_WEIGHTS[key]] = t.t().contiguous()
-            elif key in ("a_qkv", "a_o", "a_mlp"):
+            elif key in _EXPERT_STACKS:     # w4a8: (E*R, C) stacked planar packs
+                e[f"{key}_t"] = (dk.moe_expert_t(t, n_e) if t.dim() == 2
+                                 else t.transpose(1, 2).contiguous())
+            elif key in ("a_qkv", "a_o", "a_mlp", "a_moe", "a_w2", "a_moe_scl"):
                 e[key] = t.reshape(-1)
             else:
                 e[key] = t

@@ -389,13 +389,7 @@ class QConv(QuantLayer):
         k8 = self._w_mat.shape[0]
         if cols.shape[1] != k8:
             cols = F.pad(cols, (0, k8 - cols.shape[1]))
-        if x.device.type == "cuda":
-            m = cols.shape[0]
-            if m <= 16:   # _int_mm needs M > 16
-                cols = F.pad(cols, (0, 0, 0, 17 - m))
-            acc = torch._int_mm(cols.contiguous(), self._w_mat)[:m]
-        else:
-            acc = qmm.int8_matmul_exact(cols, self._w_mat)
+        acc = qmm.int8_matmul_xla(cols, self._w_mat)
         acc = acc[:, :self.features].reshape(b, ho, wo, self.features)
         y = (acc.to(torch.float32) * (xs * self.scales)).to(self.dtype)
         if self.use_bias:

@@ -1,7 +1,8 @@
 """Causal LM, canonical LLaMA block (counterpart of ``qdm_tpu/models/llama.py``).
 
 Ported: RMSNorm + RoPE GQA attention (einsum path, no biases) + gated
-SiLU MLP, the module ``(k, v)`` cache (B, hkv, T, d) and the serving
+SiLU MLP or, with ``num_experts > 0``, the Mixtral-layout sparse MoE MLP
+``block_sparse_moe`` (``models/moe.py``), the module ``(k, v)`` cache (B, hkv, T, d) and the serving
 engine's combined depth-major ``[K | V]`` cache (B, 2*hkv, d, T) written
 by a prefill through the module (``llama.py:351-366``).  Every linear is
 a :class:`QDense` with the Flax module's path (``layers_0/self_attn/q_proj``),
@@ -35,6 +36,7 @@ import torch
 from torch import nn
 
 from qdm_tpu_torch.models.layers import NO_PLAN, QDense, RMSNorm, _declare
+from qdm_tpu_torch.models.moe import MoeMLP, check_moe_layout
 from qdm_tpu_torch.ops import flash_prefill as fp
 from qdm_tpu_torch.quant.plan import QuantPlan
 
@@ -124,11 +126,12 @@ class LlamaConfig:
 
 
 # the canonical block: every other value of these fields selects an
-# architecture that is not ported yet
+# architecture that is not ported yet (num_experts > 0 selects the Mixtral
+# MoE MLP, models/moe.py; its other layouts raise there)
 _CANONICAL = {
     "attention_bias": False, "norm_type": "rmsnorm", "mlp_act": "silu",
     "tie_word_embeddings": False,
-    "parallel_residual": False, "logit_scale": 1.0, "num_experts": 0,
+    "parallel_residual": False, "logit_scale": 1.0,
     "norm_plus_one": False, "scale_embeddings": False, "sliding_window": None,
     "attn_logit_softcapping": None, "final_logit_softcapping": None,
     "sandwich_norms": False, "query_pre_attn_scalar": None, "partial_rotary_factor": 1.0,
@@ -146,6 +149,7 @@ def check_canonical(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             f"LlamaConfig fields {off} select an architecture that is not ported yet: "
             f"{_ROADMAP}")
+    check_moe_layout(cfg)
 
 
 def tiny_llama_config() -> LlamaConfig:
@@ -154,11 +158,26 @@ def tiny_llama_config() -> LlamaConfig:
                        num_key_value_heads=2, max_position_embeddings=128)
 
 
+def tiny_mixtral_config(**kw) -> LlamaConfig:
+    return LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=96,
+                       num_hidden_layers=2, num_attention_heads=4,
+                       num_key_value_heads=2, max_position_embeddings=128,
+                       num_experts=4, num_experts_per_tok=2, **kw)
+
+
 # TinyLlama-1.1B's published geometry (HF TinyLlama/TinyLlama-1.1B-Chat-v1.0
 # config.json), the JAX package's LLM benchmark model (bench_llm.py:28-31)
 BENCH_1B = LlamaConfig(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                        num_hidden_layers=22, num_attention_heads=32,
                        num_key_value_heads=4, max_position_embeddings=2048)
+
+# Mixtral-8x7B's published geometry (HF mistralai/Mixtral-8x7B-v0.1
+# config.json: 8 experts, top-2, GQA 32/8, rope theta 1e6), as the JAX
+# package's registry holds it (qdm_tpu/models/registry.py:84-88)
+MIXTRAL_8X7B = LlamaConfig(hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+                           num_attention_heads=32, num_key_value_heads=8,
+                           rope_theta=1000000.0, max_position_embeddings=32768,
+                           num_experts=8, num_experts_per_tok=2)
 
 
 def rope_freqs(d: int, theta: float, device=None) -> torch.Tensor:
@@ -282,17 +301,22 @@ class LlamaDecoderLayer(nn.Module):
                  path: str = ""):
         super().__init__()
         eps = cfg.rms_norm_eps
+        self.moe = cfg.num_experts > 0
         self.input_layernorm = RMSNorm(cfg.hidden_size, eps, dtype)
         self.self_attn = LlamaAttention(cfg, dtype, plan, f"{path}/self_attn")
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, eps, dtype)
-        self.mlp = LlamaMLP(cfg, dtype, plan, f"{path}/mlp")
+        if cfg.num_experts > 0:
+            self.block_sparse_moe = MoeMLP(cfg, dtype, plan, f"{path}/block_sparse_moe")
+        else:
+            self.mlp = LlamaMLP(cfg, dtype, plan, f"{path}/mlp")
 
     def forward(self, x, positions, kv_cache=None, cache_index=None,
                 std_positions: bool = False):
         h, cache = self.self_attn(self.input_layernorm(x), positions, kv_cache, cache_index,
                                   std_positions)
         x = x + h
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        mlp = self.block_sparse_moe if self.moe else self.mlp
+        x = x + mlp(self.post_attention_layernorm(x))
         return x, cache
 
 

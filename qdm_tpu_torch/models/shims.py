@@ -41,9 +41,11 @@ def sd_unet_scaling_groups(params: dict) -> List[ScalingGroup]:
 def llama_scaling_groups(params: dict, include_fc_groups: bool = False,
                          norm_plus_one: bool = False) -> List[ScalingGroup]:
     """LLaMA norm-prev groups (``shims.py::llama_scaling_groups``):
-    input_layernorm -> q/k/v_proj and post_attention_layernorm ->
-    gate/up_proj of every ``layers_N``.  The fc -> fc groups, Gemma's
-    (1 + w) norms, MoE and MLA are not ported yet and raise."""
+    input_layernorm -> q/k/v_proj of every ``layers_N``, then
+    post_attention_layernorm -> gate/up_proj, or in a Mixtral MoE block
+    post_attention_layernorm -> every expert's w1 and w3 in expert order,
+    with the router ``gate`` in ``extra_scaled``.  The fc -> fc groups,
+    Gemma's (1 + w) norms and MLA are not ported yet and raise."""
     if include_fc_groups or norm_plus_one:
         raise NotImplementedError(
             "llama_scaling_groups: fc -> fc groups (AWQ) and (1 + w) norm prevs are not "
@@ -53,14 +55,25 @@ def llama_scaling_groups(params: dict, include_fc_groups: bool = False,
         if not (path and re.fullmatch(r"layers_\d+", path[-1]) and "self_attn" in sub):
             continue
         mlp, at = sub.get("mlp", {}), sub["self_attn"]
-        if ("q_proj" not in at or "gate_proj" not in mlp or "post_attention_layernorm" not in sub
-                or "block_sparse_moe" in sub):
+        moe = sub.get("block_sparse_moe")
+        if ("q_proj" not in at or "post_attention_layernorm" not in sub
+                or ("gate_proj" not in mlp and moe is None)):
             raise NotImplementedError(
                 f"{'/'.join(path)}: only the canonical LLaMA block (q/k/v_proj, "
-                "post_attention_layernorm -> gate/up_proj) is ported: ROADMAP.md Queue 1 item 14")
+                "post_attention_layernorm -> gate/up_proj or a Mixtral MoE block) is ported: "
+                "ROADMAP.md Queue 1 item 14")
         groups.append(ScalingGroup(
             prev_path=path + ("input_layernorm",),
             layer_paths=tuple(path + ("self_attn", n) for n in ("q_proj", "k_proj", "v_proj"))))
+        if moe is not None:
+            mp = path + ("block_sparse_moe",)
+            experts = sorted((k for k in moe if re.fullmatch(r"experts_\d+", k)),
+                             key=lambda k: int(k.split("_")[1]))
+            groups.append(ScalingGroup(
+                prev_path=path + ("post_attention_layernorm",),
+                layer_paths=tuple(mp + (e, w) for e in experts for w in ("w1", "w3")),
+                extra_scaled=(mp + ("gate",),)))
+            continue
         groups.append(ScalingGroup(
             prev_path=path + ("post_attention_layernorm",),
             layer_paths=(path + ("mlp", "gate_proj"), path + ("mlp", "up_proj"))))

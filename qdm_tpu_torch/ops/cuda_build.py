@@ -78,6 +78,8 @@ ENTRY_POINTS = {
     "flash_int8": ("qdm_flash_int8",
                    (P, L, L, L, P, L, L, L, P, L, L, L, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
                     F, I, P)),
+    "decode_moe_i4": ("qdm_decode_moe_i4",
+                      (P, I, P, P, P, P, P, P, P, P, I, P, I, P, P, P, I, I, I, I, I, I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}
 

@@ -60,6 +60,13 @@ engine with a bf16 KV cache:
   fused MLP on x2 and ``acc + x2``.  CUDA kernels ``csrc/decode_o_mlp_i8.cu``
   (K25; replaces ``fused_o_mlp_decode_i8_pallas``) and
   ``csrc/decode_o_mlp_i4.cu`` (K26; replaces ``fused_o_mlp_decode_i4_pallas``).
+* :func:`fused_moe_mlp_decode_i4` — the ``w4a8_static`` MoE engine's MLP:
+  every expert's int4 MLP on the pre-normed rows (one ``s_in`` for all
+  experts, a mid scale per expert) and the routing combine, the f32 partial
+  of each (expert, inner block) times the route weight added in that
+  order.  CUDA kernel ``csrc/decode_moe_i4.cu`` (K27; replaces
+  ``fused_moe_mlp_decode_i4_pallas``).  The stacks come from
+  :func:`pack_moe_expert_i4`.
 
 Arithmetic shared by the kernels and their plain versions, so that both
 give the same bits on the card and the plain version the same bits on the
@@ -113,7 +120,8 @@ KV_MODES = {"i8": 0, "i8c": 1, "i4c": 2}
 for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
            "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode",
            "fused_dense_decode_i4", "fused_mlp_decode_i4", "fused_o_mlp_decode_i8",
-           "fused_o_mlp_decode_i4", *(f"decode_attention_kv_{m}" for m in KV_MODES),
+           "fused_o_mlp_decode_i4", "fused_moe_mlp_decode_i4",
+           *(f"decode_attention_kv_{m}" for m in KV_MODES),
            *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
 
@@ -594,6 +602,64 @@ def fused_mlp_decode_i4_plain(x, wg_p, wu_p, wd_p, w_scales, act_scales, norm_sc
     if residual:
         acc = acc + x.to(torch.float32)
     return acc.to(out_dtype or x.dtype)
+
+
+def pack_moe_expert_i4(w: torch.Tensor, group: int, block: int = 0):
+    """Stacked expert weights (E, K, N) -> (packed (E*K/2, N) int8, scales
+    (E*K/group, N) f32): each expert's planar pack (``block`` as in
+    :func:`pack_int4_planar`) and group scales, stacked along the rows
+    (``decode_kernels.pack_moe_expert_i4``)."""
+    packs, scales = [], []
+    for we in w:
+        q, s = quantize_int4_group(we, group)
+        packs.append(pack_int4_planar(q, block))
+        scales.append(s)
+    return torch.cat(packs), torch.cat(scales)
+
+
+def moe_expert_t(w_p: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """A stacked pack (E*R, C) -> the kernel's per-expert transpose (E, C, R)."""
+    return _per_expert(w_p, n_experts).transpose(1, 2).contiguous()
+
+
+def _per_expert(w: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """A stack (E*R, C), or already (E, R, C), as (E, R, C) (a view)."""
+    return w if w.dim() == 3 else w.reshape(n_experts, w.shape[0] // n_experts, w.shape[1])
+
+
+def fused_moe_mlp_decode_i4_plain(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2, act_scales,
+                                  act: str = "silu", block_j: int = 512, group: int = 128,
+                                  out_dtype=None):
+    """Plain version of :func:`fused_moe_mlp_decode_i4`, expert by expert
+    and inner block by inner block in the TPU kernel's grid order
+    (``_fused_moe_mlp_i4_kernel``).  The packs may also come per expert,
+    (E, K/2, I) and (E, I/2, K)."""
+    b, k = xn.shape
+    scl = act_scales.reshape(-1).to(torch.float32)
+    n_e = scl.shape[0] - 1
+    w1_p, w3_p, w2_p = (_per_expert(t, n_e) for t in (w1_p, w3_p, w2_p))
+    inner = w1_p.shape[2]
+    bj = mlp_i4_block(inner, block_j)
+    s1, s3, s2 = (t.to(torch.float32) for t in (s1, s3, s2))
+    rw = route_w.to(torch.float32)
+    s_in = scl[0:1]
+    xi = _quant_static(xn.to(torch.float32), s_in)
+    n_j = inner // bj
+    acc = torch.zeros((b, k), dtype=torch.float32, device=xn.device)
+    for e in range(n_e):
+        s_mid = scl[1 + e:2 + e]
+        w1, w3 = w1_p[e], w3_p[e]
+        for j in range(n_j):
+            cols = slice(j * bj, (j + 1) * bj)
+            gate = i4_group_dot_plain(xi, w1[:, cols], s1[:, cols], s_in, group,
+                                      row0=e * (k // group))
+            up = i4_group_dot_plain(xi, w3[:, cols], s3[:, cols], s_in, group,
+                                    row0=e * (k // group))
+            ai = _quant_static(_act(act, gate) * up, s_mid)
+            y = i4_group_dot_plain(ai, w2_p[e, j * bj // 2:(j + 1) * bj // 2], s2, s_mid, group,
+                                   row0=e * (inner // group) + j * (bj // group))
+            acc = acc + y * rw[:, e:e + 1]
+    return acc.to(out_dtype or torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -1243,6 +1309,87 @@ def fused_mlp_decode_i4(x, wg_p, wu_p, wd_p, w_scales: Sequence[torch.Tensor], a
                  part.data_ptr(), m, k, inner, bj, int(group), _stream(x))
     cuda_build.check(err, "fused_mlp_decode_i4")
     qmm.LAUNCHES["fused_mlp_decode_i4"] += 1
+    return out
+
+
+def fused_moe_mlp_decode_i4(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2, act_scales,
+                            act: str = "silu", block_j: int = 512, group: int = 128,
+                            out_dtype=None,
+                            w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
+    """Stacked-expert int4 MoE MLP with the routing combine (K27): xn (B, K)
+    the pre-normed rows, route_w (B, E) f32 (0 on an expert outside a
+    token's top-k); w1_p / w3_p (E*K/2, I) planar-packed per expert with
+    block 0, w2_p (E*I/2, K) packed per expert with block
+    ``mlp_i4_block(I, block_j)`` (:func:`pack_moe_expert_i4`), or the
+    same per expert, (E, K/2, I) and (E, I/2, K) (a view); s1 / s3
+    (E*K/g, I), s2 (E*I/g, K) f32 group scales; act_scales (1 + E,) =
+    [s_in, s_mid of each expert].  Returns (B, K) in ``out_dtype`` (f32 by
+    default), no residual.  w_t, if given, holds the per-expert transposed
+    packs (:func:`moe_expert_t`: (E, I, K/2), (E, I, K/2), (E, K, I/2)),
+    which an engine builds once."""
+    if act not in _ACTS:
+        raise ValueError(f"act {act!r}")
+    out_dtype = out_dtype or torch.float32
+    if not _on_card(xn, "fused_moe_mlp_decode_i4"):
+        return fused_moe_mlp_decode_i4_plain(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2,
+                                             act_scales, act, block_j, group, out_dtype)
+    if xn.dim() != 2 or xn.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_moe_mlp_decode_i4: xn must be 2-D bf16/f32, got "
+                         f"{tuple(xn.shape)} {xn.dtype} -> {out_dtype}")
+    m, k = xn.shape
+    n_e = act_scales.numel() - 1
+    if n_e < 1:
+        raise ValueError("fused_moe_mlp_decode_i4: act_scales holds no expert's mid scale")
+    w1_p, w3_p, w2_p = (_per_expert(t, n_e) for t in (w1_p, w3_p, w2_p))
+    inner = w1_p.shape[2]
+    if (k % 2 or inner % 2 or w1_p.shape != (n_e, k // 2, inner)
+            or w3_p.shape != (n_e, k // 2, inner) or w2_p.shape != (n_e, inner // 2, k)):
+        raise ValueError(f"fused_moe_mlp_decode_i4: packed stacks {tuple(w1_p.shape)}, "
+                         f"{tuple(w3_p.shape)}, {tuple(w2_p.shape)} for K={k} and "
+                         f"{n_e} experts")
+    bj = mlp_i4_block(inner, block_j)
+    _i4_kernel_group(group, k // 2, "fused_moe_mlp_decode_i4")
+    _i4_kernel_group(group, bj // 2, "fused_moe_mlp_decode_i4 (down blocks)")
+    dev = xn.device
+    wts = w_t or tuple(moe_expert_t(t, n_e) for t in (w1_p, w3_p, w2_p))
+    for t, shape in zip(wts, ((n_e, inner, k // 2), (n_e, inner, k // 2),
+                              (n_e, k, inner // 2))):
+        if (t.dtype != torch.int8 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.device != dev):
+            raise ValueError("fused_moe_mlp_decode_i4: transposed packs must be contiguous, "
+                             f"16-byte aligned int8 {shape} on xn's device")
+    sc = []
+    for t, shape, name in zip((s1, s3, s2), ((n_e * k // group, inner),
+                                             (n_e * k // group, inner),
+                                             (n_e * inner // group, k)), ("w1", "w3", "w2")):
+        t = t.to(torch.float32).contiguous()
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"fused_moe_mlp_decode_i4: {name} scales {tuple(t.shape)} are "
+                             f"not {shape} on xn's device")
+        sc.append(t)
+    rw = route_w.to(torch.float32).contiguous()
+    if tuple(rw.shape) != (m, n_e) or rw.device != dev:
+        raise ValueError(f"fused_moe_mlp_decode_i4: route_w {tuple(route_w.shape)} is not "
+                         f"({m}, {n_e}) on xn's device")
+    scl = _f32_vec(act_scales, n_e + 1, "act_scales", dev)
+    xn = xn.contiguous()
+    out = torch.empty((m, k), dtype=out_dtype, device=dev)
+    if m == 0:
+        return out
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    ai = torch.empty((n_e, m, inner), dtype=torch.int8, device=dev)
+    # one f32 partial per (expert, inner block): 29 MB at Mixtral width, batch 8,
+    # the same block of PyTorch's caching allocator every step
+    part = torch.empty((n_e * (inner // bj), m, k), dtype=torch.float32, device=dev)
+    fn = cuda_build.kernel("decode_moe_i4")
+    with torch.cuda.device(dev):
+        err = fn(xn.data_ptr(), _DTYPE_CODE[xn.dtype], rw.data_ptr(), wts[0].data_ptr(),
+                 wts[1].data_ptr(), wts[2].data_ptr(), sc[0].data_ptr(), sc[1].data_ptr(),
+                 sc[2].data_ptr(), scl.data_ptr(), _ACTS[act], out.data_ptr(),
+                 _DTYPE_CODE[out_dtype], xi.data_ptr(), ai.data_ptr(), part.data_ptr(), m, k,
+                 inner, n_e, bj, int(group), _stream(xn))
+    cuda_build.check(err, "fused_moe_mlp_decode_i4")
+    qmm.LAUNCHES["fused_moe_mlp_decode_i4"] += 1
     return out
 
 

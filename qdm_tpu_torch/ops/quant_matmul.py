@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from qdm_tpu_torch.ops import cuda_build
 
@@ -233,11 +234,15 @@ def ln_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def int8_matmul_xla(a_i8: torch.Tensor, b_i8: torch.Tensor) -> torch.Tensor:
     """The exact int32 product of an int8 dot that was plain XLA on the TPU
-    (``QDense`` ``w8a8_xla``, never a Pallas kernel): ``torch._int_mm`` on
-    the card where it takes the shapes (more than 16 rows, K and N multiples
-    of 8), else :func:`int8_matmul_exact`."""
+    (``QDense`` ``w8a8_xla``, ``QConv`` ``w8a8``, the MoE engine's stacked
+    experts; never a Pallas kernel): ``torch._int_mm`` on the card where it
+    takes K and N (multiples of 8), with 16 or fewer rows padded to 17 (its
+    least M), else :func:`int8_matmul_exact`.  b may be a column-major view,
+    the layout on which ``_int_mm`` runs fast."""
     m, k = a_i8.shape
-    if a_i8.device.type == "cuda" and m > 16 and k % 8 == 0 and b_i8.shape[1] % 8 == 0:
+    if a_i8.device.type == "cuda" and k % 8 == 0 and b_i8.shape[1] % 8 == 0:
+        if m <= 16:
+            return torch._int_mm(F.pad(a_i8, (0, 0, 0, 17 - m)), b_i8)[:m]
         return torch._int_mm(a_i8.contiguous(), b_i8)
     return int8_matmul_exact(a_i8, b_i8)
 

@@ -22,10 +22,17 @@ from qdm_tpu_torch.quant.apply import _set_at
 
 @dataclass(frozen=True)
 class ScalingGroup:
-    """prev_op (a norm layer path) feeding a set of linear layer paths."""
+    """prev_op (a norm layer path) feeding a set of linear layer paths.
+
+    extra_scaled: linear paths that share the prev op's output but take no
+    part in the smoothing math (no weight scale, no stats): their kernels
+    are multiplied by s like the group's layers, so their outputs are
+    unchanged by the migration.  The MoE router: post_attention_layernorm
+    feeds it beside every expert's w1 / w3, so routing stays invariant."""
 
     prev_path: Tuple[str, ...]
     layer_paths: Tuple[Tuple[str, ...], ...]
+    extra_scaled: Tuple[Tuple[str, ...], ...] = ()
 
 
 def _get_at(tree, path):
@@ -44,7 +51,8 @@ def compute_smooth_scales(params: dict, group: ScalingGroup,
 
 
 def apply_smooth_scales(params: dict, group: ScalingGroup, s: torch.Tensor) -> dict:
-    """prev norm's scale and bias divided by s, the fc kernels multiplied."""
+    """prev norm's scale and bias divided by s, the fc kernels (and the
+    group's ``extra_scaled`` kernels) multiplied."""
     prev = _get_at(params, group.prev_path)
     if "kernel" in prev or "scale" not in prev:
         raise NotImplementedError(
@@ -56,7 +64,7 @@ def apply_smooth_scales(params: dict, group: ScalingGroup, s: torch.Tensor) -> d
             w = prev[leaf]
             out = _set_at(out, group.prev_path + (leaf,),
                           (w.to(torch.float32) / s).to(w.dtype))
-    for lp in group.layer_paths:
+    for lp in group.layer_paths + group.extra_scaled:
         k = _get_at(out, lp)["kernel"]
         out = _set_at(out, lp + ("kernel",), (k.to(torch.float32) * s[:, None]).to(k.dtype))
     return out

@@ -993,3 +993,75 @@ def test_k1_ln_takes_the_fallback_where_k_pads_on_card():
     assert qmm.LAUNCHES["w8a8_matmul_fused_epi+ln"] == before["w8a8_matmul_fused_epi+ln"]
     want = qmm.w8a8_matmul_fused_epi_plain(qmm.ln_apply(x, *ln), w, s, b, n_out=200)
     assert int(_ulps(got, want).max()) <= 1
+
+
+def _moe_operands(m, k, i, n_e, group, bj, seed, dev, dtype, never=()):
+    """xn (m, k), dense top-2 route weights (m, E) with no row on the
+    experts ``never``, the three expert stacks packed as the engine packs
+    them, and act scales [s_in, s_mid of each expert]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xn = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    live = [e for e in range(n_e) if e not in never]
+    rw = torch.zeros((m, n_e), device=dev)
+    for r in range(m):
+        a, b = live[r % len(live)], live[(r + 1 + r // len(live)) % len(live)]
+        w = float(torch.rand((), generator=gen, device=dev)) * 0.8 + 0.1
+        rw[r, a], rw[r, b] = w, 1.0 - w
+    blk = dk.mlp_i4_block(i, bj)
+    packs = [dk.pack_moe_expert_i4(torch.randn(s, generator=gen, device=dev) / s[1] ** 0.5,
+                                   group, b)
+             for s, b in (((n_e, k, i), 0), ((n_e, k, i), 0), ((n_e, i, k), blk))]
+    scl = torch.cat([(xn.float().abs().amax() / 127).reshape(1),
+                     torch.rand(n_e, generator=gen, device=dev) * 0.01 + 0.005])
+    return xn, rw, packs, scl
+
+
+# (M, K, I, E, group, block_j, act, x bf16, experts never routed)
+MOE_CASES = [
+    (8, 1024, 2048, 8, 128, 512, "silu", True, (2, 6)),     # four inner blocks, 8 experts
+    (1, 512, 1024, 4, 64, 256, "silu", True, ()),           # batch 1, group 64
+    (33, 256, 768, 3, 128, 256, "gelu", False, (1,)),       # two row tiles, tanh GELU, f32 rows
+    (5, 256, 1024, 4, 128, 512, "silu", False, ()),         # the tiny witness's widths
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,i,n_e,group,bj,act,x_bf16,never", MOE_CASES)
+def test_moe_mlp_i4_kernel_matches_plain_on_card(m, k, i, n_e, group, bj, act, x_bf16, never):
+    """K27 (every expert's int4 MLP and the routing combine) equals its
+    plain version, with the per-expert transposes built by the wrapper or
+    given, in f32 and bf16 output."""
+    dev = _card()
+    xn, rw, packs, scl = _moe_operands(m, k, i, n_e, group, bj, m + k + i, dev,
+                                       torch.bfloat16 if x_bf16 else torch.float32, never)
+    (w1, s1), (w3, s3), (w2, s2) = packs
+    args = (xn, rw, w1, w3, w2, s1, s3, s2, scl)
+    kw = dict(act=act, block_j=bj, group=group)
+    before = qmm.LAUNCHES["fused_moe_mlp_decode_i4"]
+    got = dk.fused_moe_mlp_decode_i4(*args, **kw)
+    wts = tuple(dk.moe_expert_t(t, n_e) for t in (w1, w3, w2))
+    given = dk.fused_moe_mlp_decode_i4(*args, w_t=wts, out_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_moe_mlp_decode_i4"] == before + 2
+    want = dk.fused_moe_mlp_decode_i4_plain(*args, **kw)
+    assert got.dtype == torch.float32 and torch.equal(got, want), \
+        float((got - want).abs().max())
+    assert torch.equal(given, want.to(torch.bfloat16))
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_moe_check_flags_planted_faults_on_card():
+    """One routed expert's s_mid 1e-3 off, and w2's scale rows shifted by
+    one inner block, make K27 differ from its plain version."""
+    dev = _card()
+    xn, rw, packs, scl = _moe_operands(8, 512, 1024, 4, 128, 256, 3, dev, torch.bfloat16)
+    (w1, s1), (w3, s3), (w2, s2) = packs
+    want = dk.fused_moe_mlp_decode_i4_plain(xn, rw, w1, w3, w2, s1, s3, s2, scl, block_j=256)
+    bad = scl.clone()
+    bad[1 + int(rw.sum(dim=0).argmax())] *= 1.0 + 1e-3
+    got = dk.fused_moe_mlp_decode_i4(xn, rw, w1, w3, w2, s1, s3, s2, bad, block_j=256)
+    shifted = dk.fused_moe_mlp_decode_i4(xn, rw, w1, w3, w2, s1, s3,
+                                         torch.roll(s2, 256 // 128, dims=0), scl, block_j=256)
+    torch.cuda.synchronize()
+    assert not torch.equal(got, want) and not torch.equal(shifted, want)

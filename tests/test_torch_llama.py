@@ -140,7 +140,7 @@ def test_llama_scaling_groups_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [("attention_bias", True), ("norm_type", "layernorm"),
-                                          ("sliding_window", 64), ("num_experts", 4),
+                                          ("sliding_window", 64), ("kv_lora_rank", 32),
                                           ("tie_word_embeddings", True), ("qk_norm", True)])
 def test_unported_architectures_raise(field, value):
     cfg = llama.LlamaConfig(**{**GEOM, field: value})
