@@ -56,8 +56,18 @@ int4 MLP with the routing combine) at Mixtral-8x7B width (K 4096, I
 and six zero route columns a row, batch 1, and batch 32 with f32 rows and
 an expert no row routes to, the tanh GELU at K 1024, I 2048, and two inner
 blocks at a tiny width (outputs equal; one routed expert's s_mid 1e-3 off
-and w2's scale rows shifted by one inner block planted and flagged).  It
-times the kernel, the plain version and a
+and w2's scale rows shifted by one inner block planted and flagged); the
+separate-cache decode attentions K19-K21 (``decode_attention``,
+``decode_attention_rows``, ``decode_attention_dm``; within 1 bf16 ulp or
+1e-5 of the magnitude, q x1.01 planted and flagged) and K22 / K23
+(``decode_attention_dm_i8``, ``decode_attention_i8``; outputs equal, V token
+scales 1e-3 off planted and flagged) at the decode probe's shapes (batch
+32, hkv 4, g 8, d 64, T 1152, pos 1150, bf16, K and V apart) and at an f32
+shape with 8 q rows over a cache of 2 (rows beyond it zeros); and K24
+(``w8a8_matmul``, the pre-quantized int8 GEMM; outputs equal in bf16 and
+f32, weight scales 1e-2 off planted and flagged) at SD1.5's attn1/to_qkv
+and the Llama-2-7B prefill qkv, at tests/test_kernels.py's shapes and with
+K < K'.  It times the kernel, the plain version and a
 library yardstick (timed here only, the port never calls them):
 the bf16 engine's stacked einsums on weights dequantized to bf16 for
 K27, ``torch._int_mm`` for W8A8, K15 and K2-silu and for K6 / K8 (with
@@ -65,9 +75,10 @@ elementwise quant and dequant; after ``F.layer_norm`` for K1-LN), SDPA on
 bf16 q, k, v for K18, ``torch.matmul`` with the weight
 dequantized to bf16 beforehand for W4, ``F.rms_norm`` + ``torch.matmul``
 for K5 and, on bf16-dequantized int4 weights, K16 (three matmuls and silu
-for K11 and K17), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7 and K10
-(for K12-K14 and K10's quantized formats a cache dequantized to bf16
-beforehand) and causal SDPA on pre-roped q for K9.  Decode kernels are
+for K11 and K17), SDPA with ``enable_gqa`` on a pre-laid-out cache for K7, K10
+and K19-K21 (for K12-K14, K22, K23 and K10's quantized formats a cache
+dequantized to bf16 beforehand), ``torch._int_mm`` with K24's epilogue for
+K24, and causal SDPA on pre-roped q for K9.  Decode kernels are
 timed over enough weight / cache copies to exceed the 50 MB L2 cache, as
 a decode step finds them cold.
 Phase 3 drives the port's paths with random weights: at full SD1.5 width
@@ -132,8 +143,18 @@ engine as a reading; and a tiny f32 w4a8 MoE engine (4 experts, top-2,
 int4 group 128, two inner blocks) card against CPU, each K27, K16, K7
 and K5 call of the CPU's generate repeated on the card on the same
 inputs, with two planted K27 faults.
-Each path's launch counts are set to 0 just before its ``generate`` and
-read just after.  At TinyLlama width ``serve(calib, merge_o=True,
+After the TinyLlama paths, the decode probe (``qdm_tpu_torch.decode_probe``,
+the counterpart of bench_decode_probe.py) runs at TinyLlama-1.1B width on the
+LLM path's float weights: its kernel rows (every decode kernel and
+attention layout at batch 32, T 1152), the bf16, w8a8 and w8a8 int8-KV
+engines at 6 and 22 layers (batch 32, 1024-token prompts, 32 new tokens)
+and the module rows; K19-K23 must be launched exactly as often as the
+probe called them, and its JSON is printed beside the card's name and
+power limit.  Then K24's exactness path, as tools/verify_kernels_tpu.py
+checks it on the TPU: through ``w8a8_matmul`` at (512, 1280, 1280), f32
+output bit-identical to the plain version, one launch.
+Each path's launch counts are set to 0 just before its ``generate`` (the
+probe: ``decode_probe.main``) and read just after.  At TinyLlama width ``serve(calib, merge_o=True,
 head_quant="int4")`` runs too: K26 1386, K16 1449, K7 1386, K17 and K5 0.
 With ``--profile`` it also times warm ``generate`` calls in turn (median
 and range of five each): the W4A16, W8A8, W8A8-static, W8A8-static with
@@ -277,6 +298,17 @@ KERNEL_INFO = {
                                  "qdm_tpu/ops/quant_matmul.py:592"),
     "fused_moe_mlp_decode_i4": ("qdm_tpu_torch/csrc/decode_moe_i4.cu",
                                 "qdm_tpu/ops/decode_kernels.py:2328"),
+    "decode_attention": ("qdm_tpu_torch/csrc/decode_attention.cu",
+                         "qdm_tpu/ops/decode_kernels.py:411"),
+    "decode_attention_rows": ("qdm_tpu_torch/csrc/decode_attention.cu",
+                              "qdm_tpu/ops/decode_kernels.py:499"),
+    "decode_attention_dm": ("qdm_tpu_torch/csrc/decode_attention.cu",
+                            "qdm_tpu/ops/decode_kernels.py:550"),
+    "decode_attention_dm_i8": ("qdm_tpu_torch/csrc/decode_attention_i8.cu",
+                               "qdm_tpu/ops/decode_kernels.py:607"),
+    "decode_attention_i8": ("qdm_tpu_torch/csrc/decode_attention_i8.cu",
+                            "qdm_tpu/ops/decode_kernels.py:1289"),
+    "w8a8_matmul": ("qdm_tpu_torch/csrc/w8a8_matmul.cu", "qdm_tpu/ops/quant_matmul.py:494"),
 }
 # the quantized KV caches: (kv_dtype, kv_scale_mode) of serve() and the cache
 # format of the attention kernels; the 7B path runs them in this order
@@ -573,19 +605,17 @@ def cold_ms(fns, calls: int = 20) -> float:
     beyond the L2 cache), over the number of calls.  A decode-sized call
     runs shorter than its Python wrapper takes to issue it, so CUDA events
     around the loop would time the host."""
-    from torch.profiler import ProfilerActivity, profile
+    from qdm_tpu_torch.utils.timing import device_us
 
     for f in fns:
         f()
     torch.cuda.synchronize()
     n = max(calls, len(fns))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for i in range(n):
             fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e3 / n
+    return device_us(run, n) / 1e3
 
 
 def _copies(nbytes: int) -> int:
@@ -2119,6 +2149,211 @@ def phase_moe_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the separate-cache decode attentions K19-K23 (the decode probe's
+# attention rows) and the pre-quantized int8 GEMM K24
+# ---------------------------------------------------------------------------
+
+SEPARATE_FLOAT = ("decode_attention", "decode_attention_rows", "decode_attention_dm")
+SEPARATE_I8 = ("decode_attention_dm_i8", "decode_attention_i8")
+SEPARATE_Q_FAULT = 1.01       # factor planted into q of K19-K21 (they take no sm_scale)
+SEPARATE_VS_FAULT = 1e-3      # relative error planted into K22 / K23's V token scales
+PROBE_T = 1152                # the decode probe's cache length (pos T - 2)
+W8A8_FAULT = 1e-2             # relative error planted into K24's weight scales
+# (label, M, K, N, timed): the two timed shapes, the shapes of tests/test_kernels.py and
+# one with K < K' (x padded with zero columns)
+K24_SHAPES = [("SD1.5 attn1/to_qkv", 16384, 320, 960, True),
+              ("Llama-2-7B prefill qkv", L7_BATCH * L7_PROMPT, 4096, 12288, True),
+              ("test_kernels", 64, 256, 128, False), ("test_kernels", 33, 320, 320, False),
+              ("test_kernels", 128, 512, 384, False), ("K 300 < K' 320", 16, 300, 256, False)]
+K24_TOL = "outputs equal to the plain version's (exact int32 sums, (acc * xs) * ws in order)"
+
+
+def _separate_case(name, bp, b, hkv, g, d, t, dtype, seed, dev):
+    """q viewed out of a wider qkv row (as an engine passes it), and K and V
+    drawn apart, V in ``name``'s layout: (q, k, v) or (q, k, ks, v, vs)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wide = torch.randn((bp, hkv * g * d + 2 * hkv * d), generator=gen, device=dev).to(dtype)
+    q = wide[:, :hkv * g * d].view(bp, hkv, g, d)
+    v_shape = (b, hkv, d, t) if "_dm" in name else (b, hkv, t, d)
+    if name in SEPARATE_FLOAT:
+        return (q, torch.randn((b, hkv, d, t), generator=gen, device=dev).to(dtype),
+                (torch.randn(v_shape, generator=gen, device=dev) * 2).to(dtype))
+    i8 = lambda shape: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                     dtype=torch.int8)
+    sc = lambda: torch.rand((b, hkv, 1, t), generator=gen, device=dev) * 0.02 + 1e-3
+    return q, i8((b, hkv, d, t)), sc(), i8(v_shape), sc()
+
+
+def _separate_fns(name, pos):
+    """(kernel wrapper, plain version), each called on a case's tensors."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    layout = "depth" if "_dm" in name else "tokens"
+    if name in SEPARATE_FLOAT:
+        return (lambda q, *c: getattr(dk, name)(q, *c, pos),
+                lambda q, *c: dk.decode_attention_plain(q, *c, pos, layout))
+    return (lambda q, *c: getattr(dk, name)(q, *c, pos),
+            lambda q, *c: dk.decode_attention_i8_plain(q, *c, pos, layout))
+
+
+def _laid_out(name, cache, cols):
+    """K and V as SDPA takes them, (B, hkv, cols, d) bf16, laid out (int8:
+    dequantized) beforehand: the library yardstick's operands."""
+    if name in SEPARATE_FLOAT:
+        k, v = cache
+        ks = vs = None
+    else:
+        k, ks, v, vs = cache
+    kf = k[..., :cols].float()
+    vf = (v[..., :cols] if "_dm" in name else v[:, :, :cols].transpose(2, 3)).float()
+    if ks is not None:
+        kf, vf = kf * ks[..., :cols], vf * vs[..., :cols]
+    return (kf.transpose(2, 3).to(torch.bfloat16).contiguous(),
+            vf.transpose(2, 3).to(torch.bfloat16).contiguous())
+
+
+def _check_separate(label, name, bp, b, hkv, g, d, t, pos, dtype, dev, timed):
+    """One shape of K19-K23 against its plain version (K19-K21 within 1 bf16
+    ulp or 1e-5 of the magnitude, K22 / K23 equal), rows B..Bp-1 zeros, and
+    a planted fault the check must flag."""
+    case = _separate_case(name, bp, b, hkv, g, d, t, dtype, bp + t + pos, dev)
+    q, cache = case[0], case[1:]
+    run, plain = _separate_fns(name, pos)
+    got = run(q, *cache)
+    torch.cuda.synchronize()
+    want = plain(q, *cache)
+    err = float((got.float() - want.float()).abs().max())
+    if name in SEPARATE_FLOAT:
+        ok, _ = within_bf16_ulp(got, want)
+        tol = "within 1 bf16 ulp or 1e-5 of the magnitude"
+        bad = run(q * SEPARATE_Q_FAULT, *cache)
+        flagged, what = not within_bf16_ulp(bad, want)[0], f"q x{SEPARATE_Q_FAULT} (planted)"
+    else:
+        ok = torch.equal(got, want)
+        tol = KVQ_TOL
+        k, ks, v, vs = cache
+        bad = run(q, k, ks, v, vs * (1.0 + SEPARATE_VS_FAULT))
+        flagged = not torch.equal(bad, want)
+        what = f"V token scales off by {SEPARATE_VS_FAULT:g} (planted)"
+    torch.cuda.synchronize()
+    if not ok or got.dtype != q.dtype or got[b:].any():
+        fail(f"{name} {label}: max abs err {err} from the plain version; {tol}; rows beyond "
+             f"B zero")
+    if not flagged:
+        fail(f"{name} {label}: the check misses {what}")
+    bad_err = float((bad.float() - want.float()).abs().max())
+    row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
+           "max_abs_err": err, "ulps": 0 if name in SEPARATE_I8 else 1,
+           "tol": f"{tol}; {what}: max abs err {bad_err:.3g}"}
+    if timed:
+        cols = pos + 1
+        i8 = name in SEPARATE_I8
+        eb = 1 if i8 else q.element_size()
+        cache_bytes = sum(c.numel() * c.element_size() for c in cache)
+        nbytes = (2 * bp * hkv * g * d * q.element_size() + 2 * b * hkv * d * cols * eb
+                  + (2 * b * hkv * cols * 4 if i8 else 0))
+        ops = 4 * b * hkv * g * d * cols
+        sets = [cache] + [tuple(c.clone() for c in cache)
+                          for _ in range(_copies(cache_bytes) - 1)]
+        kern = [lambda c=c: run(q, *c) for c in sets]
+        plains = [lambda c=c: plain(q, *c) for c in sets]
+        qh = q.reshape(bp, hkv * g, 1, d).to(torch.bfloat16)
+        lay = [_laid_out(name, c, cols) for c in sets]
+        lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+            qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4), library_ms=cold_ms(lib),
+                   bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(
+            nbytes, ops, INT8_OPS_PER_S if i8 else BF16_FLOPS_PER_S)
+        del sets, lay
+    return row
+
+
+def phase_separate_attention_kernels(dev) -> dict:
+    """K19-K23 at the decode probe's shapes (TinyLlama-1.1B: B 32, hkv 4, g
+    8, d 64, T 1152, pos 1150, bf16; timed) and at a small f32 shape with
+    Bp 8 > B 2 (pos 100, T 256); K and V apart."""
+    from qdm_tpu_torch.models.llama import BENCH_1B
+
+    c = BENCH_1B
+    hkv, d = c.num_key_value_heads, c.head_dim
+    g = c.num_attention_heads // hkv
+    res = {}
+    for name in SEPARATE_FLOAT + SEPARATE_I8:
+        res[name] = [
+            _check_separate("decode probe (TinyLlama-1.1B, T 1152)", name, LLM_BATCH, LLM_BATCH,
+                            hkv, g, d, PROBE_T, PROBE_T - 2, torch.bfloat16, dev, True),
+            _check_separate("f32, Bp 8 > B 2", name, 8, 2, 2, 4, 64, 256, 100, torch.float32,
+                            dev, False)]
+        torch.cuda.empty_cache()
+    _print_rows(res)
+    return res
+
+
+def _k24_operands(m, k, n, dev):
+    """bf16 rows quantized per token (codes, row scales (M, 1)) and int8
+    weights packed (K', N') with their scales (1, N')."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    xi, xs = qmm.quantize_rows_int8(x, k)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    w_i8, ws = qmm.pack_linear_int8(codes, (torch.rand(n, generator=gen, device=dev) + 0.5)
+                                    * 1e-3)
+    return xi, xs, w_i8, ws
+
+
+def _check_w8a8_matmul(label, m, k, n, dev, timed):
+    """K24 against its plain version in bf16 and f32 output (equal), with
+    the weight scales off by W8A8_FAULT planted."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    xi, xs, w_i8, ws = _k24_operands(m, k, n, dev)
+    w_t = qmm.transposed_weight(w_i8)
+    kern = lambda: qmm.w8a8_matmul(xi, w_i8, xs, ws, w_t=w_t)
+    plain = lambda: qmm.w8a8_matmul_plain(xi, w_i8, xs, ws)
+    got = kern()
+    got32 = qmm.w8a8_matmul(xi, w_i8, xs, ws, out_dtype=torch.float32, w_t=w_t)
+    bad = qmm.w8a8_matmul(xi, w_i8, xs, ws * (1.0 + W8A8_FAULT), w_t=w_t)
+    torch.cuda.synchronize()
+    want, want32 = plain(), qmm.w8a8_matmul_plain(xi, w_i8, xs, ws, out_dtype=torch.float32)
+    err = float((got32 - want32).abs().max())
+    if not (torch.equal(got, want) and torch.equal(got32, want32)):
+        fail(f"w8a8_matmul {label}: max abs err {err} from the plain version; {K24_TOL}")
+    if torch.equal(bad, want):
+        fail(f"w8a8_matmul {label}: the check misses weight scales off by {W8A8_FAULT:g} "
+             "(planted)")
+    bad_err = float((bad.float() - want.float()).abs().max())
+    kp, np_ = w_i8.shape
+    row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": 0,
+           "tol": f"{K24_TOL}; weight scales off by {W8A8_FAULT:g} (planted): max abs err "
+                  f"{bad_err:.3g}"}
+    del got32, want32, bad
+    if timed:
+        w_k = w_i8[:k].t().contiguous().t()    # column-major: cuBLASLt's fast int8 layout
+        lib = lambda: (torch._int_mm(xi, w_k).to(torch.float32) * xs * ws).to(torch.bfloat16)
+        nbytes = m * k + kp * np_ + 4 * m + 4 * np_ + 2 * m * np_
+        ops = 2 * m * k * n
+        row.update(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                   library_ms=cuda_ms(lib), bytes=nbytes, ops=ops)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
+    del xi, xs, w_i8, ws, w_t, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_w8a8_matmul_kernel(dev) -> dict:
+    """K24 at SD1.5's attn1/to_qkv and the Llama-2-7B prefill qkv (timed),
+    at tests/test_kernels.py's shapes and with K < K'."""
+    res = {"w8a8_matmul": [_check_w8a8_matmul(label, m, k, n, dev, timed)
+                           for label, m, k, n, timed in K24_SHAPES]}
+    _print_rows(res)
+    return res
+
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -2844,6 +3079,119 @@ def phase_llm_w4a8_path(dev, llm: dict) -> dict:
     lm.params = smoothed
     return {"LLM w4a8_static": {"launches": launches},
             "LLM w4a8_static merge_o + int4 head": {"launches": merged}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the decode probe at TinyLlama-1.1B width, and K24's exactness path
+# ---------------------------------------------------------------------------
+
+# the probe's engines by the tags of their rows: launches per layer and
+# decode step (each step adds the bf16 head's K5 launch, each prefill K9
+# once per layer); the one-layer chains by mode
+PROBE_BF16 = {"fused_dense_decode": 2, "decode_attention_kv": 1, "fused_mlp_decode": 1}
+PROBE_ENGINES = {"engine_bf16": PROBE_BF16, "engine_w8a8": LLM_WANT,
+                 "engine_w8a8_kv8": dict(LLM_WANT, decode_attention_kv=0,
+                                         decode_attention_kv_i8=1)}
+PROBE_CHAINS = {"bf16": PROBE_BF16, "w8a8_static": LLM_WANT}
+K24_PATH = (512, 1280, 1280)  # (M, K, N) of tools/verify_kernels_tpu.py's w8a8 check
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def _probe_want(calls: dict, n_layers: int, names) -> dict:
+    """The exact launches of one probe run from what it called: each kernel
+    row's wrapper once a call; each chain's layer (K5 for the fixed
+    chain's head); each engine's layers and bf16 head once a decode step,
+    and the module prefill's K9 once a layer; the module rows' prefills
+    (their decode steps launch none of the port's kernels)."""
+    want = {k: 0 for k in names}
+    want.update(calls["kernels"])
+
+    def add(per: dict, times: int) -> None:
+        for k, v in per.items():
+            want[k] += v * times
+    for mode, n in calls["layer_chain"].items():
+        add(PROBE_CHAINS[mode], n)
+    want["fused_dense_decode"] += calls["fixed_chain"]
+    for tag, depths in calls["engines"].items():
+        for depth, t in depths.items():
+            add(PROBE_ENGINES[tag], depth * t["steps"])
+            want["fused_dense_decode"] += t["steps"]
+            want["flash_prefill_gqa"] += depth * t["prefills"]
+    for t in calls["module"].values():
+        want["flash_prefill_gqa"] += n_layers * t["prefills"]
+    return want
+
+
+def phase_decode_probe(dev, llm: dict, seed: int) -> dict:
+    """``decode_probe.main`` at BENCH_1B width (batch 32, 1024-token
+    prompts, 32 new tokens) on the LLM path's float weights (seed 0): its
+    kernel rows, the three engines' layer sweep and the module rows, with
+    the launch counts set to 0 just before and read just after; every
+    kernel must have been launched exactly as often as the probe's calls
+    make it (:func:`_probe_want`), K19-K23 at least once, and every number
+    must be finite."""
+    from qdm_tpu_torch import decode_probe
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import BENCH_1B
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    lm = CausalLM.from_config(BENCH_1B, dtype=torch.bfloat16, device=dev, params=llm["base"])
+    qmm.reset_launches()
+    t0 = time.perf_counter()
+    out = decode_probe.main(dev, seed=seed, lm=lm)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(qmm.LAUNCHES)
+    want = _probe_want(out["calls"], BENCH_1B.num_hidden_layers, launches)
+    if launches != want or not all(launches[k] for k in SEPARATE_FLOAT + SEPARATE_I8):
+        fail(f"decode probe launches {launches} != expected {want} from the probe's calls "
+             f"{out['calls']}")
+    nums = {k: v for k, v in out.items() if isinstance(v, (int, float))}
+    if not all(np.isfinite(v) for v in nums.values()):
+        fail(f"decode probe: numbers not finite: {nums}")
+    if not all(out[f"{tag}_ms_per_step"] > 0 for tag in PROBE_ENGINES):
+        fail(f"decode probe: engine times {out}")
+    print(f"phase 3: decode probe at TinyLlama-1.1B width in {secs:.1f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"decode_probe": out}), flush=True)
+    del lm
+    return {"launches": launches, "probe": out}
+
+
+def phase_w8a8_matmul_path(dev) -> dict:
+    """K24 through its public op as tools/verify_kernels_tpu.py checks it on
+    the TPU: bf16 rows on the int8 grid quantized per token, random int8
+    weights and scales |N(0, 1)| / 127, f32 output bit-identical to the
+    plain version; launch counts set to 0 just before and read just after."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    m, k, n = K24_PATH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(-127, 128, (m, k), generator=gen, device=dev)
+    codes[:, 0] = 127                     # pin each row's absmax
+    x = (codes.float() * 0.03125).to(torch.bfloat16)
+    xi, xs = qmm.quantize_rows_int8(x, k)
+    wi = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    ws = torch.randn((1, n), generator=gen, device=dev).abs() / 127
+    qmm.reset_launches()
+    out = qmm.w8a8_matmul(xi, wi, xs, ws, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches = dict(qmm.LAUNCHES)
+    ref = qmm.w8a8_matmul_plain(xi, wi, xs, ws, out_dtype=torch.float32)
+    diff = float((out - ref).abs().max())
+    if launches["w8a8_matmul"] != 1 or not torch.equal(out, ref):
+        fail(f"K24 exactness path: max abs diff {diff} (bit-identical required), launches "
+             f"{launches['w8a8_matmul']}")
+    print(f"phase 3: K24 exactness path (tools/verify_kernels_tpu.py, M {m}, K {k}, N {n}): "
+          f"f32 output bit-identical to the plain version, 1 launch", flush=True)
+    return {"launches": launches}
 
 
 def _clone(v, dev=None):
@@ -4133,11 +4481,15 @@ def main() -> int:
     kres.update(phase_w4a8_kernels(dev, kres))
     kres.update(phase_merged_kernels(dev, kres))
     kres.update(phase_moe_kernels(dev))
+    kres.update(phase_separate_attention_kernels(dev))
+    kres.update(phase_w8a8_matmul_kernel(dev))
     runs = phase_main_path(dev)
     runs.update(phase_static_paths(dev, runs["base"]))
     runs["LLM"] = phase_llm_path(dev, args.seed)
     runs.update(phase_llm_kv_paths(dev, runs["LLM"]))
     runs.update(phase_llm_w4a8_path(dev, runs["LLM"]))
+    runs["decode probe"] = phase_decode_probe(dev, runs["LLM"], args.seed)
+    runs["K24 exactness"] = phase_w8a8_matmul_path(dev)
     phase_small_reference(dev)
     phase_w4a8_witness(dev)
     phase_static_witness(dev)
@@ -4152,7 +4504,7 @@ def main() -> int:
         phase_profile(dev, runs)
         phase_llm_profile(dev, runs["LLM"])
     # the SD pipelines and the TinyLlama objects go before the 7B path
-    for label in (*PATHS, *STATIC_WANT, "LLM"):
+    for label in (*PATHS, *STATIC_WANT, "LLM", "decode probe"):
         runs[label] = {"launches": runs[label]["launches"]}
     runs.pop("base")
     gc.collect()
@@ -4185,9 +4537,7 @@ def main() -> int:
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "shapes": rows})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     print(smi)
     print(json.dumps({"kernels": record}))

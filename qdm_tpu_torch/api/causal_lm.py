@@ -10,7 +10,7 @@
     moe = CausalLM.from_config(MIXTRAL_8X7B).serve(calib_ids)   # Mixtral-family MoE
 
 Ported: ``from_config`` (the JAX package's seeded weights), ``logits``,
-greedy ``generate`` through the module with its (k, v) cache,
+``truncated_draft``, greedy ``generate`` through the module with its (k, v) cache,
 ``_calibrate`` (activation stats), and ``serve`` for the ``bf16``,
 ``w8a8_static`` and ``w4a8_static`` engines with optional SmoothQuant.
 Params are a nested dict keyed like the Flax tree, in f32 as Flax keeps
@@ -22,6 +22,7 @@ Entry points run on ``device="cuda"`` unless the caller passes
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -139,6 +140,19 @@ class CausalLM:
                 model(ids)
             run.update(stats)
         return run.mean(), {}
+
+    def truncated_draft(self, n_layers: int) -> "CausalLM":
+        """The first ``n_layers`` decoder layers of this model with its
+        embeddings, final norm and lm_head, sharing their parameter tensors
+        (no copy): the self-draft of ``causal_lm.py::truncated_draft``."""
+        if not 0 < n_layers < self.config.num_hidden_layers:
+            raise ValueError(n_layers)
+        draft = CausalLM(self.device, self.dtype)
+        draft.plan = self.plan
+        draft.config = dataclasses.replace(self.config, num_hidden_layers=n_layers)
+        draft.params = {k: v for k, v in self.params.items()
+                        if not k.startswith("layers_") or int(k.split("_")[1]) < n_layers}
+        return draft
 
     # ------------------------------------------------------------------ serve
 

@@ -39,9 +39,6 @@
 namespace qdm {
 namespace kvq {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
 template <int FMT, int G, typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kv_q_kernel(const T* __restrict__ q, long long q_sb, const int8_t* __restrict__ kv,
@@ -51,108 +48,13 @@ decode_attn_kv_q_kernel(const T* __restrict__ q, long long q_sb, const int8_t* _
   __shared__ float redf[32 * G];
   __shared__ double redd[32 * G];
   const int pair = blockIdx.x, b = pair / hkv, h = pair % hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int R = FMT == kFmtI4C ? D / 2 : D;
-  const Window win(starts, b, pos, Tn);
-  const int c0 = win.lo & ~15;
-  const int L = ((win.hi + 16) & ~15) - c0;  // columns [c0, c0 + L), 16-byte edges
-  float* qs = reinterpret_cast<float*>(smem);                          // (G)
-  int8_t* qi = reinterpret_cast<int8_t*>(smem + 64);                   // (G, D)
-  float* S = reinterpret_cast<float*>(smem + 64 + ((G * D + 15) & ~15));  // (G, L)
-  int8_t* P = reinterpret_cast<int8_t*>(S + G * L);                     // (G, L)
-
-  quantize_q<G>(q + (size_t)b * q_sb + (size_t)h * G * D, D, scale, qs, qi);
   const size_t plane = (size_t)R * Tn;
-  const int8_t* Kp = kv + ((size_t)b * 2 * hkv + h) * plane + c0;
-  const int8_t* Vp = kv + ((size_t)b * 2 * hkv + hkv + h) * plane + c0;
-  const float* ks = FMT == kFmtI8 ? kvs + ((size_t)b * 2 * hkv + h) * Tn : nullptr;
-  const float* vs = FMT == kFmtI8 ? kvs + ((size_t)b * 2 * hkv + hkv + h) * Tn : nullptr;
-
-  // logits: 16 columns per thread
-  for (int cg = tid; cg < L / 16; cg += kThreads) {
-    int acc[G][16];
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] = 0;
-    qk16<FMT, G>(Kp + cg * 16, Tn, qi, D, 0, 1, acc);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int t = c0 + cg * 16 + j;
-      const bool ok = win.valid(t);
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        float x = __fmul_rn(int_sum<FMT>(acc[i][j]), qs[i]);
-        if (FMT == kFmtI8) x = __fmul_rn(x, ks[t]);
-        S[i * L + cg * 16 + j] = ok ? x : -1e9f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // softmax over the window, then the p codes; each thread keeps to its
-  // own columns between the block reductions
-  float mx[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) mx[i] = -INFINITY;
-  for (int tt = tid; tt < L; tt += kThreads)
-#pragma unroll
-    for (int i = 0; i < G; ++i) mx[i] = fmaxf(mx[i], S[i * L + tt]);
-  block_max<G>(mx, redf);
-  double sm[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) sm[i] = 0.0;
-  for (int tt = tid; tt < L; tt += kThreads)
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const float p = exp_f32(__fsub_rn(S[i * L + tt], mx[i]));
-      S[i * L + tt] = p;
-      sm[i] += (double)p;
-    }
-  block_sum<G>(sm, redd);
-  float pm[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) pm[i] = 0.0f;
-  for (int tt = tid; tt < L; tt += kThreads)
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      float p = __fdiv_rn(S[i * L + tt], (float)sm[i]);
-      if (FMT == kFmtI8) p = __fmul_rn(p, vs[c0 + tt]);
-      S[i * L + tt] = p;
-      pm[i] = fmaxf(pm[i], p);
-    }
-  block_max<G>(pm, redf);
-  float ps[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) ps[i] = __fmul_rn(fmaxf(pm[i], 1e-8f), inv127());
-  for (int tt = tid; tt < L; tt += kThreads)
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      P[i * L + tt] = (int8_t)__float2int_rn(__fdiv_rn(S[i * L + tt], ps[i]));
-  __syncthreads();
-
-  // PV: a warp per cache row, lanes along the columns 16 at a time
-  T* op = out + (size_t)pair * G * D;
-  for (int r = warp; r < R; r += kWarps) {
-    int lo[G], hi[G];
-#pragma unroll
-    for (int i = 0; i < G; ++i) lo[i] = hi[i] = 0;
-    for (int cg = lane; cg < L / 16; cg += 32) {
-      const uint4 v16 = ldg16(Vp + (size_t)r * Tn + cg * 16);
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-        pv16<FMT>(v16, *reinterpret_cast<const uint4*>(P + i * L + cg * 16), lo[i], hi[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      lo[i] = warp_sum(lo[i]);
-      if (FMT == kFmtI4C) hi[i] = warp_sum(hi[i]);
-      if (lane == 0) {
-        op[i * D + r] = from_f32<T>(__fmul_rn(int_sum<FMT>(lo[i]), ps[i]));
-        if (FMT == kFmtI4C) op[i * D + R + r] = from_f32<T>(__fmul_rn(int_sum<FMT>(hi[i]), ps[i]));
-      }
-    }
-  }
+  const size_t k_row = (size_t)b * 2 * hkv + h, v_row = k_row + hkv;
+  attend_q<FMT, G, false>(q + (size_t)b * q_sb + (size_t)h * G * D, kv + k_row * plane,
+                          kv + v_row * plane, FMT == kFmtI8 ? kvs + k_row * Tn : nullptr,
+                          FMT == kFmtI8 ? kvs + v_row * Tn : nullptr, Window(starts, b, pos, Tn),
+                          scale, out + (size_t)pair * G * D, D, Tn, smem, redf, redd);
 }
 
 template <int FMT, int G, typename T>
@@ -161,12 +63,9 @@ cudaError_t launch(const void* q, long long q_sb, const void* kv, const float* k
                    int Tn, cudaStream_t s) {
   // shared memory for the widest window a row may attend
   const int lmax = starts != nullptr ? Tn : (pos / 16 + 1) * 16;  // <= Tn, a multiple of 16
-  const size_t smem = 64 + ((G * D + 15) & ~15) + (size_t)5 * G * lmax;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attn_kv_q_kernel<FMT, G, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const size_t smem = attend_q_smem(G, D, lmax, false);
+  cudaError_t e = allow_smem(decode_attn_kv_q_kernel<FMT, G, T>, smem, reduce_smem<G>());
+  if (e != cudaSuccess) return e;
   decode_attn_kv_q_kernel<FMT, G, T><<<B * hkv, kThreads, smem, s>>>(
       static_cast<const T*>(q), q_sb, static_cast<const int8_t*>(kv), kvs, starts, pos, scale,
       static_cast<T*>(out), hkv, D, Tn);

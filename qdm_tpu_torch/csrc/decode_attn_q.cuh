@@ -1,12 +1,14 @@
 // Shared pieces of the quantized-cache decode attentions: the one-pass
-// kernels K12-K14 (decode_attention_kv_q.cu) and the quantized formats of
-// the flash decode (decode_attention_kv_flash_q.cu).
+// kernels K12-K14 (decode_attention_kv_q.cu) and K22-K23
+// (decode_attention_i8.cu), whose body is attend_q below, and the
+// quantized formats of the flash decode (decode_attention_kv_flash_q.cu).
 //
-// The cache is the combined depth-major [K | V] layout (B, 2*hkv, R, T),
-// T contiguous, with R = d rows of int8 codes (formats i8 and i8c) or R =
-// d/2 rows of packed int4 bytes (i4c: channel c in the low nibble of row
-// c, channel c + d/2 in the high nibble).  Per-token scales (i8) are a
-// (B, 2*hkv, 1, T) f32 plane.
+// A K plane is depth-major (R, T), T contiguous, with R = d rows of int8
+// codes (formats i8 and i8c) or R = d/2 rows of packed int4 bytes (i4c:
+// channel c in the low nibble of row c, channel c + d/2 in the high
+// nibble); K12-K14 and K10 read the planes of the combined [K | V] cache
+// (B, 2*hkv, R, T).  A V plane is depth-major like K, or token-major
+// (T, d) int8 (K23).  Per-token scales (i8) are one f32 per column.
 //
 // Arithmetic, shared with the plain versions in ops/decode_kernels.py so
 // that both give the same bits:
@@ -212,6 +214,203 @@ struct Window {
   }
   __device__ bool valid(int t) const { return !all_masked && t >= lo && t <= hi; }
 };
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// Bytes of dynamic shared memory attend_q needs for a window of at most
+// lmax columns (a multiple of 16): the q scales and codes, the logits and
+// p codes (5 bytes per query head and column) and, for a token-major V,
+// the warps' integer partial outputs (kWarps, G, D).
+inline size_t attend_q_smem(int G, int D, int lmax, bool v_tokens) {
+  return 64 + ((G * D + 15) & ~15) + (size_t)5 * G * lmax +
+         (v_tokens ? (size_t)4 * kWarps * G * D : 0);
+}
+
+// Static shared memory of a one-pass kernel: its block reductions, 32 x G
+// floats and doubles.
+template <int G>
+constexpr size_t reduce_smem() { return 32 * G * (sizeof(float) + sizeof(double)); }
+
+// One (batch row, kv head) pair of a one-pass quantized decode attention:
+//   qi, qs = q codes of q * scale (per query head)
+//   logits = (qi . K[:, t]) * qs (* ks[t], i8)          exact int sum
+//   masked outside the window (-1e9); p = softmax over T
+//   p = p * vs[t] (i8); pi, ps = p codes (per query head)
+//   out = (pi . V[d, :]) * ps in q's dtype                exact int sum
+// qp: the pair's q (G, D); Kp: its K plane (R, Tn); Vp: its V plane, (R,
+// Tn) or, V_TOKENS, (Tn, D) int8; ks, vs: its token scales (i8) or null;
+// op: out (G, D).
+//
+// The logits pass gives each thread 16 consecutive columns: it loads 16
+// bytes of 4 depth rows at a time, transposes them in registers
+// (__byte_perm) into one word of 4 depth codes per column, and takes
+// __dp4a against the q codes, G x 16 int32 sums; int4 nibbles are masked
+// to 16 x their code (no shifts) and the sum shifted back once.  The PV
+// pass, V depth-major: each warp takes cache rows, its lanes 16 columns at
+// a time, __dp4a of 4 consecutive columns of a V row against 4 p codes.
+// V token-major: each thread takes 16 channels of 4 consecutive token rows
+// (4 x 16-byte loads; the 4 threads of a 64-channel row read 64
+// consecutive bytes), transposes them as the logits pass does into one
+// word of 4 tokens per channel for __dp4a against 4 p codes, and the
+// warps' integer partials are added in shared memory (exact in any
+// order).  Logits and p codes stay in shared memory; only the columns of
+// the window, widened to 16-byte edges, are read (a masked column's p is 0
+// exactly).
+template <int FMT, int G, bool V_TOKENS, typename T>
+__device__ __forceinline__ void attend_q(const T* __restrict__ qp, const int8_t* __restrict__ Kp,
+                                         const int8_t* __restrict__ Vp,
+                                         const float* __restrict__ ks,
+                                         const float* __restrict__ vs, const Window& win,
+                                         float scale, T* __restrict__ op, int D, int Tn,
+                                         unsigned char* smem, float* redf, double* redd) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int R = FMT == kFmtI4C ? D / 2 : D;
+  const int c0 = win.lo & ~15;
+  const int L = ((win.hi + 16) & ~15) - c0;  // columns [c0, c0 + L), 16-byte edges
+  float* qs = reinterpret_cast<float*>(smem);                          // (G)
+  int8_t* qi = reinterpret_cast<int8_t*>(smem + 64);                   // (G, D)
+  float* S = reinterpret_cast<float*>(smem + 64 + ((G * D + 15) & ~15));  // (G, L)
+  int8_t* P = reinterpret_cast<int8_t*>(S + G * L);                     // (G, L)
+
+  quantize_q<G>(qp, D, scale, qs, qi);
+  const int8_t* Kc = Kp + c0;
+
+  // logits: 16 columns per thread
+  for (int cg = tid; cg < L / 16; cg += kThreads) {
+    int acc[G][16];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] = 0;
+    qk16<FMT, G>(Kc + cg * 16, Tn, qi, D, 0, 1, acc);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int t = c0 + cg * 16 + j;
+      const bool ok = win.valid(t);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        float x = __fmul_rn(int_sum<FMT>(acc[i][j]), qs[i]);
+        if (FMT == kFmtI8) x = __fmul_rn(x, ks[t]);
+        S[i * L + cg * 16 + j] = ok ? x : -1e9f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // softmax over the window, then the p codes; each thread keeps to its
+  // own columns between the block reductions
+  float mx[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) mx[i] = -INFINITY;
+  for (int tt = tid; tt < L; tt += kThreads)
+#pragma unroll
+    for (int i = 0; i < G; ++i) mx[i] = fmaxf(mx[i], S[i * L + tt]);
+  block_max<G>(mx, redf);
+  double sm[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) sm[i] = 0.0;
+  for (int tt = tid; tt < L; tt += kThreads)
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const float p = exp_f32(__fsub_rn(S[i * L + tt], mx[i]));
+      S[i * L + tt] = p;
+      sm[i] += (double)p;
+    }
+  block_sum<G>(sm, redd);
+  float pm[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) pm[i] = 0.0f;
+  for (int tt = tid; tt < L; tt += kThreads)
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      float p = __fdiv_rn(S[i * L + tt], (float)sm[i]);
+      if (FMT == kFmtI8) p = __fmul_rn(p, vs[c0 + tt]);
+      S[i * L + tt] = p;
+      pm[i] = fmaxf(pm[i], p);
+    }
+  block_max<G>(pm, redf);
+  float ps[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) ps[i] = __fmul_rn(fmaxf(pm[i], 1e-8f), inv127());
+  for (int tt = tid; tt < L; tt += kThreads)
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      P[i * L + tt] = (int8_t)__float2int_rn(__fdiv_rn(S[i * L + tt], ps[i]));
+  __syncthreads();
+
+  if (!V_TOKENS) {
+    // PV: a warp per cache row, lanes along the columns 16 at a time
+    const int8_t* Vc = Vp + c0;
+    for (int r = warp; r < R; r += kWarps) {
+      int lo[G], hi[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) lo[i] = hi[i] = 0;
+      for (int cg = lane; cg < L / 16; cg += 32) {
+        const uint4 v16 = ldg16(Vc + (size_t)r * Tn + cg * 16);
+#pragma unroll
+        for (int i = 0; i < G; ++i)
+          pv16<FMT>(v16, *reinterpret_cast<const uint4*>(P + i * L + cg * 16), lo[i], hi[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        lo[i] = warp_sum(lo[i]);
+        if (FMT == kFmtI4C) hi[i] = warp_sum(hi[i]);
+        if (lane == 0) {
+          op[i * D + r] = from_f32<T>(__fmul_rn(int_sum<FMT>(lo[i]), ps[i]));
+          if (FMT == kFmtI4C) op[i * D + R + r] = from_f32<T>(__fmul_rn(int_sum<FMT>(hi[i]), ps[i]));
+        }
+      }
+    }
+  } else {
+    // PV, V (Tn, D) int8: a thread per (16 channels, 4 tokens), the
+    // channel chunks of a token row on neighbouring lanes (D / 16 divides 32)
+    int* part = reinterpret_cast<int*>(P + G * L);  // (kWarps, G, D); G * L % 16 == 0
+    const int nch = D / 16, ch = tid % nch;
+    int acc[G][16];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] = 0;
+    for (int qd = tid / nch; qd < L / 4; qd += kThreads / nch) {
+      const int8_t* vp = Vp + (size_t)(c0 + 4 * qd) * D + ch * 16;
+      const uint4 a = ldg16(vp), b = ldg16(vp + D), c = ldg16(vp + 2 * D), e = ldg16(vp + 3 * D);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const unsigned t0 = __byte_perm(word(a, m), word(b, m), 0x5140);
+        const unsigned t1 = __byte_perm(word(c, m), word(e, m), 0x5140);
+        const unsigned t2 = __byte_perm(word(a, m), word(b, m), 0x7362);
+        const unsigned t3 = __byte_perm(word(c, m), word(e, m), 0x7362);
+        const unsigned col[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                                 __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const int pw = *reinterpret_cast<const int*>(P + i * L + 4 * qd);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][4 * m + j] = __dp4a((int)col[j], pw, acc[i][4 * m + j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        int v = acc[i][j];
+        for (int off = nch; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane < nch) part[(warp * G + i) * D + lane * 16 + j] = v;
+      }
+    __syncthreads();
+    for (int e = tid; e < G * D; e += kThreads) {
+      int v = part[e];
+      for (int w = 1; w < kWarps; ++w) v += part[w * G * D + e];
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (i == e / D) s = ps[i];
+      op[e] = from_f32<T>(__fmul_rn(__int2float_rn(v), s));
+    }
+  }
+}
 
 }  // namespace kvq
 }  // namespace qdm

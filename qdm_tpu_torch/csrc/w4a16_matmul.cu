@@ -281,11 +281,6 @@ w4a16_f32_kernel(const float* __restrict__ x, const int32_t* __restrict__ qw, Gr
   }
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 }  // namespace w4a16
 }  // namespace qdm
 
@@ -306,7 +301,7 @@ extern "C" int qdm_w4a16_matmul(const void* x, int x_dtype, const void* qweight,
   if (x_dtype == kDtypeBF16) {
     if (K % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte cp.async chunks
     const int bytes = (int)sizeof(w::SmemBF16);
-    err = w::allow_smem(w::w4a16_bf16_kernel, bytes);
+    err = allow_smem(w::w4a16_bf16_kernel, bytes);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((n_out + w::BN - 1) / w::BN, (M + w::BM - 1) / w::BM);
     w::w4a16_bf16_kernel<<<grid, w::kThreads, bytes, s>>>(
@@ -314,7 +309,7 @@ extern "C" int qdm_w4a16_matmul(const void* x, int x_dtype, const void* qweight,
         Kp, n_out);
   } else if (x_dtype == kDtypeF32) {
     const int bytes = (int)sizeof(w::SmemF32);
-    err = w::allow_smem(w::w4a16_f32_kernel, bytes);
+    err = allow_smem(w::w4a16_f32_kernel, bytes);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((n_out + w::FN - 1) / w::FN, (M + w::FM - 1) / w::FM);
     w::w4a16_f32_kernel<<<grid, w::kThreads, bytes, s>>>(static_cast<const float*>(x), qw, grp,

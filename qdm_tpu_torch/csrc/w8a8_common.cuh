@@ -1,4 +1,5 @@
-// Shared pieces of the two W8A8 kernels (w8a8_fused_epi.cu, w8a8_geglu.cu);
+// Shared pieces of the W8A8 kernels (w8a8_fused_epi.cu, w8a8_geglu.cu,
+// w8a8_matmul.cu);
 // the W4A8 kernel (w4a8_matmul.cu) reuses the quantization pass, the
 // cp.async helpers and the int8 mma, the W4A16 kernel the cp.async helpers.
 //
@@ -15,6 +16,10 @@
 //      y = acc * (xs * ws) + b (+ residual), y = acc * (xs * ws) without a
 //      bias (BIAS false: w8a8_matmul.cu), or for GEGLU h * act(g) from two
 //      column halves accumulated in one block, act the tanh GELU or silu.
+//      XS_FIRST (K24, the pre-quantized w8a8_matmul of w8a8_matmul.cu, which
+//      skips pass 1) multiplies left to right instead, y = (acc * xs) * ws,
+//      as its TPU kernel does (quant_matmul.py:488); the two orders differ
+//      by an f32 ulp.
 //
 // The weight arrives transposed, (N', K') with K contiguous, which is the
 // "col" operand layout mma.sync wants; the Python wrapper caches that copy.
@@ -41,6 +46,19 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// Opt a kernel in to `dyn` bytes of dynamic shared memory where that and
+// its `stat` bytes of static shared memory exceed the 48 KB a launch gets
+// without the opt-in.  A refused opt-in (more than the card holds) is
+// cleared from the runtime's last error, so that it is reported once, here.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t dyn, size_t stat = 0) {
+  if (dyn + stat <= 48 * 1024) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -196,7 +214,7 @@ __device__ __forceinline__ float gelu_tanh(float g) {
 //   [0, BN/2) hold the hidden columns and [BN/2, BN) the gate columns
 //   half + n0 + r.  Each warp takes 16 hidden and the matching 16 gate
 //   columns, so one thread holds h and g of the same output element.
-template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu>
+template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu, bool XS_FIRST = false>
 __global__ void __launch_bounds__(kGemmThreads)
 w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
                  const int8_t* __restrict__ wt, const float* __restrict__ ws,
@@ -310,7 +328,9 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
           for (int e = 0; e < 2; ++e) {
             const int col = n0 + wn * 32 + nj * 8 + t * 2 + e;
             if (col >= n_out) continue;
-            float y = __fmul_rn((float)acc[mi][nj][hr * 2 + e], __fmul_rn(xsr, ws[col]));
+            const float a = (float)acc[mi][nj][hr * 2 + e];
+            float y = XS_FIRST ? __fmul_rn(__fmul_rn(a, xsr), ws[col])
+                               : __fmul_rn(a, __fmul_rn(xsr, ws[col]));
             if (BIAS) y = __fadd_rn(y, bias[col]);
             if (res != nullptr) y = __fadd_rn(y, to_f32(res[(size_t)row * n_out + col]));
             out[(size_t)row * n_out + col] = from_f32<OutT>(y);
@@ -321,14 +341,14 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
   }
 }
 
-template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu>
+template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu, bool XS_FIRST = false>
 cudaError_t launch_gemm(const int8_t* xi, const float* xs, const int8_t* wt, const float* ws,
                         const float* bias, const void* res, void* out, int M, int Kp,
                         int n_out, int half, cudaStream_t stream) {
   const int cols_per_block = GEGLU ? BN / 2 : BN;
   const int n_cols = GEGLU ? half : n_out;
   dim3 grid((n_cols + cols_per_block - 1) / cols_per_block, (M + BM - 1) / BM);
-  w8a8_gemm_kernel<OutT, GEGLU, BIAS, ACT><<<grid, kGemmThreads, 0, stream>>>(
+  w8a8_gemm_kernel<OutT, GEGLU, BIAS, ACT, XS_FIRST><<<grid, kGemmThreads, 0, stream>>>(
       xi, xs, wt, ws, bias, static_cast<const OutT*>(res), static_cast<OutT*>(out), M, Kp,
       n_out, half);
   return cudaGetLastError();

@@ -1,6 +1,7 @@
-// K15: fused W8A8 dense layer without bias for Hopper (sm_90a).
+// K15: fused W8A8 dense layer without bias, and K24: the pre-quantized
+// int8 GEMM, for Hopper (sm_90a).
 //
-// Replaces qdm_tpu/ops/quant_matmul.py::w8a8_matmul_fused (the Pallas
+// K15 replaces qdm_tpu/ops/quant_matmul.py::w8a8_matmul_fused (the Pallas
 // kernel _w8a8_fused_kernel), the LLM engine's fused int8 prefill
 // (qdm_tpu/api/serve.py::_prefill_fused_run: the [q | k | v], o_proj and
 // down projections):
@@ -22,6 +23,17 @@
 // 64-byte stages through a double-buffered cp.async ring (K' = 11008 is
 // 172 stages; nothing in the ring depends on K').  Not yet wgmma / TMA,
 // which is the route to the tensor cores' full rate.
+//
+// K24 replaces qdm_tpu/ops/quant_matmul.py::w8a8_matmul_pallas (the Pallas
+// kernel _w8a8_kernel): x codes and their row scales arrive quantized,
+//   y = ((xi @ W_i8) * xs) * ws                   -> out dtype
+// xi (M, K') int8 (the wrapper pads K < K' with zero columns), xs (M,) f32,
+// ws (N,) f32, the weight transposed (N, K') as for K15.  The same GEMM
+// without the quantization pass, its epilogue multiplied left to right as
+// the TPU kernel's (XS_FIRST), so the output is the plain version's to the
+// bit.  Bound at the SD1.5 attn1/to_qkv shape (16384 x 320 -> 960) by its
+// bytes (37 MB: the bf16 output and the int8 codes), at the Llama-2-7B qkv
+// (16384 x 4096 -> 12288) by its operations, as K15.
 
 #include "w8a8_common.cuh"
 
@@ -46,4 +58,21 @@ extern "C" int qdm_w8a8_matmul_fused(const void* x, int x_dtype, const void* wt,
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+extern "C" int qdm_w8a8_matmul(const void* xi, const void* xs, const void* wt, const void* ws,
+                               void* out, int out_dtype, int M, int Kp, int N, void* stream) {
+  using namespace qdm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* x = static_cast<const int8_t*>(xi);
+  const float* xsf = static_cast<const float*>(xs);
+  const int8_t* w = static_cast<const int8_t*>(wt);
+  const float* wsf = static_cast<const float*>(ws);
+  if (out_dtype == kDtypeBF16)
+    return (int)launch_gemm<__nv_bfloat16, false, false, kGluGelu, true>(
+        x, xsf, w, wsf, nullptr, nullptr, out, M, Kp, N, 0, s);
+  if (out_dtype == kDtypeF32)
+    return (int)launch_gemm<float, false, false, kGluGelu, true>(x, xsf, w, wsf, nullptr, nullptr,
+                                                                 out, M, Kp, N, 0, s);
+  return (int)cudaErrorInvalidValue;
 }

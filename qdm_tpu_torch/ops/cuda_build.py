@@ -80,6 +80,11 @@ ENTRY_POINTS = {
                     F, I, P)),
     "decode_moe_i4": ("qdm_decode_moe_i4",
                       (P, I, P, P, P, P, P, P, P, P, I, P, I, P, P, P, I, I, I, I, I, I, P)),
+    "decode_attention": ("qdm_decode_attention",
+                         (P, I, L, P, P, I, F, I, P, I, I, I, I, I, I, P)),
+    "decode_attention_i8": ("qdm_decode_attention_i8",
+                            (P, I, L, P, P, P, P, I, F, I, P, I, I, I, I, I, I, P)),
+    "w8a8_matmul": ("qdm_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}
 

@@ -36,6 +36,18 @@ engine with a bf16 KV cache:
   ``decode_attention_kv_{i8,i8c,i4c}_pallas``); above ``_FLASH_BYTES``
   the flash decode's quantized formats (``decode_attention_kv_flash_q.cu``,
   p quantized per ``bt``-column block against the running maximum).
+* :func:`decode_attention`, :func:`decode_attention_rows`,
+  :func:`decode_attention_dm` — the same one-token attention over separate
+  caches, K (B, hkv, d, T) and V (B, hkv, T, d) (``_dm``: (B, hkv, d, T)),
+  keys 0..pos, no starts or softcap; q rows beyond the caches' batch give
+  zeros.  CUDA kernel ``csrc/decode_attention.cu`` (K19-K21; replace
+  ``decode_attention{,_rows,_dm}_pallas``), K7's body; ``_rows`` keeps the
+  TPU kernel's one block per batch row.
+* :func:`decode_attention_dm_i8`, :func:`decode_attention_i8` — K12's
+  arithmetic over separate int8 K and V caches with per-token scales, V
+  depth-major or token-major.  CUDA kernel ``csrc/decode_attention_i8.cu``
+  (K22, K23; replace ``decode_attention_dm_i8_pallas`` and
+  ``decode_attention_i8_pallas``).
 * :func:`fused_mlp_decode` — norm, bf16 gate and up with f32 sums,
   ``act(g) * u`` rounded to x's dtype, down, the f32 partial of each
   ``bj``-wide inner block added in block order, residual.  CUDA kernel
@@ -111,16 +123,20 @@ _FLASH_BYTES = 3 * 2 ** 20    # decode_kernels.py:1071: above it the TPU runs th
 _NORMS = {None: 0, "rmsnorm": 1, "layernorm": 2}
 _ACTS = {"silu": 0, "gelu": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ATTN_SMEM = 200 * 1024
 TK_BYTES = 64                 # the tiles' K stage (csrc/decode_common.cuh TK)
 
 # quantized cache formats: kernel code of each (csrc/decode_attn_q.cuh) and
 # its launch counters (one-pass kernel, flash decode)
 KV_MODES = {"i8": 0, "i8c": 1, "i4c": 2}
+# the decode attentions over separate K and V caches: kernel variant of each
+# (csrc/decode_attention.cu; csrc/decode_attention_i8.cu: V token-major or not)
+SEPARATE_ATTENTION = {"decode_attention": 0, "decode_attention_rows": 1,
+                      "decode_attention_dm": 2, "decode_attention_dm_i8": 0,
+                      "decode_attention_i8": 1}
 for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
            "decode_attention_kv_flash", "fused_mlp_decode_i8", "fused_mlp_decode",
            "fused_dense_decode_i4", "fused_mlp_decode_i4", "fused_o_mlp_decode_i8",
-           "fused_o_mlp_decode_i4", "fused_moe_mlp_decode_i4",
+           "fused_o_mlp_decode_i4", "fused_moe_mlp_decode_i4", *SEPARATE_ATTENTION,
            *(f"decode_attention_kv_{m}" for m in KV_MODES),
            *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
@@ -250,16 +266,15 @@ def fused_dense_decode_i8_plain(x, w_i8, w_scale, act_scale, norm_scale=None,
     return _epilogue(y, bias, rope_cos, rope_sin, head_dim, residual, out_dtype or x.dtype)
 
 
-def decode_attention_kv_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
-                              softcap: float = 0.0):
-    """Plain version of :func:`decode_attention_kv`: q (B, hkv, g, d)
-    against kv (B, 2*hkv, d, T) over every column, masked columns at -1e9
-    (``_decode_attn_kv_kernel``)."""
-    b, hkv, g, d = q.shape
-    t = kv_cache.shape[-1]
+def _attention_plain(q, k, v_dm, pos: int, starts=None, sm_scale=None, softcap: float = 0.0):
+    """q (B, hkv, g, d) against K planes (B, hkv, d, T) and V planes read as
+    (B, hkv, d, T) (a transposed view for a token-major V) over every
+    column, columns outside [starts, pos] at -1e9; out in q's dtype."""
+    d = q.shape[-1]
+    t = k.shape[-1]
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     qf = q.to(torch.float32) * scale
-    logits = torch.einsum("bhgd,bhdt->bhgt", qf, kv_cache[:, :hkv].to(torch.float32))
+    logits = torch.einsum("bhgd,bhdt->bhgt", qf, k.to(torch.float32))
     if softcap:
         logits = softcap * torch.tanh(qmm.div_exact(logits, float(softcap)))
     t_ids = torch.arange(t, device=q.device)
@@ -271,8 +286,36 @@ def decode_attention_kv_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     p = torch.div(p, p.sum(dim=-1, keepdim=True))
-    o = torch.einsum("bhgt,bhdt->bhgd", p, kv_cache[:, hkv:].to(torch.float32))
+    o = torch.einsum("bhgt,bhdt->bhgd", p, v_dm.to(torch.float32))
     return o.to(q.dtype)
+
+
+def decode_attention_kv_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
+                              softcap: float = 0.0):
+    """Plain version of :func:`decode_attention_kv`: q (B, hkv, g, d)
+    against kv (B, 2*hkv, d, T) over every column, masked columns at -1e9
+    (``_decode_attn_kv_kernel``)."""
+    hkv = q.shape[1]
+    return _attention_plain(q, kv_cache[:, :hkv], kv_cache[:, hkv:], pos, starts, sm_scale,
+                            softcap)
+
+
+def _pad_rows(o: torch.Tensor, bp: int) -> torch.Tensor:
+    """Rows B..bp-1 of q beyond the cache's batch: zeros."""
+    if bp == o.shape[0]:
+        return o
+    return torch.cat([o, o.new_zeros((bp - o.shape[0], *o.shape[1:]))])
+
+
+def decode_attention_plain(q, k_cache, v_cache, pos: int, v_layout: str = "tokens"):
+    """Plain version of :func:`decode_attention`, :func:`decode_attention_rows`
+    (``v_layout="tokens"``: V (B, hkv, T, d)) and :func:`decode_attention_dm`
+    (``"depth"``: V (B, hkv, d, T)), ``_decode_attn{,_rows,_dm}_kernel``:
+    q (Bp, hkv, g, d) times d^-0.5 against K (B, hkv, d, T) over every
+    column, columns beyond pos at -1e9, softmax, PV; rows B..Bp-1 zeros."""
+    b = k_cache.shape[0]
+    v_dm = v_cache.transpose(-1, -2) if v_layout == "tokens" else v_cache
+    return _pad_rows(_attention_plain(q[:b], k_cache, v_dm, pos), q.shape[0])
 
 
 def _pick_bt(t: int, target: int = 1024) -> int:
@@ -330,6 +373,29 @@ def _f32_scale(d: int, sm_scale) -> float:
     return float(np.float32(d ** -0.5 if sm_scale is None else sm_scale))
 
 
+def _attention_q_plain(q, kc, vc_dm, pos: int, ks=None, vs=None, starts=None):
+    """The one-pass quantized attention on K codes (B, hkv, d, T) and V codes
+    read as (B, hkv, d, T) (a transposed view for a token-major V), with the
+    per-token K / V scales ks, vs (B, hkv, 1, T) where the format has them."""
+    d = q.shape[-1]
+    t = kc.shape[-1]
+    qi, qs = quant_rows(q.to(torch.float32) * _f32_scale(d, None))
+    logits = _codes_dot(qi, kc) * qs
+    if ks is not None:
+        logits = logits * ks
+    t_ids = torch.arange(t, device=q.device)
+    ok = (t_ids <= int(pos))[None, :]
+    if starts is not None:
+        ok = ok & (t_ids[None, :] >= starts.to(q.device).reshape(-1, 1))
+    logits = torch.where(ok[:, None, None, :], logits, torch.full_like(logits, _MASK_ONE_PASS))
+    p = _exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = torch.div(p, qmm.sum_f64(p))
+    if vs is not None:
+        p = p * vs
+    pi, ps = quant_rows(p)
+    return (_codes_dot(pi, vc_dm.transpose(-1, -2)) * ps).to(q.dtype)
+
+
 def decode_attention_kv_q_plain(q, kv, pos: int, mode: str, kv_scale=None, starts=None):
     """Plain version of the one-pass quantized decode attentions (K12-K14,
     ``_decode_attn_kv_{i8,i8c,i4c}_kernel``): q (B, hkv, g, d) times d^-0.5
@@ -338,24 +404,26 @@ def decode_attention_kv_q_plain(q, kv, pos: int, mode: str, kv_scale=None, start
     T; p times the V token scales (``i8``), quantized per row; int PV times
     ``ps``; out in q's dtype.  ``i8c`` / ``i4c`` take q pre-folded with the
     K channel scales and leave the V channel scales to the caller."""
-    b, hkv, g, d = q.shape
-    t = kv.shape[-1]
+    hkv = q.shape[1]
     kc, vc = kv_codes(kv, mode, hkv)
-    qi, qs = quant_rows(q.to(torch.float32) * _f32_scale(d, None))
-    logits = _codes_dot(qi, kc) * qs
+    ks = vs = None
     if mode == "i8":
-        logits = logits * kv_scale[:, :hkv]
-    t_ids = torch.arange(t, device=q.device)
-    ok = (t_ids <= int(pos))[None, :]
-    if starts is not None:
-        ok = ok & (t_ids[None, :] >= starts.to(q.device).reshape(-1, 1))
-    logits = torch.where(ok[:, None, None, :], logits, torch.full_like(logits, _MASK_ONE_PASS))
-    p = _exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = torch.div(p, qmm.sum_f64(p))
-    if mode == "i8":
-        p = p * kv_scale[:, hkv:]
-    pi, ps = quant_rows(p)
-    return (_codes_dot(pi, vc.transpose(-1, -2)) * ps).to(q.dtype)
+        ks, vs = kv_scale[:, :hkv], kv_scale[:, hkv:]
+    return _attention_q_plain(q, kc, vc, pos, ks, vs, starts)
+
+
+def decode_attention_i8_plain(q, k_i8, k_scale, v_i8, v_scale, pos: int,
+                              v_layout: str = "tokens"):
+    """Plain version of :func:`decode_attention_i8` (``v_layout="tokens"``:
+    V (B, hkv, T, d), ``_decode_attn_i8_kernel``) and
+    :func:`decode_attention_dm_i8` (``"depth"``: V (B, hkv, d, T),
+    ``_decode_attn_dm_i8_kernel``): K12's arithmetic on separate int8 K
+    (B, hkv, d, T) and V codes with per-token scales (B, hkv, 1, T); rows
+    B..Bp-1 of q (Bp, hkv, g, d) zeros."""
+    b = k_i8.shape[0]
+    v_dm = v_i8.transpose(-1, -2) if v_layout == "tokens" else v_i8
+    return _pad_rows(_attention_q_plain(q[:b], k_i8, v_dm, pos, k_scale, v_scale),
+                     q.shape[0])
 
 
 def decode_attention_kv_flash_plain(q, kv_cache, pos: int, starts=None, sm_scale=None,
@@ -737,6 +805,13 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
     return True
 
 
+def _q_rows_ok(q: torch.Tensor) -> bool:
+    """Each (hkv, g, d) row of q (B, hkv, g, d) contiguous; rows may be
+    strided (the engine's view of its qkv output)."""
+    _, hkv, g, d = q.shape
+    return q.stride(3) == 1 and q.stride(2) == d and q.stride(1) == g * d
+
+
 def _f32_vec(t: Optional[torch.Tensor], n: int, name: str, dev) -> Optional[torch.Tensor]:
     if t is None:
         return None
@@ -920,7 +995,7 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
         raise ValueError(f"q and the cache must share a bf16/f32 dtype, got {q.dtype}, "
                          f"{kv_cache.dtype}")
-    if (q.stride(3) != 1 or q.stride(2) != d or q.stride(1) != g * d
+    if (not _q_rows_ok(q)
             or not kv_cache.is_contiguous() or kv_cache.device != q.device):
         raise ValueError("q rows must be contiguous (hkv, g, d) blocks and the cache "
                          "contiguous on q's device")
@@ -928,10 +1003,6 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
         raise NotImplementedError(f"decode attention takes at most 16 query heads per kv "
                                   f"head, got {g}")
     st = _starts_i32(starts, b, q.device)
-    smem = 4 * g * (d + t)
-    if smem > _MAX_ATTN_SMEM:
-        raise NotImplementedError(f"decode attention needs {smem} bytes of shared memory "
-                                  f"(g={g}, d={d}, T={t}); at most {_MAX_ATTN_SMEM}")
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
     if b == 0:
@@ -951,7 +1022,7 @@ def _q_operands(q, kv, kv_scale, what: str):
     b, hkv, g, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{what}: q must be bf16 or f32, got {q.dtype}")
-    if (q.stride(3) != 1 or q.stride(2) != d or q.stride(1) != g * d
+    if (not _q_rows_ok(q)
             or not kv.is_contiguous() or kv.device != q.device or kv.data_ptr() % 16):
         raise ValueError(f"{what}: q rows must be contiguous (hkv, g, d) blocks and the cache "
                          "contiguous and 16-byte aligned on q's device")
@@ -980,11 +1051,6 @@ def decode_attention_kv_q_single(q, kv, pos: int, mode: str, kv_scale=None, star
     ks = _q_operands(q, kv, kv_scale, name)
     b, hkv, g, d = q.shape
     st = _starts_i32(starts, b, q.device)
-    cols = t if st is not None else min(t, (int(pos) // 16 + 1) * 16)
-    smem = 64 + qmm._cdiv(g * d, 16) * 16 + 5 * g * cols
-    if smem > _MAX_ATTN_SMEM:
-        raise NotImplementedError(f"{name} needs {smem} bytes of shared memory (g={g}, "
-                                  f"T={t}); at most {_MAX_ATTN_SMEM}")
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
@@ -1053,7 +1119,7 @@ def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
         raise ValueError(f"q and the cache must share a bf16/f32 dtype, got {q.dtype}, "
                          f"{kv_cache.dtype}")
-    if (q.stride(3) != 1 or q.stride(2) != d or q.stride(1) != g * d
+    if (not _q_rows_ok(q)
             or not kv_cache.is_contiguous() or kv_cache.device != q.device
             or kv_cache.data_ptr() % 16):
         raise ValueError("q rows must be contiguous (hkv, g, d) blocks and the cache "
@@ -1125,6 +1191,127 @@ def decode_attention_kv_i4c(q, kv_p, pos: int, starts=None):
     channel-static scales (``decode_kernels.decode_attention_kv_i4c``), the
     :func:`decode_attention_kv_i8c` contract."""
     return _decode_attention_kv_q(q, kv_p, pos, "i4c", starts=starts)
+
+
+def _check_separate(what, q, k, v, pos: int, v_layout: str, k_scale=None, v_scale=None) -> int:
+    """Checks shared by K19-K23 on every device (the TPU wrappers'
+    asserts); returns T."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{what}: q (Bp, hkv, g, d) and K (B, hkv, d, T), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    bp, hkv, g, d = q.shape
+    b, t = k.shape[0], k.shape[-1]
+    v_shape = (b, hkv, t, d) if v_layout == "tokens" else (b, hkv, d, t)
+    if tuple(k.shape) != (b, hkv, d, t) or tuple(v.shape) != v_shape or bp < b:
+        raise ValueError(f"{what}: K {tuple(k.shape)} and V {tuple(v.shape)} do not match q "
+                         f"{tuple(q.shape)} (K (B, hkv, d, T), V {v_shape}, B <= Bp)")
+    if t % LANE:
+        raise ValueError(f"{what}: T={t} is not a multiple of {LANE}")
+    if not 0 <= int(pos) < t:
+        raise ValueError(f"{what}: pos {pos} outside the cache length {t}")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc is not None and tuple(sc.shape) != (b, hkv, 1, t):
+            raise ValueError(f"{what}: {name} {tuple(sc.shape)} is not ({b}, {hkv}, 1, {t})")
+    if any(x is not None and x.device != q.device for x in (k, v, k_scale, v_scale)):
+        raise ValueError(f"{what}: q, the caches and their scales must lie on one device")
+    return t
+
+
+def _separate(what, q, k, v, pos: int, v_layout: str):
+    """K19-K21: q rows may be strided, each (hkv, g, d) row contiguous."""
+    t = _check_separate(what, q, k, v, pos, v_layout)
+    if not _on_card(q, what):
+        return decode_attention_plain(q, k, v, pos, v_layout)
+    bp, hkv, g, d = q.shape
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what}: q and the caches must share a bf16/f32 dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (_q_rows_ok(q) and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{what}: q rows must be contiguous (hkv, g, d) blocks and the caches "
+                         "contiguous")
+    if g > 16 or (v_layout == "tokens" and d % 2):
+        raise NotImplementedError(f"{what} takes at most 16 query heads per kv head and, with "
+                                  f"V token-major, an even d; got g={g}, d={d}")
+    out = torch.empty((bp, hkv, g, d), dtype=q.dtype, device=q.device)
+    if bp == 0:
+        return out
+    fn = cuda_build.kernel("decode_attention")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), k.data_ptr(), v.data_ptr(),
+                 int(pos), ctypes.c_float(_f32_scale(d, None)), SEPARATE_ATTENTION[what],
+                 out.data_ptr(), bp, k.shape[0], hkv, g, d, t, _stream(q))
+    cuda_build.check(err, what)
+    qmm.LAUNCHES[what] += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, pos: int):
+    """One-token GQA decode attention over separate caches (K19,
+    ``decode_kernels.decode_attention_pallas``): q (Bp, hkv, g, d) against K
+    (B, hkv, d, T) and V (B, hkv, T, d), bf16 or f32, keys 0..pos attended,
+    T a multiple of 128; one kernel block per (row, kv head).  Returns
+    (Bp, hkv, g, d) in q's dtype, rows B..Bp-1 zeros."""
+    return _separate("decode_attention", q, k_cache, v_cache, pos, "tokens")
+
+
+def decode_attention_rows(q, k_cache, v_cache, pos: int):
+    """:func:`decode_attention` with one kernel block per batch row looping
+    over the kv heads, as the TPU kernel's grid (B,) is laid out (K20,
+    ``decode_attention_rows_pallas``)."""
+    return _separate("decode_attention_rows", q, k_cache, v_cache, pos, "tokens")
+
+
+def decode_attention_dm(q, k_cache, v_cache, pos: int):
+    """:func:`decode_attention` with V depth-major, (B, hkv, d, T) like K
+    (K21, ``decode_attention_dm_pallas``)."""
+    return _separate("decode_attention_dm", q, k_cache, v_cache, pos, "depth")
+
+
+def _separate_i8(what, q, k_i8, k_scale, v_i8, v_scale, pos: int, v_layout: str):
+    """K22 / K23: q rows may be strided, each (hkv, g, d) row contiguous."""
+    t = _check_separate(what, q, k_i8, v_i8, pos, v_layout, k_scale, v_scale)
+    if not _on_card(q, what):
+        return decode_attention_i8_plain(q, k_i8, k_scale, v_i8, v_scale, pos, v_layout)
+    bp, hkv, g, d = q.shape
+    if q.dtype not in _DTYPE_CODE or k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
+        raise ValueError(f"{what}: q must be bf16 or f32 and the caches int8, got {q.dtype}, "
+                         f"{k_i8.dtype}, {v_i8.dtype}")
+    if not (_q_rows_ok(q) and k_i8.is_contiguous() and v_i8.is_contiguous()
+            and k_i8.data_ptr() % 16 == 0 and v_i8.data_ptr() % 16 == 0):
+        raise ValueError(f"{what}: q rows must be contiguous (hkv, g, d) blocks and the caches "
+                         "contiguous and 16-byte aligned")
+    if g not in (1, 2, 4, 8) or d % 16 or d > 256 or 32 % (d // 16):
+        raise NotImplementedError(f"{what} takes g in (1, 2, 4, 8) and d in (16, 32, 64, 128, "
+                                  f"256); got g={g}, d={d}")
+    ks = k_scale.to(torch.float32).contiguous()
+    vs = v_scale.to(torch.float32).contiguous()
+    out = torch.empty((bp, hkv, g, d), dtype=q.dtype, device=q.device)
+    if bp == 0:
+        return out
+    fn = cuda_build.kernel("decode_attention_i8")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), k_i8.data_ptr(), ks.data_ptr(),
+                 v_i8.data_ptr(), vs.data_ptr(), int(pos), ctypes.c_float(_f32_scale(d, None)),
+                 SEPARATE_ATTENTION[what], out.data_ptr(), bp, k_i8.shape[0], hkv, g, d, t,
+                 _stream(q))
+    cuda_build.check(err, what)
+    qmm.LAUNCHES[what] += 1
+    return out
+
+
+def decode_attention_dm_i8(q, k_i8, k_scale, v_i8, v_scale, pos: int):
+    """int8 decode attention over separate depth-major caches (K22,
+    ``decode_kernels.decode_attention_dm_i8_pallas``): K and V (B, hkv, d,
+    T) int8 with per-token scales (B, hkv, 1, T) f32; K12's arithmetic
+    (:func:`decode_attention_i8_plain`).  Returns (Bp, hkv, g, d) in q's
+    dtype, rows B..Bp-1 zeros."""
+    return _separate_i8("decode_attention_dm_i8", q, k_i8, k_scale, v_i8, v_scale, pos, "depth")
+
+
+def decode_attention_i8(q, k_i8, k_scale, v_i8, v_scale, pos: int):
+    """:func:`decode_attention_dm_i8` with V token-major, (B, hkv, T, d)
+    int8 (K23, ``decode_kernels.decode_attention_i8_pallas``)."""
+    return _separate_i8("decode_attention_i8", q, k_i8, k_scale, v_i8, v_scale, pos, "tokens")
 
 
 def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor],

@@ -13,6 +13,11 @@ and W4A8 paths:
   ``acc * (xs * ws)`` with no bias and no residual.  CUDA kernel
   ``csrc/w8a8_matmul.cu`` (replaces the Pallas ``_w8a8_fused_kernel``); the
   LLM engine's fused int8 prefill (qkv, o_proj, down).
+* :func:`w8a8_matmul` — pre-quantized int8 x codes (M, K) with row scales
+  (M, 1), int8 GEMM, ``(acc * xs) * ws`` multiplied left to right as its
+  TPU kernel does (K1's and K15's ``acc * (xs * ws)`` rounds otherwise by
+  an f32 ulp).  CUDA kernel ``csrc/w8a8_matmul.cu`` (K24; replaces
+  ``w8a8_matmul_pallas``).
 * :func:`w8a8_geglu_fused` — the same quantization, two int8 GEMMs on the
   ``[hidden | gate]`` column halves, ``h * act(g)`` with the tanh GELU
   (the SD UNet) or silu (the LLM prefill's ``[up | gate]``).  CUDA kernel
@@ -60,7 +65,7 @@ PACK_BLOCK_K = 128   # K rows per int4 packing block == the kernels' K block
 # kernel launches per wrapper; chip_smoke.py zeroes and reads these
 LAUNCHES = {"w8a8_matmul_fused_epi": 0, "w8a8_matmul_fused_epi+ln": 0,
             "w8a8_matmul_fused": 0, "w8a8_geglu_fused": 0, "w4a16_matmul": 0,
-            "w4a8_matmul": 0}
+            "w4a8_matmul": 0, "w8a8_matmul": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GLU_ACTS = {"silu": 0, "gelu": 1}
@@ -306,6 +311,16 @@ def w8a8_matmul_fused_plain(x, w_i8, w_scale, out_dtype=None):
     return (acc.to(torch.float32) * (xs * w_scale.reshape(1, -1))).to(out_dtype or x.dtype)
 
 
+def w8a8_matmul_plain(x_i8, w_i8, x_scale, w_scale, out_dtype=torch.bfloat16):
+    """Plain version of :func:`w8a8_matmul` (``_w8a8_kernel``): the exact
+    int32 product of x_i8 (M, K) and w_i8[:K], then ``(acc * xs) * ws`` in
+    f32, left to right."""
+    k = x_i8.shape[1]
+    acc = int8_matmul_exact(x_i8, w_i8[:k])
+    return (acc.to(torch.float32) * x_scale.reshape(-1, 1).to(torch.float32)
+            * w_scale.reshape(1, -1).to(torch.float32)).to(out_dtype)
+
+
 def w8a8_geglu_fused_plain(x, w_i8, w_scale, bias, out_dtype=None, act: str = "gelu"):
     """Plain version of :func:`w8a8_geglu_fused`."""
     out_dtype = out_dtype or x.dtype
@@ -448,6 +463,56 @@ def w8a8_matmul_fused(x, w_i8, w_scale, out_dtype=None, w_t: Optional[torch.Tens
                  m, k, kp, n, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w8a8_matmul_fused")
     LAUNCHES["w8a8_matmul_fused"] += 1
+    return out
+
+
+def w8a8_matmul(x_i8, w_i8, x_scale, w_scale, out_dtype=torch.bfloat16,
+                w_t: Optional[torch.Tensor] = None):
+    """Pre-quantized int8 GEMM (K24, ``quant_matmul.w8a8_matmul``): x_i8
+    (M, K) int8 with per-row scales x_scale (M, 1) f32, w_i8 (K', N) int8
+    with K <= K' (x padded with zero columns) and per-column scales w_scale
+    (1, N) f32 -> (M, N) ``(acc * xs) * ws`` in out_dtype (bf16 or f32).
+    N must be a multiple of 128 on the card (``pack_linear_int8`` pads it);
+    w_t is the cached :func:`transposed_weight` of w_i8."""
+    if x_i8.dim() != 2 or w_i8.dim() != 2 or x_i8.shape[1] > w_i8.shape[0]:
+        raise ValueError(f"w8a8_matmul: x (M, K) against w (K', N) with K <= K', got "
+                         f"{tuple(x_i8.shape)}, {tuple(w_i8.shape)}")
+    m, k = x_i8.shape
+    kp, n = w_i8.shape
+    if x_scale.numel() != m or w_scale.numel() != n:
+        raise ValueError(f"w8a8_matmul: x_scale must hold {m} values and w_scale {n}")
+    if any(t.device != x_i8.device for t in (w_i8, x_scale, w_scale)):
+        raise ValueError("w8a8_matmul: all operands must be on one device")
+    if x_i8.device.type == "cpu":
+        return w8a8_matmul_plain(x_i8, w_i8, x_scale, w_scale, out_dtype)
+    if x_i8.device.type != "cuda":
+        raise RuntimeError(f"w8a8_matmul runs on CUDA or CPU tensors, got {x_i8.device}")
+    w_t = transposed_weight(w_i8) if w_t is None else w_t
+    if x_i8.dtype != torch.int8 or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"w8a8_matmul: x must be int8 with a bf16/f32 output, got {x_i8.dtype} "
+                         f"-> {out_dtype}")
+    if w_i8.dtype != torch.int8 or kp % 32 or n % LANE:
+        raise ValueError(f"w8a8_matmul: w_i8 must be int8 (K'%32, N%128), got "
+                         f"{tuple(w_i8.shape)} {w_i8.dtype}")
+    if (tuple(w_t.shape) != (n, kp) or w_t.dtype != torch.int8 or not w_t.is_contiguous()
+            or w_t.data_ptr() % 16 or w_t.device != x_i8.device):
+        raise ValueError("w8a8_matmul: w_t must be the contiguous, 16-byte aligned (N, K') "
+                         "transpose of w_i8")
+    xi = x_i8.contiguous() if k == kp else F.pad(x_i8, (0, kp - k))
+    if xi.data_ptr() % 16:
+        xi = xi.clone()                  # 16-byte cp.async loads
+    xs = x_scale.reshape(-1).to(torch.float32).contiguous()
+    ws = w_scale.reshape(-1).to(torch.float32).contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=x_i8.device)
+    if m == 0:
+        return out
+    fn = cuda_build.kernel("w8a8_matmul")
+    with torch.cuda.device(x_i8.device):
+        err = fn(xi.data_ptr(), xs.data_ptr(), w_t.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODE[out_dtype], m, kp, n,
+                 torch.cuda.current_stream(x_i8.device).cuda_stream)
+    cuda_build.check(err, "w8a8_matmul")
+    LAUNCHES["w8a8_matmul"] += 1
     return out
 
 

@@ -483,6 +483,7 @@ KV_Q_CASES = [
     ("i4c", 4, 2, 4, 64, 256, 100, (0, 7, 101, 64), True),
     ("i8", 3, 2, 1, 128, 384, 300, None, False),       # g 1 at d 128
     ("i4c", 2, 1, 2, 256, 128, 0, None, False),
+    ("i8", 32, 4, 8, 64, 1152, 1150, None, True),      # 45 KB of window + 3 KB of reductions
 ]
 
 
@@ -1065,3 +1066,104 @@ def test_moe_check_flags_planted_faults_on_card():
                                          torch.roll(s2, 256 // 128, dims=0), scl, block_j=256)
     torch.cuda.synchronize()
     assert not torch.equal(got, want) and not torch.equal(shifted, want)
+
+
+# ---------------------------------------------------------------------------
+# the separate-cache decode attentions (K19-K23) and the pre-quantized int8
+# GEMM (K24)
+# ---------------------------------------------------------------------------
+
+SEPARATE = {"decode_attention": dk.decode_attention, "decode_attention_rows":
+            dk.decode_attention_rows, "decode_attention_dm": dk.decode_attention_dm}
+SEPARATE_I8 = {"decode_attention_dm_i8": dk.decode_attention_dm_i8,
+               "decode_attention_i8": dk.decode_attention_i8}
+# (Bp, B, hkv, g, d, T, pos, bf16): the probe's shape (TinyLlama-1.1B at T
+# 1152, pos 1150), the CPU tests' shape at its first and last column, Bp > B
+SEPARATE_CASES = [(32, 32, 4, 8, 64, 1152, 1150, True), (4, 4, 2, 4, 64, 256, 0, False),
+                  (4, 4, 2, 4, 64, 256, 255, True), (8, 2, 2, 4, 64, 256, 100, False),
+                  (3, 3, 1, 16, 128, 384, 200, False)]
+
+
+def _separate_operands(bp, b, hkv, g, d, t, name, dev, dtype, seed):
+    """q viewed out of a wider qkv row, as an engine passes it, and K and V
+    drawn apart, V in the layout of ``name``."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy(rng.standard_normal((bp, hkv * g * d + 2 * hkv * d)).astype(np.float32))
+    q = wide.to(dev, dtype)[:, :hkv * g * d].view(bp, hkv, g, d)
+    tokens = name in ("decode_attention", "decode_attention_rows", "decode_attention_i8")
+    v_shape = (b, hkv, t, d) if tokens else (b, hkv, d, t)
+    if name in SEPARATE:
+        k = torch.from_numpy(rng.standard_normal((b, hkv, d, t)).astype(np.float32))
+        v = torch.from_numpy(rng.standard_normal(v_shape).astype(np.float32) * 2)
+        return q, k.to(dev, dtype), v.to(dev, dtype)
+    k = torch.from_numpy(rng.integers(-127, 128, (b, hkv, d, t)).astype(np.int8)).to(dev)
+    v = torch.from_numpy(rng.integers(-127, 128, v_shape).astype(np.int8)).to(dev)
+    ks, vs = (torch.from_numpy((rng.random((b, hkv, 1, t)) * 0.02 + 1e-3).astype(np.float32)
+                               ).to(dev) for _ in range(2))
+    return q, k, ks, v, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp,b,hkv,g,d,t,pos,bf16", SEPARATE_CASES)
+@pytest.mark.parametrize("name", list(SEPARATE))
+def test_separate_attention_kernel_matches_plain_on_card(name, bp, b, hkv, g, d, t, pos, bf16):
+    """K19-K21 within 1 bf16 ulp or 1e-5 of the output's magnitude; rows
+    B..Bp-1 zeros."""
+    dev = _card()
+    q, k, v = _separate_operands(bp, b, hkv, g, d, t, name, dev,
+                                 torch.bfloat16 if bf16 else torch.float32, bp + t + pos)
+    layout = "depth" if name == "decode_attention_dm" else "tokens"
+    before = qmm.LAUNCHES[name]
+    got = SEPARATE[name](q, k, v, pos)
+    want = dk.decode_attention_plain(q, k, v, pos, layout)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    _close_on_card(got, want)
+    assert not got[b:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bp,b,hkv,g,d,t,pos,bf16", [
+    (32, 32, 4, 8, 64, 1152, 1150, True), (2, 2, 2, 4, 64, 256, 200, False),
+    (4, 2, 2, 4, 64, 256, 255, True), (3, 3, 2, 1, 128, 384, 0, False),
+    (2, 2, 1, 2, 32, 128, 70, False)])
+@pytest.mark.parametrize("name", list(SEPARATE_I8))
+def test_separate_attention_i8_kernel_matches_plain_on_card(name, bp, b, hkv, g, d, t, pos,
+                                                            bf16):
+    """K22 / K23 repeat their plain version's arithmetic: outputs equal."""
+    dev = _card()
+    q, k, ks, v, vs = _separate_operands(bp, b, hkv, g, d, t, name, dev,
+                                         torch.bfloat16 if bf16 else torch.float32, bp + t + pos)
+    layout = "depth" if name == "decode_attention_dm_i8" else "tokens"
+    before = qmm.LAUNCHES[name]
+    got = SEPARATE_I8[name](q, k, ks, v, vs, pos)
+    want = dk.decode_attention_i8_plain(q, k, ks, v, vs, pos, layout)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES[name] == before + 1
+    assert got.dtype == q.dtype and torch.equal(got, want), float((got - want).abs().max())
+    bad = SEPARATE_I8[name](q, k, ks, v, vs * (1.0 + 1e-3), pos)
+    assert not torch.equal(bad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("m,k,n", [(64, 256, 128), (33, 320, 320), (128, 512, 384),
+                                   (16, 300, 256), (300, 768, 640)])
+def test_w8a8_matmul_kernel_matches_plain_on_card(m, k, n, f32):
+    """K24 equals its plain version: exact int32 sums, ``(acc * xs) * ws``
+    in the same order."""
+    dev = _card()
+    rng = np.random.default_rng(m + k + n)
+    x_i8 = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(dev)
+    xs = torch.from_numpy((rng.random((m, 1)) * 0.02 + 1e-3).astype(np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    w_i8, ws = qmm.pack_linear_int8(codes, torch.from_numpy(
+        ((rng.random(n) + 0.5) * 1e-3).astype(np.float32)))
+    w_i8, ws = w_i8.to(dev), ws.to(dev)
+    out_dtype = torch.float32 if f32 else torch.bfloat16
+    before = qmm.LAUNCHES["w8a8_matmul"]
+    got = qmm.w8a8_matmul(x_i8, w_i8, xs, ws, out_dtype=out_dtype)
+    want = qmm.w8a8_matmul_plain(x_i8, w_i8, xs, ws, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["w8a8_matmul"] == before + 1
+    assert got.dtype == out_dtype and torch.equal(got, want), float((got - want).abs().max())

@@ -90,6 +90,25 @@ def test_module_greedy_generate_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def test_truncated_draft_matches_jax():
+    """The first layer of the tiny model, its parameter tensors shared and
+    the same leaves kept as JAX's draft keeps; the logits as JAX's."""
+    jlm, tlm = _pair(4)
+    jd, td = jlm.truncated_draft(1), tlm.truncated_draft(1)
+    assert td.config.num_hidden_layers == jd.config.num_hidden_layers == 1
+    assert set(flatten_tree(td.params)) == set(_flat_jax(jd.params))
+    full = flatten_tree(tlm.params)
+    for p, t in flatten_tree(td.params).items():
+        assert t is full[p], p
+    ids = _ids(5, (2, 12))
+    want = np.asarray(jd.logits(ids))
+    got = td.logits(ids).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+    for n in (0, GEOM["num_hidden_layers"]):
+        with pytest.raises(ValueError):
+            tlm.truncated_draft(n)
+
+
 def test_engine_cache_branch_matches_module_cache():
     """A prefill into the engine's combined [K | V] cache gives the logits
     and the keys / values of the module's (k, v) cache, depth-major."""
