@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py             # every phase, one CUDA card
     python3 chip_smoke.py --profile   # every phase, then a profile
+    python3 chip_smoke.py --breakdown # the build, then the decode attention body's and
+                                      # K8b's device time by kernel, nothing else
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -246,6 +248,8 @@ LLM_CALIB = (8, 512)
 LLM_TOL = 1e-5                # tiny LLM engine card vs CPU, each kernel call on the same inputs
 LLM_FAULT = 1e-3              # relative error planted into K6's weight scales
 L2_BYTES = 50 * 2 ** 20       # H100 L2: decode timings cycle over copies beyond it
+COLD_L2 = 8                   # the decode attentions' timed copies, kernel and library alike:
+                              # this many L2s of operands
 DECODE_KERNELS = ("fused_dense_decode_i8", "decode_attention_kv", "fused_mlp_decode_i8",
                   "fused_dense_decode")
 KERNEL_INFO = {
@@ -605,21 +609,12 @@ def cold_ms(fns, calls: int = 20) -> float:
     beyond the L2 cache), over the number of calls.  A decode-sized call
     runs shorter than its Python wrapper takes to issue it, so CUDA events
     around the loop would time the host."""
-    from qdm_tpu_torch.utils.timing import device_us
-
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    n = max(calls, len(fns))
-
-    def run():
-        for i in range(n):
-            fns[i % len(fns)]()
-    return device_us(run, n) / 1e3
+    return sum(_cold_by_kernel(fns, calls).values()) / 1e3
 
 
-def _copies(nbytes: int) -> int:
-    return max(1, -(-2 * L2_BYTES // max(nbytes, 1)))
+def _copies(nbytes: int, over: int = 2) -> int:
+    """Copies of ``nbytes`` of operands that together hold ``over`` times the L2."""
+    return max(1, -(-over * L2_BYTES // max(nbytes, 1)))
 
 
 def _bound(nbytes: int, ops: int, peak: float) -> Tuple[float, str]:
@@ -779,7 +774,7 @@ def _check_attention(label, b, hkv, g, d, t, pos, starts, softcap, sm_scale, dty
         eb = kv.element_size()
         nbytes = 2 * b * hkv * g * d * eb + 2 * b * hkv * d * cols * eb
         ops = 4 * b * hkv * g * d * cols
-        kvs = [kv] + [kv.clone() for _ in range(_copies(kv.numel() * eb) - 1)]
+        kvs = [kv] + [kv.clone() for _ in range(_copies(kv.numel() * eb, COLD_L2) - 1)]
         kern = [lambda c=c: dk.decode_attention_kv(q, c, pos) for c in kvs]
         plain = [lambda c=c: dk.decode_attention_kv_plain(q, c, pos) for c in kvs]
         qh = q.reshape(b, hkv * g, 1, d)
@@ -893,7 +888,19 @@ def phase_decode_kernels(dev) -> dict:
             ("starts (one row fully masked)", 4, 2, 4, 64, 256, 100, (0, 7, 101, 64), 0.0, None,
              f32, False),
             ("softcap + sm_scale", 3, 2, 3, 128, 384, 300, None, 30.0, 0.07, bf, False),
-            ("f32, g 16", 2, 1, 16, 32, 128, 127, None, 0.0, None, f32, False)):
+            ("f32, g 16", 2, 1, 16, 32, 128, 127, None, 0.0, None, f32, False),
+            # the cluster's split of the columns (csrc/decode_attn.cuh::plan_splits)
+            ("512 columns: two blocks end on a split", 4, 4, 8, hd, T, 511, None, 0.0, None, bf,
+             False),
+            ("513 columns: a third block of one", 4, 4, 8, hd, T, 512, None, 0.0, None, bf, False),
+            ("pos 0", B, C.num_key_value_heads, C.num_attention_heads // C.num_key_value_heads,
+             hd, T, 0, None, 0.0, None, bf, False),
+            ("T 3072: K7's longest window at TinyLlama width", B, C.num_key_value_heads,
+             C.num_attention_heads // C.num_key_value_heads, hd, 3072, 3071, None, 0.0, None, bf,
+             False),
+            ("a fully masked row over 3 blocks", 4, 2, 4, 64, 1024, 700, (0, 10, 701, 300), 0.0,
+             None, bf, False),
+            ("f32, g 16 over 3 blocks", 2, 1, 16, 64, 640, 600, None, 0.0, None, f32, False)):
         res["decode_attention_kv"].append(
             _check_attention(label, b, hkv, g, d, t, pos, st, sc, sm, dt, dev, timed))
     # K8: the MLP at width, then options
@@ -918,9 +925,10 @@ def phase_decode_kernels(dev) -> dict:
 def _print_rows(res: dict) -> None:
     for name, rows in res.items():
         for row in rows:
-            timing = (f", kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-                      f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']})" if "ms" in row else "")
+            timing = (f", kernel {row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of the "
+                      f"bound), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+                      f"({row['bound_ms'] / row['library_ms']:.1%} of the bound), bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})" if "ms" in row else "")
             tol = row.get("tol") or ("codes identical, 0 ulp" if row["ulps"] == 0 else
                                      "within 1 bf16 ulp or 1e-5 of the magnitude")
             shape = {k_: v for k_, v in row.items()
@@ -1793,6 +1801,7 @@ def _check_flash_i8(label, b, h, hkv, s, d, rope, starts, dev, timed):
         if not torch.equal(trace[what][sel], want_trace[what][sel]):
             fail(f"flash_prefill_gqa(qk_int8) {label}: {what} differ from the plain version in "
                  f"{int((trace[what][sel] != want_trace[what][sel]).sum())} places")
+    slow = trace["slow_routes"].tolist()
     del trace, want_trace
     ok, err, share, mean = k8b_check(got, want, v)
     if not ok:
@@ -1806,10 +1815,11 @@ def _check_flash_i8(label, b, h, hkv, s, d, rope, starts, dev, timed):
              f"{K8B_FAULT:g} (planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}")
     n_equal = int((got == want).sum())
     row = {"layer": label, "B": b, "H": h, "hkv": hkv, "S": s, "d": d, "max_abs_err": err,
-           "ulps": 1, "tol": f"q, k, v and p codes identical; {K8B_TOL}: element bound share "
+           "ulps": 1, "slow_routes": slow,
+           "tol": f"q, k, v and p codes identical; {K8B_TOL}: element bound share "
            f"{share:.3f}, mean ratio {mean:.3g} ({n_equal} of {got.numel()} elements equal); v "
            f"scales off by {K8B_FAULT:g} (planted): share {bad_share:.3f}, mean ratio "
-           f"{bad_mean:.3g}"}
+           f"{bad_mean:.3g}; exps and p codes by the slow exact route: {slow[0]} of {slow[1]}"}
     del want, bad
     if timed:
         kern = lambda: fp.flash_prefill_gqa(q, k, v, sm, cos, sin, starts=st, qk_int8=True)
@@ -1850,7 +1860,9 @@ def phase_merged_kernels(dev, res: dict) -> dict:
     c = LlamaConfig()
     for args in (("7B prefill (rope)", L7_BATCH, c.num_attention_heads, c.num_key_value_heads,
                   L7_PROMPT, c.head_dim, True, None, True),
-                 ("GQA, a masked row", 2, 32, 4, 1024, 64, True, (0, 300), False)):
+                 ("GQA, a masked row", 2, 32, 4, 1024, 64, True, (0, 300), False),
+                 ("S 4096: four TPU blocks a row", 1, 4, 4, 4096, 128, True, None, False),
+                 ("starts past the first TPU block", 1, 8, 4, 2048, 64, True, (1100,), False)):
         out["flash_prefill_gqa_i8"].append(_check_flash_i8(*args[:-1], dev, args[-1]))
         torch.cuda.empty_cache()
     _print_rows(out)
@@ -2254,7 +2266,7 @@ def _check_separate(label, name, bp, b, hkv, g, d, t, pos, dtype, dev, timed):
                   + (2 * b * hkv * cols * 4 if i8 else 0))
         ops = 4 * b * hkv * g * d * cols
         sets = [cache] + [tuple(c.clone() for c in cache)
-                          for _ in range(_copies(cache_bytes) - 1)]
+                          for _ in range(_copies(cache_bytes, COLD_L2) - 1)]
         kern = [lambda c=c: run(q, *c) for c in sets]
         plains = [lambda c=c: plain(q, *c) for c in sets]
         qh = q.reshape(bp, hkv * g, 1, d).to(torch.bfloat16)
@@ -2272,7 +2284,7 @@ def _check_separate(label, name, bp, b, hkv, g, d, t, pos, dtype, dev, timed):
 def phase_separate_attention_kernels(dev) -> dict:
     """K19-K23 at the decode probe's shapes (TinyLlama-1.1B: B 32, hkv 4, g
     8, d 64, T 1152, pos 1150, bf16; timed) and at a small f32 shape with
-    Bp 8 > B 2 (pos 100, T 256); K and V apart."""
+    Bp 8 > B 2 (pos 100, T 256), K19-K21 also at T 3072; K and V apart."""
     from qdm_tpu_torch.models.llama import BENCH_1B
 
     c = BENCH_1B
@@ -2285,9 +2297,156 @@ def phase_separate_attention_kernels(dev) -> dict:
                             hkv, g, d, PROBE_T, PROBE_T - 2, torch.bfloat16, dev, True),
             _check_separate("f32, Bp 8 > B 2", name, 8, 2, 2, 4, 64, 256, 100, torch.float32,
                             dev, False)]
+        if name in SEPARATE_FLOAT:  # the split body's longest window
+            res[name].append(_check_separate("T 3072", name, LLM_BATCH,
+                                             LLM_BATCH, hkv, g, d, 3072, 3071, torch.bfloat16,
+                                             dev, False))
         torch.cuda.empty_cache()
     _print_rows(res)
     return res
+
+
+# ---------------------------------------------------------------------------
+# --breakdown: device time by kernel of the one-pass decode attention body
+# (K7 over its columns, K19-K21) and of K8b's launches, cold SDPA beside
+# ---------------------------------------------------------------------------
+
+BREAKDOWN_K7 = ((640, 63), (640, 287), (640, 574), (1152, 1150), (3072, 3071))  # batch 32
+# K7's planned split against forced ones: (batch, T, pos) at TinyLlama width; the
+# kernel plans 3 and 8 blocks a pair at batch 1, 3 and 4 at batch 8, 1 at batch 32
+BREAKDOWN_SPLIT = ((1, 640, 574), (1, 3072, 3071), (8, 640, 574), (8, 3072, 3071),
+                   (32, 640, 574), (32, 3072, 3071))
+BREAKDOWN_SPLITS = (1, 2, 3, 4, 8)
+
+
+def _cold_by_kernel(fns, calls: int = 20) -> dict:
+    """Device us of one call by kernel name: the CUDA kernels' time in a
+    profiled loop over closures that each hold their own copy of the
+    operands, over the number of calls (cold_ms's loop)."""
+    from qdm_tpu_torch.utils.timing import device_us_by_kernel
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    n = max(calls, len(fns))
+
+    def run():
+        for i in range(n):
+            fns[i % len(fns)]()
+    return device_us_by_kernel(run, n)
+
+
+def _queued_us(fns, calls: int = 20) -> float:
+    """Device us of one call read on CUDA events, the profiler's check: the
+    calls are queued behind a 50 ms spin of the card, so the events time
+    the device (gaps between launches included) and not the host's issue."""
+    for f in fns:
+        f()
+    n = max(calls, len(fns))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for i in range(n):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
+
+
+def _print_split(label: str, split: dict, nbytes: int) -> None:
+    total = sum(split.values())
+    parts = "; ".join(f"{name[:90]} {us:.2f} us" for name, us in
+                      sorted(split.items(), key=lambda kv: -kv[1]))
+    print(f"breakdown: {label}: {total:.2f} us, {nbytes / total / 1e6:.3f} TB/s of the "
+          f"{nbytes / 1e6:.2f} MB it must move (bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us); "
+          f"{parts}", flush=True)
+
+
+def phase_attention_breakdown(dev) -> None:
+    """K7 at TinyLlama-1.1B width (batch 32) over a sweep of attended
+    columns with SDPA beside, and at batch 1, 8 and 32 with the cluster's
+    split planned and forced (BREAKDOWN_SPLIT); K19-K21 at the probe's
+    shape; all over copies beyond COLD_L2 times the L2.  K8b at the 7B
+    prefill, its launches by kernel."""
+    from qdm_tpu_torch.models.llama import BENCH_1B as C, LlamaConfig
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import flash_prefill as fp
+
+    hkv, d, b = C.num_key_value_heads, C.head_dim, LLM_BATCH
+    g = C.num_attention_heads // hkv
+
+    def operands(b, t, pos):
+        gen = torch.Generator(device=dev).manual_seed(t + pos)
+        q = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn((b, 2 * hkv, d, t), generator=gen, device=dev).to(torch.bfloat16)
+        kvs = [kv] + [kv.clone() for _ in range(_copies(kv.numel() * 2, COLD_L2) - 1)]
+        return q, kvs, 2 * (2 * b * hkv * g * d + 2 * b * hkv * d * (pos + 1))
+
+    def k7(q, kvs, pos, splits):
+        return _cold_by_kernel([lambda c=c: dk.decode_attention_kv_single(q, c, pos,
+                                                                          splits=splits)
+                                for c in kvs])
+
+    for t, pos in BREAKDOWN_K7:
+        q, kvs, nbytes = operands(b, t, pos)
+        _print_split(f"K7 b {b} T {t} pos {pos}, planned", k7(q, kvs, pos, 0), nbytes)
+        cols = pos + 1
+        qh = q.reshape(b, hkv * g, 1, d)
+        lay = [(c[:, :hkv, :, :cols].transpose(2, 3).contiguous(),
+                c[:, hkv:, :, :cols].transpose(2, 3).contiguous()) for c in kvs]
+        sdpa = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+            qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+        _print_split(f"SDPA at K7's b {b} T {t} pos {pos}", _cold_by_kernel(sdpa), nbytes)
+        planned = [lambda c=c: dk.decode_attention_kv_single(q, c, pos) for c in kvs]
+        print(f"breakdown: queued on events: K7 {_queued_us(planned):.2f} us, SDPA "
+              f"{_queued_us(sdpa):.2f} us", flush=True)
+        del kvs, lay, sdpa, planned
+    for bb, t, pos in BREAKDOWN_SPLIT:
+        q, kvs, nbytes = operands(bb, t, pos)
+        for n in (0,) + BREAKDOWN_SPLITS:
+            _print_split(f"K7 b {bb} T {t} pos {pos}, "
+                         + (f"{n} block(s) a pair (forced)" if n else "planned"),
+                         k7(q, kvs, pos, n), nbytes)
+        del kvs
+    for name in SEPARATE_FLOAT:
+        q, *cache = _separate_case(name, b, b, hkv, g, d, PROBE_T, torch.bfloat16, 1, dev)
+        pos = PROBE_T - 2
+        nbytes = 2 * (2 * b * hkv * g * d + 2 * b * hkv * d * (pos + 1))
+        run, _ = _separate_fns(name, pos)
+        sets = [cache] + [[c.clone() for c in cache]
+                          for _ in range(_copies(2 * cache[0].numel() * 2, COLD_L2) - 1)]
+        fns = [lambda c=c: run(q, *c) for c in sets]
+        _print_split(f"{name} T {PROBE_T} pos {pos}", _cold_by_kernel(fns), nbytes)
+        print(f"breakdown: queued on events: {name} {_queued_us(fns):.2f} us", flush=True)
+        del sets, fns
+    torch.cuda.empty_cache()
+    c = LlamaConfig()
+    h, s, d = c.num_attention_heads, L7_PROMPT, c.head_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = f(L7_BATCH, s, h, d).transpose(1, 2)
+    k, v = f(L7_BATCH, s, h, d).transpose(1, 2), f(L7_BATCH, s, h, d).transpose(1, 2)
+    cos, sin = fp.rope_tables(s, d, 10000.0, device=dev)
+    nbytes = 2 * (4 * L7_BATCH * h * s * d) + 2 * 4 * s * d
+    k8b = [lambda: fp.flash_prefill_gqa(q, k, v, d ** -0.5, cos, sin, qk_int8=True)]
+    _print_split(f"K8b 7B prefill b {L7_BATCH} h {h} S {s} d {d}", _cold_by_kernel(k8b, calls=5),
+                 nbytes)
+    # the same source built with QDM_K8B_FIRST_PASS_ONLY: the first pass (QK^T for the
+    # row maxima) alone, what computing QK^T once would at most save
+    with cuda_build.variant("flash_prefill_i8", "QDM_K8B_FIRST_PASS_ONLY"):
+        _print_split("K8b 7B prefill, its first pass alone (output not used)",
+                     _cold_by_kernel(k8b, calls=5), nbytes)
+    _print_reprofiled()
+
+
+def _print_reprofiled() -> None:
+    """The profiled runs timed again because the profiler lost records."""
+    from qdm_tpu_torch.utils.timing import REPROFILED
+
+    print(f"profiler: {len(REPROFILED)} profiled run(s) lost records and ran again"
+          + "".join(f"\n  {why}" for why in REPROFILED), flush=True)
 
 
 def _k24_operands(m, k, n, dev):
@@ -4460,6 +4619,11 @@ def main() -> int:
                          "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="only build the kernels and print the device time by kernel of K7 "
+                         "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
+                         "probe's shape, and K8b at the 7B prefill; no other phase, and no "
+                         "result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -4472,6 +4636,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_build()
+    if args.breakdown:
+        phase_attention_breakdown(dev)
+        print(smi_line())
+        return 0
     kres = phase_kernels(dev)
     kres.update(phase_sd_option_kernels(dev))
     kres.update(phase_w4_kernels(dev))
@@ -4538,6 +4706,7 @@ def main() -> int:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "shapes": rows})
     smi = smi_line()
+    _print_reprofiled()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -15,44 +15,101 @@
 // batch row and the end of a 512 + 64 serve) against 4 * g * d operations
 // per cached column: 0.5 to 2 operations per byte, so bytes.
 //
-// What the design does about it: one block per (b, kv head) reads that
-// head's K and V planes once, for all g query heads of the group (the GQA
-// sharing the TPU kernel got from its (bb, hkv) block), through the body
-// it shares with K19-K21 (decode_attn.cuh: the loads, the masked columns
-// it skips, the logits in shared memory).  Caches above 3 MiB per row go
-// to the flash decode (K10, decode_attention_kv_flash.cu).
+// What the design does about it: a cluster of `splits` blocks per (b, kv
+// head) reads that head's K and V planes once, for all g query heads of the
+// group (the GQA sharing the TPU kernel got from its (bb, hkv) block), each
+// block a share of the columns [starts[b], pos] streamed through a cp.async
+// ring in 16-byte copies, the shares combined through distributed shared
+// memory (decode_attn.cuh, the body it shares with K19-K21).  Caches above
+// 3 MiB per row go to the flash decode (K10, decode_attention_kv_flash.cu).
 
 #include "decode_attn.cuh"
 
 namespace qdm {
 namespace attn {
 
-template <typename T>
+// the CUDA-core body (f32, rows not 16-byte aligned)
+template <typename T, int MG, bool SOFTCAP>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kv_kernel(const T* __restrict__ q, int q_sb, const T* __restrict__ kv,
                       const int* __restrict__ starts, int pos, float scale, float softcap,
-                      T* __restrict__ out, int hkv, int G, int D, int Tn) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / hkv, h = blockIdx.x % hkv;
+                      T* __restrict__ out, int hkv, int G, int D, int Tn, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y / hkv, h = blockIdx.y % hkv;
   const int lo = starts != nullptr ? max(starts[b], 0) : 0;
   const size_t plane = (size_t)D * Tn;
-  attend<T, false>(q + (size_t)b * q_sb + (size_t)h * G * D,
-                   kv + ((size_t)b * 2 * hkv + h) * plane,
-                   kv + ((size_t)b * 2 * hkv + hkv + h) * plane, lo, pos, lo > pos, scale,
-                   softcap, out + ((size_t)b * hkv + h) * G * D, G, D, Tn, smem);
+  attend_cc<T, false, MG, SOFTCAP>(q + (size_t)b * q_sb + (size_t)h * G * D,
+                          kv + ((size_t)b * 2 * hkv + h) * plane,
+                          kv + ((size_t)b * 2 * hkv + hkv + h) * plane, lo, pos, lo > pos,
+                          scale, softcap, out + ((size_t)b * hkv + h) * G * D, G, D, Tn, vec,
+                          smem);
+}
+
+// the tensor-core body (bf16)
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
+decode_attn_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, int q_sb,
+                         const __nv_bfloat16* __restrict__ kv, const int* __restrict__ starts,
+                         int pos, float scale, float softcap, __nv_bfloat16* __restrict__ out,
+                         int hkv, int G, int Tn, int stages) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.y / hkv, h = blockIdx.y % hkv;
+  const int lo = starts != nullptr ? max(starts[b], 0) : 0;
+  const size_t plane = (size_t)D * Tn;
+  attend_tc<D, false, SOFTCAP>(q + (size_t)b * q_sb + (size_t)h * G * D,
+                      kv + ((size_t)b * 2 * hkv + h) * plane,
+                      kv + ((size_t)b * 2 * hkv + hkv + h) * plane, lo, pos, lo > pos, scale,
+                      softcap, out + ((size_t)b * hkv + h) * G * D, G, Tn, stages, smem);
+}
+
+template <int D, bool SOFTCAP>
+cudaError_t launch_tc(const void* q, int q_sb, const void* kv, const int* starts, int pos,
+                      float scale, float softcap, void* out, int B, int hkv, int G, int Tn,
+                      int splits, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const int stages = tc_stages(G, D, false, splits, B * hkv, pos + 1);
+  return launch_split(decode_attn_kv_tc_kernel<D, SOFTCAP>, splits, B * hkv, kTcThreads,
+                      TcLayout(G, D, false, splits, stages).total, s,
+                      static_cast<const bf16*>(q), q_sb, static_cast<const bf16*>(kv), starts,
+                      pos, scale, softcap, static_cast<bf16*>(out), hkv, G, Tn, stages);
+}
+
+template <bool SOFTCAP, typename T>
+cudaError_t launch(const void* q, int q_sb, const void* kv, const int* starts, int pos,
+                   float scale, float softcap, void* out, int B, int hkv, int G, int D, int Tn,
+                   int splits, cudaStream_t s) {
+  if (tc_ok(sizeof(T) == 2, D, Tn, kv, kv)) {
+    if (D == 32)
+      return launch_tc<32, SOFTCAP>(q, q_sb, kv, starts, pos, scale, softcap, out, B, hkv, G, Tn,
+                                    splits, s);
+    if (D == 64)
+      return launch_tc<64, SOFTCAP>(q, q_sb, kv, starts, pos, scale, softcap, out, B, hkv, G, Tn,
+                                    splits, s);
+    return launch_tc<128, SOFTCAP>(q, q_sb, kv, starts, pos, scale, softcap, out, B, hkv, G, Tn,
+                                   splits, s);
+  }
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = Tn % VEC == 0 && reinterpret_cast<uintptr_t>(kv) % 16 == 0;
+  const size_t smem = Layout(G, D, false, sizeof(T), splits).total;
+  const T* qt = static_cast<const T*>(q);
+  const T* kvt = static_cast<const T*>(kv);
+  T* ot = static_cast<T*>(out);
+  if (G <= 8)
+    return launch_split(decode_attn_kv_kernel<T, 8, SOFTCAP>, splits, B * hkv, kThreads, smem, s,
+                        qt, q_sb, kvt, starts, pos, scale, softcap, ot, hkv, G, D, Tn, vec);
+  return launch_split(decode_attn_kv_kernel<T, 16, SOFTCAP>, splits, B * hkv, kThreads, smem, s,
+                      qt, q_sb, kvt, starts, pos, scale, softcap, ot, hkv, G, D, Tn, vec);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, int q_sb, const void* kv, const int* starts, int pos,
-                   float scale, float softcap, void* out, int B, int hkv, int G, int D, int Tn,
-                   cudaStream_t s) {
-  const size_t smem = sizeof(float) * smem_floats(G, D, Tn, false);
-  cudaError_t e = allow_smem(decode_attn_kv_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  decode_attn_kv_kernel<T><<<B * hkv, kThreads, smem, s>>>(
-      static_cast<const T*>(q), q_sb, static_cast<const T*>(kv), starts, pos, scale, softcap,
-      static_cast<T*>(out), hkv, G, D, Tn);
-  return cudaGetLastError();
+cudaError_t launch_any(const void* q, int q_sb, const void* kv, const int* starts, int pos,
+                       float scale, float softcap, void* out, int B, int hkv, int G, int D,
+                       int Tn, int splits, cudaStream_t s) {
+  if (softcap != 0.0f)
+    return launch<true, T>(q, q_sb, kv, starts, pos, scale, softcap, out, B, hkv, G, D, Tn,
+                           splits, s);
+  return launch<false, T>(q, q_sb, kv, starts, pos, scale, softcap, out, B, hkv, G, D, Tn, splits,
+                          s);
 }
 
 }  // namespace attn
@@ -61,16 +118,17 @@ cudaError_t launch(const void* q, int q_sb, const void* kv, const int* starts, i
 extern "C" int qdm_decode_attention_kv(const void* q, int dtype, int q_sb, const void* kv,
                                        const void* starts, int pos, float scale, float softcap,
                                        void* out, int B, int hkv, int G, int D, int Tn,
-                                       void* stream) {
+                                       int splits, void* stream) {
   using namespace qdm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > attn::kMaxG || pos < 0 || pos >= Tn) return (int)cudaErrorInvalidValue;
+  if (!attn::shape_ok(G, D, splits) || pos < 0 || pos >= Tn) return (int)cudaErrorInvalidValue;
+  splits = attn::plan_splits(splits, B * hkv, pos + 1);
   const int* st = static_cast<const int*>(starts);
   if (dtype == kDtypeBF16)
-    return (int)attn::launch<__nv_bfloat16>(q, q_sb, kv, st, pos, scale, softcap, out, B, hkv,
-                                            G, D, Tn, s);
+    return (int)attn::launch_any<__nv_bfloat16>(q, q_sb, kv, st, pos, scale, softcap, out, B,
+                                                hkv, G, D, Tn, splits, s);
   if (dtype == kDtypeF32)
-    return (int)attn::launch<float>(q, q_sb, kv, st, pos, scale, softcap, out, B, hkv, G, D,
-                                    Tn, s);
+    return (int)attn::launch_any<float>(q, q_sb, kv, st, pos, scale, softcap, out, B, hkv, G,
+                                        D, Tn, splits, s);
   return (int)cudaErrorInvalidValue;
 }

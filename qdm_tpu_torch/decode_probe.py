@@ -67,12 +67,13 @@ MODULE_PROFILED = 4           # decode steps of a module plan's profiled loop
 
 def _device_us(step_fn, x0) -> float:
     """Device time of one chained call, from a profiled loop of
-    DEVICE_CALLS calls."""
+    DEVICE_CALLS calls.  The calls are not alike: the first takes x0, the
+    others the previous output (a strided slice, copied by the wrapper)."""
     def run():
         x = x0
         for _ in range(DEVICE_CALLS):
             x = step_fn(x).to(x0.dtype)
-    return device_us(run, DEVICE_CALLS)
+    return device_us(run, DEVICE_CALLS, alike=False)
 
 
 def _counted(fn, calls: Dict, key: str, by: int = 1):
@@ -354,7 +355,8 @@ def module_rows(out: Dict, cfg: llama_lib.LlamaConfig, batch: int, prefill: int,
         if dev.type == "cuda":
             # the device's share of a step: host-bound where it is far below the step
             out[f"module_{wname}_dev_ms_per_step"] = round(
-                device_us(lambda: decode(MODULE_PROFILED), MODULE_PROFILED) / 1e3, 2)
+                device_us(lambda: decode(MODULE_PROFILED), MODULE_PROFILED,
+                          alike=False) / 1e3, 2)
         del model, caches
         gc.collect()
     return calls

@@ -13,6 +13,7 @@ the package on a machine that has no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "qdm_tpu_torch"
@@ -46,7 +47,7 @@ ENTRY_POINTS = {
     "decode_dense_i8": ("qdm_decode_dense_i8",
                         (P, I, P, P, P, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
     "decode_attention_kv": ("qdm_decode_attention_kv",
-                            (P, I, I, P, P, I, F, F, P, I, I, I, I, I, P)),
+                            (P, I, I, P, P, I, F, F, P, I, I, I, I, I, I, P)),
     "decode_mlp_i8": ("qdm_decode_mlp_i8",
                       (P, I, P, P, P, P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I,
                        P)),
@@ -74,14 +75,14 @@ ENTRY_POINTS = {
                          P, P, I, I, I, I, I, I, P)),
     "flash_prefill_i8": ("qdm_flash_prefill_i8",
                          (P, I, L, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P, L, L, L, P, P, P,
-                          P, P, I, I, I, I, I, F, I, P)),
+                          P, P, P, I, I, I, I, I, F, I, P)),
     "flash_int8": ("qdm_flash_int8",
                    (P, L, L, L, P, L, L, L, P, L, L, L, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
                     F, I, P)),
     "decode_moe_i4": ("qdm_decode_moe_i4",
                       (P, I, P, P, P, P, P, P, P, P, I, P, I, P, P, P, I, I, I, I, I, I, P)),
     "decode_attention": ("qdm_decode_attention",
-                         (P, I, L, P, P, I, F, I, P, I, I, I, I, I, I, P)),
+                         (P, I, L, P, P, I, F, I, P, I, I, I, I, I, I, I, P)),
     "decode_attention_i8": ("qdm_decode_attention_i8",
                             (P, I, L, P, P, P, P, I, F, I, P, I, I, I, I, I, I, P)),
     "w8a8_matmul": ("qdm_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)),
@@ -162,6 +163,26 @@ def kernel(name: str):
             fn.restype = ctypes.c_int
             _FUNCS[name] = fn
     return _FUNCS[name]
+
+
+@contextlib.contextmanager
+def variant(name: str, define: str) -> Iterator[None]:
+    """Kernel ``name`` built from its source with ``-D<define>`` (a
+    profile's variant of it), taking the place of the library's own while
+    the context lasts."""
+    src = source(name)
+    out = BUILD_DIR / f"lib{src}_{define.lower()}.so"
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, f"-D{define}", "-I", str(CSRC), "-o", str(out),
+                    str(CSRC / f"{src}.cu")], check=True, capture_output=True)
+    sym, argtypes = ENTRY_POINTS[name]
+    fn = getattr(ctypes.CDLL(str(out)), sym)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    kept = kernel(name)
+    _FUNCS[name] = fn
+    try:
+        yield
+    finally:
+        _FUNCS[name] = kept
 
 
 def check(err: int, what: str) -> None:

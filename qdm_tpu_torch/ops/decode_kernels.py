@@ -18,8 +18,11 @@ engine with a bf16 KV cache:
   depth-major cache ``(B, 2*hkv, d, T)`` = [K | V]: ``t <= pos`` (and
   ``t >= starts[b]``) mask, softcap, softmax, PV.  CUDA kernel
   ``csrc/decode_attention_kv.cu`` (K7; replaces
-  ``decode_attention_kv_pallas``).  The dispatcher routes caches above
-  ``_FLASH_BYTES`` per row to :func:`decode_attention_kv_flash`.
+  ``decode_attention_kv_pallas``): a thread-block cluster of 1-8 blocks
+  per (row, kv head), each a share of the columns, combined in the
+  cluster; the kernel plans the count from the shape and the card's SMs.
+  The dispatcher routes caches above ``_FLASH_BYTES`` per row to
+  :func:`decode_attention_kv_flash`.
 * :func:`decode_attention_kv_flash` — the same function T-blocked: ``q *
   scale`` in f32 before the dot, an online softmax over ``bt``-column
   blocks (``_pick_bt``) with f32 ``m``, ``l``, ``acc`` and f32 p against
@@ -41,8 +44,8 @@ engine with a bf16 KV cache:
   caches, K (B, hkv, d, T) and V (B, hkv, T, d) (``_dm``: (B, hkv, d, T)),
   keys 0..pos, no starts or softcap; q rows beyond the caches' batch give
   zeros.  CUDA kernel ``csrc/decode_attention.cu`` (K19-K21; replace
-  ``decode_attention{,_rows,_dm}_pallas``), K7's body; ``_rows`` keeps the
-  TPU kernel's one block per batch row.
+  ``decode_attention{,_rows,_dm}_pallas``), K7's body and grid; ``_rows``
+  (whose TPU kernel runs one block per batch row) launches K19's kernel.
 * :func:`decode_attention_dm_i8`, :func:`decode_attention_i8` — K12's
   arithmetic over separate int8 K and V caches with per-token scales, V
   depth-major or token-major.  CUDA kernel ``csrc/decode_attention_i8.cu``
@@ -141,6 +144,7 @@ for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
            *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
 
+_MAX_SPLITS = 8         # K7, K19-K21: blocks of a pair's cluster (csrc/decode_attn.cuh)
 _FLASH_CHUNK = 1024     # K10: most cache columns one block reads (128 threads x 8)
 _FLASH_CTAS = 264       # K10: split T until about two blocks per SM of the H100
 INV127 = qmm.INV127          # ``x / 127.0`` as XLA compiles it in the TPU kernels
@@ -983,13 +987,17 @@ def _starts_i32(starts, b: int, dev):
 
 
 def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None,
-                               softcap: float = 0.0):
+                               softcap: float = 0.0, splits: int = 0):
     """One-pass decode attention (K7): q (B, hkv, g, d) — rows may be
     strided, each (hkv, g, d) row contiguous — against the combined cache
     kv (B, 2*hkv, d, T); keys 0..pos (and from starts[b]) attended.
-    Returns (B, hkv, g, d) in q's dtype."""
+    ``splits``: blocks of each (row, kv head)'s cluster on the card, 0 to
+    let the kernel plan them (a profile may force 1 to 8).  Returns (B,
+    hkv, g, d) in q's dtype."""
     b, hkv, g, d = q.shape
     t = _check_kv(q, kv_cache, pos)
+    if not 0 <= splits <= _MAX_SPLITS:
+        raise ValueError(f"splits must be 0 (planned) to {_MAX_SPLITS}, got {splits}")
     if not _on_card(q, "decode_attention_kv"):
         return decode_attention_kv_plain(q, kv_cache, pos, starts, sm_scale, softcap)
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
@@ -999,9 +1007,7 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
             or not kv_cache.is_contiguous() or kv_cache.device != q.device):
         raise ValueError("q rows must be contiguous (hkv, g, d) blocks and the cache "
                          "contiguous on q's device")
-    if g > 16:
-        raise NotImplementedError(f"decode attention takes at most 16 query heads per kv "
-                                  f"head, got {g}")
+    _attention_dims_ok("decode_attention_kv", g, d)
     st = _starts_i32(starts, b, q.device)
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
@@ -1011,10 +1017,18 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv_cache.data_ptr(), _ptr(st),
                  int(pos), ctypes.c_float(scale), ctypes.c_float(softcap), out.data_ptr(),
-                 b, hkv, g, d, t, _stream(q))
+                 b, hkv, g, d, t, int(splits), _stream(q))
     cuda_build.check(err, "decode_attention_kv")
     qmm.LAUNCHES["decode_attention_kv"] += 1
     return out
+
+
+def _attention_dims_ok(what: str, g: int, d: int) -> None:
+    """The one-pass body's card limits (csrc/decode_attn.cuh): its CUDA-core
+    route loads d in channel pairs and holds at most 256 channels."""
+    if g > 16 or d % 2 or d > 256:
+        raise NotImplementedError(f"{what} takes at most 16 query heads per kv head and an even "
+                                  f"head_dim of at most 256; got g={g}, d={d}")
 
 
 def _q_operands(q, kv, kv_scale, what: str):
@@ -1229,9 +1243,7 @@ def _separate(what, q, k, v, pos: int, v_layout: str):
     if not (_q_rows_ok(q) and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q rows must be contiguous (hkv, g, d) blocks and the caches "
                          "contiguous")
-    if g > 16 or (v_layout == "tokens" and d % 2):
-        raise NotImplementedError(f"{what} takes at most 16 query heads per kv head and, with "
-                                  f"V token-major, an even d; got g={g}, d={d}")
+    _attention_dims_ok(what, g, d)
     out = torch.empty((bp, hkv, g, d), dtype=q.dtype, device=q.device)
     if bp == 0:
         return out
@@ -1239,7 +1251,7 @@ def _separate(what, q, k, v, pos: int, v_layout: str):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), k.data_ptr(), v.data_ptr(),
                  int(pos), ctypes.c_float(_f32_scale(d, None)), SEPARATE_ATTENTION[what],
-                 out.data_ptr(), bp, k.shape[0], hkv, g, d, t, _stream(q))
+                 out.data_ptr(), bp, k.shape[0], hkv, g, d, t, 0, _stream(q))
     cuda_build.check(err, what)
     qmm.LAUNCHES[what] += 1
     return out
@@ -1249,15 +1261,17 @@ def decode_attention(q, k_cache, v_cache, pos: int):
     """One-token GQA decode attention over separate caches (K19,
     ``decode_kernels.decode_attention_pallas``): q (Bp, hkv, g, d) against K
     (B, hkv, d, T) and V (B, hkv, T, d), bf16 or f32, keys 0..pos attended,
-    T a multiple of 128; one kernel block per (row, kv head).  Returns
-    (Bp, hkv, g, d) in q's dtype, rows B..Bp-1 zeros."""
+    T a multiple of 128; one cluster of 1-8 blocks per (row, kv head), as
+    K7.  Returns (Bp, hkv, g, d) in q's dtype, rows B..Bp-1
+    zeros."""
     return _separate("decode_attention", q, k_cache, v_cache, pos, "tokens")
 
 
 def decode_attention_rows(q, k_cache, v_cache, pos: int):
-    """:func:`decode_attention` with one kernel block per batch row looping
-    over the kv heads, as the TPU kernel's grid (B,) is laid out (K20,
-    ``decode_attention_rows_pallas``)."""
+    """:func:`decode_attention` under the TPU kernel whose grid (B,) loops
+    over the kv heads in a block (K20, ``decode_attention_rows_pallas``).
+    The card runs K19's kernel and grid: that grid was the TPU's way of
+    splitting the work; the launch counts apart."""
     return _separate("decode_attention_rows", q, k_cache, v_cache, pos, "tokens")
 
 

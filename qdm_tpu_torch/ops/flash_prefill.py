@@ -345,7 +345,10 @@ def _flash_i8(q, k, v, sm_scale: float, rope_cos=None, rope_sin=None, starts=Non
     for the PV operand), then the attention, q roped and quantized in the
     kernel, the TPU kernel's key blocks.  ``trace``, if given, receives the
     q, k and v codes and scales and the p codes of batch row 0, head 0, as
-    :func:`flash_prefill_gqa_i8_plain` gives them."""
+    :func:`flash_prefill_gqa_i8_plain` gives them, and ``slow_routes``: how
+    many of the kernel's exps and p codes took the exact slow route (f64
+    exp, IEEE division) because the fast one could not decide them, and of
+    how many (int64 (2,))."""
     b, h, hkv, s, d = _check(q, k, v, rope_cos, starts)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_prefill_gqa(qk_int8): q, k, v must share a bf16/f32 dtype, got "
@@ -368,10 +371,11 @@ def _flash_i8(q, k, v, sm_scale: float, rope_cos=None, rope_sin=None, starts=Non
     if starts is not None:
         st = starts.to(device=dev, dtype=torch.int32).reshape(b).contiguous()
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=dev).transpose(1, 2)
-    q_codes = p_codes = None
+    q_codes = p_codes = slow = None
     if trace is not None:
         q_codes = trace["q_codes"] = torch.zeros((b, h, s, d), **i8)
         p_codes = trace["p_codes"] = torch.zeros((s, s), **i8)
+        slow = trace["slow_routes"] = torch.zeros(2, dtype=torch.int64, device=dev)
         trace.update(k_codes=ki, k_scales=ks, v_codes=vt.transpose(-1, -2), v_scales=vs)
     if b == 0 or s == 0:
         return out
@@ -380,8 +384,8 @@ def _flash_i8(q, k, v, sm_scale: float, rope_cos=None, rope_sin=None, starts=Non
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], *qst, k.data_ptr(), *kst, v.data_ptr(), *vst,
                  ki.data_ptr(), ks.data_ptr(), vt.data_ptr(), vs.data_ptr(), out.data_ptr(),
-                 *out.stride()[:3], ptr(cos), ptr(sin), ptr(st), ptr(q_codes), ptr(p_codes), b,
-                 h, hkv, s, d, ctypes.c_float(sm_scale), blk,
+                 *out.stride()[:3], ptr(cos), ptr(sin), ptr(st), ptr(q_codes), ptr(p_codes),
+                 ptr(slow), b, h, hkv, s, d, ctypes.c_float(sm_scale), blk,
                  torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "flash_prefill_gqa(qk_int8)")
     qmm.LAUNCHES["flash_prefill_gqa_i8"] += 1

@@ -14,11 +14,14 @@ itself, from the profiler.
 
 from __future__ import annotations
 
-from typing import Callable
+import time
+from typing import Callable, Dict, List
 
 import torch
 
-PROFILE_TRIES = 3             # profiled runs before a reading of no device time fails
+PROFILE_TRIES = 3             # profiled runs before a reading that lost records fails
+PROFILE_MARGIN_S = 0.02       # host seconds of the profiler's window before and after a run
+REPROFILED: List[str] = []    # why each run profiled again was (calls, kernels and their counts)
 
 
 def marginal_time(step_fn: Callable, x0: torch.Tensor, lo: int = 8, hi: int = 40) -> float:
@@ -46,19 +49,43 @@ def marginal_time(step_fn: Callable, x0: torch.Tensor, lo: int = 8, hi: int = 40
     return max((t_hi - t_lo) / (hi - lo), 1e-9)
 
 
-def device_us(run: Callable[[], None], calls: int) -> float:
-    """Device microseconds per call: the CUDA kernels' time in a profiled
-    ``run()`` that makes ``calls`` calls, over ``calls``.  Now and then the
-    profiler records no device activity for a whole run; a run of real work
-    takes some, so such a run is profiled again, up to PROFILE_TRIES runs."""
-    from torch.profiler import ProfilerActivity, profile
+def device_us_by_kernel(run: Callable[[], None], calls: int,
+                        alike: bool = True) -> Dict[str, float]:
+    """Device microseconds per call of each CUDA kernel (by name) in a
+    profiled ``run()`` that makes ``calls`` calls.  The profiler lost
+    records of launches made soon after it started: a loop's first call, or
+    the first launch of each kernel in it.  So ``run()`` first runs once as
+    the profiler's warm-up step, whose records it drops, and the recorded
+    step's window opens PROFILE_MARGIN_S before the run and closes as long
+    after it.  A run of real work takes some device time, and a run of
+    ``alike`` calls (each launching the same kernels) launches each kernel a
+    multiple of ``calls`` times; a run recorded otherwise is noted in
+    REPROFILED and profiled again, up to PROFILE_TRIES runs."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-        if busy > 0:
-            return busy / calls
-    raise RuntimeError(f"the profiler recorded no device time in {PROFILE_TRIES} profiled runs")
+        traced = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traced.append(p.key_averages())) as prof:
+            for _step in range(2):
+                time.sleep(PROFILE_MARGIN_S)
+                run()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
+                prof.step()
+        events = [e for e in (traced[0] if traced else ())
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        lost = [f"{e.key[:60]} x{e.count}" for e in events if alike and e.count % calls]
+        if events and not lost:
+            return {e.key: e.self_device_time_total / calls for e in events}
+        REPROFILED.append(f"{calls} calls: " + ("; ".join(lost) or "no device time"))
+    raise RuntimeError(f"the profiler lost records in {PROFILE_TRIES} profiled runs: "
+                       f"{REPROFILED[-PROFILE_TRIES:]}")
+
+
+def device_us(run: Callable[[], None], calls: int, alike: bool = True) -> float:
+    """Device microseconds per call: the CUDA kernels' time in a profiled
+    ``run()`` that makes ``calls`` calls, over ``calls``."""
+    return sum(device_us_by_kernel(run, calls, alike).values())

@@ -270,6 +270,19 @@ DEC_ATTN_CASES = [
     (4, 1, 16, 32, 128, 60, (0, 10, 61, 3), 0.0, None, False),   # row 2 fully masked
     (2, 2, 3, 128, 384, 383, None, 30.0, 0.07, True),
     (5, 2, 1, 64, 128, 0, None, 0.0, None, False),
+    # the cluster's split (csrc/decode_attn.cuh::plan_splits): 512 columns end
+    # two blocks' ranges, 513 start a third; pos 0; K7's longest window at
+    # TinyLlama width (3 MiB a row); a fully masked row (2) and ragged starts
+    # across three blocks; f32 with g 16 over three blocks
+    (4, 4, 8, 64, 640, 511, None, 0.0, None, True),
+    (4, 4, 8, 64, 640, 512, None, 0.0, None, True),
+    (32, 4, 8, 64, 640, 0, None, 0.0, None, True),
+    (32, 4, 8, 64, 3072, 3071, None, 0.0, None, True),
+    (4, 2, 4, 64, 1024, 700, (0, 10, 701, 300), 0.0, None, True),
+    (2, 1, 16, 64, 640, 600, None, 0.0, None, False),
+    # bf16 on the CUDA-core body: T not a multiple of 8, d 48
+    (2, 2, 4, 64, 130, 129, None, 0.0, None, True),
+    (2, 2, 4, 48, 256, 200, (3, 0), 0.0, None, True),
 ]
 
 
@@ -803,12 +816,15 @@ def _p_codes_kept(s, blk, start, dev):
 
 
 # (b, h, hkv, s, d, rope, starts, bf16): the 7B prefill cut in batch, GQA with a
-# masked row, TPU blocks of 128 (s 1152), f32 q
+# masked row, TPU blocks of 128 (s 1152), f32 q; S 4096 (four TPU blocks of 1024 a
+# row), starts past the first TPU block
 FLASH_I8_CASES = [
     (1, 4, 4, 2048, 128, True, None, True),
     (2, 8, 1, 512, 64, True, (0, 100), True),
     (1, 4, 2, 1152, 64, False, (300,), True),
     (2, 4, 2, 256, 64, True, (0, 256), False),
+    (1, 2, 2, 4096, 128, True, None, True),
+    (1, 4, 2, 2048, 64, True, (1100,), True),
 ]
 
 
@@ -1081,7 +1097,7 @@ SEPARATE_I8 = {"decode_attention_dm_i8": dk.decode_attention_dm_i8,
 # 1152, pos 1150), the CPU tests' shape at its first and last column, Bp > B
 SEPARATE_CASES = [(32, 32, 4, 8, 64, 1152, 1150, True), (4, 4, 2, 4, 64, 256, 0, False),
                   (4, 4, 2, 4, 64, 256, 255, True), (8, 2, 2, 4, 64, 256, 100, False),
-                  (3, 3, 1, 16, 128, 384, 200, False)]
+                  (3, 3, 1, 16, 128, 384, 200, False), (32, 32, 4, 8, 64, 3072, 3071, True)]
 
 
 def _separate_operands(bp, b, hkv, g, d, t, name, dev, dtype, seed):

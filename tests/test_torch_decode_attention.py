@@ -149,3 +149,18 @@ def test_shape_and_device_errors():
         tdk.decode_attention_i8(q, ki, sc, ki.transpose(-1, -2).to("meta"), sc, 10)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         tdk.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 10)
+
+
+# K7's ``splits``: 0 lets the kernel plan a pair's cluster, 1-8 force it (a
+# profile's sweep); on the CPU any valid count gives the plain version
+@pytest.mark.parametrize("splits", [0, 1, 3, 8, -1, 9])
+def test_k7_splits_argument(splits):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 4, 32), dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 4, 32, 128), dtype=np.float32))
+    if not 0 <= splits <= 8:
+        with pytest.raises(ValueError, match="splits"):
+            tdk.decode_attention_kv_single(q, kv, 100, splits=splits)
+        return
+    got = tdk.decode_attention_kv_single(q, kv, 100, splits=splits)
+    assert torch.equal(got, tdk.decode_attention_kv_plain(q, kv, 100))
