@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py             # every phase, one CUDA card
     python3 chip_smoke.py --profile   # every phase, then a profile
-    python3 chip_smoke.py --breakdown # the build, then the decode attention body's and
-                                      # K8b's device time by kernel, nothing else
+    python3 chip_smoke.py --breakdown # the build, then the decode attention bodies' (K7,
+                                      # K12-K14, K19-K23), K8b's and K18's device time
+                                      # by kernel, nothing else
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -82,7 +83,10 @@ and K19-K21 (for K12-K14, K22, K23 and K10's quantized formats a cache
 dequantized to bf16 beforehand), ``torch._int_mm`` with K24's epilogue for
 K24, and causal SDPA on pre-roped q for K9.  Decode kernels are
 timed over enough weight / cache copies to exceed the 50 MB L2 cache, as
-a decode step finds them cold.
+a decode step finds them cold (the decode attentions, K7, K12-K14 and
+K19-K23, and their SDPA over copies of 8 L2s).  K18, K8b, K12-K14 and
+K22 / K23 also report how many of their exps, divisions and p codes took
+the exact slow route.
 Phase 3 drives the port's paths with random weights: at full SD1.5 width
 ``from_config -> quantize -> generate`` of two 512 px images in 20 DDIM
 steps for W8A8 SmoothQuant, AWQ W4A16 and RTN W4A8, and from the same
@@ -179,6 +183,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import subprocess
@@ -1198,6 +1203,19 @@ def _kvq_fns(kernel: str, mode: str, pos: int, st):
             lambda q, kv, sc: dk.decode_attention_kv_q_plain(q, kv, pos, mode, sc, st))
 
 
+def _kvq_laid(kv, sc, mode: str, hkv: int, cols: int):
+    """A quantized combined cache dequantized to bf16 beforehand, K and V
+    (B, hkv, cols, d): the library yardstick's operands."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    kc, vc = dk.kv_codes(kv, mode, hkv)
+    kf, vf = kc[..., :cols].float(), vc[..., :cols].float()
+    if sc is not None:
+        kf, vf = kf * sc[:, :hkv, :, :cols], vf * sc[:, hkv:, :, :cols]
+    return (kf.transpose(2, 3).to(torch.bfloat16).contiguous(),
+            vf.transpose(2, 3).to(torch.bfloat16).contiguous())
+
+
 def _check_kvq(label, kernel, mode, b, hkv, g, d, t, pos, starts, dev, timed):
     """One shape of K12-K14 (``kernel="single"``) or of K10's quantized
     formats (``"flash"``): equal to the plain version; a fault planted
@@ -1215,6 +1233,11 @@ def _check_kvq(label, kernel, mode, b, hkv, g, d, t, pos, starts, dev, timed):
     name = f"decode_attention_kv_{'flash_' if kernel == 'flash' else ''}{mode}"
     if got.dtype != q.dtype or not torch.equal(got, want):
         fail(f"{name} {label}: max abs err {err} from the plain version; {KVQ_TOL}")
+    slow = None
+    if kernel == "single":
+        trace = {}
+        dk.decode_attention_kv_q_single(q, kv, pos, mode, sc, st, trace=trace)
+        slow = trace["slow_routes"].tolist()
     if mode == "i8":
         what = "V token scales"
         bad = run(q, kv, torch.cat([sc[:, :hkv], sc[:, hkv:] * (1.0 + KVQ_FAULT)], dim=1))
@@ -1227,28 +1250,23 @@ def _check_kvq(label, kernel, mode, b, hkv, g, d, t, pos, starts, dev, timed):
     row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
            "max_abs_err": err, "ulps": 0,
            "tol": f"{KVQ_TOL}; {what} off by {KVQ_FAULT:g} (planted): max abs err {bad_err:.3g}"}
+    if slow is not None:
+        row["slow_routes"] = slow
+        row["tol"] += (f"; exps, divisions and p codes by the slow exact route: {slow[0]} of "
+                       f"{slow[1]}")
     if timed:
         cols = pos + 1
         rows = d // 2 if mode == "i4c" else d
         nbytes = (2 * b * hkv * g * d * q.element_size() + 2 * b * hkv * rows * cols
                   + (2 * b * hkv * cols * 4 if sc is not None else 0))
         ops = 4 * b * hkv * g * d * cols
-        copies = _copies(kv.numel() + (4 * sc.numel() if sc is not None else 0))
+        copies = _copies(kv.numel() + (4 * sc.numel() if sc is not None else 0), COLD_L2)
         sets = [(kv, sc)] + [(kv.clone(), None if sc is None else sc.clone())
                              for _ in range(copies - 1)]
         kern = [lambda c=c, s_=s_: run(q, c, s_) for c, s_ in sets]
         plains = [lambda c=c, s_=s_: plain(q, c, s_) for c, s_ in sets]
-
-        def laid(c, s_):
-            """The cache dequantized to bf16 beforehand, (B, hkv, pos + 1, d)."""
-            kc, vc = dk.kv_codes(c, mode, hkv)
-            kf, vf = kc[..., :cols].float(), vc[..., :cols].float()
-            if s_ is not None:
-                kf, vf = kf * s_[:, :hkv, :, :cols], vf * s_[:, hkv:, :, :cols]
-            return (kf.transpose(2, 3).to(torch.bfloat16).contiguous(),
-                    vf.transpose(2, 3).to(torch.bfloat16).contiguous())
         qh = q.reshape(b, hkv * g, 1, d).to(torch.bfloat16)
-        lay = [laid(c, s_) for c, s_ in sets]
+        lay = [_kvq_laid(c, s_, mode, hkv, cols) for c, s_ in sets]
         lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
             qh, kk, vv, enable_gqa=True) for kk, vv in lay]
         row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4), library_ms=cold_ms(lib),
@@ -1903,6 +1921,7 @@ def _check_flash_int8(label, b, s, h, d, dev, timed):
         if not torch.equal(trace[what], want_trace[what]):
             fail(f"flash_int8_attention {label}: {what} differ from the plain version in "
                  f"{int((trace[what] != want_trace[what]).sum())} places")
+    slow = trace["slow_routes"].tolist()
     del trace, want_trace
     share, mean = fi8.kernel_error(got, want, v)
     err = float((got.float() - want.float()).abs().max())
@@ -1916,9 +1935,11 @@ def _check_flash_int8(label, b, s, h, d, dev, timed):
              f"(planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}")
     n_equal = int((got == want).sum())
     row = {"layer": label, "B": b, "S": s, "H": h, "d": d, "max_abs_err": err, "ulps": 1,
+           "slow_routes": slow,
            "tol": f"{K18_TOL}: element bound share {share:.3f}, mean ratio {mean:.3g} "
            f"({n_equal} of {got.numel()} elements equal); v scales off by {K18_FAULT:g} "
-           f"(planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}"}
+           f"(planted): share {bad_share:.3f}, mean ratio {bad_mean:.3g}; exps and p codes by "
+           f"the slow exact route: {slow[0]} of {slow[1]}"}
     del want, bad
     if timed:
         kern = lambda: fi8.flash_int8_attention(q, k, v, sm, block_q=512, block_k=bk)
@@ -2228,6 +2249,8 @@ def _check_separate(label, name, bp, b, hkv, g, d, t, pos, dtype, dev, timed):
     """One shape of K19-K23 against its plain version (K19-K21 within 1 bf16
     ulp or 1e-5 of the magnitude, K22 / K23 equal), rows B..Bp-1 zeros, and
     a planted fault the check must flag."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
     case = _separate_case(name, bp, b, hkv, g, d, t, dtype, bp + t + pos, dev)
     q, cache = case[0], case[1:]
     run, plain = _separate_fns(name, pos)
@@ -2242,8 +2265,12 @@ def _check_separate(label, name, bp, b, hkv, g, d, t, pos, dtype, dev, timed):
         flagged, what = not within_bf16_ulp(bad, want)[0], f"q x{SEPARATE_Q_FAULT} (planted)"
     else:
         ok = torch.equal(got, want)
-        tol = KVQ_TOL
         k, ks, v, vs = cache
+        trace = {}
+        getattr(dk, name)(q, k, ks, v, vs, pos, trace=trace)
+        slow = trace["slow_routes"].tolist()
+        tol = (f"{KVQ_TOL}; exps, divisions and p codes by the slow exact route: {slow[0]} of "
+               f"{slow[1]}")
         bad = run(q, k, ks, v, vs * (1.0 + SEPARATE_VS_FAULT))
         flagged = not torch.equal(bad, want)
         what = f"V token scales off by {SEPARATE_VS_FAULT:g} (planted)"
@@ -2438,7 +2465,117 @@ def phase_attention_breakdown(dev) -> None:
     with cuda_build.variant("flash_prefill_i8", "QDM_K8B_FIRST_PASS_ONLY"):
         _print_split("K8b 7B prefill, its first pass alone (output not used)",
                      _cold_by_kernel(k8b, calls=5), nbytes)
+    del q, k, v, k8b
+    torch.cuda.empty_cache()
+    _breakdown_k18(dev)
+    _breakdown_kvq(dev)
     _print_reprofiled()
+
+
+# K12-K14 at TinyLlama width (batch, T, pos): the kernel plans 8 blocks a pair at
+# batch 1, T 3072, 3 at batch 1 and 8, T 640, 4 at batch 8, T 3072 and 1 at batch 32
+BREAKDOWN_KVQ = ((1, 640, 574), (1, 3072, 3071), (8, 640, 574), (8, 3072, 3071),
+                 (32, 640, 574), (32, 3072, 3071))
+
+
+def _takes(fn, arg: str) -> bool:
+    """Whether wrapper ``fn`` takes argument ``arg`` (a sweep over a tree
+    whose kernels predate it leaves that row out)."""
+    return arg in inspect.signature(fn).parameters
+
+
+def _breakdown_k18(dev) -> None:
+    """K18 at SD1.5's three self-attention shapes, by kernel (the k / v
+    quantize kernels against the attention kernel), its first pass alone (a
+    build with -DQDM_K18_FIRST_PASS_ONLY, where the source has it) and SDPA
+    on the same bf16 q, k, v."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import flash_int8 as fi8
+
+    first_pass = "QDM_K18_FIRST_PASS_ONLY" in (cuda_build.CSRC / "flash_int8.cu").read_text()
+    for label, b, s, h, d in K18_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(b + s + h + d + 18)
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+        sm, bk = d ** -0.5, min(s, 1024)
+        nbytes = 2 * 4 * b * s * h * d
+        kern = [lambda: fi8.flash_int8_attention(q, k, v, sm, block_q=512, block_k=bk)]
+        what = f"K18 {label} b {b} S {s} h {h} d {d} (key block {bk})"
+        _print_split(what, _cold_by_kernel(kern, calls=10), nbytes)
+        if first_pass:
+            with cuda_build.variant("flash_int8", "QDM_K18_FIRST_PASS_ONLY"):
+                _print_split(f"{what}, its first pass alone (output not used)",
+                             _cold_by_kernel(kern, calls=10), nbytes)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = [lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=sm)]
+        _print_split(f"SDPA at {what}", _cold_by_kernel(lib, calls=10), nbytes)
+        del qkv, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def _breakdown_kvq(dev) -> None:
+    """K12-K14 at TinyLlama-1.1B width over BREAKDOWN_KVQ, planned and (K13)
+    forced to 1-8 blocks a pair, with cold SDPA on the cache dequantized to
+    bf16 beforehand; K22 / K23 at the decode probe's shape and at batch 1, T
+    3072, with SDPA; all over copies beyond COLD_L2 times the L2."""
+    from qdm_tpu_torch.models.llama import BENCH_1B as C
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    hkv, d = C.num_key_value_heads, C.head_dim
+    g = C.num_attention_heads // hkv
+    forced = _takes(dk.decode_attention_kv_q_single, "splits")
+    for bb, t, pos in BREAKDOWN_KVQ:
+        cols = pos + 1
+        for mode, kid in (("i8c", "K13"), ("i8", "K12"), ("i4c", "K14")):
+            q, kv, sc = _kvq_case(bb, hkv, g, d, t, mode, t + pos, dev)
+            rows = d // 2 if mode == "i4c" else d
+            nbytes = (2 * bb * hkv * g * d * q.element_size() + 2 * bb * hkv * rows * cols
+                      + (2 * bb * hkv * cols * 4 if sc is not None else 0))
+            copies = _copies(kv.numel() + (4 * sc.numel() if sc is not None else 0), COLD_L2)
+            sets = [(kv, sc)] + [(kv.clone(), None if sc is None else sc.clone())
+                                 for _ in range(copies - 1)]
+
+            def fns(n):
+                kw = {"splits": n} if n else {}
+                return [lambda c=c, s_=s_: dk.decode_attention_kv_q_single(q, c, pos, mode, s_,
+                                                                           **kw)
+                        for c, s_ in sets]
+            sweep = (0,) + (BREAKDOWN_SPLITS if forced and mode == "i8c" else ())
+            for n in sweep:
+                _print_split(f"{kid} {mode} b {bb} T {t} pos {pos}, "
+                             + (f"{n} block(s) a pair (forced)" if n else "planned"),
+                             _cold_by_kernel(fns(n)), nbytes)
+            if mode == "i8c":
+                lay = [_kvq_laid(c, None, mode, hkv, cols) for c, _ in sets]
+                qh = q.reshape(bb, hkv * g, 1, d).to(torch.bfloat16)
+                sdpa = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+                _print_split(f"SDPA at K12-K14's b {bb} T {t} pos {pos} (bf16 cache)",
+                             _cold_by_kernel(sdpa), 2 * (2 * bb * hkv * g * d
+                                                         + 2 * bb * hkv * d * cols))
+                del lay, sdpa
+            del sets
+        torch.cuda.empty_cache()
+    for name in SEPARATE_I8:
+        for bb, t in ((LLM_BATCH, PROBE_T), (1, 3072)):
+            pos = t - 2
+            q, *cache = _separate_case(name, bb, bb, hkv, g, d, t, torch.bfloat16, 1, dev)
+            cache_bytes = sum(c.numel() * c.element_size() for c in cache)
+            nbytes = 2 * bb * hkv * g * d * 2 + 2 * bb * hkv * (pos + 1) * (d + 4)
+            run, _ = _separate_fns(name, pos)
+            sets = [cache] + [[c.clone() for c in cache]
+                              for _ in range(_copies(cache_bytes, COLD_L2) - 1)]
+            fns = [lambda c=c: run(q, *c) for c in sets]
+            _print_split(f"{name} b {bb} T {t} pos {pos}", _cold_by_kernel(fns), nbytes)
+            lay = [_laid_out(name, c, pos + 1) for c in sets]
+            qh = q.reshape(bb, hkv * g, 1, d)
+            sdpa = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+                qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+            _print_split(f"SDPA at {name}'s b {bb} T {t} pos {pos} (bf16 cache)",
+                         _cold_by_kernel(sdpa),
+                         2 * (2 * bb * hkv * g * d + 2 * bb * hkv * d * (pos + 1)))
+            del sets, fns, lay, sdpa
+        torch.cuda.empty_cache()
 
 
 def _print_reprofiled() -> None:
@@ -4622,8 +4759,10 @@ def main() -> int:
     ap.add_argument("--breakdown", action="store_true",
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
-                         "probe's shape, and K8b at the 7B prefill; no other phase, and no "
-                         "result line")
+                         "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
+                         "quantize kernels, its first pass alone, SDPA), K12-K14 over batch 1, "
+                         "8, 32 and T 640, 3072 (planned and forced splits, cold SDPA) and "
+                         "K22 / K23; no other phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")

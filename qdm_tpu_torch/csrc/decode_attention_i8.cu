@@ -24,11 +24,13 @@
 // bytes.
 //
 // What the design does about it: K12's body (decode_attn_q.cuh::attend_q),
-// one block per (b, kv head) reading that pair's K and V planes once for
-// all g query heads, only the columns 0..pos widened to 16-byte edges,
-// both contractions as __dp4a on 16-byte loads; a token-major V (K23) is
-// read as 4 token rows of 16 channels per thread and transposed in
-// registers, so the loads stay 16 bytes wide and coalesced.
+// one cluster of 1-8 blocks a (b, kv head) pair reading that pair's K and
+// V planes once for all g query heads, only the columns 0..pos widened to
+// 16-byte edges, through a cp.async ring with V's chunks in flight while
+// QK^T and the softmax run; both contractions on the tensor cores.  A
+// token-major V (K23) is transposed as K is (ldmatrix.trans and
+// __byte_perm), so its loads stay 16 bytes wide and coalesced.  The C entry
+// plans the split (plan_q); ``splits`` 1-8 forces it.
 
 #include "decode_attn_q.cuh"
 
@@ -36,83 +38,91 @@ namespace qdm {
 namespace kvq {
 
 template <int G, bool V_TOKENS, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kQThreads, 2)
 decode_attn_i8_kernel(const T* __restrict__ q, long long q_sb, const int8_t* __restrict__ k,
                       const float* __restrict__ ks, const int8_t* __restrict__ v,
                       const float* __restrict__ vs, int pos, float scale, T* __restrict__ out,
-                      int B, int hkv, int D, int Tn) {
+                      int B, int hkv, int D, int Tn, int LC, int NS, unsigned long long* slow) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float redf[32 * G];
-  __shared__ double redd[32 * G];
-  const int pair = blockIdx.x, b = pair / hkv, h = pair % hkv;
+  const int pair = blockIdx.y, b = pair / hkv, h = pair % hkv;
   T* op = out + (size_t)pair * G * D;
-  if (b >= B) {
-    // q rows beyond the cache's batch: zeros
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x) op[i] = from_f32<T>(0.0f);
+  if (b >= B) {  // q rows beyond the cache's batch: zeros (the whole cluster returns)
+    attn::zero_share(op, G * D);
     return;
   }
   const size_t plane = (size_t)D * Tn, pr = (size_t)b * hkv + h;
   attend_q<kFmtI8, G, V_TOKENS>(q + (size_t)b * q_sb + (size_t)h * G * D, k + pr * plane,
                                 v + pr * plane, ks + pr * Tn, vs + pr * Tn,
-                                Window(nullptr, b, pos, Tn), scale, op, D, Tn, smem, redf, redd);
+                                Window(nullptr, b, pos, Tn), scale, op, D, Tn, LC, NS, slow,
+                                smem);
 }
 
+struct Call {
+  const void* q;
+  long long q_sb;
+  const void* k;
+  const float* ks;
+  const void* v;
+  const float* vs;
+  int pos;
+  float scale;
+  void* out;
+  int Bp, B, hkv, D, Tn, splits;
+  unsigned long long* slow;
+};
+
 template <int G, bool V_TOKENS, typename T>
-cudaError_t launch(const void* q, long long q_sb, const void* k, const float* ks, const void* v,
-                   const float* vs, int pos, float scale, void* out, int Bp, int B, int hkv,
-                   int D, int Tn, cudaStream_t s) {
-  const int lmax = (pos / 16 + 1) * 16;  // <= Tn, a multiple of 16
-  const size_t smem = attend_q_smem(G, D, lmax, V_TOKENS);
-  cudaError_t e = allow_smem(decode_attn_i8_kernel<G, V_TOKENS, T>, smem, reduce_smem<G>());
-  if (e != cudaSuccess) return e;
-  decode_attn_i8_kernel<G, V_TOKENS, T><<<Bp * hkv, kThreads, smem, s>>>(
-      static_cast<const T*>(q), q_sb, static_cast<const int8_t*>(k), ks,
-      static_cast<const int8_t*>(v), vs, pos, scale, static_cast<T*>(out), B, hkv, D, Tn);
-  return cudaGetLastError();
+cudaError_t launch(const Call& c, cudaStream_t s) {
+  int n, LC, NS;
+  if (!plan_q(c.splits, kFmtI8, G, c.D, V_TOKENS, c.Bp * c.hkv, (c.pos / 16 + 1) * 16, n, LC,
+              NS))
+    return cudaErrorInvalidValue;
+  return attn::launch_split(decode_attn_i8_kernel<G, V_TOKENS, T>, n, c.Bp * c.hkv, kQThreads,
+                            QLayout(kFmtI8, G, c.D, V_TOKENS, LC, NS).total, s,
+                            static_cast<const T*>(c.q), c.q_sb, static_cast<const int8_t*>(c.k),
+                            c.ks, static_cast<const int8_t*>(c.v), c.vs, c.pos, c.scale,
+                            static_cast<T*>(c.out), c.B, c.hkv, c.D, c.Tn, LC, NS, c.slow);
 }
 
 template <bool V_TOKENS, typename T>
-cudaError_t launch_g(int G, const void* q, long long q_sb, const void* k, const float* ks,
-                     const void* v, const float* vs, int pos, float scale, void* out, int Bp,
-                     int B, int hkv, int D, int Tn, cudaStream_t s) {
+cudaError_t launch_g(int G, const Call& c, cudaStream_t s) {
   switch (G) {
-    case 1: return launch<1, V_TOKENS, T>(q, q_sb, k, ks, v, vs, pos, scale, out, Bp, B, hkv, D, Tn, s);
-    case 2: return launch<2, V_TOKENS, T>(q, q_sb, k, ks, v, vs, pos, scale, out, Bp, B, hkv, D, Tn, s);
-    case 4: return launch<4, V_TOKENS, T>(q, q_sb, k, ks, v, vs, pos, scale, out, Bp, B, hkv, D, Tn, s);
-    case 8: return launch<8, V_TOKENS, T>(q, q_sb, k, ks, v, vs, pos, scale, out, Bp, B, hkv, D, Tn, s);
+    case 1: return launch<1, V_TOKENS, T>(c, s);
+    case 2: return launch<2, V_TOKENS, T>(c, s);
+    case 4: return launch<4, V_TOKENS, T>(c, s);
+    case 8: return launch<8, V_TOKENS, T>(c, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch_layout(int v_tokens, int G, const void* q, long long q_sb, const void* k,
-                          const float* ks, const void* v, const float* vs, int pos, float scale,
-                          void* out, int Bp, int B, int hkv, int D, int Tn, cudaStream_t s) {
-  if (v_tokens)
-    return launch_g<true, T>(G, q, q_sb, k, ks, v, vs, pos, scale, out, Bp, B, hkv, D, Tn, s);
-  return launch_g<false, T>(G, q, q_sb, k, ks, v, vs, pos, scale, out, Bp, B, hkv, D, Tn, s);
+cudaError_t launch_layout(int v_tokens, int G, const Call& c, cudaStream_t s) {
+  if (v_tokens) return launch_g<true, T>(G, c, s);
+  return launch_g<false, T>(G, c, s);
 }
 
 }  // namespace kvq
 }  // namespace qdm
 
-// v_tokens: 0 K22 (V (B, hkv, d, T)), 1 K23 (V (B, hkv, T, d))
+// v_tokens: 0 K22 (V (B, hkv, d, T)), 1 K23 (V (B, hkv, T, d)); splits: blocks
+// of each pair's cluster, 0 planned, 1-8 forced; slow_count: the slow routes
+// taken (exp, division, code) and of how many, or null
 extern "C" int qdm_decode_attention_i8(const void* q, int dtype, long long q_sb, const void* k,
                                        const void* k_scale, const void* v, const void* v_scale,
                                        int pos, float scale, int v_tokens, void* out, int Bp,
-                                       int B, int hkv, int G, int D, int Tn, void* stream) {
+                                       int B, int hkv, int G, int D, int Tn, int splits,
+                                       void* slow_count, void* stream) {
   using namespace qdm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // a token-major V row is read 16 channels per thread, D / 16 threads a row
-  const bool d_ok = D > 0 && D % 16 == 0 && D <= kvq::kMaxD && (32 % (D / 16)) == 0;
-  if (pos < 0 || pos >= Tn || Tn % 16 != 0 || !d_ok || B > Bp) return (int)cudaErrorInvalidValue;
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  if (dtype == kDtypeBF16)
-    return (int)kvq::launch_layout<__nv_bfloat16>(v_tokens, G, q, q_sb, k, ks, v, vs, pos, scale,
-                                                  out, Bp, B, hkv, D, Tn, s);
-  if (dtype == kDtypeF32)
-    return (int)kvq::launch_layout<float>(v_tokens, G, q, q_sb, k, ks, v, vs, pos, scale, out,
-                                          Bp, B, hkv, D, Tn, s);
+  // a token-major V chunk is read 16 channels a 16-byte row segment
+  const bool d_ok = D > 0 && D % 16 == 0 && D <= kvq::kMaxD;
+  if (pos < 0 || pos >= Tn || Tn % 16 != 0 || !d_ok || B > Bp || splits < 0 ||
+      splits > attn::kMaxSplits)
+    return (int)cudaErrorInvalidValue;
+  const kvq::Call c{q,   q_sb, k, static_cast<const float*>(k_scale), v,
+                    static_cast<const float*>(v_scale), pos, scale, out, Bp, B, hkv, D, Tn,
+                    splits, static_cast<unsigned long long*>(slow_count)};
+  if (dtype == kDtypeBF16) return (int)kvq::launch_layout<__nv_bfloat16>(v_tokens, G, c, s);
+  if (dtype == kDtypeF32) return (int)kvq::launch_layout<float>(v_tokens, G, c, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,19 +41,11 @@
 // block; max p is exp(max logits - m_new), so ps needs no third pass.  The
 // first pass (about a third of the kernel at 7B) stays: per logit the
 // second pass cost more, and this design takes that first:
-//   * exp: (float)exp((double)x) as the plain version takes it, from a
-//     short f64 evaluation (2^(j/256) from a table, a degree-4 polynomial
-//     on |r| <= ln2/512) within 2^-49.7 of exp64(x) relative; accepted
-//     when it lies more than 64 f64 ulps from every f32 rounding midpoint
-//     (so exp64(x), 1 ulp from exp(x), rounds to the same f32), else
-//     exp((double)x) itself (subnormal results too), out of the line of
-//     the 16 exps a lane takes at once so that they interleave;
-//   * the code round(p / ps): p * f32(1 / ps), within 2^-15 of p / ps for
-//     p / ps <= 127.5, accepted when its fraction lies more than 2^-15 from
-//     one half, else the IEEE division;
+//   * exp and the p codes by the exact fast routes of exact_fast.cuh
+//     (exp_fast, code_fast), branch-free, the rare ambiguous cases deferred
+//     to the slow ones out of the line of the 16 exps a lane takes at once;
 //   * no integer <-> float conversion per logit (those run at a quarter of
-//     the f64 rate here): integers below 2^22 go through the bits of
-//     x + 1.5 * 2^23, k of the exp through those of an f64 sum;
+//     the f64 rate here): i2f_small for the int32 sums;
 //   * p stays in registers: the tile's keys are stored in shared memory in
 //     an order that makes QK^T's accumulator fragments the PV product's A
 //     fragments (keys 4t..4t+3 of lane t from two n8 tiles), and V^T's
@@ -72,16 +64,18 @@
 #include <math.h>
 
 #include "decode_common.cuh"
+#include "exact_fast.cuh"
 
 namespace qdm {
 namespace fpi8 {
+
+using namespace xf;
 
 constexpr int kThreads = 128;  // 4 warps, 16 query rows each
 constexpr int BM = 64;         // query rows per block
 constexpr int BN = 64;         // keys per tile
 constexpr int PR = BN + 16;    // padded row of a v-code tile (bytes)
 constexpr int NS = 3;          // stages of the key-tile ring
-constexpr int kExpTab = 256;   // 2^(j / 256), j < 256
 constexpr float kMasked = -1e30f;
 constexpr float kInv127 = 1.0f / 127.0f;  // x / 127.0 as XLA compiles it: x * f32(1/127)
 
@@ -104,55 +98,6 @@ struct Args {
   float scale;
   int blk;  // the TPU kernel's key block
 };
-
-__device__ __forceinline__ float exp_f32(float x) { return (float)exp((double)x); }
-
-// The slow routes, out of line: inlined, the compiler predicates them into
-// every logit's path.
-__device__ __noinline__ float exp_slow(float x) { return exp_f32(x); }
-__device__ __noinline__ int code_slow(float p, float ps) { return (int)rintf(__fdiv_rn(p, ps)); }
-
-// (float)exp((double)x) for x <= 0 by the fast route (see the note above),
-// without a branch: amb is set where the route cannot decide the f32 value
-// (subnormal results too), and the caller takes exp_slow there.  No f64 <->
-// integer conversion (a quarter of the f64 rate on this card): k comes out
-// of the low word of x * 256/ln2 + 1.5 * 2^52.
-__device__ __forceinline__ float exp_fast(float x, const double* tab, bool& amb) {
-  constexpr double kShift = 6755399441055744.0;  // 1.5 * 2^52
-  const double xd = (double)fmaxf(x, -87.0f);
-  const double kt = fma(xd, 369.3299304675746, kShift);  // 256 / ln2
-  const int k = __double2loint(kt);
-  const double kd = kt - kShift;
-  double r = fma(-kd, 0.0027076061740622863, xd);  // ln2 / 256 as an f64
-  r = fma(-kd, 9.058776616587108e-20, r);          // and the rest of it
-  double p = fma(r, 1.0 / 24.0, 1.0 / 6.0);
-  p = fma(r, p, 0.5);
-  p = fma(r, p, 1.0);
-  p = fma(r, p, 1.0);
-  double a = p * tab[k & (kExpTab - 1)];
-  a = __hiloint2double(__double2hiint(a) + (k >> 8) * (1 << 20), __double2loint(a));  // * 2^(k>>8)
-  const int dropped = __double2loint(a) & 0x1FFFFFFF;  // the bits an f32 rounding drops
-  amb = (x < -87.0f && x > -104.0f) || abs(dropped - 0x10000000) <= 64;
-  const float e = __double2float_rn(a);
-  return x <= -104.0f ? 0.0f : e;  // exp(x) < 2^-150 rounds to 0
-}
-
-// rint(p / ps) by IEEE division, from y = p * f32(1 / ps), without a
-// branch: amb where y cannot decide it (the caller takes code_slow).
-// Integers below 2^22 are read off the bits of y + 1.5 * 2^23 (round to
-// nearest even, as rint).
-__device__ __forceinline__ int code_fast(float p, float rps, bool& amb) {
-  constexpr float kShift = 12582912.0f;  // 1.5 * 2^23
-  const float y = __fmul_rn(p, rps);
-  const float ty = __fadd_rn(y, kShift);
-  amb = fabsf(__fsub_rn(y, __fsub_rn(ty, kShift))) >= 0.5f - 0x1p-15f;
-  return __float_as_int(ty) - 0x4B400000;
-}
-
-// An int32 below 2^22 in magnitude as f32, exactly, without a conversion.
-__device__ __forceinline__ float i2f_small(int v) {
-  return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
-}
 
 __device__ __forceinline__ unsigned ld32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
@@ -216,7 +161,7 @@ flash_prefill_i8_kernel(Args a) {
   unsigned slow = 0;
   unsigned long long decided = 0;  // exps and codes of the block (thread 0)
 
-  for (int j = tid; j < kExpTab; j += kThreads) sm.tab[j] = exp2((double)j / kExpTab);
+  exp_table(sm.tab);
 
   // --- the q tile: rope in f32, per-row scale, codes -------------------------
   for (int rr = 0; rr < 16; ++rr) {

@@ -59,7 +59,7 @@ ENTRY_POINTS = {
     "decode_mlp": ("qdm_decode_mlp",
                    (P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I, P)),
     "decode_attention_kv_q": ("qdm_decode_attention_kv_q",
-                              (P, I, L, P, P, P, I, F, I, P, I, I, I, I, I, P)),
+                              (P, I, L, P, P, P, I, F, I, P, I, I, I, I, I, I, P, P)),
     "decode_attention_kv_flash_q": ("qdm_decode_attention_kv_flash_q",
                                     (P, I, L, P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I,
                                      I, P)),
@@ -84,7 +84,7 @@ ENTRY_POINTS = {
     "decode_attention": ("qdm_decode_attention",
                          (P, I, L, P, P, I, F, I, P, I, I, I, I, I, I, I, P)),
     "decode_attention_i8": ("qdm_decode_attention_i8",
-                            (P, I, L, P, P, P, P, I, F, I, P, I, I, I, I, I, I, P)),
+                            (P, I, L, P, P, P, P, I, F, I, P, I, I, I, I, I, I, I, P, P)),
     "w8a8_matmul": ("qdm_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)),
 }
 SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}

@@ -144,7 +144,7 @@ for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
            *(f"decode_attention_kv_flash_{m}" for m in KV_MODES)):
     qmm.LAUNCHES.setdefault(_k, 0)
 
-_MAX_SPLITS = 8         # K7, K19-K21: blocks of a pair's cluster (csrc/decode_attn.cuh)
+_MAX_SPLITS = 8         # K7, K12-K14, K19-K23: blocks of a pair's cluster (csrc/decode_attn.cuh)
 _FLASH_CHUNK = 1024     # K10: most cache columns one block reads (128 threads x 8)
 _FLASH_CTAS = 264       # K10: split T until about two blocks per SM of the H100
 INV127 = qmm.INV127          # ``x / 127.0`` as XLA compiles it in the TPU kernels
@@ -996,8 +996,7 @@ def decode_attention_kv_single(q, kv_cache, pos: int, starts=None, sm_scale=None
     hkv, g, d) in q's dtype."""
     b, hkv, g, d = q.shape
     t = _check_kv(q, kv_cache, pos)
-    if not 0 <= splits <= _MAX_SPLITS:
-        raise ValueError(f"splits must be 0 (planned) to {_MAX_SPLITS}, got {splits}")
+    _splits_ok(splits)
     if not _on_card(q, "decode_attention_kv"):
         return decode_attention_kv_plain(q, kv_cache, pos, starts, sm_scale, softcap)
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
@@ -1052,13 +1051,32 @@ def _q_operands(q, kv, kv_scale, what: str):
     return ks
 
 
-def decode_attention_kv_q_single(q, kv, pos: int, mode: str, kv_scale=None, starts=None):
+def _splits_ok(splits: int) -> None:
+    if not 0 <= splits <= _MAX_SPLITS:
+        raise ValueError(f"splits must be 0 (planned) to {_MAX_SPLITS}, got {splits}")
+
+
+def _slow_routes(trace: Optional[dict], dev) -> Optional[torch.Tensor]:
+    """The card's count of exps, divisions and p codes that took the exact
+    slow route, and of how many, into ``trace["slow_routes"]`` (int64 (2,))."""
+    if trace is None:
+        return None
+    slow = trace["slow_routes"] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return slow
+
+
+def decode_attention_kv_q_single(q, kv, pos: int, mode: str, kv_scale=None, starts=None,
+                                 splits: int = 0, trace: Optional[dict] = None):
     """One-pass decode attention over a quantized combined cache (K12
     ``i8``, K13 ``i8c``, K14 ``i4c``): q (B, hkv, g, d) — rows may be
     strided, each (hkv, g, d) row contiguous — against int8 codes
     (B, 2*hkv, d, T) (``i4c``: packed (B, 2*hkv, d/2, T)), keys 0..pos (and
-    from starts[b]) attended.  Returns (B, hkv, g, d) in q's dtype."""
+    from starts[b]) attended.  ``splits``: blocks of each (row, kv head)'s
+    cluster on the card, 0 to let the kernel plan them (a profile may force
+    1 to 8); ``trace`` (card only), if given, receives ``slow_routes``.
+    Returns (B, hkv, g, d) in q's dtype."""
     t = _check_kv(q, kv, pos, mode, kv_scale)
+    _splits_ok(splits)
     name = f"decode_attention_kv_{mode}"
     if not _on_card(q, name):
         return decode_attention_kv_q_plain(q, kv, pos, mode, kv_scale, starts)
@@ -1066,13 +1084,14 @@ def decode_attention_kv_q_single(q, kv, pos: int, mode: str, kv_scale=None, star
     b, hkv, g, d = q.shape
     st = _starts_i32(starts, b, q.device)
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    slow = _slow_routes(trace, q.device)
     if b == 0:
         return out
     fn = cuda_build.kernel("decode_attention_kv_q")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv.data_ptr(), _ptr(ks),
                  _ptr(st), int(pos), ctypes.c_float(_f32_scale(d, None)), KV_MODES[mode],
-                 out.data_ptr(), b, hkv, g, d, t, _stream(q))
+                 out.data_ptr(), b, hkv, g, d, t, int(splits), _ptr(slow), _stream(q))
     cuda_build.check(err, name)
     qmm.LAUNCHES[name] += 1
     return out
@@ -1281,9 +1300,13 @@ def decode_attention_dm(q, k_cache, v_cache, pos: int):
     return _separate("decode_attention_dm", q, k_cache, v_cache, pos, "depth")
 
 
-def _separate_i8(what, q, k_i8, k_scale, v_i8, v_scale, pos: int, v_layout: str):
-    """K22 / K23: q rows may be strided, each (hkv, g, d) row contiguous."""
+def _separate_i8(what, q, k_i8, k_scale, v_i8, v_scale, pos: int, v_layout: str,
+                 splits: int = 0, trace: Optional[dict] = None):
+    """K22 / K23: q rows may be strided, each (hkv, g, d) row contiguous;
+    ``splits`` and ``trace`` as :func:`decode_attention_kv_q_single` takes
+    them."""
     t = _check_separate(what, q, k_i8, v_i8, pos, v_layout, k_scale, v_scale)
+    _splits_ok(splits)
     if not _on_card(q, what):
         return decode_attention_i8_plain(q, k_i8, k_scale, v_i8, v_scale, pos, v_layout)
     bp, hkv, g, d = q.shape
@@ -1300,6 +1323,7 @@ def _separate_i8(what, q, k_i8, k_scale, v_i8, v_scale, pos: int, v_layout: str)
     ks = k_scale.to(torch.float32).contiguous()
     vs = v_scale.to(torch.float32).contiguous()
     out = torch.empty((bp, hkv, g, d), dtype=q.dtype, device=q.device)
+    slow = _slow_routes(trace, q.device)
     if bp == 0:
         return out
     fn = cuda_build.kernel("decode_attention_i8")
@@ -1307,25 +1331,30 @@ def _separate_i8(what, q, k_i8, k_scale, v_i8, v_scale, pos: int, v_layout: str)
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), k_i8.data_ptr(), ks.data_ptr(),
                  v_i8.data_ptr(), vs.data_ptr(), int(pos), ctypes.c_float(_f32_scale(d, None)),
                  SEPARATE_ATTENTION[what], out.data_ptr(), bp, k_i8.shape[0], hkv, g, d, t,
-                 _stream(q))
+                 int(splits), _ptr(slow), _stream(q))
     cuda_build.check(err, what)
     qmm.LAUNCHES[what] += 1
     return out
 
 
-def decode_attention_dm_i8(q, k_i8, k_scale, v_i8, v_scale, pos: int):
+def decode_attention_dm_i8(q, k_i8, k_scale, v_i8, v_scale, pos: int, splits: int = 0,
+                           trace: Optional[dict] = None):
     """int8 decode attention over separate depth-major caches (K22,
     ``decode_kernels.decode_attention_dm_i8_pallas``): K and V (B, hkv, d,
     T) int8 with per-token scales (B, hkv, 1, T) f32; K12's arithmetic
     (:func:`decode_attention_i8_plain`).  Returns (Bp, hkv, g, d) in q's
-    dtype, rows B..Bp-1 zeros."""
-    return _separate_i8("decode_attention_dm_i8", q, k_i8, k_scale, v_i8, v_scale, pos, "depth")
+    dtype, rows B..Bp-1 zeros.  ``splits`` / ``trace``: the card's cluster
+    split and slow-route count (:func:`decode_attention_kv_q_single`)."""
+    return _separate_i8("decode_attention_dm_i8", q, k_i8, k_scale, v_i8, v_scale, pos, "depth",
+                        splits, trace)
 
 
-def decode_attention_i8(q, k_i8, k_scale, v_i8, v_scale, pos: int):
+def decode_attention_i8(q, k_i8, k_scale, v_i8, v_scale, pos: int, splits: int = 0,
+                        trace: Optional[dict] = None):
     """:func:`decode_attention_dm_i8` with V token-major, (B, hkv, T, d)
     int8 (K23, ``decode_kernels.decode_attention_i8_pallas``)."""
-    return _separate_i8("decode_attention_i8", q, k_i8, k_scale, v_i8, v_scale, pos, "tokens")
+    return _separate_i8("decode_attention_i8", q, k_i8, k_scale, v_i8, v_scale, pos, "tokens",
+                        splits, trace)
 
 
 def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor],

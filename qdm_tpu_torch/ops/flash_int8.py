@@ -175,7 +175,10 @@ def flash_int8_attention(q, k, v, scale: float, block_q: int = 512, block_k: int
     kernel's query block and changes no value; ``block_k`` its key block,
     against whose running maximum p is quantized.  ``trace`` (card only),
     if given, receives the q, k and v codes and scales and the p codes of
-    batch row 0, head 0, as :func:`flash_int8_attention_plain` gives them."""
+    batch row 0, head 0, as :func:`flash_int8_attention_plain` gives them,
+    and ``slow_routes``: how many of the kernel's exps and p codes took the
+    exact slow route (f64 ``exp``, IEEE division), and of how many (int64
+    (2,))."""
     del block_q
     if q.device.type == "cpu":
         return flash_int8_attention_plain(q, k, v, scale, block_k)
@@ -196,26 +199,26 @@ def flash_int8_attention(q, k, v, scale: float, block_q: int = 512, block_k: int
     dev = q.device
     bh = b * h
     i8, f32 = dict(dtype=torch.int8, device=dev), dict(dtype=torch.float32, device=dev)
-    qi, ki = torch.empty((bh, s, dp), **i8), torch.empty((bh, s, dp), **i8)
-    qs, ks = torch.empty((bh, s), **f32), torch.empty((bh, s), **f32)
+    ki, ks = torch.empty((bh, s, dp), **i8), torch.empty((bh, s), **f32)
     vt, vs = torch.empty((bh, d, s), **i8), torch.empty((bh, d), **f32)
-    vmax = torch.empty((bh, d), dtype=torch.int32, device=dev)
     out = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=dev)
-    p_codes = None
+    qi = qs = p_codes = slow = None
     if trace is not None:
+        qi, qs = torch.empty((bh, s, d), **i8), torch.empty((bh, s), **f32)
         p_codes = trace["p_codes"] = torch.zeros((s, s), **i8)
-        trace.update(q_codes=qi[..., :d], q_scales=qs, k_codes=ki[..., :d], k_scales=ks,
+        slow = trace["slow_routes"] = torch.zeros(2, dtype=torch.int64, device=dev)
+        trace.update(q_codes=qi, q_scales=qs, k_codes=ki[..., :d], k_scales=ks,
                      v_codes=vt.transpose(1, 2), v_scales=vs)
     if out.numel() == 0:
         return out.to(q.dtype)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     fn = cuda_build.kernel("flash_int8")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), *_strides(q, "q"), k.data_ptr(), *_strides(k, "k"),
-                 v.data_ptr(), *_strides(v, "v"), _DTYPE_CODE[q.dtype], qi.data_ptr(),
-                 qs.data_ptr(), ki.data_ptr(), ks.data_ptr(), vt.data_ptr(), vs.data_ptr(),
-                 vmax.data_ptr(), out.data_ptr(),
-                 p_codes.data_ptr() if p_codes is not None else None, b, s, h, d,
-                 ctypes.c_float(scale), bk, torch.cuda.current_stream(dev).cuda_stream)
+                 v.data_ptr(), *_strides(v, "v"), _DTYPE_CODE[q.dtype], ptr(qi), ptr(qs),
+                 ki.data_ptr(), ks.data_ptr(), vt.data_ptr(), vs.data_ptr(), out.data_ptr(),
+                 ptr(p_codes), ptr(slow), b, s, h, d, ctypes.c_float(scale), bk,
+                 torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "flash_int8_attention")
     qmm.LAUNCHES["flash_int8_attention"] += 1
     return out if q.dtype == torch.bfloat16 else out.to(q.dtype)

@@ -497,6 +497,15 @@ KV_Q_CASES = [
     ("i8", 3, 2, 1, 128, 384, 300, None, False),       # g 1 at d 128
     ("i4c", 2, 1, 2, 256, 128, 0, None, False),
     ("i8", 32, 4, 8, 64, 1152, 1150, None, True),      # 45 KB of window + 3 KB of reductions
+    # batch 1 at T 3072: a planned cluster of 8 blocks a pair, each format
+    ("i8", 1, 4, 8, 64, 3072, 3071, None, True),
+    ("i8c", 1, 4, 8, 64, 3072, 3071, None, False),
+    ("i4c", 1, 4, 8, 64, 3072, 3071, None, False),
+    ("i8c", 8, 4, 8, 64, 640, 574, None, True),        # batch 8: 3 blocks a pair
+    # a window across the cluster's blocks, and a row masked throughout over all eight
+    ("i8c", 2, 4, 8, 64, 3072, 2900, (700, 1500), False),
+    ("i4c", 2, 4, 8, 64, 3072, 2900, (100, 3000), True),
+    ("i4c", 2, 2, 4, 256, 640, 600, None, False),      # i4c at d 256
 ]
 
 
@@ -514,6 +523,61 @@ def test_kv_quant_kernel_matches_plain_on_card(mode, b, hkv, g, d, t, pos, start
     torch.cuda.synchronize()
     assert qmm.LAUNCHES[name] == before + 1
     assert got.dtype == q.dtype and torch.equal(got, want), float((got - want).abs().max())
+
+
+def _i8_separate(name, pos, splits):
+    """K22 / K23 (``name``) called with ``splits`` and a trace."""
+    def run(q, *cache):
+        trace = {}
+        out = SEPARATE_I8[name](q, *cache, pos, splits=splits, trace=trace)
+        return out, trace
+    return run
+
+
+# (kernel, B, hkv, g, d, T, pos, starts): K12-K14 by format, K22 / K23 by name (they
+# take no starts); split boundaries and, with starts, a row masked throughout
+FORCED_SPLIT_CASES = [
+    (kernel, *case)
+    for case in [(1, 4, 8, 64, 3072, 3071, None), (4, 2, 1, 128, 640, 200, None)]
+    for kernel in ("i8", "i8c", "i4c", "decode_attention_dm_i8", "decode_attention_i8")
+] + [(kernel, 2, 2, 4, 64, 1024, 900, (300, 950)) for kernel in ("i8c", "i4c")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,b,hkv,g,d,t,pos,starts", FORCED_SPLIT_CASES)
+def test_quantized_attention_forced_splits_on_card(kernel, b, hkv, g, d, t, pos, starts):
+    """K12-K14 and K22 / K23 with their cluster's split forced to 1-8 blocks
+    a pair give the planned launch's output bit for bit (the int32 PV
+    partials add exactly in any order; the f64 sum is rounded once), and it
+    equals the plain version; the slow routes are counted."""
+    dev = _card()
+    if kernel in SEPARATE_I8:
+        q, k, ks, v, vs = _separate_operands(b, b, hkv, g, d, t, kernel, dev, torch.bfloat16,
+                                             b + t + pos)
+        layout = "depth" if kernel == "decode_attention_dm_i8" else "tokens"
+        call = lambda n: _i8_separate(kernel, pos, n)(q, k, ks, v, vs)
+        want = dk.decode_attention_i8_plain(q, k, ks, v, vs, pos, layout)
+    else:
+        q, kv, sc = _kv_q_operands(b, hkv, g, d, t, kernel, True, b + t + pos, dev)
+        st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+
+        def call(n):
+            trace = {}
+            out = dk.decode_attention_kv_q_single(q, kv, pos, kernel, sc, st, splits=n,
+                                                  trace=trace)
+            return out, trace
+        want = dk.decode_attention_kv_q_plain(q, kv, pos, kernel, sc, st)
+    planned, trace = call(0)
+    torch.cuda.synchronize()
+    assert torch.equal(planned, want), float((planned - want).abs().max())
+    slow = trace["slow_routes"].tolist()
+    assert 0 <= slow[0] <= slow[1] and slow[1] > 0, slow
+    for n in range(1, 9):
+        got, _ = call(n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, planned), (n, float((got - planned).abs().max()))
+    with pytest.raises(ValueError, match="splits"):
+        call(9)
 
 
 # (mode, B, hkv, g, d, T, pos, starts, softcap, sm_scale, bf16 q)
@@ -912,6 +976,9 @@ FLASH_INT8_CASES = [
     (1, 512, 2, 32, 256, True, False),
     (1, 256, 1, 64, 256, True, True),
     (1, 256, 1, 128, 128, False, False),
+    (1, 4096, 2, 40, 1024, True, False),    # S 4096, key block 1024 (two passes)
+    (1, 256, 4, 160, 256, True, False),     # key block 256 at D 160 (the one-pass route)
+    (1, 1024, 2, 80, 512, False, True),     # f32 at D 80
 ]
 
 
@@ -944,6 +1011,8 @@ def test_flash_int8_kernel_matches_plain_on_card(b, s, h, d, bk, bf16, fused):
         assert torch.equal(trace[what], want_trace[what]), what
     share, mean = fi8.kernel_error(got, want, v)
     assert share <= 1.0 and mean <= fi8.MEAN_LIMIT, (share, mean)
+    slow = trace["slow_routes"].tolist()          # every exp and p code, decided
+    assert slow[1] == 2 * b * h * s * s and 0 <= slow[0] <= slow[1], slow
 
 
 @pytest.mark.cuda
@@ -1142,7 +1211,9 @@ def test_separate_attention_kernel_matches_plain_on_card(name, bp, b, hkv, g, d,
 @pytest.mark.parametrize("bp,b,hkv,g,d,t,pos,bf16", [
     (32, 32, 4, 8, 64, 1152, 1150, True), (2, 2, 2, 4, 64, 256, 200, False),
     (4, 2, 2, 4, 64, 256, 255, True), (3, 3, 2, 1, 128, 384, 0, False),
-    (2, 2, 1, 2, 32, 128, 70, False)])
+    (2, 2, 1, 2, 32, 128, 70, False),
+    (1, 1, 4, 8, 64, 3072, 3071, True),    # batch 1 at T 3072: 8 blocks a pair
+    (8, 8, 4, 8, 64, 640, 574, False)])    # batch 8: 3 blocks a pair
 @pytest.mark.parametrize("name", list(SEPARATE_I8))
 def test_separate_attention_i8_kernel_matches_plain_on_card(name, bp, b, hkv, g, d, t, pos,
                                                             bf16):

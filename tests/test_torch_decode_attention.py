@@ -164,3 +164,27 @@ def test_k7_splits_argument(splits):
         return
     got = tdk.decode_attention_kv_single(q, kv, 100, splits=splits)
     assert torch.equal(got, tdk.decode_attention_kv_plain(q, kv, 100))
+
+
+# K22 / K23's ``splits`` and ``trace``, as K12-K14 take them: on the CPU any
+# valid count gives the plain version, and the card's slow-route count is
+# left out of the trace
+@pytest.mark.parametrize("splits", [0, 1, 3, 8, -1, 9])
+@pytest.mark.parametrize("name", list(INT8_ROWS))
+def test_int8_splits_argument(name, splits):
+    rng = np.random.default_rng(5)
+    _, wrapper, tokens = INT8_ROWS[name]
+    q = torch.from_numpy(rng.standard_normal((3, 2, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.integers(-127, 128, (2, 2, 32, 128)).astype(np.int8))
+    v = torch.from_numpy(rng.integers(-127, 128, (2, 2, 128, 32) if tokens else
+                                      (2, 2, 32, 128)).astype(np.int8))
+    ks, vs = (torch.from_numpy((rng.random((2, 2, 1, 128)) * 0.02 + 1e-3).astype(np.float32))
+              for _ in range(2))
+    if not 0 <= splits <= 8:
+        with pytest.raises(ValueError, match="splits"):
+            wrapper(q, k, ks, v, vs, 100, splits=splits)
+        return
+    trace = {}
+    got = wrapper(q, k, ks, v, vs, 100, splits=splits, trace=trace)
+    want = tdk.decode_attention_i8_plain(q, k, ks, v, vs, 100, "tokens" if tokens else "depth")
+    assert torch.equal(got, want) and not got[2:].any() and trace == {}

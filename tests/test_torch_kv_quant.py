@@ -200,3 +200,25 @@ def test_quantized_attention_rejects_a_mismatched_cache():
         tdk.decode_attention_kv_flash(q, codes, 10, mode="i8")
     with pytest.raises(ValueError, match="int8 codes"):
         tdk.decode_attention_kv_i8c(q, codes.float(), 10)
+
+
+# K12-K14's ``splits``: 0 lets the kernel plan a pair's cluster, 1-8 force it (a
+# profile's sweep); on the CPU any valid count gives the plain version
+@pytest.mark.parametrize("mode", ["i8", "i8c", "i4c"])
+@pytest.mark.parametrize("splits", [0, 1, 3, 8, -1, 9])
+def test_one_pass_splits_argument(mode, splits):
+    rng = np.random.default_rng(12)
+    kv, sc = _cache(rng, 2, 2, 32, 128, mode)
+    kv = torch.from_numpy(kv)
+    sc = None if sc is None else torch.from_numpy(sc)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 4, 32)).astype(np.float32))
+    starts = None if mode == "i8" else torch.tensor([0, 40], dtype=torch.int32)
+    if not 0 <= splits <= 8:
+        with pytest.raises(ValueError, match="splits"):
+            tdk.decode_attention_kv_q_single(q, kv, 100, mode, sc, starts, splits=splits)
+        return
+    trace = {}
+    got = tdk.decode_attention_kv_q_single(q, kv, 100, mode, sc, starts, splits=splits,
+                                           trace=trace)
+    assert torch.equal(got, tdk.decode_attention_kv_q_plain(q, kv, 100, mode, sc, starts))
+    assert trace == {}          # the slow routes are counted on the card only
