@@ -3,15 +3,18 @@
     python3 chip_smoke.py             # every phase, one CUDA card
     python3 chip_smoke.py --profile   # every phase, then a profile
     python3 chip_smoke.py --breakdown # the build, then the decode attention bodies' (K7,
-                                      # K12-K14, K19-K23), K8b's and K18's device time
-                                      # by kernel, nothing else
+                                      # K12-K14, K19-K23), K8b's, K18's, K3's and K16's
+                                      # device time by kernel, nothing else
+    python3 chip_smoke.py --breakdown w4  # the build, then K3's and K16's (with K4,
+                                      # K17, K26 beside) alone
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 K1-K4 at the SD1.5 shapes (K1/K2 and K4 with int8 codes identical to the
 plain version's and outputs within 1 bf16 ulp; K3 within 1 bf16 ulp or
-1e-5 of the output's magnitude, its f32 sums run in another order), the
+1e-5 of the output's magnitude, its f32 sums run in another order, a
+group-scale row 1e-2 off planted and flagged), the
 decode kernels K5-K8 at the TinyLlama-1.1B serving shapes (batch 32,
 prompt 512, 64 new tokens) plus one shape per remaining option (K6 and K8
 with int8 codes identical and outputs equal, K5 and K7 within 1 bf16 ulp
@@ -34,8 +37,9 @@ that the check must flag; and the w4a8 engine's int4 kernels and the
 fused int8 prefill's kernels at the Llama-2-7B and TinyLlama shapes:
 K16 (qkv with norm and rope, o_proj with residual) and K17 (the MLP, inner
 blocks of 256 and 512), int8 codes identical to and outputs equal to
-their plain versions, one group-scale row off by 1e-3 and the down scale
-rows shifted by one block planted and flagged; K15 (the prefill's qkv,
+their plain versions, K16's group-scale row off by 1e-3 on the first group
+of a non-leader slice of its cluster, in the low and in the high plane,
+and K17's down scale rows shifted by one block planted and flagged; K15 (the prefill's qkv,
 o_proj and down at 16384 tokens) and K2 with silu ([up | gate]), codes
 identical and outputs within 1 bf16 ulp, weight scales 1e-2 off planted
 and flagged; the merged o_proj + MLP kernels K25 (int8) and K26 (int4) at
@@ -327,6 +331,7 @@ KVQ_FAULT = 1e-3              # relative error planted into K or V scales of qua
 KV_ATTENTION = tuple(f"decode_attention_kv_{m}" for m in ("i8", "i8c", "i4c"))
 # the long-prompt path: Llama-2-7B geometry (LlamaConfig() defaults, whole depth)
 L7_BATCH, L7_PROMPT, L7_NEW = 8, 2048, 64
+K16_WIDE_BATCHES = (32, 64)     # K16 also checked at 7B qkv at these batches
 L7_CALIB = (8, 512)
 # launches per decode step and layer (and per generate for the prefill / head)
 L7_WANT = {
@@ -338,6 +343,7 @@ L7_WANT = {
 }
 LONG_KERNELS = ("flash_prefill_gqa", "decode_attention_kv_flash", "fused_mlp_decode")
 I4_FAULT = 1e-3               # relative error planted into one int4 group-scale row of K16
+W4_FAULT = 1e-2               # relative error planted into one group-scale row of K3
 O_MLP_FAULT = 1e-3            # relative error planted into one o_proj scale row of K25 / K26
 AO_FAULT = 1.01               # factor planted into K25 / K26's a_o
 K8B_FAULT = 1e-2              # relative error planted into K8b's v scales
@@ -566,6 +572,26 @@ def phase_w4_kernels(dev) -> dict:
             if ulps > 1:
                 fail(f"{name} {layer}: {ulps} bf16 ulps from the plain version "
                      f"(max abs err {err}, output magnitude {mag})")
+            plan = ""
+            if not w4a8:
+                # planted: a group-scale row W4_FAULT off must take the output beyond
+                # the tolerance
+                bad_s = s.clone()
+                bad_s[s.shape[0] // 2] *= 1.0 + W4_FAULT
+                bad = qmm.w4a16_matmul(x, qw, bad_s, z, g, n_out=n)
+                bd = (bad.float() - ref.float()).abs()
+                if not bool(((bf16_ulps(bad, ref) > 1) & (bd > 1e-5 * mag)).any()):
+                    fail(f"{name} {layer}: the check misses a group-scale row off by "
+                         f"{W4_FAULT:g} (planted)")
+                if hasattr(qmm, "w4a16_plan"):
+                    route, bn, split, stages, grid = qmm.w4a16_plan(m, k, n, qmm.sm_count(dev), g)
+                    tile = (f"{bn}-token tiles of {qmm.W4_RS_FEAT} columns"
+                            if route == qmm.W4_REGISTERS else f"{bn}-column tiles")
+                    plan = (f" [{('resident', 'streamed', 'register')[route]} weight, {tile}, "
+                            f"split {split}, {stages} stages, {grid} blocks]")
+                plan += (f"; a group-scale row off by {W4_FAULT:g} (planted): max abs err "
+                         f"{float(bd.max()):.3g}")
+                del bad, bad_s
             w_bf16 = qmm.w4_dequant(qw, s, z, g)[:k, :n].to(torch.bfloat16).contiguous()
             lib = lambda: torch.matmul(x, w_bf16)
             ms = cuda_ms(kern)
@@ -582,7 +608,7 @@ def phase_w4_kernels(dev) -> dict:
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "ops": ops}
             rows.append(row)
-            print(f"phase 2: {name} {layer} M={m} K={k} N={n} G={g}: "
+            print(f"phase 2: {name} {layer} M={m} K={k} N={n} G={g}{plan}: "
                   f"{'codes identical, ' if w4a8 else ''}{ulps} ulp"
                   f"{'' if w4a8 else ' beyond 1e-5 of the magnitude'}, max_abs_err={err:.3g}, "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 matmul {library_ms:.4f} ms, "
@@ -930,15 +956,18 @@ def phase_decode_kernels(dev) -> dict:
 def _print_rows(res: dict) -> None:
     for name, rows in res.items():
         for row in rows:
-            timing = (f", kernel {row['ms']:.4f} ms ({row['bound_ms'] / row['ms']:.1%} of the "
-                      f"bound), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+            apart = (f" (norm pass {row['norm_ms']:.4f} ms, group dot "
+                     f"{row['ms'] - row['norm_ms']:.4f} ms)" if "norm_ms" in row else "")
+            timing = (f", kernel {row['ms']:.4f} ms{apart} ({row['bound_ms'] / row['ms']:.1%} of "
+                      f"the bound), plain {row['plain_ms']:.4f} ms, library "
+                      f"{row['library_ms']:.4f} ms "
                       f"({row['bound_ms'] / row['library_ms']:.1%} of the bound), bound "
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']})" if "ms" in row else "")
             tol = row.get("tol") or ("codes identical, 0 ulp" if row["ulps"] == 0 else
                                      "within 1 bf16 ulp or 1e-5 of the magnitude")
             shape = {k_: v for k_, v in row.items()
                      if k_ in ("M", "K", "N", "I", "E", "bj", "B", "H", "hkv", "g", "S", "d",
-                               "T", "pos")}
+                               "T", "pos", "split")}
             print(f"phase 2: {name} {row['layer']} {shape}: {tol}, max_abs_err="
                   f"{row['max_abs_err']:.3g}{timing}", flush=True)
 
@@ -1369,7 +1398,10 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed, out_dtype=
     kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
               rope_cos=cos, rope_sin=sin, head_dim=hd, group=group, out_dtype=out_dtype)
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
-    got = dk.fused_dense_decode_i4(o["x"], w_p, ws, a, w_t=w_t, scratch=xi, **kw)
+    plan = {"rows": 32, "split": 1}
+    got = dk.fused_dense_decode_i4(o["x"], w_p, ws, a, w_t=w_t, scratch=xi, **kw,
+                                   **({"trace": plan} if _takes(dk.fused_dense_decode_i4,
+                                                                "trace") else {}))
     torch.cuda.synchronize()
     want = dk.fused_dense_decode_i4_plain(o["x"], w_p, ws, a, **kw)
     if not torch.equal(xi, dk._quant_static(xn, a)):
@@ -1378,15 +1410,26 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed, out_dtype=
     if not torch.equal(got, want):
         fail(f"fused_dense_decode_i4 {label}: output differs from the plain version "
              f"(max abs err {err}); tolerance 0 ulp")
-    bad_ws = ws.clone()
-    bad_ws[ws.shape[0] // 2] *= 1.0 + I4_FAULT
-    bad = dk.fused_dense_decode_i4(o["x"], w_p, bad_ws, a, w_t=w_t, **kw)
-    if torch.equal(bad, want):
-        fail(f"fused_dense_decode_i4 {label}: the check misses a group-scale row off by "
-             f"{I4_FAULT:g} (planted)")
+    # planted: a group-scale row I4_FAULT off, on the first group of a slice
+    # other than the leader's (the middle group where the cluster is one
+    # block), in the low plane and in the high plane
+    gpp = k // 2 // group
+    split = plan["split"]
+    g_fault = gpp // split if split > 1 else gpp // 2
+    planted = []
+    for plane in (0, 1):
+        bad_ws = ws.clone()
+        bad_ws[plane * gpp + g_fault] *= 1.0 + I4_FAULT
+        bad = dk.fused_dense_decode_i4(o["x"], w_p, bad_ws, a, w_t=w_t, **kw)
+        if torch.equal(bad, want):
+            fail(f"fused_dense_decode_i4 {label}: the check misses the {('low', 'high')[plane]} "
+                 f"plane's group-scale row {g_fault} off by {I4_FAULT:g} (planted)")
+        planted.append(float((bad.float() - want.float()).abs().max()))
     row = {"layer": label, "M": m, "K": k, "N": n, "G": group, "max_abs_err": err, "ulps": 0,
-           "tol": f"codes identical, outputs equal; a group-scale row off by {I4_FAULT:g} "
-                  f"(planted): max abs err {float((bad.float() - want.float()).abs().max()):.3g}"}
+           "split": split,
+           "tol": f"codes identical, outputs equal; group {g_fault}'s scale row off by "
+                  f"{I4_FAULT:g} in the low / high plane (planted, cluster of {split}, tiles of "
+                  f"{plan['rows']} rows): max abs err {planted[0]:.3g} / {planted[1]:.3g}"}
     if timed:
         xb, ob = o["x"].element_size(), torch.empty((), dtype=out_dtype).element_size()
         nbytes = (m * k * xb + k // 2 * n + 4 * (k // group) * n + m * n * ob
@@ -1407,7 +1450,10 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed, out_dtype=
                 y = torch.matmul(xin, w)
                 return (y + o["res"] if res else y).to(out_dtype)
             return fn
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
+        by = _cold_by_kernel(kern)
+        norm_us = sum(us for name, us in by.items() if "norm_rows" in name)
+        row.update(ms=sum(by.values()) / 1e3, norm_ms=norm_us / 1e3,
+                   plain_ms=cold_ms(plain, calls=4),
                    library_ms=cold_ms([library(w) for w in wbs]), bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
         del wbs, sets
@@ -1552,6 +1598,10 @@ def phase_w4a8_kernels(dev, res: dict) -> dict:
     rng = np.random.default_rng(4)
     bf = torch.bfloat16
     out = {"fused_dense_decode_i4": [], "fused_mlp_decode_i4": []}
+    c7 = LlamaConfig()
+    group_7b, _ = i4_layout(c7)
+    k_7b, hd_7b = c7.hidden_size, c7.head_dim
+    n_qkv_7b = (c7.num_attention_heads + 2 * c7.num_key_value_heads) * hd_7b
     for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
         group, _ = i4_layout(c)
         k, hd = c.hidden_size, c.head_dim
@@ -1566,6 +1616,16 @@ def phase_w4a8_kernels(dev, res: dict) -> dict:
             _check_mlp_i4(f"{tag} mlp (norm, silu, +res)", rng, b, k, c.intermediate_size, 512,
                           group, dev, True))
         torch.cuda.empty_cache()
+    # K16 at 7B qkv beyond batch 16, checked, not timed: there a block's f32
+    # partials need a cluster of more than two blocks
+    wide = {"fused_dense_decode_i4": []}
+    for b in K16_WIDE_BATCHES:
+        o = _dense_case(np.random.default_rng(6), dev, b, k_7b, n_qkv_7b, bf)
+        wide["fused_dense_decode_i4"].append(_check_dense_i4(
+            f"7B qkv (norm, rope {hd_7b}) at batch {b}", o, hd_7b, True, True, False, group_7b,
+            dev, False))
+        del o
+    _print_rows(wide)
     c = LlamaConfig()
     m, k, i = L7_BATCH * L7_PROMPT, c.hidden_size, c.intermediate_size
     hd = c.num_attention_heads * c.head_dim
@@ -2469,7 +2529,6 @@ def phase_attention_breakdown(dev) -> None:
     torch.cuda.empty_cache()
     _breakdown_k18(dev)
     _breakdown_kvq(dev)
-    _print_reprofiled()
 
 
 # K12-K14 at TinyLlama width (batch, T, pos): the kernel plans 8 blocks a pair at
@@ -2576,6 +2635,230 @@ def _breakdown_kvq(dev) -> None:
                          2 * (2 * bb * hkv * g * d + 2 * bb * hkv * d * (pos + 1)))
             del sets, fns, lay, sdpa
         torch.cuda.empty_cache()
+
+
+# --breakdown w4: K3 at SD1.5's shapes, K16 at its five timed shapes; K16's
+# cluster forced to these block counts at TinyLlama o_proj and 7B qkv
+BREAKDOWN_I4_SPLITS = (1, 2, 4, 8)
+
+
+def _k16_cases(dev):
+    """K16's five timed shapes as phase 2 draws them: (label, operands, head
+    dim, norm, rope, residual, group, out dtype)."""
+    from qdm_tpu_torch.api.serve import i4_layout
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+
+    rng = np.random.default_rng(4)
+    cases = []
+    for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
+        group, _ = i4_layout(c)
+        k, hd = c.hidden_size, c.head_dim
+        n_qkv = (c.num_attention_heads + 2 * c.num_key_value_heads) * hd
+        for label, n, norm, rope, r in ((f"{tag} qkv (norm, rope {hd})", n_qkv, True, True, False),
+                                        (f"{tag} o_proj (+res)", k, False, False, True)):
+            cases.append((label, _dense_case(rng, dev, b, k, n, torch.bfloat16), hd, norm, rope,
+                          r, group, torch.bfloat16))
+    c = LlamaConfig()
+    cases.append(("7B lm_head int4 (norm, f32 out)",
+                  _dense_case(np.random.default_rng(5), dev, L7_BATCH, c.hidden_size,
+                              c.vocab_size, torch.bfloat16), c.head_dim, True, False, False, 128,
+                  torch.float32))
+    return cases
+
+
+def _k3_route_plans(m, k, n, g, sms):
+    """K3 plans forced to each route at one shape, beside the planned one:
+    the resident and streamed routes at their widest tile that fits (the
+    planned split), the register route (group 16 or more)."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    plans = []
+    for route, bns in ((qmm.W4_RESIDENT, qmm.W4_BNS), (qmm.W4_STREAMED, qmm.W4_BNS),
+                       (qmm.W4_REGISTERS, (qmm.W4_RS_TOKENS,) if g >= 16 else ())):
+        plan = next(filter(None, (qmm.w4a16_route_plan(route, bn, m, k, n, sms)
+                                  for bn in bns)), None)
+        if plan:
+            plans.append(plan)
+    return plans
+
+
+K3_PHASES = ("consumers waiting for x", "waiting for the resident weight", "in wgmma",
+             "in the epilogue", "in all", "producer waiting for a free stage",
+             "dequantizing", "in all")
+
+
+def _print_k3_phases(layer, x, qw, sc, z, g, n) -> None:
+    """K3's planned launch in the build with QDM_K3_TRACE
+    (csrc/w4a16_matmul.cu; the caller holds the variant): SM cycles a block
+    spends in each phase, the mean over blocks (consumer warpgroup 0's
+    thread 0 and the producer's thread 0; the register route has no
+    trace)."""
+    import ctypes
+
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    m, k = x.shape
+    plan = qmm.w4a16_plan(m, k, n, qmm.sm_count(x.device), g)
+    if plan[0] == qmm.W4_REGISTERS:
+        return
+    lib = ctypes.CDLL(str(cuda_build.BUILD_DIR / "libw4a16_matmul_qdm_k3_trace.so"))
+    for _ in range(3):
+        qmm.w4a16_matmul(x, qw, sc, z, g, n_out=n)
+    torch.cuda.synchronize()
+    blocks = plan[4]
+    buf = (ctypes.c_ulonglong * (blocks * 8))()
+    if lib.qdm_w4a16_trace(buf, blocks) != 0:
+        fail("reading K3's phase trace")
+    t = np.array(buf, dtype=np.float64).reshape(blocks, 8).mean(axis=0) / 1e3
+    print(f"breakdown: K3 {layer} phases (a build with -DQDM_K3_TRACE), k SM cycles a block: "
+          + "; ".join(f"{name} {v:.1f}" for name, v in zip(K3_PHASES, t)), flush=True)
+
+
+def _k3_breakdown_rows(rng, layer, m, k, n, g, dev, routes, skip_planned=False):
+    """K3 at one shape by kernel on the profiler over copies of x beyond
+    twice the L2: planned, forced to each route (``routes``; without the
+    plan equal to the planned one where ``skip_planned``), and ``matmul`` on
+    the dequantized weight; returns the operands."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    x, qw, sc, z = _w4_operands(rng, m, k, n, g, dev)
+    xs = [x] + [x.clone() for _ in range(_copies(x.numel() * 2) - 1)]
+    nbytes = m * k * 2 + qw.numel() * 4 + sc.numel() * 8 + m * n * 2
+    kern = [lambda xx=xx: qmm.w4a16_matmul(xx, qw, sc, z, g, n_out=n) for xx in xs]
+    planned = qmm.w4a16_plan(m, k, n, qmm.sm_count(dev), g) if routes else None
+    _print_split(f"K3 {layer} {m} x {k} -> {n}, G {g}"
+                 + (f", planned {planned}" if routes else ""), _cold_by_kernel(kern), nbytes)
+    for plan in (_k3_route_plans(m, k, n, g, qmm.sm_count(dev)) if routes else ()):
+        if skip_planned and plan == planned:
+            continue
+        forced = [lambda xx=xx: qmm.w4a16_matmul(xx, qw, sc, z, g, n_out=n, plan=plan)
+                  for xx in xs]
+        _print_split(f"K3 {layer}, plan {plan} (forced)", _cold_by_kernel(forced), nbytes)
+    wb = qmm.w4_dequant(qw, sc, z, g)[:k, :n].to(torch.bfloat16).contiguous()
+    lib = [lambda xx=xx: torch.matmul(xx, wb) for xx in xs]
+    _print_split(f"matmul at K3's {layer} (weight dequantized beforehand)",
+                 _cold_by_kernel(lib), nbytes)
+    del xs, kern, lib, wb
+    torch.cuda.empty_cache()
+    return x, qw, sc, z
+
+
+def k3_unet_shapes():
+    """(M, K, N, group) of every dense layer K3 serves in the SD1.5 UNet at
+    2 prompts x CFG: in the transformer blocks of each width (C, tokens),
+    to_qkv, to_out and to_q, ff/net_0/proj, ff/net_2, and attn2/to_kv over
+    the 77 text tokens; group 64 where K is 320 (W4A16, and W4A8's K3
+    layers), else 128."""
+    shapes = set()
+    for c, m in ((320, 16384), (640, 4096), (1280, 1024), (1280, 256)):
+        for k, n in ((c, 3 * c), (c, c), (c, 8 * c), (4 * c, c)):
+            shapes.add((m, k, n, 64 if k % 128 else 128))
+        shapes.add((4 * 77, 768, 2 * c, 128))
+    return sorted(shapes)
+
+
+def phase_k3_breakdown(dev) -> None:
+    """K3 at every SD1.5 UNet shape (:func:`k3_unet_shapes`), planned, forced
+    to each other route and ``matmul`` beside: the measurements that
+    ``quant_matmul.w4a16_plan``'s rule answers to."""
+    rng = np.random.default_rng(12)
+    for m, k, n, g in k3_unet_shapes():
+        _k3_breakdown_rows(rng, f"UNet {m} x {k} -> {n}", m, k, n, g, dev, True, True)
+
+
+def phase_w4_breakdown(dev) -> None:
+    """K3 and K4 at their SD1.5 shapes as phase 2 times them (CUDA events),
+    then K3 by kernel on the profiler over copies of x beyond twice the L2,
+    planned and forced to each route, its planned launch's phases (a traced
+    build) and ``matmul`` on the dequantized weight beside; K16 at its five
+    timed shapes by kernel (the norm pass apart from the group dot) over
+    weight copies beyond twice the L2, its stream alone (a build without the
+    products), the library beside, and its cluster forced to
+    BREAKDOWN_I4_SPLITS blocks at TinyLlama o_proj and 7B qkv; K17 and K26
+    (which keep the old int4 tile) at the 7B and TinyLlama decode shapes, as
+    phase 2 times them.  Run on an older tree, it leaves out what that tree's
+    wrappers do not take (``plan``, ``split``)."""
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    phase_w4_kernels(dev)
+    rng = np.random.default_rng(11)
+    routes = _takes(qmm.w4a16_matmul, "plan")
+    traced = []
+    for layer, m, k, n, g in W4_SHAPES["w4a16_matmul"]:
+        traced.append((layer, *_k3_breakdown_rows(rng, layer, m, k, n, g, dev, routes), g, n))
+    if routes:
+        with cuda_build.variant("w4a16_matmul", "QDM_K3_TRACE"):
+            for args in traced:
+                _print_k3_phases(*args)
+    del traced
+    forced = _takes(dk.fused_dense_decode_i4, "split")
+    streams = []
+    for label, o, hd, norm, rope, res, group, out_dtype in _k16_cases(dev):
+        m, k = o["x"].shape
+        n = o["w"].shape[1]
+        w_p, ws = _i4_pack(o["w"], group)
+        w_t = dk.transposed_weight(w_p)
+        xn = dk._prologue(o["x"], o["ns"] if norm else None, None, 1e-6, "rmsnorm")
+        a = _static_scale(xn)
+        cos, sin = _rope_rows(n, (n * 9) // 10 // hd * hd, hd, LLM_PROMPT + 31, dev) if rope \
+            else (None, None)
+        kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+                  rope_cos=cos, rope_sin=sin, head_dim=hd, group=group, out_dtype=out_dtype)
+        sets = [(w_p, w_t)] + [(w_p.clone(), w_t.clone()) for _ in range(_copies(k // 2 * n) - 1)]
+        nbytes = k // 2 * n + 4 * (k // group) * n + m * k * 2 + m * n * (4 if out_dtype ==
+                                                                          torch.float32 else 2)
+
+        def fns(split, o=o, ws=ws, a=a, kw=kw, sets=sets):
+            extra = {"split": split} if split else {}
+            return [lambda p_=p_, t_=t_: dk.fused_dense_decode_i4(o["x"], p_, ws, a, w_t=t_,
+                                                                  **kw, **extra)
+                    for p_, t_ in sets]
+        _print_split(f"K16 {label} {m} x {k} -> {n}, planned", _cold_by_kernel(fns(0)), nbytes)
+        if forced and ("o_proj" in label and "TinyLlama" in label or "7B qkv" in label):
+            for sp in BREAKDOWN_I4_SPLITS:
+                _print_split(f"K16 {label}, {sp} block(s) a column tile (forced)",
+                             _cold_by_kernel(fns(sp)), nbytes)
+        if forced:
+            streams.append((label, fns(0), nbytes))
+        wb = _i4_bf16(w_p, ws, group)
+        wbs = [wb] + [wb.clone() for _ in range(_copies(2 * k * n) - 1)]
+        nsb = o["ns"].to(torch.bfloat16)
+
+        def library(w):
+            def fn():
+                xin = torch.nn.functional.rms_norm(o["x"], (k,), nsb, 1e-6) if norm else o["x"]
+                y = torch.matmul(xin, w)
+                return (y + o["res"] if res else y).to(out_dtype)
+            return fn
+        _print_split(f"library at K16's {label} (bf16 weight dequantized beforehand)",
+                     _cold_by_kernel([library(w) for w in wbs]), nbytes)
+        del wbs
+        torch.cuda.empty_cache()
+    if streams:
+        # the same source built with QDM_I4_STREAM_ONLY: the weight and code
+        # stream alone, no products or combine (output not used)
+        with cuda_build.variant("decode_dense_i4", "QDM_I4_STREAM_ONLY"):
+            for label, fns_, nbytes in streams:
+                _print_split(f"K16 {label}, its stream alone", _cold_by_kernel(fns_), nbytes)
+    del streams
+    torch.cuda.empty_cache()
+    rows = {"fused_mlp_decode_i4": [], "fused_o_mlp_decode_i4": []}
+    rng = np.random.default_rng(12)
+    for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
+        from qdm_tpu_torch.api.serve import i4_layout
+        group, _ = i4_layout(c)
+        rows["fused_mlp_decode_i4"].append(
+            _check_mlp_i4(f"{tag} mlp (norm, silu, +res)", rng, b, c.hidden_size,
+                          c.intermediate_size, 512, group, dev, True))
+        rows["fused_o_mlp_decode_i4"].append(
+            _check_o_mlp(f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * c.head_dim,
+                         c.hidden_size, c.intermediate_size, group, dev, True))
+        torch.cuda.empty_cache()
+    _print_rows(rows)
 
 
 def _print_reprofiled() -> None:
@@ -4756,13 +5039,18 @@ def main() -> int:
                          "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
-    ap.add_argument("--breakdown", action="store_true",
+    ap.add_argument("--breakdown", nargs="?", const="all", choices=("all", "w4", "k3"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
                          "quantize kernels, its first pass alone, SDPA), K12-K14 over batch 1, "
                          "8, 32 and T 640, 3072 (planned and forced splits, cold SDPA) and "
-                         "K22 / K23; no other phase, and no result line")
+                         "K22 / K23, then (as `--breakdown w4` alone) K3 at SD1.5's shapes "
+                         "and K16 at its five timed shapes by kernel with the library beside, "
+                         "K16's cluster forced to 1, 2, 4, 8 blocks, and K4, K17, K26 as "
+                         "phase 2 times them; `--breakdown k3`: K3 planned and forced to "
+                         "each route at every SD1.5 UNet shape; no other phase, and no result "
+                         "line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -4776,7 +5064,13 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     if args.breakdown:
-        phase_attention_breakdown(dev)
+        if args.breakdown == "all":
+            phase_attention_breakdown(dev)
+        if args.breakdown == "k3":
+            phase_k3_breakdown(dev)
+        else:
+            phase_w4_breakdown(dev)
+        _print_reprofiled()
         print(smi_line())
         return 0
     kres = phase_kernels(dev)

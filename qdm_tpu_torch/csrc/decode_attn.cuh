@@ -874,19 +874,6 @@ inline cudaError_t launch_split(K kernel, int splits, int pairs, int threads, si
   return cudaGetLastError();
 }
 
-// SMs of the current device, read once a device.
-inline int sm_count() {
-  constexpr int kDevices = 64;
-  static int sms[kDevices] = {};
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 0 && dev < kDevices && sms[dev] > 0) return sms[dev];
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  if (n <= 0) n = 1;
-  if (dev >= 0 && dev < kDevices) sms[dev] = n;
-  return n;
-}
-
 // Blocks of a pair's cluster: `forced` when it is 1 to kMaxSplits (a
 // profile's sweep), else planned: enough that each covers at most
 // kSplitCols of the cols attended columns, 1 to kMaxSplits, but no more
@@ -906,7 +893,7 @@ inline int plan_splits(int forced, int pairs, int cols) {
 inline int tc_stages(int G, int D, bool v_tokens, int splits, int pairs, int cols) {
   const int sms = sm_count();
   const int per_sm = (pairs * splits + sms - 1) / sms;
-  const size_t budget = (size_t)227 * 1024 / (per_sm < 1 ? 1 : per_sm) - 1024;
+  const size_t budget = kSmemMax / (per_sm < 1 ? 1 : per_sm) - 1024;
   const int want = ((cols + splits - 1) / splits + 7 + kTcC - 1) / kTcC;  // a block's chunks
   int st = want < 2 ? 2 : (want > kTcMaxStages ? kTcMaxStages : want);
   while (st > 2 && TcLayout(G, D, v_tokens, splits, st).total > budget) --st;

@@ -269,7 +269,6 @@ constexpr int kQC = 128;           // columns of a ring chunk, 16 a warp
 constexpr int kQCP = kQC + 16;     // padded chunk row (bytes): ldmatrix conflict-free
 constexpr int kQMaxStages = 16;    // ring stages, at most
 constexpr int kQSplitCols = 256;   // columns a block of a planned split covers, at most
-constexpr size_t kQSmemMax = 227 * 1024;
 
 // Shared-memory layout of one attend_q block, in bytes: the ring (NS
 // stages of a K chunk (RP, kQCP) or a V chunk, depth-major like K or
@@ -313,7 +312,7 @@ struct QLayout {
 // a row throughout).  False: no plan fits.
 inline bool plan_q(int forced, int fmt, int G, int D, bool v_tokens, int pairs, int span,
                    int& n, int& LC, int& NS) {
-  const int sms = attn::sm_count();
+  const int sms = sm_count();
   if (forced > 0) {
     n = forced;
   } else {
@@ -327,9 +326,9 @@ inline bool plan_q(int forced, int fmt, int G, int D, bool v_tokens, int pairs, 
     const int per = ((span + n - 1) / n + 15) / 16 * 16;
     const int nch = (per + kQC - 1) / kQC;
     LC = nch * kQC;
-    if (QLayout(fmt, G, D, v_tokens, LC, 2).total <= kQSmemMax) {
+    if (QLayout(fmt, G, D, v_tokens, LC, 2).total <= kSmemMax) {
       const int per_sm = (pairs * n + sms - 1) / sms;
-      const size_t budget = kQSmemMax / (per_sm < 1 ? 1 : per_sm) - 1024;
+      const size_t budget = kSmemMax / (per_sm < 1 ? 1 : per_sm) - 1024;
       NS = 2 * nch < 2 ? 2 : (2 * nch > kQMaxStages ? kQMaxStages : 2 * nch);
       while (NS > 2 && QLayout(fmt, G, D, v_tokens, LC, NS).total > budget) --NS;
       return true;

@@ -390,13 +390,13 @@ struct DenseEpi {
   int out_dtype;
 };
 
-// ys: the TM x BN tile (row stride BN + 4) with bias already added.
+// ys: the rows x BN tile (row stride BN + 4) with bias already added.
 template <int BN>
 __device__ __forceinline__ void finish_tile(const float* ys, int m0, int n0, int M, int N,
-                                            const DenseEpi& ep) {
+                                            const DenseEpi& ep, int rows = TM) {
   constexpr int YS = BN + 4;
   const int half = ep.head_dim / 2;
-  for (int i = threadIdx.x; i < TM * BN; i += blockDim.x) {
+  for (int i = threadIdx.x; i < rows * BN; i += blockDim.x) {
     const int r = i / BN, c = i % BN;
     const int row = m0 + r, col = n0 + c;
     if (row >= M || col >= N) continue;

@@ -8,88 +8,63 @@
 //   y  = y * cos + partner * sin (rope);  y += residual;  -> out dtype
 // W is planar int4 (K/2, N) with f32 scales (K/group, N), passed
 // transposed as (N, K/2) bytes (decode_i4.cuh).  In the w4a8_static engine
-// K16 is the qkv projection (norm + rope) and o_proj (+ residual): at
-// Llama-2-7B width (batch 8, K = 4096) qkv reads 25.2 MB of packed weight
-// and 1.6 MB of scales for N = 12288, o_proj 8.4 MB and 0.5 MB.
+// K16 is the qkv projection (norm + rope) and o_proj (+ residual), and the
+// int4 lm_head: at Llama-2-7B width (batch 8, K = 4096) qkv reads 25.2 MB
+// of packed weight and 1.6 MB of scales for N = 12288, o_proj 8.4 MB and
+// 0.5 MB, the head 65.5 MB; at TinyLlama-1.1B width (batch 32, K = 2048)
+// o_proj reads 2.1 MB.
 //
 // What bounds it on the H100: the weight bytes, 2*B*K*N operations against
-// K*N/2 bytes (32 operations per byte at batch 8, far below the tensor
-// cores' balance of about 590).
+// K*N/2 bytes (32-128 operations per byte at batch 8-32, far below the
+// tensor cores' balance of about 590).  At TinyLlama's o_proj that is
+// 0.8 us of HBM time, so a call is as long as the latency of its one
+// stream and its launches.
 //
-// What the design does about it: a first pass (norm_rows_kernel) writes the
-// B rows' int8 codes to a (B, K) scratch; each block of the second pass owns
-// a 64-column slice of N (128 where the rope needs whole 128-wide heads),
-// streams its packed bytes through the three-stage cp.async ring once per
-// plane, turns 4 packed bytes into two int8 mma.sync operands with one AND
-// each, and applies the scale, rope and residual epilogue from a
-// shared-memory tile.  The second plane re-reads the slice, mostly from L2
-// (the TPU kernel's group order needs every low-plane group summed before
-// the first high-plane group).  Not yet wgmma / TMA or split-K.
+// What the design does about it: a first launch (norm_rows_kernel) writes
+// the B rows' int8 codes to a (B, K) scratch.  The second is the
+// cluster-split group dot of decode_i4_split.cuh: each 64-column tile (128
+// under the 128-wide rope) of 32 rows is cut along K into `split`
+// group-aligned slices, one per block of a cluster, planned here
+// (plan_i4_split: 2 where the blocks stay within the SMs, else 1;
+// TinyLlama o_proj 32 tiles x 2, 7B o_proj 64 x 2, 7B qkv and the heads 1 at
+// batch 8; more blocks, then tiles of 16 or 8 rows, where a block's f32
+// partials would not fit its shared memory: 7B qkv at batch 32 takes 8);
+// each block of 8 warps streams its slice once, both nibble
+// planes from one load, through a ring of 256-byte stages filled by TMA
+// tile loads (16-32 KB of weight a stage), and the clusters add the group
+// partials in the TPU kernel's order through distributed shared memory (0
+// ulp).  The epilogue (* a, rope, residual, output dtype) is finish_tile's.
 
-#include "decode_i4.cuh"
-
-namespace qdm {
-namespace dec {
-
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-dense_i4_kernel(const int8_t* __restrict__ xi, const unsigned char* __restrict__ wt, int M,
-                int K, int N, const float* __restrict__ ws, int group,
-                const float* __restrict__ act_scale, DenseEpi ep) {
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 1> sm;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * BN;
-  const int half = K / 2;
-  const unsigned char* B[1] = {wt};
-  const float* W[1] = {ws};
-  float y[1][2][NJ][4];
-  i4_group_dot_tile<NJ, 1>(y, xi, (size_t)K, 0, half, B, (size_t)half, 0, half, group, W,
-                           (size_t)N, 0, m0, M, n0, N, sm);
-  float* ys = reinterpret_cast<float*>(&sm);
-  const float a = act_scale[0];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, e, r, c);
-        ys[r * (BN + 4) + c] = __fmul_rn(y[0][mi][nj][e], a);
-      }
-  __syncthreads();
-  finish_tile<BN>(ys, m0, n0, M, N, ep);
-}
-
-template <int NJ>
-cudaError_t launch_dense_i4(const int8_t* xi, const unsigned char* wt, int M, int K, int N,
-                            const float* ws, int group, const float* act_scale,
-                            const DenseEpi& ep, cudaStream_t s) {
-  constexpr int BN = NJ * 32;
-  dim3 grid((N + BN - 1) / BN, (M + TM - 1) / TM);
-  dense_i4_kernel<NJ><<<grid, kThreads, 0, s>>>(xi, wt, M, K, N, ws, group, act_scale, ep);
-  return cudaGetLastError();
-}
-
-}  // namespace dec
-}  // namespace qdm
+#include "decode_i4_split.cuh"
 
 using namespace qdm;
 using namespace qdm::dec;
 
 // K16: x (M, K) -> RMSNorm? -> int8 codes with the static scale (scratch) ->
-// the int4 group dot -> * a (+ rope, + residual).
+// the int4 group dot over clusters of `split` blocks (0: planned) -> * a
+// (+ rope, + residual).  plan, if not null, receives the launch's rows a
+// tile, blocks a cluster and stages.
 extern "C" int qdm_decode_dense_i4(const void* x, int x_dtype, const void* wt, const void* ws,
                                    const void* act_scale, const void* ns, float eps,
                                    const void* cos, const void* sin, int head_dim,
                                    const void* res, int res_dtype, void* out, int out_dtype,
-                                   void* xi, int M, int K, int N, int group, void* stream) {
+                                   void* xi, int M, int K, int N, int group, int split,
+                                   int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int half = K / 2;
-  if (K % 2 || half % TK || group <= 0 || group % 32 || half % group)
+  if (M <= 0 || K % 32 || group <= 0 || group % 32 || half % group ||
+      split < 0 || split > kMaxI4Split || split > half / group)
     return (int)cudaErrorInvalidValue;
   if (cos != nullptr && (head_dim <= 0 || (64 % head_dim != 0 && head_dim != 128)))
     return (int)cudaErrorInvalidValue;
+  const int nj = cos != nullptr && head_dim == 128 ? 2 : 1;
+  I4Plan p;
+  if (!plan_i4_split(M, K, N, group, nj * 64, split, p)) return (int)cudaErrorInvalidValue;
+  if (plan != nullptr) {
+    plan[0] = p.tr;
+    plan[1] = p.split;
+    plan[2] = p.stages;
+  }
   const float* a = static_cast<const float*>(act_scale);
   cudaError_t err = launch_norm_rows<true>(x, x_dtype, static_cast<const float*>(ns), nullptr,
                                            ns != nullptr ? kNormRms : kNormNone, eps, a, xi, 0,
@@ -100,7 +75,6 @@ extern "C" int qdm_decode_dense_i4(const void* x, int x_dtype, const void* wt, c
   const auto* codes = static_cast<const int8_t*>(xi);
   const auto* w = static_cast<const unsigned char*>(wt);
   const auto* wsf = static_cast<const float*>(ws);
-  if (cos != nullptr && head_dim == 128)
-    return (int)launch_dense_i4<4>(codes, w, M, K, N, wsf, group, a, ep, s);
-  return (int)launch_dense_i4<2>(codes, w, M, K, N, wsf, group, a, ep, s);
+  if (nj == 2) return (int)launch_dense_i4_split<2>(codes, w, M, K, N, wsf, group, p, a, ep, s);
+  return (int)launch_dense_i4_split<1>(codes, w, M, K, N, wsf, group, p, a, ep, s);
 }

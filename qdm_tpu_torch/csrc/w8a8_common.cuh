@@ -48,6 +48,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// Shared memory of an sm_90 SM, and the most of it one block may opt in to.
+constexpr size_t kSmemSM = 233472;
+constexpr size_t kSmemMax = 232448;
+
+// SMs of the current device, read once a device.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static int sms[kDevices] = {};
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kDevices && sms[dev] > 0) return sms[dev];
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (n <= 0) n = 1;
+  if (dev >= 0 && dev < kDevices) sms[dev] = n;
+  return n;
+}
+
 // Opt a kernel in to `dyn` bytes of dynamic shared memory where that and
 // its `stat` bytes of static shared memory exceed the 48 KB a launch gets
 // without the opt-in.  A refused opt-in (more than the card holds) is

@@ -39,7 +39,7 @@ ENTRY_POINTS = {
     "w8a8_matmul_fused": ("qdm_w8a8_matmul_fused",
                           (P, I, P, P, P, I, P, P, I, I, I, I, P)),
     "w4a16_matmul": ("qdm_w4a16_matmul",
-                     (P, I, P, P, P, P, I, I, I, I, I, I, P)),
+                     (P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P)),
     "w4a8_matmul": ("qdm_w4a8_matmul",
                     (P, I, P, P, P, P, P, P, I, I, I, I, I, P)),
     "decode_dense": ("qdm_decode_dense",
@@ -64,7 +64,7 @@ ENTRY_POINTS = {
                                     (P, I, L, P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I,
                                      I, P)),
     "decode_dense_i4": ("qdm_decode_dense_i4",
-                        (P, I, P, P, P, P, F, P, P, I, P, I, P, I, P, I, I, I, I, P)),
+                        (P, I, P, P, P, P, F, P, P, I, P, I, P, I, P, I, I, I, I, I, P, P)),
     "decode_mlp_i4": ("qdm_decode_mlp_i4",
                       (P, I, P, P, P, P, P, P, P, P, F, I, I, P, I, P, P, P, I, I, I, I, I, P)),
     "decode_o_mlp_i8": ("qdm_decode_o_mlp_i8",

@@ -112,6 +112,7 @@ may cache and pass (the engine keeps only ``w_t`` and passes ``w_t.t()``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -1435,16 +1436,33 @@ def _i4_kernel_group(group: int, half: int, what: str) -> None:
             f"half that is a multiple of 64; got group {group}, half {half}")
 
 
+# K16's cluster split (csrc/decode_i4_split.cuh): at most I4_MAX_SPLIT blocks a
+# cluster, planned in the kernel's C entry
+I4_MAX_SPLIT = 8
+
+
+def i4_split_slices(half: int, group: int, split: int):
+    """The byte ranges [b0, b1) of [0, half) that the blocks of a K16 cluster
+    take: rank r the groups [r * gpp // split, (r + 1) * gpp // split)."""
+    gpp = half // group
+    return [(r * gpp // split * group, (r + 1) * gpp // split * group) for r in range(split)]
+
+
 def fused_dense_decode_i4(x, w_p, w_scale, act_scale, norm_scale=None, residual=None,
                           rope_cos=None, rope_sin=None, head_dim: int = 0, eps: float = 1e-6,
                           group: int = 128, out_dtype=None, w_t: Optional[torch.Tensor] = None,
-                          scratch: Optional[torch.Tensor] = None):
+                          scratch: Optional[torch.Tensor] = None, split: int = 0,
+                          trace: Optional[dict] = None):
     """int4 :func:`fused_dense_decode` (K16): x (B, K), optional RMSNorm,
     int8 codes with the static act scale (1,), planar int4 weight w_p
     (K/2, N) (:func:`pack_int4_planar`, block 0) with f32 group scales
     (K/group, N); then the rope epilogue and a residual.  w_t, if given,
     is the (N, K/2) transpose of w_p; scratch the (B, K) int8 tensor that
-    receives the activation codes."""
+    receives the activation codes.  On the card: ``split`` 1-8 forces the
+    kernel's cluster size (tests and profiles only: the result is the same;
+    0 lets the C entry plan it), and ``trace``, a dict, receives the
+    launch's plan, ``{"rows": rows of x a tile, "split": blocks a cluster,
+    "stages": the ring's}``."""
     out_dtype = out_dtype or x.dtype
     if not _on_card(x, "fused_dense_decode_i4"):
         return fused_dense_decode_i4_plain(x, w_p, w_scale, act_scale, norm_scale, residual,
@@ -1463,14 +1481,19 @@ def fused_dense_decode_i4(x, w_p, w_scale, act_scale, norm_scale=None, residual=
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
+    _splits_ok(split)
     xi = _scratch(scratch, (m, k), x.device)
+    plan = (ctypes.c_int * 3)()
     fn = cuda_build.kernel("decode_dense_i4")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), ws.data_ptr(), a.data_ptr(),
                  _ptr(ns), ctypes.c_float(eps), _ptr(cos), _ptr(sin), int(head_dim), _ptr(res),
                  _DTYPE_CODE[res.dtype] if res is not None else 0, out.data_ptr(),
-                 _DTYPE_CODE[out_dtype], xi.data_ptr(), m, k, n, int(group), _stream(x))
+                 _DTYPE_CODE[out_dtype], xi.data_ptr(), m, k, n, int(group), int(split),
+                 ctypes.addressof(plan), _stream(x))
     cuda_build.check(err, "fused_dense_decode_i4")
+    if trace is not None:
+        trace.update(rows=plan[0], split=plan[1], stages=plan[2])
     qmm.LAUNCHES["fused_dense_decode_i4"] += 1
     return out
 

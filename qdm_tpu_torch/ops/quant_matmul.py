@@ -25,7 +25,7 @@ and W4A8 paths:
 * :func:`w4a16_matmul` — block-strided int4 weights, group dequant
   ``(code - zero) * scale`` rounded to x's dtype, GEMM with f32
   accumulation.  CUDA kernel ``csrc/w4a16_matmul.cu`` (replaces
-  ``w4a16_matmul_pallas``).
+  ``w4a16_matmul_pallas``), launched as :func:`w4a16_plan` says.
 * :func:`w4a8_matmul` — the same weights, per-token int8 x, exact int32
   partial per 128-row K block, ``acc += partial * scale`` in f32, then
   ``acc * xs``.  CUDA kernel ``csrc/w4a8_matmul.cu`` (replaces
@@ -50,6 +50,7 @@ Packed weight layouts (identical bytes to the JAX package):
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -632,11 +633,150 @@ def _check_w4_operands(x, qweight, scales, zeros, group_size, what):
     return kp, np_
 
 
+# K3's plan (csrc/w4a16_matmul.cu): tiles of W4_BM rows and one of W4_BNS
+# columns, K in chunks of W4_KC; routes, limits and the shared-memory layout
+# mirror the kernel's Layout.
+W4_BM, W4_KC = 128, 64
+W4_BNS = (192, 160, 128, 80, 64)
+W4_RESIDENT, W4_STREAMED, W4_REGISTERS = 0, 1, 2
+W4_RS_TOKENS, W4_RS_FEAT = 128, 128  # the register route: tokens x columns a tile
+W4_MAX_STAGES, W4_MAX_SPLIT, W4_MAX_RES_CHUNKS = 6, 8, 40
+SMEM_MAX = 232448          # bytes of shared memory an sm_90 block may opt in to
+_SMS = {}
+
+
+def sm_count(dev) -> int:
+    """SMs of CUDA device ``dev``, read once."""
+    i = torch.device(dev).index
+    i = torch.cuda.current_device() if i is None else i
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def w4a16_smem(route: int, bn: int, split: int, stages: int, nk: int) -> int:
+    """Bytes of dynamic shared memory K3 asks for (the kernel's Layout and
+    RsLayout): the x ring (16 KB stages; the register route's of bn tokens)
+    or, split, the f32 partials the ranks exchange; for the shared-memory
+    routes the weight (resident: the block's chunks; streamed: a ring), the
+    epilogue's staging rows and two buffers of a chunk's packed words with
+    their scale and zero rows; for the register route its two transposed
+    staging tiles; the barriers and 1024 bytes of alignment."""
+    if route == W4_REGISTERS:     # bn: the tile's tokens; no split
+        return 1024 + stages * bn * 128 + 2 * bn * 144 + 16 * stages
+    ncb = _cdiv(nk, split)
+    ring = _round_up(max(stages * W4_BM * W4_KC * 2, 512 * bn if split > 1 else 0), 1024)
+    b = (ncb if route == W4_RESIDENT else stages) * bn * 128
+    staging = _round_up(2 * 64 * (2 * bn + 16), 16)
+    words = 2 * (16 + 2 * 4) * bn * 4
+    bars = 8 * (2 * stages + (ncb if route == W4_RESIDENT else 0) + 1)
+    return 1024 + ring + b + staging + words + bars
+
+
+def w4a16_route_plan(route: int, bn: int, m: int, k: int, n_out: int, sms: int,
+                     split: int = 0, grid: int = 0) -> Optional[Tuple[int, int, int, int, int]]:
+    """K3's launch plan ``(route, bn, split, stages, grid)`` on one route at
+    tile width ``bn`` (the register route: its tile's tokens), or None where
+    that does not fit.  ``split``: the cluster over K, or 0 to double it from
+    1 while the blocks stay within the SMs and each keeps two chunks (the
+    register route takes none); the ring gets the most stages (2-6, the
+    streamed route at least 3) that shared memory holds; ``grid``: the blocks
+    of an unsplit plan, or 0 for one a tile up to one an SM."""
+    nk = _cdiv(k, W4_KC)
+    rows, cols = (bn, W4_RS_FEAT) if route == W4_REGISTERS else (W4_BM, bn)
+    tiles = _cdiv(m, rows) * _cdiv(n_out, cols)
+    if not split:
+        split = 1
+        while (route != W4_REGISTERS and 2 * split <= min(W4_MAX_SPLIT, nk // 2)
+               and 2 * split * tiles <= sms):
+            split *= 2
+    if (route == W4_REGISTERS and split > 1) or (
+            route == W4_RESIDENT and _cdiv(nk, split) > W4_MAX_RES_CHUNKS):
+        return None
+    fits = [st for st in range(3 if route == W4_STREAMED else 2, W4_MAX_STAGES + 1)
+            if w4a16_smem(route, bn, split, st, nk) <= SMEM_MAX]
+    if not fits:
+        return None
+    return route, bn, split, fits[-1], tiles * split if split > 1 else grid or min(tiles, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def w4a16_plan(m: int, k: int, n_out: int, sms: int, group: int = 128
+               ) -> Tuple[int, int, int, int, int]:
+    """K3's launch plan ``(route, bn, split, stages, grid)`` for bf16 x (M, K)
+    and n_out output columns on a card of ``sms`` SMs.
+
+    Three routes: the weight resident in shared memory (128-row tiles of bn
+    columns, dequantized once per block and column tile), streamed through
+    it (dequantized per tile by a producer warpgroup), or in registers (the
+    register route: tiles of 128 tokens by 128 columns, the consumers
+    dequantizing wgmma's A fragments; group 16 or more, no split).  The rule
+    is the one the card gave at the 19 shapes of the SD1.5 UNet's dense
+    layers with each route forced (PERF.md §6, ``chip_smoke.py --breakdown
+    k3``), in this order:
+
+    1. the weight resident and unsplit in the widest tile of 128 columns or
+       more that holds the whole of K, where those tiles are at least as
+       many as the SMs (K 320 at 16384 rows: to_qkv 55 us, register route
+       73, streamed 91);
+    2. else the register route where its tiles outnumber an eighth of the
+       SMs (every other shape of 1024 rows or more, and 256 x 1280 -> 1280
+       on its 20 tiles: 30 us, the split plans 41 and 62);
+    3. else, of the register route and, at each tile width, the resident
+       route (streamed where the resident weight does not fit) with its
+       split, the plan that puts the most SMs to work, then the smaller
+       cluster, then the widest tile (attn2/to_kv at 640 columns: 16 us
+       resident in 64 columns split 4, 19 on the register route's 15
+       tiles).
+    Two shapes lose up to 8% to another measured plan (4096 x 640 -> 5120,
+    256 x 5120 -> 1280)."""
+    def plan(route, bn):
+        return w4a16_route_plan(route, bn, m, k, n_out, sms)
+
+    shared = [p for p in (plan(W4_RESIDENT, bn) or plan(W4_STREAMED, bn) for bn in W4_BNS) if p]
+    for p in shared:
+        if p[0] == W4_RESIDENT and p[1] >= 128 and p[4] == sms:
+            return p
+    rs = plan(W4_REGISTERS, W4_RS_TOKENS) if group >= 16 else None
+    if rs and 8 * rs[4] > sms:
+        return rs
+    cands = shared + ([rs] if rs else [])
+    if not cands:
+        raise ValueError(f"K3 has no plan that fits shared memory at M {m}, K {k}, N {n_out}")
+
+    def area(p):
+        return W4_RS_TOKENS * W4_RS_FEAT if p[0] == W4_REGISTERS else W4_BM * p[1]
+
+    return max(cands, key=lambda p: (p[4], -p[2], area(p)))
+
+
+def w4a16_units(plan, m: int, k: int, n_out: int):
+    """The work of each block of a plan, as the kernel walks it: per block a
+    list of (m0, n0, kc0, kc1), output tile rows m0.., columns n0.. and K
+    chunks [kc0, kc1)."""
+    route, bn, split, stages, grid = plan
+    rows, cols = (bn, W4_RS_FEAT) if route == W4_REGISTERS else (W4_BM, bn)
+    nk, tiles_m, tiles_n = _cdiv(k, W4_KC), _cdiv(m, rows), _cdiv(n_out, cols)
+    tiles = tiles_m * tiles_n
+
+    def tile(t):  # N-major for the shared-memory routes, column-minor for the register one
+        if route == W4_REGISTERS:
+            return (t // tiles_n) * rows, (t % tiles_n) * cols
+        return (t % tiles_m) * rows, (t // tiles_m) * cols
+
+    if split > 1:
+        return [[(*tile(b // split), (b % split) * nk // split, (b % split + 1) * nk // split)]
+                for b in range(tiles * split)]
+    return [[(*tile(t), 0, nk) for t in range(b * tiles // grid, (b + 1) * tiles // grid)]
+            for b in range(grid)]
+
+
 def w4a16_matmul(x, qweight, scales, zeros, group_size: int = 128,
-                 n_out: Optional[int] = None):
+                 n_out: Optional[int] = None, plan: Optional[Tuple[int, ...]] = None):
     """x (M, K) through a packed int4 weight (K'/8, N') -> (M, n_out) in
     x's dtype (n_out defaults to N').  zeros None means symmetric codes
-    (zero point 8)."""
+    (zero point 8).  ``plan`` forces K3's launch plan for bf16 x (tests
+    only; :func:`w4a16_plan` otherwise)."""
     n_out = n_out or qweight.shape[1]
     if x.device.type == "cpu":
         _check_w4_group(group_size, qweight.shape[0] * 8, scales.shape[0])
@@ -646,7 +786,7 @@ def w4a16_matmul(x, qweight, scales, zeros, group_size: int = 128,
         raise ValueError(f"n_out {n_out} > N' {np_}")
     x = x.contiguous()
     m, k = x.shape
-    # the kernel copies x in 16-byte chunks: pad K to whole chunks
+    # rows of whole 16-byte chunks (the bf16 kernel's tensor map, the f32 kernel's copies)
     chunk = 16 // x.element_size()
     if k % chunk:
         x = torch.nn.functional.pad(x, (0, _round_up(k, chunk) - k))
@@ -654,11 +794,15 @@ def w4a16_matmul(x, qweight, scales, zeros, group_size: int = 128,
     out = torch.empty((m, n_out), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
+    if x.dtype != torch.bfloat16:
+        plan = (0, 0, 1, 2, 1)       # the f32 kernel takes no plan
+    elif plan is None:
+        plan = w4a16_plan(m, k, n_out, sm_count(x.device), group_size)
     fn = cuda_build.kernel("w4a16_matmul")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], qweight.data_ptr(), scales.data_ptr(),
                  zeros.data_ptr() if zeros is not None else None, out.data_ptr(),
-                 m, k, kp, np_, n_out, group_size,
+                 m, k, kp, np_, n_out, group_size, *plan,
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w4a16_matmul")
     LAUNCHES["w4a16_matmul"] += 1

@@ -129,6 +129,89 @@ def test_w4a16_kernel_matches_plain_on_card(m, k, k_pack, n, g, dtype, zero_poin
         assert float(diff.max()) <= tol
 
 
+def _cuda_launches(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches: the nodes of a CUDA graph
+    captured around a second call."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t(0)
+    rt = ctypes.CDLL("libcudart.so.12")
+    assert rt.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                                ctypes.byref(n)) == 0
+    return n.value
+
+
+def _w4a16_forced(m, k, n, route, bn, split, grid=0):
+    """A K3 plan with the given route, tile width and split, the deepest
+    ring that fits, and (split 1) ``grid`` blocks or one a tile up to one an
+    SM of the H100."""
+    plan = qmm.w4a16_route_plan(route, bn, m, k, n, 132, split, grid)
+    assert plan is not None
+    return plan
+
+
+R_, S_, G_ = 0, 1, 2
+# K3's routes forced: (M, K, K_pack, N, G, route, bn, split, grid): ragged M and N
+# (n_out < N'), K not a multiple of 16, G 32 / 64 / 128 / 256, every tile width
+# (the register route's tiles: 128 tokens), clusters splitting K, blocks
+# whose tiles span two N tiles, and more blocks than SMs (one a tile)
+W4A16_ROUTE_CASES = [
+    (300, 200, 256, 130, 32, R_, 64, 1, 0), (300, 200, 256, 130, 32, S_, 64, 1, 0),
+    (37, 328, 384, 200, 64, R_, 80, 2, 0), (37, 328, 384, 200, 64, S_, 80, 2, 0),
+    (1030, 1280, 1280, 2560, 128, R_, 64, 1, 360), (1030, 1280, 1280, 600, 128, S_, 160, 1, 0),
+    (260, 776, 1024, 384, 256, R_, 64, 1, 0), (260, 776, 1024, 384, 256, S_, 192, 1, 0),
+    (19, 2048, 2048, 320, 128, S_, 128, 4, 0), (19, 2048, 2048, 320, 128, R_, 64, 4, 0),
+    (513, 256, 256, 960, 64, R_, 192, 1, 0), (2048, 320, 384, 960, 64, R_, 128, 1, 7),
+    (2048, 1280, 1280, 320, 128, S_, 160, 1, 5),
+    (300, 200, 256, 130, 32, G_, 128, 1, 0), (37, 328, 384, 200, 64, G_, 128, 1, 0),
+    (1030, 1280, 1280, 600, 128, G_, 128, 1, 0), (260, 776, 1024, 384, 256, G_, 128, 1, 0),
+    (19, 2048, 2048, 320, 128, G_, 128, 1, 0), (2048, 320, 384, 960, 64, G_, 128, 1, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,k_pack,n,g,route,bn,split,grid", W4A16_ROUTE_CASES)
+def test_w4a16_routes_match_plain_on_card(m, k, k_pack, n, g, route, bn, split, grid):
+    """K3 with its plan forced to each route, tile width and split: within 1
+    bf16 ulp or 1e-5 of the magnitude of the plain version, one launch."""
+    dev = _card()
+    x, qw, s, z = _w4_operands(m, k, k_pack, n, g, True, dev, torch.bfloat16)
+    plan = _w4a16_forced(m, k, n, route, bn, split, grid)
+    before = qmm.LAUNCHES["w4a16_matmul"]
+    got = qmm.w4a16_matmul(x, qw, s, z, g, n_out=n, plan=plan)
+    want = qmm.w4a16_matmul_plain(x, qw, s, z, g, n_out=n)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["w4a16_matmul"] == before + 1
+    assert got.shape == want.shape == (m, n) and got.dtype == torch.bfloat16
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 * float(want.float().abs().max())
+    assert bool(((_ulps(got, want) <= 1) | (diff <= tol)).all()), float(diff.max())
+    assert _cuda_launches(lambda: qmm.w4a16_matmul(x, qw, s, z, g, n_out=n, plan=plan)) == 1
+
+
+@pytest.mark.cuda
+def test_w4a16_check_flags_a_scale_row_fault_on_card():
+    """One group-scale row 1e-2 off makes K3 differ from the plain version
+    beyond its tolerance."""
+    dev = _card()
+    x, qw, s, z = _w4_operands(1030, 1280, 1280, 640, 128, True, dev, torch.bfloat16)
+    want = qmm.w4a16_matmul_plain(x, qw, s, z, 128, n_out=640)
+    bad = s.clone()
+    bad[3] *= 1.0 + 1e-2
+    got = qmm.w4a16_matmul(x, qw, bad, z, 128, n_out=640)
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 * float(want.float().abs().max())
+    assert not bool(((_ulps(got, want) <= 1) | (diff <= tol)).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("zero_point", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -650,6 +733,9 @@ DEC_I4_DENSE_CASES = [
     (8, 4096, 512, 128, 0, False, True, False, True),       # o_proj (+res)
     (5, 128, 96, 64, 16, True, True, True, False),          # tiny f32, group 64
     (33, 256, 128, 32, 0, False, False, True, True),
+    (32, 4096, 768, 128, 128, True, False, False, True),    # 7B qkv slice, batch 32 and 64:
+    (64, 4096, 768, 128, 128, True, False, False, True),    # clusters of 5 blocks
+    (24, 8192, 256, 32, 128, True, True, True, True),       # group 32: tiles of 8 rows
 ]
 
 
@@ -675,6 +761,40 @@ def test_decode_dense_i4_kernel_matches_plain_on_card(m, k, n, group, hd, norm, 
                                                          "rmsnorm"), a))
     assert got.dtype == want.dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
+
+
+# K16 with its cluster forced: (M, K, N, group, rope head_dim, norm, residual)
+I4_SPLIT_SHAPES = [(32, 2048, 512, 128, 0, False, True),      # TinyLlama o_proj slice
+                   (8, 4096, 768, 128, 128, True, False),     # 7B qkv slice, rope 128
+                   (32, 4096, 768, 128, 128, True, False),    # batch 32 and 64: tiles of 16
+                   (64, 4096, 768, 128, 128, True, False)]    # rows at 1 to 4 blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("m,k,n,group,hd,norm,res", I4_SPLIT_SHAPES)
+def test_decode_dense_i4_forced_splits_on_card(m, k, n, group, hd, norm, res, split):
+    """K16 with 1-8 blocks a column tile: codes identical, outputs equal to
+    the plain version, two CUDA launches (the norm pass and the group dot)."""
+    dev = _card()
+    o = _dense_operands(m, k, n, m + k + n + split, dev, torch.bfloat16, hd)
+    w_p, ws = _i4_pack(o["w"], group)
+    a = torch.tensor([0.015], device=dev)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=o["cos"] if hd else None, rope_sin=o["sin"] if hd else None, head_dim=hd,
+              group=group)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    before = qmm.LAUNCHES["fused_dense_decode_i4"]
+    got = dk.fused_dense_decode_i4(o["x"], w_p, ws, a, scratch=xi, split=split, **kw)
+    want = dk.fused_dense_decode_i4_plain(o["x"], w_p, ws, a, **kw)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["fused_dense_decode_i4"] == before + 1
+    assert torch.equal(xi, dk._quant_static(dk._prologue(o["x"], kw["norm_scale"], None, 1e-6,
+                                                         "rmsnorm"), a))
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    w_t = dk.transposed_weight(w_p)
+    assert _cuda_launches(lambda: dk.fused_dense_decode_i4(o["x"], w_p, ws, a, w_t=w_t,
+                                                           split=split, **kw)) == 2
 
 
 # (M, K, I, block_j, group, norm, act, residual, out f32, x bf16)

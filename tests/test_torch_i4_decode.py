@@ -201,3 +201,80 @@ def test_i4_wrappers_raise_off_cpu_and_card():
                                      for s in ((64, 256), (64, 256), (128, 128))),
                                 (torch.ones((2, 256)), torch.ones((2, 256)), torch.ones((4, 128))),
                                 torch.ones(2), None, group=64)
+
+
+# K16's cluster split: (M, K, N, group, rope 128) at the 7B and TinyLlama
+# serving shapes (7B qkv at batch 8, 32 and 64), their int4 heads and tiny
+# widths
+I4_PLAN_SHAPES = [(8, 4096, 12288, 128, True), (8, 4096, 4096, 128, False),
+                  (32, 4096, 12288, 128, True), (64, 4096, 12288, 128, True),
+                  (32, 2048, 2560, 128, False), (32, 2048, 2048, 128, False),
+                  (8, 4096, 32000, 128, False), (32, 2048, 32000, 128, False),
+                  (B, K, N, 64, False), (5, 128, 96, 64, False), (33, 256, 128, 32, False)]
+
+
+@pytest.mark.parametrize("m,k,n,group,rope128", I4_PLAN_SHAPES)
+def test_i4_split_plan_gives_group_aligned_slices(m, k, n, group, rope128):
+    """For every cluster the kernel may take (1 to 8 blocks, at most the
+    groups a plane holds), the slices are group-aligned and cover the planar
+    half [0, K/2) in order without overlap."""
+    half, gpp = k // 2, k // 2 // group
+    for split in range(1, min(tdk.I4_MAX_SPLIT, gpp) + 1):
+        slices = tdk.i4_split_slices(half, group, split)
+        assert len(slices) == split and slices[0][0] == 0 and slices[-1][1] == half
+        assert all(b0 % group == 0 and b0 < b1 for b0, b1 in slices)
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+
+
+def _split_dot(xi, w_p, w_scale, a, group, split):
+    """The cluster-split kernel's arithmetic (csrc/decode_i4_split.cuh): each
+    slice's per-group f32 partials c[plane][g] = f32(int32 dot) * scale; rank
+    0's low partials added in registers (the prefix); then the slots in order
+    (the prefix, the other low partials, every high partial) added left to
+    right; times a."""
+    half = w_p.shape[0]
+    gpp = half // group
+    p32 = w_p.to(torch.int32)
+    planes = ((p32 << 28) >> 28, p32 >> 4)
+
+    def part(plane, g):
+        r0 = g * group
+        codes = xi[:, plane * half + r0:plane * half + r0 + group]
+        acc = qmm.int8_matmul_exact(codes, planes[plane][r0:r0 + group].to(torch.int8))
+        return acc.to(torch.float32) * w_scale[plane * gpp + g]
+
+    lo = [r * gpp // split for r in range(split + 1)]
+    prefix = part(0, 0)
+    for g in range(1, lo[1]):
+        prefix = prefix + part(0, g)
+    slots = [prefix] + [part(0, g) for g in range(lo[1], gpp)] + [part(1, g) for g in range(gpp)]
+    y = slots[0]
+    for c in slots[1:]:
+        y = y + c
+    return y * a
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_i4_split_combine_keeps_the_tpu_order(split):
+    """The split arithmetic equals the plain version bit for bit (tolerance
+    0) for 1, 2, 4 and 8 blocks.  Against the Pallas kernel run in interpret
+    mode on the same codes and packs (an f32 output without norm, rope or
+    residual) it is within the file's 2e-6 of the magnitude: both add the
+    same partials in the same order, but XLA's CPU code fuses a partial's
+    scale multiply into its add, which rounds once where the kernels and
+    the plain version round twice."""
+    k, n, group = 512, 128, 32                             # 8 groups a plane
+    rng = np.random.default_rng(split)
+    x = (rng.standard_normal((B, k)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    codes, scales = jdk.quantize_int4_group(jnp.asarray(w), group)
+    w_p, ws = _t(np.asarray(jdk.pack_int4_planar(codes))), _t(np.asarray(scales))
+    a = torch.tensor([0.012])
+    xi = tdk._quant_static(_t(x), a)
+    got = _split_dot(xi, w_p, ws, a, group, split)
+    assert torch.equal(got, tdk.i4_group_dot_plain(xi, w_p, ws, a, group))
+    assert torch.equal(got, tdk.fused_dense_decode_i4_plain(_t(x), w_p, ws, a, group=group))
+    want = jdk.fused_dense_decode_i4_pallas(jnp.asarray(x), jnp.asarray(w_p.numpy()),
+                                            jnp.asarray(ws.numpy()), jnp.asarray(a.numpy()),
+                                            group=group, out_dtype=jnp.float32, interpret=True)
+    _close(got.numpy(), want)

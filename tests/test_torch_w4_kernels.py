@@ -176,3 +176,59 @@ def test_w4_wrappers_refuse_other_devices_and_groups():
     xc, qwc, sc, _ = _w4_operands(4, 128, 128, 64, False, seed=0)
     with pytest.raises(ValueError, match="group_size == 128"):
         tqmm.w4a8_matmul(torch.from_numpy(xc), qwc, sc, None, 64)
+
+
+# K3's launch plan (w4a16_plan): SD1.5's four shapes (as chip_smoke.py times
+# them), this file's and the card tests' small ones
+SD15_W4A16 = [(16384, 320, 960), (16384, 1280, 320), (308, 768, 640), (1024, 5120, 1280)]
+PLAN_SHAPES = SD15_W4A16 + [(m, k, n) for m, k, n, _ in W4A16_CASES] + [
+    (5, 192, 130), (300, 640, 640), (1030, 1280, 2560), (19, 200, 256), (4096, 640, 1920)]
+SMS = 132
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_w4a16_plan_covers_every_tile_once(m, k, n):
+    """Every output tile of the plan is computed, over the whole of K in
+    contiguous chunk ranges that do not overlap; every launched block has
+    work, and a persistent grid has at most one block an SM."""
+    plan = tqmm.w4a16_plan(m, k, n, SMS)
+    route, bn, split, stages, grid = plan
+    rows, cols = (bn, tqmm.W4_RS_FEAT) if route == tqmm.W4_REGISTERS else (tqmm.W4_BM, bn)
+    nk = -(-k // tqmm.W4_KC)
+    units = tqmm.w4a16_units(plan, m, k, n)
+    assert all(units) and (len(units) == grid <= SMS if split == 1 else split <= 8)
+    seen = {}
+    for work in units:
+        for m0, n0, kc0, kc1 in work:
+            seen.setdefault((m0, n0), []).append((kc0, kc1))
+    assert set(seen) == {(i * rows, j * cols) for i in range(-(-m // rows))
+                         for j in range(-(-n // cols))}
+    for ranges in seen.values():
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == nk
+        assert all(a0 < a1 for a0, a1 in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_w4a16_plan_fits_shared_memory(m, k, n):
+    """The plan's block fits the 227 KB an sm_90 block may use, with the
+    deepest ring that does; the resident route holds the block's whole K."""
+    route, bn, split, stages, _ = tqmm.w4a16_plan(m, k, n, SMS)
+    nk = -(-k // tqmm.W4_KC)
+    assert tqmm.w4a16_smem(route, bn, split, stages, nk) <= tqmm.SMEM_MAX
+    assert (stages == tqmm.W4_MAX_STAGES
+            or tqmm.w4a16_smem(route, bn, split, stages + 1, nk) > tqmm.SMEM_MAX)
+    if route == tqmm.W4_RESIDENT:
+        assert -(-nk // split) <= tqmm.W4_MAX_RES_CHUNKS
+
+
+# ff/net_2 at 1024 rows (1024 x 5120 -> 1280) is left out: there the register
+# route's 80 tiles measured faster on the card than the 128-block plans of the
+# shared-memory routes (PERF.md §6), so the plan takes them
+@pytest.mark.parametrize("m,k,n", SD15_W4A16[:3])
+def test_w4a16_plan_keeps_the_sms_busy_at_sd15_shapes(m, k, n):
+    """At least 90% of the SMs get a tile (or a K slice of one):
+    attn2/to_kv's 308 rows through a cluster split of K."""
+    plan = tqmm.w4a16_plan(m, k, n, SMS)
+    assert min(len(tqmm.w4a16_units(plan, m, k, n)), SMS) >= 0.9 * SMS
