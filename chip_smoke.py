@@ -7,6 +7,8 @@
                                       # device time by kernel, nothing else
     python3 chip_smoke.py --breakdown w4  # the build, then K3's and K16's (with K4,
                                       # K17, K26 beside) alone
+    python3 chip_smoke.py --breakdown k4k9  # the build, then K4's (every group-128 UNet
+                                      # shape, its traced phases) and K9's alone
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -342,7 +344,7 @@ L7_WANT = {
     "bf16": {"fused_dense_decode": 2, "decode_attention_kv_flash": 1, "fused_mlp_decode": 1},
 }
 LONG_KERNELS = ("flash_prefill_gqa", "decode_attention_kv_flash", "fused_mlp_decode")
-I4_FAULT = 1e-3               # relative error planted into one int4 group-scale row of K16
+I4_FAULT = 1e-3               # relative error planted into one int4 group-scale row of K16, K4
 W4_FAULT = 1e-2               # relative error planted into one group-scale row of K3
 O_MLP_FAULT = 1e-3            # relative error planted into one o_proj scale row of K25 / K26
 AO_FAULT = 1.01               # factor planted into K25 / K26's a_o
@@ -573,6 +575,18 @@ def phase_w4_kernels(dev) -> dict:
                 fail(f"{name} {layer}: {ulps} bf16 ulps from the plain version "
                      f"(max abs err {err}, output magnitude {mag})")
             plan = ""
+            if w4a8:
+                # planted: a group-scale row I4_FAULT off must move the output off the plain one
+                bad_s = s.clone()
+                bad_s[s.shape[0] // 2] *= 1.0 + I4_FAULT
+                if torch.equal(qmm.w4a8_matmul(x, qw, bad_s, z, g, n_out=n), ref):
+                    fail(f"{name} {layer}: the check misses a group-scale row off by "
+                         f"{I4_FAULT:g} (planted)")
+                del bad_s
+                if hasattr(qmm, "w4a8_plan"):
+                    bt, stages, grid = qmm.w4a8_plan(m, n, qmm.sm_count(dev))
+                    plan = f" [128 features x {bt} tokens a tile, {stages} stages, {grid} blocks]"
+                plan += f"; a group-scale row off by {I4_FAULT:g} (planted): flagged"
             if not w4a8:
                 # planted: a group-scale row W4_FAULT off must take the output beyond
                 # the tolerance
@@ -1148,7 +1162,7 @@ def phase_long_kernels(dev, res: dict) -> dict:
     T = -(-(L7_PROMPT + L7_NEW) // 128) * 128
     long = {name: [] for name in LONG_KERNELS}
     for args in (("7B prefill (rope)", B, h, hkv, L7_PROMPT, hd, True, None, True),
-                 ("GQA bench (rope)", 32, 32, 4, 1024, 64, True, None, False),
+                 ("GQA bench (rope)", 32, 32, 4, 1024, 64, True, None, True),
                  ("starts", 2, 8, 2, 1024, 128, True, (0, 300), False),
                  ("rope off", 2, 4, 4, 1024, 64, False, None, False)):
         long["flash_prefill_gqa"].append(_check_flash_prefill(*args[:-1], dev, args[-1]))
@@ -2687,6 +2701,19 @@ K3_PHASES = ("consumers waiting for x", "waiting for the resident weight", "in w
              "dequantizing", "in all")
 
 
+def _variant_lib(name: str, define: str):
+    """The loaded library of kernel ``name``'s build with ``-D<define>``
+    (an older tree's cuda_build names it without the sources' hash)."""
+    import ctypes
+
+    from qdm_tpu_torch.ops import cuda_build
+
+    if hasattr(cuda_build, "variant_path"):
+        return ctypes.CDLL(str(cuda_build.variant_path(name, define)))
+    return ctypes.CDLL(str(cuda_build.BUILD_DIR / f"lib{cuda_build.source(name)}_"
+                           f"{define.lower()}.so"))
+
+
 def _print_k3_phases(layer, x, qw, sc, z, g, n) -> None:
     """K3's planned launch in the build with QDM_K3_TRACE
     (csrc/w4a16_matmul.cu; the caller holds the variant): SM cycles a block
@@ -2695,14 +2722,13 @@ def _print_k3_phases(layer, x, qw, sc, z, g, n) -> None:
     trace)."""
     import ctypes
 
-    from qdm_tpu_torch.ops import cuda_build
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
     m, k = x.shape
     plan = qmm.w4a16_plan(m, k, n, qmm.sm_count(x.device), g)
     if plan[0] == qmm.W4_REGISTERS:
         return
-    lib = ctypes.CDLL(str(cuda_build.BUILD_DIR / "libw4a16_matmul_qdm_k3_trace.so"))
+    lib = _variant_lib("w4a16_matmul", "QDM_K3_TRACE")
     for _ in range(3):
         qmm.w4a16_matmul(x, qw, sc, z, g, n_out=n)
     torch.cuda.synchronize()
@@ -2859,6 +2885,169 @@ def phase_w4_breakdown(dev) -> None:
                          c.hidden_size, c.intermediate_size, group, dev, True))
         torch.cuda.empty_cache()
     _print_rows(rows)
+
+
+# --breakdown k4k9: K4 at every group-128 SD1.5 UNet shape, K9 at the 7B and
+# GQA bench prefills
+K4_PHASES = ("consumers waiting for x", "unpacking, in wgmma", "folding",
+             "in the epilogue", "in all", "producer waiting for a free stage", "-", "in all")
+K9_BENCH = (("7B prefill (rope)", 8, 32, 32, 2048, 128), ("GQA bench (rope)", 32, 32, 4, 1024, 64))
+K9_PHASES = ("consumers waiting for and roping q", "waiting for K and their turn",
+             "issuing Q K^T (and the previous P V) and waiting for Q K^T",
+             "in the softmax (their exponential turn included)", "waiting for P V and V",
+             "in the last P V and the epilogue", "in all", "producer waiting for a free stage")
+
+
+def _print_k9_phases(label, fn, blocks) -> None:
+    """K9's launch in the build with QDM_K9_TRACE (csrc/flash_prefill.cu;
+    the caller holds the variant): SM cycles a block spends in each phase,
+    the mean over blocks (consumer warpgroup 0's thread 0 and the
+    producer's thread)."""
+    import ctypes
+
+    lib = _variant_lib("flash_prefill", "QDM_K9_TRACE")
+    fn()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (blocks * 8))()
+    if lib.qdm_flash_prefill_trace(buf, blocks) != 0:
+        fail("reading K9's phase trace")
+    t = np.array(buf, dtype=np.float64).reshape(blocks, 8).mean(axis=0) / 1e3
+    print(f"breakdown: K9 {label} phases (a build with -DQDM_K9_TRACE), k SM cycles a block: "
+          + "; ".join(f"{name} {v:.1f}" for name, v in zip(K9_PHASES, t)), flush=True)
+
+
+def _k4_forced_plans(m, n, sms):
+    """K4's plan with each tile width forced."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    return [qmm.w4a8_route_plan(bt, m, n, sms) for bt in qmm.W4A8_BTS]
+
+
+def _print_k4_phases(layer, x, qw, sc, z, n) -> None:
+    """K4's planned launch in the build with QDM_K4_TRACE
+    (csrc/w4a8_matmul.cu; the caller holds the variant): SM cycles a block
+    spends in each phase, the mean over blocks (consumer warpgroup 0's
+    thread 0 and the producer's thread)."""
+    import ctypes
+
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    m = x.shape[0]
+    blocks = qmm.w4a8_plan(m, n, qmm.sm_count(x.device))[2]
+    lib = _variant_lib("w4a8_matmul", "QDM_K4_TRACE")
+    for _ in range(3):
+        qmm.w4a8_matmul(x, qw, sc, z, 128, n_out=n)
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (blocks * 8))()
+    if lib.qdm_w4a8_trace(buf, blocks) != 0:
+        fail("reading K4's phase trace")
+    t = np.array(buf, dtype=np.float64).reshape(blocks, 8).mean(axis=0) / 1e3
+    print(f"breakdown: K4 {layer} phases (a build with -DQDM_K4_TRACE), k SM cycles a block: "
+          + "; ".join(f"{name} {v:.1f}" for name, v in zip(K4_PHASES, t) if name != "-"),
+          flush=True)
+
+
+# the diagnostic builds --breakdown k4k9 times beside K4 and K9 (their
+# outputs are not the kernels' function): K4 without its products, without
+# its fold, without both; K9 without its softmax, without its P V, without
+# both
+K4_DIAG = (("QDM_K4_NO_WGMMA",), ("QDM_K4_NO_FOLD",), ("QDM_K4_NO_WGMMA", "QDM_K4_NO_FOLD"))
+K9_DIAG = (("QDM_K9_NO_SOFTMAX",), ("QDM_K9_NO_PV",), ("QDM_K9_NO_SOFTMAX", "QDM_K9_NO_PV"))
+
+
+def phase_k4k9_breakdown(dev) -> None:
+    """K4 at every group-128 shape of :func:`k3_unet_shapes` by kernel (its
+    quantization pass apart from its GEMM) on the profiler over copies of x
+    beyond twice the L2, planned and with each tile width forced, ``matmul``
+    on the dequantized weight beside; at ff/net_2 its planned launch's
+    phases from a traced build, and at ff/net_2 and 1024 x 1280 -> 10240 its
+    diagnostic builds (K4_DIAG); K9 at the 7B and GQA bench prefills by
+    kernel, its traced phases and diagnostic builds (K9_DIAG), causal SDPA
+    on pre-roped q beside.  Run on an older tree, it leaves out what that
+    tree's wrapper does not take (``plan``), the traces and the diagnostic
+    builds."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import flash_prefill as fp
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    rng = np.random.default_rng(14)
+    forced = _takes(qmm.w4a8_matmul, "plan")  # this tree's K4 and K9 have the variants
+    if forced:
+        cuda_build.build_variants([("w4a8_matmul", ("QDM_K4_TRACE",)),
+                                   ("flash_prefill", ("QDM_K9_TRACE",))]
+                                  + [("w4a8_matmul", d) for d in K4_DIAG]
+                                  + [("flash_prefill", d) for d in K9_DIAG])
+    sms = qmm.sm_count(dev)
+    diag = []
+    for m, k, n, g in k3_unet_shapes():
+        if g != 128:
+            continue
+        x, qw, sc, z = _w4_operands(rng, m, k, n, g, dev)
+        xs = [x] + [x.clone() for _ in range(_copies(x.numel() * 2) - 1)]
+        nbytes = m * k * 2 + qw.numel() * 4 + sc.numel() * 8 + m * n * 2
+        label = f"K4 UNet {m} x {k} -> {n}"
+        planned = qmm.w4a8_plan(m, n, sms) if forced else None
+        kern = [lambda xx=xx, w=(qw, sc, z, g, n): qmm.w4a8_matmul(xx, *w[:4], n_out=w[4])
+                for xx in xs]
+        _print_split(label + (f", planned {planned}" if forced else ""), _cold_by_kernel(kern),
+                     nbytes)
+        for plan in (_k4_forced_plans(m, n, sms) if forced else ()):
+            if plan == planned:
+                continue
+            fk = [lambda xx=xx: qmm.w4a8_matmul(xx, qw, sc, z, g, n_out=n, plan=plan)
+                  for xx in xs]
+            _print_split(f"{label}, plan {plan} (forced)", _cold_by_kernel(fk), nbytes)
+        wb = qmm.w4_dequant(qw, sc, z, g)[:k, :n].to(torch.bfloat16).contiguous()
+        lib = [lambda xx=xx: torch.matmul(xx, wb) for xx in xs]
+        _print_split(f"matmul at {label} (weight dequantized beforehand)", _cold_by_kernel(lib),
+                     nbytes)
+        if forced and (m, k, n) in ((16384, 1280, 320), (1024, 1280, 10240)):
+            if m == 16384:
+                with cuda_build.variant("w4a8_matmul", "QDM_K4_TRACE"):
+                    _print_k4_phases("ff/net_2 16384 x 1280 -> 320", x, qw, sc, z, n)
+            diag.append((label, kern, nbytes))
+        else:
+            del kern
+        del xs, lib, wb
+        torch.cuda.empty_cache()
+    for defines in (K4_DIAG if forced else ()):
+        with cuda_build.variant("w4a8_matmul", *defines):
+            for label, kern, nbytes in diag:
+                _print_split(f"{label}, a build with {' '.join(defines)}", _cold_by_kernel(kern),
+                             nbytes)
+    del diag
+    torch.cuda.empty_cache()
+    for label, b, h, hkv, s, d in K9_BENCH:
+        gen = torch.Generator(device=dev).manual_seed(b * h + s + d)
+        f = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q = f(b, s, h, d).transpose(1, 2)
+        k, v = f(b, s, hkv, d).transpose(1, 2), f(b, s, hkv, d).transpose(1, 2)
+        cos, sin = fp.rope_tables(s, d, 10000.0, device=dev)
+        sm = d ** -0.5
+        flops = 4 * b * h * d * (s * (s + 1) // 2)
+        nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d) + 2 * 4 * s * d
+        bound, by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+        kern = lambda: fp.flash_prefill_gqa(q, k, v, sm, cos, sin)
+        split = _cold_by_kernel([kern], 10)
+        _print_split(f"K9 {label} b {b}, h {h} / {hkv}, S {s}, d {d} (bound {bound * 1e3:.2f} us, "
+                     f"{by})", split, nbytes)
+        if forced:
+            with cuda_build.variant("flash_prefill", "QDM_K9_TRACE"):
+                _print_k9_phases(label, kern, min(qmm.sm_count(dev), -(-s // 128) * h * b))
+            for defines in K9_DIAG:
+                with cuda_build.variant("flash_prefill", *defines):
+                    _print_split(f"K9 {label}, a build with {' '.join(defines)}",
+                                 _cold_by_kernel([kern], 10), nbytes)
+        qf = q.float()
+        qr = (qf * cos + torch.roll(qf, d // 2, dims=-1) * sin).to(torch.bfloat16).contiguous()
+        kc, vc = k.contiguous(), v.contiguous()
+        del qf
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qr, kc, vc, is_causal=True, scale=sm, enable_gqa=True)
+        _print_split(f"SDPA (causal, pre-roped q) at K9's {label}", _cold_by_kernel([lib], 10),
+                     nbytes)
+        del q, k, v, qr, kc, vc
+        torch.cuda.empty_cache()
 
 
 def _print_reprofiled() -> None:
@@ -5039,7 +5228,7 @@ def main() -> int:
                          "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
-    ap.add_argument("--breakdown", nargs="?", const="all", choices=("all", "w4", "k3"),
+    ap.add_argument("--breakdown", nargs="?", const="all", choices=("all", "w4", "k3", "k4k9"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -5049,8 +5238,11 @@ def main() -> int:
                          "and K16 at its five timed shapes by kernel with the library beside, "
                          "K16's cluster forced to 1, 2, 4, 8 blocks, and K4, K17, K26 as "
                          "phase 2 times them; `--breakdown k3`: K3 planned and forced to "
-                         "each route at every SD1.5 UNet shape; no other phase, and no result "
-                         "line")
+                         "each route at every SD1.5 UNet shape; `--breakdown k4k9`: K4 at every "
+                         "group-128 SD1.5 UNet shape (quantization pass and GEMM apart, planned "
+                         "and forced, its traced phases at ff/net_2) and K9 at the 7B and GQA "
+                         "bench prefills, the library beside (plain `--breakdown` prints these "
+                         "last); no other phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -5068,8 +5260,10 @@ def main() -> int:
             phase_attention_breakdown(dev)
         if args.breakdown == "k3":
             phase_k3_breakdown(dev)
-        else:
+        elif args.breakdown in ("all", "w4"):
             phase_w4_breakdown(dev)
+        if args.breakdown in ("all", "k4k9"):
+            phase_k4k9_breakdown(dev)
         _print_reprofiled()
         print(smi_line())
         return 0

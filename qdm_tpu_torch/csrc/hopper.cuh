@@ -1,19 +1,22 @@
 // Hopper (sm_90a) building blocks written as PTX: mbarriers, TMA tile loads
 // from a tensor map, the warpgroup matrix multiply (wgmma) with B (and A)
 // in shared memory or A in registers, thread-block-cluster barriers and
-// distributed shared memory.  Used by K3 (w4a16_matmul.cu) and K16
-// (decode_i4_split.cuh).
+// distributed shared memory.  Used by K3 (w4a16_matmul.cu), K4
+// (w4a8_matmul.cu), K9 (flash_prefill.cu) and K16 (decode_i4_split.cuh).
 //
-// Operand layout of the wgmma wrappers: both A (M x K) and B (N x K) are
-// K-major bf16 tiles of 64 K values a row (128 bytes), in the 128-byte
+// Operand layout of the wgmma wrappers: A (M x K) and B (N x K) are K-major
+// tiles of 128-byte rows (64 bf16 or 128 int8 K values), in the 128-byte
 // swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: within
 // each 1024-byte group of 8 rows, the 16-byte chunk c of row r sits at
-// chunk c ^ (r % 8).  A tile's base is 1024-byte aligned; the 16-deep K
-// step ks of a 64-wide row starts ks * 32 bytes further (sw128_desc).
+// chunk c ^ (r % 8).  A tile's base is 1024-byte aligned; the K step ks
+// (16 bf16 or 32 int8 values) of a row starts ks * 32 bytes further
+// (sw128_desc).  The one exception is wgmma_bf16_rs_tb, whose B is
+// MN-major (sw128_desc_mn): rows of 64 N values, one row a K index.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
 
@@ -64,6 +67,35 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Registers of each thread of the executing warpgroup, raised or lowered to
+// N (a multiple of 8): a producer warpgroup gives its registers to the
+// consumers.  The block's sum must stay within what the launch allocated
+// (check_regs), or the raise waits forever.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Whether a kernel of three warpgroups launches with the registers the
+// consumers' setmaxnreg_inc<C> and the producer's setmaxnreg_dec<P> share
+// out among themselves: 128 P + 256 C at most 384 times its allocation
+// (callers ask once a kernel; the answer does not change).
+template <typename K>
+inline bool check_regs(K kernel, int consumer_regs, int producer_regs) {
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return false;
+  return 128 * producer_regs + 256 * consumer_regs <= 384 * fa.numRegs;
+}
+
+// Arrive at named barrier `id` (of `threads` in all) without waiting.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -128,6 +160,34 @@ inline bool u8_rows_map(CUtensorMap* map, const void* base, int rows, int cols, 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Tensor map of a strided 4-D bf16 tensor (d0, d1, d2, d3), d0 contiguous
+// (d0 * 2 a multiple of 16 bytes), strides s1..s3 in elements (each a
+// multiple of 8), read in boxes of box_rows rows of d1 x 64 values of d0
+// with the 128-byte swizzle; reads past the edges fill zeros.  K9 reads its
+// (B, Hkv, S, D) k and v views as (D, S, Hkv, B).
+inline bool bf16_4d_map(CUtensorMap* map, const void* base, int d0, int d1, int d2, int d3,
+                        long long s1, long long s2, long long s3, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2, (cuuint64_t)s3 * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D box at coordinates (c0 innermost, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma: D (64 x N, f32, in registers) (+)= A (64 x 16) * B (16 x N), both
 // operands K-major in shared memory
@@ -138,6 +198,16 @@ inline bool u8_rows_map(CUtensorMap* map, const void* base, int rows, int cols, 
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
+}
+
+// Descriptor of an MN-major 128-byte-swizzled B tile at `addr`: each
+// 128-byte row holds 64 N values of one K index, 8 K rows make a 1024-byte
+// swizzle atom, the next 8 K indices are the next atom (stride 1024), and
+// the next 64 N values lie `n64_stride` bytes further (the leading byte
+// offset of the MN-major layout).
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr, uint32_t n64_stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((n64_stride >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -157,6 +227,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // m64nNk16, f32 += bf16 * bf16; scale_d 0 overwrites D (the first K step).
@@ -327,6 +402,117 @@ __device__ __forceinline__ void wgmma_bf16_rs<128>(float (&d)[64], const uint32_
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+
+// m64nNk16 with A from registers (as wgmma_bf16_rs) and B MN-major
+// (transposed, sw128_desc_mn): B's rows are its K indices, N contiguous.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_tb<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_tb<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+// m64nNk32, s32 += s8 * s8, A (64 x 32) from registers in mma.sync's
+// m16n8k32 A fragment order (warp w: rows 16 w..; a[0]: row g, k 4t..4t+3;
+// a[1]: row g + 8; a[2]: row g, k 16 + 4t..; a[3]: row g + 8, k 16 + 4t..),
+// B K-major in shared memory; scale_d 0 overwrites D.  The registers must
+// stay unchanged until the wgmma that reads them has completed.
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(int (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<64>(int (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 
 // ---------------------------------------------------------------------------
 // thread-block clusters

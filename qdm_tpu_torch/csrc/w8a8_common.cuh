@@ -1,7 +1,5 @@
 // Shared pieces of the W8A8 kernels (w8a8_fused_epi.cu, w8a8_geglu.cu,
-// w8a8_matmul.cu);
-// the W4A8 kernel (w4a8_matmul.cu) reuses the quantization pass, the
-// cp.async helpers and the int8 mma, the W4A16 kernel the cp.async helpers.
+// w8a8_matmul.cu); the W4A16 kernel reuses the cp.async helpers.
 //
 // Both W8A8 kernels run in two passes:
 //
@@ -84,19 +82,7 @@ inline cudaError_t allow_smem(K kernel, size_t dyn, size_t stat = 0) {
 
 constexpr int kQuantWarps = 8;
 
-// Column of the int8 scratch that receives the code of K row k.  PERM128
-// (the W4A8 kernel, Kp a multiple of 128): within each 128-row block, row
-// (2i + h)*16 + 4s + t goes to s*32 + h*16 + t*4 + i, so that one packed
-// int4 word (8 codes, rows 16 apart) meets 4 consecutive A bytes in the
-// m16n8k32 fragments (w4a8_matmul.cu).
-template <bool PERM128>
-__device__ __forceinline__ int code_col(int k) {
-  if (!PERM128) return k;
-  const int kin = k & 127, j = kin >> 4, w = kin & 15;
-  return (k - kin) + (w >> 2) * 32 + (j & 1) * 16 + (w & 3) * 4 + (j >> 1);
-}
-
-template <typename T, bool PERM128 = false>
+template <typename T>
 __global__ void __launch_bounds__(kQuantWarps * 32)
 quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xi,
                   float* __restrict__ xs, int M, int K, int Kp) {
@@ -115,7 +101,7 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xi,
   for (int k = lane; k < Kp; k += 32) {
     int q = 0;
     if (k < K) q = __float2int_rn(__fmul_rn(to_f32(xr[k]), r));  // half-to-even
-    out[code_col<PERM128>(k)] = (int8_t)q;
+    out[k] = (int8_t)q;
   }
   if (lane == 0) xs[row] = amax / 127.0f;
 }
@@ -167,11 +153,11 @@ ln_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
   if (lane == 0) xs[row] = amax / 127.0f;
 }
 
-template <typename T, bool PERM128>
+template <typename T>
 cudaError_t launch_quant_rows(const void* x, int8_t* xi, float* xs, int M, int K,
                               int Kp, cudaStream_t stream) {
   const int blocks = (M + kQuantWarps - 1) / kQuantWarps;
-  quant_rows_kernel<T, PERM128><<<blocks, kQuantWarps * 32, 0, stream>>>(
+  quant_rows_kernel<T><<<blocks, kQuantWarps * 32, 0, stream>>>(
       static_cast<const T*>(x), xi, xs, M, K, Kp);
   return cudaGetLastError();
 }
@@ -371,12 +357,11 @@ cudaError_t launch_gemm(const int8_t* xi, const float* xs, const int8_t* wt, con
   return cudaGetLastError();
 }
 
-template <bool PERM128 = false>
-cudaError_t launch_quant(const void* x, int x_dtype, int8_t* xi, float* xs, int M, int K,
-                         int Kp, cudaStream_t stream) {
+inline cudaError_t launch_quant(const void* x, int x_dtype, int8_t* xi, float* xs, int M, int K,
+                                int Kp, cudaStream_t stream) {
   if (x_dtype == kDtypeBF16)
-    return launch_quant_rows<__nv_bfloat16, PERM128>(x, xi, xs, M, K, Kp, stream);
-  if (x_dtype == kDtypeF32) return launch_quant_rows<float, PERM128>(x, xi, xs, M, K, Kp, stream);
+    return launch_quant_rows<__nv_bfloat16>(x, xi, xs, M, K, Kp, stream);
+  if (x_dtype == kDtypeF32) return launch_quant_rows<float>(x, xi, xs, M, K, Kp, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -41,7 +41,7 @@ ENTRY_POINTS = {
     "w4a16_matmul": ("qdm_w4a16_matmul",
                      (P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P)),
     "w4a8_matmul": ("qdm_w4a8_matmul",
-                    (P, I, P, P, P, P, P, P, I, I, I, I, I, P)),
+                    (P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P)),
     "decode_dense": ("qdm_decode_dense",
                      (P, I, P, I, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
     "decode_dense_i8": ("qdm_decode_dense_i8",
@@ -165,15 +165,46 @@ def kernel(name: str):
     return _FUNCS[name]
 
 
+def variant_path(name: str, *defines: str) -> Path:
+    """The library of kernel ``name`` built with ``-D<define>`` for each of
+    ``defines`` (build_variants, variant)."""
+    lib = _lib_path(name)
+    return lib.with_name(lib.stem + "_" + "_".join(d.lower() for d in defines) + ".so")
+
+
+def build_variants(variants) -> None:
+    """Compile each (name, defines) variant that has no library yet, all
+    ``nvcc`` processes at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, defines in variants:
+        out = variant_path(name, *defines)
+        if out.exists():
+            continue
+        src = source(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-I", str(CSRC), "-o",
+               str(tmp), str(CSRC / f"{src}.cu")]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), tmp, out, src))
+    errors = []
+    for proc, tmp, out, src in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {src}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 @contextlib.contextmanager
-def variant(name: str, define: str) -> Iterator[None]:
-    """Kernel ``name`` built from its source with ``-D<define>`` (a
-    profile's variant of it), taking the place of the library's own while
-    the context lasts."""
-    src = source(name)
-    out = BUILD_DIR / f"lib{src}_{define.lower()}.so"
-    subprocess.run([find_nvcc(), *NVCC_FLAGS, f"-D{define}", "-I", str(CSRC), "-o", str(out),
-                    str(CSRC / f"{src}.cu")], check=True, capture_output=True)
+def variant(name: str, *defines: str) -> Iterator[None]:
+    """Kernel ``name`` built from its source with ``-D<define>`` for each of
+    ``defines`` (a profile's variant of it), taking the place of the
+    library's own while the context lasts."""
+    build_variants([(name, defines)])
+    out = variant_path(name, *defines)
     sym, argtypes = ENTRY_POINTS[name]
     fn = getattr(ctypes.CDLL(str(out)), sym)
     fn.argtypes, fn.restype = list(argtypes), ctypes.c_int

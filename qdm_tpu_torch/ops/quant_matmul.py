@@ -29,7 +29,7 @@ and W4A8 paths:
 * :func:`w4a8_matmul` — the same weights, per-token int8 x, exact int32
   partial per 128-row K block, ``acc += partial * scale`` in f32, then
   ``acc * xs``.  CUDA kernel ``csrc/w4a8_matmul.cu`` (replaces
-  ``w4a8_matmul_pallas``).
+  ``w4a8_matmul_pallas``), launched as :func:`w4a8_plan` says.
 
 Each wrapper computes its plain PyTorch version for a tensor on the CPU,
 launches its kernel for a CUDA tensor, and raises for anything else; there
@@ -809,12 +809,64 @@ def w4a16_matmul(x, qweight, scales, zeros, group_size: int = 128,
     return out
 
 
+# K4's plan (csrc/w4a8_matmul.cu): the GEMM taken transposed, a tile of
+# 2 x W4A8_FEAT features (the two consumer warpgroups' wgmma M) by bt tokens
+# (their N).  The layout mirrors the kernel's Layout: the x ring of bt
+# 128-byte token rows a stage, two staging tiles of bt rows of 64 features
+# (f32 width) + 16 bytes, the barriers.
+W4A8_FEAT, W4A8_BTS, W4A8_MAX_STAGES = 64, (128, 64), 6
+
+
+def w4a8_smem(bt: int, stages: int) -> int:
+    """Bytes of dynamic shared memory K4's GEMM asks for."""
+    return 1024 + stages * bt * 128 + 2 * bt * (64 * 4 + 16) + 16 * stages
+
+
+def w4a8_tiles(bt: int, m: int, n_out: int) -> Tuple[int, int]:
+    """(token tiles, feature tiles) of K4's GEMM."""
+    return _cdiv(m, bt), _cdiv(n_out, 2 * W4A8_FEAT)
+
+
+def w4a8_route_plan(bt: int, m: int, n_out: int, sms: int,
+                    grid: int = 0) -> Tuple[int, int, int]:
+    """K4's launch plan ``(bt, stages, grid)`` at tiles of bt tokens: the
+    deepest ring (2-6 stages) that shared memory holds, ``grid`` blocks or,
+    0, one a tile up to one an SM."""
+    stages = max(st for st in range(2, W4A8_MAX_STAGES + 1) if w4a8_smem(bt, st) <= SMEM_MAX)
+    tm, tf = w4a8_tiles(bt, m, n_out)
+    return bt, stages, grid or min(tm * tf, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def w4a8_plan(m: int, n_out: int, sms: int) -> Tuple[int, int, int]:
+    """K4's launch plan ``(bt, stages, grid)`` for M tokens and n_out output
+    columns on a card of ``sms`` SMs: tiles of 128 tokens, or of 64 where 128
+    leaves more than half the SMs without a tile (the rule the card gave at
+    every group-128 SD1.5 UNet shape with each width forced, PERF.md §6,
+    ``chip_smoke.py --breakdown k4k9``: 64 won at M 256 and 308 on 20-60
+    tiles, 128 at 80 tiles and more)."""
+    tm, tf = w4a8_tiles(128, m, n_out)
+    return w4a8_route_plan(64 if 2 * tm * tf < sms else 128, m, n_out, sms)
+
+
+def w4a8_units(plan, m: int, n_out: int):
+    """The work of each block of a plan, as the kernel walks it: per block a
+    list of its tiles (token0, feature0), in order."""
+    bt, stages, grid = plan
+    tm, tf = w4a8_tiles(bt, m, n_out)
+    tiles = tm * tf
+    return [[((t // tf) * bt, (t % tf) * 2 * W4A8_FEAT)
+             for t in range(b * tiles // grid, (b + 1) * tiles // grid)] for b in range(grid)]
+
+
 def w4a8_matmul(x, qweight, scales, zeros, group_size: int = 128,
-                n_out: Optional[int] = None, scratch=None):
+                n_out: Optional[int] = None, scratch=None,
+                plan: Optional[Tuple[int, ...]] = None):
     """x (M, K) quantized per token to int8, through a packed int4 weight
     (K'/8, N') with group size 128 -> (M, n_out) in x's dtype.  scratch, if
     given, is the (xi (M, K') int8, xs (M,) f32) pair the kernel's
-    quantization pass writes, xi in :func:`w4a8_code_order`."""
+    quantization pass writes, xi in :func:`w4a8_code_order`.  ``plan``
+    forces K4's launch plan (tests only; :func:`w4a8_plan` otherwise)."""
     if group_size != PACK_BLOCK_K:
         raise ValueError(f"w4a8 requires group_size == {PACK_BLOCK_K}, got {group_size}")
     n_out = n_out or qweight.shape[1]
@@ -829,11 +881,13 @@ def w4a8_matmul(x, qweight, scales, zeros, group_size: int = 128,
     if m == 0:
         return out
     xi, xs = _scratch(scratch, m, kp, x.device)
+    if plan is None:
+        plan = w4a8_plan(m, n_out, sm_count(x.device))
     fn = cuda_build.kernel("w4a8_matmul")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], qweight.data_ptr(), scales.data_ptr(),
                  zeros.data_ptr() if zeros is not None else None, out.data_ptr(),
-                 xi.data_ptr(), xs.data_ptr(), m, k, kp, np_, n_out,
+                 xi.data_ptr(), xs.data_ptr(), m, k, kp, np_, n_out, *plan,
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w4a8_matmul")
     LAUNCHES["w4a8_matmul"] += 1

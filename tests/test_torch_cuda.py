@@ -235,6 +235,50 @@ def test_w4a8_kernel_matches_plain_on_card(m, k, k_pack, n, dtype, zero_point):
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
 
 
+# K4 at SD1.5's four phase-2 shapes, at M 1, 17 and 308, and at ragged M and N,
+# planned and with its tile's tokens forced to each width
+W4A8_PLAN_SHAPES = [(16384, 1280, 320), (4096, 640, 1920), (1024, 1280, 10240), (308, 768, 640),
+                    (1, 1280, 320), (17, 640, 1920), (308, 1280, 10240), (300, 768, 200)]
+W4A8_FORCED = [None, 128, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", W4A8_FORCED)
+@pytest.mark.parametrize("m,k,n", W4A8_PLAN_SHAPES)
+def test_w4a8_plans_match_plain_on_card(m, k, n, forced):
+    """K4 planned and with each tile width forced: int8 codes and row scales
+    identical to the plain version's, outputs equal."""
+    dev = _card()
+    x, qw, s, z = _w4_operands(m, k, k, n, 128, True, dev, torch.bfloat16)
+    plan = None if forced is None else qmm.w4a8_route_plan(forced, m, n, 132)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    before = qmm.LAUNCHES["w4a8_matmul"]
+    got = qmm.w4a8_matmul(x, qw, s, z, 128, n_out=n, scratch=(xi, xs), plan=plan)
+    want = qmm.w4a8_matmul_plain(x, qw, s, z, 128, n_out=n)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["w4a8_matmul"] == before + 1
+    codes, scales = qmm.quantize_rows_int8(x, k)
+    assert torch.equal(xi, codes[:, qmm.w4a8_code_order(k, dev)])
+    assert torch.equal(xs, scales.reshape(-1))
+    assert got.shape == want.shape == (m, n) and got.dtype == torch.bfloat16
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16384, 1280, 320), (308, 768, 640)])
+def test_w4a8_check_flags_a_scale_row_fault_on_card(m, k, n):
+    """One group-scale row 1e-3 off makes K4's output differ from the plain
+    version's (which it otherwise equals)."""
+    dev = _card()
+    x, qw, s, z = _w4_operands(m, k, k, n, 128, True, dev, torch.bfloat16)
+    want = qmm.w4a8_matmul_plain(x, qw, s, z, 128, n_out=n)
+    assert torch.equal(qmm.w4a8_matmul(x, qw, s, z, 128, n_out=n), want)
+    bad = s.clone()
+    bad[bad.shape[0] // 2] *= 1.0 + 1e-3
+    assert not torch.equal(qmm.w4a8_matmul(x, qw, bad, z, 128, n_out=n), want)
+
+
 # ---------------------------------------------------------------------------
 # decode kernels K5-K8 (ops/decode_kernels.py).  K6 and K8 repeat their
 # plain versions' arithmetic: int8 codes identical, outputs equal.  K5 and
@@ -481,6 +525,56 @@ def test_flash_prefill_kernel_matches_plain_on_card(b, h, hkv, s, d, rope, start
     want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), d ** -0.5, cos, sin, starts=st)
     share, mean = fp.kernel_error(got, want, want_abs)
     assert share <= 1.0 and mean <= fp.MEAN_LIMIT, (share, mean)
+
+
+# K9 at head sizes 32 (the mma.sync kernel), 64 and 128 (the wgmma kernel), MHA
+# and GQA (g 4 and 8), S 1024 and 2048, starts straddling a 128-key tile (its
+# first tile masked in part), rope on and off: (b, h, hkv, S, d, rope, starts)
+K9_WGMMA_CASES = [
+    (1, 8, 8, 1024, 128, True, None),
+    (2, 8, 2, 2048, 128, True, (0, 200)),
+    (1, 16, 2, 1024, 64, True, (130,)),
+    (2, 8, 1, 1024, 64, False, (0, 70)),
+    (1, 4, 4, 2048, 64, True, (300,)),
+    (2, 4, 1, 1024, 32, True, (0, 150)),
+    (1, 8, 1, 2048, 32, True, None),
+]
+
+
+def _hashed(shape, seed, dev):
+    """bf16 values in [-2, 2) hashed from each element's index: no two
+    neighbours along any axis alike, so a key or d value read from the
+    wrong place moves the output."""
+    n = int(np.prod(shape))
+    idx = (np.arange(n, dtype=np.uint64) + np.uint64(seed)) * np.uint64(2654435761)
+    v = (idx % np.uint64(65521)).astype(np.float32) / 65521.0 * 4.0 - 2.0
+    return torch.from_numpy(v.reshape(shape)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,s,d,rope,starts", K9_WGMMA_CASES)
+def test_flash_prefill_wgmma_cases_on_card(b, h, hkv, s, d, rope, starts):
+    """K9 within kernel_error's limits with V hashed per element, and the
+    same check flags sm_scale x1.01."""
+    dev = _card()
+    rng = np.random.default_rng(b * h + s + d)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    q, k = f(b, s, h, d).transpose(1, 2), f(b, s, hkv, d).transpose(1, 2)
+    v = _hashed((b, s, hkv, d), s + d, dev).transpose(1, 2)
+    cos, sin = fp.rope_tables(s, d, 10000.0, device=dev) if rope else (None, None)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    sm = d ** -0.5
+    want = fp.flash_prefill_gqa_plain(q, k, v, sm, cos, sin, starts=st)
+    want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), sm, cos, sin, starts=st)
+    got = fp.flash_prefill_gqa(q, k, v, sm, cos, sin, starts=st)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    share, mean = fp.kernel_error(got, want, want_abs)
+    assert share <= 1.0 and mean <= fp.MEAN_LIMIT, (share, mean)
+    bad = fp.flash_prefill_gqa(q, k, v, sm * 1.01, cos, sin, starts=st)
+    share, mean = fp.kernel_error(bad, want, want_abs)
+    assert share > 1.0 or mean > fp.MEAN_LIMIT, (share, mean)
 
 
 # (B, hkv, g, d, T, pos, starts, softcap, sm_scale, bf16)

@@ -127,16 +127,19 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
 
 
 # (b, h, hkv, s, d, rope): the Llama-2-7B head (d 128), the JAX
-# LLM bench's GQA head (d 64, g 4), rope off
+# LLM bench's GQA head (d 64, g 4), rope off; each at the key tile of K9's
+# head-size-32 kernel (64) and of its wgmma kernel (128)
 LIMIT_CASES = [(1, 2, 2, 1024, 128, True), (1, 4, 1, 1024, 64, True), (2, 2, 2, 1024, 64, False)]
+LIMIT_PARAMS = [pytest.param(*c, tile, id="-".join(map(str, c)) + ("" if tile == 64 else "-tile128"))
+                for tile in (64, 128) for c in LIMIT_CASES]
 
 
-@pytest.mark.parametrize("b,h,hkv,s,d,rope", LIMIT_CASES)
-def test_kernel_limit_holds_64_key_tiles_and_flags_a_scale_fault(b, h, hkv, s, d, rope):
+@pytest.mark.parametrize("b,h,hkv,s,d,rope,tile", LIMIT_PARAMS)
+def test_kernel_limit_holds_64_key_tiles_and_flags_a_scale_fault(b, h, hkv, s, d, rope, tile):
     """The card kernel's limits (``kernel_error``) on a model of the
-    kernel: the TPU recurrence at 64-wide blocks rounds p against the
-    running maxima of the kernel's 64-key tiles, not of the TPU blocks,
-    and must pass; the same with sm_scale 1% off must not."""
+    kernel: the TPU recurrence at blocks of the kernel's key tile (64 or
+    128) rounds p against the running maxima of those tiles, not of the
+    TPU blocks, and must pass; the same with sm_scale 1% off must not."""
     rng = np.random.default_rng(s + d + h)
     q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(torch.bfloat16)
                for sh in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
@@ -144,8 +147,8 @@ def test_kernel_limit_holds_64_key_tiles_and_flags_a_scale_fault(b, h, hkv, s, d
     sm = d ** -0.5
     want = fp.flash_prefill_gqa_plain(q, k, v, sm, cos, sin)
     want_abs = fp.flash_prefill_gqa_plain(q, k, v.abs(), sm, cos, sin)
-    tiles = lambda scale: fp.flash_prefill_gqa_plain(q, k, v, scale, cos, sin, block_q=64,
-                                                     block_k=64)
+    tiles = lambda scale: fp.flash_prefill_gqa_plain(q, k, v, scale, cos, sin, block_q=tile,
+                                                     block_k=tile)
     share, mean = fp.kernel_error(tiles(sm), want, want_abs)
     assert share <= 1.0 and mean <= fp.MEAN_LIMIT, (share, mean)
     share, mean = fp.kernel_error(tiles(sm * 1.01), want, want_abs)

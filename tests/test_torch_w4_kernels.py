@@ -232,3 +232,43 @@ def test_w4a16_plan_keeps_the_sms_busy_at_sd15_shapes(m, k, n):
     attn2/to_kv's 308 rows through a cluster split of K."""
     plan = tqmm.w4a16_plan(m, k, n, SMS)
     assert min(len(tqmm.w4a16_units(plan, m, k, n)), SMS) >= 0.9 * SMS
+
+
+# K4's launch plan (w4a8_plan): every group-128 dense layer K4 serves in the
+# SD1.5 UNet (chip_smoke.k3_unet_shapes), and the card tests' small shapes
+def _k4_shapes():
+    import chip_smoke
+
+    return sorted({(m, n) for m, _, n, g in chip_smoke.k3_unet_shapes() if g == 128}
+                  | {(1, 320), (17, 1920), (300, 200), (5, 130)})
+
+
+@pytest.mark.parametrize("m,n", _k4_shapes())
+def test_w4a8_plan_covers_every_tile_once(m, n):
+    """Every output tile lies in exactly one block's range; every launched
+    block has work, at most one an SM; the same with each tile width
+    forced."""
+    for plan in (tqmm.w4a8_plan(m, n, SMS),
+                 *(tqmm.w4a8_route_plan(bt, m, n, SMS) for bt in tqmm.W4A8_BTS)):
+        bt, stages, grid = plan
+        units = tqmm.w4a8_units(plan, m, n)
+        assert all(units) and len(units) == grid <= SMS
+        tiles = [t for work in units for t in work]
+        assert len(tiles) == len(set(tiles))
+        feats = 2 * tqmm.W4A8_FEAT
+        assert set(tiles) == {(i * bt, j * feats) for i in range(-(-m // bt))
+                              for j in range(-(-n // feats))}
+
+
+@pytest.mark.parametrize("m,n", _k4_shapes())
+def test_w4a8_plan_fits_shared_memory(m, n):
+    """The plan's block fits the 227 KB an sm_90 block may use with the
+    deepest ring (2-6 stages) that does; it takes 64-token tiles only where
+    128-token ones leave more than half the SMs idle."""
+    bt, stages, _ = tqmm.w4a8_plan(m, n, SMS)
+    assert 2 <= stages <= tqmm.W4A8_MAX_STAGES
+    assert tqmm.w4a8_smem(bt, stages) <= tqmm.SMEM_MAX
+    assert (stages == tqmm.W4A8_MAX_STAGES
+            or tqmm.w4a8_smem(bt, stages + 1) > tqmm.SMEM_MAX)
+    tm, tf = tqmm.w4a8_tiles(128, m, n)
+    assert (bt == 64) == (2 * tm * tf < SMS)
