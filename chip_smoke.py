@@ -9,6 +9,8 @@
                                       # K17, K26 beside) alone
     python3 chip_smoke.py --breakdown k4k9  # the build, then K4's (every group-128 UNet
                                       # shape, its traced phases) and K9's alone
+    python3 chip_smoke.py --breakdown k5k26  # the build, then K5's (every bf16 engine's
+                                      # shapes) and K26's (the unmerged pair beside) alone
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -272,7 +274,7 @@ KERNEL_INFO = {
                      "qdm_tpu/ops/quant_matmul.py:202"),
     "w4a8_matmul": ("qdm_tpu_torch/csrc/w4a8_matmul.cu",
                     "qdm_tpu/ops/quant_matmul.py:404"),
-    "fused_dense_decode": ("qdm_tpu_torch/csrc/decode_dense.cu",
+    "fused_dense_decode": ("qdm_tpu_torch/csrc/decode_dense_bf16.cu",
                            "qdm_tpu/ops/decode_kernels.py:145"),
     "fused_dense_decode_i8": ("qdm_tpu_torch/csrc/decode_dense.cu",
                               "qdm_tpu/ops/decode_kernels.py:224"),
@@ -780,6 +782,17 @@ def _check_dense(label, o, hd, norm, rope, res, out_dtype, w_dtype, dev, timed):
         fail(f"fused_dense_decode {label}: max abs err {err} from the plain version, beyond "
              "1 bf16 ulp and 1e-5 of the magnitude")
     row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": 1}
+    if rope:  # planted: the sign of one rotated column's sin flipped
+        bad_sin = sin.clone()
+        bad_sin[1] = -bad_sin[1]
+        bad = dk.fused_dense_decode(o["x"], w, w_t=w_t, **dict(kw, rope_sin=bad_sin))
+        torch.cuda.synchronize()
+        if within_bf16_ulp(bad, want)[0]:
+            fail(f"fused_dense_decode {label}: the check misses a rotated column's sin sign "
+                 "flipped (planted)")
+        row["tol"] = ("within 1 bf16 ulp or 1e-5 of the magnitude; a rotated column's sin sign "
+                      f"flipped (planted): max abs err "
+                      f"{float((bad.float() - want.float()).abs().max()):.3g}")
     if timed:
         nbytes = (m * k * o["x"].element_size() + k * n * w.element_size()
                   + m * n * torch.empty((), dtype=out_dtype).element_size() + 4 * k)
@@ -955,14 +968,18 @@ def phase_decode_kernels(dev) -> dict:
             ("no norm, no residual", 5, 128, 256, 256, None, "silu", False, f32, bf, False)):
         res["fused_mlp_decode_i8"].append(
             _check_mlp(label, rng, m, k, i, bj, norm, act, rr, od, xd, dev, timed))
-    # K5: the final norm + lm_head at width, then options
+    # K5: the final norm + lm_head at width, the bf16 engine's qkv and o_proj
+    # (the decode probe's), then options
     for label, m, k, n, norm, rope, r, od, xd, wd, timed in (
             ("lm_head (norm, f32 out)", B, K, V, "rmsnorm", False, False, f32, bf, bf, True),
+            (f"qkv (norm, rope {hd})", B, K, n_qkv, "rmsnorm", True, False, bf, bf, bf, True),
+            ("o_proj (+res)", B, K, K, None, False, True, bf, bf, bf, True),
             ("layernorm + rope + res", 5, 64, 96, "layernorm", True, True, f32, f32, f32, False),
             ("bf16 x, f32 weight", 9, 128, 200, "rmsnorm", False, False, bf, bf, f32, False)):
         o = _dense_case(rng, dev, m, k, n, xd)
+        head = hd if label.startswith("qkv") else (16 if rope else hd)
         res["fused_dense_decode"].append(
-            _check_dense(label, o, 16 if rope else hd, norm, rope, r, od, wd, dev, timed))
+            _check_dense(label, o, head, norm, rope, r, od, wd, dev, timed))
     _print_rows(res)
     return res
 
@@ -2801,8 +2818,8 @@ def phase_w4_breakdown(dev) -> None:
     timed shapes by kernel (the norm pass apart from the group dot) over
     weight copies beyond twice the L2, its stream alone (a build without the
     products), the library beside, and its cluster forced to
-    BREAKDOWN_I4_SPLITS blocks at TinyLlama o_proj and 7B qkv; K17 and K26
-    (which keep the old int4 tile) at the 7B and TinyLlama decode shapes, as
+    BREAKDOWN_I4_SPLITS blocks at TinyLlama o_proj and 7B qkv; K17 (which
+    keeps the old int4 tile) and K26 at the 7B and TinyLlama decode shapes, as
     phase 2 times them.  Run on an older tree, it leaves out what that tree's
     wrappers do not take (``plan``, ``split``)."""
     from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
@@ -3048,6 +3065,235 @@ def phase_k4k9_breakdown(dev) -> None:
                      nbytes)
         del q, k, v, qr, kc, vc
         torch.cuda.empty_cache()
+
+
+# --breakdown k5k26: K5 at the serving shapes of every engine that runs it, K26 at
+# the 7B and TinyLlama decode shapes with the unmerged K16 + K17 pair beside, and
+# the kernels that share code with them at their PERF.md shapes
+# (label, M, K, N, norm, rope head_dim, rotated columns, residual, f32 out)
+K5_BENCH = (("7B qkv (norm, rope 128)", 8, 4096, 12288, True, 128, 8192, False, False),
+            ("7B o_proj (+res)", 8, 4096, 4096, False, 0, 0, True, False),
+            ("Mixtral bf16 o_proj (+res)", 8, 4096, 4096, False, 0, 0, True, False),
+            ("7B lm_head (norm, f32 out)", 8, 4096, 32000, True, 0, 0, False, True),
+            ("TinyLlama qkv (norm, rope 64)", 32, 2048, 2560, True, 64, 2304, False, False),
+            ("TinyLlama o_proj (+res)", 32, 2048, 2048, False, 0, 0, True, False),
+            ("TinyLlama lm_head (norm, f32 out)", 32, 2048, 32000, True, 0, 0, False, True))
+BREAKDOWN_K5_SPLITS = (1, 2, 4, 8)
+
+
+K5_PHASES = ("x staged", "norm statistics and the normalized rows", "the weight stream",
+             "the owners' sums (and epilogue without a rope)", "rank 0's rope epilogue")
+K26_STEPS = ("o_proj", "gate / up", "down")
+K26_PHASES = ("codes resident", "the weight stream", "partials kept (cluster barrier)",
+              "the owners' sums and the epilogue")
+
+
+def _print_trace(label, name, define, sym, args, fn, blocks, phases) -> None:
+    """A kernel's launch in its build with -D<define> (the caller holds the
+    variant): the mean over blocks of the SM cycles from a block's start to
+    the end of each phase (thread 0's clock64)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (blocks * 8))()
+    if getattr(_variant_lib(name, define), sym)(*args, buf, blocks) != 0:
+        fail(f"reading {label}'s phase trace")
+    t = np.array(buf, dtype=np.float64).reshape(blocks, 8)[:, 1:1 + len(phases)]
+    print(f"breakdown: {label} phases (a build with -D{define}), k SM cycles from a block's "
+          "start, mean / max over blocks: "
+          + "; ".join(f"{ph} {a:.1f} / {b:.1f}" for ph, a, b in
+                      zip(phases, t.mean(axis=0) / 1e3, t.max(axis=0) / 1e3)), flush=True)
+
+
+def _k5_breakdown(dev, rng, forced) -> None:
+    """K5 at each K5_BENCH shape by kernel, checked against its plain version
+    first, over weight copies beyond twice the L2; where this tree's wrapper
+    takes ``split``, with its cluster forced to BREAKDOWN_K5_SPLITS blocks
+    too and its planned launch's phases from a traced build; F.rms_norm +
+    matmul beside (the table's library row)."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, m, k, n, norm, hd, n_rot, res, f32_out in K5_BENCH:
+        o = _dense_case(rng, dev, m, k, n, bf)
+        w = o["w"].to(bf)
+        cos, sin = _rope_rows(n, n_rot, hd, L7_PROMPT + 31, dev) if hd else (None, None)
+        out_dtype = f32 if f32_out else bf
+        kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+                  rope_cos=cos, rope_sin=sin, head_dim=hd, out_dtype=out_dtype)
+        want = dk.fused_dense_decode_plain(o["x"], w, **kw)
+        nbytes = (m * k * 2 + k * n * 2 + m * n * (4 if f32_out else 2) + 4 * k * norm
+                  + (2 * m * n if res else 0) + (8 * n if hd else 0))
+        ws = [w] + [w.clone() for _ in range(_copies(k * n * 2) - 1)]
+        wts = [dk.transposed_weight(x) for x in ws]
+
+        def fns(split, ws=ws, wts=wts, o=o, kw=kw):
+            extra = {"split": split} if split else {}
+            return [lambda a=a, b=b: dk.fused_dense_decode(o["x"], a, w_t=b, **kw, **extra)
+                    for a, b in zip(ws, wts)]
+        plan = {}
+        for split in (0, *(BREAKDOWN_K5_SPLITS if forced else ())):
+            extra = {"split": split} if split else {}
+            got = dk.fused_dense_decode(o["x"], w, w_t=wts[0], **kw, **extra,
+                                        **({"trace": plan} if forced and not split else {}))
+            torch.cuda.synchronize()
+            ok, err = within_bf16_ulp(got, want)
+            if not ok:
+                fail(f"fused_dense_decode {label} split {split}: max abs err {err} from the "
+                     "plain version, beyond 1 bf16 ulp and 1e-5 of the magnitude")
+            what = f", planned {plan}" if not split and plan else \
+                (f", {split} block(s) a column tile (forced)" if split else "")
+            _print_split(f"K5 {label} {m} x {k} -> {n}{what}", _cold_by_kernel(fns(split)),
+                         nbytes)
+        if forced:
+            with cuda_build.variant("decode_dense", "QDM_K5_TRACE"):
+                blocks = plan["split"] * -(-n // plan["bn"]) * -(-m // plan["rows"])
+                _print_trace(f"K5 {label}, planned", "decode_dense", "QDM_K5_TRACE",
+                             "qdm_decode_dense_trace", (), fns(0)[0], blocks, K5_PHASES)
+        nsb = o["ns"].to(bf)
+        lib = [lambda a=a: torch.matmul(torch.nn.functional.rms_norm(o["x"], (k,), nsb, 1e-6),
+                                        a).float() for a in ws]
+        _print_split(f"library at K5's {label} (F.rms_norm + matmul)", _cold_by_kernel(lib),
+                     nbytes)
+        del o, w, ws, wts, lib
+        torch.cuda.empty_cache()
+
+
+def _k26_breakdown(dev, rng, forced) -> None:
+    """K26 at the 7B and TinyLlama decode shapes by kernel, checked against
+    its plain version (outputs equal) first, over weight copies beyond twice
+    the L2; where this tree's wrapper takes ``splits``, with each step's
+    cluster forced to 1, 2, 4 and 8 blocks too and each step's phases from a
+    traced build; the unmerged K16 o_proj + K17 pair by kernel and the
+    library (_check_o_mlp's) beside."""
+    from qdm_tpu_torch.api.serve import i4_layout
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
+        group, _ = i4_layout(c)
+        hd, k, i = c.num_attention_heads * c.head_dim, c.hidden_size, c.intermediate_size
+        attn, res, q, a_o, scl, ns, bj = _o_mlp_case(rng, b, hd, k, i, group, dev)
+        (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+        want = dk.fused_o_mlp_decode_i4_plain(attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd),
+                                              scl, ns, group=group)
+        w_bytes = (hd * k + 3 * k * i) // 2
+        nbytes = (2 * b * hd + 2 * 2 * b * k + w_bytes
+                  + 4 * ((hd // group) * k + 2 * (k // group) * i + (i // group) * k) + 4 * k + 12)
+        ws = (wo, wg, wu, wd)
+        sets = [(ws, tuple(dk.transposed_weight(t) for t in ws))]
+        sets += [(tuple(t.clone() for t in ws), tuple(t.clone() for t in sets[0][1]))
+                 for _ in range(_copies(w_bytes) - 1)]
+
+        def fns(splits, sets=sets):
+            extra = {"splits": splits} if splits else {}
+            return [lambda w=w, t=t: dk.fused_o_mlp_decode_i4(
+                attn, w[0], so, a_o, res, w[1], w[2], w[3], (sg, su, sd), scl, ns, group=group,
+                w_t=t, **extra) for w, t in sets]
+        plan = {}
+        for splits in (None, *(((sp,) * 3 for sp in BREAKDOWN_K5_SPLITS) if forced else ())):
+            extra = {"splits": splits} if splits else {}
+            got = dk.fused_o_mlp_decode_i4(attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd), scl,
+                                           ns, group=group, w_t=sets[0][1], **extra,
+                                           **({"trace": plan} if forced and not splits else {}))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"fused_o_mlp_decode_i4 {tag} splits {splits}: output differs from the "
+                     "plain version")
+            what = f", planned {plan}" if not splits and plan else \
+                (f", clusters of {splits[0]} (forced)" if splits else "")
+            _print_split(f"K26 {tag} o_proj + mlp {b} x {hd} -> {k}, I {i}, bj {bj}, g {group}"
+                         f"{what}", _cold_by_kernel(fns(splits)), nbytes)
+        if forced:
+            with cuda_build.variant("decode_o_mlp_i4", "QDM_K26_TRACE"):
+                for step, n_out in enumerate((k, i, k)):
+                    blocks = plan["splits"][step] * -(-n_out // 64) * -(-b // plan["rows"])
+                    _print_trace(f"K26 {tag} step {step} ({K26_STEPS[step]}), planned",
+                                 "decode_o_mlp_i4", "QDM_K26_TRACE",
+                                 "qdm_decode_o_mlp_i4_trace", (step,), fns(None)[0], blocks,
+                                 K26_PHASES)
+            with cuda_build.variant("decode_o_mlp_i4", "QDM_K26_NO_PARTIALS"):
+                _print_split(f"K26 {tag}, a build with QDM_K26_NO_PARTIALS (the partials not "
+                             "kept; its output is not the kernel's)",
+                             _cold_by_kernel(fns(None)), nbytes)
+        pair = [lambda w=w, t=t: dk.fused_mlp_decode_i4(
+            dk.fused_dense_decode_i4(attn, w[0], so, a_o, residual=res, group=group, w_t=t[0]),
+            w[1], w[2], w[3], (sg, su, sd), scl, ns, group=group, w_t=t[1:]) for w, t in sets]
+        _print_split(f"unmerged K16 o_proj + K17 at K26's {tag} shape", _cold_by_kernel(pair),
+                     nbytes)
+        lib_w = [(_i4_bf16(wo, so, group), _i4_bf16(wg, sg, group), _i4_bf16(wu, su, group),
+                  _i4_bf16(wd, sd, group, bj))]
+        lib_w += [tuple(t.clone() for t in lib_w[0])
+                  for _ in range(_copies(sum(t.numel() * 2 for t in lib_w[0])) - 1)]
+        nsb = ns.to(torch.bfloat16)
+
+        def library(cw):
+            def fn_():
+                x2_ = torch.matmul(attn, cw[0]) + res
+                xin = torch.nn.functional.rms_norm(x2_, (k,), nsb, 1e-6)
+                h = torch.nn.functional.silu(torch.matmul(xin, cw[1])) * torch.matmul(xin, cw[2])
+                return torch.matmul(h, cw[3]) + x2_
+            return fn_
+        _print_split(f"library at K26's {tag} shape (matmul on bf16-dequantized weights)",
+                     _cold_by_kernel([library(cw) for cw in lib_w]), nbytes)
+        del sets, pair, lib_w
+        torch.cuda.empty_cache()
+
+
+def phase_k5k26_breakdown(dev) -> None:
+    """K5 at the bf16 engines' shapes (K5_BENCH) and K26 at the 7B and
+    TinyLlama merge_o shapes by kernel, each checked first, the library and
+    (for K26) the unmerged K16 + K17 pair beside; then K6, K16, K17 and K25
+    at their PERF.md shapes as phase 2 times them (these share code with K5
+    and K26 and must not move).  Run on an older tree, it leaves out what
+    that tree's wrappers do not take (``split``, ``splits``, ``trace``)."""
+    from qdm_tpu_torch.api.serve import i4_layout
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    from qdm_tpu_torch.ops import cuda_build
+
+    rng = np.random.default_rng(15)
+    forced = _takes(dk.fused_dense_decode, "split"), _takes(dk.fused_o_mlp_decode_i4, "splits")
+    if all(forced):  # this tree's K5 and K26 have the traced builds
+        cuda_build.build_variants([("decode_dense", ("QDM_K5_TRACE",)),
+                                   ("decode_o_mlp_i4", ("QDM_K26_TRACE",)),
+                                   ("decode_o_mlp_i4", ("QDM_K26_NO_PARTIALS",))])
+    _k5_breakdown(dev, rng, forced[0])
+    _k26_breakdown(dev, rng, forced[1])
+    rows = {"fused_dense_decode_i8": [], "fused_dense_decode_i4": [], "fused_mlp_decode_i4": [],
+            "fused_o_mlp_decode_i8": []}
+    bf = torch.bfloat16
+    for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH)):
+        group, _ = i4_layout(c)
+        k, hd = c.hidden_size, c.head_dim
+        n_qkv = (c.num_attention_heads + 2 * c.num_key_value_heads) * hd
+        for label, n, norm, rope, r in ((f"{tag} qkv (norm, rope {hd})", n_qkv, True, True, False),
+                                        (f"{tag} o_proj (+res)", k, False, False, True)):
+            o = _dense_case(rng, dev, b, k, n, bf)
+            rows["fused_dense_decode_i8"].append(_check_dense_i8(
+                label, o, hd, "rmsnorm" if norm else None, rope, r, bf, dev, True))
+            rows["fused_dense_decode_i4"].append(
+                _check_dense_i4(label, o, hd, norm, rope, r, group, dev, True))
+            del o
+        rows["fused_mlp_decode_i4"].append(
+            _check_mlp_i4(f"{tag} mlp (norm, silu, +res)", rng, b, k, c.intermediate_size, 512,
+                          group, dev, True))
+        rows["fused_o_mlp_decode_i8"].append(
+            _check_o_mlp(f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * hd, k,
+                         c.intermediate_size, 0, dev, True))
+        torch.cuda.empty_cache()
+    c = LlamaConfig()
+    o = _dense_case(rng, dev, L7_BATCH, c.hidden_size, c.vocab_size, bf)
+    rows["fused_dense_decode_i4"].append(_check_dense_i4(
+        "7B lm_head int4 (norm, f32 out)", o, c.head_dim, True, False, False, 128, dev, True,
+        out_dtype=torch.float32))
+    del o
+    torch.cuda.empty_cache()
+    _print_rows(rows)
 
 
 def _print_reprofiled() -> None:
@@ -5228,7 +5474,8 @@ def main() -> int:
                          "denoising steps and three decode steps of each engine")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
-    ap.add_argument("--breakdown", nargs="?", const="all", choices=("all", "w4", "k3", "k4k9"),
+    ap.add_argument("--breakdown", nargs="?", const="all",
+                    choices=("all", "w4", "k3", "k4k9", "k5k26"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -5241,8 +5488,12 @@ def main() -> int:
                          "each route at every SD1.5 UNet shape; `--breakdown k4k9`: K4 at every "
                          "group-128 SD1.5 UNet shape (quantization pass and GEMM apart, planned "
                          "and forced, its traced phases at ff/net_2) and K9 at the 7B and GQA "
-                         "bench prefills, the library beside (plain `--breakdown` prints these "
-                         "last); no other phase, and no result line")
+                         "bench prefills, the library beside; `--breakdown k5k26`: K5 at the "
+                         "bf16 engines' qkv, o_proj and lm_head shapes and K26 at the 7B and "
+                         "TinyLlama merge_o shapes by kernel (planned and forced), the library "
+                         "and the unmerged K16 + K17 pair beside, then K6, K16, K17 and K25 "
+                         "at their shapes (plain `--breakdown` prints these last); no other "
+                         "phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -5264,6 +5515,8 @@ def main() -> int:
             phase_w4_breakdown(dev)
         if args.breakdown in ("all", "k4k9"):
             phase_k4k9_breakdown(dev)
+        if args.breakdown in ("all", "k5k26"):
+            phase_k5k26_breakdown(dev)
         _print_reprofiled()
         print(smi_line())
         return 0

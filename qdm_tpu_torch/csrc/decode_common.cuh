@@ -1,14 +1,15 @@
-// Shared pieces of the decode-step kernels (decode_dense.cu: K5 and K6,
-// decode_mlp_i8.cu: K8, decode_mlp.cu: K11; flash_prefill.cu takes the bf16
-// mma).
+// Shared pieces of the decode-step kernels (decode_dense.cu: K6,
+// decode_mlp_i8.cu: K8, decode_mlp.cu: K11; decode_dense_bf16.cu (K5) takes
+// the bf16 mma, the norm's constants and the dense epilogue, flash_prefill.cu
+// the bf16 mma).
 //
 // * norm_rows_kernel: one block per row of x (B, K).  Optional RMSNorm or
 //   LayerNorm in f32, with the row sums taken in f64 and rounded once to
 //   f32 (so any summation order gives the same f32, and the plain PyTorch
 //   version's f64 sum the same bits) and rsqrt(v) as 1 / sqrt(v) with IEEE
-//   sqrt and division.  Writes the normed row in an output dtype (K5:
-//   x's dtype) or its int8 codes clip(round(xn * (1/a)), +-127) with a
-//   static scale a (K6, K8).
+//   sqrt and division.  Writes the normed row in an output dtype (K11:
+//   bf16) or its int8 codes clip(round(xn * (1/a)), +-127) with a static
+//   scale a (K6, K8, K16, K17).
 // * tile_mainloop: a 32-row x BN-column tile of A (M, K) @ B^T, B given
 //   as (N, K) rows (the transposed weight), over a byte range of K,
 //   through a three-stage cp.async ring into mma.sync: m16n8k32 s8 for
@@ -17,7 +18,7 @@
 //   4t + 16 of each 32-byte step), so one loader serves both.  NB weight
 //   matrices share the A tile (K8's and K11's gate and up).  A may also
 //   arrive as bf16 / f32 values quantized with a static scale as each
-//   stage is consumed (TileA; K25 / K26's o_proj).
+//   stage is consumed (TileA; K25's o_proj).
 // * act_fn and ordered_sum_kernel: the fused MLPs' activation and their
 //   sum of the inner blocks' f32 partials in block order.
 // * finish_tile: the dense epilogue from a shared-memory f32 tile: the
@@ -168,7 +169,7 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const unsigned* a, cons
 // stages as they are.  T = bf16 / float: values that the ring stages as
 // they are and that are quantized, clip(round(v * inv), +-127), into the
 // ring's int8 A stage when their stage is consumed (the merged o_proj of
-// K25 / K26, whose act scale is static, so quantizing is elementwise).
+// K25, whose act scale is static, so quantizing is elementwise).
 // `stage` is shared memory for kStages x TM x TK values; `codes`, if not
 // null, receives the codes (written by the blocks of grid column 0, for a
 // caller that checks them).

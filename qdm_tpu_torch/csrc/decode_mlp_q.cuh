@@ -1,11 +1,10 @@
 // The tile kernels of the quantized fused MLPs, shared by K8 (decode_mlp_i8.cu)
-// and K25 (decode_o_mlp_i8.cu), K17 (decode_mlp_i4.cu) and K26
-// (decode_o_mlp_i4.cu): gate and up over a 64-column slice of I into the
-// int8 mid codes, and the down product of one inner block over a
-// 64-column slice of K into an f32 partial.
+// and K25 (decode_o_mlp_i8.cu), and K17 (decode_mlp_i4.cu): gate and up over
+// a 64-column slice of I into the int8 mid codes, and the down product of
+// one inner block over a 64-column slice of K into an f32 partial.
 //
-// ordered_finish: the merged kernels (K25, K26) add the inner blocks'
-// partials in the down launch itself.  Each down block, after storing its
+// ordered_finish: the merged kernel (K25) adds the inner blocks' partials in
+// the down launch itself.  Each down block, after storing its
 // partial, takes a ticket from its (row tile, column slice) counter; the
 // block that takes the last one sums the slice's n_j partials in j order
 // (the TPU kernel's accumulator order, whichever block finishes last),
@@ -130,7 +129,7 @@ down_partial_kernel(const int8_t* __restrict__ ai, const int8_t* __restrict__ wd
 }
 
 // ---------------------------------------------------------------------------
-// planar int4 weights (K17, K26)
+// planar int4 weights (K17)
 // ---------------------------------------------------------------------------
 
 // (2) gate and up over a 64-column slice of I -> mid codes.
@@ -167,14 +166,11 @@ gate_up_i4_kernel(const int8_t* __restrict__ xi, const unsigned char* __restrict
       }
 }
 
-// (3) one inner block j of the down product over a 64-column slice of K;
-// FINISH: the slice's last block sums the partials (ordered_finish).
-template <bool FINISH>
+// (3) one inner block j of the down product over a 64-column slice of K.
 __global__ void __launch_bounds__(kThreads)
 down_partial_i4_kernel(const int8_t* __restrict__ ai, const unsigned char* __restrict__ wd,
                        const float* __restrict__ sd, const float* __restrict__ scl,
-                       float* __restrict__ part, int M, int K, int I, int bj, int group,
-                       Finish fin) {
+                       float* __restrict__ part, int M, int K, int I, int bj, int group) {
   constexpr int NJ = 2;
   constexpr int BN = NJ * 32;
   __shared__ __align__(16) TileSmem<NJ, 1> sm;
@@ -198,7 +194,7 @@ down_partial_i4_kernel(const int8_t* __restrict__ ai, const unsigned char* __res
         const int row = m0 + r, col = n0 + c;
         if (row >= M || col >= K) continue;
         pj[(size_t)row * K + col] = __fmul_rn(y[0][mi][nj][e], s_mid);
-      }  if constexpr (FINISH) ordered_finish(part, I / bj, fin, M, K, m0, n0);
+      }
 }
 
 }  // namespace dec

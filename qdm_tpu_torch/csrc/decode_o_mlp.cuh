@@ -1,5 +1,5 @@
-// The merged o_proj + residual + RMSNorm + MLP + residual of the decode
-// step (decode_o_mlp_i8.cu: K25, decode_o_mlp_i4.cu: K26), three launches:
+// The merged o_proj + residual + RMSNorm + int8 MLP + residual of the
+// decode step (decode_o_mlp_i8.cu: K25), three launches:
 //
 //   (1) o_proj over 64-column slices of K: the attention output arrives as
 //       bf16 / f32 and is quantized with the static scale s_ao as each
@@ -16,13 +16,14 @@
 //       the slice's last block adding the partials in block order and x2
 //       (ordered_finish) and storing the output.
 //
-// The TPU kernel (_fused_o_mlp_{i8,i4}_kernel) runs all of this in one
+// The TPU kernel (_fused_o_mlp_i8_kernel) runs all of this in one
 // launch because its grid walks the inner blocks in order on one core; here
 // blocks run in parallel in no order, so the two steps that need every
 // block of the one before take a barrier across the (resident) o_proj grid
-// for the norm of x2, and the block that finishes last for the ordered sum.  The unmerged pair (K6 / K16 o_proj + K8 /
-// K17) takes six launches: a norm / quant pass and the tile for o_proj, a
-// norm pass, gate / up, down partials and an ordered sum for the MLP.
+// for the norm of x2, and the block that finishes last for the ordered sum.
+// The unmerged pair (K6 o_proj + K8) takes six launches: a norm / quant pass
+// and the tile for o_proj, a norm pass, gate / up, down partials and an
+// ordered sum for the MLP.
 
 #pragma once
 
@@ -52,8 +53,8 @@ __device__ __forceinline__ void grid_barrier(unsigned* arrive, unsigned* leave) 
 }
 
 struct OProj {
-  const void* wo_t;   // int8 (K, HD) or planar int4 (K, HD/2)
-  const float* wos;   // (K,) or (HD/group, K)
+  const void* wo_t;   // int8 (K, HD)
+  const float* wos;   // (K,)
   const void* res;    // (M, K)
   const float* s_ao;  // (1,) the attention output's static scale
   const float* scl;   // [s_in, s_mid]
@@ -64,14 +65,14 @@ struct OProj {
   int8_t* xi;         // (M, K)
   int8_t* codes;      // (M, HD) or null
   unsigned* barrier;  // two counters, zero between launches
-  int M, HD, K, group;
+  int M, HD, K;
 };
 
-// (1) x2 for a 64-column slice of K (I4: the planar int4 group dot), the
-// slice's sums of x2^2 per row; after the grid barrier each block takes the
-// rows' RMSNorm scale from every slice's sums (f64, in slice order, rounded
-// once: the row's f64 sum) and writes the codes of its own slice.
-template <bool I4, typename TA, typename TR>
+// (1) x2 for a 64-column slice of K, the slice's sums of x2^2 per row; after
+// the grid barrier each block takes the rows' RMSNorm scale from every
+// slice's sums (f64, in slice order, rounded once: the row's f64 sum) and
+// writes the codes of its own slice.
+template <typename TA, typename TR>
 __global__ void __launch_bounds__(kThreads)
 o_proj_x2_kernel(const TA* __restrict__ attn, OProj p) {
   constexpr int NJ = 2, BN = NJ * 32;
@@ -83,21 +84,14 @@ o_proj_x2_kernel(const TA* __restrict__ attn, OProj p) {
   const TileA<TA> a{attn, (size_t)p.HD, __fdiv_rn(1.0f, s_ao), stage, p.codes};
   const unsigned char* B[1] = {static_cast<const unsigned char*>(p.wo_t)};
   float y[1][2][NJ][4];
-  if constexpr (I4) {
-    const int half = p.HD / 2;
-    const float* W[1] = {p.wos};
-    i4_group_dot_tile<NJ, 1>(y, a, 0, half, B, (size_t)half, 0, half, p.group, W, (size_t)p.K,
-                             0, m0, p.M, n0, p.K, sm);
-  } else {
-    int acc[1][2][NJ][4];
-    tile_mainloop<NJ, 1, false>(acc, a, B, (size_t)p.HD, m0, p.M, n0, p.K, 0, p.HD, sm);
+  int acc[1][2][NJ][4];
+  tile_mainloop<NJ, 1, false>(acc, a, B, (size_t)p.HD, m0, p.M, n0, p.K, 0, p.HD, sm);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int nj = 0; nj < NJ; ++nj)
+    for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) y[0][mi][nj][e] = (float)acc[0][mi][nj][e];
-  }
+      for (int e = 0; e < 4; ++e) y[0][mi][nj][e] = (float)acc[0][mi][nj][e];
   const TR* res = static_cast<const TR*>(p.res);
   float* xs = reinterpret_cast<float*>(&sm);  // the x2 tile, TM x BN (the ring is free)
 #pragma unroll
@@ -112,9 +106,8 @@ o_proj_x2_kernel(const TA* __restrict__ attn, OProj p) {
         float x2 = 0.0f;
         if (row < p.M && col < p.K) {
           const size_t o = (size_t)row * p.K + col;
-          // int8: f32(acc) * (s_ao * wos); int4: (group partials) * s_ao
-          const float v = I4 ? __fmul_rn(y[0][mi][nj][e], s_ao)
-                             : __fmul_rn(y[0][mi][nj][e], __fmul_rn(s_ao, p.wos[col]));
+          // f32(acc) * (s_ao * wos)
+          const float v = __fmul_rn(y[0][mi][nj][e], __fmul_rn(s_ao, p.wos[col]));
           x2 = __fadd_rn(v, to_f32(res[o]));
           p.x2[o] = x2;
         }
@@ -154,29 +147,28 @@ o_proj_x2_kernel(const TA* __restrict__ attn, OProj p) {
 
 // A cooperative launch: it fails (cudaErrorCooperativeLaunchTooLarge) rather
 // than run a grid whose blocks could not all be resident at the barrier.
-template <bool I4, typename TA, typename TR>
+template <typename TA, typename TR>
 cudaError_t launch_o_proj_coop(const TA* attn, const OProj& p, cudaStream_t s) {
   dim3 grid((p.K + 63) / 64, (p.M + TM - 1) / TM);
   OProj args = p;
   void* kargs[] = {(void*)&attn, (void*)&args};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)o_proj_x2_kernel<I4, TA, TR>, grid,
+  cudaError_t e = cudaLaunchCooperativeKernel((const void*)o_proj_x2_kernel<TA, TR>, grid,
                                               dim3(kThreads), kargs, 0, s);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <bool I4, typename TA>
+template <typename TA>
 cudaError_t launch_o_proj(const void* attn, int res_dtype, const OProj& p, cudaStream_t s) {
   const TA* a = static_cast<const TA*>(attn);
-  if (res_dtype == kDtypeBF16) return launch_o_proj_coop<I4, TA, __nv_bfloat16>(a, p, s);
-  if (res_dtype == kDtypeF32) return launch_o_proj_coop<I4, TA, float>(a, p, s);
+  if (res_dtype == kDtypeBF16) return launch_o_proj_coop<TA, __nv_bfloat16>(a, p, s);
+  if (res_dtype == kDtypeF32) return launch_o_proj_coop<TA, float>(a, p, s);
   return cudaErrorInvalidValue;
 }
 
-template <bool I4>
-cudaError_t launch_o_proj_any(const void* attn, int attn_dtype, int res_dtype, const OProj& p,
-                              cudaStream_t s) {
-  if (attn_dtype == kDtypeBF16) return launch_o_proj<I4, __nv_bfloat16>(attn, res_dtype, p, s);
-  if (attn_dtype == kDtypeF32) return launch_o_proj<I4, float>(attn, res_dtype, p, s);
+inline cudaError_t launch_o_proj_any(const void* attn, int attn_dtype, int res_dtype,
+                                     const OProj& p, cudaStream_t s) {
+  if (attn_dtype == kDtypeBF16) return launch_o_proj<__nv_bfloat16>(attn, res_dtype, p, s);
+  if (attn_dtype == kDtypeF32) return launch_o_proj<float>(attn, res_dtype, p, s);
   return cudaErrorInvalidValue;
 }
 

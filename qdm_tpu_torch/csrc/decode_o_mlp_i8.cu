@@ -47,8 +47,8 @@ extern "C" int qdm_decode_o_mlp_i8(const void* attn, int attn_dtype, const void*
   const OProj p{wo_t, static_cast<const float*>(wos), res, static_cast<const float*>(s_ao), sc,
                 static_cast<const float*>(ns), eps, static_cast<float*>(x2),
                 static_cast<double*>(ss), static_cast<int8_t*>(xi),
-                static_cast<int8_t*>(a_codes), cnt, M, HD, K, 0};
-  cudaError_t err = launch_o_proj_any<false>(attn, attn_dtype, res_dtype, p, s);
+                static_cast<int8_t*>(a_codes), cnt, M, HD, K};
+  cudaError_t err = launch_o_proj_any(attn, attn_dtype, res_dtype, p, s);
   if (err != cudaSuccess) return (int)err;
   const int mt = (M + TM - 1) / TM;
   gate_up_kernel<<<dim3((I + 63) / 64, mt), kThreads, 0, s>>>(

@@ -43,7 +43,8 @@ ENTRY_POINTS = {
     "w4a8_matmul": ("qdm_w4a8_matmul",
                     (P, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P)),
     "decode_dense": ("qdm_decode_dense",
-                     (P, I, P, I, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
+                     (P, I, P, I, P, P, I, F, P, P, P, I, P, I, P, I, I, I, I, I, I, I, I,
+                      P)),
     "decode_dense_i8": ("qdm_decode_dense_i8",
                         (P, I, P, P, P, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
     "decode_attention_kv": ("qdm_decode_attention_kv",
@@ -72,7 +73,7 @@ ENTRY_POINTS = {
                          P, P, I, I, I, I, I, P)),
     "decode_o_mlp_i4": ("qdm_decode_o_mlp_i4",
                         (P, I, P, P, P, I, P, P, P, P, P, P, P, P, P, F, I, P, I, P, P, P, P, P,
-                         P, P, I, I, I, I, I, I, P)),
+                         I, I, I, I, I, I, I, I, I, I, I, I, I, P)),
     "flash_prefill_i8": ("qdm_flash_prefill_i8",
                          (P, I, L, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P, L, L, L, P, P, P,
                           P, P, P, I, I, I, I, I, F, I, P)),
@@ -87,7 +88,8 @@ ENTRY_POINTS = {
                             (P, I, L, P, P, P, P, I, F, I, P, I, I, I, I, I, I, I, P, P)),
     "w8a8_matmul": ("qdm_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)),
 }
-SOURCE_OF = {"decode_dense_i8": "decode_dense", "w8a8_matmul_fused": "w8a8_matmul"}
+SOURCE_OF = {"decode_dense": "decode_dense_bf16", "decode_dense_i8": "decode_dense",
+             "w8a8_matmul_fused": "w8a8_matmul"}
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}
@@ -110,13 +112,13 @@ def source(name: str) -> str:
     return SOURCE_OF.get(name, name)
 
 
-def _lib_path(name: str) -> Path:
-    name = source(name)
+def _lib_path(src: str) -> Path:
+    """The library built from ``csrc/<src>.cu`` (a source's name, not a kernel's)."""
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{src}.cu"]:
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{src}_{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> None:
@@ -153,7 +155,7 @@ def kernel(name: str):
         return fn
     with _LOCK:
         if name not in _FUNCS:
-            path = _lib_path(name)
+            path = _lib_path(source(name))
             if not path.exists():
                 build_all()
             lib = ctypes.CDLL(str(path))
@@ -168,7 +170,7 @@ def kernel(name: str):
 def variant_path(name: str, *defines: str) -> Path:
     """The library of kernel ``name`` built with ``-D<define>`` for each of
     ``defines`` (build_variants, variant)."""
-    lib = _lib_path(name)
+    lib = _lib_path(source(name))
     return lib.with_name(lib.stem + "_" + "_".join(d.lower() for d in defines) + ".so")
 
 

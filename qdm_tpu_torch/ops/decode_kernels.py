@@ -7,8 +7,10 @@ engine with a bf16 KV cache:
 * :func:`fused_dense_decode` — optional RMSNorm / LayerNorm prologue, the
   normed rows rounded to x's dtype, ``xn @ W`` with f32 accumulation, then
   bias, the rope epilogue and a residual.  CUDA kernel
-  ``csrc/decode_dense.cu`` (K5; replaces ``fused_dense_decode_pallas``).
-  The engine's final norm + lm_head.
+  ``csrc/decode_dense_bf16.cu`` (K5; replaces ``fused_dense_decode_pallas``):
+  one launch, the norm in its prologue, the weight streamed by TMA and K
+  split across a cluster (:func:`dense_plan`).  The bf16 engines' qkv and
+  o_proj and every engine's final norm + lm_head without a quantized head.
 * :func:`fused_dense_decode_i8` — the same with a static activation scale:
   ``xi = clip(round(xn * (1/a)), +-127)`` int8, int8 weights with
   per-column scales, ``acc * (a * ws)``.  CUDA kernel
@@ -881,15 +883,87 @@ def _dense_common(x, w, w_t, norm_scale, norm_bias, norm_type, residual, rope_co
     return x.contiguous(), w_t, ns, nb, bi, cos, sin, res, m, k, n
 
 
+# K5's bf16 route (csrc/decode_dense_bf16.cu): at most K5_MAX_SPLIT blocks a
+# cluster, K in chunks of 64 values, a ring of up to K5_RING_BYTES a block
+K5_MAX_SPLIT = 8
+K5_RING_BYTES = 128 * 1024
+PLAN_MAX_SPLIT = 2            # the most blocks a planned K5 / K26 cluster takes
+_SMEM_MAX = 232448            # shared memory one block may opt in to on sm_90
+_SMEM_SM = 233472             # shared memory of an sm_90 SM
+
+
+def dense_smem(rows: int, bn: int, split: int, stages: int, k: int, nvec: int = 1) -> int:
+    """Shared memory of one K5 block (``csrc/decode_dense_bf16.cu::K5Layout``);
+    nvec: the norm's vectors staged (0 without a norm, 1 RMSNorm, 2 LayerNorm)."""
+    chunks = qmm._cdiv(qmm._cdiv(k, 64), split)
+    return (5120 + stages * bn * 128 + rows * (chunks * 128 + 16) + nvec * chunks * 256
+            + 2 * bn * rows * 4 + rows * (bn + 4) * 4 + 1024)
+
+
+def _split_cost(tiles: int, split: int, sms: int, smem: int, ring: int, wave: float,
+                persistent: bool = False) -> float:
+    """The cost a launch plan is chosen by, in column tiles streamed: the
+    slices the busiest SM streams, ceil(tiles * split / sms) / split, each
+    block of a split 3% dearer (its share of the cluster's exchanges) and
+    slower where an SM's rings hold less than 32 KB in flight, plus ``wave``
+    for each wave of blocks (a block's prologue and combine), as many blocks
+    an SM as its shared memory holds; a ``persistent`` grid takes one wave."""
+    per_sm = max(1, min(8, _SMEM_SM // (smem + 1024)))
+    waves = 1 if persistent else qmm._cdiv(tiles * split, sms * per_sm)
+    stream = qmm._cdiv(tiles * split, sms) / split * (1 + 0.03 * (split - 1))
+    return stream / min(1.0, per_sm * ring / 32768) + wave * waves
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
+               split: int = 0, nvec: int = 1) -> dict:
+    """K5's launch plan for a bf16 x and weight: ``bn`` features a column
+    tile (128 under a 128-wide rope or where 128-wide tiles alone fill the
+    SMs, else 64), ``rows`` of x a tile (8 per n8 tile, up to 32; fewer
+    where a tile's resident rows would not fit), ``split`` blocks a cluster
+    along K (``split`` 1-8 forces it; planned, 1 or 2: on the card larger
+    clusters read slower at every shape timed, their exchanges and combine
+    growing with them) and the ring's ``stages`` (as many as fill
+    K5_RING_BYTES and fit): the split and stages of least
+    :func:`_split_cost`.  Cached: a decode step asks for the same few shapes
+    on every call (the returned dict must not be changed)."""
+    bn = 128 if (rope and head_dim == 128) or qmm._cdiv(n, 128) >= sms else 64
+    nk = qmm._cdiv(k, 64)
+    if split and not 1 <= split <= min(K5_MAX_SPLIT, nk):
+        raise ValueError(f"fused_dense_decode: split {split} outside 1..{min(K5_MAX_SPLIT, nk)} "
+                         f"for K={k}")
+    for rows in range(8 * min(4, qmm._cdiv(m, 8)), 0, -8):
+        tiles = qmm._cdiv(n, bn) * qmm._cdiv(m, rows)
+        best = None
+        for s in ([split] if split else range(1, min(PLAN_MAX_SPLIT, nk) + 1)):
+            stages = next((st for st in range(min(16, K5_RING_BYTES // (bn * 128)), 1, -1)
+                           if dense_smem(rows, bn, s, st, k, nvec) <= _SMEM_MAX), 0)
+            if not stages:
+                continue
+            cost = _split_cost(tiles, s, sms, dense_smem(rows, bn, s, stages, k, nvec),
+                               stages * bn * 128, 0.2, persistent=s == 1)
+            if best is None or cost < best[0]:
+                best = (cost, dict(bn=bn, rows=rows, split=s, stages=stages))
+        if best is not None:
+            return best[1]
+    raise NotImplementedError(f"fused_dense_decode: no K5 plan fits shared memory for K={k}"
+                              + (f", split {split}" if split else ""))
+
+
 def fused_dense_decode(x, w, norm_scale=None, residual=None, rope_cos=None, rope_sin=None,
                        head_dim: int = 0, eps: float = 1e-6, out_dtype=None, bias=None,
                        norm_bias=None, norm_type: str = "rmsnorm",
-                       w_t: Optional[torch.Tensor] = None):
+                       w_t: Optional[torch.Tensor] = None, split: int = 0,
+                       trace: Optional[dict] = None):
     """x (B, K) -> norm?(x) @ w (K, N) (+bias) (+rope) (+residual).
 
-    w bf16 or f32; bf16 x with a bf16 weight runs on the tensor cores,
-    anything else in f32 FMA.  rope_cos / rope_sin (N,) carry the sign
-    and the identity of non-rotated columns (``_rope_consts``)."""
+    w bf16 or f32; bf16 x with a bf16 weight runs on the tensor cores in
+    one launch (:func:`dense_plan`), anything else in f32 FMA.  rope_cos /
+    rope_sin (N,) carry the sign and the identity of non-rotated columns
+    (``_rope_consts``).  On the card, for a bf16 x and weight: ``split``
+    1-8 forces the blocks of a cluster along K (tests and profiles only: the
+    result agrees within K5's tolerance; 0 plans it), and ``trace``, a
+    dict, receives the plan."""
     out_dtype = out_dtype or x.dtype
     if not _on_card(x, "fused_dense_decode"):
         return fused_dense_decode_plain(x, w, norm_scale, residual, rope_cos, rope_sin,
@@ -902,15 +976,23 @@ def fused_dense_decode(x, w, norm_scale=None, residual=None, rope_cos=None, rope
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    xn = torch.empty((m, k), dtype=x.dtype, device=x.device)
+    plan = dict(bn=0, rows=0, split=0, stages=0)
+    if x.dtype == torch.bfloat16 and w_t.dtype == torch.bfloat16:
+        # the norm's vectors are staged 16 bytes at a time
+        ns, nb = (t.clone() if t is not None and t.data_ptr() % 16 else t for t in (ns, nb))
+        plan = dense_plan(m, k, n, head_dim, cos is not None, qmm.sm_count(x.device), split,
+                          0 if ns is None else (2 if nb is not None else 1))
     fn = cuda_build.kernel("decode_dense")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), _DTYPE_CODE[w_t.dtype],
                  _ptr(ns), _ptr(nb), _NORMS[norm_type if ns is not None else None],
                  ctypes.c_float(eps), _ptr(bi), _ptr(cos), _ptr(sin), int(head_dim),
                  _ptr(res), _DTYPE_CODE[res.dtype] if res is not None else 0,
-                 out.data_ptr(), _DTYPE_CODE[out_dtype], xn.data_ptr(), m, k, n, _stream(x))
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, plan["bn"], plan["rows"],
+                 plan["split"], plan["stages"], _stream(x))
     cuda_build.check(err, "fused_dense_decode")
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES["fused_dense_decode"] += 1
     return out
 
@@ -1768,18 +1850,84 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
     return out
 
 
+def i4_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, group: int, parts: int,
+                 g_defer: int, tile: bool) -> int:
+    """Shared memory of one block of a K26 step
+    (``csrc/decode_o_mlp_i4.cu::I4StepLayout``)."""
+    rs = min(tr, qmm._round_up(m, 8))
+    return (1024 + stages * nb * 64 * 128 + 2 * rs * (abytes + 16)
+            + nb * 2 * (abytes // group) * 64 * 4
+            + g_defer * qmm._cdiv(tr, 16) * 4 * 256 * 4 + parts * rs * 64 * 4
+            + (rs * 68 * 4 if tile else 0) + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def o_mlp_i4_plan(m: int, hd: int, k: int, inner: int, bj: int, group: int, sms: int,
+                  splits: Optional[Tuple[int, int, int]] = None) -> dict:
+    """K26's launch plan: ``rows`` of x a tile (16, or 32 above 16; fewer
+    where a step would not fit) and, for each of its three steps (o_proj,
+    gate / up, down), the blocks of a cluster along the contraction and the
+    ring's stages (up to 128 KB a block) of least :func:`_split_cost`.
+    o_proj and gate / up split the groups of their planar half, down its
+    inner blocks (planned, 1 or 2 blocks a cluster, as for K5); ``splits``
+    (three counts, 1-8) forces them.  Cached, as :func:`dense_plan` is."""
+    for tr in ((32, 16, 8) if m > 16 else (16, 8)):
+        steps = []
+        for step, (n, half, nb) in enumerate(((k, hd // 2, 1), (inner, k // 2, 2),
+                                              (k, bj // 2, 1))):
+            n_blk = inner // bj if step == 2 else 1
+            g = half // group
+            parts = n_blk if step == 2 else g
+            tiles = qmm._cdiv(n, 64) * qmm._cdiv(m, tr)
+            forced = splits[step] if splits else 0
+            if forced and not 1 <= forced <= min(I4_MAX_SPLIT, parts):
+                raise ValueError(f"fused_o_mlp_decode_i4: step {step}'s split {forced} outside "
+                                 f"1..{min(I4_MAX_SPLIT, parts)}")
+            best = None
+            for sp in ([forced] if forced else range(1, min(PLAN_MAX_SPLIT, parts) + 1)):
+                per = qmm._cdiv(parts, sp)   # inner blocks or groups a block takes
+                if step == 2:
+                    abytes, n_part, g_defer = per * half, per, g - 1
+                else:
+                    abytes, n_part, g_defer = per * group, nb * 2 * per, 0
+                size = functools.partial(i4_step_smem, m, tr, nb, abytes=abytes, group=group,
+                                         parts=n_part, g_defer=g_defer, tile=step == 0)
+                stages = next((st for st in range(16 // nb, 1, -1)
+                               if size(stages=st) <= _SMEM_MAX), 0)
+                if not stages:
+                    continue
+                cost = _split_cost(tiles, sp, sms, size(stages=stages), stages * nb * 64 * 128,
+                                   0.4)
+                if best is None or cost < best[0]:
+                    best = (cost, (sp, stages))
+            if best is None:
+                break
+            steps.append(best[1])
+        if len(steps) == 3:
+            return dict(rows=tr, splits=tuple(sp for sp, _ in steps),
+                        stages=tuple(st for _, st in steps))
+    raise NotImplementedError(f"fused_o_mlp_decode_i4: no plan fits shared memory for M={m}, "
+                              f"HD={hd}, K={k}, I={inner}" + (f", splits {splits}" if splits
+                                                              else ""))
+
+
 def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_p, wd_p,
                           w_scales: Sequence[torch.Tensor], act_scales, norm_scale,
                           eps: float = 1e-6, act: str = "silu", block_j: int = 512,
                           group: int = 128, out_dtype=None,
                           w_t: Optional[Tuple[torch.Tensor, ...]] = None,
-                          scratch: Optional[Tuple] = None):
+                          scratch: Optional[Tuple] = None,
+                          splits: Optional[Sequence[int]] = None,
+                          trace: Optional[dict] = None):
     """The int4 :func:`fused_o_mlp_decode_i8` (K26): w_o_p (hd/2, K)
     planar int4 (block 0) with group scales (hd/group, K); the MLP as
     :func:`fused_mlp_decode_i4` (wd_p packed per ``mlp_i4_block(I,
     block_j)`` inner block).  w_t, if given, holds the transposed packs
     (o (K, hd/2), gate (I, K/2), up (I, K/2), down (K, I/2)); scratch as
-    for :func:`fused_o_mlp_decode_i8`."""
+    for :func:`fused_o_mlp_decode_i8`.  On the card: ``splits``, three
+    counts 1-8, forces the clusters of the o_proj, gate / up and down steps
+    (tests and profiles only: the result is the same; None plans them,
+    :func:`o_mlp_i4_plan`), and ``trace``, a dict, receives the plan."""
     out_dtype = out_dtype or residual.dtype
     name = "fused_o_mlp_decode_i4"
     if not _on_card(attn, name):
@@ -1810,7 +1958,7 @@ def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{name}: {what} scales {tuple(t.shape)} are not {shape} on "
                              "attn's device")
-        sc.append(t)
+        sc.append(t if t.data_ptr() % 16 == 0 else t.clone())  # staged 16 bytes at a time
     sao = _f32_vec(attn_scale, 1, "attn_scale", dev)
     scl = _f32_vec(act_scales, 2, "act_scales", dev)
     ns = _f32_vec(norm_scale, k, "norm_scale", dev)
@@ -1818,10 +1966,12 @@ def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_
     out = torch.empty((m, k), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    n_j, mt = inner // bj, qmm._cdiv(m, 32)
-    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    if mid.data_ptr() % 16 or xi.data_ptr() % 16:
+        raise ValueError(f"{name}: the MLP input and mid codes' scratch must be 16-byte aligned "
+                         "(the gate / up and down steps copy them 16 bytes at a time)")
+    plan = o_mlp_i4_plan(m, 2 * half_o, k, inner, bj, group, qmm.sm_count(dev),
+                         tuple(splits) if splits else None)
     ss = torch.empty((m, qmm._cdiv(k, 64)), dtype=torch.float64, device=dev)
-    cnt = _counters(dev, 2 + qmm._cdiv(k, 64) * mt)
     fn = cuda_build.kernel("decode_o_mlp_i4")
     with torch.cuda.device(dev):
         err = fn(attn.data_ptr(), _DTYPE_CODE[attn.dtype], wts[0].data_ptr(), sc[0].data_ptr(),
@@ -1829,10 +1979,13 @@ def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_
                  wts[2].data_ptr(), wts[3].data_ptr(), sc[1].data_ptr(), sc[2].data_ptr(),
                  sc[3].data_ptr(), sao.data_ptr(), scl.data_ptr(), ns.data_ptr(),
                  ctypes.c_float(eps), _ACTS[act], out.data_ptr(), _DTYPE_CODE[out_dtype],
-                 _ptr(codes), x2.data_ptr(), ss.data_ptr(), xi.data_ptr(), mid.data_ptr(),
-                 part.data_ptr(), cnt.data_ptr(), m, 2 * half_o, k, inner, bj, int(group),
+                 _ptr(codes), x2.data_ptr(), ss.data_ptr(), xi.data_ptr(), mid.data_ptr(), m,
+                 2 * half_o, k, inner, bj, int(group), plan["rows"],
+                 *(v for sp_st in zip(plan["splits"], plan["stages"]) for v in sp_st),
                  _stream(attn))
     cuda_build.check(err, name)
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES[name] += 1
     return out
 

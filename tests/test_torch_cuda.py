@@ -367,6 +367,18 @@ DEC_BF16_CASES = [
     (5, 64, 96, "layernorm", True, 16, True, True, False, False),     # tiny, f32
     (9, 128, 200, "rmsnorm", False, 0, False, False, True, False),    # bf16 x, f32 head
     (33, 256, 128, None, True, 64, True, False, True, True),
+    # the bf16 engines' shapes: 7B qkv / o_proj / lm_head, TinyLlama qkv / o_proj / lm_head
+    (8, 4096, 12288, "rmsnorm", False, 128, False, False, True, True),
+    (8, 4096, 4096, None, False, 0, True, False, True, True),
+    (8, 4096, 32000, "rmsnorm", False, 0, False, True, True, True),
+    (32, 2048, 2560, "rmsnorm", False, 64, False, False, True, True),
+    (32, 2048, 2048, None, False, 0, True, False, True, True),
+    (32, 2048, 32000, "rmsnorm", False, 0, False, True, True, True),
+    # rows that cross a tile (8, 16, 32 rows), LayerNorm and bias on the bf16 route,
+    # K not a multiple of 64
+    (9, 512, 384, "layernorm", True, 64, True, False, True, True),
+    (17, 1040, 640, "rmsnorm", True, 128, False, True, True, True),
+    (33, 768, 1000, None, True, 0, True, False, True, True),
 ]
 
 
@@ -388,6 +400,58 @@ def test_decode_dense_kernel_matches_plain_on_card(m, k, n, norm, bias, hd, res,
     torch.cuda.synchronize()
     assert qmm.LAUNCHES["fused_dense_decode"] == before + 1
     _close_on_card(got, want)
+
+
+# K5's bf16 route with its cluster forced: (M, K, N, norm, bias, rope head_dim, residual)
+K5_SPLIT_SHAPES = [(8, 4096, 1024, None, False, 0, True),         # 7B o_proj slice
+                   (8, 4096, 768, "rmsnorm", False, 128, False),  # 7B qkv slice, rope 128
+                   (32, 2048, 640, "rmsnorm", False, 64, False),  # TinyLlama qkv slice
+                   (17, 1040, 320, "layernorm", True, 0, True)]   # ragged rows and K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("m,k,n,norm,bias,hd,res", K5_SPLIT_SHAPES)
+def test_decode_dense_forced_splits_on_card(m, k, n, norm, bias, hd, res, split):
+    """K5 with 1-8 blocks a column tile: within 1 bf16 ulp or 1e-5 of the
+    magnitude of the plain version, one CUDA launch."""
+    dev = _card()
+    o = _dense_operands(m, k, n, m + k + n + split, dev, torch.bfloat16, hd)
+    w = o["w"].to(torch.bfloat16)
+    kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
+              rope_cos=o["cos"] if hd else None, rope_sin=o["sin"] if hd else None, head_dim=hd,
+              bias=o["bias"] if bias else None, norm_bias=o["nb"] if norm == "layernorm" else None,
+              norm_type=norm or "rmsnorm")
+    plan = {}
+    got = dk.fused_dense_decode(o["x"], w, split=split, trace=plan, **kw)
+    want = dk.fused_dense_decode_plain(o["x"], w, **kw)
+    torch.cuda.synchronize()
+    assert plan["split"] == split
+    _close_on_card(got, want)
+    w_t = dk.transposed_weight(w)
+    assert _cuda_launches(lambda: dk.fused_dense_decode(o["x"], w, w_t=w_t, split=split,
+                                                        **kw)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (32, 2048, 640)])
+def test_decode_dense_check_flags_planted_faults_on_card(m, k, n):
+    """The sign of one rotated column's sin flipped, or the norm scale 1e-2
+    off, takes K5's output beyond its tolerance of the plain version."""
+    dev = _card()
+    hd = 64
+    o = _dense_operands(m, k, n, m + k, dev, torch.bfloat16, hd)
+    w = o["w"].to(torch.bfloat16)
+    kw = dict(norm_scale=o["ns"], rope_cos=o["cos"], rope_sin=o["sin"], head_dim=hd)
+    want = dk.fused_dense_decode_plain(o["x"], w, **kw)
+    _close_on_card(dk.fused_dense_decode(o["x"], w, **kw), want)
+    bad_sin = o["sin"].clone()
+    bad_sin[1] = -bad_sin[1]
+    for bad in (dict(kw, rope_sin=bad_sin), dict(kw, norm_scale=o["ns"] * 1.01)):
+        got = dk.fused_dense_decode(o["x"], w, **bad)
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError):
+            _close_on_card(got, want)
 
 
 # (B, hkv, g, d, T, pos, starts, softcap, sm_scale, bf16)
@@ -1014,17 +1078,23 @@ def _o_mlp_operands(m, hd, k, i, group, seed, dev, dtype):
     return attn, res, q, a_o, scl, f(k).abs() + 0.5
 
 
-# (M, HD, K, I, group (0: int8), bf16): the 7B and TinyLlama decode shapes, and tiny ones
+# (M, HD, K, I, group (0: int8), bf16, K26's clusters forced (None: planned)): the 7B and
+# TinyLlama decode shapes, tiny ones, group 32 (seven high partials of an inner block held
+# back), and K26 with the clusters of its three steps forced
 O_MLP_CASES = [
-    (8, 4096, 4096, 11008, 0, True), (32, 2048, 2048, 5632, 0, True),
-    (8, 4096, 4096, 11008, 128, True), (32, 2048, 2048, 5632, 128, True),
-    (3, 128, 128, 1024, 0, False), (35, 256, 128, 1024, 64, False),
+    (8, 4096, 4096, 11008, 0, True, None), (32, 2048, 2048, 5632, 0, True, None),
+    (8, 4096, 4096, 11008, 128, True, None), (32, 2048, 2048, 5632, 128, True, None),
+    (3, 128, 128, 1024, 0, False, None), (35, 256, 128, 1024, 64, False, None),
+    (8, 512, 512, 1024, 32, True, None), (40, 512, 256, 2048, 32, False, None),
+    (8, 4096, 4096, 11008, 128, True, (1, 1, 1)), (8, 4096, 4096, 11008, 128, True, (8, 8, 8)),
+    (8, 4096, 4096, 11008, 128, True, (3, 5, 7)), (32, 2048, 2048, 5632, 128, True, (2, 2, 2)),
+    (32, 2048, 2048, 5632, 128, True, (8, 8, 8)), (32, 2048, 2048, 5632, 128, True, (3, 5, 7)),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,hd,k,i,group,bf16", O_MLP_CASES)
-def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16):
+@pytest.mark.parametrize("m,hd,k,i,group,bf16,splits", O_MLP_CASES)
+def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16, splits):
     """K25 / K26 against their plain versions: the attention codes, x2 (f32),
     the MLP input and mid codes identical, outputs equal."""
     dev = _card()
@@ -1040,7 +1110,10 @@ def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16):
     name = "fused_o_mlp_decode_i4" if group else "fused_o_mlp_decode_i8"
     before = qmm.LAUNCHES[name]
     if group:
-        got = dk.fused_o_mlp_decode_i4(*args, group=group, scratch=(codes, x2, xi, mid))
+        plan = {}
+        got = dk.fused_o_mlp_decode_i4(*args, group=group, scratch=(codes, x2, xi, mid),
+                                       splits=splits, trace=plan)
+        assert splits is None or plan["splits"] == splits
         want = dk.fused_o_mlp_decode_i4_plain(*args, group=group)
         want_x2, want_a = dk.o_proj_x2_i4_plain(attn, wo, so, a_o, res, group)
     else:
@@ -1054,8 +1127,12 @@ def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16):
     assert torch.equal(xi, want_xi)
     assert got.dtype == dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
-    # a second call on the same counters: they were set back to 0
-    assert torch.equal(dk.fused_o_mlp_decode_i4(*args, group=group) if group
+    if group:
+        assert torch.equal(mid, dk._quant_static(
+            dk._act("silu", dk.i4_group_dot_plain(want_xi, wg, sg, scl[0:1], group))
+            * dk.i4_group_dot_plain(want_xi, wu, su, scl[0:1], group), scl[1:2]))
+    # a second call (K25: on the same counters, which it set back to 0)
+    assert torch.equal(dk.fused_o_mlp_decode_i4(*args, group=group, splits=splits) if group
                        else dk.fused_o_mlp_decode_i8(*args), want)
 
 

@@ -282,3 +282,67 @@ def test_pick_block_matches_jax():
 
     for n, pref in ((5632, 512), (2560, 512), (384, 128), (384, 512), (32000, 1280), (128, 512)):
         assert tdk.pick_block(n, pref) == _pick_block(n, pref)
+
+
+# K5's and K26's launch plans (computed here, on the host): the serving shapes,
+# rows that cross a tile, ragged K, and cards with fewer SMs
+K5_PLAN_SHAPES = [(8, 4096, 12288, 128, True), (8, 4096, 4096, 0, False),
+                  (8, 4096, 32000, 0, False), (32, 2048, 2560, 64, True),
+                  (32, 2048, 2048, 0, False), (32, 2048, 32000, 0, False),
+                  (9, 512, 384, 64, True), (17, 1040, 640, 128, True), (33, 768, 1000, 0, False),
+                  (64, 4096, 12288, 128, True), (5, 64, 96, 16, True)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("m,k,n,hd,rope", K5_PLAN_SHAPES)
+def test_dense_plan_covers_every_column_once(m, k, n, hd, rope, sms):
+    """K5's plan: at most 8 blocks a cluster and at most one a 64-value chunk
+    of K; the ranks' chunk ranges cover K once, the blocks' features cover
+    the tile once, whole heads under the rope, row tiles cover M; the block
+    fits shared memory; a forced split is kept."""
+    nk = -(-k // 64)
+    for forced in range(0, min(tdk.K5_MAX_SPLIT, nk) + 1):
+        p = tdk.dense_plan(m, k, n, hd, rope, sms, forced)
+        s, bn, rows = p["split"], p["bn"], p["rows"]
+        assert (s == forced if forced else 1 <= s <= min(tdk.K5_MAX_SPLIT, nk))
+        chunks = [range(r * nk // s, (r + 1) * nk // s) for r in range(s)]
+        assert [c for rg in chunks for c in rg] == list(range(nk)) and all(chunks)
+        w = -(-bn // s)
+        owned = [f for r in range(s) for f in range(r * w, min(bn, (r + 1) * w))]
+        assert owned == list(range(bn))
+        assert bn in (64, 128) and (not rope or bn % hd == 0)
+        assert rows in (8, 16, 24, 32) and rows * -(-m // rows) >= m
+        assert 2 <= p["stages"] <= 16
+        assert tdk.dense_smem(rows, bn, s, p["stages"], k) <= 232448
+
+
+O_MLP_PLAN_SHAPES = [(8, 4096, 4096, 11008, 128), (32, 2048, 2048, 5632, 128),
+                     (35, 256, 128, 1024, 64), (8, 512, 512, 1024, 32), (40, 512, 256, 2048, 32),
+                     (64, 4096, 4096, 11008, 128)]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("m,hd,k,i,group", O_MLP_PLAN_SHAPES)
+def test_o_mlp_i4_plan_gives_group_aligned_slices(m, hd, k, i, group, sms):
+    """K26's plan: each step's cluster at most 8 blocks; o_proj's and gate /
+    up's slices of their planar half group-aligned, covering it once in
+    order; down's ranks share the inner blocks out once, in order; every
+    block fits shared memory."""
+    bj = tdk.mlp_i4_block(i)
+    p = tdk.o_mlp_i4_plan(m, hd, k, i, bj, group, sms)
+    assert p["rows"] in ((32, 16, 8) if m > 16 else (16, 8))
+    for step, (half, n_blk) in enumerate(((hd // 2, 1), (k // 2, 1), (bj // 2, i // bj))):
+        s = p["splits"][step]
+        assert 1 <= s <= tdk.I4_MAX_SPLIT and 2 <= p["stages"][step] <= 16
+        if step < 2:
+            slices = tdk.i4_split_slices(half, group, s)
+            assert slices[0][0] == 0 and slices[-1][1] == half
+            assert all(b0 % group == 0 and b0 < b1 for b0, b1 in slices)
+            assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+        else:
+            blocks = [range(r * n_blk // s, (r + 1) * n_blk // s) for r in range(s)]
+            assert [j for rg in blocks for j in rg] == list(range(n_blk)) and all(blocks)
+    forced = tdk.o_mlp_i4_plan(m, hd, k, i, bj, group, sms, splits=(1, 1, 1))
+    assert forced["splits"] == (1, 1, 1)
+    with pytest.raises(ValueError):
+        tdk.o_mlp_i4_plan(m, hd, k, i, bj, group, sms, splits=(9, 1, 1))
