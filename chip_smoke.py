@@ -11,6 +11,8 @@
                                       # shape, its traced phases) and K9's alone
     python3 chip_smoke.py --breakdown k5k26  # the build, then K5's (every bf16 engine's
                                       # shapes) and K26's (the unmerged pair beside) alone
+    python3 chip_smoke.py --breakdown k11k17  # the build, then K11's and K17's (7B and
+                                      # TinyLlama, the library beside), K26's body split
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -1119,18 +1121,16 @@ def _check_bf16_mlp(label, m, k, i, bj, act, dev, timed):
     ns = f(k).abs() + 0.5
     wts = tuple(dk.transposed_weight(w) for w in (wg, wu, wd))
     kw = dict(act=act, block_j=bj)
-    xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
     mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
-    got = dk.fused_mlp_decode(x, wg, wu, wd, ns, w_t=wts, scratch=(xn, mid), **kw)
+    got = _k11(dk, x, (wg, wu, wd), ns, mid, w_t=wts, **kw)
     torch.cuda.synchronize()
     bjp = dk.pick_block(i, bj)
-    # the normed rows are exact; the gate / up sums run in another order, so
+    # the gate / up sums run in another order than the plain version's, so
     # the bf16 hidden layer may round the other way (and a sum near 0 differ
     # by more ulps); the output is held against the plain down product of
     # the kernel's own hidden layer
-    if not torch.equal(xn, dk._prologue(x, ns, None, 1e-6, "rmsnorm").to(torch.bfloat16)):
-        fail(f"fused_mlp_decode {label}: normed rows differ from the plain version")
-    mid_ok, mid_err = within_bf16_ulp(mid, dk.mlp_mid_plain(x, wg, wu, ns, 1e-6, act, bjp))
+    want_mid = dk.mlp_mid_plain(x, wg, wu, ns, 1e-6, act, bjp)
+    mid_ok, mid_err = within_bf16_ulp(mid, want_mid)
     want = dk.mlp_down_plain(mid, x, wd, bjp)
     ok, err = within_bf16_ulp(got, want)
     whole = float((got.float() - dk.fused_mlp_decode_plain(x, wg, wu, wd, ns, **kw).float())
@@ -1139,11 +1139,19 @@ def _check_bf16_mlp(label, m, k, i, bj, act, dev, timed):
         fail(f"fused_mlp_decode {label}: hidden layer max abs err {mid_err}, output max abs "
              f"err {err} from the plain down product of it; tolerance 1 bf16 ulp or 1e-5 of "
              "the magnitude for each")
+    # planted: the norm's scale shifted by one value must take the hidden
+    # layer beyond the tolerance
+    bad_mid = torch.empty_like(mid)
+    _k11(dk, x, (wg, wu, wd), torch.roll(ns, 1), bad_mid, w_t=wts, **kw)
+    torch.cuda.synchronize()
+    if within_bf16_ulp(bad_mid, want_mid)[0]:
+        fail(f"fused_mlp_decode {label}: the check misses the norm's scale shifted by one value "
+             "(planted)")
     row = {"layer": label, "M": m, "K": k, "I": i, "bj": bjp, "max_abs_err": whole,
-           "ulps": 1, "tol": f"normed rows equal; hidden layer (max abs err {mid_err:.3g}) "
-           f"and output (max abs err {err:.3g}, from the plain down product of the kernel's "
-           "hidden layer) within 1 bf16 ulp or 1e-5 of the magnitude; max_abs_err against "
-           "the whole plain version"}
+           "ulps": 1, "tol": f"hidden layer (max abs err {mid_err:.3g}) and output (max abs "
+           f"err {err:.3g}, from the plain down product of the kernel's hidden layer) within 1 "
+           "bf16 ulp or 1e-5 of the magnitude; max_abs_err against the whole plain version; "
+           "the norm's scale shifted by one value (planted) flagged"}
     if timed:
         nbytes = 3 * k * i * 2 + 2 * m * k * 2 + 4 * k
         ops = 6 * m * k * i
@@ -1169,9 +1177,10 @@ def _check_bf16_mlp(label, m, k, i, bj, act, dev, timed):
 def phase_long_kernels(dev, res: dict) -> dict:
     """K9-K11 at the Llama-2-7B serving shapes (timed; the first row of each
     kernel is its main shape) and the other shapes and options of the
-    long-prompt path; K5, K6 and K8 at the 7B shapes, appended to their
-    TinyLlama rows in ``res``."""
-    from qdm_tpu_torch.models.llama import LlamaConfig
+    long-prompt path, K11 also at TinyLlama width (the decode probe's bf16
+    engine); K5, K6 and K8 at the 7B shapes, appended to their TinyLlama
+    rows in ``res``."""
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
 
     C = LlamaConfig()
     B, K, I, V, hd = L7_BATCH, C.hidden_size, C.intermediate_size, C.vocab_size, C.head_dim
@@ -1195,6 +1204,10 @@ def phase_long_kernels(dev, res: dict) -> dict:
     for label, act, timed in (("7B mlp (norm, silu, +res)", "silu", True),
                               ("7B mlp, tanh-GELU", "gelu", False)):
         long["fused_mlp_decode"].append(_check_bf16_mlp(label, B, K, I, 256, act, dev, timed))
+    c1 = BENCH_1B  # the decode probe's bf16 engine
+    long["fused_mlp_decode"].append(_check_bf16_mlp(
+        "TinyLlama mlp (norm, silu, +res)", LLM_BATCH, c1.hidden_size, c1.intermediate_size, 256,
+        "silu", dev, True))
     torch.cuda.empty_cache()
     _print_rows(long)
     rng = np.random.default_rng(3)
@@ -1491,22 +1504,34 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed, out_dtype=
     return row
 
 
-def _check_mlp_i4(label, rng, m, k, i, block_j, group, dev, timed):
+def _mlp_i4_case(rng, m, k, i, block_j, group, dev):
+    """x (m, k) bf16, the planar int4 packs and group scales of gate, up and
+    down (down packed per inner block), [s_in, s_mid] as calibration sets
+    them (absmax / 127 of what each quantizes), the norm scale, the inner
+    block."""
     from qdm_tpu_torch.ops import decode_kernels as dk
 
     f = lambda *s, sc=1.0: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
     x = f(m, k).to(torch.bfloat16)
     bj = dk.mlp_i4_block(i, block_j)
-    (pg, sg), (pu, su), (pd, sd) = [_i4_pack(f(*s, sc=s[0] ** -0.5), group, b)
-                                    for s, b in (((k, i), 0), ((k, i), 0), ((i, k), bj))]
+    packs = [_i4_pack(f(*s, sc=s[0] ** -0.5), group, b)
+             for s, b in (((k, i), 0), ((k, i), 0), ((i, k), bj))]
     ns = f(k).abs() + 0.5
     xn = dk._prologue(x, ns, None, 1e-6, "rmsnorm")
     s_in = _static_scale(xn)
     xq = dk._quant_static(xn, s_in)
-    g = dk.i4_group_dot_plain(xq, pg, sg, s_in, group)
-    u = dk.i4_group_dot_plain(xq, pu, su, s_in, group)
-    mid = dk._act("silu", g) * u
-    scl = torch.cat([s_in, _static_scale(mid)])
+    g, u = (dk.i4_group_dot_plain(xq, *packs[j], s_in, group) for j in (0, 1))
+    return x, packs, torch.cat([s_in, _static_scale(dk._act("silu", g) * u)]), ns, bj
+
+
+def _check_mlp_i4(label, rng, m, k, i, block_j, group, dev, timed):
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    x, packs, scl, ns, bj = _mlp_i4_case(rng, m, k, i, block_j, group, dev)
+    (pg, sg), (pu, su), (pd, sd) = packs
+    xq = dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), scl[0:1])
+    mid = (dk._act("silu", dk.i4_group_dot_plain(xq, pg, sg, scl[0:1], group))
+           * dk.i4_group_dot_plain(xq, pu, su, scl[0:1], group))
     kw = dict(block_j=block_j, group=group)
     wts = tuple(dk.transposed_weight(t) for t in (pg, pu, pd))
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
@@ -3296,6 +3321,272 @@ def phase_k5k26_breakdown(dev) -> None:
     _print_rows(rows)
 
 
+# --breakdown k11k17: K11 and K17 at the 7B and TinyLlama decode shapes by kernel, the
+# library beside; K26's steps at the same shapes traced and in its diagnostic builds (what
+# an int4 consumer's cycles go to); then K5, K6, K8, K16, K25 and K26 at their PERF.md
+# shapes, which share code with K11 and K17 and must not move
+K26_DIAGNOSTICS = (("QDM_K26_NO_NIBBLES", "the packed words to the mma as they are"),
+                   ("QDM_K26_NO_MMA", "the operands loaded, no mma"),
+                   ("QDM_K26_NO_FOLD", "no group folds, no partials kept"),
+                   ("QDM_K26_NO_PARTIALS", "the partials not kept"))
+K11_PHASES = ("rows staged", "norm statistics and the normalized rows", "the weight stream",
+              "the owners' epilogue")
+MLP_STEPS = ("gate / up", "down")
+
+
+def _defines(name: str) -> str:
+    """The text of kernel ``name``'s source and of the headers it may
+    include (where a diagnostic build's macro is looked for)."""
+    from qdm_tpu_torch.ops import cuda_build
+
+    return "".join(p.read_text() for p in [cuda_build.CSRC / f"{cuda_build.source(name)}.cu",
+                                           *sorted(cuda_build.CSRC.glob("*.cuh"))])
+
+
+def _k11(dk, x, w, ns, mid=None, **kw):
+    """K11 through this tree's wrapper, its hidden layer into ``mid`` if
+    given (an older wrapper also took a scratch of the normed rows)."""
+    if mid is not None:
+        kw["scratch"] = mid if _takes(dk.fused_mlp_decode, "splits") else (
+            torch.empty(x.shape, dtype=x.dtype, device=x.device), mid)
+    return dk.fused_mlp_decode(x, *w, ns, **kw)
+
+
+def _mlp_shapes():
+    from qdm_tpu_torch.api.serve import i4_layout
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+
+    return [(tag, c, b, i4_layout(c)[0])
+            for tag, c, b in (("7B", LlamaConfig(), L7_BATCH), ("TinyLlama", BENCH_1B, LLM_BATCH))]
+
+
+def _forced_splits(fn, call) -> list:
+    """(label, kwargs) of a planned call and, where this tree's wrapper
+    takes ``splits``, of its two steps' clusters forced to 1, 2, 4 and 8
+    blocks where the shape takes them (``call`` raises ValueError where not)."""
+    out = [("planned", {})]
+    if _takes(fn, "splits"):
+        for sp in BREAKDOWN_K5_SPLITS:
+            try:
+                call(splits=(sp, sp))
+            except (ValueError, NotImplementedError):
+                continue
+            out.append((f"clusters of {sp} (forced)", {"splits": (sp, sp)}))
+    return out
+
+
+def _k11_breakdown(dev) -> None:
+    """K11 at the 7B and TinyLlama bf16 decode shapes by kernel (hidden layer
+    and output checked first), planned and forced, its traced steps where
+    this tree has them, F.rms_norm + matmul beside."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    traced = "QDM_K11_TRACE" in _defines("decode_mlp") and _takes(dk.fused_mlp_decode, "trace")
+    if traced:
+        cuda_build.build_variants([("decode_mlp", ("QDM_K11_TRACE",))])
+    for tag, c, m, _ in _mlp_shapes():
+        k, i, bj = c.hidden_size, c.intermediate_size, 256
+        gen = torch.Generator(device=dev).manual_seed(m + k + i)
+        f = lambda *shape, sc=1.0: (torch.randn(shape, generator=gen, device=dev) * sc)
+        x = f(m, k, sc=0.5).to(torch.bfloat16)
+        w = tuple(f(*sh, sc=sh[0] ** -0.5).to(torch.bfloat16) for sh in ((k, i), (k, i), (i, k)))
+        ns = f(k).abs() + 0.5
+        nbytes = 3 * k * i * 2 + 2 * m * k * 2 + 4 * k
+        sets = [(w, tuple(dk.transposed_weight(t) for t in w))]
+        sets += [(tuple(t.clone() for t in w), tuple(t.clone() for t in sets[0][1]))
+                 for _ in range(_copies(3 * k * i * 2) - 1)]
+        want_mid = dk.mlp_mid_plain(x, *w[:2], ns, 1e-6, "silu", dk.pick_block(i, bj))
+        call = lambda **kw: _k11(dk, x, w, ns, w_t=sets[0][1], block_j=bj, **kw)
+        plan = {}
+        for what, extra in _forced_splits(dk.fused_mlp_decode, call):
+            mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
+            if traced and not extra:
+                extra = {"trace": plan}
+            got = _k11(dk, x, w, ns, mid, w_t=sets[0][1], block_j=bj, **extra)
+            torch.cuda.synchronize()
+            ok_mid, err_mid = within_bf16_ulp(mid, want_mid)
+            ok, err = within_bf16_ulp(got, dk.mlp_down_plain(mid, x, w[2], dk.pick_block(i, bj)))
+            if not (ok and ok_mid):
+                fail(f"fused_mlp_decode {tag} {what}: hidden layer max abs err {err_mid}, "
+                     f"output {err}: beyond 1 bf16 ulp and 1e-5 of the magnitude")
+            extra.pop("trace", None)
+            fns = [lambda ws=ws, ts=ts, extra=extra: _k11(dk, x, ws, ns, w_t=ts, block_j=bj,
+                                                          **extra) for ws, ts in sets]
+            _print_split(f"K11 {tag} mlp {m} x {k}, I {i}, bj {bj}, {what}"
+                         + (f" {plan}" if plan and what == "planned" else ""),
+                         _cold_by_kernel(fns), nbytes)
+        if traced:
+            with cuda_build.variant("decode_mlp", "QDM_K11_TRACE"):
+                for step, (n_out, key) in enumerate(((i, "gate_up"), (k, "down"))):
+                    p_ = plan[key]
+                    blocks = min(p_["blocks"], 4096)
+                    _print_trace(f"K11 {tag} step {step} ({MLP_STEPS[step]}), planned",
+                                 "decode_mlp", "QDM_K11_TRACE", "qdm_decode_mlp_trace", (step,),
+                                 lambda: _k11(dk, x, w, ns, w_t=sets[0][1], block_j=bj), blocks,
+                                 K11_PHASES)
+        nsb = ns.to(torch.bfloat16)
+
+        def library(c_):
+            def fn_():
+                xn = torch.nn.functional.rms_norm(x, (k,), nsb, 1e-6)
+                h = torch.nn.functional.silu(torch.matmul(xn, c_[0])) * torch.matmul(xn, c_[1])
+                return torch.matmul(h, c_[2]) + x
+            return fn_
+        _print_split(f"library at K11's {tag} shape (F.rms_norm + matmul)",
+                     _cold_by_kernel([library(ws) for ws, _ in sets]), nbytes)
+        del sets
+        torch.cuda.empty_cache()
+
+
+def _k17_breakdown(dev, rng) -> None:
+    """K17 at the 7B and TinyLlama w4a8 decode shapes by kernel (output
+    checked first), planned and forced; where this tree has them, its steps'
+    traced phases; the library (matmul on bf16-dequantized weights)
+    beside."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    for tag, c, m, group in _mlp_shapes():
+        k, i = c.hidden_size, c.intermediate_size
+        x, packs, scl, ns, bj = _mlp_i4_case(rng, m, k, i, 512, group, dev)
+        (pg, sg), (pu, su), (pd, sd) = packs
+        ws = (pg, pu, pd)
+        w_bytes = 3 * k * i // 2
+        nbytes = (2 * m * k * 2 + w_bytes + 4 * (2 * (k // group) * i + (i // group) * k)
+                  + 4 * k + 8)
+        sets = [(ws, tuple(dk.transposed_weight(t) for t in ws))]
+        sets += [(tuple(t.clone() for t in ws), tuple(t.clone() for t in sets[0][1]))
+                 for _ in range(_copies(w_bytes) - 1)]
+        want = dk.fused_mlp_decode_i4_plain(x, *ws, (sg, su, sd), scl, ns, group=group)
+        call = lambda **kw: dk.fused_mlp_decode_i4(x, *ws, (sg, su, sd), scl, ns, group=group,
+                                                   w_t=sets[0][1], **kw)
+        fns_planned = lambda sets: [lambda w=w, t=t: dk.fused_mlp_decode_i4(
+            x, *w, (sg, su, sd), scl, ns, group=group, w_t=t) for w, t in sets]
+        label = f"K17 {tag} mlp {m} x {k}, I {i}, bj {bj}, g {group}"
+        plan = {}
+        for what, extra in _forced_splits(dk.fused_mlp_decode_i4, call):
+            got = call(**extra, **({"trace": plan} if _takes(dk.fused_mlp_decode_i4, "trace")
+                                   and not extra else {}))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"fused_mlp_decode_i4 {tag} {what}: output differs from the plain version")
+            fns = [lambda w=w, t=t, extra=extra: dk.fused_mlp_decode_i4(
+                x, *w, (sg, su, sd), scl, ns, group=group, w_t=t, **extra) for w, t in sets]
+            _print_split(f"{label}, {what}" + (f" {plan}" if plan and not extra else ""),
+                         _cold_by_kernel(fns), nbytes)
+        if "qdm_decode_mlp_i4_trace" in _defines("decode_mlp_i4"):
+            with cuda_build.variant("decode_mlp_i4", "QDM_K26_TRACE"):
+                for step, n_out in ((1, i), (2, k)):
+                    sp = plan["splits"][step - 1]
+                    blocks = sp * -(-n_out // 64) * -(-m // plan["rows"][step - 1])
+                    _print_trace(f"{label} step {step} ({K26_STEPS[step]}), planned",
+                                 "decode_mlp_i4", "QDM_K26_TRACE", "qdm_decode_mlp_i4_trace",
+                                 (step,), fns_planned(sets)[0], blocks, K26_PHASES)
+        lib_w = [(_i4_bf16(pg, sg, group), _i4_bf16(pu, su, group), _i4_bf16(pd, sd, group, bj))]
+        lib_w += [tuple(t.clone() for t in lib_w[0]) for _ in range(_copies(6 * k * i) - 1)]
+        nsb = ns.to(torch.bfloat16)
+
+        def library(c_):
+            def fn_():
+                xn = torch.nn.functional.rms_norm(x, (k,), nsb, 1e-6)
+                h = torch.nn.functional.silu(torch.matmul(xn, c_[0])) * torch.matmul(xn, c_[1])
+                return torch.matmul(h, c_[2]) + x
+            return fn_
+        _print_split(f"library at K17's {tag} shape (matmul on bf16-dequantized weights)",
+                     _cold_by_kernel([library(cw) for cw in lib_w]), nbytes)
+        del sets, lib_w
+        torch.cuda.empty_cache()
+
+
+def _k26_body_breakdown(dev, rng) -> None:
+    """K26 at the 7B and TinyLlama merge_o shapes, planned, by kernel; each
+    step's phases from the traced build, and the call in each diagnostic
+    build that this tree's source has (K26_DIAGNOSTICS): what the int4
+    consumers' cycles a stage go to."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    src = _defines("decode_o_mlp_i4")
+    diags = [(d, what) for d, what in K26_DIAGNOSTICS if d in src]
+    cuda_build.build_variants([("decode_o_mlp_i4", (d,)) for d in
+                               ("QDM_K26_TRACE", *(d for d, _ in diags))])
+    for tag, c, b, group in _mlp_shapes():
+        hd, k, i = c.num_attention_heads * c.head_dim, c.hidden_size, c.intermediate_size
+        attn, res, q, a_o, scl, ns, bj = _o_mlp_case(rng, b, hd, k, i, group, dev)
+        (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+        ws = (wo, wg, wu, wd)
+        w_bytes = (hd * k + 3 * k * i) // 2
+        nbytes = (2 * b * hd + 2 * 2 * b * k + w_bytes
+                  + 4 * ((hd // group) * k + 2 * (k // group) * i + (i // group) * k) + 4 * k + 12)
+        sets = [(ws, tuple(dk.transposed_weight(t) for t in ws))]
+        sets += [(tuple(t.clone() for t in ws), tuple(t.clone() for t in sets[0][1]))
+                 for _ in range(_copies(w_bytes) - 1)]
+        fns = [lambda w=w, t=t: dk.fused_o_mlp_decode_i4(
+            attn, w[0], so, a_o, res, w[1], w[2], w[3], (sg, su, sd), scl, ns, group=group, w_t=t)
+            for w, t in sets]
+        want = dk.fused_o_mlp_decode_i4_plain(attn, *ws[:1], so, a_o, res, *ws[1:],
+                                              (sg, su, sd), scl, ns, group=group)
+        plan = {}
+        got = dk.fused_o_mlp_decode_i4(attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd), scl, ns,
+                                       group=group, w_t=sets[0][1], trace=plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fused_o_mlp_decode_i4 {tag}: output differs from the plain version")
+        label = f"K26 {tag} o_proj + mlp {b} x {hd} -> {k}, I {i}, bj {bj}, g {group}"
+        _print_split(f"{label}, planned {plan}", _cold_by_kernel(fns), nbytes)
+        with cuda_build.variant("decode_o_mlp_i4", "QDM_K26_TRACE"):
+            for step, (n_out, half) in enumerate(((k, hd // 2), (i, k // 2), (k, i // 2))):
+                sp = plan["splits"][step]
+                blocks = sp * -(-n_out // 64) * -(-b // plan["rows"])
+                stages = -(-half // sp // 128)
+                _print_trace(f"{label} step {step} ({K26_STEPS[step]}, about {stages} 8 KB "
+                             "stages a block a pack), planned", "decode_o_mlp_i4",
+                             "QDM_K26_TRACE", "qdm_decode_o_mlp_i4_trace", (step,), fns[0],
+                             blocks, K26_PHASES)
+        for d, what in diags:
+            with cuda_build.variant("decode_o_mlp_i4", d):
+                _print_split(f"{label}, a build with {d} ({what}; its output is not the "
+                             "kernel's)", _cold_by_kernel(fns), nbytes)
+        del sets
+        torch.cuda.empty_cache()
+
+
+def phase_k11k17_breakdown(dev) -> None:
+    """K11 and K17 at the 7B and TinyLlama decode shapes by kernel (planned
+    and forced), the library beside; K26's body split (traced steps,
+    diagnostic builds); then K5, K6, K8, K16, K25 and K26 at their PERF.md
+    shapes as phase 2 times them.  Run on an older tree, it leaves out what
+    that tree's wrappers and sources do not have."""
+    rng = np.random.default_rng(16)
+    _k11_breakdown(dev)
+    _k17_breakdown(dev, rng)
+    _k26_body_breakdown(dev, rng)
+    _k5_breakdown(dev, rng, False)
+    rows = {"fused_dense_decode_i8": [], "fused_mlp_decode_i8": [], "fused_dense_decode_i4": [],
+            "fused_o_mlp_decode_i8": [], "fused_o_mlp_decode_i4": []}
+    bf = torch.bfloat16
+    for tag, c, b, group in _mlp_shapes():
+        k, hd, i = c.hidden_size, c.head_dim, c.intermediate_size
+        n_qkv = (c.num_attention_heads + 2 * c.num_key_value_heads) * hd
+        for label, n, norm, rope, r in ((f"{tag} qkv (norm, rope {hd})", n_qkv, True, True, False),
+                                        (f"{tag} o_proj (+res)", k, False, False, True)):
+            o = _dense_case(rng, dev, b, k, n, bf)
+            rows["fused_dense_decode_i8"].append(_check_dense_i8(
+                label, o, hd, "rmsnorm" if norm else None, rope, r, bf, dev, True))
+            rows["fused_dense_decode_i4"].append(
+                _check_dense_i4(label, o, hd, norm, rope, r, group, dev, True))
+            del o
+        rows["fused_mlp_decode_i8"].append(_check_mlp(
+            f"{tag} mlp (norm, silu, +res)", rng, b, k, i, 512, "rmsnorm", "silu", True, bf, bf,
+            dev, True))
+        for g in (0, group):
+            rows["fused_o_mlp_decode_i4" if g else "fused_o_mlp_decode_i8"].append(_check_o_mlp(
+                f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * hd, k, i, g, dev, True))
+        torch.cuda.empty_cache()
+    _print_rows(rows)
+
+
 def _print_reprofiled() -> None:
     """The profiled runs timed again because the profiler lost records."""
     from qdm_tpu_torch.utils.timing import REPROFILED
@@ -4541,10 +4832,20 @@ def _timed(fn):
     return time.perf_counter() - t0, out
 
 
+def _launches_per_step(eng, tok0, caches, pos: int) -> int:
+    """CUDA launches of one decode step of ``eng`` at ``pos`` (embedding,
+    head and argmax included), from a captured CUDA graph; after a run of
+    the engine's decode loop has built its step."""
+    step, trig = eng._run_cache[()]
+    cos, sin = trig(torch.arange(pos, pos + 1, device=tok0.device))
+    with torch.inference_mode():
+        return _cuda_launches(lambda: step(tok0, caches, pos, cos[0], sin[0]))
+
+
 def _profile_decode(label: str, eng, prompts, start: int, max_len: int, rows: int = 15) -> None:
     """Device time by kernel of three decode steps of ``eng`` after a
-    prefill of ``prompts``, and the device's idle share against the same
-    three steps untraced."""
+    prefill of ``prompts``, the device's idle share against the same three
+    steps untraced, and the CUDA launches of one step."""
     from torch.profiler import ProfilerActivity, profile
 
     tok0, caches = eng.prefill(prompts, max_len)
@@ -4559,9 +4860,14 @@ def _profile_decode(label: str, eng, prompts, start: int, max_len: int, rows: in
     print(events.table(sort_by="self_cuda_time_total", row_limit=rows), flush=True)
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    launches = ""
+    if not eng.moe:  # the MoE layer's routing is not captured in a graph
+        n = _launches_per_step(eng, tok0, caches, start)
+        launches = (f"; {n} CUDA launches a decode step ({n / eng.cfg.num_hidden_layers:.2f} "
+                    "per layer)")
     print(f"profile: {label}, 3 decode steps take {wall * 1e3:.2f} ms of wall time untraced; "
           f"the traced run keeps the device busy {busy_ms:.2f} ms (idle share "
-          f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time)", flush=True)
+          f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time){launches}", flush=True)
 
 
 def phase_llm_profile(dev, llm: dict) -> None:
@@ -4777,10 +5083,7 @@ def _merged_profile(label, eng, base, prompts) -> None:
             torch.cuda.synchronize()
         busy = sum(ev.self_device_time_total for ev in prof.key_averages()
                    if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        step, trig = e._run_cache[()]
-        cos, sin = trig(torch.arange(L7_PROMPT, L7_PROMPT + 1, device=tok0.device))
-        with torch.inference_mode():
-            n = _cuda_launches(lambda: step(tok0, caches, L7_PROMPT, cos[0], sin[0]))
+        n = _launches_per_step(e, tok0, caches, L7_PROMPT)
         print(f"profile: Llama-2-7B {label}, {w} engine: {n} CUDA launches per decode step "
               f"(embedding, head and argmax included), {n / n_layers:.2f} per layer; device "
               f"busy {busy:.2f} ms over 3 steps", flush=True)
@@ -5475,7 +5778,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     ap.add_argument("--breakdown", nargs="?", const="all",
-                    choices=("all", "w4", "k3", "k4k9", "k5k26"),
+                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -5492,7 +5795,11 @@ def main() -> int:
                          "bf16 engines' qkv, o_proj and lm_head shapes and K26 at the 7B and "
                          "TinyLlama merge_o shapes by kernel (planned and forced), the library "
                          "and the unmerged K16 + K17 pair beside, then K6, K16, K17 and K25 "
-                         "at their shapes (plain `--breakdown` prints these last); no other "
+                         "at their shapes; `--breakdown k11k17`: K11 and K17 at the 7B and "
+                         "TinyLlama decode shapes by kernel (planned and forced, traced), the "
+                         "library beside, K26's body in its traced and diagnostic builds, then "
+                         "K5, K6, K8, K16, K25 and K26 at their shapes (plain `--breakdown` "
+                         "prints these last); no other "
                          "phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5517,6 +5824,8 @@ def main() -> int:
             phase_k4k9_breakdown(dev)
         if args.breakdown in ("all", "k5k26"):
             phase_k5k26_breakdown(dev)
+        if args.breakdown in ("all", "k11k17"):
+            phase_k11k17_breakdown(dev)
         _print_reprofiled()
         print(smi_line())
         return 0

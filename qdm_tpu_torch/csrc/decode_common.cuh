@@ -1,22 +1,21 @@
 // Shared pieces of the decode-step kernels (decode_dense.cu: K6,
-// decode_mlp_i8.cu: K8, decode_mlp.cu: K11; decode_dense_bf16.cu (K5) takes
-// the bf16 mma, the norm's constants and the dense epilogue, flash_prefill.cu
-// the bf16 mma).
+// decode_mlp_i8.cu: K8; decode_dense_bf16.cu (K5) and decode_mlp.cu (K11)
+// take the bf16 mma, the norm's constants, the activation and the dense
+// epilogue, flash_prefill.cu the bf16 mma).
 //
 // * norm_rows_kernel: one block per row of x (B, K).  Optional RMSNorm or
 //   LayerNorm in f32, with the row sums taken in f64 and rounded once to
 //   f32 (so any summation order gives the same f32, and the plain PyTorch
 //   version's f64 sum the same bits) and rsqrt(v) as 1 / sqrt(v) with IEEE
-//   sqrt and division.  Writes the normed row in an output dtype (K11:
-//   bf16) or its int8 codes clip(round(xn * (1/a)), +-127) with a static
-//   scale a (K6, K8, K16, K17).
+//   sqrt and division.  Writes the normed row's int8 codes
+//   clip(round(xn * (1/a)), +-127) with a static scale a (K6, K8, K16, K27).
 // * tile_mainloop: a 32-row x BN-column tile of A (M, K) @ B^T, B given
 //   as (N, K) rows (the transposed weight), over a byte range of K,
 //   through a three-stage cp.async ring into mma.sync: m16n8k32 s8 for
 //   int8 operands (exact int32 sums), m16n8k16 bf16 with f32 sums.  The
 //   two fragment layouts read the same bytes of a 64-byte stage (4t and
 //   4t + 16 of each 32-byte step), so one loader serves both.  NB weight
-//   matrices share the A tile (K8's and K11's gate and up).  A may also
+//   matrices share the A tile (K8's gate and up).  A may also
 //   arrive as bf16 / f32 values quantized with a static scale as each
 //   stage is consumed (TileA; K25's o_proj).
 // * act_fn and ordered_sum_kernel: the fused MLPs' activation and their
@@ -82,13 +81,12 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
 // norm (+ static int8 quantization) of each row
 // ---------------------------------------------------------------------------
 
-// QUANT: out is int8 codes with scale act_scale[0]; else out_dtype values.
-template <typename T, bool QUANT>
+// out: the int8 codes with scale act_scale[0].
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ ns,
                  const float* __restrict__ nb, int norm, float eps,
-                 const float* __restrict__ act_scale, void* __restrict__ out, int out_dtype,
-                 int K) {
+                 const float* __restrict__ act_scale, int8_t* __restrict__ out, int K) {
   __shared__ double red[32];
   const int row = blockIdx.x;
   const T* xr = x + (size_t)row * K;
@@ -116,7 +114,7 @@ norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ ns,
     const float var = __fdiv_rn((float)ss, (float)K);
     inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, 1e-5f)));
   }
-  const float ainv = QUANT ? __fdiv_rn(1.0f, act_scale[0]) : 0.0f;
+  const float ainv = __fdiv_rn(1.0f, act_scale[0]);
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     float v = to_f32(xr[k]);
     if (norm == kNormRms) {
@@ -124,23 +122,20 @@ norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ ns,
     } else if (norm == kNormLayer) {
       v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), inv), ns[k]), nb[k]);
     }
-    if (QUANT)
-      static_cast<int8_t*>(out)[(size_t)row * K + k] = quant_i8(v, ainv);
-    else
-      store_f32(out, out_dtype, (size_t)row * K + k, v);
+    out[(size_t)row * K + k] = quant_i8(v, ainv);
   }
 }
 
-template <bool QUANT>
-cudaError_t launch_norm_rows(const void* x, int x_dtype, const float* ns, const float* nb,
-                             int norm, float eps, const float* act_scale, void* out,
-                             int out_dtype, int M, int K, cudaStream_t stream) {
+inline cudaError_t launch_norm_rows(const void* x, int x_dtype, const float* ns, const float* nb,
+                                    int norm, float eps, const float* act_scale, void* out,
+                                    int M, int K, cudaStream_t stream) {
+  int8_t* codes = static_cast<int8_t*>(out);
   if (x_dtype == kDtypeBF16)
-    norm_rows_kernel<__nv_bfloat16, QUANT><<<M, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), ns, nb, norm, eps, act_scale, out, out_dtype, K);
+    norm_rows_kernel<__nv_bfloat16><<<M, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), ns, nb, norm, eps, act_scale, codes, K);
   else if (x_dtype == kDtypeF32)
-    norm_rows_kernel<float, QUANT><<<M, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), ns, nb, norm, eps, act_scale, out, out_dtype, K);
+    norm_rows_kernel<float><<<M, kThreads, 0, stream>>>(static_cast<const float*>(x), ns, nb,
+                                                        norm, eps, act_scale, codes, K);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

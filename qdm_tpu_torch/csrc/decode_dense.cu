@@ -109,9 +109,8 @@ extern "C" int qdm_decode_dense_i8(const void* x, int x_dtype, const void* wt, c
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(act_scale);
-  cudaError_t err = launch_norm_rows<true>(x, x_dtype, static_cast<const float*>(ns),
-                                           static_cast<const float*>(nb), norm, eps, a, xi, 0,
-                                           M, K, s);
+  cudaError_t err = launch_norm_rows(x, x_dtype, static_cast<const float*>(ns),
+                                     static_cast<const float*>(nb), norm, eps, a, xi, M, K, s);
   if (err != cudaSuccess) return (int)err;
   DenseEpi ep{static_cast<const float*>(bias), static_cast<const float*>(cos),
               static_cast<const float*>(sin), head_dim, res, res_dtype, out, out_dtype};

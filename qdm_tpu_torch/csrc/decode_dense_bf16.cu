@@ -83,13 +83,6 @@ struct K5Layout {
   }
 };
 
-__device__ __forceinline__ float norm_value(float v, int norm, float mean, float inv, float s,
-                                            float b) {
-  if (norm == kNormRms) return __fmul_rn(__fmul_rn(v, inv), s);
-  if (norm == kNormLayer) return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), inv), s), b);
-  return v;
-}
-
 // finish_tile's function (rope with the partner d/2 away, residual, output
 // dtype) with each thread's loads of a batch of eight elements in flight
 // together.

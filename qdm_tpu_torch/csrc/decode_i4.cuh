@@ -1,6 +1,7 @@
-// The int4 group dot of the w4a8 decode kernels (decode_dense_i4.cu: K16,
-// decode_mlp_i4.cu: K17), on the tiles and the cp.async ring of
-// decode_common.cuh.
+// The int4 group dot of the w4a8 decode kernels, on the tiles and the
+// cp.async ring of decode_common.cuh (decode_moe_i4.cu: K27), and the
+// nibble expansion that the TMA-fed int4 bodies share (decode_i4_split.cuh:
+// K16, decode_o_mlp_i4.cuh: K17 and K26).
 //
 // The weight is planar int4 (qdm_tpu/ops/decode_kernels.py::
 // pack_int4_planar): within a block of 2 * half K rows, byte row r holds

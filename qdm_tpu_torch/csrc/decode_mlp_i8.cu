@@ -46,9 +46,8 @@ extern "C" int qdm_decode_mlp_i8(const void* x, int x_dtype, const void* wg_t, c
   if (bj <= 0 || I % bj != 0 || bj % 16 != 0 || (act != kActSilu && act != kActGelu))
     return (int)cudaErrorInvalidValue;
   const float* scl = static_cast<const float*>(act_scales);
-  cudaError_t err = launch_norm_rows<true>(x, x_dtype, static_cast<const float*>(ns),
-                                           static_cast<const float*>(nb), norm, eps, scl, xi, 0,
-                                           M, K, s);
+  cudaError_t err = launch_norm_rows(x, x_dtype, static_cast<const float*>(ns),
+                                     static_cast<const float*>(nb), norm, eps, scl, xi, M, K, s);
   if (err != cudaSuccess) return (int)err;
   const int mt = (M + TM - 1) / TM;
   gate_up_kernel<<<dim3((I + 63) / 64, mt), kThreads, 0, s>>>(

@@ -1,7 +1,7 @@
-// The tile kernels of the quantized fused MLPs, shared by K8 (decode_mlp_i8.cu)
-// and K25 (decode_o_mlp_i8.cu), and K17 (decode_mlp_i4.cu): gate and up over
-// a 64-column slice of I into the int8 mid codes, and the down product of
-// one inner block over a 64-column slice of K into an f32 partial.
+// The tile kernels of the int8 fused MLPs, shared by K8 (decode_mlp_i8.cu)
+// and K25 (decode_o_mlp_i8.cu): gate and up over a 64-column slice of I
+// into the int8 mid codes, and the down product of one inner block over a
+// 64-column slice of K into an f32 partial.
 //
 // ordered_finish: the merged kernel (K25) adds the inner blocks' partials in
 // the down launch itself.  Each down block, after storing its
@@ -126,75 +126,6 @@ down_partial_kernel(const int8_t* __restrict__ ai, const int8_t* __restrict__ wd
         pj[(size_t)row * K + col] =
             __fmul_rn((float)acc[0][mi][nj][e], __fmul_rn(s_mid, sd[col]));
       }  if constexpr (FINISH) ordered_finish(part, I / bj, fin, M, K, m0, n0);
-}
-
-// ---------------------------------------------------------------------------
-// planar int4 weights (K17)
-// ---------------------------------------------------------------------------
-
-// (2) gate and up over a 64-column slice of I -> mid codes.
-__global__ void __launch_bounds__(kThreads)
-gate_up_i4_kernel(const int8_t* __restrict__ xi, const unsigned char* __restrict__ wg,
-                  const unsigned char* __restrict__ wu, const float* __restrict__ sg,
-                  const float* __restrict__ su, const float* __restrict__ scl, int act,
-                  int8_t* __restrict__ ai, int M, int K, int I, int group) {
-  constexpr int NJ = 2;
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 2> sm;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * BN;
-  const int half = K / 2;
-  const unsigned char* B[2] = {wg, wu};
-  const float* W[2] = {sg, su};
-  float y[2][2][NJ][4];
-  i4_group_dot_tile<NJ, 2>(y, xi, (size_t)K, 0, half, B, (size_t)half, 0, half, group, W,
-                           (size_t)I, 0, m0, M, n0, I, sm);
-  const float s_in = scl[0];
-  const float inv_mid = __fdiv_rn(1.0f, scl[1]);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, e, r, c);
-        const int row = m0 + r, col = n0 + c;
-        if (row >= M || col >= I) continue;
-        const float gg = __fmul_rn(y[0][mi][nj][e], s_in);
-        const float uu = __fmul_rn(y[1][mi][nj][e], s_in);
-        ai[(size_t)row * I + col] = quant_i8(__fmul_rn(act_fn(gg, act), uu), inv_mid);
-      }
-}
-
-// (3) one inner block j of the down product over a 64-column slice of K.
-__global__ void __launch_bounds__(kThreads)
-down_partial_i4_kernel(const int8_t* __restrict__ ai, const unsigned char* __restrict__ wd,
-                       const float* __restrict__ sd, const float* __restrict__ scl,
-                       float* __restrict__ part, int M, int K, int I, int bj, int group) {
-  constexpr int NJ = 2;
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 1> sm;
-  const int j = blockIdx.y;
-  const int m0 = blockIdx.z * TM, n0 = blockIdx.x * BN;
-  const unsigned char* B[1] = {wd};
-  const float* W[1] = {sd};
-  float y[1][2][NJ][4];
-  i4_group_dot_tile<NJ, 1>(y, ai, (size_t)I, j * bj, bj / 2, B, (size_t)(I / 2), j * (bj / 2),
-                           bj / 2, group, W, (size_t)K, j * (bj / group), m0, M, n0, K, sm);
-  const float s_mid = scl[1];
-  float* pj = part + (size_t)j * M * K;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, e, r, c);
-        const int row = m0 + r, col = n0 + c;
-        if (row >= M || col >= K) continue;
-        pj[(size_t)row * K + col] = __fmul_rn(y[0][mi][nj][e], s_mid);
-      }
 }
 
 }  // namespace dec

@@ -22,7 +22,7 @@
 // 704.6 MB of int4 bytes and 44.0 MB of f32 scales a layer, against
 // 6*B*K*I*E operations (30 per byte): bytes, 0.2235 ms at 3.35 TB/s.
 //
-// What the design does about it: K17's tiles (decode_mlp_q.cuh) with an
+// What the design does about it: the int4 tiles of decode_i4.cuh with an
 // expert axis on the grid, so all E experts stream at once and every byte
 // is read once.  (1) the s_in quantization of the B rows into an int8
 // scratch; (2) a tile kernel over (64-column slice of I, row tile, expert)
@@ -135,8 +135,8 @@ extern "C" int qdm_decode_moe_i4(const void* xn, int x_dtype, const void* route,
       (out_dtype != kDtypeF32 && out_dtype != kDtypeBF16))
     return (int)cudaErrorInvalidValue;
   const float* scl = static_cast<const float*>(act_scales);
-  cudaError_t err = launch_norm_rows<true>(xn, x_dtype, nullptr, nullptr, kNormNone, 0.0f, scl,
-                                           xi, 0, M, K, s);
+  cudaError_t err =
+      launch_norm_rows(xn, x_dtype, nullptr, nullptr, kNormNone, 0.0f, scl, xi, M, K, s);
   if (err != cudaSuccess) return (int)err;
   const int mt = (M + TM - 1) / TM;
   moe_gate_up_i4_kernel<<<dim3((I + 63) / 64, mt, E), kThreads, 0, s>>>(

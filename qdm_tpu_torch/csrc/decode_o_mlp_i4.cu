@@ -25,7 +25,7 @@
 // dependent steps, so latency sets it there.
 //
 // What the design does about it: four launches (the unmerged K16 o_proj +
-// K17 take six); three are column-tile grids whose contraction is split
+// K17 take five); three are column-tile grids whose contraction is split
 // across a thread-block cluster; no device scratch but x2, the MLP input and
 // mid codes and each o_proj tile's f64 sums of x2^2 per row:
 //   (1) o_proj: each block quantizes its slice of the attention rows with
@@ -43,485 +43,15 @@
 //       each block's sum (its low partials, then its high partials kept
 //       aside) times s_mid goes to the column's owner, which adds the
 //       blocks from 0 in j order, then x2, and stores the output.
-// Every step reads each packed byte once for both nibble planes (mma.sync
-// m16n8k32 s8 on 16 x the nibbles, decode_i4.cuh), its activation codes
-// resident in shared memory (rows past the batch read one zero line), the
-// packs streamed by TMA (128-byte swizzled 128-byte x 64-column tiles)
-// through a ring filled by one producer warp; each column's owner reads the
-// partials four columns at a time.  The launch plan of each
-// step (rows a tile, blocks a cluster, stages) comes from the wrapper
+// Steps (1), (2) and (3) are the read-once int4 body of decode_o_mlp_i4.cuh,
+// which K17 (decode_mlp_i4.cu) shares; the launch plan of each step (rows
+// a tile, blocks a cluster, stages) comes from the wrapper
 // (decode_kernels.py::o_mlp_i4_plan).
 
-#include "decode_i4.cuh"
-#include "decode_ring.cuh"
+#include "decode_o_mlp_i4.cuh"
 
 namespace qdm {
 namespace dec {
-
-constexpr int kI4Consumers = 8;                    // 8 columns a warp
-constexpr int kI4Threads = (kI4Consumers + 1) * 32;
-constexpr int kI4BN = 64;                          // columns a tile
-constexpr int kI4Stage = kI4BN * 128;              // bytes of one pack's stage
-
-// One block's shared memory: the ring's mbarriers and a 16-byte zero line,
-// the ring (stages x nb packs x 64 rows of 128 bytes), the resident codes
-// (two planes x rs rows x the rank's bytes + 16), the group scales of the
-// rank's groups (nb x two planes x groups x 64 columns f32), the deferred high
-// partials of step (3) (g_defer x mi x 4 per thread), the block's partials
-// (parts x rs rows x 64 columns f32) and step (1)'s x2 tile (rs x 68 f32).
-struct I4StepLayout {
-  int rs, astride;
-  size_t a_off, sc_off, hb_off, part_off, ys_off, total;
-  __host__ __device__ I4StepLayout(int M, int tr, int nb, int stages, int abytes, int group,
-                                   int parts, int g_defer, bool tile) {
-    const int m8 = (M + 7) & ~7;
-    rs = m8 < tr ? m8 : tr;
-    astride = abytes + 16;
-    a_off = 1024 + (size_t)stages * nb * kI4Stage;
-    sc_off = a_off + (size_t)2 * rs * astride;
-    hb_off = sc_off + (size_t)nb * 2 * (abytes / group) * kI4BN * 4;
-    part_off = hb_off + (size_t)g_defer * ((tr + 15) / 16) * 4 * kI4Consumers * 32 * 4;
-    ys_off = part_off + (size_t)parts * rs * kI4BN * 4;
-    total = ys_off + (tile ? (size_t)rs * (kI4BN + 4) * 4 : 0) + 1024;
-  }
-};
-
-struct OMlp {
-  const void* attn;
-  int attn_dtype;
-  const void* res;
-  int res_dtype;
-  const float* ws0;   // the step's scales: o_proj's, gate's or down's
-  const float* ws1;   // up's (step 2)
-  const float* s_ao;
-  const float* scl;   // [s_in, s_mid]
-  const float* ns;
-  float eps;
-  int act;
-  void* out;
-  int out_dtype;
-  int8_t* codes;      // (M, HD) attention codes, or null
-  float* x2;          // (M, K)
-  double* ss;         // (M, K / 64): each o_proj tile's sum of x2^2 a row
-  int8_t* xi;         // (M, K) MLP input codes
-  int8_t* mid;        // (M, I)
-  int M, HD, K, I, bj, group, tr;
-};
-
-#ifdef QDM_K26_TRACE
-// a diagnostic build: clock64 cycles from the block's start to the end of each
-// phase, per step and block (qdm_decode_o_mlp_i4_trace reads them)
-__device__ unsigned long long g_k26_trace[3][4096][8];
-#define K26_MARK(i)                                                                      \
-  if (threadIdx.x == 0)                                                                  \
-  g_k26_trace[STEP][(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) %   \
-                    4096][i] = clock64() - t_start
-#else
-#define K26_MARK(i)
-#endif
-
-// STEP 0: o_proj, 1: gate and up, 2: down.  MI m16 row tiles (tr 32: 2, 16 or 8: 1).
-// Grid (split, column tiles, row tiles), clusters of split.
-template <int STEP, int MI>
-__global__ void __launch_bounds__(kI4Threads)
-o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__ CUtensorMap tw1,
-                OMlp p, int stages) {
-  using namespace hop;
-  constexpr int NB = STEP == 1 ? 2 : 1;
-  constexpr bool BLOCKS = STEP == 2;  // the contraction is n_j planar inner blocks
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  const int split = (int)gridDim.x, rank = (int)blockIdx.x;
-  const int n0 = blockIdx.y * kI4BN, m0 = blockIdx.z * p.tr;
-  const int N = STEP == 1 ? p.I : p.K;
-  const int hb = STEP == 0 ? p.HD / 2 : (STEP == 1 ? p.K / 2 : p.bj / 2);  // a planar block
-  const int nblk = BLOCKS ? p.I / p.bj : 1;
-  const int G = hb / p.group;  // groups a plane of a block
-  // this rank's bytes of the contraction: whole inner blocks (down) or whole
-  // groups of the planar half; its partials: one per inner block, or one per
-  // (matrix, plane, group)
-  const int units = BLOCKS ? nblk : G, per = (units + split - 1) / split;
-  const int u_lo = rank * units / split, u_hi = (rank + 1) * units / split;
-  const int B0 = u_lo * (BLOCKS ? hb : p.group), B1 = u_hi * (BLOCKS ? hb : p.group);
-  const int g_first = u_lo;
-  const int abytes = per * (BLOCKS ? hb : p.group);
-  const int parts = BLOCKS ? per : NB * 2 * per;
-  const I4StepLayout L(p.M, p.tr, NB, stages, abytes, p.group, parts, BLOCKS ? G - 1 : 0,
-                       STEP == 0);
-  const int rs = L.rs;
-  const int ngr = (B1 - B0) / p.group;  // this rank's groups a plane
-  const int rows = min(rs, p.M - m0), bnv = min(kI4BN, N - n0);
-  const int n_st = (B1 - B0 + 127) / 128;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Ring ring{smem_u32(smem), stages};
-  unsigned char* ring_buf = smem + 1024;
-  unsigned char* A0 = smem + L.a_off;  // plane 0's rows; plane 1's follow
-  float* scs = reinterpret_cast<float*>(smem + L.sc_off);  // [NB][2][ngr][64]
-  float* hbuf = reinterpret_cast<float*>(smem + L.hb_off);
-  float* part = reinterpret_cast<float*>(smem + L.part_off);  // [parts][rs][64]
-  float* ys = reinterpret_cast<float*>(smem + L.ys_off);
-  const uint32_t zero_line = smem_u32(smem + 512);
-#ifdef QDM_K26_TRACE
-  const long long t_start = clock64();
-#endif
-
-  cluster_arrive_relaxed();
-  if (tid == 0) ring.init(kI4Consumers);
-  if (tid < 4) reinterpret_cast<unsigned*>(smem + 512)[tid] = 0u;
-  __syncthreads();
-
-  if (warp == kI4Consumers) {  // the producer warp
-    auto issue = [&](int q) {
-      const int buf = q % stages;
-      const uint32_t dst = smem_u32(ring_buf + (size_t)buf * NB * kI4Stage);
-      mbar_arrive_tx(ring.full(buf), (uint32_t)(NB * kI4Stage));
-      tma_load_2d(dst, &tw0, B0 + q * 128, n0, ring.full(buf));
-      if (NB == 2) tma_load_2d(dst + kI4Stage, &tw1, B0 + q * 128, n0, ring.full(buf));
-    };
-    const int pre = min(stages, n_st);
-    named_bar_sync(2, kI4Threads);  // the codes are resident: their loads did not queue
-    if (lane == 0)                  // behind the ring's
-      for (int q = 0; q < pre; ++q) issue(q);
-    __syncwarp();
-    cluster_wait();
-    if (lane == 0)
-      for (int q = pre; q < n_st; ++q) {
-        ring.wait_empty(q);
-        issue(q);
-      }
-    __syncwarp();
-  } else {
-    // the group scales of this rank's groups and the tile's columns (cp.async)
-    constexpr int C4 = kI4BN / 4;  // 16-byte copies a scale row
-    for (int i = tid; i < NB * 2 * ngr * C4; i += kI4Consumers * 32) {
-      const int c4 = i % C4, gl = (i / C4) % ngr, pl = (i / (C4 * ngr)) % 2;
-      const int qq = i / (C4 * ngr * 2);
-      const int g_row = BLOCKS ? (g_first + gl / G) * (p.bj / p.group) + pl * G + gl % G
-                               : pl * G + g_first + gl;
-      const float* src = (qq == 0 ? p.ws0 : p.ws1) + (size_t)g_row * N + n0 + 4 * c4;
-      cp_async16(scs + (size_t)i * 4, src, true);
-    }
-    // the resident codes of this rank's bytes, both planes
-    if (STEP > 0) {  // the MLP input or mid codes as they are: cp.async, 16 bytes a copy
-      const int chunks = (B1 - B0) / 16;
-      for (int i = tid; i < 2 * rs * chunks; i += kI4Consumers * 32) {
-        const int pl = i / (rs * chunks), r = (i / chunks) % rs, c = i % chunks;
-        const int b = B0 + 16 * c, row = m0 + r;
-        const bool ok = row < p.M;
-        const int8_t* src = STEP == 1 ? p.xi + (size_t)row * p.K + pl * hb + b
-                                      : p.mid + (size_t)row * p.I + (b / hb) * p.bj + pl * hb +
-                                            b % hb;
-        cp_async16(A0 + (size_t)(pl * rs + r) * L.astride + 16 * c,
-                   ok ? (const void*)src : (const void*)p.xi, ok);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {  // quantized as loaded: each thread's loads of four words in flight together
-      const float inv_a = __fdiv_rn(1.0f, p.s_ao[0]);
-      const int words = (B1 - B0) / 4, n_items = rs * words;
-      auto fill = [&](auto zero) {  // zero: a value of the attention output's type
-        using T = decltype(zero);
-        const T* src = static_cast<const T*>(p.attn);
-        const int ld = p.HD;
-        constexpr int U = 4;
-        for (int i0 = tid; i0 < n_items; i0 += U * kI4Consumers * 32) {
-          float v[U][2][4];
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int i = i0 + u * kI4Consumers * 32, r = i / words, b = B0 + 4 * (i % words);
-            const bool ok = i < n_items && m0 + r < p.M;
-#pragma unroll
-            for (int pl = 0; pl < 2; ++pl) {
-              const size_t o = (size_t)(m0 + r) * ld + pl * hb + b;
-              float4 f4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-              if (ok) {
-                if constexpr (sizeof(T) == 2) {
-                  const uint2 u2 = __ldg(reinterpret_cast<const uint2*>(src + o));
-                  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u2);
-                  const float2 lo = __bfloat1622float2(h2[0]), hi = __bfloat1622float2(h2[1]);
-                  f4 = make_float4(lo.x, lo.y, hi.x, hi.y);
-                } else {
-                  f4 = __ldg(reinterpret_cast<const float4*>(src + o));
-                }
-              }
-              v[u][pl][0] = f4.x;
-              v[u][pl][1] = f4.y;
-              v[u][pl][2] = f4.z;
-              v[u][pl][3] = f4.w;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int i = i0 + u * kI4Consumers * 32, r = i / words, wd = i % words;
-            if (i >= n_items) break;
-            const int b = B0 + 4 * wd, row = m0 + r;
-            unsigned w[2] = {0u, 0u};
-            if (row < p.M)
-#pragma unroll
-              for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                  w[pl] |= (unsigned)(unsigned char)quant_i8(v[u][pl][e], inv_a) << (8 * e);
-            if (p.codes != nullptr && blockIdx.y == 0 && row < p.M) {
-              *reinterpret_cast<unsigned*>(p.codes + (size_t)row * ld + b) = w[0];
-              *reinterpret_cast<unsigned*>(p.codes + (size_t)row * ld + hb + b) = w[1];
-            }
-            *reinterpret_cast<unsigned*>(A0 + (size_t)r * L.astride + 4 * wd) = w[0];
-            *reinterpret_cast<unsigned*>(A0 + (size_t)(rs + r) * L.astride + 4 * wd) = w[1];
-          }
-        }
-      };
-      if (p.attn_dtype == kDtypeBF16)
-        fill(__float2bfloat16_rn(0.0f));
-      else
-        fill(0.0f);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    named_bar_sync(1, kI4Consumers * 32);
-    named_bar_arrive(2, kI4Threads);  // the producer may start the ring
-    K26_MARK(1);
-    cluster_wait();  // every block of the cluster has started
-
-    const int g8 = lane >> 2, t4 = lane & 3;
-    // partial `idx` of fragment elements (mi, 2 h), (mi, 2 h + 1): two
-    // adjacent columns of one row, kept in this block
-    auto keep = [&](int idx, int mi, int h, float v0, float v1) {
-      const int r = mi * 16 + g8 + h * 8;
-#ifdef QDM_K26_NO_PARTIALS
-      if (r >= 0) return;  // a profile's build: the partials are not kept (output not used)
-#endif
-      if (r < rs)
-        *reinterpret_cast<float2*>(part + ((size_t)idx * rs + r) * kI4BN + warp * 8 + 2 * t4) =
-            make_float2(v0, v1);
-    };
-    // ldmatrix addresses of the A fragments: row (lane & 7) + 8 ((lane >> 3) & 1) of m16
-    // tile mi, bytes 16 (lane >> 4) of the 32-byte step; rows past rs read the zero line
-    uint32_t a_addr[2][MI];
-#pragma unroll
-    for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int r = mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        a_addr[pl][mi] =
-            r < rs ? smem_u32(A0 + (size_t)(pl * rs + r) * L.astride + (lane >> 4) * 16)
-                   : zero_line;
-      }
-    int acc[NB][2][MI][4];
-    float y0[NB][MI][4];
-    float wsv[NB][2][2];
-#pragma unroll
-    for (int q = 0; q < NB; ++q)
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[q][0][mi][e] = acc[q][1][mi][e] = 0;
-          y0[q][mi][e] = 0.0f;
-        }
-    const int gsteps = p.group / 32;
-    // the group in its plane, the inner block (or group), the rank's group
-    int gi = 0, gblk = g_first, gl = 0, gstep = 0;
-    for (int q = 0; q < n_st; ++q) {
-      ring.wait_full(q);
-      const unsigned char* stage = ring_buf + (size_t)(q % stages) * NB * kI4Stage;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int kb = B0 + q * 128 + ks * 32;
-        if (kb >= B1) break;
-        if (gstep == 0) {  // a group begins: its scales, both planes
-#pragma unroll
-          for (int qq = 0; qq < NB; ++qq)
-#pragma unroll
-            for (int pl = 0; pl < 2; ++pl) {
-              const float2 w2 = *reinterpret_cast<const float2*>(
-                  scs + ((size_t)(qq * 2 + pl) * ngr + gl) * kI4BN + warp * 8 + 2 * t4);
-              wsv[qq][pl][0] = w2.x;
-              wsv[qq][pl][1] = w2.y;
-            }
-        }
-        const uint32_t a_off = (uint32_t)(kb - B0);
-        unsigned af[2][MI][4];
-#pragma unroll
-        for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-            ldsm_x4(af[pl][mi], a_addr[pl][mi] == zero_line ? zero_line : a_addr[pl][mi] + a_off);
-#pragma unroll
-        for (int qq = 0; qq < NB; ++qq) {
-          const unsigned char* wrow = stage + qq * kI4Stage + (warp * 8 + g8) * 128 + t4 * 4;
-          const unsigned w0 = *reinterpret_cast<const unsigned*>(wrow + (((2 * ks) ^ g8) << 4));
-          const unsigned w1 =
-              *reinterpret_cast<const unsigned*>(wrow + (((2 * ks + 1) ^ g8) << 4));
-#pragma unroll
-          for (int pl = 0; pl < 2; ++pl) {
-            const unsigned bf[2] = {nibbles_x16(w0, pl), nibbles_x16(w1, pl)};
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) mma_s8(acc[qq][pl][mi], af[pl][mi], bf);
-          }
-        }
-        if (++gstep < gsteps) continue;
-        gstep = 0;  // a group ends: its partials, low plane first
-#pragma unroll
-        for (int qq = 0; qq < NB; ++qq)
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              float v[2][2];  // [plane][column]
-#pragma unroll
-              for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                  const int e = 2 * h + c;
-                  v[pl][c] = __fmul_rn((float)(acc[qq][pl][mi][e] >> 4), wsv[qq][pl][c]);
-                  acc[qq][pl][mi][e] = 0;
-                }
-              if (BLOCKS) {
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                  const int e = 2 * h + c;
-                  y0[qq][mi][e] = gi == 0 ? v[0][c] : __fadd_rn(y0[qq][mi][e], v[0][c]);
-                  float* hp = hbuf + ((size_t)(gi * MI + mi) * 4 + e) * (kI4Consumers * 32) + tid;
-                  if (gi < G - 1) {
-                    *hp = v[1][c];  // the high partials wait for the block's last low one
-                  } else {
-                    float y = y0[qq][mi][e];
-                    for (int h2 = 0; h2 < G - 1; ++h2)
-                      y = __fadd_rn(y, hbuf[((size_t)(h2 * MI + mi) * 4 + e) *
-                                                (kI4Consumers * 32) + tid]);
-                    y0[qq][mi][e] = __fadd_rn(y, v[1][c]);
-                  }
-                }
-                if (gi == G - 1) keep(gl / G, mi, h, y0[qq][mi][2 * h], y0[qq][mi][2 * h + 1]);
-              } else {
-                if (rank == 0) {  // the low prefix, added up here
-#pragma unroll
-                  for (int c = 0; c < 2; ++c) {
-                    const int e = 2 * h + c;
-                    y0[qq][mi][e] = gblk == 0 ? v[0][c] : __fadd_rn(y0[qq][mi][e], v[0][c]);
-                  }
-                } else {
-                  keep((qq * 2 + 0) * per + gl, mi, h, v[0][0], v[0][1]);
-                }
-                keep((qq * 2 + 1) * per + gl, mi, h, v[1][0], v[1][1]);
-              }
-            }
-        ++gl;
-        if (BLOCKS) {
-          if (++gi == G) {
-            gi = 0;
-            ++gblk;
-          }
-        } else {
-          ++gblk;
-        }
-      }
-      ring.release(q);
-    }
-    K26_MARK(2);
-    if (!BLOCKS && rank == 0)  // the low prefix, in place of rank 0's first low partial
-#pragma unroll
-      for (int qq = 0; qq < NB; ++qq)
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            keep((qq * 2) * per, mi, h, y0[qq][mi][2 * h], y0[qq][mi][2 * h + 1]);
-  }
-  cluster_sync();  // every block's partials are kept
-  K26_MARK(3);
-
-  // this block's columns (granules of four: block q owns granules q * 16 /
-  // split ..): each partial read, four columns at a time, from the block
-  // that kept it and added in the TPU kernel's order, then the step's
-  // epilogue
-  const int c_lo = rank * (kI4BN / 4) / split * 4, c_hi = (rank + 1) * (kI4BN / 4) / split * 4;
-  const int w4 = (c_hi - c_lo) / 4;
-  const uint32_t part_u = smem_u32(part), ys0 = map_rank(smem_u32(ys), 0u);
-  auto add4 = [](float4& y, const float4 v) {
-    y = make_float4(__fadd_rn(y.x, v.x), __fadd_rn(y.y, v.y), __fadd_rn(y.z, v.z),
-                    __fadd_rn(y.w, v.w));
-  };
-  for (int i = tid; i < rows * w4; i += kI4Threads) {
-    const int r = i / w4, c = c_lo + 4 * (i % w4), row = m0 + r, col = n0 + c;
-    if (c >= bnv) continue;
-    // partial idx of block q (units q * units / split ..), columns c..c + 3
-    auto ld = [&](int q, int idx) {  // ordered after the cluster barrier (volatile)
-      return ld_cluster_f4(
-          map_rank(part_u + (uint32_t)(((idx * rs + r) * kI4BN + c) * 4), (uint32_t)q));
-    };
-    auto n_units = [&](int q) { return (q + 1) * units / split - q * units / split; };
-    if (STEP == 2) {
-      const float s_mid = p.scl[1];
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int q = 0; q < split; ++q) {
-        const int n = n_units(q);
-        for (int j = 0; j < n; ++j) {
-          const float4 v = ld(q, j);
-          add4(acc, make_float4(__fmul_rn(v.x, s_mid), __fmul_rn(v.y, s_mid),
-                                __fmul_rn(v.z, s_mid), __fmul_rn(v.w, s_mid)));
-        }
-      }
-      const size_t o = (size_t)row * p.K + col;
-      const float4 x = *reinterpret_cast<const float4*>(p.x2 + o);
-      add4(acc, x);
-      store_f32(p.out, p.out_dtype, o, acc.x);
-      store_f32(p.out, p.out_dtype, o + 1, acc.y);
-      store_f32(p.out, p.out_dtype, o + 2, acc.z);
-      store_f32(p.out, p.out_dtype, o + 3, acc.w);
-      continue;
-    }
-    float4 y[NB];
-#pragma unroll
-    for (int qq = 0; qq < NB; ++qq) {
-      y[qq] = ld(0, (qq * 2) * per);  // rank 0's low prefix
-      for (int q = 1; q < split; ++q) {
-        const int n = n_units(q);
-        for (int g = 0; g < n; ++g) add4(y[qq], ld(q, (qq * 2) * per + g));
-      }
-      for (int q = 0; q < split; ++q) {
-        const int n = n_units(q);
-        for (int g = 0; g < n; ++g) add4(y[qq], ld(q, (qq * 2 + 1) * per + g));
-      }
-    }
-    const float yv[2][4] = {{y[0].x, y[0].y, y[0].z, y[0].w},
-                            {y[NB - 1].x, y[NB - 1].y, y[NB - 1].z, y[NB - 1].w}};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (STEP == 0) {
-        const float x2v = __fadd_rn(__fmul_rn(yv[0][e], p.s_ao[0]),
-                                    load_f32(p.res, p.res_dtype, (size_t)row * p.K + col + e));
-        st_cluster_f32(ys0 + (uint32_t)((r * (kI4BN + 4) + c + e) * 4), x2v);
-      } else {
-        const float s_in = p.scl[0];
-        const float g = __fmul_rn(yv[0][e], s_in), u = __fmul_rn(yv[1][e], s_in);
-        p.mid[(size_t)row * p.I + col + e] =
-            quant_i8(__fmul_rn(act_fn(g, p.act), u), __fdiv_rn(1.0f, p.scl[1]));
-      }
-    }
-  }
-  cluster_sync();  // every block has read the others' partials (and rank 0's x2 tile is whole)
-  if (STEP == 0) {
-    if (rank == 0) {
-      const int nt = (p.K + kI4BN - 1) / kI4BN;
-      for (int r = warp; r < rows; r += kI4Threads / 32) {
-        const int row = m0 + r;
-        double s = 0.0;
-        for (int c = lane; c < bnv; c += 32) {
-          const float v = ys[r * (kI4BN + 4) + c];
-          p.x2[(size_t)row * p.K + n0 + c] = v;
-          s += (double)__fmul_rn(v, v);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) p.ss[(size_t)row * nt + blockIdx.y] = s;
-      }
-    }
-  }
-  K26_MARK(4);
-}
 
 // Between steps (1) and (2), once for all of gate / up's blocks: each row's
 // MLP input codes clip(round(rmsnorm(x2) * (1/s_in)), +-127), the RMSNorm
@@ -549,45 +79,6 @@ __global__ void __launch_bounds__(256) o_mlp_xi_kernel(OMlp p) {
            << (8 * e);
     *reinterpret_cast<unsigned*>(p.xi + (size_t)row * p.K + k) = w;
   }
-}
-
-template <int STEP>
-cudaError_t launch_o_mlp_step(const void* w0, const void* w1, int w_rows, int w_bytes,
-                              const OMlp& p, int split, int stages, cudaStream_t s) {
-  constexpr int NB = STEP == 1 ? 2 : 1;
-  const int hb = STEP == 0 ? p.HD / 2 : (STEP == 1 ? p.K / 2 : p.bj / 2);
-  const int nblk = STEP == 2 ? p.I / p.bj : 1, G = hb / p.group;
-  const int parts = STEP == 2 ? nblk : G;
-  if (split < 1 || split > kRingMaxSplit || split > parts || stages < 2 || stages > 16)
-    return cudaErrorInvalidValue;
-  const int per = (parts + split - 1) / split;
-  const int abytes = per * (STEP == 2 ? hb : p.group);
-  const I4StepLayout L(p.M, p.tr, NB, stages, abytes, p.group, STEP == 2 ? per : NB * 2 * per,
-                       STEP == 2 ? G - 1 : 0, STEP == 0);
-  if (L.total > kSmemMax) return cudaErrorInvalidValue;
-  CUtensorMap t0, t1;
-  if (!hop::u8_rows_map(&t0, w0, w_rows, w_bytes, kI4BN) ||
-      !hop::u8_rows_map(&t1, w1 != nullptr ? w1 : w0, w_rows, w_bytes, kI4BN))
-    return cudaErrorInvalidValue;
-  auto kernel = p.tr == 32 ? o_mlp_i4_kernel<STEP, 2> : o_mlp_i4_kernel<STEP, 1>;
-  cudaError_t e = allow_smem(kernel, L.total);
-  if (e != cudaSuccess) return e;
-  const int N = STEP == 1 ? p.I : p.K;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (N + kI4BN - 1) / kI4BN, (p.M + p.tr - 1) / p.tr);
-  cfg.blockDim = dim3(kI4Threads, 1, 1);
-  cfg.dynamicSmemBytes = L.total;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, t0, t1, p, stages);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
 }
 
 }  // namespace dec
@@ -620,7 +111,8 @@ extern "C" int qdm_decode_o_mlp_i4(const void* attn, int attn_dtype, const void*
          static_cast<const float*>(s_ao), static_cast<const float*>(scl),
          static_cast<const float*>(ns), eps, act, out, out_dtype,
          static_cast<int8_t*>(a_codes), static_cast<float*>(x2), static_cast<double*>(ss),
-         static_cast<int8_t*>(xi), static_cast<int8_t*>(ai), M, HD, K, I, bj, group, tr};
+         static_cast<int8_t*>(xi), static_cast<int8_t*>(ai), x2, kDtypeF32, M, HD, K, I, bj,
+         group, tr};
   cudaError_t err = launch_o_mlp_step<0>(wo_t, nullptr, K, HD / 2, p, split0, stages0, s);
   if (err != cudaSuccess) return (int)err;
   o_mlp_xi_kernel<<<M, 256, 0, s>>>(p);

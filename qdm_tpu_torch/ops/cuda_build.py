@@ -58,7 +58,7 @@ ENTRY_POINTS = {
     "decode_attention_kv_flash": ("qdm_decode_attention_kv_flash",
                                   (P, I, L, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, P)),
     "decode_mlp": ("qdm_decode_mlp",
-                   (P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I, P)),
+                   (P, P, P, P, P, P, I, F, I, I, P, I, P, I, I, I, I, I, I, I, I, I, I, P)),
     "decode_attention_kv_q": ("qdm_decode_attention_kv_q",
                               (P, I, L, P, P, P, I, F, I, P, I, I, I, I, I, I, P, P)),
     "decode_attention_kv_flash_q": ("qdm_decode_attention_kv_flash_q",
@@ -67,7 +67,8 @@ ENTRY_POINTS = {
     "decode_dense_i4": ("qdm_decode_dense_i4",
                         (P, I, P, P, P, P, F, P, P, I, P, I, P, I, P, I, I, I, I, I, P, P)),
     "decode_mlp_i4": ("qdm_decode_mlp_i4",
-                      (P, I, P, P, P, P, P, P, P, P, F, I, I, P, I, P, P, P, I, I, I, I, I, P)),
+                      (P, I, P, P, P, P, P, P, P, P, F, I, I, P, I, P, P, I, I, I, I, I, I, I, I,
+                       I, I, I, P)),
     "decode_o_mlp_i8": ("qdm_decode_o_mlp_i8",
                         (P, I, P, P, P, I, P, P, P, P, P, P, P, P, P, F, I, P, I, P, P, P, P, P,
                          P, P, I, I, I, I, I, P)),

@@ -923,7 +923,8 @@ def dense_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
     where a tile's resident rows would not fit), ``split`` blocks a cluster
     along K (``split`` 1-8 forces it; planned, 1 or 2: on the card larger
     clusters read slower at every shape timed, their exchanges and combine
-    growing with them) and the ring's ``stages`` (as many as fill
+    growing with them; 3-8 only where no row tile fits with 2, as above K
+    20352 under an RMSNorm) and the ring's ``stages`` (as many as fill
     K5_RING_BYTES and fit): the split and stages of least
     :func:`_split_cost`.  Cached: a decode step asks for the same few shapes
     on every call (the returned dict must not be changed)."""
@@ -932,20 +933,25 @@ def dense_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
     if split and not 1 <= split <= min(K5_MAX_SPLIT, nk):
         raise ValueError(f"fused_dense_decode: split {split} outside 1..{min(K5_MAX_SPLIT, nk)} "
                          f"for K={k}")
-    for rows in range(8 * min(4, qmm._cdiv(m, 8)), 0, -8):
-        tiles = qmm._cdiv(n, bn) * qmm._cdiv(m, rows)
-        best = None
-        for s in ([split] if split else range(1, min(PLAN_MAX_SPLIT, nk) + 1)):
-            stages = next((st for st in range(min(16, K5_RING_BYTES // (bn * 128)), 1, -1)
-                           if dense_smem(rows, bn, s, st, k, nvec) <= _SMEM_MAX), 0)
-            if not stages:
-                continue
-            cost = _split_cost(tiles, s, sms, dense_smem(rows, bn, s, stages, k, nvec),
-                               stages * bn * 128, 0.2, persistent=s == 1)
-            if best is None or cost < best[0]:
-                best = (cost, dict(bn=bn, rows=rows, split=s, stages=stages))
-        if best is not None:
-            return best[1]
+    # 1-2 blocks a cluster with the most rows a tile that fit; 3-8 only where
+    # no row tile fits with 2
+    for wide in ((False, True) if not split else (False,)):
+        for rows in range(8 * min(4, qmm._cdiv(m, 8)), 0, -8):
+            tiles = qmm._cdiv(n, bn) * qmm._cdiv(m, rows)
+            best = None
+            for s in ([split] if split else
+                      range(PLAN_MAX_SPLIT + 1, min(K5_MAX_SPLIT, nk) + 1) if wide else
+                      range(1, min(PLAN_MAX_SPLIT, nk) + 1)):
+                stages = next((st for st in range(min(16, K5_RING_BYTES // (bn * 128)), 1, -1)
+                               if dense_smem(rows, bn, s, st, k, nvec) <= _SMEM_MAX), 0)
+                if not stages:
+                    continue
+                cost = _split_cost(tiles, s, sms, dense_smem(rows, bn, s, stages, k, nvec),
+                                   stages * bn * 128, 0.2, persistent=s == 1)
+                if best is None or cost < best[0]:
+                    best = (cost, dict(bn=bn, rows=rows, split=s, stages=stages))
+            if best is not None:
+                return best[1]
     raise NotImplementedError(f"fused_dense_decode: no K5 plan fits shared memory for K={k}"
                               + (f", split {split}" if split else ""))
 
@@ -1584,14 +1590,18 @@ def fused_mlp_decode_i4(x, wg_p, wu_p, wd_p, w_scales: Sequence[torch.Tensor], a
                         norm_scale, eps: float = 1e-6, act: str = "silu", block_j: int = 512,
                         group: int = 128, out_dtype=None, residual: bool = True,
                         w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-                        scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                        scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        splits: Optional[Sequence[int]] = None, trace: Optional[dict] = None):
     """int4 fused MLP (K17): x (B, K) -> x + down(act(gate(n)) * up(n)).
     wg_p / wu_p (K/2, I) planar-packed with block 0, wd_p (I/2, K) packed
     with block ``mlp_i4_block(I, block_j)``; w_scales = (sg (K/g, I),
     su (K/g, I), sd (I/g, K)); act_scales (2,) = [s_in, s_mid].  w_t, if
     given, holds the transposed packs (gate (I, K/2), up (I, K/2), down
     (K, I/2)); scratch the (B, K) and (B, I) int8 tensors that receive the
-    input and mid codes."""
+    input and mid codes.  On the card: ``splits``, two counts 1-8, forces
+    the clusters of the gate / up and down steps (tests and profiles only:
+    the result is the same; None plans them, :func:`mlp_i4_plan`), and
+    ``trace``, a dict, receives the plan."""
     out_dtype = out_dtype or x.dtype
     if act not in _ACTS:
         raise ValueError(f"act {act!r}")
@@ -1624,25 +1634,36 @@ def fused_mlp_decode_i4(x, wg_p, wu_p, wd_p, w_scales: Sequence[torch.Tensor], a
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"fused_mlp_decode_i4: {name} scales {tuple(t.shape)} are not "
                              f"{shape} on x's device")
-        sc.append(t)
+        sc.append(t if t.data_ptr() % 16 == 0 else t.clone())  # staged 16 bytes at a time
     ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    if ns is not None and ns.data_ptr() % 16:  # read 16 bytes at a time
+        ns = ns.clone()
     scl = _f32_vec(act_scales, 2, "act_scales", dev)
-    n_j = inner // bj
     x = x.contiguous()
     out = torch.empty((m, k), dtype=out_dtype, device=dev)
     if m == 0:
         return out
     xi = _scratch(scratch and scratch[0], (m, k), dev)
     ai = _scratch(scratch and scratch[1], (m, inner), dev)
-    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    if xi.data_ptr() % 16 or ai.data_ptr() % 16:
+        raise ValueError("fused_mlp_decode_i4: the input and mid codes' scratch must be "
+                         "16-byte aligned (the steps copy them 16 bytes at a time)")
+    if x.data_ptr() % 16:  # read 16 bytes at a time
+        x = x.clone()
+    plan = mlp_i4_plan(m, k, inner, bj, group, qmm.sm_count(dev),
+                       tuple(splits) if splits else None)
     fn = cuda_build.kernel("decode_mlp_i4")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], wts[0].data_ptr(), wts[1].data_ptr(),
                  wts[2].data_ptr(), sc[0].data_ptr(), sc[1].data_ptr(), sc[2].data_ptr(),
                  scl.data_ptr(), _ptr(ns), ctypes.c_float(eps), _ACTS[act], int(bool(residual)),
-                 out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), ai.data_ptr(),
-                 part.data_ptr(), m, k, inner, bj, int(group), _stream(x))
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), ai.data_ptr(), m, k,
+                 inner, bj, int(group),
+                 *(v for step in zip(plan["rows"], plan["splits"], plan["stages"]) for v in step),
+                 _stream(x))
     cuda_build.check(err, "fused_mlp_decode_i4")
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES["fused_mlp_decode_i4"] += 1
     return out
 
@@ -1852,8 +1873,8 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
 
 def i4_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, group: int, parts: int,
                  g_defer: int, tile: bool) -> int:
-    """Shared memory of one block of a K26 step
-    (``csrc/decode_o_mlp_i4.cu::I4StepLayout``)."""
+    """Shared memory of one block of a step of the int4 body
+    (``csrc/decode_o_mlp_i4.cuh::I4StepLayout``)."""
     rs = min(tr, qmm._round_up(m, 8))
     return (1024 + stages * nb * 64 * 128 + 2 * rs * (abytes + 16)
             + nb * 2 * (abytes // group) * 64 * 4
@@ -1861,54 +1882,96 @@ def i4_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, group: int,
             + (rs * 68 * 4 if tile else 0) + 1024)
 
 
+def _i4_steps_plan(what: str, m: int, hd: int, k: int, inner: int, bj: int, group: int,
+                   sms: int, splits, steps, trs=None, fewest: bool = False) -> dict:
+    """The launch plan of ``steps`` of the int4 body
+    (``csrc/decode_o_mlp_i4.cuh``; 0 o_proj, 1 gate / up, 2 down): ``rows``
+    of x a tile (16, or 32 above 16; fewer where a step would not fit) and,
+    for each step, the blocks of a cluster along the contraction and the
+    ring's stages (up to 128 KB a block) of least :func:`_split_cost`.
+    o_proj and gate / up split the groups of their planar half, down its
+    inner blocks: 1 or 2 blocks a cluster (as for K5; ``fewest``: the
+    fewer that fits, else the least cost), 3-8 only where no row tile fits
+    a step with 2 (small groups at 7B width); ``splits`` (a count 1-8 a
+    step) forces them; ``trs`` overrides the rows a tile tried, in order."""
+    shapes = {0: (k, hd // 2, 1), 1: (inner, k // 2, 2), 2: (k, bj // 2, 1)}
+    for wide in (False, True):
+        for tr in trs or ((32, 16, 8) if m > 16 else (16, 8)):
+            plan = []
+            for pos, step in enumerate(steps):
+                n, half, nb = shapes[step]
+                n_blk = inner // bj if step == 2 else 1
+                g = half // group
+                parts = n_blk if step == 2 else g
+                tiles = qmm._cdiv(n, 64) * qmm._cdiv(m, tr)
+                forced = splits[pos] if splits else 0
+                if forced and not 1 <= forced <= min(I4_MAX_SPLIT, parts):
+                    raise ValueError(f"{what}: step {step}'s split {forced} outside "
+                                     f"1..{min(I4_MAX_SPLIT, parts)}")
+                best = None
+                for cands in ([forced],) if forced else (
+                        range(1, min(PLAN_MAX_SPLIT, parts) + 1),
+                        range(PLAN_MAX_SPLIT + 1, min(I4_MAX_SPLIT, parts) + 1) if wide else ()):
+                    for sp in cands:
+                        per = qmm._cdiv(parts, sp)   # inner blocks or groups a block takes
+                        if step == 2:
+                            abytes, n_part, g_defer = per * half, per, g - 1
+                        else:
+                            abytes, n_part, g_defer = per * group, nb * 2 * per, 0
+                        size = functools.partial(i4_step_smem, m, tr, nb, abytes=abytes,
+                                                 group=group, parts=n_part, g_defer=g_defer,
+                                                 tile=step == 0)
+                        stages = next((st for st in range(16 // nb, 1, -1)
+                                       if size(stages=st) <= _SMEM_MAX), 0)
+                        if not stages:
+                            continue
+                        cost = (sp,) if fewest else _split_cost(
+                            tiles, sp, sms, size(stages=stages), stages * nb * 64 * 128, 0.4)
+                        if best is None or cost < best[0]:
+                            best = (cost, (sp, stages))
+                    if best is not None:
+                        break
+                if best is None:
+                    break
+                plan.append(best[1])
+            if len(plan) == len(steps):
+                return dict(rows=tr, splits=tuple(sp for sp, _ in plan),
+                            stages=tuple(st for _, st in plan))
+    raise NotImplementedError(f"{what}: no plan fits shared memory for M={m}, "
+                              + (f"HD={hd}, " if 0 in steps else "")
+                              + f"K={k}, I={inner}, group {group}"
+                              + (f", splits {splits}" if splits else ""))
+
+
 @functools.lru_cache(maxsize=None)
 def o_mlp_i4_plan(m: int, hd: int, k: int, inner: int, bj: int, group: int, sms: int,
                   splits: Optional[Tuple[int, int, int]] = None) -> dict:
-    """K26's launch plan: ``rows`` of x a tile (16, or 32 above 16; fewer
-    where a step would not fit) and, for each of its three steps (o_proj,
-    gate / up, down), the blocks of a cluster along the contraction and the
-    ring's stages (up to 128 KB a block) of least :func:`_split_cost`.
-    o_proj and gate / up split the groups of their planar half, down its
-    inner blocks (planned, 1 or 2 blocks a cluster, as for K5); ``splits``
-    (three counts, 1-8) forces them.  Cached, as :func:`dense_plan` is."""
-    for tr in ((32, 16, 8) if m > 16 else (16, 8)):
-        steps = []
-        for step, (n, half, nb) in enumerate(((k, hd // 2, 1), (inner, k // 2, 2),
-                                              (k, bj // 2, 1))):
-            n_blk = inner // bj if step == 2 else 1
-            g = half // group
-            parts = n_blk if step == 2 else g
-            tiles = qmm._cdiv(n, 64) * qmm._cdiv(m, tr)
-            forced = splits[step] if splits else 0
-            if forced and not 1 <= forced <= min(I4_MAX_SPLIT, parts):
-                raise ValueError(f"fused_o_mlp_decode_i4: step {step}'s split {forced} outside "
-                                 f"1..{min(I4_MAX_SPLIT, parts)}")
-            best = None
-            for sp in ([forced] if forced else range(1, min(PLAN_MAX_SPLIT, parts) + 1)):
-                per = qmm._cdiv(parts, sp)   # inner blocks or groups a block takes
-                if step == 2:
-                    abytes, n_part, g_defer = per * half, per, g - 1
-                else:
-                    abytes, n_part, g_defer = per * group, nb * 2 * per, 0
-                size = functools.partial(i4_step_smem, m, tr, nb, abytes=abytes, group=group,
-                                         parts=n_part, g_defer=g_defer, tile=step == 0)
-                stages = next((st for st in range(16 // nb, 1, -1)
-                               if size(stages=st) <= _SMEM_MAX), 0)
-                if not stages:
-                    continue
-                cost = _split_cost(tiles, sp, sms, size(stages=stages), stages * nb * 64 * 128,
-                                   0.4)
-                if best is None or cost < best[0]:
-                    best = (cost, (sp, stages))
-            if best is None:
-                break
-            steps.append(best[1])
-        if len(steps) == 3:
-            return dict(rows=tr, splits=tuple(sp for sp, _ in steps),
-                        stages=tuple(st for _, st in steps))
-    raise NotImplementedError(f"fused_o_mlp_decode_i4: no plan fits shared memory for M={m}, "
-                              f"HD={hd}, K={k}, I={inner}" + (f", splits {splits}" if splits
-                                                              else ""))
+    """K26's launch plan: :func:`_i4_steps_plan` of its three steps (o_proj,
+    gate / up, down); ``splits`` (three counts, 1-8) forces them.  Cached,
+    as :func:`dense_plan` is."""
+    return _i4_steps_plan("fused_o_mlp_decode_i4", m, hd, k, inner, bj, group, sms, splits,
+                          (0, 1, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_i4_plan(m: int, k: int, inner: int, bj: int, group: int, sms: int,
+                splits: Optional[Tuple[int, int]] = None) -> dict:
+    """K17's launch plan: K26's gate / up and down steps, which it runs,
+    each planned on its own by :func:`_i4_steps_plan`, with the rules its
+    timings on the card gave (``PERF.md`` §6, PR 16): gate / up on the
+    fewest blocks a cluster that fit (at 7B width one block a column tile,
+    in two waves, beat two in three), down on tiles of at most 16 rows (one
+    m16 tile a warp: at TinyLlama width two tiles of 16 rows beat one of
+    32).  ``splits`` (two counts, 1-8; 0 plans that step) forces them.
+    Cached."""
+    f1, f2 = splits or (0, 0)
+    name = "fused_mlp_decode_i4"
+    one = [_i4_steps_plan(name, m, 0, k, inner, bj, group, sms, (f1,) if f1 else None, (1,),
+                          fewest=True),
+           _i4_steps_plan(name, m, 0, k, inner, bj, group, sms, (f2,) if f2 else None, (2,),
+                          trs=(16, 8))]
+    return {key: tuple(p[key] if key == "rows" else p[key][0] for p in one)
+            for key in ("rows", "splits", "stages")}
 
 
 def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_p, wd_p,
@@ -1991,17 +2054,99 @@ def fused_o_mlp_decode_i4(attn, w_o_p, wo_scale, attn_scale, residual, wg_p, wu_
 
 
 
+# K11's steps (csrc/decode_mlp.cu): 64-feature column tiles, a ring of up to
+# MLP_RING_BYTES a block
+MLP_RING_BYTES = 128 * 1024
+
+
+def mlp_gate_up_smem(rows: int, split: int, stages: int, k: int, nvec: int = 1) -> int:
+    """Shared memory of one block of K11's gate / up step
+    (``csrc/decode_mlp.cu::GateUpLayout``)."""
+    chunks = qmm._cdiv(qmm._cdiv(k, 64), split)
+    return (5120 + stages * 2 * 64 * 128 + rows * (chunks * 128 + 16) + nvec * chunks * 256
+            + 2 * 64 * rows * 4 + 1024)
+
+
+def mlp_down_smem(rows: int, split: int, stages: int, inner: int, bj: int) -> int:
+    """Shared memory of one block of K11's down step
+    (``csrc/decode_mlp.cu::DownLayout``)."""
+    per = qmm._cdiv(inner // bj, split)
+    return (1024 + stages * 64 * 128 + rows * (per * (bj // 64) * 128 + 16)
+            + per * 64 * rows * 4 + 1024)
+
+
+def _cluster_step_plan(what: str, m: int, n: int, units: int, size, stage_bytes: int, sms: int,
+                       forced: int = 0) -> dict:
+    """One cluster-split step's plan: ``rows`` of x a tile (8-32), ``split``
+    blocks a cluster along the contraction's ``units`` and the ring's
+    ``stages`` (as many as fill MLP_RING_BYTES and fit ``size(rows, split,
+    stages)`` bytes a block, or two blocks an SM), over 64-column tiles of
+    ``n``.  1 or 2 blocks
+    with the most rows a tile (the least :func:`_split_cost`); where 2 do not
+    fit there, 1 or 2 with fewer rows (the least cost, then the fewest pad
+    rows); only then 3-8 (on the card larger clusters read slower, their
+    exchanges growing with them); ``forced`` (1-8) fixes the split (the most
+    rows that fit with it)."""
+    full = 8 * min(4, qmm._cdiv(m, 8))
+    if forced and not 1 <= forced <= min(K5_MAX_SPLIT, units):
+        raise ValueError(f"{what}: split {forced} outside 1..{min(K5_MAX_SPLIT, units)}")
+    best = None
+    for rows in range(full, 0, -8):
+        for s in ([forced] if forced else range(1, min(K5_MAX_SPLIT, units) + 1)):
+            # the deepest ring that fits a block, and the deepest that fits two
+            # blocks an SM (one's prologue and epilogue then overlap the other's
+            # stream)
+            fits = [st for st in range(min(16, MLP_RING_BYTES // stage_bytes), 1, -1)
+                    if size(rows, s, st) <= _SMEM_MAX]
+            fits2 = [st for st in fits if size(rows, s, st) + 1024 <= _SMEM_SM // 2]
+            tiles = qmm._cdiv(n, 64) * qmm._cdiv(m, rows)
+            pad = rows * qmm._cdiv(m, rows) - m
+            for stages in dict.fromkeys(fits[:1] + fits2[:1]):
+                cost = _split_cost(tiles, s, sms, size(rows, s, stages), stages * stage_bytes,
+                                   0.2)
+                key = ((full - rows, cost) if forced else
+                       (2 if s > PLAN_MAX_SPLIT else int(rows < full), cost, pad))
+                if best is None or key < best[0]:
+                    best = (key, dict(rows=rows, split=s, stages=stages, blocks=tiles * s))
+    if best is None:
+        raise NotImplementedError(f"{what}: no plan fits shared memory"
+                                  + (f" with split {forced}" if forced else ""))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(m: int, k: int, inner: int, bj: int, sms: int,
+             splits: Optional[Tuple[int, int]] = None, nvec: int = 1) -> dict:
+    """K11's launch plan: for its gate / up step (K split in 64-value
+    chunks) and its down step (I split in whole inner blocks of ``bj``)
+    :func:`_cluster_step_plan`; ``splits`` (two counts, 1-8) forces them;
+    nvec: the norm's vectors staged (0, 1 RMSNorm, 2 LayerNorm).  Cached, as
+    :func:`dense_plan` is (the returned dict must not be changed)."""
+    forced = splits or (0, 0)
+    return dict(
+        gate_up=_cluster_step_plan(
+            "fused_mlp_decode (gate / up)", m, inner, qmm._cdiv(k, 64),
+            lambda r, s, st: mlp_gate_up_smem(r, s, st, k, nvec), 2 * 64 * 128, sms, forced[0]),
+        down=_cluster_step_plan(
+            "fused_mlp_decode (down)", m, k, inner // bj,
+            lambda r, s, st: mlp_down_smem(r, s, st, inner, bj), 64 * 128, sms, forced[1]))
+
+
 def fused_mlp_decode(x, w_gate, w_up, w_down, norm_scale, eps: float = 1e-6,
                      act: str = "silu", block_j: int = 256, out_dtype=None,
                      residual: bool = True, norm_bias=None, norm_type: str = "rmsnorm",
                      w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-                     scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                     scratch: Optional[torch.Tensor] = None,
+                     splits: Optional[Sequence[int]] = None, trace: Optional[dict] = None):
     """bf16 fused MLP (K11): x (B, K) -> x + down(act(gate(n)) * up(n)),
     n = norm(x).  w_gate / w_up (K, I), w_down (I, K), bf16; w_t, if given,
     holds the transposed copies (gate (I, K), up (I, K), down (K, I));
-    scratch, if given, the (B, K) and (B, I) bf16 tensors that receive the
-    normed rows and the hidden layer (for a caller that checks them).  On
-    the card x is bf16 (the tensor cores' operand type)."""
+    scratch, if given, the (B, I) bf16 tensor that receives the hidden
+    layer (for a caller that checks it).  On the card x is bf16 (the tensor
+    cores' operand type); ``splits``, two counts 1-8, forces the clusters
+    of the gate / up and down steps (tests and profiles only: the result
+    agrees within K11's tolerance; None plans them, :func:`mlp_plan`), and
+    ``trace``, a dict, receives the plan."""
     out_dtype = out_dtype or x.dtype
     if act not in _ACTS:
         raise ValueError(f"act {act!r}")
@@ -2037,25 +2182,30 @@ def fused_mlp_decode(x, w_gate, w_up, w_down, norm_scale, eps: float = 1e-6,
     nb = _f32_vec(norm_bias, k, "norm_bias", dev) if norm == "layernorm" else None
     if norm == "layernorm" and nb is None:
         nb = torch.zeros(k, dtype=torch.float32, device=dev)
+    # the norm's vectors are staged 16 bytes at a time
+    ns, nb = (t.clone() if t is not None and t.data_ptr() % 16 else t for t in (ns, nb))
     bj = pick_block(inner, block_j)
-    n_j = inner // bj
     x = x.contiguous()
     out = torch.empty((m, k), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    xn, mid = scratch or (torch.empty((m, k), dtype=x.dtype, device=dev),
-                          torch.empty((m, inner), dtype=x.dtype, device=dev))
-    for t, shape in ((xn, (m, k)), (mid, (m, inner))):
-        if (t.dtype != x.dtype or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != dev):
-            raise ValueError(f"fused_mlp_decode: scratch must be contiguous bf16 {shape} on {dev}")
-    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    mid = scratch if scratch is not None else torch.empty((m, inner), dtype=x.dtype, device=dev)
+    if (mid.dtype != x.dtype or tuple(mid.shape) != (m, inner) or not mid.is_contiguous()
+            or mid.data_ptr() % 16 or mid.device != dev):
+        raise ValueError(f"fused_mlp_decode: scratch must be a contiguous, 16-byte aligned bf16 "
+                         f"({m}, {inner}) tensor on {dev}")
+    plan = mlp_plan(m, k, inner, bj, qmm.sm_count(dev), tuple(splits) if splits else None,
+                    0 if ns is None else (2 if nb is not None else 1))
+    gu, dn = plan["gate_up"], plan["down"]
     fn = cuda_build.kernel("decode_mlp")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), wts[0].data_ptr(), wts[1].data_ptr(), wts[2].data_ptr(),
                  _ptr(ns), _ptr(nb), _NORMS[norm], ctypes.c_float(eps), _ACTS[act],
-                 int(bool(residual)), out.data_ptr(), _DTYPE_CODE[out_dtype], xn.data_ptr(),
-                 mid.data_ptr(), part.data_ptr(), m, k, inner, bj, _stream(x))
+                 int(bool(residual)), out.data_ptr(), _DTYPE_CODE[out_dtype], mid.data_ptr(), m,
+                 k, inner, bj, gu["rows"], gu["split"], gu["stages"], dn["rows"], dn["split"],
+                 dn["stages"], _stream(x))
     cuda_build.check(err, "fused_mlp_decode")
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES["fused_mlp_decode"] += 1
     return out

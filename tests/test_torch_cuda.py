@@ -694,15 +694,12 @@ def test_decode_mlp_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residua
     kw = dict(act=act, block_j=bj, residual=residual, norm_type=norm or "rmsnorm",
               norm_bias=nb if norm == "layernorm" else None,
               out_dtype=torch.float32 if f32_out else torch.bfloat16)
-    xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
     mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
     before = qmm.LAUNCHES["fused_mlp_decode"]
-    got = dk.fused_mlp_decode(x, wg, wu, wd, ns if norm else None, scratch=(xn, mid), **kw)
+    got = dk.fused_mlp_decode(x, wg, wu, wd, ns if norm else None, scratch=mid, **kw)
     torch.cuda.synchronize()
     assert qmm.LAUNCHES["fused_mlp_decode"] == before + 1
     ns_ = ns if norm else None
-    assert torch.equal(xn, dk._prologue(x, ns_, kw["norm_bias"], 1e-6,
-                                        kw["norm_type"]).to(torch.bfloat16))
     bj_ = dk.pick_block(i, bj)
     want_mid = dk.mlp_mid_plain(x, wg, wu, ns_, 1e-6, act, bj_, kw["norm_bias"], kw["norm_type"])
     _close_on_card(mid, want_mid)
@@ -710,6 +707,84 @@ def test_decode_mlp_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residua
     _close_on_card(got, want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dk.fused_mlp_decode(x.float(), wg.float(), wu.float(), wd.float(), ns)
+
+
+def _bf16_mlp_operands(m, k, i, seed, dev):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+    x = f(m, k, s=0.5).to(torch.bfloat16)
+    w = tuple(f(*s_, s=s_[0] ** -0.5).to(torch.bfloat16) for s_ in ((k, i), (k, i), (i, k)))
+    return x, w, f(k).abs() + 0.5
+
+
+def _forced(fn, splits):
+    """Whether a step's forced split plans (else the wrapper must raise)."""
+    try:
+        fn(splits)
+    except (ValueError, NotImplementedError):
+        return False
+    return True
+
+
+# K11 and K17 at the 7B and TinyLlama decode shapes, one step's cluster forced
+MLP_SPLIT_SHAPES = [(8, 4096, 11008), (32, 2048, 5632)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("m,k,i", MLP_SPLIT_SHAPES)
+def test_decode_mlp_forced_splits_on_card(m, k, i, step, split):
+    """K11 with its gate / up (step 0) or down (step 1) cluster forced to
+    1-8 blocks: the hidden layer and the output within 1 bf16 ulp or 1e-5
+    of the magnitude of the plain version, two CUDA launches; a count the
+    shape's shared memory does not take raises."""
+    dev = _card()
+    x, w, ns = _bf16_mlp_operands(m, k, i, m + split, dev)
+    splits = (split, 0) if step == 0 else (0, split)
+    plan = lambda sp: dk.mlp_plan(m, k, i, 256, qmm.sm_count(dev), sp)
+    if not _forced(plan, splits):
+        with pytest.raises((ValueError, NotImplementedError)):
+            dk.fused_mlp_decode(x, *w, ns, splits=splits)
+        return
+    mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
+    trace = {}
+    got = dk.fused_mlp_decode(x, *w, ns, scratch=mid, splits=splits, trace=trace)
+    torch.cuda.synchronize()
+    assert trace[("gate_up", "down")[step]]["split"] == split
+    _close_on_card(mid, dk.mlp_mid_plain(x, *w[:2], ns, 1e-6, "silu", 256))
+    _close_on_card(got, dk.mlp_down_plain(mid, x, w[2], 256))
+    w_t = tuple(dk.transposed_weight(t) for t in w)
+    assert _cuda_launches(lambda: dk.fused_mlp_decode(x, *w, ns, w_t=w_t, splits=splits)) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["norm scale", "down blocks"])
+def test_decode_mlp_check_flags_planted_faults_on_card(fault):
+    """The norm's scale shifted by one value, or the down weight's inner
+    blocks shifted by one block, takes K11's hidden layer or output beyond
+    its tolerance of the plain version."""
+    dev = _card()
+    m, k, i, bj = 8, 1024, 2048, 256
+    x, (wg, wu, wd), ns = _bf16_mlp_operands(m, k, i, 7, dev)
+    mid = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
+    want_mid = dk.mlp_mid_plain(x, wg, wu, ns, 1e-6, "silu", bj)
+    got = dk.fused_mlp_decode(x, wg, wu, wd, ns, scratch=mid)
+    torch.cuda.synchronize()
+    _close_on_card(mid, want_mid)
+    want = dk.mlp_down_plain(mid, x, wd, bj)
+    _close_on_card(got, want)
+    if fault == "norm scale":
+        dk.fused_mlp_decode(x, wg, wu, wd, torch.roll(ns, 1), scratch=mid)
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError):
+            _close_on_card(mid, want_mid)
+    else:
+        got = dk.fused_mlp_decode(x, wg, wu, wd.roll(bj, dims=0), ns, scratch=mid)
+        torch.cuda.synchronize()
+        with pytest.raises(AssertionError):
+            _close_on_card(got, want)
 
 
 def _kv_q_operands(b, hkv, g, d, t, mode, bf16, seed, dev):
@@ -997,6 +1072,112 @@ def test_decode_mlp_i4_kernel_matches_plain_on_card(m, k, i, bj, group, norm, ac
     assert torch.equal(ai, dk._quant_static(dk._act(act, g) * u, scl[1:2]))
     assert got.dtype == want.dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
+
+
+def _mlp_i4_operands(m, k, i, group, seed, dev, x_dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
+    x = f(m, k, s=0.5).to(x_dtype)
+    blk = dk.mlp_i4_block(i)
+    packs = [_i4_pack(f(*s_, s=0.05), group, b) for s_, b in (((k, i), 0), ((k, i), 0),
+                                                               ((i, k), blk))]
+    return x, packs, torch.tensor([0.02, 0.004], device=dev), f(k).abs() + 0.5
+
+
+def _check_mlp_i4(x, packs, scl, ns, group, **kw):
+    """K17 against its plain version: the input and mid codes identical,
+    outputs equal; returns the call's plan."""
+    m, k = x.shape
+    (pg, sg), (pu, su), (pd, sd) = packs
+    i = pg.shape[1]
+    xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    ai = torch.empty((m, i), dtype=torch.int8, device=x.device)
+    plan = {}
+    got = dk.fused_mlp_decode_i4(x, pg, pu, pd, (sg, su, sd), scl, ns, group=group,
+                                 scratch=(xi, ai), trace=plan, **kw)
+    want = dk.fused_mlp_decode_i4_plain(x, pg, pu, pd, (sg, su, sd), scl, ns, group=group)
+    torch.cuda.synchronize()
+    want_xi = dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), scl[0:1])
+    assert torch.equal(xi, want_xi)
+    g = dk.i4_group_dot_plain(want_xi, pg, sg, scl[0:1], group)
+    u = dk.i4_group_dot_plain(want_xi, pu, su, scl[0:1], group)
+    assert torch.equal(ai, dk._quant_static(dk._act("silu", g) * u, scl[1:2]))
+    assert got.dtype == want.dtype and torch.equal(got, want), \
+        float((got.float() - want.float()).abs().max())
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("m,k,i", MLP_SPLIT_SHAPES)
+def test_decode_mlp_i4_forced_splits_on_card(m, k, i, step, split):
+    """K17 with its gate / up (step 0) or down (step 1) cluster forced to
+    1-8 blocks: codes identical, outputs equal to the plain version, three
+    CUDA launches (the input codes and the two steps); a count the shape
+    does not take raises."""
+    dev = _card()
+    x, packs, scl, ns = _mlp_i4_operands(m, k, i, 128, m + split, dev)
+    splits = (split, 0) if step == 0 else (0, split)
+    if not _forced(lambda sp: dk.mlp_i4_plan(m, k, i, dk.mlp_i4_block(i), 128,
+                                             qmm.sm_count(dev), sp), splits):
+        with pytest.raises((ValueError, NotImplementedError)):
+            dk.fused_mlp_decode_i4(x, *(p[0] for p in packs), tuple(p[1] for p in packs), scl,
+                                   ns, splits=splits)
+        return
+    plan = _check_mlp_i4(x, packs, scl, ns, 128, splits=splits)
+    assert plan["splits"][step] == split
+    w_t = tuple(dk.transposed_weight(p[0]) for p in packs)
+    assert _cuda_launches(lambda: dk.fused_mlp_decode_i4(
+        x, *(p[0] for p in packs), tuple(p[1] for p in packs), scl, ns, w_t=w_t,
+        splits=splits)) == 3
+
+
+# shapes the plans refused before 3-8 blocks a cluster (or fewer rows) were
+# planned where 2 do not fit: K5 above K 20352 under an RMSNorm, K26 / K17 at
+# 7B width with group 32
+ITEM20_K5 = [(8, 20416, 256), (8, 81408, 128), (32, 40960, 192)]
+ITEM20_I4 = [8, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", ITEM20_K5)
+def test_decode_dense_wide_k_plans_on_card(m, k, n):
+    dev = _card()
+    o = _dense_operands(m, k, n, m + k, dev, torch.bfloat16, 0)
+    w = o["w"].to(torch.bfloat16)
+    plan = {}
+    got = dk.fused_dense_decode(o["x"], w, norm_scale=o["ns"], trace=plan)
+    want = dk.fused_dense_decode_plain(o["x"], w, norm_scale=o["ns"])
+    torch.cuda.synchronize()
+    assert plan["split"] > dk.PLAN_MAX_SPLIT
+    _close_on_card(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ITEM20_I4)
+def test_mlp_i4_group32_plans_on_card(m):
+    dev = _card()
+    x, packs, scl, ns = _mlp_i4_operands(m, 4096, 11008, 32, m, dev)
+    plan = _check_mlp_i4(x, packs, scl, ns, 32)
+    assert max(plan["splits"]) > dk.PLAN_MAX_SPLIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", ITEM20_I4)
+def test_o_mlp_i4_group32_plans_on_card(m):
+    dev = _card()
+    attn, res, q, a_o, scl, ns = _o_mlp_operands(m, 4096, 4096, 11008, 32, m, dev,
+                                                 torch.bfloat16)
+    (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+    args = (attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd), scl, ns)
+    plan = {}
+    got = dk.fused_o_mlp_decode_i4(*args, group=32, trace=plan)
+    want = dk.fused_o_mlp_decode_i4_plain(*args, group=32)
+    torch.cuda.synchronize()
+    assert max(plan["splits"]) > dk.PLAN_MAX_SPLIT
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
 
 
 # (M, K, N, silu GEGLU?): the 7B prefill's shapes cut in M, and odd sizes
