@@ -13,6 +13,9 @@
                                       # shapes) and K26's (the unmerged pair beside) alone
     python3 chip_smoke.py --breakdown k11k17  # the build, then K11's and K17's (7B and
                                       # TinyLlama, the library beside), K26's body split
+    python3 chip_smoke.py --breakdown k10k15  # the build, then K10's (7B, Mixtral, GQA
+                                      # decode; K7's body and SDPA beside) and K15's (7B
+                                      # prefill, small M; torch._int_mm beside) alone
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -661,6 +664,18 @@ def cold_ms(fns, calls: int = 20) -> float:
     return sum(_cold_by_kernel(fns, calls).values()) / 1e3
 
 
+def plain_cold_ms(fns) -> float:
+    """Device time of one call of a plain version, which launches thousands
+    of kernels: each call profiled in a window of its own, and two windows
+    that agree launch for launch (``device_us_by_window``)."""
+    from qdm_tpu_torch.utils.timing import device_us_by_window
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    return sum(device_us_by_window(fns).values()) / 1e3
+
+
 def _copies(nbytes: int, over: int = 2) -> int:
     """Copies of ``nbytes`` of operands that together hold ``over`` times the L2."""
     return max(1, -(-over * L2_BYTES // max(nbytes, 1)))
@@ -759,7 +774,7 @@ def _check_dense_i8(label, o, hd, norm, rope, res, out_dtype, dev, timed):
                 return y.to(out_dtype)
             return fn
         lib = [library(c) for c, _ in cw]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=2 * m * k * n)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
     return row
@@ -806,7 +821,7 @@ def _check_dense(label, o, hd, norm, rope, res, out_dtype, w_dtype, dev, timed):
         plain = [lambda a=a: dk.fused_dense_decode_plain(o["x"], a, **kw) for a in ws]
         lib = [lambda a=a: torch.matmul(torch.nn.functional.rms_norm(
             o["x"], (k,), o["ns"].to(o["x"].dtype), 1e-6), a).float() for a in ws]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=2 * m * k * n)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, 2 * m * k * n, BF16_FLOPS_PER_S)
     return row
@@ -842,7 +857,7 @@ def _check_attention(label, b, hkv, g, d, t, pos, starts, softcap, sm_scale, dty
                 c[:, hkv:, :, :cols].transpose(2, 3).contiguous()) for c in kvs]
         lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
             qh, kk, vv, enable_gqa=True) for kk, vv in lay]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(
             nbytes, ops, BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
@@ -909,7 +924,7 @@ def _check_mlp(label, rng, m, k, i, bj, norm, act, residual, out_dtype, x_dtype,
                 return (_int_mm_rows(q2, wcd).float() * (scl[1:2] * sd) + x.float()).to(out_dtype)
             return fn
         lib = [library(c) for c, _ in sets]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
     return row
@@ -1090,8 +1105,27 @@ def _check_flash_decode(label, b, hkv, g, d, t, pos, starts, softcap, sm_scale, 
     if not ok:
         fail(f"decode_attention_kv_flash {label}: max abs err {err} from the plain version, "
              "beyond 1 bf16 ulp and 1e-5 of the magnitude")
+    # the plan forced: every cluster of K10_SPLITS blocks
+    forced = [{"splits": n} for n in K10_SPLITS]
+    for f in forced:
+        got_f = dk.decode_attention_kv_flash(q, kv, pos, **kw, **f)
+        torch.cuda.synchronize()
+        ok, err_f = within_bf16_ulp(got_f, want)
+        if not ok:
+            fail(f"decode_attention_kv_flash {label} forced {f}: max abs err {err_f}")
+        err = max(err, err_f)
+    # a planted fault: sm_scale 1% off in the kernel's launch must read beyond the tolerance
+    scale = sm_scale or d ** -0.5
+    bad = dk.decode_attention_kv_flash(q, kv, pos, starts=st, sm_scale=scale * K9_FAULT,
+                                       softcap=softcap)
+    torch.cuda.synchronize()
+    if within_bf16_ulp(bad, dk.decode_attention_kv_flash_plain(
+            q, kv, pos, starts=st, sm_scale=scale, softcap=softcap))[0]:
+        fail(f"decode_attention_kv_flash {label}: the check misses sm_scale x{K9_FAULT} (planted)")
     row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
-           "max_abs_err": err, "ulps": 1}
+           "max_abs_err": err, "ulps": 1,
+           "tol": f"within 1 bf16 ulp or 1e-5 of the magnitude, planned and forced ({forced}); "
+                  f"sm_scale x{K9_FAULT} (planted) flagged"}
     if timed:
         cols = pos + 1
         nbytes = 2 * b * hkv * g * d * 2 + 2 * b * hkv * d * cols * 2
@@ -1104,7 +1138,7 @@ def _check_flash_decode(label, b, hkv, g, d, t, pos, starts, softcap, sm_scale, 
                 c[:, hkv:, :, :cols].transpose(2, 3).contiguous()) for c in kvs]
         lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
             qh, kk, vv, enable_gqa=True) for kk, vv in lay]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, BF16_FLOPS_PER_S)
         del lay
@@ -1168,7 +1202,7 @@ def _check_bf16_mlp(label, m, k, i, bj, act, dev, timed):
                 mid = torch.nn.functional.silu(torch.matmul(xn, c[0])) * torch.matmul(xn, c[1])
                 return torch.matmul(mid, c[2]) + x
             return fn
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain),
                    library_ms=cold_ms([library(c) for c, _ in sets]), bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, BF16_FLOPS_PER_S)
     return row
@@ -1342,7 +1376,7 @@ def _check_kvq(label, kernel, mode, b, hkv, g, d, t, pos, starts, dev, timed):
         lay = [_kvq_laid(c, s_, mode, hkv, cols) for c, s_ in sets]
         lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
             qh, kk, vv, enable_gqa=True) for kk, vv in lay]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plains), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
         del lay, sets
@@ -1497,7 +1531,7 @@ def _check_dense_i4(label, o, hd, norm, rope, res, group, dev, timed, out_dtype=
         by = _cold_by_kernel(kern)
         norm_us = sum(us for name, us in by.items() if "norm_rows" in name)
         row.update(ms=sum(by.values()) / 1e3, norm_ms=norm_us / 1e3,
-                   plain_ms=cold_ms(plain, calls=4),
+                   plain_ms=plain_cold_ms(plain),
                    library_ms=cold_ms([library(w) for w in wbs]), bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
         del wbs, sets
@@ -1576,7 +1610,7 @@ def _check_mlp_i4(label, rng, m, k, i, block_j, group, dev, timed):
                 h = torch.nn.functional.silu(torch.matmul(xin, c[0])) * torch.matmul(xin, c[1])
                 return torch.matmul(h, c[2]) + x
             return fn
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=4),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain),
                    library_ms=cold_ms([library(c) for c in wbs]), bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
         del wbs, sets
@@ -1606,17 +1640,24 @@ def _check_prefill_matmul(label, m, k, n, glu, dev):
         return qmm.w8a8_matmul_fused(x, w, scale, w_t=w_t, scratch=(xi, xs))
     plain = (lambda: qmm.w8a8_geglu_fused_plain(x, w, s, zero, act="silu")) if glu else \
         (lambda: qmm.w8a8_matmul_fused_plain(x, w, s))
-    out = kern()
-    torch.cuda.synchronize()
     ref = plain()
     xi_ref, xs_ref = qmm.quantize_rows_int8(x, k)
-    if not (torch.equal(xi, xi_ref) and torch.equal(xs, xs_ref.reshape(-1))):
-        fail(f"{name} {label}: int8 codes or row scales differ from the plain version")
-    ulps = bf16_ulp_diff(out, ref)
-    err = float((out.float() - ref.float()).abs().max())
-    if ulps > 1 or not torch.isfinite(out).all() or out.shape != ref.shape:
-        fail(f"{name} {label}: {ulps} bf16 ulps from the plain version (max abs err {err}); "
-             "tolerance 1 ulp")
+    # K15 planned, then forced to each tile width
+    plans = [0] + ([] if glu else list(qmm.W8A8_BNS))
+    ulps = err = 0
+    for plan in plans:
+        xi.zero_()
+        out = kern() if not plan else qmm.w8a8_matmul_fused(x, w, s, w_t=w_t,
+                                                            scratch=(xi, xs), bn=plan)
+        torch.cuda.synchronize()
+        if not (torch.equal(xi, xi_ref) and torch.equal(xs, xs_ref.reshape(-1))):
+            fail(f"{name} {label} plan {plan}: int8 codes or row scales differ from the plain "
+                 "version")
+        ulps = max(ulps, bf16_ulp_diff(out, ref))
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+        if ulps > 1 or not torch.isfinite(out).all() or out.shape != ref.shape:
+            fail(f"{name} {label} plan {plan}: {ulps} bf16 ulps from the plain version (max "
+                 f"abs err {err}); tolerance 1 ulp")
     bad_ulps = bf16_ulp_diff(kern(s * (1.0 + PREFILL_FAULT)), ref)
     if bad_ulps <= 1:
         fail(f"{name} {label}: the check misses weight scales off by {PREFILL_FAULT:g} (planted)")
@@ -1633,8 +1674,9 @@ def _check_prefill_matmul(label, m, k, n, glu, dev):
     nbytes = m * k * 2 + k * n + 4 * n * (2 if glu else 1) + m * n_out * 2
     ops = 2 * m * k * n
     row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": ulps,
-           "tol": f"codes identical, {ulps} ulp (limit 1); weight scales off by "
-                  f"{PREFILL_FAULT:g} (planted): {bad_ulps} ulps",
+           "tol": f"codes identical, {ulps} ulp (limit 1)"
+                  + (f", planned and forced ({plans[1:]})" if len(plans) > 1 else "")
+                  + f"; weight scales off by {PREFILL_FAULT:g} (planted): {bad_ulps} ulps",
            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=2, warmup=1),
            "library_ms": cuda_ms(library), "bytes": nbytes, "ops": ops}
     row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
@@ -1870,7 +1912,7 @@ def _check_o_mlp(label, rng, m, hd, k, i, group, dev, timed):
                 return fn_
         lib_w += [tuple(t.clone() for t in lib_w[0])
                   for _ in range(_copies(sum(t.numel() * t.element_size() for t in lib_w[0])) - 1)]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plains),
                    library_ms=cold_ms([library(c) for c in lib_w]), bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
         del sets, lib_w
@@ -2248,7 +2290,7 @@ def _check_moe_i4(label, xn, rw, packs, wts, scl, bj, group, act, timed):
             u = torch.einsum("bk,ekf->ebf", xb, wb[1])
             y = torch.einsum("ebf,efk->ebk", torch.nn.functional.silu(g) * u, wb[2])
             return torch.einsum("ebk,be->bk", y.float(), rw)
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plain, calls=1),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plain),
                    library_ms=cold_ms([library]), bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, ops, INT8_OPS_PER_S)
         del wb
@@ -2416,7 +2458,7 @@ def _check_separate(label, name, bp, b, hkv, g, d, t, pos, dtype, dev, timed):
         lay = [_laid_out(name, c, cols) for c in sets]
         lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
             qh, kk, vv, enable_gqa=True) for kk, vv in lay]
-        row.update(ms=cold_ms(kern), plain_ms=cold_ms(plains, calls=4), library_ms=cold_ms(lib),
+        row.update(ms=cold_ms(kern), plain_ms=plain_cold_ms(plains), library_ms=cold_ms(lib),
                    bytes=nbytes, ops=ops)
         row["bound_ms"], row["bound_by"] = _bound(
             nbytes, ops, INT8_OPS_PER_S if i8 else BF16_FLOPS_PER_S)
@@ -3583,6 +3625,265 @@ def phase_k11k17_breakdown(dev) -> None:
         for g in (0, group):
             rows["fused_o_mlp_decode_i4" if g else "fused_o_mlp_decode_i8"].append(_check_o_mlp(
                 f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * hd, k, i, g, dev, True))
+        torch.cuda.empty_cache()
+    _print_rows(rows)
+
+
+# --breakdown k10k15: K10 (the bf16 flash decode) at the 7B, Mixtral and GQA decode
+# shapes by kernel, planned and forced, its diagnostic builds, K7's one-pass body and SDPA
+# beside; K15 (the fused int8 prefill GEMM) at the 7B prefill shapes and at small M, its
+# quantization pass and GEMM apart, planned and with each route forced, torch._int_mm
+# beside; then the kernels that share their headers at their PERF.md shapes
+K10_DIAGNOSTICS = (("QDM_K10_LOGITS_ONLY", "the logits pass alone, no V read"),
+                   ("QDM_K10_PV_ONLY", "the PV pass alone, no K read"))
+K10_SPLITS = (1, 2, 4, 8)
+K10_PHASES = ("q fragments", "the stream", "the block's partial", "the cluster's combine")
+K15_WIDTHS = (("qkv", 4096, 12288), ("o_proj", 4096, 4096), ("down", 11008, 4096))
+K15_SMALL_M = (1, 17, 128, 2048)
+K15_DIAGNOSTICS = (("QDM_K15_NO_WGMMA", "the loads and the epilogue, no products"),)
+K15_PHASES = ((0, "consumers waiting for stages"), (1, "issuing wgmma and waiting on it"),
+              (2, "epilogues"), (4, "consumers in all"), (5, "producer waiting for free stages"),
+              (7, "producer in all"))
+
+
+def _k10_shapes():
+    """(label, B, hkv, g, d, T, pos) of K10's breakdown: the 7B and Mixtral last
+    decode steps, and the GQA case of tests/test_torch_cuda.py."""
+    from qdm_tpu_torch.models.llama import MIXTRAL_8X7B, LlamaConfig
+
+    t7 = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    pos = L7_PROMPT + L7_NEW - 2
+    out = []
+    for tag, c in (("7B", LlamaConfig()), ("Mixtral", MIXTRAL_8X7B)):
+        hkv = c.num_key_value_heads
+        out.append((f"{tag} last step", L7_BATCH, hkv, c.num_attention_heads // hkv, c.head_dim,
+                    t7, pos))
+    out.append(("GQA long context", 4, 4, 8, 64, 4224, 4100))
+    return out
+
+
+def _k10_breakdown(dev) -> None:
+    """K10 at each _k10_shapes shape by kernel (checked first), planned and
+    with its plan's parameters forced where this tree's wrapper takes them,
+    in its diagnostic builds, K7's one-pass body on the same cache and cold
+    SDPA beside; copies beyond twice the L2."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    src = _defines("decode_attention_kv_flash")
+    diags = [(d, what) for d, what in K10_DIAGNOSTICS if d in src]
+    traced = "QDM_K10_TRACE" in src
+    cuda_build.build_variants([("decode_attention_kv_flash", (d,)) for d, _ in diags]
+                              + ([("decode_attention_kv_flash", ("QDM_K10_TRACE",))]
+                                 if traced else []))
+    forced = _takes(dk.decode_attention_kv_flash, "splits")
+    for label, b, hkv, g, d, t, pos in _k10_shapes():
+        gen = torch.Generator(device=dev).manual_seed(b + t + pos)
+        wide = torch.randn((b, hkv * g * d + 2 * hkv * d), generator=gen, device=dev)
+        q = wide.to(torch.bfloat16)[:, :hkv * g * d].view(b, hkv, g, d)
+        kv = torch.randn((b, 2 * hkv, d, t), generator=gen, device=dev).to(torch.bfloat16)
+        cols = pos + 1
+        nbytes = 2 * b * hkv * g * d * 2 + 2 * b * hkv * d * cols * 2
+        kvs = [kv] + [kv.clone() for _ in range(_copies(kv.numel() * 2) - 1)]
+        want = dk.decode_attention_kv_flash_plain(q, kv, pos)
+        what = f"K10 {label} {b} x {hkv} x {g} x {d}, T {t}, pos {pos}"
+        runs = [("planned", {})]
+        if forced:
+            runs += [(f"{n} block(s) a pair (forced)", {"splits": n}) for n in K10_SPLITS]
+        for how, kw in runs:
+            plan = {}
+            extra = dict(kw, trace=plan) if forced else kw
+            try:
+                got = dk.decode_attention_kv_flash(q, kv, pos, **extra)
+            except (ValueError, NotImplementedError) as e:
+                print(f"breakdown: {what}, {how}: refused ({e})", flush=True)
+                continue
+            torch.cuda.synchronize()
+            ok, err = within_bf16_ulp(got, want)
+            if not ok:
+                fail(f"decode_attention_kv_flash {label} {how}: max abs err {err} from the plain "
+                     "version, beyond 1 bf16 ulp and 1e-5 of the magnitude")
+            fns = [lambda c=c: dk.decode_attention_kv_flash(q, c, pos, **kw) for c in kvs]
+            _print_split(f"{what}, {how}" + (f" {plan}" if plan else ""),
+                         _cold_by_kernel(fns), nbytes)
+        fns = [lambda c=c: dk.decode_attention_kv_flash(q, c, pos) for c in kvs]
+        if traced:
+            plan = {}
+            dk.decode_attention_kv_flash(q, kv, pos, trace=plan)
+            if plan["route"] == 1:
+                with cuda_build.variant("decode_attention_kv_flash", "QDM_K10_TRACE"):
+                    _print_trace(f"{what}, planned", "decode_attention_kv_flash",
+                                 "QDM_K10_TRACE", "qdm_decode_attention_kv_flash_trace", (),
+                                 fns[0], min(b * hkv * plan["splits"], 4096), K10_PHASES)
+        for dfn, why in diags:
+            with cuda_build.variant("decode_attention_kv_flash", dfn):
+                _print_split(f"{what}, a build with {dfn} ({why}; its output is not the "
+                             "kernel's)", _cold_by_kernel(fns), nbytes)
+        got = dk.decode_attention_kv_single(q, kv, pos)
+        torch.cuda.synchronize()
+        ok, err = within_bf16_ulp(got, want)
+        if not ok:
+            fail(f"decode_attention_kv (K7) at K10's {label}: max abs err {err}")
+        _print_split(f"K7's one-pass body (its own plan) at {what}",
+                     _cold_by_kernel([lambda c=c: dk.decode_attention_kv_single(q, c, pos)
+                                      for c in kvs]), nbytes)
+        qh = q.reshape(b, hkv * g, 1, d)
+        lay = [(c[:, :hkv, :, :cols].transpose(2, 3).contiguous(),
+                c[:, hkv:, :, :cols].transpose(2, 3).contiguous()) for c in kvs]
+        lib = [lambda kk=kk, vv=vv: torch.nn.functional.scaled_dot_product_attention(
+            qh, kk, vv, enable_gqa=True) for kk, vv in lay]
+        _print_split(f"SDPA at {what} (cold)", _cold_by_kernel(lib), nbytes)
+        del kvs, lay, lib, fns, kv, q, wide
+        torch.cuda.empty_cache()
+
+
+def _print_ops_split(label: str, split: dict, nbytes: int, ops: int) -> None:
+    total = sum(split.values())
+    bound_ms, by = _bound(nbytes, ops, INT8_OPS_PER_S)
+    parts = "; ".join(f"{name[:90]} {us:.2f} us" for name, us in
+                      sorted(split.items(), key=lambda kv: -kv[1]))
+    print(f"breakdown: {label}: {total:.2f} us, {bound_ms * 1e3 / total:.1%} of the bound "
+          f"{bound_ms * 1e3:.2f} us ({by}); {parts}", flush=True)
+
+
+def _k15_case(m, k, n, dev):
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    w, s = qmm.pack_linear_int8(codes, (torch.rand(n, generator=gen, device=dev) + 0.5) * 1e-3)
+    return x, w, s, qmm.transposed_weight(w)
+
+
+def _print_k15_trace(what: str, fn, blocks: int) -> None:
+    """K15's planned launch in its build with -DQDM_K15_TRACE: the mean over
+    blocks of the SM cycles of each phase (K15_PHASES)."""
+    import ctypes
+
+    from qdm_tpu_torch.ops import cuda_build
+
+    with cuda_build.variant("w8a8_matmul_fused", "QDM_K15_TRACE"):
+        fn()
+        torch.cuda.synchronize()
+        n = min(blocks, 1024)
+        buf = (ctypes.c_ulonglong * (n * 8))()
+        if _variant_lib("w8a8_matmul_fused", "QDM_K15_TRACE").qdm_w8a8_trace(buf, n) != 0:
+            fail(f"reading {what}'s phase trace")
+    t = np.array(buf, dtype=np.float64).reshape(n, 8).mean(axis=0) / 1e3
+    print(f"breakdown: {what} phases (a build with -DQDM_K15_TRACE), k SM cycles a block, mean: "
+          + "; ".join(f"{ph} {t[i]:.1f}" for i, ph in K15_PHASES), flush=True)
+
+
+def _k15_breakdown(dev) -> None:
+    """K15 at the 7B prefill's three shapes (M 16384) and at K15_SMALL_M at
+    the same widths, by kernel (its quantization pass and GEMM apart), checked
+    first (codes identical, 1 bf16 ulp), planned and with each route forced
+    where this tree's wrapper takes a plan; torch._int_mm alone and with the
+    quantization and dequantization beside."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    from qdm_tpu_torch.ops import cuda_build
+
+    forced = _takes(qmm.w8a8_matmul_fused, "bn")
+    src = _defines("w8a8_matmul_fused")
+    diags = [(d, what) for d, what in K15_DIAGNOSTICS if d in src]
+    traced = "QDM_K15_TRACE" in src
+    cuda_build.build_variants([("w8a8_matmul_fused", (d,)) for d, _ in diags]
+                              + ([("w8a8_matmul_fused", ("QDM_K15_TRACE",))] if traced else []))
+    for m in (L7_BATCH * L7_PROMPT, *K15_SMALL_M):
+        for layer, k, n in K15_WIDTHS:
+            x, w, s, w_t = _k15_case(m, k, n, dev)
+            xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+            xs = torch.empty((m,), dtype=torch.float32, device=dev)
+            want = qmm.w8a8_matmul_fused_plain(x, w, s)
+            codes, scales = qmm.quantize_rows_int8(x, k)
+            nbytes, ops = m * k * 2 + k * n + 4 * n + m * n * 2, 2 * m * k * n
+            sets = [(w, w_t)] + [(w.clone(), w_t.clone()) for _ in range(_copies(k * n) - 1)]
+            what = f"K15 7B prefill {layer} {m} x {k} -> {n}"
+            runs = [("planned", None)]
+            if forced:
+                runs += [(f"{qmm.w8a8_plan(m, n, qmm.sm_count(dev), bn)} (forced)", bn)
+                         for bn in qmm.W8A8_BNS]
+            for how, plan in runs:
+                kw = {} if plan is None else {"bn": plan}
+                got = qmm.w8a8_matmul_fused(x, w, s, w_t=w_t, scratch=(xi, xs), **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(xi, codes) and torch.equal(xs, scales.reshape(-1))):
+                    fail(f"w8a8_matmul_fused {what} {how}: codes or row scales differ")
+                ulps = bf16_ulp_diff(got, want)
+                if ulps > 1:
+                    fail(f"w8a8_matmul_fused {what} {how}: {ulps} bf16 ulps from the plain "
+                         "version (limit 1)")
+                if plan is None and forced:
+                    how += f" {qmm.w8a8_plan(m, n, qmm.sm_count(dev))}"
+                fns = [lambda a=a, b_=b_, kw=kw: qmm.w8a8_matmul_fused(x, a, s, w_t=b_,
+                                                                      scratch=(xi, xs), **kw)
+                       for a, b_ in sets]
+                _print_ops_split(f"{what}, {how}, {ulps} ulp", _cold_by_kernel(fns, calls=10),
+                                 nbytes, ops)
+                if plan is not None or m < L7_BATCH * L7_PROMPT:
+                    continue
+                for dfn, why in diags:
+                    with cuda_build.variant("w8a8_matmul_fused", dfn):
+                        _print_ops_split(f"{what}, a build with {dfn} ({why}; its output is not "
+                                         "the kernel's)", _cold_by_kernel(fns, calls=10), nbytes,
+                                         ops)
+                if traced:
+                    _print_k15_trace(what, fns[0], qmm.w8a8_plan(m, n, qmm.sm_count(dev))[-1])
+            if m <= 16:
+                print(f"breakdown: torch._int_mm at {what}: not timed (it takes M > 16 only)",
+                      flush=True)
+                del x, w, s, w_t, xi, xs, want, codes, sets
+                continue
+            w_ks = [a.t().contiguous().t() for a, _ in sets]   # cuBLASLt's int8 layout
+            _print_ops_split(f"torch._int_mm alone at {what} (codes quantized beforehand)",
+                             _cold_by_kernel([lambda wk=wk: torch._int_mm(codes, wk)
+                                              for wk in w_ks], calls=10), nbytes, ops)
+
+            def library(wk):
+                def fn_():
+                    q_, qs = qmm.quantize_rows_int8(x, k)
+                    return (torch._int_mm(q_, wk).to(torch.float32) * (qs * s)).to(x.dtype)
+                return fn_
+            _print_ops_split(f"torch._int_mm with its quantization and dequantization at {what}",
+                             _cold_by_kernel([library(wk) for wk in w_ks], calls=10), nbytes, ops)
+            del x, w, s, w_t, xi, xs, want, codes, sets, w_ks
+            torch.cuda.empty_cache()
+
+
+def phase_k10k15_breakdown(dev) -> None:
+    """K10 and K15 by kernel (planned and forced, diagnostic builds, the
+    library beside), then K1, K2, K2-silu, K24, K7, K19-K21 and K10's
+    quantized formats at their PERF.md shapes, which share headers with K10
+    and K15 and must not move.  Run on an older tree, it leaves out what that
+    tree's wrappers and sources do not have."""
+    from qdm_tpu_torch.models.llama import BENCH_1B, LlamaConfig
+
+    _k10_breakdown(dev)
+    _k15_breakdown(dev)
+    phase_kernels(dev)
+    c1, c7 = BENCH_1B, LlamaConfig()
+    m, k, i = L7_BATCH * L7_PROMPT, c7.hidden_size, c7.intermediate_size
+    rows = {"w8a8_geglu_fused": [_check_prefill_matmul("7B prefill [up | gate] (silu)", m, k,
+                                                       2 * i, True, dev)],
+            "w8a8_matmul": [_check_w8a8_matmul(label, mm, kk, nn, dev, True)
+                            for label, mm, kk, nn, timed in K24_SHAPES if timed]}
+    h1, g1 = c1.num_key_value_heads, c1.num_attention_heads // c1.num_key_value_heads
+    t1 = -(-(LLM_PROMPT + LLM_NEW) // 128) * 128
+    rows["decode_attention_kv"] = [_check_attention(
+        "last step", LLM_BATCH, h1, g1, c1.head_dim, t1, LLM_PROMPT + LLM_NEW - 2, None, 0.0,
+        None, torch.bfloat16, dev, True)]
+    for name in SEPARATE_FLOAT:
+        rows[name] = [_check_separate("decode probe (TinyLlama-1.1B, T 1152)", name, LLM_BATCH,
+                                      LLM_BATCH, h1, g1, c1.head_dim, PROBE_T, PROBE_T - 2,
+                                      torch.bfloat16, dev, True)]
+    h7, g7 = c7.num_key_value_heads, c7.num_attention_heads // c7.num_key_value_heads
+    t7 = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    for _, _, mode in KV_FORMATS.values():
+        rows[f"decode_attention_kv_flash_{mode}"] = [_check_kvq(
+            "7B last step", "flash", mode, L7_BATCH, h7, g7, c7.head_dim, t7,
+            L7_PROMPT + L7_NEW - 2, None, dev, True)]
         torch.cuda.empty_cache()
     _print_rows(rows)
 
@@ -5778,7 +6079,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     ap.add_argument("--breakdown", nargs="?", const="all",
-                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17"),
+                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17", "k10k15"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -5798,8 +6099,12 @@ def main() -> int:
                          "at their shapes; `--breakdown k11k17`: K11 and K17 at the 7B and "
                          "TinyLlama decode shapes by kernel (planned and forced, traced), the "
                          "library beside, K26's body in its traced and diagnostic builds, then "
-                         "K5, K6, K8, K16, K25 and K26 at their shapes (plain `--breakdown` "
-                         "prints these last); no other "
+                         "K5, K6, K8, K16, K25 and K26 at their shapes; `--breakdown k10k15`: "
+                         "K10 at the 7B, Mixtral and GQA decode shapes and K15 at the 7B prefill "
+                         "shapes and small M by kernel (planned and forced, diagnostic builds), "
+                         "K7's body, SDPA and torch._int_mm beside, then K1, K2, K2-silu, K24, "
+                         "K7, K19-K21 and K10's quantized formats at their shapes (plain "
+                         "`--breakdown` prints these last); no other "
                          "phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5826,6 +6131,8 @@ def main() -> int:
             phase_k5k26_breakdown(dev)
         if args.breakdown in ("all", "k11k17"):
             phase_k11k17_breakdown(dev)
+        if args.breakdown in ("all", "k10k15"):
+            phase_k10k15_breakdown(dev)
         _print_reprofiled()
         print(smi_line())
         return 0

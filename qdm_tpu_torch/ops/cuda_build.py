@@ -37,7 +37,7 @@ ENTRY_POINTS = {
     "w8a8_geglu": ("qdm_w8a8_geglu",
                    (P, I, P, P, P, P, I, P, P, I, I, I, I, I, P)),
     "w8a8_matmul_fused": ("qdm_w8a8_matmul_fused",
-                          (P, I, P, P, P, I, P, P, I, I, I, I, P)),
+                          (P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, P)),
     "w4a16_matmul": ("qdm_w4a16_matmul",
                      (P, I, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P)),
     "w4a8_matmul": ("qdm_w4a8_matmul",
@@ -56,7 +56,7 @@ ENTRY_POINTS = {
                       (P, P, P, I, L, L, L, L, L, L, L, L, L, P, L, L, L, P, P, P, I, I, I, I, I,
                        F, I, P)),
     "decode_attention_kv_flash": ("qdm_decode_attention_kv_flash",
-                                  (P, I, L, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, P)),
+                                  (P, I, L, P, P, I, F, F, P, I, I, I, I, I, I, I, I, I, P)),
     "decode_mlp": ("qdm_decode_mlp",
                    (P, P, P, P, P, P, I, F, I, I, P, I, P, I, I, I, I, I, I, I, I, I, I, P)),
     "decode_attention_kv_q": ("qdm_decode_attention_kv_q",

@@ -116,6 +116,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -148,8 +149,15 @@ for _k in ("fused_dense_decode", "fused_dense_decode_i8", "decode_attention_kv",
     qmm.LAUNCHES.setdefault(_k, 0)
 
 _MAX_SPLITS = 8         # K7, K12-K14, K19-K23: blocks of a pair's cluster (csrc/decode_attn.cuh)
-_FLASH_CHUNK = 1024     # K10: most cache columns one block reads (128 threads x 8)
-_FLASH_CTAS = 264       # K10: split T until about two blocks per SM of the H100
+# K10 (csrc/decode_attention_kv_flash.cu): the TMA-fed tensor-core route takes bf16
+# caches with d in K10_TC_DIMS on tiles of K10_TILE columns (16 a consumer warp,
+# two blocks an SM), a ring of 2-K10_MAX_STAGES tiles; the CUDA-core route walks a
+# block's range in passes of up to K10_CC_PASS columns (128 threads x 8).  From
+# K10_COLS attended columns on, a plan no longer depends on their number.
+K10_TC_DIMS, K10_TILE, K10_MAX_STAGES = (32, 64, 128), 64, 8
+K10_CC_PASS = 1024
+K10_RING_BYTES = 96 * 1024  # a block's ring, about: deeper rings read slower (PERF.md §6)
+K10_COLS = K10_TILE * _MAX_SPLITS * K10_MAX_STAGES
 INV127 = qmm.INV127          # ``x / 127.0`` as XLA compiles it in the TPU kernels
 _MASK_ONE_PASS, _MASK_FLASH = -1e9, -1e30    # the TPU kernels' masked logits
 
@@ -1217,16 +1225,85 @@ def _flash_q(q, kv, pos: int, starts, sm_scale, softcap: float, mode: str, kv_sc
     return out
 
 
+def flash_smem(g: int, d: int, splits: int, stages: int) -> int:
+    """Shared memory of one block of K10's tensor-core route
+    (``csrc/decode_attention_kv_flash.cu::Layout``): alignment slack, the
+    ring (or the four consumer warps' partials), the combine area, the
+    barriers."""
+    ring = qmm._round_up(max(stages * 2 * d * 128, 4 * (32 + g * d) * 4), 16)
+    return 1024 + qmm._round_up(ring + 16 + splits * (32 + g * d) * 4, 8) + 16 * stages
+
+
+def flash_cc_smem(g: int, d: int, sub: int, splits: int) -> int:
+    """Dynamic shared memory of one block of K10's CUDA-core route
+    (``cc_smem``): q, p of a pass, the running output, the statistics, the
+    combine area."""
+    return 4 * (2 * g * d + g * sub + 48) + 16 + splits * (32 + g * d) * 4
+
+
+def flash_plan(pairs: int, g: int, d: int, cols: int, bf16: bool, sms: int,
+               splits: int = 0, tile: int = 0):
+    """K10's launch plan for ``pairs`` (row, kv head) pairs attending
+    ``cols`` columns each, a read-only mapping: ``route`` 1 (the TMA-fed
+    tensor-core body: bf16, d in K10_TC_DIMS) or 0 (CUDA cores), ``splits``
+    blocks a pair's cluster, ``tile`` (route 1: K10_TILE columns a ring
+    stage; route 0: columns a pass, the most that fit) and ``stages`` (route
+    1: about K10_RING_BYTES of tiles, 2 to 8, at most the tiles a block
+    streams, within half an SM's shared memory, two blocks an SM, where that
+    fits).  The split is the least that gives 90% of the SMs a block: on the
+    card larger clusters read slower wherever the pairs alone fill the SMs,
+    faster only where they leave SMs idle (PERF.md §6: 7B 99.2 / 109.4 /
+    115.6 / 143.0 us at 1 / 2 / 4 / 8 blocks a pair, Mixtral 37.2 / 35.3 /
+    44.8 / 53.5, GQA 45.6 / 28.0 / 18.8 / 17.4).  ``splits`` 1-8 forces the
+    cluster and ``tile`` route 0's pass (tests and profiles).  Cached on the
+    shapes, the SM count and ``cols`` up to K10_COLS, beyond which the plan
+    is the same."""
+    return _flash_plan(pairs, g, d, min(cols, K10_COLS), bf16, sms, splits, tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_plan(pairs: int, g: int, d: int, cols: int, bf16: bool, sms: int, splits: int,
+                tile: int):
+    tc = bf16 and d in K10_TC_DIMS
+    if splits and not 1 <= splits <= _MAX_SPLITS:
+        raise ValueError(f"K10: splits {splits} outside 1..{_MAX_SPLITS}")
+    if tile and (tile != K10_TILE if tc else (tile % 8 or not 0 < tile <= K10_CC_PASS)):
+        raise ValueError(f"K10: tile {tile} for the {'tensor' if tc else 'CUDA'}-core route")
+    n = splits or min(next((k for k in range(1, _MAX_SPLITS + 1) if 10 * pairs * k >= 9 * sms),
+                           _MAX_SPLITS), qmm._cdiv(cols + 7, 64))  # no block without a tile
+    span = qmm._cdiv(cols + 7, n)  # a block's columns (its first one rounded down to 8)
+    if tc:
+        want = max(2, min(K10_MAX_STAGES, K10_RING_BYTES // (2 * d * 128),
+                          qmm._cdiv(span, K10_TILE)))
+        for per_sm in (2, 1):  # a wide g x d may take a whole SM
+            room = min(_SMEM_MAX, _SMEM_SM // per_sm - 1024)
+            stages = next((st for st in range(want, 1, -1)
+                           if flash_smem(g, d, n, st) <= room), 0)
+            if stages:
+                return types.MappingProxyType(dict(route=1, splits=n, tile=K10_TILE,
+                                                   stages=stages))
+    else:
+        sub = tile or next((c for c in (K10_CC_PASS, 512, 256, 128, 64)
+                            if flash_cc_smem(g, d, c, n) <= _SMEM_MAX), 0)
+        if sub and flash_cc_smem(g, d, sub, n) <= _SMEM_MAX:
+            return types.MappingProxyType(dict(route=0, splits=n, tile=sub, stages=0))
+    raise NotImplementedError(f"K10: no plan fits shared memory for g={g}, d={d}, "
+                              f"{n} block(s) a pair" + (f", tile {tile}" if tile else ""))
+
+
 def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
-                              softcap: float = 0.0, mode: str = "bf16", kv_scale=None):
+                              softcap: float = 0.0, mode: str = "bf16", kv_scale=None,
+                              splits: int = 0, tile: int = 0, trace: Optional[dict] = None):
     """T-blocked decode attention: q (B, hkv, g, d) — rows may be strided,
     each (hkv, g, d) row contiguous — against the combined cache kv
     (B, 2*hkv, d, T) in the ``mode``'s format; keys 0..pos (and from
     starts[b]) attended.  ``bf16`` (a bf16 or f32 cache, K10): the plain
     version follows the TPU kernel's T blocks (``_pick_bt``), the kernel
-    splits T its own way.  ``i8`` / ``i8c`` / ``i4c`` (int8 codes, with
-    per-token scales kv_scale for ``i8``; packed int4 codes for ``i4c``):
-    the kernel keeps the TPU blocks, so its p codes are the plain
+    splits T its own way, in one launch (:func:`flash_plan`; on the card
+    ``splits`` forces its cluster and ``tile`` the CUDA-core route's pass,
+    tests and profiles only, and ``trace``, a dict, receives the plan).  ``i8`` / ``i8c`` / ``i4c`` (int8 codes,
+    with per-token scales kv_scale for ``i8``; packed int4 codes for
+    ``i4c``): the kernel keeps the TPU blocks, so its p codes are the plain
     version's."""
     if mode != "bf16" and mode not in KV_MODES:
         raise ValueError(f"mode {mode!r}")
@@ -1252,25 +1329,21 @@ def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
                                   f"d={d}, T={t}")
     st = _starts_i32(starts, b, q.device)
     scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    plan = flash_plan(b * hkv, g, d, int(pos) + 1, q.dtype == torch.bfloat16,
+                      qmm.sm_count(q.device), splits, tile)
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
-    # columns one row may attend: [starts, pos], or all T when a row is masked throughout;
-    # each block's first column is rounded down to a multiple of 8 (16-byte loads)
-    span = (t if st is not None else int(pos) + 1) + 7
-    n_chunks = max(qmm._cdiv(span, _FLASH_CHUNK),
-                   min(qmm._cdiv(_FLASH_CTAS, b * hkv), qmm._cdiv(span, 128)))
-    chunk = qmm._cdiv(qmm._cdiv(span, n_chunks), 8) * 8
-    part_o = torch.empty((b * hkv, n_chunks, g, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * hkv, n_chunks, g, 2), dtype=torch.float32, device=q.device)
     fn = cuda_build.kernel("decode_attention_kv_flash")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv_cache.data_ptr(), _ptr(st),
                  int(pos), ctypes.c_float(scale), ctypes.c_float(softcap), out.data_ptr(),
-                 part_o.data_ptr(), part_ml.data_ptr(), b, hkv, g, d, t, chunk, n_chunks,
+                 b, hkv, g, d, t, plan["route"], plan["splits"], plan["tile"], plan["stages"],
                  _stream(q))
     cuda_build.check(err, "decode_attention_kv_flash")
     qmm.LAUNCHES["decode_attention_kv_flash"] += 1
+    if trace is not None:
+        trace.update(plan)
     return out
 
 

@@ -440,11 +440,43 @@ def w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=None,
     return out
 
 
+# K15's GEMM (csrc/w8a8_matmul.cu): the persistent wgmma body on tiles of W8A8_BM
+# rows x bn columns, stages of 128 K bytes
+W8A8_BM, W8A8_BNS, W8A8_MAX_STAGES = 128, (256, 128), 8
+
+
+def w8a8_smem(bn: int, stages: int) -> int:
+    """Bytes of dynamic shared memory K15's GEMM asks for (the kernel's
+    Layout): alignment slack, the ring, the consumers' scales and output
+    staging rows, the barriers."""
+    return (1024 + stages * (W8A8_BM + bn) * 128 + 2 * (bn + 64) * 4 + 8 * 16 * 144
+            + 16 * stages)
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(m: int, n: int, sms: int, bn: int = 0) -> Tuple[int, int, int]:
+    """K15's launch plan ``(bn, stages, grid)`` for M tokens and N' output
+    columns on a card of ``sms`` SMs: tiles of 128 x 256, or of 128 x 128
+    where the wider tiles number fewer than the SMs (``chip_smoke.py
+    --breakdown k10k15``, PERF.md §6: 256 won at every 7B width from M 2048
+    on, 128 below); the deepest ring (2-8 stages) shared memory holds; one
+    persistent block a tile up to one an SM.  ``bn`` forces the tile width
+    (tests and profiles).  Cached: a prefill asks for the same three shapes
+    in every layer."""
+    if bn and bn not in W8A8_BNS:
+        raise ValueError(f"K15 plan: tiles of 128 x {bn}; the kernel takes {W8A8_BNS}")
+    bn = bn or (256 if _cdiv(m, W8A8_BM) * _cdiv(n, 256) >= sms else 128)
+    stages = max(st for st in range(2, W8A8_MAX_STAGES + 1) if w8a8_smem(bn, st) <= SMEM_MAX)
+    return bn, stages, min(_cdiv(m, W8A8_BM) * _cdiv(n, bn), sms)
+
+
 def w8a8_matmul_fused(x, w_i8, w_scale, out_dtype=None, w_t: Optional[torch.Tensor] = None,
-                      scratch=None):
+                      scratch=None, bn: int = 0):
     """x (M, K) through int8 weights (K', N') -> (M, N') = ``acc * (xs *
     ws)``, no bias (K15).  w_scale (1, N') f32; w_t and scratch as in
-    :func:`w8a8_matmul_fused_epi`."""
+    :func:`w8a8_matmul_fused_epi`.  ``bn`` forces the width of K15's tiles,
+    one of W8A8_BNS (tests and profiles only; :func:`w8a8_plan` plans it
+    otherwise)."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return w8a8_matmul_fused_plain(x, w_i8, w_scale, out_dtype)
@@ -457,11 +489,14 @@ def w8a8_matmul_fused(x, w_i8, w_scale, out_dtype=None, w_t: Optional[torch.Tens
     if m == 0:
         return out
     xi, xs = _scratch(scratch, m, kp, x.device)
+    if w_scale.data_ptr() % 8:  # the epilogue reads the scales in pairs
+        w_scale = w_scale.clone()
+    plan = w8a8_plan(m, n, sm_count(x.device), bn)
     fn = cuda_build.kernel("w8a8_matmul_fused")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), w_scale.data_ptr(),
                  out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), xs.data_ptr(),
-                 m, k, kp, n, torch.cuda.current_stream(x.device).cuda_stream)
+                 m, k, kp, n, *plan, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w8a8_matmul_fused")
     LAUNCHES["w8a8_matmul_fused"] += 1
     return out

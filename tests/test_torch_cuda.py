@@ -672,6 +672,89 @@ def test_flash_decode_kernel_matches_plain_on_card(b, hkv, g, d, t, pos, starts,
     _close_on_card(got, want)
 
 
+def _flash_operands(b, hkv, g, d, t, pos, starts, bf16, dev):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(b + t + pos + d)
+    wide = torch.from_numpy(rng.standard_normal((b, hkv * g * d + 2 * hkv * d)).astype(np.float32))
+    q = wide.to(dev, dtype)[:, :hkv * g * d].view(b, hkv, g, d)
+    kv = torch.from_numpy(rng.standard_normal((b, 2 * hkv, d, t)).astype(np.float32)).to(dev, dtype)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    return q, kv, st
+
+
+def _flash_forced(case, splits):
+    """K10 at a FLASH_DECODE_CASES entry with its cluster forced (and, on the
+    CUDA-core route, each pass width 128 and 1024 in turn): one CUDA launch,
+    within the tolerance of its plain version."""
+    b, hkv, g, d, t, pos, starts, softcap, sm_scale, bf16 = case
+    dev = _card()
+    q, kv, st = _flash_operands(b, hkv, g, d, t, pos, starts, bf16, dev)
+    tc = bf16 and d in dk.K10_TC_DIMS
+    kw = dict(starts=st, sm_scale=sm_scale, softcap=softcap)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, **kw)
+    for tile in (0,) if tc else (128, 1024):
+        plan = {}
+        fn = lambda: dk.decode_attention_kv_flash(q, kv, pos, splits=splits, tile=tile, **kw)
+        got = dk.decode_attention_kv_flash(q, kv, pos, splits=splits, tile=tile, trace=plan,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert plan["splits"] == splits and plan["tile"] == (tile or dk.K10_TILE)
+        assert plan["route"] == int(tc)
+        assert _cuda_launches(fn) == 1
+        _close_on_card(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", list(range(1, 9)))
+@pytest.mark.parametrize("case", FLASH_DECODE_CASES)
+def test_flash_decode_forced_plans_on_card(case, splits):
+    _flash_forced(case, splits)
+
+
+# (B, hkv, g, d, T, pos, starts, splits (0: planned), bf16): pos on and beside a
+# 64-column tile edge and a split edge, starts straddling a split, a row masked
+# throughout, f32 caches, every g and d
+FLASH_EDGE_CASES = (
+    [(2, 2, 4, 128, 1024, pos, None, n, True) for pos in (63, 64, 127, 128, 1023)
+     for n in (1, 3)]
+    + [(3, 2, 4, 64, 1024, 700, (0, 301, 650), n, bf) for n in (2, 3) for bf in (True, False)]
+    + [(3, 2, 8, 128, 1024, 700, (0, 800, 10), n, bf) for n in (0, 4) for bf in (True, False)]
+    + [(2, 2, g, d, 640, 600, None, 0, bf) for g in (1, 2, 4, 8, 16) for d in (32, 64, 128, 256)
+       for bf in (True, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hkv,g,d,t,pos,starts,splits,bf16", FLASH_EDGE_CASES)
+def test_flash_decode_edges_on_card(b, hkv, g, d, t, pos, starts, splits, bf16):
+    dev = _card()
+    q, kv, st = _flash_operands(b, hkv, g, d, t, pos, starts, bf16, dev)
+    # beyond pos the cache holds anything: the kernel must not read it into the output
+    # (a row masked throughout averages every column, so its cache stays as drawn)
+    rows = [i for i in range(b) if starts is None or starts[i] <= pos]
+    kv[rows, ..., pos + 1:] = float("nan")
+    got = dk.decode_attention_kv_flash(q, kv, pos, starts=st, splits=splits)
+    want = dk.decode_attention_kv_flash_plain(q, kv.nan_to_num(0.0), pos, starts=st)
+    torch.cuda.synchronize()
+    _close_on_card(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_DECODE_CASES[:2])
+def test_flash_decode_check_flags_a_scale_fault_on_card(case):
+    """sm_scale 1% off in the kernel's launch reads beyond the tolerance."""
+    b, hkv, g, d, t, pos, starts, softcap, sm_scale, bf16 = case
+    dev = _card()
+    q, kv, st = _flash_operands(b, hkv, g, d, t, pos, starts, bf16, dev)
+    scale = sm_scale or d ** -0.5
+    got = dk.decode_attention_kv_flash(q, kv, pos, starts=st, sm_scale=scale * 1.01,
+                                       softcap=softcap)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, starts=st, sm_scale=scale,
+                                              softcap=softcap)
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _close_on_card(got, want)
+
+
 # (M, K, I, block_j, norm, act, residual, out f32)
 DEC_MLP_BF16_CASES = [
     (8, 4096, 11008, 256, "rmsnorm", "silu", True, False),   # Llama-2-7B
@@ -1212,6 +1295,59 @@ def test_prefill_matmuls_match_plain_on_card(m, k, n, glu, dtype):
         assert int(_ulps(got, want).max()) <= 1
     else:
         assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+# (M, K, N): PREFILL_CASES' plain layers, then M 1, 17, 128 and 2048 at the 7B
+# prefill's three widths (qkv, o_proj, down)
+PREFILL_PLAN_SHAPES = ([c[:3] for c in PREFILL_CASES if not c[3]]
+                       + [(m, k, n) for m in (1, 17, 128, 2048)
+                          for k, n in ((4096, 12288), (4096, 4096), (11008, 4096))])
+_PREFILL_WANT = {}
+
+
+def _prefill_plain(m, k, n, dtype, dev):
+    """The operands and K15's plain output at (m, k, n), computed once a shape."""
+    key = (m, k, n, dtype)
+    if key not in _PREFILL_WANT:
+        _PREFILL_WANT.clear()
+        x, w, s, _, _ = _operands(m, k, n, dev, dtype)
+        _PREFILL_WANT[key] = (x, w, s, qmm.w8a8_matmul_fused_plain(x, w, s))
+    return _PREFILL_WANT[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [0, *qmm.W8A8_BNS])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", PREFILL_PLAN_SHAPES)
+def test_prefill_matmul_plans_on_card(m, k, n, dtype, bn):
+    """K15 planned (bn 0) and forced to each tile width of W8A8_BNS: codes
+    identical, 1 bf16 ulp or 1e-6 of the magnitude in f32."""
+    dev = _card()
+    x, w, s, want = _prefill_plain(m, k, n, dtype, dev)
+    kp = w.shape[0]
+    xi = torch.empty((m, kp), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    got = qmm.w8a8_matmul_fused(x, w, s, scratch=(xi, xs), bn=bn)
+    torch.cuda.synchronize()
+    codes, scales = qmm.quantize_rows_int8(x, kp)
+    assert torch.equal(xi, codes) and torch.equal(xs, scales.reshape(-1))
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert int(_ulps(got, want).max()) <= 1
+    else:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", qmm.W8A8_BNS)
+def test_prefill_matmul_check_flags_a_scale_fault_on_card(bn):
+    """Weight scales 1e-2 off make each tile width's output differ by more
+    than the check's 1 ulp."""
+    dev = _card()
+    x, w, s, want = _prefill_plain(300, 4096, 1536, torch.bfloat16, dev)
+    got = qmm.w8a8_matmul_fused(x, w, s * 1.01, bn=bn)
+    torch.cuda.synchronize()
+    assert int(_ulps(got, want).max()) > 1
 
 
 @pytest.mark.cuda

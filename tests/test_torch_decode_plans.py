@@ -96,3 +96,84 @@ def test_forced_split_is_kept():
     p = dk.mlp_plan(32, 2048, 5632, 256, SMS, (3, 5))
     assert (p["gate_up"]["split"], p["down"]["split"]) == (3, 5)
     assert dk.mlp_i4_plan(8, 4096, 11008, 256, 128, SMS, (5, 7))["splits"] == (5, 7)
+
+
+# K10's plans (``decode_kernels.flash_plan``): (pairs, g, d, attended columns) of the
+# 7B, Mixtral and GQA decode shapes and a spread of others
+FLASH_SHAPES = [(256, 1, 128, 2111), (64, 4, 128, 2111), (16, 8, 64, 4101), (6, 4, 64, 901),
+                (2, 16, 32, 1), (8, 2, 128, 512), (4, 16, 256, 4096), (1, 16, 256, 40000),
+                (1024, 8, 128, 32768), (32, 1, 32, 9), (4, 16, 128, 601)]
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("pairs,g,d,cols", FLASH_SHAPES)
+def test_flash_plan_shapes(pairs, g, d, cols, bf16):
+    """Every shape plans within a block's shared memory, on the tensor-core
+    route exactly where the cache is bf16 with d 32, 64 or 128; the split is
+    the least that gives 90% of the SMs a block (at most 8), no block
+    without a tile; the ring no deeper than a block's tiles."""
+    p = dk.flash_plan(pairs, g, d, cols, bf16, SMS)
+    tc = bf16 and d in dk.K10_TC_DIMS
+    assert p["route"] == int(tc) and 1 <= p["splits"] <= 8
+    n = p["splits"]
+    assert n == 1 or 10 * pairs * (n - 1) < 9 * SMS
+    assert n == 8 or 10 * pairs * n >= 9 * SMS or n == -(-(cols + 7) // 64)
+    if tc:
+        assert p["tile"] == 64 and 2 <= p["stages"] <= dk.K10_MAX_STAGES
+        assert dk.flash_smem(g, d, n, p["stages"]) <= SMEM
+        assert p["stages"] <= max(2, -(-(-(-(cols + 7) // n)) // p["tile"]))
+    else:
+        assert p["stages"] == 0 and p["tile"] % 8 == 0 and p["tile"] <= dk.K10_CC_PASS
+        assert dk.flash_cc_smem(g, d, p["tile"], n) <= SMEM
+
+
+def test_flash_plan_two_blocks_an_sm_at_7b():
+    """The 7B last step: one block a pair, 256 blocks two an SM, each ring
+    within half an SM's shared memory."""
+    p = dk.flash_plan(256, 1, 128, 2111, True, SMS)
+    assert (p["splits"], p["tile"]) == (1, 64)
+    assert dk.flash_smem(1, 128, 1, p["stages"]) + 1024 <= 233472 // 2
+
+
+@pytest.mark.parametrize("splits", list(range(1, 9)))
+@pytest.mark.parametrize("sub", [128, 1024])
+def test_flash_plan_forced_is_kept(splits, sub):
+    """A forced cluster is kept on both routes; the tensor-core route keeps
+    its 64-column tiles, the CUDA-core route takes a forced pass width."""
+    for g in (4, 16):
+        p = dk.flash_plan(64, g, 128, 2111, True, SMS, splits)
+        assert (p["splits"], p["tile"], p["route"]) == (splits, 64, 1)
+        assert dk.flash_smem(g, 128, splits, p["stages"]) <= SMEM
+    q = dk.flash_plan(6, 4, 64, 901, False, SMS, splits, sub)
+    assert (q["splits"], q["tile"], q["route"]) == (splits, sub, 0)
+
+
+def test_flash_plan_is_cached():
+    assert dk.flash_plan(256, 1, 128, 2111, True, SMS) is dk.flash_plan(256, 1, 128, 2111,
+                                                                          True, SMS)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_flash_plan_cache_stops_at_k10_cols(bf16):
+    """A decode loop's growing pos adds no cache entry past K10_COLS: the plan
+    there is the one at K10_COLS."""
+    at = dk.flash_plan(16, 8, 64, dk.K10_COLS, bf16, SMS)
+    size = dk._flash_plan.cache_info().currsize
+    for cols in range(dk.K10_COLS + 1, dk.K10_COLS + 3000, 7):
+        assert dk.flash_plan(16, 8, 64, cols, bf16, SMS) is at
+    assert dk._flash_plan.cache_info().currsize == size
+
+
+def test_flash_plan_is_read_only():
+    p = dk.flash_plan(256, 1, 128, 2111, True, SMS)
+    with pytest.raises(TypeError):
+        p["splits"] = 4
+    assert dk.flash_plan(256, 1, 128, 2111, True, SMS)["splits"] == 1
+
+
+@pytest.mark.parametrize("splits,tile,bf16", [(9, 0, True), (-1, 0, True), (0, 96, True),
+                                              (0, 32, True), (0, 128, True), (0, 12, False),
+                                              (0, 2048, False)])
+def test_flash_plan_refuses(splits, tile, bf16):
+    with pytest.raises(ValueError):
+        dk.flash_plan(16, 8, 64, 4101, bf16, SMS, splits, tile)
