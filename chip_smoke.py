@@ -16,6 +16,10 @@
     python3 chip_smoke.py --breakdown k10k15  # the build, then K10's (7B, Mixtral, GQA
                                       # decode; K7's body and SDPA beside) and K15's (7B
                                       # prefill, small M; torch._int_mm beside) alone
+    python3 chip_smoke.py --breakdown k25k2  # the build, then K25's (7B and TinyLlama
+                                      # merge_o, its launches apart; K26 beside) and K2's
+                                      # (7B [up | gate], SD1.5 net_0/proj; torch._int_mm
+                                      # beside) alone
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -273,7 +277,7 @@ DECODE_KERNELS = ("fused_dense_decode_i8", "decode_attention_kv", "fused_mlp_dec
 KERNEL_INFO = {
     "w8a8_matmul_fused_epi": ("qdm_tpu_torch/csrc/w8a8_fused_epi.cu",
                               "qdm_tpu/ops/quant_matmul.py:592"),
-    "w8a8_geglu_fused": ("qdm_tpu_torch/csrc/w8a8_geglu.cu",
+    "w8a8_geglu_fused": ("qdm_tpu_torch/csrc/w8a8_matmul.cu",
                          "qdm_tpu/ops/quant_matmul.py:301"),
     "w4a16_matmul": ("qdm_tpu_torch/csrc/w4a16_matmul.cu",
                      "qdm_tpu/ops/quant_matmul.py:202"),
@@ -1634,21 +1638,22 @@ def _check_prefill_matmul(label, m, k, n, glu, dev):
     xs = torch.empty((m,), dtype=torch.float32, device=dev)
     name = "w8a8_geglu_fused" if glu else "w8a8_matmul_fused"
 
-    def kern(scale=s):
+    def kern(scale=s, **kw):
         if glu:
-            return qmm.w8a8_geglu_fused(x, w, scale, zero, act="silu", w_t=w_t, scratch=(xi, xs))
-        return qmm.w8a8_matmul_fused(x, w, scale, w_t=w_t, scratch=(xi, xs))
+            return qmm.w8a8_geglu_fused(x, w, scale, zero, act="silu", w_t=w_t, scratch=(xi, xs),
+                                        **kw)
+        return qmm.w8a8_matmul_fused(x, w, scale, w_t=w_t, scratch=(xi, xs), **kw)
     plain = (lambda: qmm.w8a8_geglu_fused_plain(x, w, s, zero, act="silu")) if glu else \
         (lambda: qmm.w8a8_matmul_fused_plain(x, w, s))
     ref = plain()
     xi_ref, xs_ref = qmm.quantize_rows_int8(x, k)
-    # K15 planned, then forced to each tile width
-    plans = [0] + ([] if glu else list(qmm.W8A8_BNS))
+    # planned, then forced to each tile width (where this tree's wrapper takes it)
+    plans = [0] + (list(qmm.W8A8_BNS) if _takes(qmm.w8a8_geglu_fused if glu
+                                                else qmm.w8a8_matmul_fused, "bn") else [])
     ulps = err = 0
     for plan in plans:
         xi.zero_()
-        out = kern() if not plan else qmm.w8a8_matmul_fused(x, w, s, w_t=w_t,
-                                                            scratch=(xi, xs), bn=plan)
+        out = kern(**({"bn": plan} if plan else {}))
         torch.cuda.synchronize()
         if not (torch.equal(xi, xi_ref) and torch.equal(xs, xs_ref.reshape(-1))):
             fail(f"{name} {label} plan {plan}: int8 codes or row scales differ from the plain "
@@ -3888,6 +3893,220 @@ def phase_k10k15_breakdown(dev) -> None:
     _print_rows(rows)
 
 
+# --breakdown k25k2: K25 (the w8a8 merge_o layer tail) at the 7B and TinyLlama decode shapes
+# by kernel (its launches apart), planned and with each step's cluster forced, its traced
+# steps, K26 beside; K2 (the fused int8 GEGLU / SwiGLU) at the 7B prefill's [up | gate] and at
+# every SD1.5 net_0/proj shape, its quantization pass and GEMM apart, planned and with each
+# tile width forced, a build without the activation, torch._int_mm alone beside; then K1, K2,
+# K2-silu, K8, K15, K24, K25 and K26 at their PERF.md shapes, which share code with them
+K2_DIAGNOSTICS = (("QDM_K2_NO_ACT", "the epilogue without the activation: h * g"),)
+# (layer, M, K, 2 * half) of SD1.5's feed-forward input projections at 512 px, batch 4 (2
+# prompts x CFG): down / up blocks 0-2 and the mid block
+K2_SD_SHAPES = (("SD1.5 ff/net_0/proj, 64 x 64 latents", 16384, 320, 2560),
+                ("SD1.5 ff/net_0/proj, 32 x 32", 4096, 640, 5120),
+                ("SD1.5 ff/net_0/proj, 16 x 16", 1024, 1280, 10240),
+                ("SD1.5 ff/net_0/proj, 8 x 8 (mid block)", 256, 1280, 10240))
+K25_STEPS = ("o_proj", "gate / up", "down")
+
+
+def _k25_breakdown(dev, rng) -> None:
+    """K25 at the 7B and TinyLlama merge_o shapes by kernel (the output checked
+    against its plain version first), planned and, where this tree's wrapper
+    takes ``stages``, each step swept (_k25_sweep); its traced steps where
+    the source has QDM_K25_TRACE; K26 (the int4 twin) planned beside."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    traced = "QDM_K25_TRACE" in _defines("decode_o_mlp_i8")
+    if traced:
+        cuda_build.build_variants([("decode_o_mlp_i8", ("QDM_K25_TRACE",))])
+    fn = dk.fused_o_mlp_decode_i8
+    for tag, c, b, group in _mlp_shapes():
+        hd, k, i = c.num_attention_heads * c.head_dim, c.hidden_size, c.intermediate_size
+        for g in (0, group):
+            attn, res, q, a_o, scl, ns, bj = _o_mlp_case(rng, b, hd, k, i, g, dev)
+            (wo, so), (wg, sg), (wu, su), (wd, sd) = q
+            ws = (wo, wg, wu, wd)
+            w_bytes = (hd * k + 3 * k * i) // (2 if g else 1)
+            s_bytes = 4 * ((hd // g) * k + 2 * (k // g) * i + (i // g) * k if g
+                           else 2 * k + 2 * i)
+            nbytes = 2 * b * hd + 2 * 2 * b * k + w_bytes + s_bytes + 4 * k + 12
+            sets = [(ws, tuple(dk.transposed_weight(t) for t in ws))]
+            sets += [(tuple(t.clone() for t in ws), tuple(t.clone() for t in sets[0][1]))
+                     for _ in range(_copies(w_bytes) - 1)]
+            name = "fused_o_mlp_decode_i4" if g else "fused_o_mlp_decode_i8"
+            f_, kw = getattr(dk, name), (dict(group=g) if g else {})
+            call = lambda w=ws, t=sets[0][1], **extra: f_(
+                attn, w[0], so, a_o, res, w[1], w[2], w[3], (sg, su, sd), scl, ns, w_t=t,
+                **kw, **extra)
+            want = getattr(dk, name + "_plain")(attn, wo, so, a_o, res, wg, wu, wd,
+                                                (sg, su, sd), scl, ns, **kw)
+            label = (f"{'K26' if g else 'K25'} {tag} o_proj + mlp {b} x {hd} -> {k}, I {i}, "
+                     f"bj {bj}" + (f", g {g}" if g else ""))
+            if not g and _takes(fn, "stages"):
+                _k25_sweep(label, call, sets, want)
+            plan = {}
+            tr = {"trace": plan} if _takes(f_, "trace") else {}
+            got = call(**tr)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{name} {tag}: output differs from the plain version (max abs err "
+                     f"{float((got.float() - want.float()).abs().max())})")
+            _print_split(f"{label}, planned" + (f" {plan}" if tr else ""),
+                         _cold_by_kernel([lambda w=w, t=t: call(w, t) for w, t in sets]), nbytes)
+            if traced and not g:
+                with cuda_build.variant("decode_o_mlp_i8", "QDM_K25_TRACE"):
+                    for st, n_out in enumerate((k, i, k)):
+                        blocks = plan["splits"][st] * -(-n_out // 64) * -(-b // plan["rows"])
+                        _print_trace(f"{label} step {st} ({K25_STEPS[st]}), planned",
+                                     "decode_o_mlp_i8", "QDM_K25_TRACE",
+                                     "qdm_decode_o_mlp_i8_trace", (st,), lambda: call(),
+                                     min(blocks, 4096), K26_PHASES)
+            del sets, attn, res, q
+            torch.cuda.empty_cache()
+
+
+K25_SWEEP_SPLITS, K25_SWEEP_STAGES = (1, 2, 3, 4, 8), (2, 3, 4, 6, 8, 12, 16)
+
+
+def _k25_sweep(label, call, sets, want) -> None:
+    """Each step of K25 with its cluster and ring forced to every pair of
+    K25_SWEEP_SPLITS x K25_SWEEP_STAGES that fits (the other steps planned):
+    the step's own device time, its output checked first."""
+    for st in range(3):
+        cells = []
+        for sp in K25_SWEEP_SPLITS:
+            for stg in K25_SWEEP_STAGES:
+                kw = {"splits": tuple(sp if s_ == st else 0 for s_ in range(3)),
+                      "stages": tuple(stg if s_ == st else 0 for s_ in range(3))}
+                try:
+                    got = call(**kw)
+                except (ValueError, NotImplementedError):
+                    continue
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"fused_o_mlp_decode_i8 {label} {kw}: output differs from the plain "
+                         "version")
+                split = _cold_by_kernel([lambda w=w, t=t, kw=kw: call(w, t, **kw)
+                                         for w, t in sets], calls=10)
+                us = sum(v for name, v in split.items() if f"o_mlp_i8_kernel<{st}," in name)
+                cells.append(f"{sp}/{stg} {us:.2f}")
+        print(f"breakdown: {label}, step {st} ({K25_STEPS[st]}) alone, us by clusters / stages "
+              "forced: " + "; ".join(cells), flush=True)
+
+
+def _k2_case(m, k, n, glu_bias: bool, dev):
+    """bf16 x (M, K) and int8 weights (K, N) packed with their scales; the
+    bias drawn (the UNet's GEGLU) or zero (the LLM's [up | gate])."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    x, w, s, w_t = _k15_case(m, k, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(m + k + n + 1)
+    bias = (torch.randn((1, n), generator=gen, device=dev) * 0.1 if glu_bias
+            else torch.zeros((1, n), device=dev))
+    return x, w, s, bias, w_t
+
+
+def _k2_breakdown(dev) -> None:
+    """K2 at the 7B prefill's [up | gate] (silu, zero bias) and at every
+    K2_SD_SHAPES shape (gelu, a drawn bias) by kernel: codes identical and
+    outputs equal to the plain version first; planned and, where this tree's
+    wrapper takes ``bn``, with each tile width forced; in each diagnostic
+    build the source has; torch._int_mm alone beside.  Operand copies beyond
+    twice the L2."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+    from qdm_tpu_torch.models.llama import LlamaConfig
+
+    src = _defines("w8a8_geglu")
+    diags = [(d, what) for d, what in K2_DIAGNOSTICS if d in src]
+    cuda_build.build_variants([("w8a8_geglu", (d,)) for d, _ in diags])
+    forced = _takes(qmm.w8a8_geglu_fused, "bn")
+    c7 = LlamaConfig()
+    cases = [("7B prefill [up | gate]", L7_BATCH * L7_PROMPT, c7.hidden_size,
+              2 * c7.intermediate_size, "silu")]
+    cases += [(label, m, k, n, "gelu") for label, m, k, n in K2_SD_SHAPES]
+    for label, m, k, n, act in cases:
+        x, w, s, bias, w_t = _k2_case(m, k, n, act == "gelu", dev)
+        half = n // 2
+        xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+        xs = torch.empty((m,), dtype=torch.float32, device=dev)
+        want = qmm.w8a8_geglu_fused_plain(x, w, s, bias, act=act)
+        codes, scales = qmm.quantize_rows_int8(x, k)
+        nbytes, ops = m * k * 2 + k * n + 8 * n + m * half * 2, 2 * m * k * n
+        sets = [(x, w, w_t)] + [(x.clone(), w.clone(), w_t.clone())
+                                for _ in range(_copies(m * k * 2 + k * n) - 1)]
+        what = f"K2 ({act}) {label} {m} x {k} -> 2 x {half}"
+        runs = [("planned", {})]
+        if forced:
+            runs += [(f"{qmm.w8a8_plan(m, n, qmm.sm_count(dev), bn, glu=True)} (forced)",
+                      {"bn": bn}) for bn in qmm.W8A8_BNS]
+        for how, kw in runs:
+            got = qmm.w8a8_geglu_fused(x, w, s, bias, act=act, w_t=w_t, scratch=(xi, xs), **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(xi, codes) and torch.equal(xs, scales.reshape(-1))):
+                fail(f"w8a8_geglu_fused {what} {how}: codes or row scales differ")
+            ulps = bf16_ulp_diff(got, want)
+            if ulps > (0 if forced else 1):
+                fail(f"w8a8_geglu_fused {what} {how}: {ulps} bf16 ulps from the plain version")
+            if forced and not kw:
+                how += f" {qmm.w8a8_plan(m, n, qmm.sm_count(dev), glu=True)}"
+            fns = [lambda a=a, b_=b_, t=t, kw=kw: qmm.w8a8_geglu_fused(
+                a, b_, s, bias, act=act, w_t=t, scratch=(xi, xs), **kw) for a, b_, t in sets]
+            _print_ops_split(f"{what}, {how}, {ulps} ulp", _cold_by_kernel(fns, calls=10),
+                             nbytes, ops)
+            if kw:
+                continue
+            for dfn, why in diags:  # each beside the planned kernel timed again
+                with cuda_build.variant("w8a8_geglu", dfn):
+                    _print_ops_split(f"{what}, a build with {dfn} ({why})",
+                                     _cold_by_kernel(fns, calls=10), nbytes, ops)
+                _print_ops_split(f"{what}, {how} (again)", _cold_by_kernel(fns, calls=10),
+                                 nbytes, ops)
+        w_ks = [b_.t().contiguous().t() for _, b_, _ in sets]   # cuBLASLt's int8 layout
+        cs = [qmm.quantize_rows_int8(a, k)[0] for a, _, _ in sets]
+        _print_ops_split(f"torch._int_mm alone at {what} (codes quantized beforehand)",
+                         _cold_by_kernel([lambda c_=c_, wk=wk: torch._int_mm(c_, wk)
+                                          for c_, wk in zip(cs, w_ks)], calls=10), nbytes, ops)
+        del x, w, s, bias, w_t, xi, xs, want, codes, sets, w_ks, cs
+        torch.cuda.empty_cache()
+
+
+def phase_k25k2_breakdown(dev) -> None:
+    """K25 and K2 by kernel (planned and forced, traced and diagnostic
+    builds, K26 and torch._int_mm beside), then K1, K2, K2-silu, K8, K15,
+    K24, K25 and K26 at their PERF.md shapes as phase 2 times them.  Run on
+    an older tree, it leaves out what that tree's wrappers and sources do
+    not have."""
+    from qdm_tpu_torch.models.llama import LlamaConfig
+
+    rng = np.random.default_rng(18)
+    _k25_breakdown(dev, rng)
+    _k2_breakdown(dev)
+    phase_kernels(dev)
+    c7 = LlamaConfig()
+    m, k, i = L7_BATCH * L7_PROMPT, c7.hidden_size, c7.intermediate_size
+    rows = {"w8a8_geglu_fused": [_check_prefill_matmul("7B prefill [up | gate] (silu)", m, k,
+                                                       2 * i, True, dev)],
+            "w8a8_matmul_fused": [_check_prefill_matmul(f"7B prefill {layer}", m, kk, nn, False,
+                                                        dev) for layer, kk, nn in K15_WIDTHS],
+            "w8a8_matmul": [_check_w8a8_matmul(label, mm, kk, nn, dev, True)
+                            for label, mm, kk, nn, timed in K24_SHAPES if timed],
+            "fused_mlp_decode_i8": [], "fused_o_mlp_decode_i8": [], "fused_o_mlp_decode_i4": []}
+    bf = torch.bfloat16
+    for tag, c, b, group in _mlp_shapes():
+        kk, ii = c.hidden_size, c.intermediate_size
+        rows["fused_mlp_decode_i8"].append(_check_mlp(
+            f"{tag} mlp (norm, silu, +res)", rng, b, kk, ii, 512, "rmsnorm", "silu", True, bf,
+            bf, dev, True))
+        for g in (0, group):
+            rows["fused_o_mlp_decode_i4" if g else "fused_o_mlp_decode_i8"].append(_check_o_mlp(
+                f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * c.head_dim, kk, ii, g,
+                dev, True))
+        torch.cuda.empty_cache()
+    _print_rows(rows)
+
+
 def _print_reprofiled() -> None:
     """The profiled runs timed again because the profiler lost records."""
     from qdm_tpu_torch.utils.timing import REPROFILED
@@ -5379,6 +5598,7 @@ def _merged_profile(label, eng, base, prompts) -> None:
         tok0, caches = e.prefill(prompts, L7_PROMPT + L7_NEW)
         run = e._make_run(3)
         run(tok0, caches, L7_PROMPT)
+        wall, _ = _timed(lambda: run(tok0, caches, L7_PROMPT))
         with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(tok0, caches, L7_PROMPT)
             torch.cuda.synchronize()
@@ -5387,7 +5607,8 @@ def _merged_profile(label, eng, base, prompts) -> None:
         n = _launches_per_step(e, tok0, caches, L7_PROMPT)
         print(f"profile: Llama-2-7B {label}, {w} engine: {n} CUDA launches per decode step "
               f"(embedding, head and argmax included), {n / n_layers:.2f} per layer; device "
-              f"busy {busy:.2f} ms over 3 steps", flush=True)
+              f"busy {busy:.2f} ms over 3 steps, {wall * 1e3:.2f} ms of wall time untraced",
+              flush=True)
         del caches
 
 
@@ -6079,7 +6300,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     ap.add_argument("--breakdown", nargs="?", const="all",
-                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17", "k10k15"),
+                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17", "k10k15", "k25k2"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -6104,7 +6325,13 @@ def main() -> int:
                          "shapes and small M by kernel (planned and forced, diagnostic builds), "
                          "K7's body, SDPA and torch._int_mm beside, then K1, K2, K2-silu, K24, "
                          "K7, K19-K21 and K10's quantized formats at their shapes (plain "
-                         "`--breakdown` prints these last); no other "
+                         "`--breakdown` prints these last); `--breakdown k25k2`: K25 at the 7B "
+                         "and TinyLlama merge_o shapes by kernel (planned, each step's cluster "
+                         "forced, traced steps; K26 beside) and K2 at the 7B [up | gate] and "
+                         "every SD1.5 net_0/proj shape (quantization pass and GEMM apart, "
+                         "planned and each tile width forced, a build without the activation, "
+                         "torch._int_mm beside), then K1, K2, K2-silu, K8, K15, K24, K25 and "
+                         "K26 at their shapes; no other "
                          "phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6133,6 +6360,8 @@ def main() -> int:
             phase_k11k17_breakdown(dev)
         if args.breakdown in ("all", "k10k15"):
             phase_k10k15_breakdown(dev)
+        if args.breakdown in ("all", "k25k2"):
+            phase_k25k2_breakdown(dev)
         _print_reprofiled()
         print(smi_line())
         return 0

@@ -15,9 +15,7 @@
 //   int8 operands (exact int32 sums), m16n8k16 bf16 with f32 sums.  The
 //   two fragment layouts read the same bytes of a 64-byte stage (4t and
 //   4t + 16 of each 32-byte step), so one loader serves both.  NB weight
-//   matrices share the A tile (K8's gate and up).  A may also
-//   arrive as bf16 / f32 values quantized with a static scale as each
-//   stage is consumed (TileA; K25's o_proj).
+//   matrices share the A tile (K8's gate and up).
 // * act_fn and ordered_sum_kernel: the fused MLPs' activation and their
 //   sum of the inner blocks' f32 partials in block order.
 // * finish_tile: the dense epilogue from a shared-memory f32 tile: the
@@ -30,8 +28,6 @@
 // plain versions bit for bit.
 
 #pragma once
-
-#include <type_traits>
 
 #include "w8a8_common.cuh"
 
@@ -159,84 +155,34 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const unsigned* a, cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The A operand of a tile: M rows `ld` elements apart.  T = unsigned char:
-// bytes (int8 codes, or bf16 values two bytes each) that the cp.async ring
-// stages as they are.  T = bf16 / float: values that the ring stages as
-// they are and that are quantized, clip(round(v * inv), +-127), into the
-// ring's int8 A stage when their stage is consumed (the merged o_proj of
-// K25, whose act scale is static, so quantizing is elementwise).
-// `stage` is shared memory for kStages x TM x TK values; `codes`, if not
-// null, receives the codes (written by the blocks of grid column 0, for a
-// caller that checks them).
+// The A operand of a tile: M rows of bytes `ld` apart (int8 codes, or bf16
+// values two bytes each), which the cp.async ring stages as they are.
 template <typename T>
 struct TileA {
   const T* p;
   size_t ld;
-  float inv;
-  T* stage;
-  int8_t* codes;
 };
 
-template <typename T>
-constexpr bool kQuantA = !std::is_same<T, unsigned char>::value;
-
-// Stage `buf`'s A part: TM rows x TK bytes (or TK values) from column k0.
+// Stage `buf`'s A part: TM rows x TK bytes from column k0, one 16-byte chunk
+// per thread.
 template <typename T>
 __device__ __forceinline__ void load_a_stage(const TileA<T>& a, unsigned char (*sa)[TROW],
-                                             int buf, int m0, int M, int k0, int kb1) {
+                                             int m0, int M, int k0, int kb1) {
   const int tid = threadIdx.x;
-  if constexpr (!kQuantA<T>) {  // TM rows x 4 chunks of 16 bytes, one chunk per thread
-    const int r = tid >> 2, c = (tid & 3) * 16;
-    const bool ok = (m0 + r < M) && (k0 + c < kb1);
-    cp_async16(&sa[r][c], ok ? (const void*)(a.p + (size_t)(m0 + r) * a.ld + k0 + c)
-                             : (const void*)a.p, ok);
-  } else {
-    constexpr int EPC = 16 / (int)sizeof(T);  // values per 16-byte chunk
-    constexpr int CPR = TK / EPC;             // chunks per row
-    for (int i = tid; i < TM * CPR; i += kThreads) {
-      const int r = i / CPR, c = (i % CPR) * EPC;
-      const bool ok = (m0 + r < M) && (k0 + c < kb1);
-      cp_async16(&a.stage[((size_t)buf * TM + r) * TK + c],
-                 ok ? (const void*)(a.p + (size_t)(m0 + r) * a.ld + k0 + c) : (const void*)a.p,
-                 ok);
-    }
-  }
-}
-
-// The consumed stage's values -> its int8 A codes (after the stage has landed).
-template <typename T>
-__device__ __forceinline__ void quant_a_stage(const TileA<T>& a, unsigned char (*sa)[TROW],
-                                              int buf, int m0, int M, int k0) {
-  if constexpr (kQuantA<T>) {
-    const int r = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
-    const T* src = a.stage + ((size_t)buf * TM + r) * TK + c;
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      unsigned v = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v |= (unsigned)(unsigned char)quant_i8(to_f32(src[i * 4 + e]), a.inv) << (8 * e);
-      w[i] = v;
-    }
-    const uint4 q = make_uint4(w[0], w[1], w[2], w[3]);
-    *reinterpret_cast<uint4*>(&sa[r][c]) = q;
-    if (a.codes != nullptr && blockIdx.x == 0 && m0 + r < M)
-      *reinterpret_cast<uint4*>(a.codes + (size_t)(m0 + r) * a.ld + k0 + c) = q;
-    __syncthreads();  // the codes are in place for every warp's fragments
-  }
+  const int r = tid >> 2, c = (tid & 3) * 16;
+  const bool ok = (m0 + r < M) && (k0 + c < kb1);
+  cp_async16(&sa[r][c], ok ? (const void*)(a.p + (size_t)(m0 + r) * a.ld + k0 + c)
+                           : (const void*)a.p, ok);
 }
 
 // acc[nb][mi][nj][e]: weight matrix nb, m16 tile mi, n8 tile nj of this
 // warp (columns wn * NJ * 8 + nj * 8 of the tile), fragment element e.
-// A rows m0.., B rows n0.., K bytes [kb0, kb1) (a multiple of 16 bytes;
-// for a quantized A, K values, TK apart).
+// A rows m0.., B rows n0.., K bytes [kb0, kb1) (a multiple of 16 bytes).
 template <int NJ, int NB, bool BF16, typename Acc, typename TA>
 __device__ __forceinline__ void tile_mainloop(Acc (&acc)[NB][2][NJ][4], const TileA<TA>& a,
                                               const unsigned char* const* B, size_t ldb,
                                               int m0, int M, int n0, int N, int kb0, int kb1,
                                               TileSmem<NJ, NB>& sm) {
-  static_assert(!(BF16 && kQuantA<TA>), "a quantized A feeds the int8 mma");
   constexpr int BN = NJ * 32;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -251,7 +197,7 @@ __device__ __forceinline__ void tile_mainloop(Acc (&acc)[NB][2][NJ][4], const Ti
         for (int e = 0; e < 4; ++e) acc[q][mi][nj][e] = (Acc)0;
 
   auto load_stage = [&](int buf, int kb) {
-    load_a_stage(a, sm.a[buf], buf, m0, M, kb, kb1);
+    load_a_stage(a, sm.a[buf], m0, M, kb, kb1);
 #pragma unroll
     for (int q = 0; q < NB; ++q) {
 #pragma unroll
@@ -279,7 +225,6 @@ __device__ __forceinline__ void tile_mainloop(Acc (&acc)[NB][2][NJ][4], const Ti
     if (pre < n_k) load_stage(pre % kStages, kb0 + pre * TK);
     cp_async_commit();
     const int buf = kt % kStages;
-    quant_a_stage(a, sm.a[buf], buf, m0, M, kb0 + kt * TK);
 #pragma unroll
     for (int ks = 0; ks < TK / 32; ++ks) {
       const int kb = ks * 32 + t * 4;
@@ -322,7 +267,7 @@ __device__ __forceinline__ void tile_mainloop(Acc (&acc)[NB][2][NJ][4],
                                               const unsigned char* const* B, size_t ldb,
                                               int m0, int M, int n0, int N, int kb0, int kb1,
                                               TileSmem<NJ, NB>& sm) {
-  const TileA<unsigned char> a{A, lda, 0.0f, nullptr, nullptr};
+  const TileA<unsigned char> a{A, lda};
   tile_mainloop<NJ, NB, BF16>(acc, a, B, ldb, m0, M, n0, N, kb0, kb1, sm);
 }
 

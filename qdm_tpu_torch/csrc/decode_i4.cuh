@@ -39,8 +39,7 @@ __device__ __forceinline__ unsigned nibbles_x16(unsigned w, int plane) {
 //     c = f32(A[:, a0 + p * a_plane + gi*group, +group] . nibbles_p(B_q[:, b0 + gi*group, +group]))
 //         * ws_q[(ws_row0 + p * half/group + gi) * ws_ld + col]
 //     y = first ? c : y + c
-// A (M, lda) int8 codes (or bf16 / f32 values quantized as their stage is
-// consumed, TileA); B_q (N, ldb) packed bytes; half a multiple of TK, group
+// A (M, lda) int8 codes; B_q (N, ldb) packed bytes; half a multiple of TK, group
 // a multiple of 32 dividing half; 16-byte aligned rows and offsets.
 template <int NJ, int NB, typename TA>
 __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4], const TileA<TA>& a,
@@ -72,7 +71,7 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4], cons
   const int a_end = a0 + a_plane + half;   // one past A's last column
   auto load_stage = [&](int buf, int s) {
     const int plane = s / per_plane, kb = (s % per_plane) * TK;
-    load_a_stage(a, sm.a[buf], buf, m0, M, a0 + plane * a_plane + kb, a_end);
+    load_a_stage(a, sm.a[buf], m0, M, a0 + plane * a_plane + kb, a_end);
 #pragma unroll
     for (int q = 0; q < NB; ++q) {
 #pragma unroll
@@ -103,7 +102,6 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4], cons
     cp_async_commit();
     const int buf = kt % kStages;
     const int plane = kt / per_plane, kb_stage = (kt % per_plane) * TK;
-    quant_a_stage(a, sm.a[buf], buf, m0, M, a0 + plane * a_plane + kb_stage);
 #pragma unroll
     for (int ks = 0; ks < TK / 32; ++ks) {
       const int kb = ks * 32 + t * 4;
@@ -167,8 +165,7 @@ __device__ __forceinline__ void i4_group_dot_tile(float (&y)[NB][2][NJ][4],
                                                   const float* const* ws, size_t ws_ld,
                                                   int ws_row0, int m0, int M, int n0, int N,
                                                   TileSmem<NJ, NB>& sm) {
-  const TileA<unsigned char> a{reinterpret_cast<const unsigned char*>(A), lda, 0.0f, nullptr,
-                               nullptr};
+  const TileA<unsigned char> a{reinterpret_cast<const unsigned char*>(A), lda};
   i4_group_dot_tile<NJ, NB>(y, a, a0, a_plane, B, ldb, b0, half, group, ws, ws_ld, ws_row0, m0,
                             M, n0, N, sm);
 }

@@ -56,9 +56,9 @@ extern "C" int qdm_decode_mlp_i8(const void* x, int x_dtype, const void* wg_t, c
       static_cast<const float*>(su), scl, act, static_cast<int8_t*>(ai), M, K, I);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int n_j = I / bj;
-  down_partial_kernel<false><<<dim3((K + 63) / 64, n_j, mt), kThreads, 0, s>>>(
+  down_partial_kernel<<<dim3((K + 63) / 64, n_j, mt), kThreads, 0, s>>>(
       static_cast<const int8_t*>(ai), static_cast<const int8_t*>(wd_t),
-      static_cast<const float*>(sd), scl, static_cast<float*>(part), M, K, I, bj, Finish{});
+      static_cast<const float*>(sd), scl, static_cast<float*>(part), M, K, I, bj);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int blocks = (int)(((size_t)M * K + 255) / 256);
   if (x_dtype == kDtypeBF16)

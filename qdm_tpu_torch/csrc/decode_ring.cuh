@@ -85,9 +85,15 @@ struct Ring {
     __syncwarp();
     if ((threadIdx.x & 31) == 0) hop::mbar_arrive(empty(q % stages));
   }
-  // producer: until stage q's buffer is free (stage q - stages consumed)
+  // producer: until stage q's buffer is free (stage q - stages consumed); the
+  // consumers' reads of it, acquired through the barrier, ordered before the
+  // TMA write that refills it (a proxy fence: without it K25's ring was seen
+  // to refill a buffer under a slow reader, PERF.md §6)
   __device__ void wait_empty(int q) const {
-    if (q >= stages) hop::mbar_wait(empty(q % stages), (uint32_t)((q / stages - 1) & 1));
+    if (q >= stages) {
+      hop::mbar_wait(empty(q % stages), (uint32_t)((q / stages - 1) & 1));
+      hop::fence_proxy_async();
+    }
   }
 };
 

@@ -1,7 +1,7 @@
-// Shared pieces of the W8A8 kernels (w8a8_fused_epi.cu, w8a8_geglu.cu,
-// w8a8_matmul.cu); the W4A16 kernel reuses the cp.async helpers.
+// Shared pieces of the W8A8 kernels (w8a8_fused_epi.cu, w8a8_matmul.cu); the
+// W4A16 kernel reuses the cp.async helpers.
 //
-// Both W8A8 kernels run in two passes:
+// K1 and K24 run in two passes (K24 in the second alone):
 //
 //   1. quant_rows: one warp per row of x (M, K), bf16 or f32. It takes the
 //      row's absmax (clamped at 1e-5), writes int8 codes
@@ -11,9 +11,8 @@
 //      not quantize_act_per_token_int's x / (absmax / 127).
 //   2. w8a8_gemm: a tiled int8 x int8 -> int32 product on the tensor cores
 //      (mma.sync m16n8k32 s8.s8.s32), with the f32 dequant epilogue fused:
-//      y = acc * (xs * ws) + b (+ residual), y = acc * (xs * ws) without a
-//      bias (BIAS false: w8a8_matmul.cu), or for GEGLU h * act(g) from two
-//      column halves accumulated in one block, act the tanh GELU or silu.
+//      y = acc * (xs * ws) + b (+ residual), or y = acc * (xs * ws) without
+//      a bias (BIAS false: w8a8_matmul.cu).
 //      XS_FIRST (K24, the pre-quantized w8a8_matmul of w8a8_matmul.cu, which
 //      skips pass 1) multiplies left to right instead, y = (acc * xs) * ws,
 //      as its TPU kernel does (quant_matmul.py:488); the two orders differ
@@ -193,14 +192,8 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The GLU activations of K2 (w8a8_matmul.cu): silu there, and the tanh GELU
 constexpr int kGluSilu = 0, kGluGelu = 1;
-
-// silu(g) = g * (1 / (1 + exp(-g))), exp in f64 rounded to f32: the plain
-// version's bits on every device.
-__device__ __forceinline__ float silu_f64exp(float g) {
-  const float e = (float)exp(-(double)g);
-  return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, e)));
-}
 
 __device__ __forceinline__ float gelu_tanh(float g) {
   // jax.nn.gelu(approximate=True): g * 0.5 * (1 + tanh(sqrt(2/pi) * (g + 0.044715 g^3)))
@@ -211,18 +204,14 @@ __device__ __forceinline__ float gelu_tanh(float g) {
   return __fmul_rn(g, cdf);
 }
 
-// GEGLU=false: block covers output columns [bx*BN, bx*BN + BN) of a plain
-//   dense layer; smem weight row r is weight column n0 + r.
-// GEGLU=true: block covers output columns [bx*BN/2, +BN/2); smem weight rows
-//   [0, BN/2) hold the hidden columns and [BN/2, BN) the gate columns
-//   half + n0 + r.  Each warp takes 16 hidden and the matching 16 gate
-//   columns, so one thread holds h and g of the same output element.
-template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu, bool XS_FIRST = false>
+// A block covers output columns [bx*BN, bx*BN + BN); smem weight row r is
+// weight column n0 + r.
+template <typename OutT, bool BIAS = true, bool XS_FIRST = false>
 __global__ void __launch_bounds__(kGemmThreads)
 w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
                  const int8_t* __restrict__ wt, const float* __restrict__ ws,
                  const float* __restrict__ bias, const OutT* __restrict__ res,
-                 OutT* __restrict__ out, int M, int Kp, int n_out, int half) {
+                 OutT* __restrict__ out, int M, int Kp, int n_out) {
   __shared__ __align__(16) int8_t As[2][BM][SROW];
   __shared__ __align__(16) int8_t Bs[2][BN][SROW];
 
@@ -231,7 +220,7 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * (GEGLU ? BN / 2 : BN);
+  const int n0 = blockIdx.x * BN;
 
   // each thread copies 2 chunks of 16 bytes of A and 2 of B per stage
   auto load_stage = [&](int buf, int k0) {
@@ -243,9 +232,7 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
       const int gm = m0 + r;
       const bool pa = (gm < M) && (k < Kp);
       cp_async16(&As[buf][r][kc], pa ? (const void*)(xi + (size_t)gm * Kp + k) : (const void*)xi, pa);
-      int wrow;
-      if (GEGLU) wrow = (r < BN / 2) ? (n0 + r) : (half + n0 + r - BN / 2);
-      else wrow = n0 + r;
+      const int wrow = n0 + r;
       const bool pb = (k < Kp);
       cp_async16(&Bs[buf][r][kc], pb ? (const void*)(wt + (size_t)wrow * Kp + k) : (const void*)wt, pb);
     }
@@ -260,10 +247,7 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
       for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
 
   // smem weight row of this warp's n8 tile nj
-  auto b_row = [&](int nj) -> int {
-    if (GEGLU) return (nj < 2) ? (wn * 16 + nj * 8) : (BN / 2 + wn * 16 + (nj - 2) * 8);
-    return wn * 32 + nj * 8;
-  };
+  auto b_row = [&](int nj) -> int { return wn * 32 + nj * 8; };
 
   const int n_k = (Kp + BK - 1) / BK;
   load_stage(0, 0);
@@ -309,51 +293,32 @@ w8a8_gemm_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
       const int row = m0 + wm * WM + mi * 16 + g + hr * 8;
       if (row >= M) continue;
       const float xsr = xs[row];
-      if (GEGLU) {
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
+      for (int nj = 0; nj < NJ; ++nj) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + wn * 16 + nj * 8 + t * 2 + e;
-            const int gcol = half + col;
-            const float h = __fadd_rn(
-                __fmul_rn((float)acc[mi][nj][hr * 2 + e], __fmul_rn(xsr, ws[col])), bias[col]);
-            const float gg = __fadd_rn(
-                __fmul_rn((float)acc[mi][nj + 2][hr * 2 + e], __fmul_rn(xsr, ws[gcol])), bias[gcol]);
-            const float a = ACT == kGluSilu ? silu_f64exp(gg) : gelu_tanh(gg);
-            out[(size_t)row * half + col] = from_f32<OutT>(__fmul_rn(h, a));
-          }
-        }
-      } else {
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + wn * 32 + nj * 8 + t * 2 + e;
-            if (col >= n_out) continue;
-            const float a = (float)acc[mi][nj][hr * 2 + e];
-            float y = XS_FIRST ? __fmul_rn(__fmul_rn(a, xsr), ws[col])
-                               : __fmul_rn(a, __fmul_rn(xsr, ws[col]));
-            if (BIAS) y = __fadd_rn(y, bias[col]);
-            if (res != nullptr) y = __fadd_rn(y, to_f32(res[(size_t)row * n_out + col]));
-            out[(size_t)row * n_out + col] = from_f32<OutT>(y);
-          }
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + wn * 32 + nj * 8 + t * 2 + e;
+          if (col >= n_out) continue;
+          const float a = (float)acc[mi][nj][hr * 2 + e];
+          float y = XS_FIRST ? __fmul_rn(__fmul_rn(a, xsr), ws[col])
+                             : __fmul_rn(a, __fmul_rn(xsr, ws[col]));
+          if (BIAS) y = __fadd_rn(y, bias[col]);
+          if (res != nullptr) y = __fadd_rn(y, to_f32(res[(size_t)row * n_out + col]));
+          out[(size_t)row * n_out + col] = from_f32<OutT>(y);
         }
       }
     }
   }
 }
 
-template <typename OutT, bool GEGLU, bool BIAS = true, int ACT = kGluGelu, bool XS_FIRST = false>
+template <typename OutT, bool BIAS = true, bool XS_FIRST = false>
 cudaError_t launch_gemm(const int8_t* xi, const float* xs, const int8_t* wt, const float* ws,
                         const float* bias, const void* res, void* out, int M, int Kp,
-                        int n_out, int half, cudaStream_t stream) {
-  const int cols_per_block = GEGLU ? BN / 2 : BN;
-  const int n_cols = GEGLU ? half : n_out;
-  dim3 grid((n_cols + cols_per_block - 1) / cols_per_block, (M + BM - 1) / BM);
-  w8a8_gemm_kernel<OutT, GEGLU, BIAS, ACT, XS_FIRST><<<grid, kGemmThreads, 0, stream>>>(
+                        int n_out, cudaStream_t stream) {
+  dim3 grid((n_out + BN - 1) / BN, (M + BM - 1) / BM);
+  w8a8_gemm_kernel<OutT, BIAS, XS_FIRST><<<grid, kGemmThreads, 0, stream>>>(
       xi, xs, wt, ws, bias, static_cast<const OutT*>(res), static_cast<OutT*>(out), M, Kp,
-      n_out, half);
+      n_out);
   return cudaGetLastError();
 }
 

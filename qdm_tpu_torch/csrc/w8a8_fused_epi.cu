@@ -51,9 +51,9 @@ extern "C" int qdm_w8a8_fused_epi(const void* x, int x_dtype, const void* wt, co
   const float* wsf = static_cast<const float*>(ws);
   const float* bf = static_cast<const float*>(bias);
   if (out_dtype == kDtypeBF16)
-    err = launch_gemm<__nv_bfloat16, false>(xi, xs, w, wsf, bf, res, out, M, Kp, n_out, 0, s);
+    err = launch_gemm<__nv_bfloat16>(xi, xs, w, wsf, bf, res, out, M, Kp, n_out, s);
   else if (out_dtype == kDtypeF32)
-    err = launch_gemm<float, false>(xi, xs, w, wsf, bf, res, out, M, Kp, n_out, 0, s);
+    err = launch_gemm<float>(xi, xs, w, wsf, bf, res, out, M, Kp, n_out, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

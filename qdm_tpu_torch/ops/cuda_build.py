@@ -35,7 +35,7 @@ ENTRY_POINTS = {
     "w8a8_fused_epi": ("qdm_w8a8_fused_epi",
                        (P, I, P, P, P, P, P, I, P, P, P, P, F, I, I, I, I, P)),
     "w8a8_geglu": ("qdm_w8a8_geglu",
-                   (P, I, P, P, P, P, I, P, P, I, I, I, I, I, P)),
+                   (P, I, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, P)),
     "w8a8_matmul_fused": ("qdm_w8a8_matmul_fused",
                           (P, I, P, P, P, I, P, P, I, I, I, I, I, I, I, P)),
     "w4a16_matmul": ("qdm_w4a16_matmul",
@@ -71,7 +71,7 @@ ENTRY_POINTS = {
                        I, I, I, P)),
     "decode_o_mlp_i8": ("qdm_decode_o_mlp_i8",
                         (P, I, P, P, P, I, P, P, P, P, P, P, P, P, P, F, I, P, I, P, P, P, P, P,
-                         P, P, I, I, I, I, I, P)),
+                         I, I, I, I, I, I, I, I, I, I, I, I, P)),
     "decode_o_mlp_i4": ("qdm_decode_o_mlp_i4",
                         (P, I, P, P, P, I, P, P, P, P, P, P, P, P, P, F, I, P, I, P, P, P, P, P,
                          I, I, I, I, I, I, I, I, I, I, I, I, I, P)),
@@ -90,7 +90,7 @@ ENTRY_POINTS = {
     "w8a8_matmul": ("qdm_w8a8_matmul", (P, P, P, P, P, I, I, I, I, P)),
 }
 SOURCE_OF = {"decode_dense": "decode_dense_bf16", "decode_dense_i8": "decode_dense",
-             "w8a8_matmul_fused": "w8a8_matmul"}
+             "w8a8_matmul_fused": "w8a8_matmul", "w8a8_geglu": "w8a8_matmul"}
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}

@@ -130,7 +130,6 @@ _FLASH_BYTES = 3 * 2 ** 20    # decode_kernels.py:1071: above it the TPU runs th
 _NORMS = {None: 0, "rmsnorm": 1, "layernorm": 2}
 _ACTS = {"silu": 0, "gelu": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TK_BYTES = 64                 # the tiles' K stage (csrc/decode_common.cuh TK)
 
 # quantized cache formats: kernel code of each (csrc/decode_attn_q.cuh) and
 # its launch counters (one-pass kernel, flash decode)
@@ -1822,19 +1821,6 @@ def fused_moe_mlp_decode_i4(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2, act_scale
     return out
 
 
-# zeroed int32 counters of the merged kernels (the o_proj grid's barrier, the
-# down blocks' tickets), per device: each launch sets the counters it used
-# back to 0, so launches on one stream share them
-_COUNTERS: dict = {}
-
-
-def _counters(dev, n: int) -> torch.Tensor:
-    c = _COUNTERS.get(dev)
-    if c is None or c.numel() < n:
-        c = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-    return c
-
-
 def _o_mlp_operands(what, attn, residual, norm_scale, act, out_dtype, hd_w, k_w, w_t, shapes,
                     scratch, inner):
     """Card checks shared by K25 and K26; returns the contiguous operands
@@ -1882,7 +1868,10 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
                           eps: float = 1e-6, act: str = "silu", block_j: int = 512,
                           out_dtype=None,
                           w_t: Optional[Tuple[torch.Tensor, ...]] = None,
-                          scratch: Optional[Tuple] = None):
+                          scratch: Optional[Tuple] = None,
+                          splits: Optional[Sequence[int]] = None,
+                          stages: Optional[Sequence[int]] = None,
+                          trace: Optional[dict] = None):
     """Merged o_proj + residual + RMSNorm + int8 MLP + residual (K25):
     attn (B, hd) -> x2 = o_proj(attn) + residual in f32 -> x2 +
     down(act(gate(n)) * up(n)), n = RMSNorm(x2), in the residual's dtype.
@@ -1891,10 +1880,12 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
     (act_scales (2,) = [s_in, s_mid]).  w_t, if given, holds the transposed
     copies (o (K, hd), gate (I, K), up (I, K), down (K, I)); scratch, if
     given, (attn codes (B, hd) or None, x2 (B, K) f32, xi (B, K), mid
-    (B, I)) receive what the kernel computes on the way.  The o_proj grid,
-    K/64 x ceil(B/32) blocks, runs as a cooperative launch (a barrier
-    across it): a batch whose grid cannot be resident at once on the card
-    raises."""
+    (B, I)) receive what the kernel computes on the way.  On the card:
+    ``splits``, three counts 1-8 (0 plans that step), forces the clusters
+    of the o_proj, gate / up and down steps, and ``stages`` (three counts,
+    0 plans that step) their rings (tests and profiles only: the result is
+    the same; None plans them, :func:`o_mlp_i8_plan`), and ``trace``, a
+    dict, receives the plan."""
     out_dtype = out_dtype or residual.dtype
     name = "fused_o_mlp_decode_i8"
     if not _on_card(attn, name):
@@ -1906,30 +1897,36 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
     if w_gate.shape != (k, inner) or w_up.shape != (k, inner) or w_down.shape != (inner, k):
         raise ValueError(f"{name}: MLP weights {tuple(w_gate.shape)}, {tuple(w_up.shape)}, "
                          f"{tuple(w_down.shape)} for K={k}")
-    if hd_w % TK_BYTES or k % 16 or inner % LANE:
-        raise ValueError(f"{name}: hd={hd_w} must be a multiple of {TK_BYTES}, K={k} of 16 "
-                         f"and I={inner} of {LANE}")
+    if hd_w % 128 or k % 128 or inner % LANE:
+        raise ValueError(f"{name}: hd={hd_w}, K={k} and I={inner} must be multiples of 128 "
+                         "(the steps stream 128-byte stages of 64-column tiles)")
     wts = w_t or tuple(transposed_weight(t) for t in (w_o_i8, w_gate, w_up, w_down))
     attn, residual, codes, x2, xi, mid = _o_mlp_operands(
         name, attn, residual, norm_scale, act, out_dtype, hd_w, k, wts,
         ((k, hd_w), (inner, k), (inner, k), (k, inner)), scratch, inner)
     dev = attn.device
-    wos = _f32_vec(wo_scale, k, "wo_scale", dev)
-    sg = _f32_vec(w_scales[0], inner, "gate scales", dev)
-    su = _f32_vec(w_scales[1], inner, "up scales", dev)
-    sd = _f32_vec(w_scales[2], k, "down scales", dev)
+    # the column scales and the norm scale are staged 16 bytes at a time
+    wos, sg, su, sd, ns = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+        _f32_vec(wo_scale, k, "wo_scale", dev), _f32_vec(w_scales[0], inner, "gate scales", dev),
+        _f32_vec(w_scales[1], inner, "up scales", dev), _f32_vec(w_scales[2], k, "down scales",
+                                                                  dev),
+        _f32_vec(norm_scale, k, "norm_scale", dev)))
     sao = _f32_vec(attn_scale, 1, "attn_scale", dev)
     scl = _f32_vec(act_scales, 2, "act_scales", dev)
-    ns = _f32_vec(norm_scale, k, "norm_scale", dev)
+    if x2.data_ptr() % 16:
+        raise ValueError(f"{name}: the x2 scratch must be 16-byte aligned (the gate / up step "
+                         "reads it 16 bytes at a time)")
     bj = pick_block(inner, block_j)
     m = attn.shape[0]
     out = torch.empty((m, k), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    n_j, mt = inner // bj, qmm._cdiv(m, 32)
-    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
-    ss = torch.empty((m, qmm._cdiv(k, 64)), dtype=torch.float64, device=dev)
-    cnt = _counters(dev, 2 + qmm._cdiv(k, 64) * mt)
+    if mid.data_ptr() % 16 or xi.data_ptr() % 4:
+        raise ValueError(f"{name}: the mid codes' scratch must be 16-byte aligned and the MLP "
+                         "input codes' 4-byte aligned (copied and stored that many at a time)")
+    plan = o_mlp_i8_plan(m, hd_w, k, inner, bj, qmm.sm_count(dev),
+                         tuple(splits) if splits else None, tuple(stages) if stages else None)
+    ss = torch.empty((m, k // 64), dtype=torch.float64, device=dev)
     fn = cuda_build.kernel("decode_o_mlp_i8")
     with torch.cuda.device(dev):
         err = fn(attn.data_ptr(), _DTYPE_CODE[attn.dtype], wts[0].data_ptr(), wos.data_ptr(),
@@ -1937,9 +1934,12 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
                  wts[2].data_ptr(), wts[3].data_ptr(), sg.data_ptr(), su.data_ptr(),
                  sd.data_ptr(), sao.data_ptr(), scl.data_ptr(), ns.data_ptr(), ctypes.c_float(eps),
                  _ACTS[act], out.data_ptr(), _DTYPE_CODE[out_dtype], _ptr(codes), x2.data_ptr(),
-                 ss.data_ptr(), xi.data_ptr(), mid.data_ptr(), part.data_ptr(), cnt.data_ptr(),
-                 m, hd_w, k, inner, bj, _stream(attn))
+                 ss.data_ptr(), xi.data_ptr(), mid.data_ptr(), m, hd_w, k, inner, bj,
+                 plan["rows"], *(v for sp_st in zip(plan["splits"], plan["stages"]) for v in sp_st),
+                 _stream(attn))
     cuda_build.check(err, name)
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES[name] += 1
     return out
 
@@ -1952,6 +1952,15 @@ def i4_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, group: int,
     return (1024 + stages * nb * 64 * 128 + 2 * rs * (abytes + 16)
             + nb * 2 * (abytes // group) * 64 * 4
             + g_defer * qmm._cdiv(tr, 16) * 4 * 256 * 4 + parts * rs * 64 * 4
+            + (rs * 68 * 4 if tile else 0) + 1024)
+
+
+def i8_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, parts: int,
+                 tile: bool) -> int:
+    """Shared memory of one block of a step of K25
+    (``csrc/decode_o_mlp_i8.cu::I8StepLayout``)."""
+    rs = min(tr, qmm._round_up(m, 8))
+    return (1024 + stages * nb * 64 * 128 + rs * (abytes + 16) + parts * rs * 64 * 4
             + (rs * 68 * 4 if tile else 0) + 1024)
 
 
@@ -2014,6 +2023,89 @@ def _i4_steps_plan(what: str, m: int, hd: int, k: int, inner: int, bj: int, grou
                               + (f"HD={hd}, " if 0 in steps else "")
                               + f"K={k}, I={inner}, group {group}"
                               + (f", splits {splits}" if splits else ""))
+
+
+# K25's steps (csrc/decode_o_mlp_i8.cu): the cost its plan is chosen by, in us, fit to
+# the (cluster, ring) sweep of chip_smoke.py --breakdown k25k2 at the 7B and TinyLlama
+# merge_o shapes (PERF.md §6): each wave of blocks a fixed cost and its prologue's
+# staged bytes; the busiest SM's weight bytes at the rate an SM streams, or at the rate
+# its rings keep in flight where that is less; each block of a cluster a little more
+I8_WAVE_US, I8_STAGE_KB_PER_US, I8_SM_KB_PER_US, I8_RING_TRIP_US, I8_SPLIT_US = (
+    2.0, 4.0, 30.0, 0.8, 0.5)
+I8_SPLITS = (1, 2, 4, 8)      # clusters of 3 or 5-7 read slower (PERF.md §7)
+I8_BLOCKS_PER_SM = 4          # K25's 288 threads at the registers it is built for
+
+
+def i8_step_cost(m: int, tr: int, step: int, n: int, contraction: int, unit: int, split: int,
+                 stages: int, sms: int) -> float:
+    """The cost of one K25 step (0 o_proj, 1 gate / up, 2 down) over ``n``
+    output columns and a ``contraction`` of ``unit``-byte units shared out
+    among ``split`` blocks a cluster, with a ring of ``stages``."""
+    nb = 2 if step == 1 else 1
+    per = qmm._cdiv(contraction // unit, split)
+    smem = i8_step_smem(m, tr, nb, stages, per * unit, per if step == 2 else nb, step == 0)
+    per_sm = min(I8_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024))
+    blocks = qmm._cdiv(n, 64) * qmm._cdiv(m, tr) * split
+    waves = qmm._cdiv(blocks, sms * per_sm)
+    rs = min(tr, qmm._round_up(m, 8))
+    staged_kb = rs * per * unit * (2, 4, 0)[step] / 1024   # the prologue's inputs
+    busy_kb = qmm._cdiv(blocks, sms) * per * unit * 64 * nb / 1024
+    in_flight_kb = min(per_sm, qmm._cdiv(blocks, sms)) * stages * nb * 8
+    return (waves * (I8_WAVE_US + staged_kb / I8_STAGE_KB_PER_US)
+            + max(busy_kb / I8_SM_KB_PER_US, busy_kb * I8_RING_TRIP_US / in_flight_kb)
+            + I8_SPLIT_US * split)
+
+
+@functools.lru_cache(maxsize=None)
+def o_mlp_i8_plan(m: int, hd: int, k: int, inner: int, bj: int, sms: int,
+                  splits: Optional[Tuple[int, int, int]] = None,
+                  stages: Optional[Tuple[int, int, int]] = None) -> dict:
+    """K25's launch plan: ``rows`` of x a tile (16, or 32 above 16; fewer
+    where a step would not fit) and, for each step (o_proj, gate / up,
+    down), the blocks of a cluster along its contraction (I8_SPLITS; o_proj
+    and gate / up share out 128-byte stages, down its inner blocks) and the
+    ring's stages (2 up to 128 KB; the ring stages a row of the attention
+    output, f32 at most, for o_proj, and the norm scale's slice and a row of
+    x2 for gate / up, before it streams) of least :func:`i8_step_cost`:
+    fewer, shallower rings where they let every block of a step run in one
+    wave.  ``splits`` and ``stages`` (three counts each, 0 plans that step)
+    force them.  Cached, as :func:`dense_plan` is."""
+    what = "fused_o_mlp_decode_i8"
+    shapes = ((k, hd, 128), (inner, k, 128), (k, inner, bj))
+    for pos, (forced, lo, hi) in enumerate(((splits, 1, I4_MAX_SPLIT), (stages, 2, 16))):
+        for step, v in enumerate(forced or (0, 0, 0)):
+            top = min(hi, shapes[step][1] // shapes[step][2]) if pos == 0 else hi // (
+                2 if step == 1 else 1)
+            if v and not lo <= v <= top:
+                raise ValueError(f"{what}: step {step}'s {('split', 'stages')[pos]} {v} outside "
+                                 f"{lo}..{top}")
+    for tr in ((32, 16, 8) if m > 16 else (16, 8)):
+        plan = []
+        for step, (n, contraction, unit) in enumerate(shapes):
+            nb = 2 if step == 1 else 1
+            units = contraction // unit
+            best = None
+            for sp in ([splits[step]] if splits and splits[step] else
+                       [s_ for s_ in I8_SPLITS if s_ <= units]):
+                per = qmm._cdiv(units, sp)
+                need = (1, 2, 0)[step] * per * unit * 4
+                for st in ([stages[step]] if stages and stages[step] else range(2, 16 // nb + 1)):
+                    if (st * nb * 64 * 128 < need or i8_step_smem(
+                            m, tr, nb, st, per * unit, per if step == 2 else nb, step == 0)
+                            > _SMEM_MAX):
+                        continue
+                    cost = i8_step_cost(m, tr, step, n, contraction, unit, sp, st, sms)
+                    if best is None or cost < best[0]:
+                        best = (cost, sp, st)
+            if best is None:
+                break
+            plan.append(best[1:])
+        if len(plan) == 3:
+            return dict(rows=tr, splits=tuple(p_[0] for p_ in plan),
+                        stages=tuple(p_[1] for p_ in plan))
+    raise NotImplementedError(f"{what}: no plan fits shared memory for M={m}, HD={hd}, K={k}, "
+                              f"I={inner}" + (f", splits {splits}" if splits else "")
+                              + (f", stages {stages}" if stages else ""))
 
 
 @functools.lru_cache(maxsize=None)

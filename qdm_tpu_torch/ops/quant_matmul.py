@@ -20,8 +20,9 @@ and W4A8 paths:
   ``w8a8_matmul_pallas``).
 * :func:`w8a8_geglu_fused` — the same quantization, two int8 GEMMs on the
   ``[hidden | gate]`` column halves, ``h * act(g)`` with the tanh GELU
-  (the SD UNet) or silu (the LLM prefill's ``[up | gate]``).  CUDA kernel
-  ``csrc/w8a8_geglu.cu`` (replaces the Pallas ``_w8a8_geglu_kernel``).
+  (the SD UNet) or silu (the LLM prefill's ``[up | gate]``).  K15's GEMM
+  with a second epilogue in ``csrc/w8a8_matmul.cu`` (K2; replaces the
+  Pallas ``_w8a8_geglu_kernel``), launched as :func:`w8a8_plan` says.
 * :func:`w4a16_matmul` — block-strided int4 weights, group dequant
   ``(code - zero) * scale`` rounded to x's dtype, GEMM with f32
   accumulation.  CUDA kernel ``csrc/w4a16_matmul.cu`` (replaces
@@ -445,28 +446,30 @@ def w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=None,
 W8A8_BM, W8A8_BNS, W8A8_MAX_STAGES = 128, (256, 128), 8
 
 
-def w8a8_smem(bn: int, stages: int) -> int:
+def w8a8_smem(bn: int, stages: int, glu: bool = False) -> int:
     """Bytes of dynamic shared memory K15's GEMM asks for (the kernel's
-    Layout): alignment slack, the ring, the consumers' scales and output
-    staging rows, the barriers."""
-    return (1024 + stages * (W8A8_BM + bn) * 128 + 2 * (bn + 64) * 4 + 8 * 16 * 144
-            + 16 * stages)
+    Layout): alignment slack, the ring, the consumers' scales (K2's ``glu``
+    epilogue: and biases) and output staging rows, the barriers."""
+    return (1024 + stages * (W8A8_BM + bn) * 128 + 2 * ((2 if glu else 1) * bn + 64) * 4
+            + 8 * 16 * 144 + 16 * stages)
 
 
 @functools.lru_cache(maxsize=None)
-def w8a8_plan(m: int, n: int, sms: int, bn: int = 0) -> Tuple[int, int, int]:
-    """K15's launch plan ``(bn, stages, grid)`` for M tokens and N' output
-    columns on a card of ``sms`` SMs: tiles of 128 x 256, or of 128 x 128
-    where the wider tiles number fewer than the SMs (``chip_smoke.py
-    --breakdown k10k15``, PERF.md §6: 256 won at every 7B width from M 2048
-    on, 128 below); the deepest ring (2-8 stages) shared memory holds; one
-    persistent block a tile up to one an SM.  ``bn`` forces the tile width
-    (tests and profiles).  Cached: a prefill asks for the same three shapes
-    in every layer."""
+def w8a8_plan(m: int, n: int, sms: int, bn: int = 0, glu: bool = False) -> Tuple[int, int, int]:
+    """The launch plan ``(bn, stages, grid)`` of K15's GEMM for M tokens and
+    N' weight columns on a card of ``sms`` SMs (``glu``: K2's epilogue, N' =
+    2 half, a tile's bn columns half hidden, half gate, bn / 2 outputs):
+    tiles of 128 x 256, or of 128 x 128 where the wider tiles number fewer
+    than the SMs (``chip_smoke.py --breakdown k10k15``, PERF.md §6: 256 won
+    at every 7B width from M 2048 on, 128 below); the deepest ring (2-8
+    stages) shared memory holds; one persistent block a tile up to one an
+    SM.  ``bn`` forces the tile width (tests and profiles).  Cached: a
+    prefill asks for the same few shapes in every layer."""
     if bn and bn not in W8A8_BNS:
         raise ValueError(f"K15 plan: tiles of 128 x {bn}; the kernel takes {W8A8_BNS}")
     bn = bn or (256 if _cdiv(m, W8A8_BM) * _cdiv(n, 256) >= sms else 128)
-    stages = max(st for st in range(2, W8A8_MAX_STAGES + 1) if w8a8_smem(bn, st) <= SMEM_MAX)
+    stages = max(st for st in range(2, W8A8_MAX_STAGES + 1)
+                 if w8a8_smem(bn, st, glu) <= SMEM_MAX)
     return bn, stages, min(_cdiv(m, W8A8_BM) * _cdiv(n, bn), sms)
 
 
@@ -553,11 +556,12 @@ def w8a8_matmul(x_i8, w_i8, x_scale, w_scale, out_dtype=torch.bfloat16,
 
 
 def w8a8_geglu_fused(x, w_i8, w_scale, bias, out_dtype=None, act: str = "gelu",
-                     w_t: Optional[torch.Tensor] = None, scratch=None):
+                     w_t: Optional[torch.Tensor] = None, scratch=None, bn: int = 0):
     """x (M, K) through an int8 gated projection (K', 2*half) ->
     (M, half) = h * act(g), columns laid out [hidden | gate]; act the tanh
     GELU (``"gelu"``) or :func:`silu` (``"silu"``, the LLM's ``[up |
-    gate]``).  w_t and scratch as in :func:`w8a8_matmul_fused_epi`."""
+    gate]``).  w_t and scratch as in :func:`w8a8_matmul_fused_epi`; ``bn``
+    as in :func:`w8a8_matmul_fused` (a tile of bn / 2 outputs)."""
     out_dtype = out_dtype or x.dtype
     if act not in _GLU_ACTS:
         raise ValueError(f"act {act!r}: 'gelu' or 'silu'")
@@ -575,11 +579,15 @@ def w8a8_geglu_fused(x, w_i8, w_scale, bias, out_dtype=None, act: str = "gelu",
     if m == 0:
         return out
     xi, xs = _scratch(scratch, m, kp, x.device)
+    # the epilogue reads the scales and biases in pairs
+    w_scale = w_scale if w_scale.data_ptr() % 8 == 0 else w_scale.clone()
+    bias = bias if bias.data_ptr() % 8 == 0 else bias.clone()
+    plan = w8a8_plan(m, n2, sm_count(x.device), bn, glu=True)
     fn = cuda_build.kernel("w8a8_geglu")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), w_scale.data_ptr(),
                  bias.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(),
-                 xs.data_ptr(), m, k, kp, half, _GLU_ACTS[act],
+                 xs.data_ptr(), m, k, kp, half, _GLU_ACTS[act], *plan,
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "w8a8_geglu_fused")
     LAUNCHES["w8a8_geglu_fused"] += 1

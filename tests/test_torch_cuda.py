@@ -1297,6 +1297,87 @@ def test_prefill_matmuls_match_plain_on_card(m, k, n, glu, dtype):
         assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
+# K2 on K15's body: (M, K, 2 half, act): M 1, 17, 2048 and 16384 at SD1.5's widest and the
+# 7B prefill's K (half cut), K < K' (40 of 64), and every SD1.5 net_0/proj width
+GLU_CASES = [(1, 320, 2560, "gelu"), (17, 320, 2560, "gelu"), (2048, 320, 2560, "gelu"),
+             (16384, 320, 2560, "gelu"), (4096, 640, 5120, "gelu"), (1024, 1280, 10240, "gelu"),
+             (256, 1280, 10240, "gelu"), (37, 40, 256, "gelu"), (1, 4096, 2048, "silu"),
+             (17, 4096, 2048, "silu"), (2048, 4096, 2048, "silu"), (16384, 256, 1024, "silu"),
+             (37, 40, 256, "silu")]
+_GLU_WANT = {}
+
+
+def _glu_plain(m, k, n, act, dtype, dev):
+    """K2's operands at (m, k, n) (a drawn bias for gelu, the LLM's zero bias
+    for silu), its plain output and codes, computed once a case."""
+    key = (m, k, n, act, dtype)
+    if key not in _GLU_WANT:
+        _GLU_WANT.clear()
+        x, w, s, b, _ = _operands(m, k, n, dev, dtype)
+        if act == "silu":
+            b = torch.zeros_like(b)
+        _GLU_WANT[key] = (x, w, s, b, qmm.w8a8_geglu_fused_plain(x, w, s, b, act=act),
+                          qmm.quantize_rows_int8(x, w.shape[0]))
+    return _GLU_WANT[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [0, *qmm.W8A8_BNS])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,act", GLU_CASES)
+def test_glu_matmul_plans_on_card(m, k, n, act, dtype, bn):
+    """K2 planned (bn 0) and forced to each tile width: codes identical,
+    outputs equal to the plain version's (0 ulp)."""
+    dev = _card()
+    x, w, s, b, want, (codes, scales) = _glu_plain(m, k, n, act, dtype, dev)
+    kp = w.shape[0]
+    xi = torch.empty((m, kp), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    before = qmm.LAUNCHES["w8a8_geglu_fused"]
+    got = qmm.w8a8_geglu_fused(x, w, s, b, act=act, scratch=(xi, xs), bn=bn)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["w8a8_geglu_fused"] == before + 1
+    assert torch.equal(xi, codes) and torch.equal(xs, scales.reshape(-1))
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_glu_silu_far_arguments_on_card(dtype):
+    """Weight scales 30x as large put the gate beyond |g| 87, where silu's
+    exp leaves its exact fast route for the f64 exp (and overflows to inf):
+    outputs still equal to the plain version's."""
+    dev = _card()
+    x, w, s, _, _ = _operands(300, 4096, 1024, dev, dtype)
+    zero = torch.zeros((1, w.shape[1]), device=dev)
+    s = s * 30.0
+    got = qmm.w8a8_geglu_fused(x, w, s, zero, act="silu")
+    want = qmm.w8a8_geglu_fused_plain(x, w, s, zero, act="silu")
+    torch.cuda.synchronize()
+    g = qmm.w8a8_matmul_fused_plain(x, w, s, out_dtype=torch.float32)[:, 512:]
+    assert float(g.abs().max()) > 87.0
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+@pytest.mark.parametrize("bn", qmm.W8A8_BNS)
+def test_glu_matmul_check_flags_planted_faults_on_card(bn, act):
+    """A weight scale of the gate half 1e-3 off, and the bias of the hidden
+    half shifted by one column, make each tile width's output differ."""
+    dev = _card()
+    x, w, s, b, want, _ = _glu_plain(300, 320, 2560, act, torch.bfloat16, dev)
+    bad_s = s.clone()
+    bad_s[0, 1280 + 7] *= 1.0 + 1e-3
+    bad_b = b.clone()
+    bad_b[0, :1280] = torch.roll(b[0, :1280], 1) + (0.0 if act == "gelu" else 0.5)
+    for sc, bi in ((bad_s, b), (s, bad_b)):
+        got = qmm.w8a8_geglu_fused(x, w, sc, bi, act=act, bn=bn)
+        torch.cuda.synchronize()
+        assert not torch.equal(got, want)
+
+
 # (M, K, N): PREFILL_CASES' plain layers, then M 1, 17, 128 and 2048 at the 7B
 # prefill's three widths (qkv, o_proj, down)
 PREFILL_PLAN_SHAPES = ([c[:3] for c in PREFILL_CASES if not c[3]]
@@ -1395,11 +1476,20 @@ def _o_mlp_operands(m, hd, k, i, group, seed, dev, dtype):
     return attn, res, q, a_o, scl, f(k).abs() + 0.5
 
 
-# (M, HD, K, I, group (0: int8), bf16, K26's clusters forced (None: planned)): the 7B and
-# TinyLlama decode shapes, tiny ones, group 32 (seven high partials of an inner block held
-# back), and K26 with the clusters of its three steps forced
+# (M, HD, K, I, group (0: int8), bf16, the clusters of the three steps forced (None:
+# planned)): the 7B and TinyLlama decode shapes, tiny ones, group 32 (seven high partials of
+# an inner block held back), K25 at batches 1 to 64 and at 1024 (whose o_proj grid could not
+# all be resident at once, as K25's first, cooperative design needed), and K25 / K26 with the
+# clusters of their three steps forced
 O_MLP_CASES = [
     (8, 4096, 4096, 11008, 0, True, None), (32, 2048, 2048, 5632, 0, True, None),
+    (1, 4096, 4096, 11008, 0, True, None), (17, 4096, 4096, 11008, 0, True, None),
+    (64, 4096, 4096, 11008, 0, True, None), (1, 2048, 2048, 5632, 0, False, None),
+    (17, 2048, 2048, 5632, 0, True, None), (64, 2048, 2048, 5632, 0, True, None),
+    (1024, 4096, 4096, 11008, 0, True, None),
+    (8, 4096, 4096, 11008, 0, True, (1, 1, 1)), (8, 4096, 4096, 11008, 0, True, (8, 8, 8)),
+    (8, 4096, 4096, 11008, 0, True, (3, 5, 7)), (32, 2048, 2048, 5632, 0, True, (2, 2, 2)),
+    (32, 2048, 2048, 5632, 0, True, (8, 8, 8)), (32, 2048, 2048, 5632, 0, False, (3, 5, 7)),
     (8, 4096, 4096, 11008, 128, True, None), (32, 2048, 2048, 5632, 128, True, None),
     (3, 128, 128, 1024, 0, False, None), (35, 256, 128, 1024, 64, False, None),
     (8, 512, 512, 1024, 32, True, None), (40, 512, 256, 2048, 32, False, None),
@@ -1426,17 +1516,18 @@ def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16, splits):
     args = (attn, wo, so, a_o, res, wg, wu, wd, (sg, su, sd), scl, ns)
     name = "fused_o_mlp_decode_i4" if group else "fused_o_mlp_decode_i8"
     before = qmm.LAUNCHES[name]
+    plan = {}
     if group:
-        plan = {}
         got = dk.fused_o_mlp_decode_i4(*args, group=group, scratch=(codes, x2, xi, mid),
                                        splits=splits, trace=plan)
-        assert splits is None or plan["splits"] == splits
         want = dk.fused_o_mlp_decode_i4_plain(*args, group=group)
         want_x2, want_a = dk.o_proj_x2_i4_plain(attn, wo, so, a_o, res, group)
     else:
-        got = dk.fused_o_mlp_decode_i8(*args, scratch=(codes, x2, xi, mid))
+        got = dk.fused_o_mlp_decode_i8(*args, scratch=(codes, x2, xi, mid), splits=splits,
+                                       trace=plan)
         want = dk.fused_o_mlp_decode_i8_plain(*args)
         want_x2, want_a = dk.o_proj_x2_i8_plain(attn, wo, so, a_o, res)
+    assert splits is None or plan["splits"] == splits
     torch.cuda.synchronize()
     assert qmm.LAUNCHES[name] == before + 1
     assert torch.equal(codes, want_a) and torch.equal(x2, want_x2)
@@ -1445,12 +1536,15 @@ def test_o_mlp_kernel_matches_plain_on_card(m, hd, k, i, group, bf16, splits):
     assert got.dtype == dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
     if group:
-        assert torch.equal(mid, dk._quant_static(
-            dk._act("silu", dk.i4_group_dot_plain(want_xi, wg, sg, scl[0:1], group))
-            * dk.i4_group_dot_plain(want_xi, wu, su, scl[0:1], group), scl[1:2]))
-    # a second call (K25: on the same counters, which it set back to 0)
+        g, u = (dk.i4_group_dot_plain(want_xi, w_, s_, scl[0:1], group)
+                for w_, s_ in ((wg, sg), (wu, su)))
+    else:
+        g, u = (qmm.int8_matmul_exact(want_xi, w_).float() * (scl[0:1] * s_)
+                for w_, s_ in ((wg, sg), (wu, su)))
+    assert torch.equal(mid, dk._quant_static(dk._act("silu", g) * u, scl[1:2]))
+    # a second call on the same stream
     assert torch.equal(dk.fused_o_mlp_decode_i4(*args, group=group, splits=splits) if group
-                       else dk.fused_o_mlp_decode_i8(*args), want)
+                       else dk.fused_o_mlp_decode_i8(*args, splits=splits), want)
 
 
 @pytest.mark.cuda

@@ -177,3 +177,99 @@ def test_flash_plan_is_read_only():
 def test_flash_plan_refuses(splits, tile, bf16):
     with pytest.raises(ValueError):
         dk.flash_plan(16, 8, 64, 4101, bf16, SMS, splits, tile)
+
+
+# K25 (``o_mlp_i8_plan``): (M, hd, K, I) of the Llama-2-7B and TinyLlama-1.1B merge_o
+# serving shapes, and the 7B width at other batches
+O_MLP_I8_SHAPES = [(8, 4096, 4096, 11008), (32, 2048, 2048, 5632), (1, 4096, 4096, 11008),
+                   (17, 4096, 4096, 11008), (64, 4096, 4096, 11008), (1, 2048, 2048, 5632),
+                   (17, 2048, 2048, 5632), (64, 2048, 2048, 5632)]
+
+
+def _o_mlp_i8_step_smem(m, hd, k, i, bj, p, step):
+    """The shared memory of K25's step ``step`` under plan ``p``, from its
+    Python mirror: o_proj and gate / up split 128-byte stages, down its
+    inner blocks."""
+    nb = 2 if step == 1 else 1
+    units = (hd // 128, k // 128, i // bj)[step]
+    per = -(-units // p["splits"][step])
+    return dk.i8_step_smem(m, p["rows"], nb, p["stages"][step],
+                           per * (bj if step == 2 else 128), per if step == 2 else nb, step == 0)
+
+
+@pytest.mark.parametrize("m,hd,k,i", O_MLP_I8_SHAPES)
+def test_o_mlp_i8_plan_serving_shapes(m, hd, k, i):
+    bj = dk.pick_block(i, 512)
+    p = dk.o_mlp_i8_plan(m, hd, k, i, bj, SMS)
+    assert p["rows"] in ((32, 16, 8) if m > 16 else (16, 8))
+    for step, units in enumerate((hd // 128, k // 128, i // bj)):
+        assert 1 <= p["splits"][step] <= min(8, units) and 2 <= p["stages"][step] <= 16
+        assert _o_mlp_i8_step_smem(m, hd, k, i, bj, p, step) <= SMEM
+        assert p["splits"][step] in dk.I8_SPLITS
+        # o_proj stages a row of the attention output (f32 at most) in its
+        # ring, gate / up the norm scale's slice and a row of x2
+        per = -(-units // p["splits"][step])
+        nb = 2 if step == 1 else 1
+        assert p["stages"][step] * nb * 64 * 128 >= (1, 2, 0)[step] * per * 128 * 4
+
+
+def test_o_mlp_i8_plan_7b_and_tinyllama():
+    """The serving shapes: tiles of 16 (7B, batch 8) and 32 rows (TinyLlama,
+    batch 32), every step's blocks in one wave (the sweep's best: shallow
+    rings, clusters of 2-8)."""
+    for args, rows in (((8, 4096, 4096, 11008, 256), 16), ((32, 2048, 2048, 5632, 512), 32)):
+        m, hd, k, i, bj = args
+        p = dk.o_mlp_i8_plan(*args, SMS)
+        assert p["rows"] == rows
+        for step, (n, contraction, unit) in enumerate(((k, hd, 128), (i, k, 128), (k, i, bj))):
+            nb = 2 if step == 1 else 1
+            per = -(-contraction // unit // p["splits"][step])
+            blocks = n // 64 * -(-m // rows) * p["splits"][step]
+            per_sm = min(dk.I8_BLOCKS_PER_SM,
+                         dk._SMEM_SM // (_o_mlp_i8_step_smem(m, hd, k, i, bj, p, step) + 1024))
+            assert blocks <= SMS * per_sm, (step, p)
+            assert dk.i8_step_cost(rows, rows, step, n, contraction, unit, p["splits"][step],
+                                   p["stages"][step], SMS) > 0
+            assert per >= 1 and nb * p["stages"][step] >= 2
+
+
+def test_o_mlp_i8_plan_is_cached():
+    assert (dk.o_mlp_i8_plan(8, 4096, 4096, 11008, 256, SMS)
+            is dk.o_mlp_i8_plan(8, 4096, 4096, 11008, 256, SMS))
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 8])
+def test_o_mlp_i8_forced_split_is_kept(step, split):
+    """A forced step keeps its split (the others planned) and fits."""
+    m, hd, k, i, bj = 8, 4096, 4096, 11008, 256
+    forced = tuple(split if s == step else 0 for s in range(3))
+    p = dk.o_mlp_i8_plan(m, hd, k, i, bj, SMS, forced)
+    planned = dk.o_mlp_i8_plan(m, hd, k, i, bj, SMS)
+    assert p["splits"][step] == split
+    for s in range(3):
+        if s != step and p["rows"] == planned["rows"]:
+            assert p["splits"][s] == planned["splits"][s]
+        assert _o_mlp_i8_step_smem(m, hd, k, i, bj, p, s) <= SMEM
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+@pytest.mark.parametrize("stages", [2, 3, 4, 8])
+def test_o_mlp_i8_forced_stages_are_kept(step, stages):
+    forced = tuple(stages if s == step else 0 for s in range(3))
+    p = dk.o_mlp_i8_plan(8, 4096, 4096, 11008, 256, SMS, None, forced)
+    assert p["stages"][step] == stages
+    assert _o_mlp_i8_step_smem(8, 4096, 4096, 11008, 256, p, step) <= SMEM
+
+
+@pytest.mark.parametrize("splits", [(9, 0, 0), (0, 9, 0), (0, 0, 9), (-1, 0, 0),
+                                    (0, 0, 44)])
+def test_o_mlp_i8_forced_outside_range_raises(splits):
+    with pytest.raises(ValueError):
+        dk.o_mlp_i8_plan(8, 4096, 4096, 11008, 256, SMS, splits)
+
+
+@pytest.mark.parametrize("stages", [(1, 0, 0), (0, 9, 0), (0, 0, 17)])
+def test_o_mlp_i8_forced_stages_outside_range_raise(stages):
+    with pytest.raises(ValueError):
+        dk.o_mlp_i8_plan(8, 4096, 4096, 11008, 256, SMS, None, stages)

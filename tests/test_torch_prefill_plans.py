@@ -68,3 +68,48 @@ def test_w8a8_matmul_fused_takes_a_tile_width_on_the_cpu():
     w, s = qmm.pack_linear_int8(codes, torch.rand(128) * 1e-3 + 1e-4)
     want = qmm.w8a8_matmul_fused_plain(x, w, s)
     assert torch.equal(qmm.w8a8_matmul_fused(x, w, s, bn=128), want)
+
+
+# K2 (``w8a8_plan(..., glu=True)``): (M, K', 2 half) of the 7B prefill's [up | gate] and of
+# every SD1.5 net_0/proj at 512 px, batch 4
+GLU_SHAPES = [(16384, 4096, 22016), (16384, 320, 2560), (4096, 640, 5120),
+              (1024, 1280, 10240), (256, 1280, 10240)]
+
+
+@pytest.mark.parametrize("m,k,n", GLU_SHAPES)
+def test_w8a8_glu_plan_shapes(m, k, n):
+    """K2's plan: the width rule of K15's, a ring that fits beside the
+    biases, a grid of at most one block a tile of bn / 2 outputs and an SM;
+    each forced width kept."""
+    bn, stages, grid = qmm.w8a8_plan(m, n, SMS, glu=True)
+    assert bn == (256 if -(-m // 128) * -(-n // 256) >= SMS else 128)
+    assert qmm.w8a8_smem(bn, stages, glu=True) <= SMEM
+    assert qmm.w8a8_smem(bn, stages + 1, glu=True) > SMEM or stages == qmm.W8A8_MAX_STAGES
+    assert grid == min(-(-m // 128) * -(-(n // 2) // (bn // 2)), SMS)
+    for w in qmm.W8A8_BNS:
+        assert qmm.w8a8_plan(m, n, SMS, w, glu=True)[0] == w
+
+
+def test_w8a8_glu_plan_7b_and_sd():
+    """The 7B [up | gate] and the widest SD1.5 call take 128 x 256 tiles, four
+    stages, one block an SM; the mid block's 256 rows take 128-wide tiles."""
+    assert qmm.w8a8_plan(16384, 22016, SMS, glu=True) == (256, 4, SMS)
+    assert qmm.w8a8_plan(16384, 2560, SMS, glu=True) == (256, 4, SMS)
+    assert qmm.w8a8_plan(256, 10240, SMS, glu=True)[0] == 128
+
+
+def test_w8a8_glu_smem_holds_the_biases():
+    assert qmm.w8a8_smem(256, 4, glu=True) == qmm.w8a8_smem(256, 4) + 2 * 256 * 4
+
+
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+def test_w8a8_geglu_fused_takes_a_tile_width_on_the_cpu(act):
+    """On the CPU the wrapper runs the plain version whatever width it is given."""
+    import torch
+
+    x = torch.randn(5, 64)
+    codes = torch.randint(-127, 128, (64, 256), dtype=torch.int8)
+    w, s = qmm.pack_linear_int8(codes, torch.rand(256) * 1e-3 + 1e-4)
+    b = torch.randn(1, 256) * 0.1
+    want = qmm.w8a8_geglu_fused_plain(x, w, s, b, act=act)
+    assert torch.equal(qmm.w8a8_geglu_fused(x, w, s, b, act=act, bn=128), want)
