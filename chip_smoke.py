@@ -20,6 +20,9 @@
                                       # merge_o, its launches apart; K26 beside) and K2's
                                       # (7B [up | gate], SD1.5 net_0/proj; torch._int_mm
                                       # beside) alone
+    python3 chip_smoke.py --breakdown k6k8  # the build, then K6's (the w8a8 engines'
+                                      # qkv, o_proj, int8 head) and K8's (7B and TinyLlama,
+                                      # its launches apart; the library beside) alone
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source, all at once).
@@ -269,6 +272,8 @@ LLM_BATCH, LLM_PROMPT, LLM_NEW = 32, 512, 64
 LLM_CALIB = (8, 512)
 LLM_TOL = 1e-5                # tiny LLM engine card vs CPU, each kernel call on the same inputs
 LLM_FAULT = 1e-3              # relative error planted into K6's weight scales
+MLP_I8_FORCED_SPLITS = (1, 2, 4, 8)   # K8's step clusters phase 2 forces, where they fit
+MLP_I8_FORCED_STAGES = (2, 4, 8)      # and its rings
 L2_BYTES = 50 * 2 ** 20       # H100 L2: decode timings cycle over copies beyond it
 COLD_L2 = 8                   # the decode attentions' timed copies, kernel and library alike:
                               # this many L2s of operands
@@ -752,6 +757,14 @@ def _check_dense_i8(label, o, hd, norm, rope, res, out_dtype, dev, timed):
         fail(f"fused_dense_decode_i8 {label}: output differs from the plain version "
              f"(max abs err {err}); tolerance 0 ulp")
     row = {"layer": label, "M": m, "K": k, "N": n, "max_abs_err": err, "ulps": 0}
+    forced = _forced_dense_i8(label, o["x"], codes, scales, a, w_t, kw, xn, want)
+    if forced:
+        n_launch = _cuda_launches(lambda: dk.fused_dense_decode_i8(o["x"], codes, scales, a,
+                                                                   w_t=w_t, **kw))
+        if n_launch != 1:
+            fail(f"fused_dense_decode_i8 {label}: {n_launch} CUDA launches a call, not 1")
+        row["tol"] = (f"codes identical, 0 ulp; planned and with the cluster forced to {forced}; "
+                      "1 CUDA launch a call")
     if timed:
         xb, ob = o["x"].element_size(), torch.empty((), dtype=out_dtype).element_size()
         nbytes = (m * k * xb + k * n + m * n * ob + 4 * n + 4 * k * bool(norm)
@@ -782,6 +795,29 @@ def _check_dense_i8(label, o, hd, norm, rope, res, out_dtype, dev, timed):
                    bytes=nbytes, ops=2 * m * k * n)
         row["bound_ms"], row["bound_by"] = _bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
     return row
+
+
+def _forced_dense_i8(label, x, codes, scales, a, w_t, kw, xn, want) -> str:
+    """K6 with its cluster forced to each count 1-8 that K's chunks take (where
+    this tree's wrapper takes ``split``): codes identical and output equal;
+    the counts, or "" on an older tree."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    if not _takes(dk.fused_dense_decode_i8, "split"):
+        return ""
+    m, k = x.shape
+    splits = range(1, min(8, -(-k // 128)) + 1)
+    for split in splits:
+        xi = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        plan = {}
+        got = dk.fused_dense_decode_i8(x, codes, scales, a, w_t=w_t, scratch=xi, split=split,
+                                       trace=plan, **kw)
+        torch.cuda.synchronize()
+        if plan["split"] != split or not torch.equal(xi, dk._quant_static(xn, a)) \
+                or not torch.equal(got, want):
+            fail(f"fused_dense_decode_i8 {label}, split {split} forced: codes or output differ "
+                 f"from the plain version (plan {plan})")
+    return f"{splits[0]}-{splits[-1]} blocks"
 
 
 def _check_dense(label, o, hd, norm, rope, res, out_dtype, w_dtype, dev, timed):
@@ -904,6 +940,34 @@ def _check_mlp(label, rng, m, k, i, bj, norm, act, residual, out_dtype, x_dtype,
              f"(max abs err {err}); tolerance 0 ulp")
     row = {"layer": label, "M": m, "K": k, "I": i, "bj": dk.pick_block(i, bj),
            "max_abs_err": err, "ulps": 0}
+    if _takes(dk.fused_mlp_decode_i8, "splits"):  # each step's cluster and ring forced
+        args = (x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None)
+        done = []
+        for what, values in (("splits", MLP_I8_FORCED_SPLITS), ("stages", MLP_I8_FORCED_STAGES)):
+            for step in range(2):
+                for v in values:
+                    forced = {what: tuple(v if s_ == step else 0 for s_ in range(2))}
+                    try:
+                        dk.mlp_i8_plan(m, k, i, dk.pick_block(i, bj), qmm.sm_count(dev),
+                                       forced.get("splits"), forced.get("stages"))
+                    except (ValueError, NotImplementedError):
+                        continue
+                    plan = {}
+                    got = dk.fused_mlp_decode_i8(*args, w_t=wts, scratch=(xi, ai), trace=plan,
+                                                 **kw, **forced)
+                    torch.cuda.synchronize()
+                    if plan[what][step] != v or not (
+                            torch.equal(xi, xq) and torch.equal(ai, dk._quant_static(
+                                mid, scl[1:2])) and torch.equal(got, want)):
+                        fail(f"fused_mlp_decode_i8 {label} {forced}: codes or output differ from "
+                             f"the plain version (plan {plan})")
+                    done.append(f"{what[:-1]} {v} at step {step}")
+        n_launch = _cuda_launches(lambda: dk.fused_mlp_decode_i8(*args, w_t=wts, **kw))
+        if n_launch != 3:
+            fail(f"fused_mlp_decode_i8 {label}: {n_launch} CUDA launches a call, not 3")
+        row["tol"] = (f"codes identical, 0 ulp; planned and in {len(done)} forced plans (each "
+                      "step's cluster 1, 2, 4, 8 and ring 2, 4, 8 where they fit); 3 CUDA "
+                      "launches a call")
     if timed:
         eb = x.element_size()
         nbytes = m * k * eb + 3 * k * i + m * k * torch.empty((), dtype=out_dtype).element_size() \
@@ -4107,6 +4171,318 @@ def phase_k25k2_breakdown(dev) -> None:
     _print_rows(rows)
 
 
+# --breakdown k6k8: K6 (the int8 decode dense layer) at the w8a8 engines' qkv, o_proj and
+# int8 head shapes and K8 (the int8 decode MLP) at the 7B and TinyLlama decode shapes, by
+# kernel: planned and forced (K6's cluster and ring; each K8 step's), traced, the
+# library beside; then K5, K6, K8, K17 and K25 at their PERF.md shapes, which share code with
+# them.  On an older tree the same rows give its launches apart (its norm pass and tiles).
+# (label, M, K, N, norm, rope head_dim, rotated columns, residual, f32 out)
+K6_BENCH = (("7B qkv (norm, rope 128)", 8, 4096, 12288, True, 128, 8192, False, False),
+            ("7B o_proj (+res)", 8, 4096, 4096, False, 0, 0, True, False),
+            ("7B int8 lm_head (norm, f32 out)", 8, 4096, 32000, True, 0, 0, False, True),
+            ("TinyLlama qkv (norm, rope 64)", 32, 2048, 2560, True, 64, 2304, False, False),
+            ("TinyLlama o_proj (+res)", 32, 2048, 2048, False, 0, 0, True, False))
+K6_PHASES = ("x staged", "norm statistics and the codes", "the weight stream",
+             "the owners' sums (and epilogue without a rope)", "rank 0's rope epilogue")
+K8_SWEEP_SPLITS, K8_SWEEP_STAGES = (1, 2, 4, 8), (2, 3, 4, 6, 8)
+K6_SWEEP_SPLITS, K6_SWEEP_STAGES = (1, 2, 4, 8), (2, 3, 4, 6, 8, 12, 16)
+
+
+def _print_k6_trace(label, fn) -> None:
+    """K6's launch in its build with -DQDM_K6_TRACE (the caller holds the
+    variant): the mean and max over the launch's blocks of the SM cycles from
+    a block's start to the end of each phase."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (4096 * 8))()
+    if _variant_lib("decode_dense_i8", "QDM_K6_TRACE").qdm_decode_dense_i8_trace(buf, 4096):
+        fail(f"reading {label}'s phase trace")
+    t = np.array(buf, dtype=np.float64).reshape(4096, 8)
+    t = t[t[:, 5] > 0][:, 1:1 + len(K6_PHASES)]
+    print(f"breakdown: {label} phases (a build with -DQDM_K6_TRACE, {len(t)} blocks), k SM "
+          "cycles from a block's start, mean / max over blocks: "
+          + "; ".join(f"{ph} {a_:.1f} / {b_:.1f}" for ph, a_, b_ in
+                      zip(K6_PHASES, t.mean(axis=0) / 1e3, t.max(axis=0) / 1e3)), flush=True)
+
+
+def _int8_library(x, ns, a, scales, c_col, cos, sin, hd, res, out_dtype):
+    """K6's library row: the norm and quantization in PyTorch, torch._int_mm on
+    the column-major weight, the rescale, rope and residual."""
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    xq = dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), a)
+    y = _int_mm_rows(xq, c_col).float() * (a * scales)
+    if cos is not None:
+        y = dk.rope_epilogue(y, cos, sin, hd)
+    if res is not None:
+        y = y + res.float()
+    return y.to(out_dtype)
+
+
+def _k6_breakdown(dev, rng) -> None:
+    """K6 at each K6_BENCH shape by kernel, codes and output checked against
+    its plain version first, over weight copies beyond twice the L2: planned
+    and, where this tree's wrapper takes ``stages``, with its cluster and
+    ring swept (K6_SWEEP_SPLITS x K6_SWEEP_STAGES, where they fit) and its
+    planned launch's phases from a traced build; the library row beside."""
+    from qdm_tpu_torch.api.serve import _quant_w
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    fn = dk.fused_dense_decode_i8
+    forced = _takes(fn, "stages")
+    traced = forced and "QDM_K6_TRACE" in _defines("decode_dense_i8")
+    if traced:
+        cuda_build.build_variants([("decode_dense_i8", ("QDM_K6_TRACE",))])
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, m, k, n, norm, hd, n_rot, res, f32_out in K6_BENCH:
+        o = _dense_case(rng, dev, m, k, n, bf)
+        codes, scales = _quant_w(o["w"])
+        ns = o["ns"] if norm else None
+        xn = dk._prologue(o["x"], ns, None, 1e-6, "rmsnorm")
+        a = _static_scale(xn)
+        cos, sin = _rope_rows(n, n_rot, hd, L7_PROMPT + 31, dev) if hd else (None, None)
+        out_dtype = f32 if f32_out else bf
+        kw = dict(norm_scale=ns, residual=o["res"] if res else None, rope_cos=cos,
+                  rope_sin=sin, head_dim=hd, out_dtype=out_dtype)
+        want = dk.fused_dense_decode_i8_plain(o["x"], codes, scales, a, **kw)
+        want_codes = dk._quant_static(xn, a)
+        nbytes = (m * k * 2 + k * n + m * n * (4 if f32_out else 2) + 4 * n + 4 * k * norm
+                  + (2 * m * n if res else 0) + (8 * n if hd else 0))
+        sets = [(codes, dk.transposed_weight(codes))]
+        sets += [(c.clone(), t.clone()) for c, t in [sets[0]] * (_copies(k * n) - 1)]
+        plan = {}
+        cells = []
+        for split, stg in ((0, 0), *((sp, st) for sp in K6_SWEEP_SPLITS for st in K6_SWEEP_STAGES
+                                     if forced)):
+            extra = {"split": split, "stages": stg} if split else {}
+            xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+            try:
+                got = fn(o["x"], codes, scales, a, w_t=sets[0][1], scratch=xi, **kw, **extra,
+                         **({"trace": plan} if forced and not split else {}))
+            except (ValueError, NotImplementedError):
+                continue
+            torch.cuda.synchronize()
+            if not (torch.equal(xi, want_codes) and torch.equal(got, want)):
+                fail(f"fused_dense_decode_i8 {label} {extra}: codes or output differ from the "
+                     "plain version")
+            fns = [lambda c=c, t=t, extra=extra: fn(o["x"], c, scales, a, w_t=t, **kw, **extra)
+                   for c, t in sets]
+            if not split:
+                _print_split(f"K6 {label} {m} x {k} -> {n}, planned" + (f" {plan}" if plan else ""),
+                             _cold_by_kernel(fns), nbytes)
+            else:
+                cells.append(f"{split}/{stg} {sum(_cold_by_kernel(fns, calls=10).values()):.2f}")
+        if cells:
+            print(f"breakdown: K6 {label}, us by cluster / stages forced: " + "; ".join(cells),
+                  flush=True)
+        if traced:
+            with cuda_build.variant("decode_dense_i8", "QDM_K6_TRACE"):
+                _print_k6_trace(f"K6 {label}, planned",
+                                lambda: fn(o["x"], codes, scales, a, w_t=sets[0][1], **kw))
+        lib = [lambda c=c: _int8_library(o["x"], ns, a, scales, c.t().contiguous().t(), cos, sin,
+                                         hd, kw["residual"], out_dtype) for c, _ in sets]
+        _print_split(f"library at K6's {label} (quantize, torch._int_mm, rescale)",
+                     _cold_by_kernel(lib), nbytes)
+        del o, sets, lib
+        torch.cuda.empty_cache()
+
+
+def _k8_case(rng, m, k, i, dev):
+    """K8's operands at (M, K, I): x bf16, int8 weights and their scales, the
+    static scales of the input and mid codes, the RMSNorm scale."""
+    from qdm_tpu_torch.api.serve import _quant_w
+    from qdm_tpu_torch.ops import decode_kernels as dk
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    f = lambda *s_, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s_) * sc).astype(np.float32)).to(dev)
+    x = f(m, k).to(torch.bfloat16)
+    q = [_quant_w(f(*s_, sc=s_[0] ** -0.5)) for s_ in ((k, i), (k, i), (i, k))]
+    ns = f(k).abs() + 0.5
+    xn = dk._prologue(x, ns, None, 1e-6, "rmsnorm")
+    s_in = _static_scale(xn)
+    xq = dk._quant_static(xn, s_in)
+    (cg, sg), (cu, su), _ = q
+    g = qmm.int8_matmul_exact(xq, cg).float() * (s_in * sg)
+    u = qmm.int8_matmul_exact(xq, cu).float() * (s_in * su)
+    return x, q, torch.cat([s_in, _static_scale(dk._act("silu", g) * u)]), ns
+
+
+def _k8_breakdown(dev, rng) -> None:
+    """K8 at the 7B and TinyLlama w8a8 decode shapes by kernel (output checked
+    first), planned and, where this tree's wrapper takes ``stages``, each
+    step's cluster and ring swept (the step's own device time), its traced
+    steps; the library row beside.  Weight copies beyond twice the L2."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    fn = dk.fused_mlp_decode_i8
+    forced = _takes(fn, "stages")
+    traced = forced and "qdm_decode_mlp_i8_trace" in _defines("decode_mlp_i8")
+    if traced:
+        cuda_build.build_variants([("decode_mlp_i8", ("QDM_K25_TRACE",))])
+    for tag, c, m, _ in _mlp_shapes():
+        k, i = c.hidden_size, c.intermediate_size
+        bj = 256 if tag == "7B" else 512
+        x, q, scl, ns = _k8_case(rng, m, k, i, dev)
+        (cg, sg), (cu, su), (cd, sd) = q
+        ws = (cg, cu, cd)
+        nbytes = m * k * 2 * 2 + 3 * k * i + 4 * (2 * i + k) + 4 * k + 8
+        sets = [(ws, tuple(dk.transposed_weight(t) for t in ws))]
+        sets += [(tuple(t.clone() for t in ws), tuple(t.clone() for t in sets[0][1]))
+                 for _ in range(_copies(3 * k * i) - 1)]
+        call = lambda w=ws, t=sets[0][1], **extra: fn(x, *w, (sg, su, sd), scl, ns, block_j=bj,
+                                                       w_t=t, **extra)
+        want = dk.fused_mlp_decode_i8_plain(x, *ws, (sg, su, sd), scl, ns, block_j=bj)
+        label = f"K8 {tag} mlp {m} x {k}, I {i}, bj {bj}"
+        plan = {}
+        got = call(**({"trace": plan} if forced else {}))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fused_mlp_decode_i8 {tag}: output differs from the plain version")
+        _print_split(f"{label}, planned" + (f" {plan}" if plan else ""),
+                     _cold_by_kernel([lambda w=w, t=t: call(w, t) for w, t in sets]), nbytes)
+        if forced:
+            for st in range(2):
+                cells = []
+                for sp in K8_SWEEP_SPLITS:
+                    for stg in K8_SWEEP_STAGES:
+                        kw = {"splits": tuple(sp if s_ == st else 0 for s_ in range(2)),
+                              "stages": tuple(stg if s_ == st else 0 for s_ in range(2))}
+                        try:
+                            got = call(**kw)
+                        except (ValueError, NotImplementedError):
+                            continue
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            fail(f"fused_mlp_decode_i8 {label} {kw}: output differs from the "
+                                 "plain version")
+                        split = _cold_by_kernel([lambda w=w, t=t, kw=kw: call(w, t, **kw)
+                                                 for w, t in sets], calls=10)
+                        us = sum(v for name, v in split.items()
+                                 if f"o_mlp_i8_kernel<{st + 1}," in name)
+                        cells.append(f"{sp}/{stg} {us:.2f}")
+                print(f"breakdown: {label}, step {st} ({MLP_STEPS[st]}) alone, us by clusters / "
+                      "stages forced: " + "; ".join(cells), flush=True)
+        if traced:
+            with cuda_build.variant("decode_mlp_i8", "QDM_K25_TRACE"):
+                for st, n_out in enumerate((i, k)):
+                    blocks = plan["splits"][st] * -(-n_out // 64) * -(-m // plan["rows"][st])
+                    _print_trace(f"{label} step {st} ({MLP_STEPS[st]}), planned",
+                                 "decode_mlp_i8", "QDM_K25_TRACE", "qdm_decode_mlp_i8_trace",
+                                 (st + 1,), lambda: call(), min(blocks, 4096), K26_PHASES)
+
+        def library(c_):
+            wcg, wcu, wcd = (w.t().contiguous().t() for w in c_)
+
+            def fn_():
+                q1 = dk._quant_static(dk._prologue(x, ns, None, 1e-6, "rmsnorm"), scl[0:1])
+                gg = _int_mm_rows(q1, wcg).float() * (scl[0:1] * sg)
+                uu = _int_mm_rows(q1, wcu).float() * (scl[0:1] * su)
+                q2 = dk._quant_static(torch.nn.functional.silu(gg) * uu, scl[1:2])
+                return (_int_mm_rows(q2, wcd).float() * (scl[1:2] * sd) + x.float()).to(x.dtype)
+            return fn_
+        _print_split(f"library at {label} (quantize, torch._int_mm, rescale)",
+                     _cold_by_kernel([library(w) for w, _ in sets]), nbytes)
+        del sets
+        torch.cuda.empty_cache()
+
+
+# K1's per-token W8A8 shapes in the SD1.5 UNet at 512 px, batch 4 (2 prompts x CFG): (tokens,
+# channels, transformer blocks) of each level; each block runs six K1 layers a step
+K1_LEVELS = ((16384, 320, 5), (4096, 640, 5), (1024, 1280, 5), (256, 1280, 1))
+
+
+def _k1_by_shape(dev) -> None:
+    """K1 at every per-token W8A8 shape of an SD1.5 generate (output within 1
+    bf16 ulp of its plain version first): its device time, the library's
+    (quantize, torch._int_mm, rescale, + bias, + residual), its bound and its
+    launches per generate (the 1920 shared out by shape), over operand copies
+    beyond twice the L2; then launches x (time - bound) summed."""
+    from qdm_tpu_torch.ops import quant_matmul as qmm
+
+    rng = np.random.default_rng(1)
+    total, launches_all = 0.0, 0
+    for tokens, c, blocks in K1_LEVELS:
+        for layer, m, k, n, res in (("attn1/to_qkv", tokens, c, 3 * c, False),
+                                    ("attn1/to_out (+res)", tokens, c, c, True),
+                                    ("attn2/to_q", tokens, c, c, False),
+                                    ("attn2/to_kv", 4 * 77, 768, 2 * c, False),
+                                    ("attn2/to_out (+res)", tokens, c, c, True),
+                                    ("ff/net_2 (+res)", tokens, 4 * c, c, True)):
+            x, w_i8, w_scale, bias = _operands(rng, m, k, n, dev)
+            r = torch.randn((m, n), device=dev).to(torch.bfloat16) if res else None
+            w_t = qmm.transposed_weight(w_i8)
+            got = qmm.w8a8_matmul_fused_epi(x, w_i8, w_scale, bias, residual=r, n_out=n, w_t=w_t)
+            want = qmm.w8a8_matmul_fused_epi_plain(x, w_i8, w_scale, bias, residual=r, n_out=n)
+            if bf16_ulp_diff(got, want) > 1:
+                fail(f"w8a8_matmul_fused_epi {layer} {m} x {k} -> {n}: beyond 1 bf16 ulp")
+            nbytes = (m * k * 2 + w_t.numel() + 2 * w_scale.numel() * 4 + m * n * 2
+                      + (m * n * 2 if res else 0))
+            sets = [(x, w_i8, w_t)] + [(x.clone(), w_i8.clone(), w_t.clone())
+                                       for _ in range(_copies(nbytes) - 1)]
+            kern = [lambda a_=a_, w_=w_, t_=t_: qmm.w8a8_matmul_fused_epi(
+                a_, w_, w_scale, bias, residual=r, n_out=n, w_t=t_) for a_, w_, t_ in sets]
+
+            def library(a_, w_):
+                f_ = _library_fn(a_, w_, w_scale, bias, n, False)
+                return (lambda: f_() + r) if res else f_
+            us = sum(_cold_by_kernel(kern).values())
+            lib_us = sum(_cold_by_kernel([library(a_, w_) for a_, w_, _ in sets]).values())
+            bound_ms, by = _bound(nbytes, 2 * m * k * n, INT8_OPS_PER_S)
+            launches = blocks * STEPS
+            cost = launches * (us / 1e3 - bound_ms)
+            total += cost
+            launches_all += launches
+            print(f"breakdown: K1 by shape: {layer} {m} x {k} -> {n}: kernel {us:.2f} us, library "
+                  f"{lib_us:.2f} us, bound {bound_ms * 1e3:.2f} us ({by}), {launches} launches a "
+                  f"generate, launches x (time - bound) {cost:.2f} ms", flush=True)
+            del x, w_i8, w_scale, bias, r, w_t, got, want, sets, kern
+            torch.cuda.empty_cache()
+    print(f"breakdown: K1 by shape: {launches_all} launches a generate, launches x (time - "
+          f"bound) {total:.2f} ms in all", flush=True)
+
+
+def phase_k6k8_breakdown(dev) -> None:
+    """K6 and K8 by kernel (planned and forced, traced, the library beside),
+    K1 at every per-token W8A8 shape of SD1.5 (_k1_by_shape), then K5, K6,
+    K8, K17 and K25 at their PERF.md shapes as phase 2 times them.  Run on an older tree, it leaves out what that tree's wrappers and
+    sources do not have."""
+    rng = np.random.default_rng(19)
+    _k6_breakdown(dev, rng)
+    _k8_breakdown(dev, rng)
+    _k1_by_shape(dev)
+    rows = {"fused_dense_decode_i8": [], "fused_dense_decode": [], "fused_mlp_decode_i8": [],
+            "fused_mlp_decode_i4": [], "fused_o_mlp_decode_i8": []}
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, m, k, n, norm, hd, _, res, f32_out in K6_BENCH:
+        o = _dense_case(rng, dev, m, k, n, bf)
+        rows["fused_dense_decode_i8"].append(_check_dense_i8(
+            label, o, hd or 64, "rmsnorm" if norm else None, bool(hd), res,
+            f32 if f32_out else bf, dev, True))
+        if label.startswith("7B qkv"):
+            rows["fused_dense_decode"].append(_check_dense(
+                label, o, hd, "rmsnorm", True, False, bf, bf, dev, True))
+        del o
+        torch.cuda.empty_cache()
+    for tag, c, b, group in _mlp_shapes():
+        kk, ii = c.hidden_size, c.intermediate_size
+        rows["fused_mlp_decode_i8"].append(_check_mlp(
+            f"{tag} mlp (norm, silu, +res)", rng, b, kk, ii, 256 if tag == "7B" else 512,
+            "rmsnorm", "silu", True, bf, bf, dev, True))
+        rows["fused_mlp_decode_i4"].append(_check_mlp_i4(
+            f"{tag} mlp (norm, silu, +res)", rng, b, kk, ii, 256 if tag == "7B" else 512, group,
+            dev, True))
+        rows["fused_o_mlp_decode_i8"].append(_check_o_mlp(
+            f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * c.head_dim, kk, ii, 0, dev,
+            True))
+        torch.cuda.empty_cache()
+    _print_rows(rows)
+
+
 def _print_reprofiled() -> None:
     """The profiled runs timed again because the profiler lost records."""
     from qdm_tpu_torch.utils.timing import REPROFILED
@@ -6300,7 +6676,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     ap.add_argument("--breakdown", nargs="?", const="all",
-                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17", "k10k15", "k25k2"),
+                    choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17", "k10k15", "k25k2",
+                             "k6k8"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -6331,7 +6708,11 @@ def main() -> int:
                          "every SD1.5 net_0/proj shape (quantization pass and GEMM apart, "
                          "planned and each tile width forced, a build without the activation, "
                          "torch._int_mm beside), then K1, K2, K2-silu, K8, K15, K24, K25 and "
-                         "K26 at their shapes; no other "
+                         "K26 at their shapes; `--breakdown k6k8`: K6 at the w8a8 engines' qkv, "
+                         "o_proj and int8 head shapes and K8 at the 7B and TinyLlama decode "
+                         "shapes by kernel (planned; K6's cluster forced, each K8 step's cluster "
+                         "and ring swept; traced; the library beside), then K5, K6, K8, K17 and "
+                         "K25 at their shapes; no other "
                          "phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6362,6 +6743,8 @@ def main() -> int:
             phase_k10k15_breakdown(dev)
         if args.breakdown in ("all", "k25k2"):
             phase_k25k2_breakdown(dev)
+        if args.breakdown in ("all", "k6k8"):
+            phase_k6k8_breakdown(dev)
         _print_reprofiled()
         print(smi_line())
         return 0

@@ -1,27 +1,21 @@
-// Shared pieces of the decode-step kernels (decode_dense.cu: K6,
-// decode_mlp_i8.cu: K8; decode_dense_bf16.cu (K5) and decode_mlp.cu (K11)
-// take the bf16 mma, the norm's constants, the activation and the dense
-// epilogue, flash_prefill.cu the bf16 mma).
+// Shared pieces of the decode-step kernels (decode_dense.cu (K6),
+// decode_dense_bf16.cu (K5), decode_mlp.cu (K11), the int4 and MoE kernels,
+// and flash_prefill.cu's bf16 mma).
 //
 // * norm_rows_kernel: one block per row of x (B, K).  Optional RMSNorm or
 //   LayerNorm in f32, with the row sums taken in f64 and rounded once to
 //   f32 (so any summation order gives the same f32, and the plain PyTorch
 //   version's f64 sum the same bits) and rsqrt(v) as 1 / sqrt(v) with IEEE
 //   sqrt and division.  Writes the normed row's int8 codes
-//   clip(round(xn * (1/a)), +-127) with a static scale a (K6, K8, K16, K27).
-// * tile_mainloop: a 32-row x BN-column tile of A (M, K) @ B^T, B given
-//   as (N, K) rows (the transposed weight), over a byte range of K,
-//   through a three-stage cp.async ring into mma.sync: m16n8k32 s8 for
-//   int8 operands (exact int32 sums), m16n8k16 bf16 with f32 sums.  The
-//   two fragment layouts read the same bytes of a 64-byte stage (4t and
-//   4t + 16 of each 32-byte step), so one loader serves both.  NB weight
-//   matrices share the A tile (K8's gate and up).
+//   clip(round(xn * (1/a)), +-127) with a static scale a (K16, K27).
+// * TileSmem / load_a_stage: the cp.async ring of the int4 group-dot tile
+//   (decode_i4.cuh: K27).
 // * act_fn and ordered_sum_kernel: the fused MLPs' activation and their
-//   sum of the inner blocks' f32 partials in block order.
-// * finish_tile: the dense epilogue from a shared-memory f32 tile: the
-//   rope rotation y * cos + partner * sin (partner d/2 away in the same
-//   head, within the tile since BN is a multiple of head_dim), residual,
-//   store in the output dtype.
+//   sum of the inner blocks' f32 partials in block order (K27).
+// * finish_tile and finish_tile_batched: the dense epilogue from a
+//   shared-memory f32 tile: the rope rotation y * cos + partner * sin
+//   (partner d/2 away in the same head, within the tile since BN is a
+//   multiple of head_dim), residual, store in the output dtype.
 //
 // Compiled without --use_fast_math and with __fmul_rn / __fadd_rn where
 // the plain version rounds each operation, so the int8 paths equal their
@@ -175,102 +169,6 @@ __device__ __forceinline__ void load_a_stage(const TileA<T>& a, unsigned char (*
                            : (const void*)a.p, ok);
 }
 
-// acc[nb][mi][nj][e]: weight matrix nb, m16 tile mi, n8 tile nj of this
-// warp (columns wn * NJ * 8 + nj * 8 of the tile), fragment element e.
-// A rows m0.., B rows n0.., K bytes [kb0, kb1) (a multiple of 16 bytes).
-template <int NJ, int NB, bool BF16, typename Acc, typename TA>
-__device__ __forceinline__ void tile_mainloop(Acc (&acc)[NB][2][NJ][4], const TileA<TA>& a,
-                                              const unsigned char* const* B, size_t ldb,
-                                              int m0, int M, int n0, int N, int kb0, int kb1,
-                                              TileSmem<NJ, NB>& sm) {
-  constexpr int BN = NJ * 32;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int q = 0; q < NB; ++q)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[q][mi][nj][e] = (Acc)0;
-
-  auto load_stage = [&](int buf, int kb) {
-    load_a_stage(a, sm.a[buf], m0, M, kb, kb1);
-#pragma unroll
-    for (int q = 0; q < NB; ++q) {
-#pragma unroll
-      for (int i = 0; i < BN * 4 / kThreads; ++i) {
-        const int ch = tid + i * kThreads;
-        const int r = ch >> 2, c = (ch & 3) * 16;
-        const bool ok = (n0 + r < N) && (kb + c < kb1);
-        cp_async16(&sm.b[q][buf][r][c],
-                   ok ? (const void*)(B[q] + (size_t)(n0 + r) * ldb + kb + c) : (const void*)B[q],
-                   ok);
-      }
-    }
-  };
-
-  const int n_k = (kb1 - kb0 + TK - 1) / TK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_k) load_stage(s, kb0 + s * TK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int pre = kt + kStages - 1;
-    if (pre < n_k) load_stage(pre % kStages, kb0 + pre * TK);
-    cp_async_commit();
-    const int buf = kt % kStages;
-#pragma unroll
-    for (int ks = 0; ks < TK / 32; ++ks) {
-      const int kb = ks * 32 + t * 4;
-      unsigned af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r][kb]);
-        af[mi][1] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r + 8][kb]);
-        af[mi][2] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r][kb + 16]);
-        af[mi][3] = *reinterpret_cast<const unsigned*>(&sm.a[buf][r + 8][kb + 16]);
-      }
-#pragma unroll
-      for (int q = 0; q < NB; ++q) {
-#pragma unroll
-        for (int nj = 0; nj < NJ; ++nj) {
-          const int r = warp * NJ * 8 + nj * 8 + g;
-          unsigned b[2];
-          b[0] = *reinterpret_cast<const unsigned*>(&sm.b[q][buf][r][kb]);
-          b[1] = *reinterpret_cast<const unsigned*>(&sm.b[q][buf][r][kb + 16]);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            if constexpr (BF16)
-              mma_bf16_16816(acc[q][mi][nj], af[mi], b);
-            else
-              mma_s8(acc[q][mi][nj], af[mi], b);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the caller's epilogue
-}
-
-// A given as bytes (A + (m0 + r) * lda + k).
-template <int NJ, int NB, bool BF16, typename Acc>
-__device__ __forceinline__ void tile_mainloop(Acc (&acc)[NB][2][NJ][4],
-                                              const unsigned char* __restrict__ A, size_t lda,
-                                              const unsigned char* const* B, size_t ldb,
-                                              int m0, int M, int n0, int N, int kb0, int kb1,
-                                              TileSmem<NJ, NB>& sm) {
-  const TileA<unsigned char> a{A, lda};
-  tile_mainloop<NJ, NB, BF16>(acc, a, B, ldb, m0, M, n0, N, kb0, kb1, sm);
-}
-
 // Tile coordinates of fragment element e of (mi, nj) for this thread.
 template <int NJ>
 __device__ __forceinline__ void frag_rc(int mi, int nj, int e, int& r, int& c) {
@@ -280,7 +178,7 @@ __device__ __forceinline__ void frag_rc(int mi, int nj, int e, int& r, int& c) {
 }
 
 // ---------------------------------------------------------------------------
-// fused MLP pieces (K8, K11)
+// fused MLP pieces (K8, K11, K17, K25, K27)
 // ---------------------------------------------------------------------------
 
 constexpr int kActSilu = 0, kActGelu = 1;
@@ -349,6 +247,42 @@ __device__ __forceinline__ void finish_tile(const float* ys, int m0, int n0, int
     const size_t o = (size_t)row * N + col;
     if (ep.res != nullptr) y = __fadd_rn(y, load_f32(ep.res, ep.res_dtype, o));
     store_f32(ep.out, ep.out_dtype, o, y);
+  }
+}
+
+// finish_tile's function (K5, K6) (rope with the partner d/2 away, residual, output
+// dtype) with each thread's loads of a batch of eight elements in flight
+// together.
+template <int BN>
+__device__ __forceinline__ void finish_tile_batched(const float* ys, int m0, int n0, int M, int N,
+                                                    const DenseEpi& ep, int rows, int t0,
+                                                    int step) {
+  constexpr int YS = BN + 4, B = 8;
+  const int half = ep.head_dim / 2;
+  const int n = rows * BN;
+  for (int i0 = t0; i0 < n; i0 += B * step) {
+    float cs[B], sn[B], rv[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int i = i0 + b * step, r = i / BN, c = i % BN, row = m0 + r, col = n0 + c;
+      const bool ok = i < n && row < M && col < N;
+      cs[b] = ok && ep.cos != nullptr ? __ldg(ep.cos + col) : 0.0f;
+      sn[b] = ok && ep.cos != nullptr ? __ldg(ep.sin + col) : 0.0f;
+      rv[b] = ok && ep.res != nullptr ? load_f32(ep.res, ep.res_dtype, (size_t)row * N + col)
+                                      : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int i = i0 + b * step, r = i / BN, c = i % BN, row = m0 + r, col = n0 + c;
+      if (i >= n || row >= M || col >= N) continue;
+      float y = ys[r * YS + c];
+      if (ep.cos != nullptr) {
+        const int pc = (c % ep.head_dim) < half ? c + half : c - half;
+        y = __fadd_rn(__fmul_rn(y, cs[b]), __fmul_rn(ys[r * YS + pc], sn[b]));
+      }
+      if (ep.res != nullptr) y = __fadd_rn(y, rv[b]);
+      store_f32(ep.out, ep.out_dtype, (size_t)row * N + col, y);
+    }
   }
 }
 

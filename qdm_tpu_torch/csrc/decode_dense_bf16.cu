@@ -83,42 +83,6 @@ struct K5Layout {
   }
 };
 
-// finish_tile's function (rope with the partner d/2 away, residual, output
-// dtype) with each thread's loads of a batch of eight elements in flight
-// together.
-template <int BN>
-__device__ __forceinline__ void finish_tile_batched(const float* ys, int m0, int n0, int M, int N,
-                                                    const DenseEpi& ep, int rows, int t0,
-                                                    int step) {
-  constexpr int YS = BN + 4, B = 8;
-  const int half = ep.head_dim / 2;
-  const int n = rows * BN;
-  for (int i0 = t0; i0 < n; i0 += B * step) {
-    float cs[B], sn[B], rv[B];
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const int i = i0 + b * step, r = i / BN, c = i % BN, row = m0 + r, col = n0 + c;
-      const bool ok = i < n && row < M && col < N;
-      cs[b] = ok && ep.cos != nullptr ? __ldg(ep.cos + col) : 0.0f;
-      sn[b] = ok && ep.cos != nullptr ? __ldg(ep.sin + col) : 0.0f;
-      rv[b] = ok && ep.res != nullptr ? load_f32(ep.res, ep.res_dtype, (size_t)row * N + col)
-                                      : 0.0f;
-    }
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const int i = i0 + b * step, r = i / BN, c = i % BN, row = m0 + r, col = n0 + c;
-      if (i >= n || row >= M || col >= N) continue;
-      float y = ys[r * YS + c];
-      if (ep.cos != nullptr) {
-        const int pc = (c % ep.head_dim) < half ? c + half : c - half;
-        y = __fadd_rn(__fmul_rn(y, cs[b]), __fmul_rn(ys[r * YS + pc], sn[b]));
-      }
-      if (ep.res != nullptr) y = __fadd_rn(y, rv[b]);
-      store_f32(ep.out, ep.out_dtype, (size_t)row * N + col, y);
-    }
-  }
-}
-
 #ifdef QDM_K5_TRACE
 // a diagnostic build: clock64 cycles from the block's start to the end of each
 // phase, per block (qdm_decode_dense_trace reads them)

@@ -37,7 +37,7 @@
 // with an all-zero route column are computed too, as on the TPU.  Not yet
 // wgmma / TMA.
 
-#include "decode_mlp_q.cuh"
+#include "decode_i4.cuh"
 
 namespace qdm {
 namespace dec {

@@ -1,9 +1,10 @@
 // Pieces shared by the decode kernels that stream their weight through a
 // TMA-fed ring with one producer warp and split K across a thread-block
-// cluster (decode_dense_bf16.cu: K5, decode_mlp.cu: K11, decode_o_mlp_i4.cuh:
-// K17 and K26), and K11's resident rows: staged, their norm statistics
-// exchanged over the cluster, normalized in place (K5's own prologue is the
-// same arithmetic, written into its kernel).
+// cluster (decode_dense_bf16.cu: K5, decode_dense.cu: K6, decode_mlp.cu: K11,
+// decode_o_mlp_i4.cuh: K17 and K26, decode_o_mlp_i8.cuh: K8 and K25), and
+// K11's resident rows: staged, their norm statistics exchanged over the
+// cluster, normalized in place (K5's and K6's own prologues are the same
+// arithmetic, written into their kernels).
 //
 // A block runs consumer warps and one producer warp.  The producer's lane 0
 // issues one TMA tile load a stage into a ring of `stages` buffers; each

@@ -46,12 +46,13 @@ ENTRY_POINTS = {
                      (P, I, P, I, P, P, I, F, P, P, P, I, P, I, P, I, I, I, I, I, I, I, I,
                       P)),
     "decode_dense_i8": ("qdm_decode_dense_i8",
-                        (P, I, P, P, P, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, P)),
+                        (P, I, P, P, P, P, P, I, F, P, P, P, I, P, I, P, I, P, I, I, I, I, I, I,
+                         I, I, P)),
     "decode_attention_kv": ("qdm_decode_attention_kv",
                             (P, I, I, P, P, I, F, F, P, I, I, I, I, I, I, P)),
     "decode_mlp_i8": ("qdm_decode_mlp_i8",
-                      (P, I, P, P, P, P, P, P, P, P, P, I, F, I, I, P, I, P, P, P, I, I, I, I,
-                       P)),
+                      (P, I, P, P, P, P, P, P, P, P, P, I, F, I, I, P, I, P, P, I, I, I, I, I, I,
+                       I, I, I, I, P)),
     "flash_prefill": ("qdm_flash_prefill",
                       (P, P, P, I, L, L, L, L, L, L, L, L, L, P, L, L, L, P, P, P, I, I, I, I, I,
                        F, I, P)),

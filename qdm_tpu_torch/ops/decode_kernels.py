@@ -14,8 +14,10 @@ engine with a bf16 KV cache:
 * :func:`fused_dense_decode_i8` — the same with a static activation scale:
   ``xi = clip(round(xn * (1/a)), +-127)`` int8, int8 weights with
   per-column scales, ``acc * (a * ws)``.  CUDA kernel
-  ``csrc/decode_dense.cu`` (K6; replaces ``fused_dense_decode_i8_pallas``).
-  The engine's qkv (norm + rope) and o_proj (+ residual).
+  ``csrc/decode_dense.cu`` (K6; replaces ``fused_dense_decode_i8_pallas``):
+  K5's one-launch body with int8 tiles, the codes made in its prologue
+  (:func:`dense_i8_plan`).  The w8a8 engine's qkv (norm + rope), o_proj
+  (+ residual) and int8 lm_head.
 * :func:`decode_attention_kv` — one-token GQA over the combined
   depth-major cache ``(B, 2*hkv, d, T)`` = [K | V]: ``t <= pos`` (and
   ``t >= starts[b]``) mask, softcap, softmax, PV.  CUDA kernel
@@ -62,7 +64,8 @@ engine with a bf16 KV cache:
   and up, ``act(g) * u``, int8 quant with ``s_mid``, int8 down, the f32
   partial of each ``bj``-wide inner block added in block order, residual.
   CUDA kernel ``csrc/decode_mlp_i8.cu`` (K8; replaces
-  ``fused_mlp_decode_i8_pallas``).
+  ``fused_mlp_decode_i8_pallas``): a codes launch, then K25's gate / up
+  and down steps (:func:`mlp_i8_plan`).
 * :func:`fused_dense_decode_i4`, :func:`fused_mlp_decode_i4` — the
   ``w4a8_static`` engine's dense layers and MLP: K6's and K8's functions
   with planar int4 weights (:func:`pack_int4_planar`) and f32 scales per
@@ -921,27 +924,24 @@ def _split_cost(tiles: int, split: int, sms: int, smem: int, ring: int, wave: fl
     return stream / min(1.0, per_sm * ring / 32768) + wave * waves
 
 
-@functools.lru_cache(maxsize=None)
-def dense_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
-               split: int = 0, nvec: int = 1) -> dict:
-    """K5's launch plan for a bf16 x and weight: ``bn`` features a column
-    tile (128 under a 128-wide rope or where 128-wide tiles alone fill the
-    SMs, else 64), ``rows`` of x a tile (8 per n8 tile, up to 32; fewer
-    where a tile's resident rows would not fit), ``split`` blocks a cluster
-    along K (``split`` 1-8 forces it; planned, 1 or 2: on the card larger
-    clusters read slower at every shape timed, their exchanges and combine
-    growing with them; 3-8 only where no row tile fits with 2, as above K
-    20352 under an RMSNorm) and the ring's ``stages`` (as many as fill
-    K5_RING_BYTES and fit): the split and stages of least
-    :func:`_split_cost`.  Cached: a decode step asks for the same few shapes
-    on every call (the returned dict must not be changed)."""
-    bn = 128 if (rope and head_dim == 128) or qmm._cdiv(n, 128) >= sms else 64
-    nk = qmm._cdiv(k, 64)
+def _dense_plan_search(what: str, m: int, n: int, nk: int, bn: int, sms: int, split: int,
+                       smem, stages: int = 0, prologue: float = 0.0) -> dict:
+    """The launch plan of K5 / K6 over ``nk`` chunks of K: ``rows`` of x a
+    tile (8 per n8 tile, up to 32; fewer where a tile's resident rows would
+    not fit), ``split`` blocks a cluster along K (``split`` 1-8 forces it;
+    planned, 1 or 2: on the card larger clusters read slower at every shape
+    timed, their exchanges and combine growing with them; 3-8 only where no
+    row tile fits with 2) and the ring's ``stages`` (as many as fill
+    K5_RING_BYTES and fit ``smem(rows, split, stages)``; with a
+    ``prologue``, every count that fits, the most of least cost; ``stages``
+    forces them): the split and stages of least :func:`_split_cost`, plus
+    ``prologue`` times the rows over the split and the tile width (a block's
+    prologue work on its rows' slice, in the cost's units)."""
     if split and not 1 <= split <= min(K5_MAX_SPLIT, nk):
-        raise ValueError(f"fused_dense_decode: split {split} outside 1..{min(K5_MAX_SPLIT, nk)} "
-                         f"for K={k}")
-    # 1-2 blocks a cluster with the most rows a tile that fit; 3-8 only where
-    # no row tile fits with 2
+        raise ValueError(f"{what}: split {split} outside 1..{min(K5_MAX_SPLIT, nk)} for "
+                         f"{nk} chunks of K")
+    if stages and not 2 <= stages <= 16:
+        raise ValueError(f"{what}: stages {stages} outside 2..16")
     for wide in ((False, True) if not split else (False,)):
         for rows in range(8 * min(4, qmm._cdiv(m, 8)), 0, -8):
             tiles = qmm._cdiv(n, bn) * qmm._cdiv(m, rows)
@@ -949,18 +949,82 @@ def dense_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
             for s in ([split] if split else
                       range(PLAN_MAX_SPLIT + 1, min(K5_MAX_SPLIT, nk) + 1) if wide else
                       range(1, min(PLAN_MAX_SPLIT, nk) + 1)):
-                stages = next((st for st in range(min(16, K5_RING_BYTES // (bn * 128)), 1, -1)
-                               if dense_smem(rows, bn, s, st, k, nvec) <= _SMEM_MAX), 0)
-                if not stages:
-                    continue
-                cost = _split_cost(tiles, s, sms, dense_smem(rows, bn, s, stages, k, nvec),
-                                   stages * bn * 128, 0.2, persistent=s == 1)
-                if best is None or cost < best[0]:
-                    best = (cost, dict(bn=bn, rows=rows, split=s, stages=stages))
+                fits = [st for st in ([stages] if stages else
+                                      range(min(16, K5_RING_BYTES // (bn * 128)), 1, -1))
+                        if smem(rows, s, st) <= _SMEM_MAX]
+                for st in fits if prologue else fits[:1]:
+                    cost = (_split_cost(tiles, s, sms, smem(rows, s, st), st * bn * 128, 0.2,
+                                        persistent=s == 1) + prologue * rows / (s * bn))
+                    if best is None or cost < best[0]:
+                        best = (cost, dict(bn=bn, rows=rows, split=s, stages=st))
             if best is not None:
                 return best[1]
-    raise NotImplementedError(f"fused_dense_decode: no K5 plan fits shared memory for K={k}"
-                              + (f", split {split}" if split else ""))
+    raise NotImplementedError(f"{what}: no plan fits shared memory for {nk} chunks of K"
+                              + (f", split {split}" if split else "")
+                              + (f", stages {stages}" if stages else ""))
+
+
+def _dense_bn(n: int, head_dim: int, rope: bool, sms: int) -> int:
+    """K5 / K6's features a column tile: 128 under a 128-wide rope or where
+    128-wide tiles alone fill the SMs, else 64."""
+    return 128 if (rope and head_dim == 128) or qmm._cdiv(n, 128) >= sms else 64
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
+               split: int = 0, nvec: int = 1) -> dict:
+    """K5's launch plan for a bf16 x and weight (:func:`_dense_plan_search`
+    over K's 64-value chunks; 3-8 blocks only where no row tile fits with 2,
+    as above K 20352 under an RMSNorm).  Cached: a decode step asks for the
+    same few shapes on every call (the returned dict must not be changed)."""
+    bn = _dense_bn(n, head_dim, rope, sms)
+    return _dense_plan_search("fused_dense_decode", m, n, qmm._cdiv(k, 64), bn, sms, split,
+                              lambda rows, s, st: dense_smem(rows, bn, s, st, k, nvec))
+
+
+def dense_i8_smem(rows: int, bn: int, split: int, stages: int, k: int, x_bytes: int = 2,
+                  nvec: int = 1, stage: bool = True) -> int:
+    """Shared memory of one K6 block (``csrc/decode_dense.cu::K6Layout``):
+    the staged rows of x (``x_bytes`` a value) and the norm's ``nvec``
+    vectors (none without ``stage``) share their bytes with the partial and
+    rank 0's tiles."""
+    chunks = qmm._cdiv(qmm._cdiv(k, 128), split)
+    staged = (rows * chunks * 128 * x_bytes + nvec * chunks * 512) if stage else 0
+    tiles = 2 * bn * rows * 4 + rows * (bn + 4) * 4
+    return 5120 + stages * bn * 128 + rows * (chunks * 128 + 16) + max(staged, tiles) + 1024
+
+
+# K6's prologue (the rows' norm sums and codes, made by each block over its slice of K)
+# in _split_cost's units of column tiles streamed, per row of x over the tile width: fit
+# to the cluster x ring sweep of chip_smoke.py --breakdown k6k8 (PERF.md §6)
+K6_PROLOGUE = 4.5
+
+
+@functools.lru_cache(maxsize=None)
+def dense_i8_plan(m: int, k: int, n: int, head_dim: int, rope: bool, sms: int,
+                  split: int = 0, x_bytes: int = 2, nvec: int = 1, stages: int = 0) -> dict:
+    """K6's launch plan (:func:`_dense_plan_search` over K's 128-byte chunks
+    of int8 codes): ``bn``, ``rows``, ``split`` and ``stages`` as K5's;
+    the ring's stages are those of least cost with K6_PROLOGUE (a block makes
+    the codes of its rows' slice before its stream: a split halves that, a
+    shallower ring can let two blocks share an SM); ``split`` 1-8 forces the
+    cluster, ``stages`` 2-16 the ring; ``stage`` 1 where the rows of x are
+    staged in shared memory, 0 where no plan fits them (long f32 rows: the
+    block then reads x twice from device memory).  Cached, as
+    :func:`dense_plan` is."""
+    bn = _dense_bn(n, head_dim, rope, sms)
+    what = "fused_dense_decode_i8"
+    for stage in (True, False):
+        try:
+            plan = _dense_plan_search(what, m, n, qmm._cdiv(k, 128), bn, sms, split,
+                                      lambda rows, s, st: dense_i8_smem(rows, bn, s, st, k,
+                                                                        x_bytes, nvec, stage),
+                                      stages, K6_PROLOGUE)
+        except NotImplementedError:
+            if not stage:
+                raise
+            continue
+        return dict(plan, stage=int(stage))
 
 
 def fused_dense_decode(x, w, norm_scale=None, residual=None, rope_cos=None, rope_sin=None,
@@ -1014,11 +1078,15 @@ def fused_dense_decode_i8(x, w_i8, w_scale, act_scale, norm_scale=None, residual
                           rope_cos=None, rope_sin=None, head_dim: int = 0, eps: float = 1e-6,
                           out_dtype=None, bias=None, norm_bias=None,
                           norm_type: str = "rmsnorm", w_t: Optional[torch.Tensor] = None,
-                          scratch: Optional[torch.Tensor] = None):
-    """int8 :func:`fused_dense_decode`: static act scale (1,), int8
-    weight (K, N) with per-column scales (1, N).  scratch, if given, is
-    the (B, K) int8 tensor that receives the activation codes (for a
-    caller that checks them)."""
+                          scratch: Optional[torch.Tensor] = None, split: int = 0,
+                          stages: int = 0, trace: Optional[dict] = None):
+    """int8 :func:`fused_dense_decode` (K6): static act scale (1,), int8
+    weight (K, N) with per-column scales (1, N), one launch
+    (:func:`dense_i8_plan`).  scratch, if given, is the (B, K) int8 tensor
+    that receives the activation codes (for a caller that checks them).  On
+    the card: ``split`` 1-8 forces the blocks of a cluster along K and
+    ``stages`` 2-16 its ring (tests and profiles only: the result is the
+    same; 0 plans them), and ``trace``, a dict, receives the plan."""
     out_dtype = out_dtype or x.dtype
     if not _on_card(x, "fused_dense_decode_i8"):
         return fused_dense_decode_i8_plain(x, w_i8, w_scale, act_scale, norm_scale, residual,
@@ -1034,15 +1102,26 @@ def fused_dense_decode_i8(x, w_i8, w_scale, act_scale, norm_scale=None, residual
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    xi = _scratch(scratch, (m, k), x.device)
+    xi = None if scratch is None else _scratch(scratch, (m, k), x.device)
+    if xi is not None and xi.data_ptr() % 16:
+        raise ValueError("fused_dense_decode_i8: the codes' scratch must be 16-byte aligned "
+                         "(stored 16 codes at a time)")
+    # x and the norm's vectors are staged 16 bytes at a time
+    x, ns, nb = (t.clone() if t is not None and t.data_ptr() % 16 else t for t in (x, ns, nb))
+    plan = dense_i8_plan(m, k, n, head_dim, cos is not None, qmm.sm_count(x.device), split,
+                         x.element_size(), 0 if ns is None else (2 if nb is not None else 1),
+                         stages)
     fn = cuda_build.kernel("decode_dense_i8")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], w_t.data_ptr(), ws.data_ptr(), a.data_ptr(),
                  _ptr(ns), _ptr(nb), _NORMS[norm_type if ns is not None else None],
                  ctypes.c_float(eps), _ptr(bi), _ptr(cos), _ptr(sin), int(head_dim),
                  _ptr(res), _DTYPE_CODE[res.dtype] if res is not None else 0,
-                 out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(), m, k, n, _stream(x))
+                 out.data_ptr(), _DTYPE_CODE[out_dtype], _ptr(xi), m, k, n, plan["bn"],
+                 plan["rows"], plan["split"], plan["stages"], plan["stage"], _stream(x))
     cuda_build.check(err, "fused_dense_decode_i8")
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES["fused_dense_decode_i8"] += 1
     return out
 
@@ -1523,13 +1602,20 @@ def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor
                         block_j: int = 512, out_dtype=None, residual: bool = True,
                         norm_bias=None, norm_type: str = "rmsnorm",
                         w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-                        scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """int8 fused MLP: x (B, K) -> x + down(act(gate(n)) * up(n)).
+                        scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        splits: Optional[Sequence[int]] = None,
+                        stages: Optional[Sequence[int]] = None,
+                        trace: Optional[dict] = None):
+    """int8 fused MLP (K8): x (B, K) -> x + down(act(gate(n)) * up(n)).
     w_gate / w_up (K, I) and w_down (I, K) int8; w_scales = (sg (1, I),
     su (1, I), sd (1, K)); act_scales (2,) = [s_in, s_mid].  w_t, if
     given, holds the transposed copies (gate (I, K), up (I, K), down
     (K, I)); scratch, if given, the (B, K) and (B, I) int8 tensors that
-    receive the input and mid codes."""
+    receive the input and mid codes.  On the card: three launches (the
+    codes, gate / up, down; :func:`mlp_i8_plan`); ``splits`` and
+    ``stages``, two counts each (0 plans that step), force the clusters and
+    rings of the gate / up and down steps (tests and profiles only: the
+    result is the same), and ``trace``, a dict, receives the plan."""
     out_dtype = out_dtype or x.dtype
     if act not in _ACTS:
         raise ValueError(f"act {act!r}")
@@ -1562,27 +1648,38 @@ def fused_mlp_decode_i8(x, w_gate, w_up, w_down, w_scales: Sequence[torch.Tensor
     nb = _f32_vec(norm_bias, k, "norm_bias", dev) if norm == "layernorm" else None
     if norm == "layernorm" and nb is None:
         nb = torch.zeros(k, dtype=torch.float32, device=dev)
-    sg = _f32_vec(w_scales[0], inner, "gate scales", dev)
-    su = _f32_vec(w_scales[1], inner, "up scales", dev)
-    sd = _f32_vec(w_scales[2], k, "down scales", dev)
+    # the column scales are staged 16 bytes at a time
+    sg, su, sd = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+        _f32_vec(w_scales[0], inner, "gate scales", dev),
+        _f32_vec(w_scales[1], inner, "up scales", dev), _f32_vec(w_scales[2], k, "down scales",
+                                                                  dev)))
     scl = _f32_vec(act_scales, 2, "act_scales", dev)
     bj = pick_block(inner, block_j)
-    n_j = inner // bj
     x = x.contiguous()
     out = torch.empty((m, k), dtype=out_dtype, device=dev)
     if m == 0:
         return out
     xi = _scratch(scratch and scratch[0], (m, k), dev)
     ai = _scratch(scratch and scratch[1], (m, inner), dev)
-    part = torch.empty((n_j, m, k), dtype=torch.float32, device=dev)
+    if xi.data_ptr() % 16 or ai.data_ptr() % 16:
+        raise ValueError("fused_mlp_decode_i8: the input and mid codes' scratch must be "
+                         "16-byte aligned (the steps copy them 16 bytes at a time)")
+    if x.data_ptr() % 16:  # read 16 bytes at a time
+        x = x.clone()
+    plan = mlp_i8_plan(m, k, inner, bj, qmm.sm_count(dev), tuple(splits) if splits else None,
+                       tuple(stages) if stages else None)
     fn = cuda_build.kernel("decode_mlp_i8")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), _DTYPE_CODE[x.dtype], wts[0].data_ptr(), wts[1].data_ptr(),
                  wts[2].data_ptr(), sg.data_ptr(), su.data_ptr(), sd.data_ptr(), scl.data_ptr(),
                  _ptr(ns), _ptr(nb), _NORMS[norm], ctypes.c_float(eps), _ACTS[act],
                  int(bool(residual)), out.data_ptr(), _DTYPE_CODE[out_dtype], xi.data_ptr(),
-                 ai.data_ptr(), part.data_ptr(), m, k, inner, bj, _stream(x))
+                 ai.data_ptr(), m, k, inner, bj,
+                 *(v for step in zip(plan["rows"], plan["splits"], plan["stages"]) for v in step),
+                 _stream(x))
     cuda_build.check(err, "fused_mlp_decode_i8")
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES["fused_mlp_decode_i8"] += 1
     return out
 
@@ -2037,23 +2134,60 @@ I8_BLOCKS_PER_SM = 4          # K25's 288 threads at the registers it is built f
 
 
 def i8_step_cost(m: int, tr: int, step: int, n: int, contraction: int, unit: int, split: int,
-                 stages: int, sms: int) -> float:
+                 stages: int, sms: int, ready: bool = False) -> float:
     """The cost of one K25 step (0 o_proj, 1 gate / up, 2 down) over ``n``
     output columns and a ``contraction`` of ``unit``-byte units shared out
-    among ``split`` blocks a cluster, with a ring of ``stages``."""
+    among ``split`` blocks a cluster, with a ring of ``stages``; ``ready``:
+    gate / up copies ready input codes (K8) instead of quantizing x2."""
     nb = 2 if step == 1 else 1
-    per = qmm._cdiv(contraction // unit, split)
+    per = qmm._cdiv(qmm._cdiv(contraction, unit), split)
     smem = i8_step_smem(m, tr, nb, stages, per * unit, per if step == 2 else nb, step == 0)
     per_sm = min(I8_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024))
     blocks = qmm._cdiv(n, 64) * qmm._cdiv(m, tr) * split
     waves = qmm._cdiv(blocks, sms * per_sm)
     rs = min(tr, qmm._round_up(m, 8))
-    staged_kb = rs * per * unit * (2, 4, 0)[step] / 1024   # the prologue's inputs
+    staged_kb = rs * per * unit * (0 if ready else (2, 4, 0)[step]) / 1024  # the prologue's inputs
     busy_kb = qmm._cdiv(blocks, sms) * per * unit * 64 * nb / 1024
     in_flight_kb = min(per_sm, qmm._cdiv(blocks, sms)) * stages * nb * 8
     return (waves * (I8_WAVE_US + staged_kb / I8_STAGE_KB_PER_US)
             + max(busy_kb / I8_SM_KB_PER_US, busy_kb * I8_RING_TRIP_US / in_flight_kb)
             + I8_SPLIT_US * split)
+
+
+def _i8_step_plan(m: int, tr: int, step: int, n: int, contraction: int, unit: int, sms: int,
+                  split: int = 0, stages: int = 0, ready: bool = False):
+    """(cost, split, stages) of least :func:`i8_step_cost` for one step at
+    ``tr`` rows a tile (I8_SPLITS, 2 up to 128 KB of ring; the ring stages a
+    row of the attention output, f32 at most, for o_proj, and the norm
+    scale's slice and a row of x2 for K25's gate / up, before it streams);
+    ``split`` / ``stages`` force them; None where nothing fits."""
+    nb = 2 if step == 1 else 1
+    units = qmm._cdiv(contraction, unit)
+    best = None
+    for sp in ([split] if split else [s_ for s_ in I8_SPLITS if s_ <= units]):
+        per = qmm._cdiv(units, sp)
+        need = (0 if ready else (1, 2, 0)[step]) * per * unit * 4
+        for st in ([stages] if stages else range(2, 16 // nb + 1)):
+            if (st * nb * 64 * 128 < need or i8_step_smem(
+                    m, tr, nb, st, per * unit, per if step == 2 else nb, step == 0) > _SMEM_MAX):
+                continue
+            cost = i8_step_cost(m, tr, step, n, contraction, unit, sp, st, sms, ready)
+            if best is None or cost < best[0]:
+                best = (cost, sp, st)
+    return best
+
+
+def _i8_forced_ok(what: str, shapes, steps, splits, stages) -> None:
+    """Forced clusters (1-8, at most the step's units) and rings (2-16, 2-8
+    for gate / up's two weights) within range, 0 planning that step."""
+    for pos, (forced, lo, hi) in enumerate(((splits, 1, I4_MAX_SPLIT), (stages, 2, 16))):
+        for i, v in enumerate(forced or (0,) * len(steps)):
+            step = steps[i]
+            n_units = qmm._cdiv(shapes[i][1], shapes[i][2])
+            top = min(hi, n_units) if pos == 0 else hi // (2 if step == 1 else 1)
+            if v and not lo <= v <= top:
+                raise ValueError(f"{what}: step {step}'s {('split', 'stages')[pos]} {v} outside "
+                                 f"{lo}..{top}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -2064,48 +2198,52 @@ def o_mlp_i8_plan(m: int, hd: int, k: int, inner: int, bj: int, sms: int,
     where a step would not fit) and, for each step (o_proj, gate / up,
     down), the blocks of a cluster along its contraction (I8_SPLITS; o_proj
     and gate / up share out 128-byte stages, down its inner blocks) and the
-    ring's stages (2 up to 128 KB; the ring stages a row of the attention
-    output, f32 at most, for o_proj, and the norm scale's slice and a row of
-    x2 for gate / up, before it streams) of least :func:`i8_step_cost`:
+    ring's stages of least :func:`i8_step_cost` (:func:`_i8_step_plan`):
     fewer, shallower rings where they let every block of a step run in one
     wave.  ``splits`` and ``stages`` (three counts each, 0 plans that step)
     force them.  Cached, as :func:`dense_plan` is."""
     what = "fused_o_mlp_decode_i8"
     shapes = ((k, hd, 128), (inner, k, 128), (k, inner, bj))
-    for pos, (forced, lo, hi) in enumerate(((splits, 1, I4_MAX_SPLIT), (stages, 2, 16))):
-        for step, v in enumerate(forced or (0, 0, 0)):
-            top = min(hi, shapes[step][1] // shapes[step][2]) if pos == 0 else hi // (
-                2 if step == 1 else 1)
-            if v and not lo <= v <= top:
-                raise ValueError(f"{what}: step {step}'s {('split', 'stages')[pos]} {v} outside "
-                                 f"{lo}..{top}")
+    _i8_forced_ok(what, shapes, (0, 1, 2), splits, stages)
     for tr in ((32, 16, 8) if m > 16 else (16, 8)):
-        plan = []
-        for step, (n, contraction, unit) in enumerate(shapes):
-            nb = 2 if step == 1 else 1
-            units = contraction // unit
-            best = None
-            for sp in ([splits[step]] if splits and splits[step] else
-                       [s_ for s_ in I8_SPLITS if s_ <= units]):
-                per = qmm._cdiv(units, sp)
-                need = (1, 2, 0)[step] * per * unit * 4
-                for st in ([stages[step]] if stages and stages[step] else range(2, 16 // nb + 1)):
-                    if (st * nb * 64 * 128 < need or i8_step_smem(
-                            m, tr, nb, st, per * unit, per if step == 2 else nb, step == 0)
-                            > _SMEM_MAX):
-                        continue
-                    cost = i8_step_cost(m, tr, step, n, contraction, unit, sp, st, sms)
-                    if best is None or cost < best[0]:
-                        best = (cost, sp, st)
-            if best is None:
-                break
-            plan.append(best[1:])
-        if len(plan) == 3:
-            return dict(rows=tr, splits=tuple(p_[0] for p_ in plan),
-                        stages=tuple(p_[1] for p_ in plan))
+        plan = [_i8_step_plan(m, tr, step, *shape, sms, (splits or (0, 0, 0))[step],
+                              (stages or (0, 0, 0))[step])
+                for step, shape in enumerate(shapes)]
+        if all(plan):
+            return dict(rows=tr, splits=tuple(p_[1] for p_ in plan),
+                        stages=tuple(p_[2] for p_ in plan))
     raise NotImplementedError(f"{what}: no plan fits shared memory for M={m}, HD={hd}, K={k}, "
                               f"I={inner}" + (f", splits {splits}" if splits else "")
                               + (f", stages {stages}" if stages else ""))
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_i8_plan(m: int, k: int, inner: int, bj: int, sms: int,
+                splits: Optional[Tuple[int, int]] = None,
+                stages: Optional[Tuple[int, int]] = None) -> dict:
+    """K8's launch plan: K25's gate / up and down steps, which it runs after
+    its codes launch, each planned on its own (:func:`_i8_step_plan`, gate /
+    up copying ready codes): ``rows`` of x a tile (16, or 32 above 16;
+    fewer where the step would not fit), the blocks of a cluster along the
+    contraction (gate / up shares out K's 128-byte stages, down the inner
+    blocks) and the ring's stages.  ``splits`` and ``stages`` (two counts
+    each, 0 plans that step) force them.  Cached."""
+    what = "fused_mlp_decode_i8"
+    shapes = ((inner, k, 128), (k, inner, bj))
+    _i8_forced_ok(what, shapes, (1, 2), splits, stages)
+    plan = []
+    for i, (step, shape) in enumerate(zip((1, 2), shapes)):
+        best = next(((tr, p_) for tr in ((32, 16, 8) if m > 16 else (16, 8))
+                     for p_ in [_i8_step_plan(m, tr, step, *shape, sms, (splits or (0, 0))[i],
+                                              (stages or (0, 0))[i], ready=True)] if p_), None)
+        if best is None:
+            raise NotImplementedError(
+                f"{what}: no plan of step {step} fits shared memory for M={m}, K={k}, I={inner}"
+                + (f", splits {splits}" if splits else "") + (f", stages {stages}" if stages
+                                                              else ""))
+        plan.append((best[0], *best[1][1:]))
+    return dict(rows=tuple(p_[0] for p_ in plan), splits=tuple(p_[1] for p_ in plan),
+                stages=tuple(p_[2] for p_ in plan))
 
 
 @functools.lru_cache(maxsize=None)

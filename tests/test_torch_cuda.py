@@ -336,29 +336,133 @@ DEC_DENSE_CASES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,norm,bias,hd,res,f32_out,x_bf16", DEC_DENSE_CASES)
-def test_decode_dense_i8_kernel_matches_plain_on_card(m, k, n, norm, bias, hd, res, f32_out,
-                                                      x_bf16):
+# the w8a8 engines' Llama-2-7B shapes: qkv (norm, rope 128), o_proj (+res), the int8 head
+DEC_DENSE_7B_CASES = [
+    (8, 4096, 12288, "rmsnorm", False, 128, False, False, True),
+    (8, 4096, 4096, None, False, 0, True, False, True),
+    (8, 4096, 32000, "rmsnorm", False, 0, False, True, True),
+]
+
+
+def _dense_i8_case(m, k, n, norm, bias, hd, res, f32_out, x_bf16, seed):
+    """K6's operands and keyword arguments, and the plain version's codes and
+    output."""
     dev = _card()
-    o = _dense_operands(m, k, n, m + k + n, dev, torch.bfloat16 if x_bf16 else torch.float32, hd)
+    o = _dense_operands(m, k, n, seed, dev, torch.bfloat16 if x_bf16 else torch.float32, hd)
     codes, scales = _quant_w(o["w"])
     a = torch.tensor([0.015], device=dev)
     kw = dict(norm_scale=o["ns"] if norm else None, residual=o["res"] if res else None,
               rope_cos=o["cos"] if hd else None, rope_sin=o["sin"] if hd else None, head_dim=hd,
               bias=o["bias"] if bias else None, norm_bias=o["nb"] if norm == "layernorm" else None,
               norm_type=norm or "rmsnorm", out_dtype=torch.float32 if f32_out else torch.bfloat16)
-    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
-    before = qmm.LAUNCHES["fused_dense_decode_i8"]
-    got = dk.fused_dense_decode_i8(o["x"], codes, scales, a, scratch=xi, **kw)
     want = dk.fused_dense_decode_i8_plain(o["x"], codes, scales, a, **kw)
-    torch.cuda.synchronize()
-    assert qmm.LAUNCHES["fused_dense_decode_i8"] == before + 1
     want_codes = dk._quant_static(dk._prologue(o["x"], kw["norm_scale"], kw["norm_bias"], 1e-6,
                                                kw["norm_type"]), a)
-    assert torch.equal(xi, want_codes)
+    return o["x"], codes, scales, a, kw, want, want_codes
+
+
+def _dense_i8_equal(x, codes, scales, a, kw, want, want_codes, **extra):
+    """K6 with ``extra`` (a forced split): codes identical and output equal
+    to the plain version's; returns the launch's plan."""
+    xi = torch.empty(want_codes.shape, dtype=torch.int8, device=x.device)
+    plan = {}
+    got = dk.fused_dense_decode_i8(x, codes, scales, a, scratch=xi, trace=plan, **kw, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(xi, want_codes), int((xi != want_codes).sum())
     assert got.dtype == want.dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,norm,bias,hd,res,f32_out,x_bf16",
+                         DEC_DENSE_CASES + DEC_DENSE_7B_CASES)
+def test_decode_dense_i8_kernel_matches_plain_on_card(m, k, n, norm, bias, hd, res, f32_out,
+                                                      x_bf16):
+    """K6: codes identical, output equal, one CUDA launch a call."""
+    case = _dense_i8_case(m, k, n, norm, bias, hd, res, f32_out, x_bf16, m + k + n)
+    before = qmm.LAUNCHES["fused_dense_decode_i8"]
+    _dense_i8_equal(*case)
+    assert qmm.LAUNCHES["fused_dense_decode_i8"] == before + 1
+    x, codes, scales, a, kw = case[:5]
+    w_t = dk.transposed_weight(codes)
+    assert _cuda_launches(lambda: dk.fused_dense_decode_i8(x, codes, scales, a, w_t=w_t,
+                                                           **kw)) == 1
+
+
+# K6 with its cluster forced: the 7B qkv and o_proj, TinyLlama qkv, ragged rows and K of f32
+K6_SPLIT_SHAPES = [(8, 4096, 12288, "rmsnorm", False, 128, False, False, True),
+                   (8, 4096, 4096, None, False, 0, True, False, True),
+                   (32, 2048, 2560, "rmsnorm", False, 64, False, False, True),
+                   (17, 1040, 640, "layernorm", True, 0, True, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("m,k,n,norm,bias,hd,res,f32_out,x_bf16", K6_SPLIT_SHAPES)
+def test_decode_dense_i8_forced_splits_on_card(m, k, n, norm, bias, hd, res, f32_out, x_bf16,
+                                               split):
+    """K6 with 1-8 blocks a column tile: codes identical and output equal to
+    the plain version's (the planned launch's too), one CUDA launch."""
+    case = _dense_i8_case(m, k, n, norm, bias, hd, res, f32_out, x_bf16, m + k + n)
+    planned = _dense_i8_equal(*case)
+    assert planned["split"] in (1, 2)
+    assert _dense_i8_equal(*case, split=split)["split"] == split
+    x, codes, scales, a, kw = case[:5]
+    w_t = dk.transposed_weight(codes)
+    assert _cuda_launches(lambda: dk.fused_dense_decode_i8(x, codes, scales, a, w_t=w_t,
+                                                           split=split, **kw)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,stages", [(1, 2), (1, 3), (1, 16), (2, 2), (2, 4), (4, 8)])
+@pytest.mark.parametrize("m,k,n,norm,bias,hd,res,f32_out,x_bf16", K6_SPLIT_SHAPES[:3])
+def test_decode_dense_i8_forced_rings_on_card(m, k, n, norm, bias, hd, res, f32_out, x_bf16,
+                                              split, stages):
+    """K6 with its cluster and ring forced together: codes identical and
+    output equal; a ring the shape's shared memory does not take raises."""
+    case = _dense_i8_case(m, k, n, norm, bias, hd, res, f32_out, x_bf16, m + k + n)
+    try:
+        dk.dense_i8_plan(m, k, n, hd, bool(hd), qmm.sm_count(case[0].device), split, 2,
+                         int(bool(norm)), stages)
+    except (ValueError, NotImplementedError):
+        with pytest.raises((ValueError, NotImplementedError)):
+            dk.fused_dense_decode_i8(*case[:4], split=split, stages=stages, **case[4])
+        return
+    plan = _dense_i8_equal(*case, split=split, stages=stages)
+    assert (plan["split"], plan["stages"]) == (split, stages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [0, 8])
+def test_decode_dense_i8_unstaged_rows_on_card(split):
+    """f32 rows too long to stage in shared memory (K 40960 under a
+    LayerNorm): K6 reads them from device memory, planned and with 8 blocks a
+    cluster, codes identical and output equal."""
+    case = _dense_i8_case(9, 40960, 256, "layernorm", True, 0, True, True, False, 5)
+    plan = _dense_i8_equal(*case, split=split)
+    assert plan["stage"] == 0 and (not split or plan["split"] == split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (32, 2048, 640)])
+def test_decode_dense_i8_check_flags_planted_faults_on_card(m, k, n):
+    """The sign of one rotated column's sin flipped, the norm scale 1e-2 off,
+    or one weight scale 1e-3 off, makes K6's output differ from the plain
+    version's."""
+    x, codes, scales, a, kw, want, want_codes = _dense_i8_case(m, k, n, "rmsnorm", False, 64,
+                                                               False, False, True, m + k)
+    _dense_i8_equal(x, codes, scales, a, kw, want, want_codes)
+    bad_sin = kw["rope_sin"].clone()
+    bad_sin[1] = -bad_sin[1]
+    bad_ws = scales.clone()
+    bad_ws.view(-1)[n // 2] *= 1.001
+    for args, bad in (((scales,), dict(kw, rope_sin=bad_sin)),
+                      ((scales,), dict(kw, norm_scale=kw["norm_scale"] * 1.01)),
+                      ((bad_ws,), kw)):
+        got = dk.fused_dense_decode_i8(x, codes, *args, a, **bad)
+        torch.cuda.synchronize()
+        assert not torch.equal(got, want)
 
 
 # (M, K, N, norm, bias, rope head_dim, residual, out f32, x bf16, w bf16)
@@ -505,38 +609,130 @@ DEC_MLP_CASES = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,i,bj,norm,act,residual,f32_out,x_bf16", DEC_MLP_CASES)
-def test_decode_mlp_i8_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residual, f32_out,
-                                                    x_bf16):
+# the w8a8 engine's Llama-2-7B MLP
+DEC_MLP_7B_CASES = [(8, 4096, 11008, 256, "rmsnorm", "silu", True, False, True)]
+_MLP_I8_CASES = {}
+
+
+def _mlp_i8_case(m, k, i, bj, norm, act, residual, f32_out, x_bf16):
+    """K8's operands and keyword arguments, and the plain version's input
+    codes, mid codes and output (the last few shapes kept: the 7B weights are
+    drawn once)."""
+    key = (m, k, i, bj, norm, act, residual, f32_out, x_bf16)
+    if key in _MLP_I8_CASES:
+        return _MLP_I8_CASES[key]
     dev = _card()
     rng = np.random.default_rng(m + k + i)
     f = lambda *shape, s=1.0: torch.from_numpy(
         (rng.standard_normal(shape) * s).astype(np.float32)).to(dev)
     x = f(m, k, s=0.5).to(torch.bfloat16 if x_bf16 else torch.float32)
-    (cg, sg), (cu, su), (cd, sd) = [_quant_w(f(*s, s=0.05)) for s in ((k, i), (k, i), (i, k))]
+    (cg, sg), (cu, su), (cd, sd) = [_quant_w(f(*s_, s=0.05)) for s_ in ((k, i), (k, i), (i, k))]
     scl = torch.tensor([0.02, 0.004], device=dev)
     ns, nb = f(k).abs() + 0.5, f(k, s=0.1)
     kw = dict(act=act, block_j=bj, residual=residual, norm_type=norm or "rmsnorm",
               norm_bias=nb if norm == "layernorm" else None,
               out_dtype=torch.float32 if f32_out else torch.bfloat16)
-    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
-    ai = torch.empty((m, i), dtype=torch.int8, device=dev)
-    before = qmm.LAUNCHES["fused_mlp_decode_i8"]
-    got = dk.fused_mlp_decode_i8(x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None,
-                                 scratch=(xi, ai), **kw)
-    want = dk.fused_mlp_decode_i8_plain(x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None,
-                                        **kw)
-    torch.cuda.synchronize()
-    assert qmm.LAUNCHES["fused_mlp_decode_i8"] == before + 1
+    args = (x, cg, cu, cd, (sg, su, sd), scl, ns if norm else None)
+    want = dk.fused_mlp_decode_i8_plain(*args, **kw)
     want_xi = dk._quant_static(dk._prologue(x, ns if norm else None, kw["norm_bias"], 1e-6,
                                             kw["norm_type"]), scl[0:1])
-    assert torch.equal(xi, want_xi)
     g = qmm.int8_matmul_exact(want_xi, cg).float() * (scl[0:1] * sg)
     u = qmm.int8_matmul_exact(want_xi, cu).float() * (scl[0:1] * su)
-    assert torch.equal(ai, dk._quant_static(dk._act(act, g) * u, scl[1:2]))
+    want_ai = dk._quant_static(dk._act(act, g) * u, scl[1:2])
+    if len(_MLP_I8_CASES) > 2:
+        _MLP_I8_CASES.clear()
+    _MLP_I8_CASES[key] = (args, kw, want, want_xi, want_ai)
+    return _MLP_I8_CASES[key]
+
+
+def _mlp_i8_equal(args, kw, want, want_xi, want_ai, **extra):
+    """K8 with ``extra`` (forced splits / stages): input and mid codes
+    identical and output equal to the plain version's; returns the plan."""
+    x = args[0]
+    xi = torch.empty(want_xi.shape, dtype=torch.int8, device=x.device)
+    ai = torch.empty(want_ai.shape, dtype=torch.int8, device=x.device)
+    plan = {}
+    got = dk.fused_mlp_decode_i8(*args, scratch=(xi, ai), trace=plan, **kw, **extra)
+    torch.cuda.synchronize()
+    assert torch.equal(xi, want_xi), int((xi != want_xi).sum())
+    assert torch.equal(ai, want_ai), int((ai != want_ai).sum())
     assert got.dtype == want.dtype and torch.equal(got, want), \
         float((got.float() - want.float()).abs().max())
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,i,bj,norm,act,residual,f32_out,x_bf16",
+                         DEC_MLP_CASES + DEC_MLP_7B_CASES)
+def test_decode_mlp_i8_kernel_matches_plain_on_card(m, k, i, bj, norm, act, residual, f32_out,
+                                                    x_bf16):
+    """K8: input and mid codes identical, output equal, three CUDA launches
+    a call (the codes, gate / up, down)."""
+    case = _mlp_i8_case(m, k, i, bj, norm, act, residual, f32_out, x_bf16)
+    before = qmm.LAUNCHES["fused_mlp_decode_i8"]
+    _mlp_i8_equal(*case)
+    assert qmm.LAUNCHES["fused_mlp_decode_i8"] == before + 1
+    args, kw = case[:2]
+    w_t = tuple(dk.transposed_weight(t) for t in args[1:4])
+    assert _cuda_launches(lambda: dk.fused_mlp_decode_i8(*args, w_t=w_t, **kw)) == 3
+
+
+# K8 at the 7B and TinyLlama decode shapes, one step's cluster or ring forced
+MLP_I8_FORCED_SHAPES = [(8, 4096, 11008, 256, "rmsnorm", "silu", True, False, True),
+                        (32, 2048, 5632, 512, "rmsnorm", "silu", True, False, True),
+                        (40, 256, 384, 128, "layernorm", "gelu", True, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,value", [("splits", v) for v in (1, 2, 4, 8)]
+                         + [("stages", v) for v in (2, 3, 4, 8)])
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("m,k,i,bj,norm,act,residual,f32_out,x_bf16", MLP_I8_FORCED_SHAPES)
+def test_decode_mlp_i8_forced_plans_on_card(m, k, i, bj, norm, act, residual, f32_out, x_bf16,
+                                            step, what, value):
+    """K8 with its gate / up (step 0) or down (step 1) cluster forced to 1, 2,
+    4 or 8 blocks, or its ring to 2-8 stages: codes identical and output
+    equal to the plain version's (the planned launch's too), three CUDA
+    launches; a count the shape does not take raises."""
+    case = _mlp_i8_case(m, k, i, bj, norm, act, residual, f32_out, x_bf16)
+    forced = {what: tuple(value if s == step else 0 for s in range(2))}
+    try:
+        dk.mlp_i8_plan(m, k, i, dk.pick_block(i, bj), qmm.sm_count(case[0][0].device),
+                       forced.get("splits"), forced.get("stages"))
+    except (ValueError, NotImplementedError):
+        with pytest.raises((ValueError, NotImplementedError)):
+            dk.fused_mlp_decode_i8(*case[0], **case[1], **forced)
+        return
+    _mlp_i8_equal(*case)
+    assert _mlp_i8_equal(*case, **forced)[what][step] == value
+    args, kw = case[:2]
+    w_t = tuple(dk.transposed_weight(t) for t in args[1:4])
+    assert _cuda_launches(lambda: dk.fused_mlp_decode_i8(*args, w_t=w_t, **kw, **forced)) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["norm scale", "down blocks", "mid scale"])
+def test_decode_mlp_i8_check_flags_planted_faults_on_card(fault):
+    """The norm's scale shifted by one value, the down weight's inner blocks
+    shifted by one block, or s_mid 1e-3 off, makes K8's input codes, mid
+    codes or output differ from the plain version's."""
+    case = _mlp_i8_case(8, 1024, 2048, 256, "rmsnorm", "silu", True, False, True)
+    args, kw, want, want_xi, want_ai = case
+    _mlp_i8_equal(*case)
+    x, cg, cu, cd, scales, scl, ns = args
+    xi = torch.empty(want_xi.shape, dtype=torch.int8, device=x.device)
+    ai = torch.empty(want_ai.shape, dtype=torch.int8, device=x.device)
+    bad = {"norm scale": (x, cg, cu, cd, scales, scl, torch.roll(ns, 1)),
+           "down blocks": (x, cg, cu, cd.roll(256, dims=0), scales, scl, ns),
+           "mid scale": (x, cg, cu, cd, scales, scl * torch.tensor([1.0, 1.001],
+                                                                   device=x.device), ns)}[fault]
+    got = dk.fused_mlp_decode_i8(*bad, scratch=(xi, ai), **kw)
+    torch.cuda.synchronize()
+    if fault == "norm scale":
+        assert not torch.equal(xi, want_xi)
+    elif fault == "mid scale":
+        assert not torch.equal(ai, want_ai)
+    assert not torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

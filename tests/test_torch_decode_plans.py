@@ -1,6 +1,7 @@
 """The cluster launch plans of the decode kernels, computed on the host:
 K11's (``decode_kernels.mlp_plan``), K17's (``mlp_i4_plan``), K26's
-(``o_mlp_i4_plan``) and K5's (``dense_plan``).  Every serving shape plans
+(``o_mlp_i4_plan``), K5's (``dense_plan``), K6's (``dense_i8_plan``), K25's
+(``o_mlp_i8_plan``) and K8's (``mlp_i8_plan``).  Every serving shape plans
 within a block's shared memory; 1 or 2 blocks a cluster wherever 2 fit,
 3-8 (or fewer rows a tile) only where they do not; forced splits outside
 1-8, or beyond the contraction's units, raise."""
@@ -273,3 +274,157 @@ def test_o_mlp_i8_forced_outside_range_raises(splits):
 def test_o_mlp_i8_forced_stages_outside_range_raise(stages):
     with pytest.raises(ValueError):
         dk.o_mlp_i8_plan(8, 4096, 4096, 11008, 256, SMS, None, stages)
+
+
+# K6 (``dense_i8_plan``): (M, K, N, rope head_dim) of the w8a8 engines' qkv, o_proj and
+# int8 head at TinyLlama-1.1B, Llama-2-7B and Mixtral-8x7B width, and the card tests'
+# small shapes (K 64 / 128 / 256, N 96 / 384)
+DENSE_I8_SHAPES = [(32, 2048, 2560, 64), (32, 2048, 2048, 0), (32, 2048, 32000, 0),
+                   (8, 4096, 12288, 128), (8, 4096, 4096, 0), (8, 4096, 32000, 0),
+                   (8, 4096, 6144, 128), (8, 4096, 32000, 0), (5, 64, 96, 16),
+                   (40, 256, 384, 0), (7, 128, 256, 128), (1, 4096, 12288, 128),
+                   (17, 4096, 4096, 0), (64, 2048, 2560, 64)]
+
+
+def _dense_i8_size(m, k, n, p, x_bytes, nvec):
+    return dk.dense_i8_smem(p["rows"], p["bn"], p["split"], p["stages"], k, x_bytes, nvec,
+                            p["stage"])
+
+
+@pytest.mark.parametrize("x_bytes,nvec", [(2, 1), (4, 1), (2, 0), (4, 2)])
+@pytest.mark.parametrize("m,k,n,hd", DENSE_I8_SHAPES)
+def test_dense_i8_plan_shapes(m, k, n, hd, x_bytes, nvec):
+    """Every shape plans within a block's shared memory, its rows of x staged:
+    128-wide tiles under a 128-wide rope, 1 or 2 blocks a cluster (every
+    shape here fits them), at most one cluster block a 128-byte chunk of K;
+    the most rows a tile wherever that fits 2 blocks."""
+    p = dk.dense_i8_plan(m, k, n, hd, bool(hd), SMS, 0, x_bytes, nvec)
+    nk = -(-k // 128)
+    assert p["bn"] in (64, 128) and (hd != 128 or p["bn"] == 128) and p["stage"] == 1
+    assert 1 <= p["split"] <= min(dk.PLAN_MAX_SPLIT, nk) and 2 <= p["stages"] <= 16
+    most = 8 * min(4, -(-m // 8))
+    fits = any(dk.dense_i8_smem(most, p["bn"], s, 2, k, x_bytes, nvec) <= SMEM
+               for s in range(1, min(dk.PLAN_MAX_SPLIT, nk) + 1))
+    assert p["rows"] == most if fits else p["rows"] < most
+    assert p["stages"] * p["bn"] * 128 <= dk.K5_RING_BYTES
+    assert _dense_i8_size(m, k, n, p, x_bytes, nvec) <= SMEM
+
+
+@pytest.mark.parametrize("x_bytes", [2, 4])
+@pytest.mark.parametrize("k", [20480, 40960, 81920, 131072])
+def test_dense_i8_plan_wide_k(k, x_bytes):
+    """Every K plans within a block's shared memory: 3-8 blocks a cluster
+    only where no row tile fits 2, and the rows of x read from device memory
+    only where no plan fits them staged."""
+    p = dk.dense_i8_plan(32, k, 4096, 0, False, SMS, 0, x_bytes, 2)
+    assert 1 <= p["split"] <= 8 and _dense_i8_size(32, k, 4096, p, x_bytes, 2) <= SMEM
+    staged = [dk.dense_i8_smem(r, 64, s, 2, k, x_bytes, 2) <= SMEM
+              for r in (8, 16, 24, 32) for s in range(1, 9)]
+    assert p["stage"] == int(any(staged))
+    two = any(dk.dense_i8_smem(r, 64, s, 2, k, x_bytes, 2, p["stage"]) <= SMEM
+              for r in (8, 16, 24, 32) for s in (1, 2))
+    assert (p["split"] <= dk.PLAN_MAX_SPLIT) == two
+
+
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("m,k,n,hd", [(8, 4096, 12288, 128), (32, 2048, 2048, 0),
+                                      (8, 4096, 32000, 0)])
+def test_dense_i8_forced_split_is_kept(m, k, n, hd, split):
+    p = dk.dense_i8_plan(m, k, n, hd, bool(hd), SMS, split)
+    assert p["split"] == split and _dense_i8_size(m, k, n, p, 2, 1) <= SMEM
+
+
+@pytest.mark.parametrize("stages", [2, 3, 6, 16])
+def test_dense_i8_forced_stages_are_kept(stages):
+    p = dk.dense_i8_plan(32, 2048, 2560, 64, True, SMS, 2, 2, 1, stages)
+    assert (p["split"], p["stages"]) == (2, stages) and _dense_i8_size(32, 2048, 2560, p, 2,
+                                                                         1) <= SMEM
+
+
+@pytest.mark.parametrize("stages", [1, 17, -2])
+def test_dense_i8_forced_stages_outside_range_raise(stages):
+    with pytest.raises(ValueError):
+        dk.dense_i8_plan(8, 4096, 4096, 0, False, SMS, 0, 2, 1, stages)
+
+
+@pytest.mark.parametrize("m,k,split", [(8, 4096, 9), (8, 4096, -1), (5, 64, 2), (7, 256, 3)])
+def test_dense_i8_forced_outside_range_raises(m, k, split):
+    with pytest.raises(ValueError):
+        dk.dense_i8_plan(m, k, 256, 0, False, SMS, split)
+
+
+def test_dense_i8_plan_is_cached():
+    assert dk.dense_i8_plan(8, 4096, 4096, 0, False, SMS) is dk.dense_i8_plan(8, 4096, 4096, 0,
+                                                                                False, SMS)
+
+
+# K8 (``mlp_i8_plan``): K25's gate / up and down steps after a codes launch
+def _mlp_i8_step_smem(m, k, i, bj, p, pos):
+    step = pos + 1
+    nb = 2 if step == 1 else 1
+    units = (-(-k // 128), i // bj)[pos]
+    per = -(-units // p["splits"][pos])
+    return dk.i8_step_smem(m, p["rows"][pos], nb, p["stages"][pos],
+                           per * (bj if step == 2 else 128), per if step == 2 else nb, False)
+
+
+@pytest.mark.parametrize("m", BATCHES)
+@pytest.mark.parametrize("k,i", WIDTHS + [(64, 128), (256, 384), (128, 256)])
+def test_mlp_i8_plan_shapes(k, i, m):
+    """Every shape plans each step within a block's shared memory, on
+    I8_SPLITS clusters no larger than the step's units, with tiles of 32
+    rows above 16 and 16 at or below (8 where 16 would not fit)."""
+    bj = dk.pick_block(i, 512 if k < 4096 else 256)
+    p = dk.mlp_i8_plan(m, k, i, bj, SMS)
+    for pos, units in enumerate((-(-k // 128), i // bj)):
+        assert p["rows"][pos] == (32 if m > 16 else 16)
+        assert p["splits"][pos] in dk.I8_SPLITS and p["splits"][pos] <= units
+        assert 2 <= p["stages"][pos] <= (8 if pos == 0 else 16)
+        assert _mlp_i8_step_smem(m, k, i, bj, p, pos) <= SMEM
+
+
+def test_mlp_i8_plan_7b_and_tinyllama():
+    """The serving shapes run every block of a step in one wave, and the
+    gate / up step, which copies ready codes, plans as K25's own gate / up
+    step does where that fits the same rows."""
+    for m, k, i, bj in ((8, 4096, 11008, 256), (32, 2048, 5632, 512)):
+        p = dk.mlp_i8_plan(m, k, i, bj, SMS)
+        for pos, n in enumerate((i, k)):
+            blocks = -(-n // 64) * -(-m // p["rows"][pos]) * p["splits"][pos]
+            per_sm = min(dk.I8_BLOCKS_PER_SM,
+                         dk._SMEM_SM // (_mlp_i8_step_smem(m, k, i, bj, p, pos) + 1024))
+            assert blocks <= SMS * per_sm, (pos, p)
+
+
+@pytest.mark.parametrize("pos", [0, 1])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_mlp_i8_forced_split_is_kept(pos, split):
+    forced = tuple(split if s == pos else 0 for s in range(2))
+    p = dk.mlp_i8_plan(8, 4096, 11008, 256, SMS, forced)
+    planned = dk.mlp_i8_plan(8, 4096, 11008, 256, SMS)
+    assert p["splits"][pos] == split and p["splits"][1 - pos] == planned["splits"][1 - pos]
+    assert _mlp_i8_step_smem(8, 4096, 11008, 256, p, pos) <= SMEM
+
+
+@pytest.mark.parametrize("pos", [0, 1])
+@pytest.mark.parametrize("stages", [2, 3, 4, 8])
+def test_mlp_i8_forced_stages_are_kept(pos, stages):
+    forced = tuple(stages if s == pos else 0 for s in range(2))
+    p = dk.mlp_i8_plan(32, 2048, 5632, 512, SMS, None, forced)
+    assert p["stages"][pos] == stages
+    assert _mlp_i8_step_smem(32, 2048, 5632, 512, p, pos) <= SMEM
+
+
+@pytest.mark.parametrize("splits,stages", [((9, 0), None), ((0, 9), None), ((0, 44), None),
+                                           ((-1, 0), None), ((2, 0), None), (None, (1, 0)),
+                                           (None, (9, 0)), (None, (0, 17))])
+def test_mlp_i8_forced_outside_range_raises(splits, stages):
+    """Clusters of 1-8 and at most the step's units (K 128: one gate / up
+    stage), rings of 2-16 (gate / up's two weights: 2-8)."""
+    k = 128 if splits == (2, 0) else 4096
+    with pytest.raises(ValueError):
+        dk.mlp_i8_plan(8, k, 11008, 256, SMS, splits, stages)
+
+
+def test_mlp_i8_plan_is_cached():
+    assert dk.mlp_i8_plan(8, 4096, 11008, 256, SMS) is dk.mlp_i8_plan(8, 4096, 11008, 256, SMS)
