@@ -23,9 +23,17 @@
     python3 chip_smoke.py --breakdown k6k8  # the build, then K6's (the w8a8 engines'
                                       # qkv, o_proj, int8 head) and K8's (7B and TinyLlama,
                                       # its launches apart; the library beside) alone
+    python3 chip_smoke.py --breakdown k27k10q  # the build, then K27's (Mixtral width)
+                                      # and K10's quantized formats' (7B, Mixtral) by
+                                      # kernel, the int4 body at K27's shapes, alone
+    python3 chip_smoke.py --breakdown k27k10q-rows  # K27 by kernel and the rows of
+                                      # K27, K10's formats, K17, K26, K10 bf16 alone
+    python3 chip_smoke.py --breakdown decode3  # three decode steps profiled of the 7B
+                                      # quantized-KV engines and the Mixtral w4a8 engine
 
 Phase 1 builds the CUDA kernels from ``qdm_tpu_torch/csrc`` (nvcc,
-sm_90a, one process per source, all at once).
+sm_90a, one process per source, all at once).  Each phase prints its
+seconds on a line of its own (``phase seconds:``).
 Phase 2 holds each kernel against its plain PyTorch version on the card:
 K1-K4 at the SD1.5 shapes (K1/K2 and K4 with int8 codes identical to the
 plain version's and outputs within 1 bf16 ulp; K3 within 1 bf16 ulp or
@@ -1425,6 +1433,21 @@ def _check_kvq(label, kernel, mode, b, hkv, g, d, t, pos, starts, dev, timed):
     row = {"layer": label, "B": b, "hkv": hkv, "g": g, "d": d, "T": t, "pos": pos,
            "max_abs_err": err, "ulps": 0,
            "tol": f"{KVQ_TOL}; {what} off by {KVQ_FAULT:g} (planted): max abs err {bad_err:.3g}"}
+    plan = {}
+    if kernel == "flash":  # a tree that plans the quantized formats reports the plan
+        dk.decode_attention_kv_flash(q, kv, pos, starts=st, mode=mode, kv_scale=sc, trace=plan)
+    if plan:
+        for n in range(1, 9):
+            got_f = dk.decode_attention_kv_flash(q, kv, pos, starts=st, mode=mode, kv_scale=sc,
+                                                 splits=n)
+            torch.cuda.synchronize()
+            if not torch.equal(got_f, want):
+                fail(f"{name} {label}: {n} block(s) a pair (forced) differ from the plain version")
+        n_l = _cuda_launches(lambda: run(q, kv, sc))
+        if n_l != 1:
+            fail(f"{name} {label}: {n_l} CUDA launches a call, not 1")
+        row["tol"] += (f"; planned {dict(plan)}, 1-8 blocks a pair forced equal; CUDA launches "
+                       f"per call {n_l}")
     if slow is not None:
         row["slow_routes"] = slow
         row["tol"] += (f"; exps, divisions and p codes by the slow exact route: {slow[0]} of "
@@ -2338,6 +2361,27 @@ def _check_moe_i4(label, xn, rw, packs, wts, scl, bj, group, act, timed):
            "zero route columns": int((rw.abs().sum(dim=0) == 0).sum()), "max_abs_err": err,
            "ulps": 0, "tol": MOE_TOL + "; planted: " + ", ".join(f"{f} {v:.3g}"
                                                                for f, v in read.items())}
+    if timed and _takes(dk.fused_moe_mlp_decode_i4, "splits"):
+        # each step's cluster forced where the step takes it; launches per call
+        plan, forced = {}, []
+        dk.fused_moe_mlp_decode_i4(*args, scl, w_t=wts, trace=plan, **kw)
+        for pos, sweep in enumerate(K27_SPLITS):
+            for sp in sweep:
+                f = (sp, 0) if pos == 0 else (0, sp)
+                try:
+                    got_f = dk.fused_moe_mlp_decode_i4(*args, scl, w_t=wts, splits=f, **kw)
+                except NotImplementedError:  # the step's partials do not fit
+                    continue
+                torch.cuda.synchronize()
+                if not torch.equal(got_f, want):
+                    fail(f"fused_moe_mlp_decode_i4 {label}, splits {f}: differs from the plain "
+                         "version")
+                forced.append(f)
+        n = _cuda_launches(lambda: dk.fused_moe_mlp_decode_i4(*args, scl, w_t=wts, **kw))
+        if n != 3:
+            fail(f"fused_moe_mlp_decode_i4 {label}: {n} CUDA launches a call, not 3")
+        row["tol"] += (f"; planned {dict(plan)}, each step's cluster forced {forced} equal; "
+                       f"CUDA launches per call {n}")
     if timed:
         nbytes = (m * k * xn.element_size() + 4 * m * n_e + 3 * n_e * k * i // 2
                   + 4 * (2 * n_e * (k // group) * i + n_e * (i // group) * k) + 4 * (1 + n_e)
@@ -4483,6 +4527,316 @@ def phase_k6k8_breakdown(dev) -> None:
     _print_rows(rows)
 
 
+# --breakdown k27k10q: K27 (the Mixtral w4a8 MoE MLP) at Mixtral width and K10's quantized
+# formats at the 7B and Mixtral last steps by kernel (planned and, where this tree plans
+# them, forced; traced), the int4 body at K27's per-expert shapes in its traced and
+# diagnostic builds, then K27, K10's formats, K17, K26 and K10 bf16 as phase 2 times them
+K10Q_SHAPES = (("7B last step", 8, 32, 1, 128, 2176, 2110),
+               ("Mixtral last step", 8, 8, 4, 128, 2176, 2110))
+K27_PHASES = ("codes resident", "the weight stream", "partials kept (cluster barrier)",
+              "the owners' sums and the epilogue")
+K27_SPLITS = ((1, 2, 4, 8), (3, 4, 5, 6, 7, 8))   # each step's cluster swept, the other planned
+K10Q_PHASES = ("the prologue ends", "cycles waiting for K chunks", "cycles waiting for V chunks",
+               "cycles at the consumers' barriers", "the block ends")
+
+
+def _k27_case(dev):
+    """K27's operands at Mixtral-8x7B width, batch 8: x, the route weights,
+    the packs and their per-expert transposes, [s_in, s_mid of each expert],
+    the inner block (phase 2's K27 case)."""
+    from qdm_tpu_torch.models.llama import MIXTRAL_8X7B as c
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    k, i, n_e, group = c.hidden_size, c.intermediate_size, c.num_experts, 128
+    bj = dk.mlp_i4_block(i)
+    packs, wts = _moe_packs(gen, n_e, k, i, group, bj, dev)
+    x = torch.randn((L7_BATCH, k), generator=gen, device=dev).to(torch.bfloat16)
+    scl = _moe_scales(x, packs, n_e, group, "silu")
+    return x, _moe_route(gen, L7_BATCH, n_e, dev), packs, wts, scl, bj
+
+
+def _k27_breakdown(dev) -> None:
+    """K27 at Mixtral width, batch 8, by kernel over copies of the packs
+    beyond the L2: planned and, where this tree's wrapper takes ``splits``,
+    each step's cluster forced; its steps' traced phases where the source
+    has them."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    x, rw, packs, wts, scl, bj = _k27_case(dev)
+    (w1, s1), (w3, s3), (w2, s2) = packs
+    m, k = x.shape
+    n_e, i, group = rw.shape[1], w1.shape[1], 128
+    args = (x, rw, w1, w3, w2, s1, s3, s2, scl)
+    kw = dict(block_j=bj, group=group)
+    want = dk.fused_moe_mlp_decode_i4_plain(*args, **kw)
+    w_bytes = 3 * n_e * k * i // 2
+    nbytes = (m * k * 2 + 4 * m * n_e + w_bytes
+              + 4 * (2 * n_e * (k // group) * i + n_e * (i // group) * k) + 4 * (1 + n_e)
+              + 4 * m * k)
+    sets = [wts] + [tuple(t.clone() for t in wts) for _ in range(_copies(w_bytes) - 1)]
+    label = f"K27 Mixtral {m} x {k}, I {i}, E {n_e}, bj {bj}, g {group}"
+    planned = _takes(dk.fused_moe_mlp_decode_i4, "splits")
+    plan = {}
+    runs = [("planned", {})]
+    if planned:
+        dk.fused_moe_mlp_decode_i4(*args, w_t=wts, trace=plan, **kw)
+        for pos, sweep in enumerate(K27_SPLITS):
+            for sp in sweep:
+                forced = (sp, 0) if pos == 0 else (0, sp)
+                what = f"{MLP_STEPS[pos]} on clusters of {sp} (forced)"
+                try:
+                    dk.fused_moe_mlp_decode_i4(*args, w_t=wts, splits=forced, **kw)
+                except (ValueError, NotImplementedError) as e:
+                    print(f"breakdown: {label}, {what}: refused ({e})", flush=True)
+                    continue
+                runs.append((what, {"splits": forced}))
+    for what, extra in runs:
+        got = dk.fused_moe_mlp_decode_i4(*args, w_t=wts, **kw, **extra)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fused_moe_mlp_decode_i4 {what}: output differs from the plain version")
+        fns = [lambda t=t, extra=extra: dk.fused_moe_mlp_decode_i4(*args, w_t=t, **kw, **extra)
+               for t in sets]
+        _print_split(f"{label}, {what}" + (f" {plan}" if plan and not extra else ""),
+                     _cold_by_kernel(fns), nbytes)
+    if planned and "qdm_decode_moe_i4_trace" in _defines("decode_moe_i4"):
+        with cuda_build.variant("decode_moe_i4", "QDM_K26_TRACE"):
+            for step, n_out in ((1, i), (2, k)):
+                sp = plan["splits"][step - 1]
+                blocks = sp * -(-n_out // 64) * -(-m // plan["rows"][step - 1]) * (
+                    n_e if step == 1 else 1)
+                _print_trace(f"{label} step {step} ({MLP_STEPS[step - 1]}), planned",
+                             "decode_moe_i4", "QDM_K26_TRACE", "qdm_decode_moe_i4_trace",
+                             (step,), lambda: dk.fused_moe_mlp_decode_i4(*args, w_t=wts, **kw),
+                             min(blocks, 4096), K27_PHASES)
+    del sets
+    torch.cuda.empty_cache()
+
+
+def _int4_body_at_k27(dev) -> None:
+    """The int4 read-once body (K17's launches: codes, K26's gate / up and
+    down steps) at K27's per-expert shapes, batch 8, K 4096 -> I 14336 and
+    I 14336 -> K 4096 with inner blocks of 512, group 128: planned and with
+    each step's cluster forced, its steps' traced phases, and the call in
+    each diagnostic build of the body (K26_DIAGNOSTICS): what the group
+    fold costs where each block's contraction is long."""
+    from qdm_tpu_torch.models.llama import MIXTRAL_8X7B as c
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    rng = np.random.default_rng(20)
+    m, k, i, group = L7_BATCH, c.hidden_size, c.intermediate_size, 128
+    x, packs, scl, ns, bj = _mlp_i4_case(rng, m, k, i, 512, group, dev)
+    (pg, sg), (pu, su), (pd, sd) = packs
+    ws = (pg, pu, pd)
+    w_bytes = 3 * k * i // 2
+    nbytes = (2 * m * k * 2 + w_bytes + 4 * (2 * (k // group) * i + (i // group) * k)
+              + 4 * k + 8)
+    sets = [(ws, tuple(dk.transposed_weight(t) for t in ws))]
+    sets += [(tuple(t.clone() for t in ws), tuple(t.clone() for t in sets[0][1]))
+             for _ in range(_copies(w_bytes) - 1)]
+    want = dk.fused_mlp_decode_i4_plain(x, *ws, (sg, su, sd), scl, ns, group=group)
+    call = lambda **kw: dk.fused_mlp_decode_i4(x, *ws, (sg, su, sd), scl, ns, group=group,
+                                               w_t=sets[0][1], **kw)
+    label = f"int4 body (K17) at K27's per-expert shape {m} x {k}, I {i}, bj {bj}, g {group}"
+    plan = {}
+    for what, extra in _forced_splits(dk.fused_mlp_decode_i4, call):
+        got = call(**extra, **({"trace": plan} if not extra else {}))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fused_mlp_decode_i4 at K27's shape, {what}: output differs from the plain "
+                 "version")
+        fns = [lambda w=w, t=t, extra=extra: dk.fused_mlp_decode_i4(
+            x, *w, (sg, su, sd), scl, ns, group=group, w_t=t, **extra) for w, t in sets]
+        _print_split(f"{label}, {what}" + (f" {plan}" if not extra else ""),
+                     _cold_by_kernel(fns), nbytes)
+    fns = [lambda w=w, t=t: dk.fused_mlp_decode_i4(x, *w, (sg, su, sd), scl, ns, group=group,
+                                                   w_t=t) for w, t in sets]
+    src = _defines("decode_mlp_i4")
+    diags = [(d, what) for d, what in K26_DIAGNOSTICS if d in src]
+    cuda_build.build_variants([("decode_mlp_i4", (d,)) for d in
+                               ("QDM_K26_TRACE", *(d for d, _ in diags))])
+    with cuda_build.variant("decode_mlp_i4", "QDM_K26_TRACE"):
+        for step, n_out in ((1, i), (2, k)):
+            sp = plan["splits"][step - 1]
+            blocks = sp * -(-n_out // 64) * -(-m // plan["rows"][step - 1])
+            _print_trace(f"{label} step {step} ({MLP_STEPS[step - 1]}), planned",
+                         "decode_mlp_i4", "QDM_K26_TRACE", "qdm_decode_mlp_i4_trace", (step,),
+                         fns[0], blocks, K26_PHASES)
+    for d, what in diags:
+        with cuda_build.variant("decode_mlp_i4", d):
+            _print_split(f"{label}, a build with {d} ({what}; its output is not the kernel's)",
+                         _cold_by_kernel(fns), nbytes)
+    del sets
+    torch.cuda.empty_cache()
+
+
+def _print_block_times(label, name, define, sym, blocks) -> None:
+    """The traced launch's blocks on the global timer (slots 6 and 7 of the
+    trace, ns): when they start after the first, how long each runs, the
+    launch's span, and the blocks that run at once at the busiest moment."""
+    import ctypes
+
+    buf = (ctypes.c_ulonglong * (blocks * 8))()
+    if getattr(_variant_lib(name, define), sym)(buf, blocks) != 0:
+        fail(f"reading {label}'s block times")
+    t = np.array(buf, dtype=np.float64).reshape(blocks, 8)
+    start, end = t[:, 6] - t[:, 6].min(), t[:, 7] - t[:, 6].min()
+    edges = np.concatenate([start, end])
+    live = max(int(((start <= e) & (end > e)).sum()) for e in edges)
+    print(f"breakdown: {label} blocks on the global timer (us): start after the first, median "
+          f"{np.median(start) / 1e3:.2f}, max {start.max() / 1e3:.2f}; run median "
+          f"{np.median(end - start) / 1e3:.2f}, max {(end - start).max() / 1e3:.2f}; span "
+          f"{end.max() / 1e3:.2f}; at most {live} blocks at once", flush=True)
+
+
+def _k10q_breakdown(dev) -> None:
+    """K10's quantized formats at K10Q_SHAPES by kernel over copies of the
+    cache beyond COLD_L2 times the L2: planned and, where this tree plans
+    the quantized formats (its trace receives the plan), each cluster of
+    K10_SPLITS blocks forced."""
+    from qdm_tpu_torch.ops import cuda_build
+    from qdm_tpu_torch.ops import decode_kernels as dk
+
+    src = _defines("decode_attention_kv_flash_q")
+    traced, ring_only = "QDM_K10Q_TRACE" in src, "QDM_K10Q_STREAM_ONLY" in src
+    cuda_build.build_variants([("decode_attention_kv_flash_q", (d,)) for d, there in
+                               (("QDM_K10Q_TRACE", traced), ("QDM_K10Q_STREAM_ONLY", ring_only))
+                               if there])
+    for label, b, hkv, g, d, t, pos in K10Q_SHAPES:
+        cols = pos + 1
+        for mode in ("i8", "i8c", "i4c"):
+            q, kv, sc = _kvq_case(b, hkv, g, d, t, mode, b + t + pos, dev)
+            want = dk.decode_attention_kv_flash_plain(q, kv, pos, mode=mode, kv_scale=sc)
+            rows = d // 2 if mode == "i4c" else d
+            nbytes = (2 * b * hkv * g * d * q.element_size() + 2 * b * hkv * rows * cols
+                      + (2 * b * hkv * cols * 4 if sc is not None else 0))
+            copies = _copies(kv.numel() + (4 * sc.numel() if sc is not None else 0), COLD_L2)
+            sets = [(kv, sc)] + [(kv.clone(), None if sc is None else sc.clone())
+                                 for _ in range(copies - 1)]
+            plan = {}
+            dk.decode_attention_kv_flash(q, kv, pos, mode=mode, kv_scale=sc, trace=plan)
+            runs = [("planned", {})] + ([(f"{n} block(s) a pair (forced)", {"splits": n})
+                                         for n in K10_SPLITS] if plan else [])
+            for what, extra in runs:
+                try:
+                    got = dk.decode_attention_kv_flash(q, kv, pos, mode=mode, kv_scale=sc,
+                                                       **extra)
+                except (ValueError, NotImplementedError) as e:
+                    print(f"breakdown: K10 {mode} {label}, {what}: refused ({e})", flush=True)
+                    continue
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"decode_attention_kv_flash_{mode} {label}, {what}: output differs "
+                         "from the plain version")
+                fns = [lambda c=c, s_=s_, extra=extra: dk.decode_attention_kv_flash(
+                    q, c, pos, mode=mode, kv_scale=s_, **extra) for c, s_ in sets]
+                _print_split(f"K10 {mode} {label} {b} x {hkv} x {g} x {d}, T {t}, pos {pos}, "
+                             + what + (f" {dict(plan)}" if plan and not extra else ""),
+                             _cold_by_kernel(fns), nbytes)
+                if not extra:
+                    print(f"breakdown: queued on events: K10 {mode} {label}, {what} "
+                          f"{_queued_us(fns):.2f} us", flush=True)
+            if traced:
+                blocks = min(plan["splits"] * b * hkv, 4096)
+                with cuda_build.variant("decode_attention_kv_flash_q", "QDM_K10Q_TRACE"):
+                    _print_trace(f"K10 {mode} {label}, planned", "decode_attention_kv_flash_q",
+                                 "QDM_K10Q_TRACE", "qdm_decode_attention_kv_flash_q_trace", (),
+                                 fns[0], blocks, K10Q_PHASES)
+                    _print_block_times(f"K10 {mode} {label}, planned",
+                                       "decode_attention_kv_flash_q", "QDM_K10Q_TRACE",
+                                       "qdm_decode_attention_kv_flash_q_trace", blocks)
+                    _print_split(f"K10 {mode} {label}, planned, the traced build",
+                                 _cold_by_kernel(fns), nbytes)
+            if ring_only and plan["splits"] == 1:
+                with cuda_build.variant("decode_attention_kv_flash_q", "QDM_K10Q_STREAM_ONLY"):
+                    _print_split(f"K10 {mode} {label}, planned, a build with "
+                                 "QDM_K10Q_STREAM_ONLY (the ring alone; its output is not the "
+                                 "kernel's)", _cold_by_kernel(fns), nbytes)
+            del sets
+        torch.cuda.empty_cache()
+
+
+def phase_k27k10q_breakdown(dev, rows_only: bool = False) -> None:
+    """K27 and K10's quantized formats by kernel (planned, forced, traced),
+    the int4 body at K27's per-expert shapes (traced, diagnostic builds),
+    then K27, K10's formats, K17, K26 and K10 bf16 at their PERF.md shapes
+    as phase 2 times them; ``rows_only`` (`--breakdown k27k10q-rows`, a
+    parent / change / change / parent comparison's run): K27 by kernel and
+    those rows alone.  Run on an older tree, it leaves out what that tree's
+    wrappers and sources do not have."""
+    from qdm_tpu_torch.models.llama import LlamaConfig
+
+    _k27_breakdown(dev)
+    if not rows_only:
+        _k10q_breakdown(dev)
+        _int4_body_at_k27(dev)
+    x, rw, packs, wts, scl, bj = _k27_case(dev)
+    rows = {"fused_moe_mlp_decode_i4": [_check_moe_i4(
+        f"Mixtral B {L7_BATCH} (bf16, silu)", x, rw, packs, wts, scl, bj, 128, "silu", True)]}
+    del x, rw, packs, wts
+    torch.cuda.empty_cache()
+    c7 = LlamaConfig()
+    t7 = -(-(L7_PROMPT + L7_NEW) // 128) * 128
+    hkv, g, d = (c7.num_key_value_heads, c7.num_attention_heads // c7.num_key_value_heads,
+                 c7.head_dim)
+    for mode in ("i8", "i8c", "i4c"):
+        rows[f"decode_attention_kv_flash_{mode}"] = [_check_kvq(
+            "7B last step", "flash", mode, L7_BATCH, hkv, g, d, t7, L7_PROMPT + L7_NEW - 2, None,
+            dev, True)]
+    rows["decode_attention_kv_flash"] = [_check_flash_decode(
+        "7B last step", L7_BATCH, hkv, g, d, t7, L7_PROMPT + L7_NEW - 2, None, 0.0, None, dev,
+        True)]
+    rng = np.random.default_rng(20)
+    rows["fused_mlp_decode_i4"], rows["fused_o_mlp_decode_i4"] = [], []
+    for tag, c, b, group in _mlp_shapes():
+        kk, ii = c.hidden_size, c.intermediate_size
+        rows["fused_mlp_decode_i4"].append(_check_mlp_i4(
+            f"{tag} mlp (norm, silu, +res)", rng, b, kk, ii, 256 if tag == "7B" else 512, group,
+            dev, True))
+        rows["fused_o_mlp_decode_i4"].append(_check_o_mlp(
+            f"{tag} o_proj + mlp", rng, b, c.num_attention_heads * c.head_dim, kk, ii, group,
+            dev, True))
+        torch.cuda.empty_cache()
+    _print_rows(rows)
+
+
+def phase_decode3_breakdown(dev, seed: int) -> None:
+    """Three decode steps profiled (``_profile_decode``: device time by
+    kernel, idle share, CUDA launches a step) of the Llama-2-7B w8a8 engine
+    with each quantized KV cache, then of the Mixtral w4a8 engine
+    (MX_LAYERS layers), each after the 8 x 2048 prefill, on weights drawn on
+    the card as the long and Mixtral paths draw them (unsmoothed for the 7B
+    engines).  Run on an older tree too, for a before / after comparison."""
+    from qdm_tpu_torch.api.causal_lm import CausalLM
+    from qdm_tpu_torch.models.llama import LlamaConfig
+
+    rng = np.random.default_rng(seed)
+    for cfg in (LlamaConfig(), _mixtral_cfg()):
+        calib = rng.integers(0, cfg.vocab_size, L7_CALIB).astype(np.int32)
+        prompts = rng.integers(0, cfg.vocab_size, (L7_BATCH, L7_PROMPT)).astype(np.int32)
+        tree = _draw_llama_params(cfg, 0, dev)
+        lm = CausalLM.from_config(cfg, dtype=torch.bfloat16, device=dev, params=tree)
+        del tree
+        if cfg.num_experts:
+            runs = [("Mixtral-8x7B w4a8 engine", dict(mode="w4a8_static", smooth=True))]
+        else:
+            runs = [(f"Llama-2-7B w8a8 engine, {label} KV cache",
+                     dict(mode="w8a8_static", kv_dtype=kv_dtype, kv_scale_mode=scale_mode))
+                    for label, (kv_dtype, scale_mode, _) in KV_FORMATS.items()]
+        for label, kw in runs:
+            eng = lm.serve(calib, **kw)
+            _profile_decode(label, eng, prompts, L7_PROMPT, L7_PROMPT + L7_NEW, rows=6)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _print_reprofiled() -> None:
     """The profiled runs timed again because the profiler lost records."""
     from qdm_tpu_torch.utils.timing import REPROFILED
@@ -5756,11 +6110,12 @@ def _profile_decode(label: str, eng, prompts, start: int, max_len: int, rows: in
     print(events.table(sort_by="self_cuda_time_total", row_limit=rows), flush=True)
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    launches = ""
+    traced = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = f"; {traced / 3:.1f} device operations a decode step in the traced run"
     if not eng.moe:  # the MoE layer's routing is not captured in a graph
         n = _launches_per_step(eng, tok0, caches, start)
-        launches = (f"; {n} CUDA launches a decode step ({n / eng.cfg.num_hidden_layers:.2f} "
-                    "per layer)")
+        launches += (f"; {n} CUDA launches a decode step ({n / eng.cfg.num_hidden_layers:.2f} "
+                     "per layer)")
     print(f"profile: {label}, 3 decode steps take {wall * 1e3:.2f} ms of wall time untraced; "
           f"the traced run keeps the device busy {busy_ms:.2f} ms (idle share "
           f"{1 - busy_ms / (wall * 1e3):.3f} of the untraced wall time){launches}", flush=True)
@@ -6031,7 +6386,7 @@ def phase_long_path(dev, seed: int, keep_all: bool) -> dict:
             if not keep_all:
                 del engines["w8a8_static"]
                 torch.cuda.empty_cache()
-            _long_kv_paths(lm, calib, prompts, out)
+            _long_kv_paths(lm, calib, prompts, out, profile=keep_all)
             _long_merged_paths(lm, calib, prompts, out, profile=keep_all)
             engines["bf16"] = lm.serve(mode="bf16")
         if mode == "w4a8_static":
@@ -6081,13 +6436,14 @@ def phase_long_path(dev, seed: int, keep_all: bool) -> dict:
     return out
 
 
-def _long_kv_paths(lm, calib, prompts, out: dict) -> None:
+def _long_kv_paths(lm, calib, prompts, out: dict, profile: bool = False) -> None:
     """The 7B w8a8 engine with each quantized KV cache, the int4 one first
     (``recommended_kv`` of the 2112-token serving length), on the smoothed
     weights: serve(calib, "w8a8_static", kv_dtype, kv_scale_mode) ->
     generate((8, 2048), 64), one engine at a time, with exact launch
     counts: the format's flash decode 32 x 63, K10's bf16 format and K7
-    never."""
+    never; ``profile``: each engine's three decode steps profiled
+    (``_profile_decode``) before it goes."""
     from qdm_tpu_torch.api.serve import recommended_kv
     from qdm_tpu_torch.ops import quant_matmul as qmm
 
@@ -6117,6 +6473,9 @@ def _long_kv_paths(lm, calib, prompts, out: dict) -> None:
               f"w8a8 engine {_agreement(new, out['tokens']['w8a8_static'])}; device memory "
               f"peak so far {torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
         out["launches"][f"w8a8_static kv {label}"] = launches
+        if profile:
+            _profile_decode(f"Llama-2-7B w8a8 engine, {label} KV cache", eng, prompts, L7_PROMPT,
+                            L7_PROMPT + L7_NEW)
         del eng
         torch.cuda.empty_cache()
 
@@ -6664,6 +7023,14 @@ def phase_profile(dev, runs: dict) -> None:
         _profile_steps(label, pipes[label], dev)
 
 
+def _timed_phase(fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase seconds: {fn.__name__} {time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -6672,12 +7039,13 @@ def main() -> int:
                          "TinyLlama engine and the bf16 module in turn; the Llama-2-7B w8a8, "
                          "bf16 and w4a8 fused-prefill engines in turn; the Mixtral w4a8 and "
                          "bf16 engines in turn) and profile two W4A16 and two W8A8-static "
-                         "denoising steps and three decode steps of each engine")
+                         "denoising steps and three decode steps of each engine, the 7B "
+                         "quantized-KV engines included")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LLM paths' calibration and prompt tokens")
     ap.add_argument("--breakdown", nargs="?", const="all",
                     choices=("all", "w4", "k3", "k4k9", "k5k26", "k11k17", "k10k15", "k25k2",
-                             "k6k8"),
+                             "k6k8", "k27k10q", "k27k10q-rows", "decode3"),
                     help="only build the kernels and print the device time by kernel of K7 "
                          "over a sweep of columns and splits, K19-K21 and cold SDPA at the decode "
                          "probe's shape, K8b at the 7B prefill, K18 at SD1.5's shapes (its "
@@ -6712,8 +7080,15 @@ def main() -> int:
                          "o_proj and int8 head shapes and K8 at the 7B and TinyLlama decode "
                          "shapes by kernel (planned; K6's cluster forced, each K8 step's cluster "
                          "and ring swept; traced; the library beside), then K5, K6, K8, K17 and "
-                         "K25 at their shapes; no other "
-                         "phase, and no result line")
+                         "K25 at their shapes; `--breakdown k27k10q`: K27 at Mixtral width "
+                         "and K10's quantized formats at the 7B and Mixtral last steps by "
+                         "kernel (planned, forced, traced), the int4 body at K27's per-expert "
+                         "shapes in its traced and diagnostic builds, then K27, K10's formats, "
+                         "K17, K26 and K10 bf16 at their shapes; `--breakdown "
+                         "k27k10q-rows`: K27 by kernel (planned, each step's cluster swept) "
+                         "and those rows alone; `--breakdown decode3`: three decode steps "
+                         "profiled of the 7B w8a8 engine with each quantized KV cache and of "
+                         "the Mixtral w4a8 engine; no other phase, and no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -6725,7 +7100,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t_start = time.perf_counter()
-    phase_build()
+    _timed_phase(phase_build)
     if args.breakdown:
         if args.breakdown == "all":
             phase_attention_breakdown(dev)
@@ -6745,59 +7120,63 @@ def main() -> int:
             phase_k25k2_breakdown(dev)
         if args.breakdown in ("all", "k6k8"):
             phase_k6k8_breakdown(dev)
+        if args.breakdown in ("all", "k27k10q", "k27k10q-rows"):
+            phase_k27k10q_breakdown(dev, rows_only=args.breakdown == "k27k10q-rows")
+        if args.breakdown == "decode3":
+            phase_decode3_breakdown(dev, args.seed)
         _print_reprofiled()
         print(smi_line())
         return 0
-    kres = phase_kernels(dev)
-    kres.update(phase_sd_option_kernels(dev))
-    kres.update(phase_w4_kernels(dev))
-    kres.update(phase_decode_kernels(dev))
-    kres.update(phase_long_kernels(dev, kres))
-    kres.update(phase_kv_quant_kernels(dev))
-    kres.update(phase_w4a8_kernels(dev, kres))
-    kres.update(phase_merged_kernels(dev, kres))
-    kres.update(phase_moe_kernels(dev))
-    kres.update(phase_separate_attention_kernels(dev))
-    kres.update(phase_w8a8_matmul_kernel(dev))
-    runs = phase_main_path(dev)
-    runs.update(phase_static_paths(dev, runs["base"]))
-    runs["LLM"] = phase_llm_path(dev, args.seed)
-    runs.update(phase_llm_kv_paths(dev, runs["LLM"]))
-    runs.update(phase_llm_w4a8_path(dev, runs["LLM"]))
-    runs["decode probe"] = phase_decode_probe(dev, runs["LLM"], args.seed)
-    runs["K24 exactness"] = phase_w8a8_matmul_path(dev)
-    phase_small_reference(dev)
-    phase_w4a8_witness(dev)
-    phase_static_witness(dev)
-    phase_llm_witness(dev)
-    phase_long_witness(dev)
-    phase_kv_witness(dev)
-    phase_llm_w4a8_witness(dev)
-    phase_fused_prefill_witness(dev)
-    phase_merged_witness(dev)
-    phase_moe_witness(dev)
+    kres = _timed_phase(phase_kernels, dev)
+    kres.update(_timed_phase(phase_sd_option_kernels, dev))
+    kres.update(_timed_phase(phase_w4_kernels, dev))
+    kres.update(_timed_phase(phase_decode_kernels, dev))
+    kres.update(_timed_phase(phase_long_kernels, dev, kres))
+    kres.update(_timed_phase(phase_kv_quant_kernels, dev))
+    kres.update(_timed_phase(phase_w4a8_kernels, dev, kres))
+    kres.update(_timed_phase(phase_merged_kernels, dev, kres))
+    kres.update(_timed_phase(phase_moe_kernels, dev))
+    kres.update(_timed_phase(phase_separate_attention_kernels, dev))
+    kres.update(_timed_phase(phase_w8a8_matmul_kernel, dev))
+    runs = _timed_phase(phase_main_path, dev)
+    runs.update(_timed_phase(phase_static_paths, dev, runs["base"]))
+    runs["LLM"] = _timed_phase(phase_llm_path, dev, args.seed)
+    runs.update(_timed_phase(phase_llm_kv_paths, dev, runs["LLM"]))
+    runs.update(_timed_phase(phase_llm_w4a8_path, dev, runs["LLM"]))
+    runs["decode probe"] = _timed_phase(phase_decode_probe, dev, runs["LLM"], args.seed)
+    runs["K24 exactness"] = _timed_phase(phase_w8a8_matmul_path, dev)
+    _timed_phase(phase_small_reference, dev)
+    _timed_phase(phase_w4a8_witness, dev)
+    _timed_phase(phase_static_witness, dev)
+    _timed_phase(phase_llm_witness, dev)
+    _timed_phase(phase_long_witness, dev)
+    _timed_phase(phase_kv_witness, dev)
+    _timed_phase(phase_llm_w4a8_witness, dev)
+    _timed_phase(phase_fused_prefill_witness, dev)
+    _timed_phase(phase_merged_witness, dev)
+    _timed_phase(phase_moe_witness, dev)
     if args.profile:
-        phase_profile(dev, runs)
-        phase_llm_profile(dev, runs["LLM"])
+        _timed_phase(phase_profile, dev, runs)
+        _timed_phase(phase_llm_profile, dev, runs["LLM"])
     # the SD pipelines and the TinyLlama objects go before the 7B path
     for label in (*PATHS, *STATIC_WANT, "LLM", "decode probe"):
         runs[label] = {"launches": runs[label]["launches"]}
     runs.pop("base")
     gc.collect()
     torch.cuda.empty_cache()
-    long = phase_long_path(dev, args.seed, keep_all=args.profile)
+    long = _timed_phase(phase_long_path, dev, args.seed, keep_all=args.profile)
     for mode, launches in long["launches"].items():
         runs[f"LLM-7B {mode}"] = {"launches": launches}
     if args.profile:
-        phase_long_profile(dev, long)
+        _timed_phase(phase_long_profile, dev, long)
     del long
     gc.collect()
     torch.cuda.empty_cache()
-    mx = phase_mixtral_path(dev, args.seed, keep=args.profile)
+    mx = _timed_phase(phase_mixtral_path, dev, args.seed, keep=args.profile)
     for mode, launches in mx["launches"].items():
         runs[f"Mixtral-8x7B ({MX_LAYERS} layers) {mode}"] = {"launches": launches}
     if args.profile:
-        phase_mixtral_profile(dev, mx)
+        _timed_phase(phase_mixtral_profile, dev, mx)
     del mx
 
     record = []

@@ -13,7 +13,7 @@
 //   acc = acc * alpha_j + (pi . V) * ps
 // and out = acc / l in q's dtype.  A block's p codes depend on the running
 // maximum m_j and on which columns share its ps, so a split of T must keep
-// the TPU's blocks and know each block's m_j.
+// the TPU's blocks and know each block's m_{j-1}.
 //
 // What bounds it on the H100: the cache read, 2 * hkv * R * (pos + 1)
 // bytes per row (R = d int8 rows, or d/2 packed int4 rows) plus the i8
@@ -21,304 +21,706 @@
 // 138 MB (int8) or 69 MB (int4) for a batch of 8, against 4 * g * d integer
 // operations per column: bytes.
 //
-// What the design does about it: three launches, each parallel over
-// (TPU block, row and kv head):
-//   1. logits: a block of 128 threads per TPU block reads its K columns
-//      once (16-byte loads of 4 depth rows, transposed in registers into
-//      __dp4a words, the depth rows split across thread groups and summed
-//      in shared memory with integer atomics, exact in any order), writes
-//      the f32 logits to a (B * hkv, g, T) scratch and the block's maximum
-//      per query head;
-//   2. block: the running maximum m_{j-1} is the maximum of the earlier
-//      blocks' maxima, so each TPU block computes its alpha_j, p, sum p,
-//      ps and p codes exactly as the TPU recurrence does, reads its V
-//      columns once and writes (alpha_j, sum p) and its f32 PV partial;
-//   3. combine: per (row, head, channel) the recurrence over the blocks in
-//      order, l = l * alpha_j + sum_j, acc = acc * alpha_j + pv_j, then
-//      acc / l.
-// The logits scratch costs 8 bytes per column and query head (4 written,
-// 4 read), 3% of the int8 cache read at g = 1, d = 128, against a second
-// read of K.  Every value is the plain version's: the p codes, the block
-// sums and the combine in the TPU's order, so the output is bit-identical
-// to decode_attention_kv_flash_plain.  Only the blocks that hold a column
-// of [starts[b], pos] run: a leading all-masked block's state is wiped by
+// What the design does about it: one launch, no scratch.  A block, or a
+// thread-block cluster of `splits` blocks (1-8), attends one (row, kv head)
+// pair; a producer warp streams the pair's K and V planes by TMA, chunk by
+// chunk (128 columns of the R depth rows in the 128-byte swizzle, the i8
+// per-token K and V scales with the K chunk), into a ring of `stages`
+// chunks on full / empty mbarriers (decode_ring.cuh); eight consumer warps
+// run the TPU recurrence exactly:
+//   * QK^T on the tensor cores (mma.sync m16n8k32 s8, the q codes as A,
+//     the g heads padded to 16 rows; a depth-major K chunk read by
+//     ldmatrix.trans and __byte_perm into B words, decode_attn_q.cuh's
+//     attend_q), int4 nibbles entering as 16 x their code; each warp takes
+//     16 columns of a chunk into the block's logits in shared memory;
+//   * the block's maximum, m_j, alpha_j; p = exp(logits - m_j) by the
+//     certified exp_fast (exact_fast.cuh, the rare ambiguous inputs by the
+//     f64 exp), the block's f64 sum of p, (i8) p * v_scale and its maximum,
+//     ps and the p codes by code_fast (IEEE division where ambiguous);
+//   * PV on the tensor cores with the p codes as A and the depth-major V
+//     chunk as B as it lies (ldmatrix), exact int32; pv_j = f32(sum) * ps.
+// One block a pair (splits 1) runs a single online pass in rounds of up to
+// 8 TPU blocks (fq_round), three barriers a round: the round's QK^T (its K
+// chunks, shared by the warps), then each (TPU block, head) of the round a
+// warp, its maximum, sums and codes reduced within the warp, then the
+// round's PV (its V chunks); acc and l fold in block order in registers.
+// The barriers a TPU block, not the bytes, set the time of a one-pass
+// design at these widths (PERF.md §6), so a round takes a few TPU
+// blocks at once; the ring runs on regardless (V's loads do not depend on
+// the logits).  A cluster splits the pair's TPU blocks among its blocks,
+// each a contiguous share: each block reads its K first and keeps its
+// blocks' logits in shared memory, the blocks exchange their TPU blocks'
+// maxima over distributed shared memory (so each knows m_{j-1} of its first
+// block), then each runs its blocks' p, codes and PV and keeps (alpha_j,
+// sum_j, pv_j); block 0 folds them in block order from l = acc = 0, as the
+// TPU recurrence does.  Only the TPU blocks that hold a column of
+// [starts[b], pos] run: a leading all-masked block's state is wiped by
 // alpha = 0 and a block past pos adds exactly 0, in the TPU recurrence as
-// here.  A row masked throughout runs every block with every logit
-// -1e30: p = 1 everywhere, the TPU's mean of V.
+// here.  A row masked throughout runs every block with every logit -1e30: p
+// = 1 everywhere, the TPU's mean of V.  Every value is the plain version's
+// (decode_attention_kv_flash_plain): the q and p codes, the f64 block sums
+// rounded once, the fold in the TPU's order, each multiply and add rounded
+// on its own.  The plan (splits, stages) is
+// ops/decode_kernels.py::flash_q_plan, mirrored in FqLayout; two blocks an
+// SM (__launch_bounds__), the most shared memory an SM gives them.
+// Diagnostic builds (chip_smoke.py --breakdown k27k10q): -DQDM_K10Q_TRACE
+// times thread 0's phases and the blocks on the global timer;
+// -DQDM_K10Q_STREAM_ONLY streams and releases the ring, computing nothing.
 
 #include "decode_attn_q.cuh"
+#include "decode_ring.cuh"
 
 namespace qdm {
 namespace kvq {
 
-constexpr int kFThreads = 128;
-constexpr int kMaxBt = 1024;
+constexpr int kFqWarps = 8;                   // consumer warps
+constexpr int kFqThreads = 32 * (kFqWarps + 1);
+constexpr int kFqC = 128;                     // columns of a chunk: a 128-byte swizzled row
 constexpr float kMasked = -1e30f;
+constexpr int kFqMaxPer = 8 * kMaxD / (32 * kFqWarps);  // output elements a consumer thread
 
-// Pass 1: grid (T / bt, B * hkv).  lg (B * hkv, G, Tn), bmax (B * hkv, G, NB).
+__host__ __device__ inline size_t fq_al(size_t v, size_t a) { return (v + a - 1) / a * a; }
+
+// TPU blocks of a round of the one-block-a-pair pass: up to 8, about 1024
+// logit columns and 4096 output elements of PV partials a round.
+__host__ __device__ inline int fq_round(int bt, int G, int D) {
+  int rb = 1024 / bt < 4096 / (G * D) ? 1024 / bt : 4096 / (G * D);
+  return rb < 1 ? 1 : (rb > 8 ? 8 : rb);
+}
+
+// Shared memory of one block (mirrored by ops/decode_kernels.py::flash_q_smem),
+// from the first 1024-byte boundary: the ring (stages chunks of RP rows of 128
+// bytes, the i8 K and V token scales after them); the exp table; q's A
+// fragments; q's scales and codes; the logits of `nbr` TPU blocks (G, nbr *
+// bt) and (i8) their V token scales; the p codes and the warps' int32 PV
+// partials of `rb` TPU blocks; the warps' maxima; the per-head state and the
+// round's (alpha, sum, ps); the TPU blocks' maxima; the cluster's per-block
+// slots (alpha, sum, pv); the ring's barriers.  One block a pair keeps a round
+// (nbr = rb = fq_round), a cluster's block its share of the TPU blocks (nbr)
+// one at a time (rb = 1).
+struct FqLayout {
+  int R, RP, KS, NP, nwp, kg, LC, PP, nbr, rb;
+  size_t stage, tab, qf, qs, qi, S, VS, P, part, red, st, bmax, slot_floats, slot, bars, total;
+  __host__ __device__ FqLayout(int fmt, int G, int D, int bt, int share, bool kfirst,
+                               int stages) {
+    rb = kfirst ? 1 : fq_round(bt, G, D);
+    nbr = kfirst ? share : rb;
+    R = fmt == kFmtI4C ? D / 2 : D;
+    RP = (R + 31) & ~31;
+    KS = RP / 32;
+    NP = (R + 15) / 16;
+    nwp = NP < kFqWarps ? NP : kFqWarps;
+    kg = kFqWarps / nwp;
+    LC = nbr * bt;
+    PP = bt + 16;
+    stage = fq_al((size_t)RP * kFqC + (fmt == kFmtI8 ? 2 * kFqC * 4 : 0), 1024);
+    tab = (size_t)stages * stage;
+    qf = tab + 8 * 256;
+    qs = qf + (size_t)KS * 32 * 16;
+    qi = qs + 32;
+    S = qi + fq_al((size_t)G * D, 16);
+    VS = S + (size_t)G * LC * 4;
+    P = VS + (fmt == kFmtI8 ? (size_t)LC * 4 : 0);
+    part = P + fq_al((size_t)rb * G * PP, 16);
+    red = part + (size_t)rb * kg * G * D * 4;
+    st = red + (size_t)(rb > 2 ? rb : 2) * 64 * 4;
+    bmax = st + 64 * 4 + (size_t)rb * 3 * 8 * 4;
+    slot_floats = kfirst ? 16 + (size_t)G * D : 0;
+    slot = bmax + (size_t)nbr * 8 * 4;
+    bars = fq_al(slot + (size_t)nbr * slot_floats * 4, 8);
+    total = 1024 + bars + 16 * (size_t)stages;
+  }
+};
+
+struct FqArgs {
+  const void* q;
+  long long q_sb;
+  const int* starts;
+  int pos;
+  float scale, softcap;
+  void* out;
+  int hkv, D, Tn, bt, nb, stages;
+};
+
+#ifdef QDM_K10Q_TRACE
+// a diagnostic build: thread 0's clock64 cycles, per block (the pair's
+// blocks in grid order): [1] the prologue's end (q codes, fragments, exp
+// table), [2] waiting for K chunks, [3] waiting for V chunks, [4] waiting at
+// the consumers' barriers, [5] the block's end
+// [6] and [7] the global timer (ns) at its start and end
+// (qdm_decode_attention_kv_flash_q_trace reads them)
+__device__ unsigned long long g_k10q_trace[4096][8];
+#define K10Q_TIMED(slot, stmt)                              \
+  do {                                                      \
+    const long long t0_ = clock64();                        \
+    stmt;                                                   \
+    if (tid == 0) tr[slot] += clock64() - t0_;              \
+  } while (0)
+#else
+#define K10Q_TIMED(slot, stmt) stmt
+#endif
+
+// The pair's q (G, D) times scale quantized per query head into qi and qs
+// (decode_attn_q.cuh::quantize_q's arithmetic), a consumer warp a head.
+template <int G, typename T>
+__device__ __forceinline__ void quantize_q_consumers(const T* __restrict__ qp, int D, float scale,
+                                                     float* qs, int8_t* qi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < G; i += kFqWarps) {
+    float x[kMaxD / 32];
+    float amax = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kMaxD / 32; ++u) {
+      const int d = lane + 32 * u;
+      x[u] = d < D ? __fmul_rn(to_f32(qp[i * D + d]), scale) : 0.0f;
+      amax = fmaxf(amax, fabsf(x[u]));
+    }
+    amax = warp_max(amax);
+    const float s = __fmul_rn(fmaxf(amax, 1e-8f), inv127());
+    if (lane == 0) qs[i] = s;
+#pragma unroll
+    for (int u = 0; u < kMaxD / 32; ++u) {
+      const int d = lane + 32 * u;
+      if (d < D) qi[i * D + d] = (int8_t)__float2int_rn(__fdiv_rn(x[u], s));
+    }
+  }
+}
+
+// Grid (splits, B * hkv), clusters of `splits` blocks.
 template <int FMT, int G, typename T>
-__global__ void __launch_bounds__(kFThreads)
-flash_q_logits_kernel(const T* __restrict__ q, long long q_sb, const int8_t* __restrict__ kv,
-                      const float* __restrict__ kvs, const int* __restrict__ starts, int pos,
-                      float scale, float softcap, float* __restrict__ lg,
-                      float* __restrict__ bmax, int hkv, int D, int Tn, int bt) {
-  extern __shared__ __align__(16) int acc_s[];  // (G, bt)
-  __shared__ float qs[G];
-  __shared__ __align__(16) int8_t qi[G * kMaxD];
-  __shared__ float redf[32 * G];
-  const int j = blockIdx.x, pair = blockIdx.y, b = pair / hkv, h = pair % hkv;
-  const int tid = threadIdx.x;
-  const Window win(starts, b, pos, Tn);
-  if (j < win.lo / bt || j > win.hi / bt) return;
-  const int NB = Tn / bt, R = FMT == kFmtI4C ? D / 2 : D;
-  quantize_q<G>(q + (size_t)b * q_sb + (size_t)h * G * D, D, scale, qs, qi);
-  for (int x = tid; x < G * bt; x += kFThreads) acc_s[x] = 0;
+__global__ void __launch_bounds__(kFqThreads, 2)  // the plans count on two blocks an SM
+flash_q_kernel(const __grid_constant__ CUtensorMap tkv, const __grid_constant__ CUtensorMap tsc,
+               FqArgs p) {
+  namespace cg = cooperative_groups;
+  using namespace hop;
+  constexpr bool I4 = FMT == kFmtI4C, I8 = FMT == kFmtI8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = dec::smem_aligned(smem_raw);
+  const int n = (int)gridDim.x, rank = (int)blockIdx.x;
+  const bool kfirst = n > 1;
+  const int pair = blockIdx.y, b = pair / p.hkv, h = pair % p.hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int D = p.D, bt = p.bt, cpb = bt / kFqC;
+  const FqLayout L(FMT, G, D, bt, kfirst ? (p.nb + n - 1) / n : 1, kfirst, p.stages);
+  const int R = L.R, LC = L.LC, PP = L.PP;
+  double* tab = reinterpret_cast<double*>(smem + L.tab);
+  uint4* qfr = reinterpret_cast<uint4*>(smem + L.qf);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  int8_t* qi = reinterpret_cast<int8_t*>(smem + L.qi);
+  float* S = reinterpret_cast<float*>(smem + L.S);      // (G, LC)
+  float* VS = reinterpret_cast<float*>(smem + L.VS);    // (LC), i8
+  int8_t* P = reinterpret_cast<int8_t*>(smem + L.P);    // (rb, G, PP)
+  int* part = reinterpret_cast<int*>(smem + L.part);    // (rb, kg, G, D)
+  float* redm = reinterpret_cast<float*>(smem + L.red);  // (max(2, rb), 8 warps, 8)
+  float* mprev = reinterpret_cast<float*>(smem + L.st);  // the per-head state: m, then l
+  float* l_run = mprev + 8;
+  float* rstat = mprev + 64;  // (rb, 3, 8): a round's alpha, sum and ps of each head
+  float* bmax = reinterpret_cast<float*>(smem + L.bmax);  // (nbr, 8)
+  float* slots = reinterpret_cast<float*>(smem + L.slot);  // (nbr, 16 + G * D)
+  const dec::Ring ring{smem_u32(smem + L.bars), p.stages};
+
+  const Window win(p.starts, b, p.pos, p.Tn);
+  const int jb0 = win.lo / bt, nbk = win.hi / bt - jb0 + 1;
+  auto first_of = [&](int r) { return jb0 + r * nbk / n; };  // rank r's first TPU block
+  const int j_lo = first_of(rank), nmine = first_of(rank + 1) - j_lo;
+  const int nK = nmine * cpb, items = 2 * nK;
+
+#ifdef QDM_K10Q_TRACE
+  long long tr[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const long long t_start = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tr[6]));
+#endif
+  if (tid == 0) ring.init(kFqWarps);
   __syncthreads();
 
-  // QK: thread (ds, cg) takes 16 columns and every nds-th quad of rows
-  const int ncg = bt / 16, nds = kFThreads / ncg, cg = tid % ncg, ds = tid / ncg;
-  if (ds < nds) {
-    int acc[G][16];
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-#pragma unroll
-      for (int c = 0; c < 16; ++c) acc[i][c] = 0;
-    const int8_t* kp = kv + ((size_t)b * 2 * hkv + h) * (size_t)R * Tn + (size_t)j * bt + cg * 16;
-    qk16<FMT, G>(kp, Tn, qi, D, ds, nds, acc);
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-#pragma unroll
-      for (int c = 0; c < 16; ++c) atomicAdd(&acc_s[i * bt + cg * 16 + c], acc[i][c]);
+  if (warp == kFqWarps) {  // the producer warp: lane 0 issues, the others leave
+    if (lane != 0) return;
+    const int row_k = (b * 2 * p.hkv + h) * R, row_v = (b * 2 * p.hkv + p.hkv + h) * R;
+    const int sc_k = b * 2 * p.hkv + h, sc_v = sc_k + p.hkv;
+    // item q: chunk c of the rank's TPU block blk, its K or V.  A cluster's
+    // block takes its blocks' K chunks, then their V chunks; one block a pair
+    // takes them round by round (fq_round), the round's K chunks, then its V
+    auto issue = [&](int q) {
+      int blk, c;
+      bool is_k;
+      if (kfirst) {
+        is_k = q < nK;
+        const int i = is_k ? q : q - nK;
+        blk = i / cpb;
+        c = i % cpb;
+      } else {
+        const int j0 = q / (2 * L.rb * cpb) * L.rb, nr = min(L.rb, nmine - j0);
+        const int i = q - 2 * j0 * cpb;  // within the round
+        is_k = i < nr * cpb;
+        const int k = is_k ? i : i - nr * cpb;
+        blk = j0 + k / cpb;
+        c = k % cpb;
+      }
+      const int col = (j_lo + blk) * bt + c * kFqC;
+      ring.wait_empty(q);
+      const uint32_t dst = smem_u32(smem + (size_t)(q % p.stages) * L.stage);
+      const uint32_t bar = ring.full(q % p.stages);
+      mbar_arrive_tx(bar, (uint32_t)(R * kFqC + (I8 && is_k ? 2 * kFqC * 4 : 0)));
+      tma_load_2d(dst, &tkv, col, is_k ? row_k : row_v, bar);
+      if (I8 && is_k) {
+        tma_load_2d(dst + L.RP * kFqC, &tsc, col, sc_k, bar);
+        tma_load_2d(dst + L.RP * kFqC + kFqC * 4, &tsc, col, sc_v, bar);
+      }
+    };
+    if (kfirst) {
+      // no cluster barrier may wait on a load that waits on the consumers: the
+      // loads the exchange does not hold back go first
+      int q = 0;
+      for (; q < items && q < nK + p.stages; ++q) issue(q);
+      dec::cluster_arrive();  // the maxima's exchange
+      dec::cluster_wait();
+      for (; q < items; ++q) issue(q);
+      dec::cluster_arrive();  // the slots
+      dec::cluster_wait();
+      dec::cluster_arrive();  // block 0 has read them
+      dec::cluster_wait();
+    } else {
+      for (int q = 0; q < items; ++q) issue(q);
+    }
+    return;
   }
-  __syncthreads();
 
-  const float* ks = FMT == kFmtI8 ? kvs + ((size_t)b * 2 * hkv + h) * Tn : nullptr;
-  float mx[G];
+  // ------------------------------------------------------------ the consumers
+  xf::exp_table_async(tab);
+  cp_async_commit();
+  const T* qp = static_cast<const T*>(p.q) + (size_t)b * p.q_sb + (size_t)h * G * D;
+  quantize_q_consumers<G>(qp, D, p.scale, qs, qi);
+  named_bar_sync(1, 32 * kFqWarps);
+  // q's A fragments, rows (heads) g, in trans_row's depth order, a table of
+  // (k32 step, lane); i4c: the channels of the low nibbles and of the high ones
+  for (int x = tid; x < L.KS * 32; x += 32 * kFqWarps) {
+    const int k = x >> 5, gl = (x & 31) >> 2, tl = x & 3;
+    unsigned w[4] = {0u, 0u, 0u, 0u};  // lo a0, lo a2, hi a0, hi a2
 #pragma unroll
-  for (int i = 0; i < G; ++i) mx[i] = -INFINITY;
-  for (int tt = tid; tt < bt; tt += kFThreads) {
-    const int t = j * bt + tt;
-    const bool ok = win.valid(t);
+    for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-    for (int i = 0; i < G; ++i) {
-      float x = __fmul_rn(int_sum<FMT>(acc_s[i * bt + tt]), qs[i]);
-      if (FMT == kFmtI8) x = __fmul_rn(x, ks[t]);
-      if (softcap != 0.0f) x = __fmul_rn(softcap, (float)tanh((double)__fdiv_rn(x, softcap)));
-      x = ok ? x : kMasked;
-      lg[((size_t)pair * G + i) * Tn + t] = x;
-      mx[i] = fmaxf(mx[i], x);
+      for (int j = 0; j < 4; ++j) {
+        const int r = 32 * k + trans_row(tl, hh, j);
+        const bool ok = gl < G && r < R;
+        w[hh] |= (unsigned)(unsigned char)(ok ? qi[gl * D + r] : 0) << (8 * j);
+        if (I4) w[2 + hh] |= (unsigned)(unsigned char)(ok ? qi[gl * D + R + r] : 0) << (8 * j);
+      }
+    qfr[x] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  if (tid < 8) {
+    mprev[tid] = kMasked;
+    l_run[tid] = 0.0f;
+  }
+  cp_async_wait<0>();
+  named_bar_sync(1, 32 * kFqWarps);
+#ifdef QDM_K10Q_TRACE
+  if (tid == 0) tr[1] = clock64() - t_start;
+#endif
+  const float qsg = g < G ? qs[g] : 0.0f;
+  const float softcap = p.softcap;
+
+  // one K chunk at item q: the logits of columns [col0, col0 + 128) into S from
+  // column soff, (i8) the chunk's V token scales into VS; mx: this thread's maximum
+  int q = 0;
+  auto qk_chunk = [&](int col0, int soff, float& mx) {
+    K10Q_TIMED(2, ring.wait_full(q));
+    const unsigned char* st = smem + (size_t)(q % p.stages) * L.stage;
+    int ae[4] = {0, 0, 0, 0}, ao[4] = {0, 0, 0, 0};
+#pragma unroll 1
+    for (int k = 0; k < L.KS; ++k) {
+      const uint4 f = qfr[k * 32 + lane];
+      const int r = 32 * k + lane;
+      unsigned r4[4], ev[2], od[2];
+      ldsm_x4_b8(r4, st + r * kFqC + ((warp ^ (r & 7)) << 4), true);
+      trans_words(r4, ev, od);
+      if (I4) {
+        mma_a02(ae, f.x, f.y, lo_nibbles(ev[0]), lo_nibbles(ev[1]));
+        mma_a02(ae, f.z, f.w, hi_nibbles(ev[0]), hi_nibbles(ev[1]));
+        mma_a02(ao, f.x, f.y, lo_nibbles(od[0]), lo_nibbles(od[1]));
+        mma_a02(ao, f.z, f.w, hi_nibbles(od[0]), hi_nibbles(od[1]));
+      } else {
+        mma_a02(ae, f.x, f.y, ev[0], ev[1]);
+        mma_a02(ao, f.x, f.y, od[0], od[1]);
+      }
+    }
+    const float* ksc = reinterpret_cast<const float*>(st + L.RP * kFqC);
+    if (g < G) {
+      // columns 4t..4t+3 of the warp's 16: even tile c0, odd c0, even c1, odd c1
+      const int sums[4] = {ae[0], ao[0], ae[1], ao[1]};
+      float x[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cc = 16 * warp + 4 * t + j;
+        float v = __fmul_rn(__int2float_rn(I4 ? (sums[j] >> 4) : sums[j]), qsg);
+        if (I8) v = __fmul_rn(v, ksc[cc]);
+        if (softcap != 0.0f) v = __fmul_rn(softcap, (float)tanh((double)__fdiv_rn(v, softcap)));
+        x[j] = win.valid(col0 + cc) ? v : kMasked;
+        mx = fmaxf(mx, x[j]);
+      }
+      *reinterpret_cast<float4*>(S + g * LC + soff + 16 * warp + 4 * t) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
+    if (I8 && tid < kFqC) VS[soff + tid] = ksc[kFqC + tid];
+    ring.release(q++);
+  };
+  auto qk_chunks = [&](int j, int soff) {  // the warps' maxima into the parity's area
+    float mx = -INFINITY;
+    for (int c = 0; c < cpb; ++c) qk_chunk(j * bt + c * kFqC, soff + c * kFqC, mx);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if (t == 0 && g < G) redm[(j & 1) * 64 + warp * 8 + g] = mx;
+  };
+
+  // The softmax of TPU block r's logits Sh (bt columns) for head hh, by one
+  // warp, its reductions within the warp: m_j = max(mo, the block's maximum),
+  // p = exp(logits - m_j) into Sh, its f64 sum, (i8) p * its V token scales
+  // VSr, ps and the p codes into Pr; alpha_j, the sum and ps into st[0], st[8],
+  // st[16]
+  auto softmax_warp = [&](float mo, float mj, float* Sh, const float* VSr, int8_t* Pr,
+                          float* st) {
+    double sm = 0.0;
+    float pm = 0.0f;
+#pragma unroll 1
+    for (int j = lane; j < bt; j += 32) {
+      const float x = __fsub_rn(Sh[j], mj);
+      bool a;
+      float pv = xf::exp_fast<true>(x, tab, a);
+      if (a) pv = xf::exp_slow(x);
+      sm += (double)pv;
+      if (I8) pv = __fmul_rn(pv, VSr[j]);
+      pm = fmaxf(pm, fabsf(pv));
+      Sh[j] = pv;
+    }
+    sm = warp_sum(sm);
+    pm = warp_max(pm);
+    const float ps = __fmul_rn(fmaxf(pm, 1e-8f), inv127()), rps = __frcp_rn(ps);
+#pragma unroll 1
+    for (int j = lane; j < bt; j += 32) {
+      bool a;
+      int c = xf::code_fast(Sh[j], rps, a);
+      if (a) c = xf::code_slow(Sh[j], ps);
+      Pr[j] = (int8_t)c;
+    }
+    if (lane == 0) {
+      bool a;
+      float al = xf::exp_fast<true>(__fsub_rn(mo, mj), tab, a);
+      if (a) al = xf::exp_slow(__fsub_rn(mo, mj));
+      st[0] = al;
+      st[8] = (float)sm;
+      st[16] = ps;
+    }
+  };
+
+  // The TPU block's PV over its V chunks at item q on, the warps' int32 partials
+  // into part, published by the barrier it ends with.  Warp w takes n-pairs (16
+  // channel rows, two n8 tiles) wp, wp + nwp of each V chunk and its k32 steps
+  // wk, wk + kg.
+  const int wp = warp % L.nwp, wk = warp / L.nwp;
+  auto pv_chunks = [&](const int8_t* Pb, int* partb) {
+    int acc[2][2][I4 ? 2 : 1][4];
+#pragma unroll
+    for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+      for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+        for (int hh = 0; hh < (I4 ? 2 : 1); ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[s2][tl][hh][e] = 0;
+    const int8_t* Pg = Pb + (g < G ? g : 0) * PP;
+    const int lr = lane & 7, lm = lane >> 3;
+    for (int c = 0; c < cpb; ++c) {
+      K10Q_TIMED(3, ring.wait_full(q));
+      const unsigned char* st = smem + (size_t)(q % p.stages) * L.stage;
+      if (warp < L.nwp * L.kg) {
+#pragma unroll 1
+        for (int k = wk; k < kFqC / 32; k += L.kg) {
+          const int cb = c * kFqC + 32 * k;  // the step's first column within the TPU block
+          unsigned a0 = *reinterpret_cast<const unsigned*>(Pg + cb + 4 * t);
+          unsigned a2 = *reinterpret_cast<const unsigned*>(Pg + cb + 16 + 4 * t);
+          if (g >= G) a0 = a2 = 0u;
+#pragma unroll
+          for (int s2 = 0; s2 < 2; ++s2) {
+            const int pr = wp + s2 * L.nwp;
+            if (pr >= L.NP) break;
+            const int row = 16 * pr + lr + 8 * (lm >> 1), chunk = 2 * k + (lm & 1);
+            unsigned r4[4];
+            ldsm_x4_b8(r4, st + row * kFqC + ((chunk ^ (row & 7)) << 4), false);
+            if (I4) {
+              mma_a02(acc[s2][0][0], a0, a2, lo_nibbles(r4[0]), lo_nibbles(r4[1]));
+              mma_a02(acc[s2][1][0], a0, a2, lo_nibbles(r4[2]), lo_nibbles(r4[3]));
+              mma_a02(acc[s2][0][I4 ? 1 : 0], a0, a2, hi_nibbles(r4[0]), hi_nibbles(r4[1]));
+              mma_a02(acc[s2][1][I4 ? 1 : 0], a0, a2, hi_nibbles(r4[2]), hi_nibbles(r4[3]));
+            } else {
+              mma_a02(acc[s2][0][0], a0, a2, r4[0], r4[1]);
+              mma_a02(acc[s2][1][0], a0, a2, r4[2], r4[3]);
+            }
+          }
+        }
+      }
+      ring.release(q++);
+    }
+    if (warp < L.nwp * L.kg && g < G) {
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        const int pr = wp + s2 * L.nwp;
+        if (pr >= L.NP) break;
+#pragma unroll
+        for (int tl = 0; tl < 2; ++tl)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ch = 16 * pr + 8 * tl + 2 * t + e;
+            if (ch < R) {
+              int* dst = partb + ((size_t)wk * G + g) * D;
+              dst[ch] = acc[s2][tl][0][e];
+              if (I4) dst[R + ch] = acc[s2][tl][I4 ? 1 : 0][e];
+            }
+          }
+      }
+    }
+  };
+  auto pv_block = [&]() {
+    pv_chunks(P, part);
+    K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+  };
+  // pv_j of output element e (head e / D) of round block r: the warps' partials
+  // added exactly, times ps_j
+  auto pv_of = [&](int r, int e) {
+    const int* pr = part + (size_t)r * L.kg * G * D;
+    int v = 0;
+    for (int w = 0; w < L.kg; ++w) v += pr[(size_t)w * G * D + e];
+    return __fmul_rn(__int2float_rn(I4 ? (v >> 4) : v), rstat[(r * 3 + 2) * 8 + e / D]);
+  };
+
+  T* op = static_cast<T*>(p.out) + (size_t)pair * G * D;
+#ifdef QDM_K10Q_STREAM_ONLY
+  // a diagnostic build: the ring streamed and released, nothing computed (the
+  // output is not the kernel's function)
+  if (!kfirst) {
+    for (int i = 0; i < items; ++i) {
+      ring.wait_full(q);
+      ring.release(q++);
+    }
+    for (int e = tid; e < G * D; e += 32 * kFqWarps) op[e] = from_f32<T>(0.0f);
+    return;
+  }
+#endif
+  auto trace_end = [&]() {
+#ifdef QDM_K10Q_TRACE
+    if (tid == 0) {
+      tr[5] = clock64() - t_start;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tr[7]));
+      for (int i = 0; i < 8; ++i)
+        g_k10q_trace[(blockIdx.x + gridDim.x * blockIdx.y) % 4096][i] = tr[i];
+    }
+#endif
+  };
+  if (!kfirst) {
+    // one block a pair: the online pass, acc and l folded as each TPU block ends
+    float acc_o[kFqMaxPer];
+#pragma unroll
+    for (int u = 0; u < kFqMaxPer; ++u) acc_o[u] = 0.0f;
+    // rounds of rb TPU blocks, three barriers a round: (1) their QK^T, the chunks
+    // shared by the warps; (2) each (block, head) a warp, its reductions within
+    // the warp: m_j, alpha_j, p, the f64 sum, (i8) p * v_scale, ps, the codes;
+    // (3) their PV, the chunks shared; then the fold in block order
+    const int rb = L.rb;
+    for (int j0 = 0; j0 < nmine; j0 += rb) {
+      const int nr = min(rb, nmine - j0);
+      for (int r = 0; r < nr; ++r) {
+        float mx = -INFINITY;
+        for (int c = 0; c < cpb; ++c)
+          qk_chunk((j_lo + j0 + r) * bt + c * kFqC, r * bt + c * kFqC, mx);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        if (t == 0 && g < G) redm[(r * kFqWarps + warp) * 8 + g] = mx;
+      }
+      K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+      auto round_max = [&](int r, int hh) {  // block r's maximum for head hh
+        float m = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < kFqWarps; ++w) m = fmaxf(m, redm[(r * kFqWarps + w) * 8 + hh]);
+        return m;
+      };
+      for (int pr = warp; pr < nr * G; pr += kFqWarps) {
+        const int r = pr / G, hh = pr % G;
+        float mo = mprev[hh];
+        for (int rr = 0; rr < r; ++rr) mo = fmaxf(mo, round_max(rr, hh));
+        const float mj = fmaxf(mo, round_max(r, hh));
+        softmax_warp(mo, mj, S + hh * LC + r * bt, VS + r * bt, P + ((size_t)r * G + hh) * PP,
+                     rstat + r * 3 * 8 + hh);
+      }
+      K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+      if (tid < G) {  // m of the round's last block, for the next round
+        float m = mprev[tid];
+        for (int r = 0; r < nr; ++r) m = fmaxf(m, round_max(r, tid));
+        mprev[tid] = m;
+      }
+      for (int r = 0; r < nr; ++r)
+        pv_chunks(P + (size_t)r * G * PP, part + (size_t)r * L.kg * G * D);
+      K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+#pragma unroll
+      for (int u = 0; u < kFqMaxPer; ++u) {
+        const int e = tid + u * 32 * kFqWarps;
+        if (e >= G * D) continue;
+        for (int r = 0; r < nr; ++r)
+          acc_o[u] = __fadd_rn(__fmul_rn(acc_o[u], rstat[r * 3 * 8 + e / D]), pv_of(r, e));
+      }
+      if (tid < G)
+        for (int r = 0; r < nr; ++r)
+          l_run[tid] = __fadd_rn(__fmul_rn(l_run[tid], rstat[(r * 3) * 8 + tid]),
+                                 rstat[(r * 3 + 1) * 8 + tid]);
+    }
+    K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+#pragma unroll
+    for (int u = 0; u < kFqMaxPer; ++u) {
+      const int e = tid + u * 32 * kFqWarps;
+      if (e < G * D) op[e] = from_f32<T>(__fdiv_rn(acc_o[u], l_run[e / D]));
+    }
+    trace_end();
+    return;
+  }
+
+  // a cluster: every TPU block's logits and maximum first
+  for (int jj = 0; jj < nmine; ++jj) {
+    const int j = j_lo + jj;
+    qk_chunks(j, jj * bt);
+    K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+    if (tid < G) {  // a warp may run on into the next block's area, of the other parity
+      float m = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kFqWarps; ++w) m = fmaxf(m, redm[(j & 1) * 64 + w * 8 + tid]);
+      bmax[jj * 8 + tid] = m;
     }
   }
-  block_max<G>(mx, redf);
-  if (tid < G) bmax[((size_t)pair * G + tid) * NB + j] = mx[tid];
-}
-
-// Pass 2: grid (T / bt, B * hkv).  part_o (B * hkv, NB, G, D) f32, part_s
-// (B * hkv, NB, G, 2) = (alpha_j, sum p).
-template <int FMT, int G>
-__global__ void __launch_bounds__(kFThreads)
-flash_q_block_kernel(const int8_t* __restrict__ kv, const float* __restrict__ kvs,
-                     const int* __restrict__ starts, int pos, const float* __restrict__ lg,
-                     const float* __restrict__ bmax, float* __restrict__ part_o,
-                     float* __restrict__ part_s, int hkv, int D, int Tn, int bt) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* acc_s = reinterpret_cast<int*>(smem);                      // (G, D)
-  int8_t* P = reinterpret_cast<int8_t*>(smem + 4 * G * D);          // (G, bt)
-  __shared__ float m_s[G], alpha_s[G];
-  __shared__ float redf[32 * G];
-  __shared__ double redd[32 * G];
-  const int j = blockIdx.x, pair = blockIdx.y, b = pair / hkv, h = pair % hkv;
-  const int tid = threadIdx.x;
-  const Window win(starts, b, pos, Tn);
-  const int jb = win.lo / bt;
-  if (j < jb || j > win.hi / bt) return;
-  const int NB = Tn / bt, R = FMT == kFmtI4C ? D / 2 : D;
-  if (tid < G) {
-    const float* bm = bmax + ((size_t)pair * G + tid) * NB;
-    float m_old = kMasked;
-    for (int k = jb; k < j; ++k) m_old = fmaxf(m_old, bm[k]);
-    const float m_new = fmaxf(m_old, bm[j]);
-    m_s[tid] = m_new;
-    alpha_s[tid] = exp_f32(__fsub_rn(m_old, m_new));
+  dec::cluster_arrive();  // the maxima's exchange (releases this block's)
+  dec::cluster_wait();
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid < G) {  // m_{j-1} of this block's first TPU block: the earlier blocks' maxima
+    float m = kMasked;
+    for (int r = 0; r < rank; ++r) {
+      const float* rb = cluster.map_shared_rank(bmax, r);
+      for (int jj = 0; jj < first_of(r + 1) - first_of(r); ++jj) m = fmaxf(m, rb[jj * 8 + tid]);
+    }
+    mprev[tid] = m;
   }
-  for (int x = tid; x < G * D; x += kFThreads) acc_s[x] = 0;
-  __syncthreads();
-
-  // p of this thread's bt / 128 columns, the block sums, then the codes
-  constexpr int kPer = kMaxBt / kFThreads;
-  const int per = bt / kFThreads;
-  float pr[G][kPer];
-  double sm[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) sm[i] = 0.0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (k >= per) break;
-    const int t = j * bt + tid + k * kFThreads;
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const float p = exp_f32(__fsub_rn(lg[((size_t)pair * G + i) * Tn + t], m_s[i]));
-      pr[i][k] = p;
-      sm[i] += (double)p;
+  named_bar_sync(1, 32 * kFqWarps);
+  for (int jj = 0; jj < nmine; ++jj) {  // one TPU block at a time (a round of one)
+    for (int hh = warp; hh < G; hh += kFqWarps)
+      softmax_warp(mprev[hh], fmaxf(mprev[hh], bmax[jj * 8 + hh]), S + hh * LC + jj * bt,
+                   VS + jj * bt, P + (size_t)hh * PP, rstat + hh);
+    K10Q_TIMED(4, named_bar_sync(1, 32 * kFqWarps));
+    if (tid < G) mprev[tid] = fmaxf(mprev[tid], bmax[jj * 8 + tid]);
+    pv_block();
+    float* sl = slots + (size_t)jj * L.slot_floats;  // alpha (8), sum (8), pv (G, D)
+    for (int e = tid; e < G * D; e += 32 * kFqWarps) sl[16 + e] = pv_of(0, e);
+    if (tid < G) {
+      sl[tid] = rstat[tid];
+      sl[8 + tid] = rstat[8 + tid];
+    }
+    // every slot has read rstat before the next TPU block's softmax rewrites it
+    named_bar_sync(1, 32 * kFqWarps);
+  }
+  dec::cluster_arrive();  // the slots
+  dec::cluster_wait();
+  if (rank == 0) {  // the fold in block order from l = acc = 0
+    for (int e = tid; e < G * D; e += 32 * kFqWarps) {
+      const int hh = e / D;
+      float l = 0.0f, acc = 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const float* rs = cluster.map_shared_rank(slots, r);
+        for (int jj = 0; jj < first_of(r + 1) - first_of(r); ++jj) {
+          const float* sl = rs + (size_t)jj * L.slot_floats;
+          const float a = sl[hh];
+          l = __fadd_rn(__fmul_rn(l, a), sl[8 + hh]);
+          acc = __fadd_rn(__fmul_rn(acc, a), sl[16 + e]);
+        }
+      }
+      op[e] = from_f32<T>(__fdiv_rn(acc, l));
     }
   }
-  block_sum<G>(sm, redd);
-  const float* vs = FMT == kFmtI8 ? kvs + ((size_t)b * 2 * hkv + hkv + h) * Tn : nullptr;
-  float pm[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) pm[i] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (k >= per) break;
-    const int t = j * bt + tid + k * kFThreads;
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      if (FMT == kFmtI8) pr[i][k] = __fmul_rn(pr[i][k], vs[t]);
-      pm[i] = fmaxf(pm[i], pr[i][k]);
-    }
-  }
-  block_max<G>(pm, redf);
-  float ps[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) ps[i] = __fmul_rn(fmaxf(pm[i], 1e-8f), inv127());
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (k >= per) break;
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      P[i * bt + tid + k * kFThreads] = (int8_t)__float2int_rn(__fdiv_rn(pr[i][k], ps[i]));
-  }
-  __syncthreads();
-
-  // PV: items (cache row, 16 columns), integer partials summed in shared memory
-  const int ncg = bt / 16;
-  const int8_t* vp = kv + ((size_t)b * 2 * hkv + hkv + h) * (size_t)R * Tn + (size_t)j * bt;
-  for (int it = tid; it < R * ncg; it += kFThreads) {
-    const int r = it / ncg, cg = it % ncg;
-    const uint4 v16 = ldg16(vp + (size_t)r * Tn + cg * 16);
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      int lo = 0, hi = 0;
-      pv16<FMT>(v16, *reinterpret_cast<const uint4*>(P + i * bt + cg * 16), lo, hi);
-      atomicAdd(&acc_s[i * D + r], lo);
-      if (FMT == kFmtI4C) atomicAdd(&acc_s[i * D + R + r], hi);
-    }
-  }
-  __syncthreads();
-  float* po = part_o + ((size_t)pair * NB + j) * G * D;
-  for (int x = tid; x < G * D; x += kFThreads)
-    po[x] = __fmul_rn(int_sum<FMT>(acc_s[x]), ps[x / D]);
-  if (tid < G) {
-    float* st = part_s + (((size_t)pair * NB + j) * G + tid) * 2;
-    st[0] = alpha_s[tid];
-    st[1] = (float)sm[tid];
-  }
-}
-
-// Pass 3: grid (B * hkv); the TPU recurrence over the blocks in order.
-template <typename T>
-__global__ void __launch_bounds__(256)
-flash_q_combine_kernel(const int* __restrict__ starts, int pos, const float* __restrict__ part_o,
-                       const float* __restrict__ part_s, T* __restrict__ out, int hkv, int G,
-                       int D, int Tn, int bt) {
-  const int pair = blockIdx.x, b = pair / hkv;
-  const Window win(starts, b, pos, Tn);
-  const int NB = Tn / bt;
-  for (int x = threadIdx.x; x < G * D; x += blockDim.x) {
-    const int i = x / D;
-    float l = 0.0f, acc = 0.0f;
-    for (int j = win.lo / bt; j <= win.hi / bt; ++j) {
-      const float* st = part_s + (((size_t)pair * NB + j) * G + i) * 2;
-      l = __fadd_rn(__fmul_rn(l, st[0]), st[1]);
-      acc = __fadd_rn(__fmul_rn(acc, st[0]), part_o[((size_t)pair * NB + j) * G * D + x]);
-    }
-    out[(size_t)pair * G * D + x] = from_f32<T>(__fdiv_rn(acc, l));
-  }
+  trace_end();
+  dec::cluster_arrive();  // block 0 has read every slot
+  dec::cluster_wait();
 }
 
 template <int FMT, int G, typename T>
-cudaError_t launch(const void* q, long long q_sb, const void* kv, const float* kvs,
-                   const int* starts, int pos, float scale, float softcap, void* out, float* lg,
-                   float* bmax, float* part_o, float* part_s, int B, int hkv, int D, int Tn,
-                   int bt, cudaStream_t s) {
-  const dim3 grid(Tn / bt, B * hkv);
-  const int8_t* codes = static_cast<const int8_t*>(kv);
-  flash_q_logits_kernel<FMT, G, T><<<grid, kFThreads, sizeof(int) * G * bt, s>>>(
-      static_cast<const T*>(q), q_sb, codes, kvs, starts, pos, scale, softcap, lg, bmax, hkv, D,
-      Tn, bt);
-  cudaError_t e = cudaGetLastError();
+cudaError_t launch(const CUtensorMap& tkv, const CUtensorMap& tsc, const FqArgs& a, int B,
+                   int splits, size_t smem, cudaStream_t s) {
+  auto kernel = flash_q_kernel<FMT, G, T>;
+  // the plan counts on two blocks an SM: the most shared memory the SM can give
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  if (splits > 1)
+    return attn::launch_split(kernel, splits, B * a.hkv, kFqThreads, smem, s, tkv, tsc, a);
+  cudaError_t e = allow_smem(kernel, smem);  // one block a pair: no cluster
   if (e != cudaSuccess) return e;
-  flash_q_block_kernel<FMT, G><<<grid, kFThreads, 4 * G * D + G * bt, s>>>(
-      codes, kvs, starts, pos, lg, bmax, part_o, part_s, hkv, D, Tn, bt);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  flash_q_combine_kernel<T><<<B * hkv, 256, 0, s>>>(starts, pos, part_o, part_s,
-                                                    static_cast<T*>(out), hkv, G, D, Tn, bt);
+  kernel<<<dim3(1, B * a.hkv), kFqThreads, smem, s>>>(tkv, tsc, a);
   return cudaGetLastError();
 }
 
 template <int FMT, typename T>
-cudaError_t launch_g(int G, const void* q, long long q_sb, const void* kv, const float* kvs,
-                     const int* starts, int pos, float scale, float softcap, void* out,
-                     float* lg, float* bmax, float* part_o, float* part_s, int B, int hkv, int D,
-                     int Tn, int bt, cudaStream_t s) {
-#define QDM_FLASH_Q(GG)                                                                     \
-  launch<FMT, GG, T>(q, q_sb, kv, kvs, starts, pos, scale, softcap, out, lg, bmax, part_o, \
-                     part_s, B, hkv, D, Tn, bt, s)
+cudaError_t launch_g(int G, const CUtensorMap& tkv, const CUtensorMap& tsc, const FqArgs& a,
+                     int B, int splits, size_t smem, cudaStream_t s) {
   switch (G) {
-    case 1: return QDM_FLASH_Q(1);
-    case 2: return QDM_FLASH_Q(2);
-    case 4: return QDM_FLASH_Q(4);
-    case 8: return QDM_FLASH_Q(8);
+    case 1: return launch<FMT, 1, T>(tkv, tsc, a, B, splits, smem, s);
+    case 2: return launch<FMT, 2, T>(tkv, tsc, a, B, splits, smem, s);
+    case 4: return launch<FMT, 4, T>(tkv, tsc, a, B, splits, smem, s);
+    case 8: return launch<FMT, 8, T>(tkv, tsc, a, B, splits, smem, s);
     default: return cudaErrorInvalidValue;
   }
-#undef QDM_FLASH_Q
 }
 
 template <typename T>
-cudaError_t launch_fmt(int fmt, int G, const void* q, long long q_sb, const void* kv,
-                       const float* kvs, const int* starts, int pos, float scale, float softcap,
-                       void* out, float* lg, float* bmax, float* part_o, float* part_s, int B,
-                       int hkv, int D, int Tn, int bt, cudaStream_t s) {
-#define QDM_FLASH_FMT(F)                                                                   \
-  launch_g<F, T>(G, q, q_sb, kv, kvs, starts, pos, scale, softcap, out, lg, bmax, part_o, \
-                 part_s, B, hkv, D, Tn, bt, s)
+cudaError_t launch_fmt(int fmt, int G, const CUtensorMap& tkv, const CUtensorMap& tsc,
+                       const FqArgs& a, int B, int splits, size_t smem, cudaStream_t s) {
   switch (fmt) {
-    case kFmtI8: return QDM_FLASH_FMT(kFmtI8);
-    case kFmtI8C: return QDM_FLASH_FMT(kFmtI8C);
-    case kFmtI4C: return QDM_FLASH_FMT(kFmtI4C);
+    case kFmtI8: return launch_g<kFmtI8, T>(G, tkv, tsc, a, B, splits, smem, s);
+    case kFmtI8C: return launch_g<kFmtI8C, T>(G, tkv, tsc, a, B, splits, smem, s);
+    case kFmtI4C: return launch_g<kFmtI4C, T>(G, tkv, tsc, a, B, splits, smem, s);
     default: return cudaErrorInvalidValue;
   }
-#undef QDM_FLASH_FMT
 }
 
 }  // namespace kvq
 }  // namespace qdm
 
+// One launch of the plan (splits blocks a pair, stages chunks a ring) that
+// ops/decode_kernels.py::flash_q_plan gives; bt the TPU block (a multiple of
+// 128 dividing Tn).
 extern "C" int qdm_decode_attention_kv_flash_q(const void* q, int dtype, long long q_sb,
                                                const void* kv, const void* kv_scale,
                                                const void* starts, int pos, float scale,
-                                               float softcap, int fmt, void* out, void* lg,
-                                               void* bmax, void* part_o, void* part_s, int B,
-                                               int hkv, int G, int D, int Tn, int bt,
-                                               void* stream) {
+                                               float softcap, int fmt, void* out, int B, int hkv,
+                                               int G, int D, int Tn, int bt, int splits,
+                                               int stages, void* stream) {
   using namespace qdm;
+  using namespace qdm::kvq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pos < 0 || pos >= Tn || bt <= 0 || bt % kvq::kFThreads != 0 || bt > kvq::kMaxBt ||
-      Tn % bt != 0 || D <= 0 || D % 8 != 0 || D > kvq::kMaxD ||
-      (fmt == kvq::kFmtI8) != (kv_scale != nullptr))
+  if (B <= 0 || pos < 0 || pos >= Tn || bt <= 0 || bt % kFqC != 0 || Tn % bt != 0 || D <= 0 ||
+      D % 8 != 0 || D > kMaxD || (G != 1 && G != 2 && G != 4 && G != 8) ||
+      (fmt != kFmtI8 && fmt != kFmtI8C && fmt != kFmtI4C) ||
+      (fmt == kFmtI8) != (kv_scale != nullptr) || splits < 1 || splits > attn::kMaxSplits ||
+      stages < 2 || stages > 16 || (dtype != kDtypeBF16 && dtype != kDtypeF32))
     return (int)cudaErrorInvalidValue;
-  const float* ks = static_cast<const float*>(kv_scale);
-  const int* st = static_cast<const int*>(starts);
-  float* f_lg = static_cast<float*>(lg);
-  float* f_bm = static_cast<float*>(bmax);
-  float* f_po = static_cast<float*>(part_o);
-  float* f_ps = static_cast<float*>(part_s);
+  const int nb = Tn / bt;
+  const FqLayout L(fmt, G, D, bt, (nb + splits - 1) / splits, splits > 1, stages);
+  if (L.total > kSmemMax) return (int)cudaErrorInvalidValue;
+  CUtensorMap tkv, tsc;
+  if (!hop::u8_rows_map(&tkv, kv, B * 2 * hkv * L.R, Tn, L.R) ||
+      !(fmt == kFmtI8 ? hop::f32_rows_map(&tsc, kv_scale, B * 2 * hkv, Tn, kFqC)
+                      : hop::u8_rows_map(&tsc, kv, B * 2 * hkv * L.R, Tn, L.R)))
+    return (int)cudaErrorInvalidValue;
+  const FqArgs a{q, q_sb, static_cast<const int*>(starts), pos, scale, softcap, out, hkv, D,
+                 Tn, bt, nb, stages};
   if (dtype == kDtypeBF16)
-    return (int)kvq::launch_fmt<__nv_bfloat16>(fmt, G, q, q_sb, kv, ks, st, pos, scale, softcap,
-                                               out, f_lg, f_bm, f_po, f_ps, B, hkv, D, Tn, bt, s);
-  if (dtype == kDtypeF32)
-    return (int)kvq::launch_fmt<float>(fmt, G, q, q_sb, kv, ks, st, pos, scale, softcap, out,
-                                       f_lg, f_bm, f_po, f_ps, B, hkv, D, Tn, bt, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_fmt<__nv_bfloat16>(fmt, G, tkv, tsc, a, B, splits, L.total, s);
+  return (int)launch_fmt<float>(fmt, G, tkv, tsc, a, B, splits, L.total, s);
 }
+
+#ifdef QDM_K10Q_TRACE
+// the diagnostic build's per-block cycles: n blocks x 8 into out (host)
+extern "C" int qdm_decode_attention_kv_flash_q_trace(void* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, qdm::kvq::g_k10q_trace, (size_t)n * 8 * 8);
+}
+#endif

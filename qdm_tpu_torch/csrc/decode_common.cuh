@@ -7,11 +7,8 @@
 //   f32 (so any summation order gives the same f32, and the plain PyTorch
 //   version's f64 sum the same bits) and rsqrt(v) as 1 / sqrt(v) with IEEE
 //   sqrt and division.  Writes the normed row's int8 codes
-//   clip(round(xn * (1/a)), +-127) with a static scale a (K16, K27).
-// * TileSmem / load_a_stage: the cp.async ring of the int4 group-dot tile
-//   (decode_i4.cuh: K27).
-// * act_fn and ordered_sum_kernel: the fused MLPs' activation and their
-//   sum of the inner blocks' f32 partials in block order (K27).
+//   clip(round(xn * (1/a)), +-127) with a static scale a (K16).
+// * act_fn: the fused MLPs' activation.
 // * finish_tile and finish_tile_batched: the dense epilogue from a
 //   shared-memory f32 tile: the rope rotation y * cos + partner * sin
 //   (partner d/2 away in the same head, within the tile since BN is a
@@ -30,9 +27,6 @@ namespace dec {
 
 constexpr int kThreads = 128;   // 4 warps, side by side along N
 constexpr int TM = 32;          // rows of a tile: two m16 tiles
-constexpr int TK = 64;          // bytes of K per stage
-constexpr int TROW = TK + 16;   // padded shared-memory row (bytes)
-constexpr int kStages = 3;
 
 constexpr int kNormNone = 0, kNormRms = 1, kNormLayer = 2;
 
@@ -132,14 +126,8 @@ inline cudaError_t launch_norm_rows(const void* x, int x_dtype, const float* ns,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core tile: 32 rows x BN = 32 * NJ columns, NB weight matrices
+// bf16 tensor-core product (K5, K11, flash_prefill.cu)
 // ---------------------------------------------------------------------------
-
-template <int NJ, int NB>
-struct TileSmem {
-  unsigned char a[kStages][TM][TROW];
-  unsigned char b[NB][kStages][NJ * 32][TROW];
-};
 
 __device__ __forceinline__ void mma_bf16_16816(float* c, const unsigned* a, const unsigned* b) {
   asm volatile(
@@ -149,36 +137,8 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const unsigned* a, cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The A operand of a tile: M rows of bytes `ld` apart (int8 codes, or bf16
-// values two bytes each), which the cp.async ring stages as they are.
-template <typename T>
-struct TileA {
-  const T* p;
-  size_t ld;
-};
-
-// Stage `buf`'s A part: TM rows x TK bytes from column k0, one 16-byte chunk
-// per thread.
-template <typename T>
-__device__ __forceinline__ void load_a_stage(const TileA<T>& a, unsigned char (*sa)[TROW],
-                                             int m0, int M, int k0, int kb1) {
-  const int tid = threadIdx.x;
-  const int r = tid >> 2, c = (tid & 3) * 16;
-  const bool ok = (m0 + r < M) && (k0 + c < kb1);
-  cp_async16(&sa[r][c], ok ? (const void*)(a.p + (size_t)(m0 + r) * a.ld + k0 + c)
-                           : (const void*)a.p, ok);
-}
-
-// Tile coordinates of fragment element e of (mi, nj) for this thread.
-template <int NJ>
-__device__ __forceinline__ void frag_rc(int mi, int nj, int e, int& r, int& c) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  r = mi * 16 + (lane >> 2) + (e >> 1) * 8;
-  c = warp * NJ * 8 + nj * 8 + (lane & 3) * 2 + (e & 1);
-}
-
 // ---------------------------------------------------------------------------
-// fused MLP pieces (K8, K11, K17, K25, K27)
+// fused MLP pieces (K8, K11, K17, K25, K26, K27)
 // ---------------------------------------------------------------------------
 
 constexpr int kActSilu = 0, kActGelu = 1;
@@ -196,22 +156,6 @@ __device__ __forceinline__ float act_fn(float g, int act) {
   const float inner = __fmul_rn(k, __fadd_rn(g, __fmul_rn(0.044715f, g3)));
   const float th = (float)tanh((double)inner);
   return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.0f, th)));
-}
-
-// y = ((0 + p_0) + p_1) + ... (+ x): the inner blocks' f32 partials (n_j,
-// M, K) summed in the TPU kernel's order.
-template <typename T>
-__global__ void __launch_bounds__(256)
-ordered_sum_kernel(const float* __restrict__ part, int n_j, const T* __restrict__ x,
-                   int residual, void* __restrict__ out, int out_dtype, int M, int K) {
-  const size_t n = (size_t)M * K;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.0f;
-    for (int j = 0; j < n_j; ++j) acc = __fadd_rn(acc, part[(size_t)j * n + i]);
-    if (residual) acc = __fadd_rn(acc, to_f32(x[i]));
-    store_f32(out, out_dtype, i, acc);
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -8,9 +8,9 @@
 //     ai   = clip(round(act(g) * u * (1/s_mid[e])), +-127)               int8
 //     acc += (gdot(ai, W2_e[j]) * s_mid[e]) * route[:, e]    (f32, acc starting at 0)
 //   out = acc                                          (out dtype; no norm, no residual)
-// gdot is the planar int4 group dot of decode_i4.cuh (low-plane groups,
-// then high-plane groups, each exact int32 dot times its f32 scale, added
-// in order).  The expert stacks arrive transposed per expert: W1 / W3 as
+// gdot is the planar int4 group dot (decode_i4.cuh: low-plane groups, then
+// high-plane groups, each exact int32 dot times its f32 scale, added in
+// order).  The expert stacks arrive transposed per expert: W1 / W3 as
 // (E, I, K/2) bytes (planar over all of K) with scales (E*K/g, I), expert
 // e's rows starting at e*K/g; W2 as (E, K, I/2) bytes (planar within each
 // bj-row inner block) with scales (E*I/g, K), block (e, j)'s rows starting
@@ -22,136 +22,78 @@
 // 704.6 MB of int4 bytes and 44.0 MB of f32 scales a layer, against
 // 6*B*K*I*E operations (30 per byte): bytes, 0.2235 ms at 3.35 TB/s.
 //
-// What the design does about it: the int4 tiles of decode_i4.cuh with an
-// expert axis on the grid, so all E experts stream at once and every byte
-// is read once.  (1) the s_in quantization of the B rows into an int8
-// scratch; (2) a tile kernel over (64-column slice of I, row tile, expert)
-// reads the slice of both W1_e and W3_e once per plane, runs both group
-// dots on the tensor cores against one shared A tile and writes expert e's
-// mid codes ai (E, M, I); (3) the down product over (64-column slice of K,
-// inner block j, row tile x expert), each block writing its f32 partial
-// (y * s_mid[e]) * route[:, e] to an (E*n_j, M, K) scratch at index
-// e*n_j + j; (4) the E*n_j partials summed in that order, the TPU kernel's
-// accumulator order exactly.  Products and sums are unfused (__fmul_rn /
-// __fadd_rn), so the kernel equals its plain version bit for bit.  Experts
-// with an all-zero route column are computed too, as on the TPU.  Not yet
-// wgmma / TMA.
+// What the design does about it: three launches on the int4 MLP's pieces
+// (K17, decode_mlp_i4.cu), an expert axis added, no scratch but the input
+// and mid codes:
+//   (1) the input codes, one block a row (decode_codes.cuh, no norm);
+//   (2) gate / up, the read-once TMA-fed body of decode_o_mlp_i4.cuh (its
+//       step 1) over (64-column tile of I, row tile, expert): W1_e and W3_e
+//       streamed once through one ring, each byte's two nibble planes from
+//       one load, the tensor maps over the stacked transposes as they are;
+//       the owners store expert e's mid codes (E, M, I) with s_mid[e];
+//   (3) down, the body's step 2 with its contraction over the E * n_j units
+//       (expert e, inner block j) shared out among a cluster's blocks, the
+//       mid codes streamed by TMA with the packs (a stage: 64 rows x 128
+//       bytes of W2_e, and the same 128 bytes of both planes of the rows'
+//       codes), so that a block's share of 7 MB of codes need not be
+//       resident: each unit's exact group-dot sum kept in shared memory, and
+//       each column's owner adds (sum * s_mid[e]) * route[:, e] over
+//       distributed shared memory from 0 in (e, j) order, the TPU kernel's
+//       accumulator order.
+// Products and sums are unfused (__fmul_rn / __fadd_rn), so the kernel
+// equals its plain version bit for bit.  Experts with an all-zero route
+// column are computed too, as on the TPU.  The launch plan of each step
+// (rows a tile, blocks a cluster, stages) comes from the wrapper
+// (decode_kernels.py::moe_i4_plan).
 
-#include "decode_i4.cuh"
+#include "decode_codes.cuh"
+#include "decode_o_mlp_i4.cuh"
 
-namespace qdm {
-namespace dec {
-
-// (2) gate and up of expert blockIdx.z over a 64-column slice of I -> that
-// expert's mid codes.
-__global__ void __launch_bounds__(kThreads)
-moe_gate_up_i4_kernel(const int8_t* __restrict__ xi, const unsigned char* __restrict__ w1,
-                      const unsigned char* __restrict__ w3, const float* __restrict__ s1,
-                      const float* __restrict__ s3, const float* __restrict__ scl, int act,
-                      int8_t* __restrict__ ai, int M, int K, int I, int group) {
-  constexpr int NJ = 2;
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 2> sm;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * BN;
-  const int half = K / 2;
-  const size_t expert_bytes = (size_t)I * half;
-  const unsigned char* B[2] = {w1 + e * expert_bytes, w3 + e * expert_bytes};
-  const float* W[2] = {s1, s3};
-  float y[2][2][NJ][4];
-  i4_group_dot_tile<NJ, 2>(y, xi, (size_t)K, 0, half, B, (size_t)half, 0, half, group, W,
-                           (size_t)I, e * (K / group), m0, M, n0, I, sm);
-  const float s_in = scl[0];
-  const float inv_mid = __fdiv_rn(1.0f, scl[1 + e]);
-  int8_t* aie = ai + (size_t)e * M * I;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, q, r, c);
-        const int row = m0 + r, col = n0 + c;
-        if (row >= M || col >= I) continue;
-        const float gg = __fmul_rn(y[0][mi][nj][q], s_in);
-        const float uu = __fmul_rn(y[1][mi][nj][q], s_in);
-        aie[(size_t)row * I + col] = quant_i8(__fmul_rn(act_fn(gg, act), uu), inv_mid);
-      }
-}
-
-// (3) inner block j of expert e's down product over a 64-column slice of
-// K, times s_mid[e] and the route weight: partial e*n_j + j.
-__global__ void __launch_bounds__(kThreads)
-moe_down_partial_i4_kernel(const int8_t* __restrict__ ai, const unsigned char* __restrict__ w2,
-                           const float* __restrict__ s2, const float* __restrict__ scl,
-                           const float* __restrict__ route, float* __restrict__ part, int M,
-                           int K, int I, int bj, int group, int E) {
-  constexpr int NJ = 2;
-  constexpr int BN = NJ * 32;
-  __shared__ __align__(16) TileSmem<NJ, 1> sm;
-  const int j = blockIdx.y;
-  const int mt = (M + TM - 1) / TM;
-  const int e = blockIdx.z / mt;
-  const int m0 = (blockIdx.z % mt) * TM, n0 = blockIdx.x * BN;
-  const unsigned char* B[1] = {w2 + (size_t)e * K * (I / 2)};
-  const float* W[1] = {s2};
-  float y[1][2][NJ][4];
-  i4_group_dot_tile<NJ, 1>(y, ai + (size_t)e * M * I, (size_t)I, j * bj, bj / 2, B,
-                           (size_t)(I / 2), j * (bj / 2), bj / 2, group, W, (size_t)K,
-                           e * (I / group) + j * (bj / group), m0, M, n0, K, sm);
-  const float s_mid = scl[1 + e];
-  float* pj = part + (size_t)(e * (I / bj) + j) * M * K;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NJ; ++nj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int r, c;
-        frag_rc<NJ>(mi, nj, q, r, c);
-        const int row = m0 + r, col = n0 + c;
-        if (row >= M || col >= K) continue;
-        pj[(size_t)row * K + col] =
-            __fmul_rn(__fmul_rn(y[0][mi][nj][q], s_mid), route[(size_t)row * E + e]);
-      }
-}
-
-}  // namespace dec
-}  // namespace qdm
-
+// Three launches (input codes, gate / up, down), each step's plan given (tr
+// 8, 16 or 32 rows a tile); xi (M, K) and ai (E, M, I) receive the input and
+// mid codes.
 extern "C" int qdm_decode_moe_i4(const void* xn, int x_dtype, const void* route,
                                  const void* w1_t, const void* w3_t, const void* w2_t,
                                  const void* s1, const void* s3, const void* s2,
                                  const void* act_scales, int act, void* out, int out_dtype,
-                                 void* xi, void* ai, void* part, int M, int K, int I, int E,
-                                 int bj, int group, void* stream) {
+                                 void* xi, void* ai, int M, int K, int I, int E, int bj,
+                                 int group, int tr1, int split1, int stages1, int tr2,
+                                 int split2, int stages2, void* stream) {
   using namespace qdm;
   using namespace qdm::dec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K % 2 || (K / 2) % TK || bj <= 0 || I % bj || (bj / 2) % TK || group <= 0 ||
-      group % 32 || (K / 2) % group || (bj / 2) % group || E <= 0 ||
-      (act != kActSilu && act != kActGelu) ||
+  if (M <= 0 || E <= 0 || K % 128 || bj <= 0 || I % bj || (bj / 2) % 64 || group <= 0 ||
+      group % 32 || (K / 2) % group || (bj / 2) % group ||
+      (tr1 != 8 && tr1 != 16 && tr1 != 32) || (tr2 != 8 && tr2 != 16 && tr2 != 32) ||
+      (act != kActSilu && act != kActGelu) || (x_dtype != kDtypeBF16 && x_dtype != kDtypeF32) ||
       (out_dtype != kDtypeF32 && out_dtype != kDtypeBF16))
     return (int)cudaErrorInvalidValue;
   const float* scl = static_cast<const float*>(act_scales);
   cudaError_t err =
-      launch_norm_rows(xn, x_dtype, nullptr, nullptr, kNormNone, 0.0f, scl, xi, M, K, s);
+      x_dtype == kDtypeBF16
+          ? launch_mlp_codes(static_cast<const __nv_bfloat16*>(xn), nullptr, nullptr, kNormNone,
+                             0.0f, scl, static_cast<int8_t*>(xi), M, K, s)
+          : launch_mlp_codes(static_cast<const float*>(xn), nullptr, nullptr, kNormNone, 0.0f,
+                             scl, static_cast<int8_t*>(xi), M, K, s);
   if (err != cudaSuccess) return (int)err;
-  const int mt = (M + TM - 1) / TM;
-  moe_gate_up_i4_kernel<<<dim3((I + 63) / 64, mt, E), kThreads, 0, s>>>(
-      static_cast<const int8_t*>(xi), static_cast<const unsigned char*>(w1_t),
-      static_cast<const unsigned char*>(w3_t), static_cast<const float*>(s1),
-      static_cast<const float*>(s3), scl, act, static_cast<int8_t*>(ai), M, K, I, group);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int n_j = I / bj;
-  moe_down_partial_i4_kernel<<<dim3((K + 63) / 64, n_j, mt * E), kThreads, 0, s>>>(
-      static_cast<const int8_t*>(ai), static_cast<const unsigned char*>(w2_t),
-      static_cast<const float*>(s2), scl, static_cast<const float*>(route),
-      static_cast<float*>(part), M, K, I, bj, group, E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int blocks = (int)(((size_t)M * K + 255) / 256);
-  ordered_sum_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(part), E * n_j,
-                                                   nullptr, 0, out, out_dtype, M, K);
-  return (int)cudaGetLastError();
+  OMlp p{nullptr, 0, nullptr, 0, static_cast<const float*>(s1), static_cast<const float*>(s3),
+         nullptr, scl, nullptr, 0.0f, act, out, out_dtype, nullptr, nullptr, nullptr,
+         static_cast<int8_t*>(xi), static_cast<int8_t*>(ai), nullptr, 0, M, 0, K, I, bj, group,
+         tr1, static_cast<const float*>(route), E};
+  if ((err = launch_o_mlp_step<1, true>(w1_t, w3_t, E * I, K / 2, p, split1, stages1, s)) !=
+      cudaSuccess)
+    return (int)err;
+  p.ws0 = static_cast<const float*>(s2);
+  p.ws1 = nullptr;
+  p.tr = tr2;
+  return (int)launch_o_mlp_step<2, true>(w2_t, nullptr, E * K, I / 2, p, split2, stages2, s, ai);
 }
+
+#ifdef QDM_K26_TRACE
+// the diagnostic build's per-block phase cycles of the body's step `step`
+// (1 gate / up, 2 down): n blocks x 8 into out (host)
+extern "C" int qdm_decode_moe_i4_trace(int step, void* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, qdm::dec::g_k26_trace, (size_t)n * 8 * 8,
+                                   (size_t)step * 4096 * 8 * 8);
+}
+#endif

@@ -1,13 +1,20 @@
 // The read-once int4 decode body of the merged o_proj + MLP (K26,
-// decode_o_mlp_i4.cu) and of the int4 MLP (K17, decode_mlp_i4.cu): three
-// steps, each a grid of 64-column tiles whose contraction is split across
-// a thread-block cluster,
+// decode_o_mlp_i4.cu), of the int4 MLP (K17, decode_mlp_i4.cu) and of the
+// MoE MLP (K27, decode_moe_i4.cu): three steps, each a grid of 64-column
+// tiles whose contraction is split across a thread-block cluster,
 //   step 0  o_proj: a = clip(round(attn * (1/s_ao))), x2 = gdot(a, Wo) * s_ao + x,
 //           rank 0 keeping each tile's f64 sums of x2^2 a row;
 //   step 1  gate / up: mid = clip(round(act(gdot(xi, Wg) s_in) gdot(xi, Wu) s_in / s_mid))
 //           from the MLP input codes xi;
 //   step 2  down: out = sum over inner blocks j in order of gdot(mid_j, Wd[j]) s_mid
 //           (+ the MLP's residual),
+// and with E experts (K27, `route` given): gate / up's grid takes the expert
+// too (expert e's packs are rows e * I.. of the stacked transposes, its
+// scales rows e * K / group.., its mid codes (E, M, I) with s_mid[e]), and
+// down's contraction runs over the E * n_j units (expert e, inner block j),
+// each unit's sum times s_mid[e], then route[:, e], added from 0 in (e, j)
+// order; down's stages walk each unit from its start, so no stage spans two
+// units (a unit of 128k + 64 bytes ends in a half-used stage),
 // gdot the planar group dot of decode_i4.cuh (the low plane's groups, then
 // the high plane's, each exact int32 dot times its scale, added in that
 // order, the first taken as it is).  Each step reads each packed byte once
@@ -34,21 +41,25 @@ constexpr int kI4BN = 64;                          // columns a tile
 constexpr int kI4Stage = kI4BN * 128;              // bytes of one pack's stage
 
 // One block's shared memory: the ring's mbarriers and a 16-byte zero line,
-// the ring (stages x nb packs x 64 rows of 128 bytes), the resident codes
-// (two planes x rs rows x the rank's bytes + 16), the group scales of the
+// the ring (stages x nb packs x 64 rows of 128 bytes; with streamed codes,
+// `sa`, each stage also holds the two planes' rs rows x 128 bytes of the
+// codes, 1024-byte aligned), the resident codes (without `sa`: two planes x
+// rs rows x the rank's bytes + 16), the group scales of the
 // rank's groups (nb x two planes x groups x 64 columns f32), the deferred high
 // partials of step (3) (g_defer x mi x 4 per thread), the block's partials
 // (parts x rs rows x 64 columns f32) and step (1)'s x2 tile (rs x 68 f32).
 struct I4StepLayout {
   int rs, astride;
-  size_t a_off, sc_off, hb_off, part_off, ys_off, total;
+  size_t aplane, stage, a_off, sc_off, hb_off, part_off, ys_off, total;
   __host__ __device__ I4StepLayout(int M, int tr, int nb, int stages, int abytes, int group,
-                                   int parts, int g_defer, bool tile) {
+                                   int parts, int g_defer, bool tile, bool sa = false) {
     const int m8 = (M + 7) & ~7;
     rs = m8 < tr ? m8 : tr;
     astride = abytes + 16;
-    a_off = 1024 + (size_t)stages * nb * kI4Stage;
-    sc_off = a_off + (size_t)2 * rs * astride;
+    aplane = sa ? ((size_t)rs * 128 + 1023) & ~(size_t)1023 : 0;
+    stage = (size_t)nb * kI4Stage + 2 * aplane;
+    a_off = 1024 + (size_t)stages * stage;
+    sc_off = a_off + (sa ? 0 : (size_t)2 * rs * astride);
     hb_off = sc_off + (size_t)nb * 2 * (abytes / group) * kI4BN * 4;
     part_off = hb_off + (size_t)g_defer * ((tr + 15) / 16) * 4 * kI4Consumers * 32 * 4;
     ys_off = part_off + (size_t)parts * rs * kI4BN * 4;
@@ -78,6 +89,8 @@ struct OMlp {
   const void* mlp_res;  // (M, K) added to step 2's sums (K26: x2, K17: x), or null
   int mlp_res_dtype;
   int M, HD, K, I, bj, group, tr;
+  const float* route;  // (M, E) route weights (K27), or null
+  int E;               // experts (K27), or 0
 };
 
 #ifdef QDM_K26_TRACE
@@ -93,37 +106,55 @@ __device__ unsigned long long g_k26_trace[3][4096][8];
 #endif
 
 // STEP 0: o_proj, 1: gate and up, 2: down.  MI m16 row tiles (tr 32: 2, 16 or 8: 1).
+// MOE (K27's steps; K17 and K26 compile without it): gate / up's grid takes the
+// expert, a lone block keeps only its low prefix and high partials, and down
+// (SA) streams the mid codes with the packs, by TMA from `ta` (the (E * M, I)
+// codes in boxes of rs rows x 128 bytes), instead of holding them resident.
 // Grid (split, column tiles, row tiles), clusters of split.
-template <int STEP, int MI>
+template <int STEP, int MI, bool MOE>
 __global__ void __launch_bounds__(kI4Threads)
 o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__ CUtensorMap tw1,
-                OMlp p, int stages) {
+                const __grid_constant__ CUtensorMap ta, OMlp p, int stages) {
   using namespace hop;
   constexpr int NB = STEP == 1 ? 2 : 1;
   constexpr bool BLOCKS = STEP == 2;  // the contraction is n_j planar inner blocks
+  constexpr bool SA = MOE && BLOCKS;  // down's units walked stage by stage, codes streamed
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_aligned(smem_raw);
   const int split = (int)gridDim.x, rank = (int)blockIdx.x;
-  const int n0 = blockIdx.y * kI4BN, m0 = blockIdx.z * p.tr;
+  const int n_mt = MOE ? (p.M + p.tr - 1) / p.tr : 1, n_e = MOE ? p.E : 1;
+  const int e1 = MOE && STEP == 1 ? (int)blockIdx.z / n_mt : 0;  // gate / up's expert
+  const int n0 = blockIdx.y * kI4BN;
+  const int m0 = (MOE ? (int)blockIdx.z % n_mt : (int)blockIdx.z) * p.tr;
   const int N = STEP == 1 ? p.I : p.K;
   const int hb = STEP == 0 ? p.HD / 2 : (STEP == 1 ? p.K / 2 : p.bj / 2);  // a planar block
   const int nblk = BLOCKS ? p.I / p.bj : 1;
   const int G = hb / p.group;  // groups a plane of a block
-  // this rank's bytes of the contraction: whole inner blocks (down) or whole
-  // groups of the planar half; its partials: one per inner block, or one per
-  // (matrix, plane, group)
-  const int units = BLOCKS ? nblk : G, per = (units + split - 1) / split;
+  // this rank's bytes of the contraction: whole units (down: inner blocks, of
+  // each expert) or whole groups of the planar half; its partials: one per
+  // unit, or one per (matrix, plane, group)
+  const int units = BLOCKS ? nblk * n_e : G, per = (units + split - 1) / split;
+  // SA: the most columns a block of the cluster owns (its pushed partials' row length)
+  const int wq = (kI4BN / 4 + split - 1) / split * 4;
   const int u_lo = rank * units / split, u_hi = (rank + 1) * units / split;
   const int B0 = u_lo * (BLOCKS ? hb : p.group), B1 = u_hi * (BLOCKS ? hb : p.group);
   const int g_first = u_lo;
   const int abytes = per * (BLOCKS ? hb : p.group);
-  const int parts = BLOCKS ? per : NB * 2 * per;
+  // o_proj / gate / up's partials of matrix qq: its low groups (ranks past 0;
+  // rank 0 keeps their prefix sum in the first) from lo(qq), its high groups
+  // from hi(qq); with MOE a block alone keeps the prefix and its high groups only
+  const bool pre1 = MOE && split == 1;
+  auto lo = [&](int qq) { return pre1 ? qq * (per + 1) : qq * 2 * per; };
+  auto hi = [&](int qq) { return pre1 ? qq * (per + 1) + 1 : (qq * 2 + 1) * per; };
+  const int parts = BLOCKS ? (SA ? (units * wq + kI4BN - 1) / kI4BN : per)
+                           : NB * (pre1 ? per + 1 : 2 * per);
   const I4StepLayout L(p.M, p.tr, NB, stages, abytes, p.group, parts, BLOCKS ? G - 1 : 0,
-                       STEP == 0);
+                       STEP == 0, SA);
   const int rs = L.rs;
   const int ngr = (B1 - B0) / p.group;  // this rank's groups a plane
   const int rows = min(rs, p.M - m0), bnv = min(kI4BN, N - n0);
-  const int n_st = (B1 - B0 + 127) / 128;
+  const int spu = (hb + 127) / 128;  // stages a unit (down)
+  const int n_st = SA ? (u_hi - u_lo) * spu : (B1 - B0 + 127) / 128;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const Ring ring{smem_u32(smem), stages};
   unsigned char* ring_buf = smem + 1024;
@@ -143,12 +174,32 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
   __syncthreads();
 
   if (warp == kI4Consumers) {  // the producer warp
+    // down: the stage's inner block pj of expert pe and its offset there, walked in
+    // issue order
+    int pj = u_lo % nblk, pe = u_lo / nblk, poff = 0;
     auto issue = [&](int q) {
       const int buf = q % stages;
-      const uint32_t dst = smem_u32(ring_buf + (size_t)buf * NB * kI4Stage);
-      mbar_arrive_tx(ring.full(buf), (uint32_t)(NB * kI4Stage));
-      tma_load_2d(dst, &tw0, B0 + q * 128, n0, ring.full(buf));
-      if (NB == 2) tma_load_2d(dst + kI4Stage, &tw1, B0 + q * 128, n0, ring.full(buf));
+      const uint32_t dst = smem_u32(ring_buf + (size_t)buf * L.stage);
+      int col = B0 + q * 128, row = n0 + e1 * p.I;
+      if (SA) {  // expert pe's rows, inner block pj
+        col = pj * hb + poff;
+        row = pe * p.K + n0;
+      }
+      mbar_arrive_tx(ring.full(buf), (uint32_t)(NB * kI4Stage + (SA ? 2 * rs * 128 : 0)));
+      tma_load_2d(dst, &tw0, col, row, ring.full(buf));
+      if (NB == 2) tma_load_2d(dst + kI4Stage, &tw1, col, row, ring.full(buf));
+      if (SA)  // the unit's codes at the same bytes of each plane, rows m0.. of its expert
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl)
+          tma_load_2d(dst + NB * kI4Stage + pl * (uint32_t)L.aplane, &ta,
+                      pj * p.bj + pl * hb + poff, pe * p.M + m0, ring.full(buf));
+      if (SA && (poff += 128) >= hb) {
+        poff = 0;
+        if (++pj == nblk) {
+          pj = 0;
+          ++pe;
+        }
+      }
     };
     const int pre = min(stages, n_st);
     named_bar_sync(2, kI4Threads);  // the codes are resident: their loads did not queue
@@ -169,12 +220,13 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
       const int c4 = i % C4, gl = (i / C4) % ngr, pl = (i / (C4 * ngr)) % 2;
       const int qq = i / (C4 * ngr * 2);
       const int g_row = BLOCKS ? (g_first + gl / G) * (p.bj / p.group) + pl * G + gl % G
-                               : pl * G + g_first + gl;
+                               : pl * G + g_first + gl + e1 * (p.K / p.group);
       const float* src = (qq == 0 ? p.ws0 : p.ws1) + (size_t)g_row * N + n0 + 4 * c4;
       cp_async16(scs + (size_t)i * 4, src, true);
     }
     // the resident codes of this rank's bytes, both planes
-    if (STEP > 0) {  // the MLP input or mid codes as they are: cp.async, 16 bytes a copy
+    if (SA) {        // none: they stream with the packs
+    } else if (STEP > 0) {  // the MLP input or mid codes as they are: cp.async, 16 bytes a copy
       const int chunks = (B1 - B0) / 16;
       for (int i = tid; i < 2 * rs * chunks; i += kI4Consumers * 32) {
         const int pl = i / (rs * chunks), r = (i / chunks) % rs, c = i % chunks;
@@ -263,9 +315,26 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
 #ifdef QDM_K26_NO_PARTIALS
       if (r >= 0) return;  // a profile's build: the partials are not kept (output not used)
 #endif
-      if (r < rs)
-        *reinterpret_cast<float2*>(part + ((size_t)idx * rs + r) * kI4BN + warp * 8 + 2 * t4) =
-            make_float2(v0, v1);
+      if (r >= rs) return;
+      if (SA) {  // unit idx's sum times s_mid[e] and the route weight, to the column's owner
+        const int u = u_lo + idx, e = u / nblk, row = m0 + r;
+        const float sm = p.scl[1 + e];
+        v0 = __fmul_rn(v0, sm);
+        v1 = __fmul_rn(v1, sm);
+        if (p.route != nullptr) {
+          const float rt = row < p.M ? p.route[(size_t)row * n_e + e] : 0.0f;
+          v0 = __fmul_rn(v0, rt);
+          v1 = __fmul_rn(v1, rt);
+        }
+        const int col = warp * 8 + 2 * t4, q = ((col / 4) * split + split - 1) / (kI4BN / 4);
+        const int c0 = q * (kI4BN / 4) / split * 4;
+        st_cluster_f32x2(map_rank(smem_u32(part + ((size_t)u * rs + r) * wq + col - c0),
+                                  (uint32_t)q),
+                         v0, v1);
+        return;
+      }
+      *reinterpret_cast<float2*>(part + ((size_t)idx * rs + r) * kI4BN + warp * 8 + 2 * t4) =
+          make_float2(v0, v1);
     };
     // ldmatrix addresses of the A fragments: row (lane & 7) + 8 ((lane >> 3) & 1) of m16
     // tile mi, bytes 16 (lane >> 4) of the 32-byte step; rows past rs read the zero line
@@ -294,12 +363,16 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
     const int gsteps = p.group / 32;
     // the group in its plane, the inner block (or group), the rank's group
     int gi = 0, gblk = g_first, gl = 0, gstep = 0;
+    int q_u = 0, q_off = 0;  // down: the stage's unit of the rank's, and its offset there
     for (int q = 0; q < n_st; ++q) {
       ring.wait_full(q);
-      const unsigned char* stage = ring_buf + (size_t)(q % stages) * NB * kI4Stage;
+      const unsigned char* stage = ring_buf + (size_t)(q % stages) * L.stage;
+      // the stage's first contraction byte of the rank's
+      const int kb0 = SA ? B0 + q_u * hb + q_off : B0 + q * 128;
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        const int kb = B0 + q * 128 + ks * 32;
+        const int kb = kb0 + ks * 32;  // the rank's contraction bytes up to this step
+        if (SA && q_off + ks * 32 >= hb) break;
         if (kb >= B1) break;
         if (gstep == 0) {  // a group begins: its scales, both planes
 #pragma unroll
@@ -317,8 +390,16 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
 #pragma unroll
         for (int pl = 0; pl < 2; ++pl)
 #pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-            ldsm_x4(af[pl][mi], a_addr[pl][mi] == zero_line ? zero_line : a_addr[pl][mi] + a_off);
+          for (int mi = 0; mi < MI; ++mi) {
+            uint32_t addr = a_addr[pl][mi] == zero_line ? zero_line : a_addr[pl][mi] + a_off;
+            if (SA) {  // the stage's swizzled rows of the codes
+              const int r = mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+              addr = r < rs ? smem_u32(stage + NB * kI4Stage + pl * L.aplane + r * 128 +
+                                       (((2 * ks + (lane >> 4)) ^ (r & 7)) << 4))
+                            : zero_line;
+            }
+            ldsm_x4(af[pl][mi], addr);
+          }
 #pragma unroll
         for (int qq = 0; qq < NB; ++qq) {
           const unsigned char* wrow = stage + qq * kI4Stage + (warp * 8 + g8) * 128 + t4 * 4;
@@ -388,9 +469,9 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
                     y0[qq][mi][e] = gblk == 0 ? v[0][c] : __fadd_rn(y0[qq][mi][e], v[0][c]);
                   }
                 } else {
-                  keep((qq * 2 + 0) * per + gl, mi, h, v[0][0], v[0][1]);
+                  keep(lo(qq) + gl, mi, h, v[0][0], v[0][1]);
                 }
-                keep((qq * 2 + 1) * per + gl, mi, h, v[1][0], v[1][1]);
+                keep(hi(qq) + gl, mi, h, v[1][0], v[1][1]);
               }
             }
         ++gl;
@@ -404,6 +485,10 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
         }
       }
       ring.release(q);
+      if (SA && (q_off += 128) >= hb) {
+        q_off = 0;
+        ++q_u;
+      }
     }
     K26_MARK(2);
     if (!BLOCKS && rank == 0)  // the low prefix, in place of rank 0's first low partial
@@ -413,7 +498,7 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
         for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            keep((qq * 2) * per, mi, h, y0[qq][mi][2 * h], y0[qq][mi][2 * h + 1]);
+            keep(lo(qq), mi, h, y0[qq][mi][2 * h], y0[qq][mi][2 * h + 1]);
   }
   cluster_sync();  // every block's partials are kept
   K26_MARK(3);
@@ -425,11 +510,25 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
   const int c_lo = rank * (kI4BN / 4) / split * 4, c_hi = (rank + 1) * (kI4BN / 4) / split * 4;
   const int w4 = (c_hi - c_lo) / 4;
   const uint32_t part_u = smem_u32(part), ys0 = map_rank(smem_u32(ys), 0u);
+  if (SA) {  // each owned element: its units' scaled sums, pushed here, added from 0 in order
+    const int wo = c_hi - c_lo;
+    for (int i = tid; i < rows * wo; i += kI4Threads) {
+      const int r = i / wo, c = c_lo + i % wo, row = m0 + r, col = n0 + c;
+      if (c >= bnv) continue;
+      const float* pr = part + (size_t)r * wq + (c - c_lo);
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int u = 0; u < units; ++u) acc = __fadd_rn(acc, pr[(size_t)u * rs * wq]);
+      const size_t o = (size_t)row * p.K + col;
+      if (p.mlp_res != nullptr) acc = __fadd_rn(acc, load_f32(p.mlp_res, p.mlp_res_dtype, o));
+      store_f32(p.out, p.out_dtype, o, acc);
+    }
+  }
   auto add4 = [](float4& y, const float4 v) {
     y = make_float4(__fadd_rn(y.x, v.x), __fadd_rn(y.y, v.y), __fadd_rn(y.z, v.z),
                     __fadd_rn(y.w, v.w));
   };
-  for (int i = tid; i < rows * w4; i += kI4Threads) {
+  for (int i = tid; i < (SA ? 0 : rows * w4); i += kI4Threads) {
     const int r = i / w4, c = c_lo + 4 * (i % w4), row = m0 + r, col = n0 + c;
     if (c >= bnv) continue;
     // partial idx of block q (units q * units / split ..), columns c..c + 3
@@ -454,7 +553,7 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
                                                 __fmul_rn(v[u].z, *sc), __fmul_rn(v[u].w, *sc)));
       }
     };
-    if (STEP == 2) {
+    if (STEP == 2) {  // one expert (K27's down pushes its partials, SA)
       const float s_mid = p.scl[1];
       float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       for (int q = 0; q < split; ++q) add_run(acc, q, 0, n_units(q), &s_mid);
@@ -481,9 +580,9 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
     float4 y[NB];
 #pragma unroll
     for (int qq = 0; qq < NB; ++qq) {
-      y[qq] = ld(0, (qq * 2) * per);  // rank 0's low prefix
-      for (int q = 1; q < split; ++q) add_run(y[qq], q, (qq * 2) * per, n_units(q), nullptr);
-      for (int q = 0; q < split; ++q) add_run(y[qq], q, (qq * 2 + 1) * per, n_units(q), nullptr);
+      y[qq] = ld(0, lo(qq));  // rank 0's low prefix
+      for (int q = 1; q < split; ++q) add_run(y[qq], q, lo(qq), n_units(q), nullptr);
+      for (int q = 0; q < split; ++q) add_run(y[qq], q, hi(qq), n_units(q), nullptr);
     }
     const float yv[2][4] = {{y[0].x, y[0].y, y[0].z, y[0].w},
                             {y[NB - 1].x, y[NB - 1].y, y[NB - 1].z, y[NB - 1].w}};
@@ -496,8 +595,8 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
       } else {
         const float s_in = p.scl[0];
         const float g = __fmul_rn(yv[0][e], s_in), u = __fmul_rn(yv[1][e], s_in);
-        p.mid[(size_t)row * p.I + col + e] =
-            quant_i8(__fmul_rn(act_fn(g, p.act), u), __fdiv_rn(1.0f, p.scl[1]));
+        p.mid[((size_t)e1 * p.M + row) * p.I + col + e] =
+            quant_i8(__fmul_rn(act_fn(g, p.act), u), __fdiv_rn(1.0f, p.scl[1 + e1]));
       }
     }
   }
@@ -522,30 +621,43 @@ o_mlp_i4_kernel(const __grid_constant__ CUtensorMap tw0, const __grid_constant__
   K26_MARK(4);
 }
 
-template <int STEP>
+// MOE (K27's gate / up and down, p.E experts): down streams the mid codes
+// (E * M, I) from a_src with the packs (SA) instead of holding the rank's
+// codes resident.
+template <int STEP, bool MOE = false>
 cudaError_t launch_o_mlp_step(const void* w0, const void* w1, int w_rows, int w_bytes,
-                              const OMlp& p, int split, int stages, cudaStream_t s) {
+                              const OMlp& p, int split, int stages, cudaStream_t s,
+                              const void* a_src = nullptr) {
   constexpr int NB = STEP == 1 ? 2 : 1;
+  constexpr bool sa = MOE && STEP == 2;
   const int hb = STEP == 0 ? p.HD / 2 : (STEP == 1 ? p.K / 2 : p.bj / 2);
+  const int n_e = MOE ? p.E : 1;
+  if (n_e < 1 || (sa && a_src == nullptr)) return cudaErrorInvalidValue;
   const int nblk = STEP == 2 ? p.I / p.bj : 1, G = hb / p.group;
-  const int parts = STEP == 2 ? nblk : G;
+  const int parts = STEP == 2 ? nblk * n_e : G;
   if (split < 1 || split > kRingMaxSplit || split > parts || stages < 2 || stages > 16)
     return cudaErrorInvalidValue;
   const int per = (parts + split - 1) / split;
   const int abytes = per * (STEP == 2 ? hb : p.group);
-  const I4StepLayout L(p.M, p.tr, NB, stages, abytes, p.group, STEP == 2 ? per : NB * 2 * per,
-                       STEP == 2 ? G - 1 : 0, STEP == 0);
+  const int wq = (kI4BN / 4 + split - 1) / split * 4;
+  const I4StepLayout L(p.M, p.tr, NB, stages, abytes, p.group,
+                       STEP == 2 ? (sa ? (parts * wq + kI4BN - 1) / kI4BN : per)
+                                 : NB * (MOE && split == 1 ? per + 1 : 2 * per),
+                       STEP == 2 ? G - 1 : 0, STEP == 0, sa);
   if (L.total > kSmemMax) return cudaErrorInvalidValue;
-  CUtensorMap t0, t1;
+  CUtensorMap t0, t1, ta;
   if (!hop::u8_rows_map(&t0, w0, w_rows, w_bytes, kI4BN) ||
-      !hop::u8_rows_map(&t1, w1 != nullptr ? w1 : w0, w_rows, w_bytes, kI4BN))
+      !hop::u8_rows_map(&t1, w1 != nullptr ? w1 : w0, w_rows, w_bytes, kI4BN) ||
+      !(sa ? hop::u8_rows_map(&ta, a_src, n_e * p.M, p.I, L.rs)
+           : hop::u8_rows_map(&ta, w0, w_rows, w_bytes, kI4BN)))
     return cudaErrorInvalidValue;
-  auto kernel = p.tr == 32 ? o_mlp_i4_kernel<STEP, 2> : o_mlp_i4_kernel<STEP, 1>;
+  auto kernel = p.tr == 32 ? o_mlp_i4_kernel<STEP, 2, MOE> : o_mlp_i4_kernel<STEP, 1, MOE>;
   cudaError_t e = allow_smem(kernel, L.total);
   if (e != cudaSuccess) return e;
   const int N = STEP == 1 ? p.I : p.K;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (N + kI4BN - 1) / kI4BN, (p.M + p.tr - 1) / p.tr);
+  cfg.gridDim = dim3(split, (N + kI4BN - 1) / kI4BN,
+                     (p.M + p.tr - 1) / p.tr * (STEP == 1 ? n_e : 1));
   cfg.blockDim = dim3(kI4Threads, 1, 1);
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = s;
@@ -556,7 +668,7 @@ cudaError_t launch_o_mlp_step(const void* w0, const void* w1, int w_rows, int w_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, t0, t1, p, stages);
+  e = cudaLaunchKernelEx(&cfg, kernel, t0, t1, ta, p, stages);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

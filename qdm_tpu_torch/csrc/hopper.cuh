@@ -2,8 +2,9 @@
 // from a tensor map, the warpgroup matrix multiply (wgmma) with B (and A)
 // in shared memory or A in registers, thread-block-cluster barriers and
 // distributed shared memory.  Used by K3 (w4a16_matmul.cu), K4
-// (w4a8_matmul.cu), K9 (flash_prefill.cu), K10 (decode_attention_kv_flash.cu),
-// K15 (w8a8_matmul.cu) and K16 (decode_i4_split.cuh).
+// (w4a8_matmul.cu), K9 (flash_prefill.cu), K10 (decode_attention_kv_flash.cu,
+// decode_attention_kv_flash_q.cu), K15 (w8a8_matmul.cu), K16
+// (decode_i4_split.cuh) and the bodies on decode_ring.cuh.
 //
 // Operand layout of the wgmma wrappers: A (M x K) and B (N x K) are K-major
 // tiles of 128-byte rows (64 bf16 or 128 int8 K values), in the 128-byte
@@ -158,6 +159,21 @@ inline bool u8_rows_map(CUtensorMap* map, const void* base, int rows, int cols, 
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a row-major f32 matrix (rows, cols), cols * 4 a multiple of
+// 16 bytes, read in boxes of one row x box_cols values, unswizzled (K10's
+// per-token scales); reads past the edges fill zeros.
+inline bool f32_rows_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, 1};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -620,6 +636,9 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
 // publishes them, and later loads need not wait behind them.
 __device__ __forceinline__ void st_cluster_f32(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v));
+}
+__device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b));
 }
 
 }  // namespace hop

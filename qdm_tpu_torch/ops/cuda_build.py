@@ -63,8 +63,7 @@ ENTRY_POINTS = {
     "decode_attention_kv_q": ("qdm_decode_attention_kv_q",
                               (P, I, L, P, P, P, I, F, I, P, I, I, I, I, I, I, P, P)),
     "decode_attention_kv_flash_q": ("qdm_decode_attention_kv_flash_q",
-                                    (P, I, L, P, P, P, I, F, F, I, P, P, P, P, P, I, I, I, I, I,
-                                     I, P)),
+                                    (P, I, L, P, P, P, I, F, F, I, P, I, I, I, I, I, I, I, I, P)),
     "decode_dense_i4": ("qdm_decode_dense_i4",
                         (P, I, P, P, P, P, F, P, P, I, P, I, P, I, P, I, I, I, I, I, P, P)),
     "decode_mlp_i4": ("qdm_decode_mlp_i4",
@@ -83,7 +82,8 @@ ENTRY_POINTS = {
                    (P, L, L, L, P, L, L, L, P, L, L, L, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
                     F, I, P)),
     "decode_moe_i4": ("qdm_decode_moe_i4",
-                      (P, I, P, P, P, P, P, P, P, P, I, P, I, P, P, P, I, I, I, I, I, I, P)),
+                      (P, I, P, P, P, P, P, P, P, P, I, P, I, P, P, I, I, I, I, I, I, I, I, I, I,
+                       I, I, P)),
     "decode_attention": ("qdm_decode_attention",
                          (P, I, L, P, P, I, F, I, P, I, I, I, I, I, I, I, P)),
     "decode_attention_i8": ("qdm_decode_attention_i8",

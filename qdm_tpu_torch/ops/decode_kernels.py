@@ -42,7 +42,9 @@ engine with a bf16 KV cache:
   CUDA kernels ``csrc/decode_attention_kv_q.cu`` (K12-K14; replace
   ``decode_attention_kv_{i8,i8c,i4c}_pallas``); above ``_FLASH_BYTES``
   the flash decode's quantized formats (``decode_attention_kv_flash_q.cu``,
-  p quantized per ``bt``-column block against the running maximum).
+  p quantized per ``bt``-column block against the running maximum): one
+  launch on a TMA-fed ring, one block or a cluster a pair
+  (:func:`flash_q_plan`).
 * :func:`decode_attention`, :func:`decode_attention_rows`,
   :func:`decode_attention_dm` — the same one-token attention over separate
   caches, K (B, hkv, d, T) and V (B, hkv, T, d) (``_dm``: (B, hkv, d, T)),
@@ -85,8 +87,9 @@ engine with a bf16 KV cache:
   experts, a mid scale per expert) and the routing combine, the f32 partial
   of each (expert, inner block) times the route weight added in that
   order.  CUDA kernel ``csrc/decode_moe_i4.cu`` (K27; replaces
-  ``fused_moe_mlp_decode_i4_pallas``).  The stacks come from
-  :func:`pack_moe_expert_i4`.
+  ``fused_moe_mlp_decode_i4_pallas``): a codes launch, then K17's gate /
+  up and down steps with an expert axis (:func:`moe_i4_plan`).  The stacks
+  come from :func:`pack_moe_expert_i4`.
 
 Arithmetic shared by the kernels and their plain versions, so that both
 give the same bits on the card and the plain version the same bits on the
@@ -1272,35 +1275,128 @@ def decode_attention_kv_q_single(q, kv, pos: int, mode: str, kv_scale=None, star
     return out
 
 
-def _flash_q(q, kv, pos: int, starts, sm_scale, softcap: float, mode: str, kv_scale):
-    """The quantized formats of the flash decode on the card: a logits
-    pass, a pass per TPU block (its softmax, p codes and PV) and an
-    in-order combine (``csrc/decode_attention_kv_flash_q.cu``)."""
+def _flash_q(q, kv, pos: int, starts, sm_scale, softcap: float, mode: str, kv_scale,
+             splits: int, trace: Optional[dict]):
+    """The quantized formats of the flash decode on the card: one launch
+    (``csrc/decode_attention_kv_flash_q.cu``) of :func:`flash_q_plan`'s
+    plan, which ``splits`` forces and ``trace`` receives; only the output is
+    allocated."""
     name = f"decode_attention_kv_flash_{mode}"
     ks = _q_operands(q, kv, kv_scale, name)
+    if ks is not None and ks.data_ptr() % 16:  # the scales' rows are read by TMA
+        ks = ks.clone()
     b, hkv, g, d = q.shape
     t = kv.shape[-1]
     st = _starts_i32(starts, b, q.device)
     bt = _pick_bt(t)
-    nb = t // bt
+    plan = flash_q_plan(b * hkv, g, d, mode, t, bt, int(pos) + 1, qmm.sm_count(q.device), splits)
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
-    f32 = dict(dtype=torch.float32, device=q.device)
-    lg = torch.empty((b * hkv, g, t), **f32)
-    bmax = torch.empty((b * hkv, g, nb), **f32)
-    part_o = torch.empty((b * hkv, nb, g, d), **f32)
-    part_s = torch.empty((b * hkv, nb, g, 2), **f32)
     fn = cuda_build.kernel("decode_attention_kv_flash_q")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), _DTYPE_CODE[q.dtype], q.stride(0), kv.data_ptr(), _ptr(ks),
                  _ptr(st), int(pos), ctypes.c_float(_f32_scale(d, sm_scale)),
-                 ctypes.c_float(softcap), KV_MODES[mode], out.data_ptr(), lg.data_ptr(),
-                 bmax.data_ptr(), part_o.data_ptr(), part_s.data_ptr(), b, hkv, g, d, t, bt,
-                 _stream(q))
+                 ctypes.c_float(softcap), KV_MODES[mode], out.data_ptr(), b, hkv, g, d, t, bt,
+                 plan["splits"], plan["stages"], _stream(q))
     cuda_build.check(err, name)
     qmm.LAUNCHES[name] += 1
+    if trace is not None:
+        trace.update(plan)
     return out
+
+
+# K10's quantized formats (csrc/decode_attention_kv_flash_q.cu): chunks of
+# K10Q_CHUNK columns of a plane's rows stream through a ring of 2-K10Q_MAX_STAGES
+# chunks, about K10Q_RING_BYTES of them a block
+K10Q_CHUNK, K10Q_MAX_STAGES, K10Q_RING_BYTES = 128, 16, 96 * 1024
+
+
+def flash_q_round(bt: int, g: int, d: int) -> int:
+    """TPU blocks a round of the one-block-a-pair pass (``fq_round``): up to
+    8, about 1024 logit columns and 4096 output elements a round."""
+    return max(1, min(8, 1024 // bt, 4096 // (g * d)))
+
+
+def flash_q_smem(mode: str, g: int, d: int, bt: int, nbr: int, kfirst: bool,
+                 stages: int) -> int:
+    """Shared memory of one block of K10's quantized formats
+    (``csrc/decode_attention_kv_flash_q.cu::FqLayout``): alignment slack,
+    the ring, the exp table, q's fragments, scales and codes, the logits
+    (and i8 V token scales) of ``nbr`` TPU blocks (a cluster's block's
+    share, ``kfirst``) or of a round (one block a pair, :func:`flash_q_round`),
+    the round's p codes and PV partials, the reductions and per-head state,
+    the blocks' maxima, the cluster's slots (``kfirst``), the barriers."""
+    r = d // 2 if mode == "i4c" else d
+    rp = qmm._round_up(r, 32)
+    kg = 8 // min(qmm._cdiv(r, 16), 8)
+    rb = 1 if kfirst else flash_q_round(bt, g, d)
+    nbr = nbr if kfirst else rb
+    lc = nbr * bt
+    i8 = mode == "i8"
+    stage = qmm._round_up(rp * K10Q_CHUNK + (2 * K10Q_CHUNK * 4 if i8 else 0), 1024)
+    size = (stages * stage + 8 * 256 + rp // 32 * 512 + 32 + qmm._round_up(g * d, 16)
+            + g * lc * 4 + (lc * 4 if i8 else 0) + qmm._round_up(rb * g * (bt + 16), 16)
+            + rb * kg * g * d * 4 + max(2, rb) * 256 + 256 + rb * 96 + nbr * 32)
+    size += nbr * (16 + g * d) * 4 if kfirst else 0
+    return 1024 + qmm._round_up(size, 8) + 16 * stages
+
+
+def flash_q_plan(pairs: int, g: int, d: int, mode: str, t: int, bt: int, cols: int, sms: int,
+                 splits: int = 0):
+    """The launch plan of K10's quantized formats for ``pairs`` (row, kv
+    head) pairs attending ``cols`` columns of a T-column cache in TPU blocks
+    of ``bt``, a read-only mapping: ``splits`` blocks a pair's cluster and
+    ``stages`` chunks in each block's ring.  One block a pair wherever the
+    pairs give 90% of the SMs a block (the online pass, the logits of a
+    round of TPU blocks in shared memory), else the least cluster that does, at most
+    one block for each TPU block the columns span, and more where a block's
+    share of the TPU blocks' logits would not fit its shared memory; no
+    cluster that fits is one block a pair.  ``stages``: about
+    K10Q_RING_BYTES of chunks, 2 to K10Q_MAX_STAGES, within half an SM's
+    shared memory (two blocks an SM) where that fits.  ``splits`` 1-8
+    forces the cluster (tests and profiles); a count whose logits do not
+    fit raises.  Cached on the shapes and on the TPU blocks ``cols`` spans
+    up to 8, beyond which the plan is the same."""
+    return _flash_q_plan(pairs, g, d, mode, t, bt, min(qmm._cdiv(cols, bt), _MAX_SPLITS), sms,
+                         splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_q_plan(pairs: int, g: int, d: int, mode: str, t: int, bt: int, blocks: int,
+                  sms: int, splits: int):
+    if splits and not 1 <= splits <= _MAX_SPLITS:
+        raise ValueError(f"K10 {mode}: splits {splits} outside 1..{_MAX_SPLITS}")
+    nb = t // bt
+    r = d // 2 if mode == "i4c" else d
+    stage = qmm._round_up(qmm._round_up(r, 32) * K10Q_CHUNK + (1024 if mode == "i8" else 0), 1024)
+
+    def stages_for(n):
+        kfirst = n > 1
+        nbr = qmm._cdiv(nb, n) if kfirst else 1
+        want = max(2, min(K10Q_MAX_STAGES, K10Q_RING_BYTES // stage))
+        for per_sm in (2, 1):
+            room = min(_SMEM_MAX, _SMEM_SM // per_sm - 1024)
+            st = next((s_ for s_ in range(want, 1, -1)
+                       if flash_q_smem(mode, g, d, bt, nbr, kfirst, s_) <= room), 0)
+            if st:
+                return st
+        return 0
+
+    if splits:
+        n = splits
+        stages = stages_for(n)
+        if not stages:
+            raise ValueError(f"K10 {mode}: {n} block(s) a pair do not fit shared memory for "
+                             f"g={g}, d={d}, T={t}, bt={bt}")
+        return types.MappingProxyType(dict(splits=n, stages=stages))
+    n = min(next((k for k in range(1, _MAX_SPLITS + 1) if 10 * pairs * k >= 9 * sms),
+                 _MAX_SPLITS), max(blocks, 1))
+    for cand in [*range(n, _MAX_SPLITS + 1), 1] if n > 1 else [1]:
+        stages = stages_for(cand)
+        if stages:
+            return types.MappingProxyType(dict(splits=cand, stages=stages))
+    raise NotImplementedError(f"K10 {mode}: no plan fits shared memory for g={g}, d={d}")
 
 
 def flash_smem(g: int, d: int, splits: int, stages: int) -> int:
@@ -1379,19 +1475,24 @@ def decode_attention_kv_flash(q, kv_cache, pos: int, starts=None, sm_scale=None,
     version follows the TPU kernel's T blocks (``_pick_bt``), the kernel
     splits T its own way, in one launch (:func:`flash_plan`; on the card
     ``splits`` forces its cluster and ``tile`` the CUDA-core route's pass,
-    tests and profiles only, and ``trace``, a dict, receives the plan).  ``i8`` / ``i8c`` / ``i4c`` (int8 codes,
-    with per-token scales kv_scale for ``i8``; packed int4 codes for
-    ``i4c``): the kernel keeps the TPU blocks, so its p codes are the plain
-    version's."""
+    tests and profiles only, and ``trace``, a dict, receives the plan).
+    ``i8`` / ``i8c`` / ``i4c`` (int8 codes, with per-token scales kv_scale
+    for ``i8``; packed int4 codes for ``i4c``): one launch that keeps the
+    TPU blocks, so its p codes are the plain version's
+    (:func:`flash_q_plan`; ``splits`` and ``trace`` as for ``bf16``)."""
     if mode != "bf16" and mode not in KV_MODES:
         raise ValueError(f"mode {mode!r}")
+    if tile and mode != "bf16":
+        raise ValueError(f"tile forces the bf16 / f32 CUDA-core route's pass, not the {mode} "
+                         "format's")
     t = _check_kv(q, kv_cache, pos, mode, kv_scale)
     name = "decode_attention_kv_flash" + ("" if mode == "bf16" else f"_{mode}")
     if not _on_card(q, name):
         return decode_attention_kv_flash_plain(q, kv_cache, pos, starts, sm_scale, softcap,
                                                mode=mode, kv_scale=kv_scale)
     if mode != "bf16":
-        return _flash_q(q, kv_cache, pos, starts, sm_scale, softcap, mode, kv_scale)
+        return _flash_q(q, kv_cache, pos, starts, sm_scale, softcap, mode, kv_scale, splits,
+                        trace)
     b, hkv, g, d = q.shape
     if q.dtype not in _DTYPE_CODE or kv_cache.dtype != q.dtype:
         raise ValueError(f"q and the cache must share a bf16/f32 dtype, got {q.dtype}, "
@@ -1696,6 +1797,10 @@ def _i4_kernel_group(group: int, half: int, what: str) -> None:
 # K16's cluster split (csrc/decode_i4_split.cuh): at most I4_MAX_SPLIT blocks a
 # cluster, planned in the kernel's C entry
 I4_MAX_SPLIT = 8
+# K27's down: the cluster its plan takes where it fits (``chip_smoke.py --breakdown
+# k27k10q-rows`` at Mixtral width, PERF.md §6: down forced to clusters of 4 / 5 / 6 / 7 /
+# 8 made the call 676 / 606 / 649 / 674 / 632-636 us in two runs, 5 the fastest in both)
+K27_DOWN_SPLIT = 5
 
 
 def i4_split_slices(half: int, group: int, split: int):
@@ -1840,7 +1945,9 @@ def fused_mlp_decode_i4(x, wg_p, wu_p, wd_p, w_scales: Sequence[torch.Tensor], a
 def fused_moe_mlp_decode_i4(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2, act_scales,
                             act: str = "silu", block_j: int = 512, group: int = 128,
                             out_dtype=None,
-                            w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
+                            w_t: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+                            scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                            splits: Optional[Sequence[int]] = None, trace: Optional[dict] = None):
     """Stacked-expert int4 MoE MLP with the routing combine (K27): xn (B, K)
     the pre-normed rows, route_w (B, E) f32 (0 on an expert outside a
     token's top-k); w1_p / w3_p (E*K/2, I) planar-packed per expert with
@@ -1851,7 +1958,11 @@ def fused_moe_mlp_decode_i4(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2, act_scale
     [s_in, s_mid of each expert].  Returns (B, K) in ``out_dtype`` (f32 by
     default), no residual.  w_t, if given, holds the per-expert transposed
     packs (:func:`moe_expert_t`: (E, I, K/2), (E, I, K/2), (E, K, I/2)),
-    which an engine builds once."""
+    which an engine builds once; scratch the (B, K) and (E, B, I) int8
+    tensors that receive the input and mid codes.  On the card: ``splits``, two counts 1-8,
+    forces the clusters of the gate / up and down steps (tests and
+    profiles only: the result is the same; None plans them,
+    :func:`moe_i4_plan`), and ``trace``, a dict, receives the plan."""
     if act not in _ACTS:
         raise ValueError(f"act {act!r}")
     out_dtype = out_dtype or torch.float32
@@ -1891,29 +2002,37 @@ def fused_moe_mlp_decode_i4(xn, route_w, w1_p, w3_p, w2_p, s1, s3, s2, act_scale
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"fused_moe_mlp_decode_i4: {name} scales {tuple(t.shape)} are "
                              f"not {shape} on xn's device")
-        sc.append(t)
+        sc.append(t if t.data_ptr() % 16 == 0 else t.clone())  # staged 16 bytes at a time
     rw = route_w.to(torch.float32).contiguous()
     if tuple(rw.shape) != (m, n_e) or rw.device != dev:
         raise ValueError(f"fused_moe_mlp_decode_i4: route_w {tuple(route_w.shape)} is not "
                          f"({m}, {n_e}) on xn's device")
     scl = _f32_vec(act_scales, n_e + 1, "act_scales", dev)
     xn = xn.contiguous()
+    if xn.data_ptr() % 16:  # read 16 bytes at a time
+        xn = xn.clone()
     out = torch.empty((m, k), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
-    ai = torch.empty((n_e, m, inner), dtype=torch.int8, device=dev)
-    # one f32 partial per (expert, inner block): 29 MB at Mixtral width, batch 8,
-    # the same block of PyTorch's caching allocator every step
-    part = torch.empty((n_e * (inner // bj), m, k), dtype=torch.float32, device=dev)
+    plan = moe_i4_plan(m, k, inner, bj, group, n_e, qmm.sm_count(dev),
+                       tuple(splits) if splits else None)
+    xi = _scratch(scratch and scratch[0], (m, k), dev)
+    ai = _scratch(scratch and scratch[1], (n_e, m, inner), dev)
+    if xi.data_ptr() % 16 or ai.data_ptr() % 16:
+        raise ValueError("fused_moe_mlp_decode_i4: the input and mid codes' scratch must be "
+                         "16-byte aligned (the steps copy them 16 bytes at a time)")
     fn = cuda_build.kernel("decode_moe_i4")
     with torch.cuda.device(dev):
         err = fn(xn.data_ptr(), _DTYPE_CODE[xn.dtype], rw.data_ptr(), wts[0].data_ptr(),
                  wts[1].data_ptr(), wts[2].data_ptr(), sc[0].data_ptr(), sc[1].data_ptr(),
                  sc[2].data_ptr(), scl.data_ptr(), _ACTS[act], out.data_ptr(),
-                 _DTYPE_CODE[out_dtype], xi.data_ptr(), ai.data_ptr(), part.data_ptr(), m, k,
-                 inner, n_e, bj, int(group), _stream(xn))
+                 _DTYPE_CODE[out_dtype], xi.data_ptr(), ai.data_ptr(), m, k, inner, n_e, bj,
+                 int(group),
+                 *(v for step in zip(plan["rows"], plan["splits"], plan["stages"]) for v in step),
+                 _stream(xn))
     cuda_build.check(err, "fused_moe_mlp_decode_i4")
+    if trace is not None:
+        trace.update(plan)
     qmm.LAUNCHES["fused_moe_mlp_decode_i4"] += 1
     return out
 
@@ -2042,11 +2161,13 @@ def fused_o_mlp_decode_i8(attn, w_o_i8, wo_scale, attn_scale, residual, w_gate, 
 
 
 def i4_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, group: int, parts: int,
-                 g_defer: int, tile: bool) -> int:
+                 g_defer: int, tile: bool, sa: bool = False) -> int:
     """Shared memory of one block of a step of the int4 body
-    (``csrc/decode_o_mlp_i4.cuh::I4StepLayout``)."""
+    (``csrc/decode_o_mlp_i4.cuh::I4StepLayout``); ``sa``: the codes stream
+    with the packs (K27's down) instead of resident."""
     rs = min(tr, qmm._round_up(m, 8))
-    return (1024 + stages * nb * 64 * 128 + 2 * rs * (abytes + 16)
+    stage = nb * 64 * 128 + (2 * qmm._round_up(rs * 128, 1024) if sa else 0)
+    return (1024 + stages * stage + (0 if sa else 2 * rs * (abytes + 16))
             + nb * 2 * (abytes // group) * 64 * 4
             + g_defer * qmm._cdiv(tr, 16) * 4 * 256 * 4 + parts * rs * 64 * 4
             + (rs * 68 * 4 if tile else 0) + 1024)
@@ -2062,7 +2183,8 @@ def i8_step_smem(m: int, tr: int, nb: int, stages: int, abytes: int, parts: int,
 
 
 def _i4_steps_plan(what: str, m: int, hd: int, k: int, inner: int, bj: int, group: int,
-                   sms: int, splits, steps, trs=None, fewest: bool = False) -> dict:
+                   sms: int, splits, steps, trs=None, fewest: bool = False,
+                   experts: int = 0) -> dict:
     """The launch plan of ``steps`` of the int4 body
     (``csrc/decode_o_mlp_i4.cuh``; 0 o_proj, 1 gate / up, 2 down): ``rows``
     of x a tile (16, or 32 above 16; fewer where a step would not fit) and,
@@ -2072,17 +2194,23 @@ def _i4_steps_plan(what: str, m: int, hd: int, k: int, inner: int, bj: int, grou
     inner blocks: 1 or 2 blocks a cluster (as for K5; ``fewest``: the
     fewer that fits, else the least cost), 3-8 only where no row tile fits
     a step with 2 (small groups at 7B width); ``splits`` (a count 1-8 a
-    step) forces them; ``trs`` overrides the rows a tile tried, in order."""
+    step) forces them; ``trs`` overrides the rows a tile tried, in order.
+    ``experts`` (K27's steps, the kernel's ``MOE``): gate / up's grid
+    takes each expert's tiles and a lone block keeps only its low prefix
+    and high partials; down's contraction takes the experts' inner
+    blocks, its codes streamed (``sa``)."""
     shapes = {0: (k, hd // 2, 1), 1: (inner, k // 2, 2), 2: (k, bj // 2, 1)}
     for wide in (False, True):
         for tr in trs or ((32, 16, 8) if m > 16 else (16, 8)):
             plan = []
             for pos, step in enumerate(steps):
                 n, half, nb = shapes[step]
-                n_blk = inner // bj if step == 2 else 1
+                n_e = max(experts, 1)
+                n_blk = inner // bj * n_e if step == 2 else 1
                 g = half // group
                 parts = n_blk if step == 2 else g
-                tiles = qmm._cdiv(n, 64) * qmm._cdiv(m, tr)
+                tiles = qmm._cdiv(n, 64) * qmm._cdiv(m, tr) * (n_e if step == 1 else 1)
+                sa = step == 2 and experts > 0  # K27's down streams its mid codes
                 forced = splits[pos] if splits else 0
                 if forced and not 1 <= forced <= min(I4_MAX_SPLIT, parts):
                     raise ValueError(f"{what}: step {step}'s split {forced} outside "
@@ -2094,18 +2222,26 @@ def _i4_steps_plan(what: str, m: int, hd: int, k: int, inner: int, bj: int, grou
                     for sp in cands:
                         per = qmm._cdiv(parts, sp)   # inner blocks or groups a block takes
                         if step == 2:
-                            abytes, n_part, g_defer = per * half, per, g - 1
-                        else:
-                            abytes, n_part, g_defer = per * group, nb * 2 * per, 0
+                            # sa: each block keeps the units' partials of the columns it
+                            # owns, pushed to it (at most cdiv(16, sp) * 4 columns)
+                            abytes, g_defer = per * half, g - 1
+                            n_part = (qmm._cdiv(parts * qmm._cdiv(16, sp) * 4, 64) if sa
+                                      else per)
+                        else:  # K27's lone block keeps its low prefix and high partials
+                            abytes, g_defer = per * group, 0
+                            n_part = nb * (per + 1) if sp == 1 and experts else nb * 2 * per
                         size = functools.partial(i4_step_smem, m, tr, nb, abytes=abytes,
                                                  group=group, parts=n_part, g_defer=g_defer,
-                                                 tile=step == 0)
+                                                 tile=step == 0, sa=sa)
                         stages = next((st for st in range(16 // nb, 1, -1)
                                        if size(stages=st) <= _SMEM_MAX), 0)
                         if not stages:
                             continue
-                        cost = (sp,) if fewest else _split_cost(
-                            tiles, sp, sms, size(stages=stages), stages * nb * 64 * 128, 0.4)
+                        # K27's down (sa): K27_DOWN_SPLIT blocks where they fit, else the
+                        # deepest ring, the fewer blocks on a tie
+                        cost = ((sp,) if fewest else (sp != K27_DOWN_SPLIT, -stages, sp) if sa
+                                else _split_cost(tiles, sp, sms, size(stages=stages),
+                                                 stages * nb * 64 * 128, 0.4))
                         if best is None or cost < best[0]:
                             best = (cost, (sp, stages))
                     if best is not None:
@@ -2273,6 +2409,29 @@ def mlp_i4_plan(m: int, k: int, inner: int, bj: int, group: int, sms: int,
                           fewest=True),
            _i4_steps_plan(name, m, 0, k, inner, bj, group, sms, (f2,) if f2 else None, (2,),
                           trs=(16, 8))]
+    return {key: tuple(p[key] if key == "rows" else p[key][0] for p in one)
+            for key in ("rows", "splits", "stages")}
+
+
+@functools.lru_cache(maxsize=None)
+def moe_i4_plan(m: int, k: int, inner: int, bj: int, group: int, experts: int, sms: int,
+                splits: Optional[Tuple[int, int]] = None) -> dict:
+    """K27's launch plan: K17's gate / up and down steps with the expert
+    axis (:func:`_i4_steps_plan`, ``experts``): gate / up on the fewest
+    blocks a cluster that fit; down on tiles of at most 16 rows, its E *
+    n_j units (expert, inner block) shared out among the cluster, their
+    mid codes streamed with the packs, so that what bounds the cluster
+    from below is the partials of the columns each block owns, pushed to
+    it by every unit (at Mixtral width, 224 units: 4 blocks or more).  Of
+    the clusters that fit, down takes K27_DOWN_SPLIT blocks (the fastest
+    in the sweep at Mixtral width), else the deepest ring.  ``splits``
+    (two counts, 1-8; 0 plans that step) forces them.  Cached."""
+    f1, f2 = splits or (0, 0)
+    name = "fused_moe_mlp_decode_i4"
+    one = [_i4_steps_plan(name, m, 0, k, inner, bj, group, sms, (f1,) if f1 else None, (1,),
+                          fewest=True, experts=experts),
+           _i4_steps_plan(name, m, 0, k, inner, bj, group, sms, (f2,) if f2 else None, (2,),
+                          trs=(16, 8), experts=experts)]
     return {key: tuple(p[key] if key == "rows" else p[key][0] for p in one)
             for key in ("rows", "splits", "stages")}
 

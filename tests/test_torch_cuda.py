@@ -1223,6 +1223,92 @@ def test_flash_q_check_flags_half_blocks_on_card(mode, monkeypatch):
     assert not torch.equal(got, want)
 
 
+# K10's formats at the Mixtral and GQA decode shapes: (mode, B, hkv, g, d, T, pos, bf16 q)
+FLASH_Q_WIDE = [(mode, *shape) for mode in ("i8", "i8c", "i4c")
+                for shape in ((8, 8, 4, 128, 2176, 2110, mode == "i8"),     # Mixtral-8x7B
+                              (4, 4, 8, 64, 4224, 4100, False))]            # GQA, bt 384
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,b,hkv,g,d,t,pos,bf16", FLASH_Q_WIDE)
+def test_flash_q_wide_shapes_on_card(mode, b, hkv, g, d, t, pos, bf16):
+    """K10's quantized formats where the pairs leave SMs idle (a cluster
+    splits the TPU blocks): equal to the plain version."""
+    dev = _card()
+    q, kv, sc = _kv_q_operands(b, hkv, g, d, t, mode, bf16, b + t + pos + 1, dev)
+    trace = {}
+    got = dk.decode_attention_kv_flash(q, kv, pos, mode=mode, kv_scale=sc, trace=trace)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, mode=mode, kv_scale=sc)
+    torch.cuda.synchronize()
+    assert trace["splits"] > 1
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# (mode, B, hkv, g, d, T, pos, starts, softcap, bf16 q): the 7B last step (one block a
+# pair), Mixtral, a row masked throughout with softcap, bt 1024
+FLASH_Q_FORCED = [
+    ("i8", 8, 32, 1, 128, 2176, 2110, None, 0.0, True),
+    ("i4c", 8, 8, 4, 128, 2176, 2110, None, 0.0, False),
+    ("i8c", 3, 2, 4, 64, 1152, 900, (0, 500, 950), 30.0, False),
+    ("i4c", 2, 2, 2, 32, 8192, 5000, None, 0.0, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,b,hkv,g,d,t,pos,starts,softcap,bf16", FLASH_Q_FORCED)
+def test_flash_q_forced_splits_on_card(mode, b, hkv, g, d, t, pos, starts, softcap, bf16):
+    """Every forced cluster of 1-8 blocks a pair equals the planned launch
+    and the plain version; 9 raises; one CUDA launch a call (a captured
+    graph), which allocates nothing but its output."""
+    dev = _card()
+    q, kv, sc = _kv_q_operands(b, hkv, g, d, t, mode, bf16, b + t + pos + 2, dev)
+    st = None if starts is None else torch.tensor(starts, dtype=torch.int32, device=dev)
+    kw = dict(starts=st, softcap=softcap, mode=mode, kv_scale=sc)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, **kw)
+    planned = dk.decode_attention_kv_flash(q, kv, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(planned, want), float((planned - want).abs().max())
+    for n in range(1, 9):
+        trace = {}
+        got = dk.decode_attention_kv_flash(q, kv, pos, splits=n, trace=trace, **kw)
+        torch.cuda.synchronize()
+        assert trace["splits"] == n and torch.equal(got, planned), n
+    with pytest.raises(ValueError, match="splits"):
+        dk.decode_attention_kv_flash(q, kv, pos, splits=9, **kw)
+    assert _cuda_launches(lambda: dk.decode_attention_kv_flash(q, kv, pos, **kw)) == 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = dk.decode_attention_kv_flash(q, kv, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= -(-out.numel() * out.element_size()
+                                                          // 512) * 512
+
+
+FLASH_Q_REPEATS = 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["i8", "i8c", "i4c"])
+@pytest.mark.parametrize("b,hkv,g", [(8, 8, 4), (8, 32, 1)])   # Mixtral, Llama-2-7B
+def test_flash_q_clusters_repeated_on_card(mode, b, hkv, g):
+    """Each forced cluster of 2-8 blocks a pair, FLASH_Q_REPEATS calls in a
+    row at the last step of a 2176-column cache: every output equal to the
+    plain version's (the blocks share their TPU blocks' state in shared
+    memory from one TPU block to the next; a missed barrier shows as an
+    output that differs now and then)."""
+    dev = _card()
+    t, pos = 2176, 2110
+    q, kv, sc = _kv_q_operands(b, hkv, g, 128, t, mode, mode == "i8", b + hkv + t, dev)
+    want = dk.decode_attention_kv_flash_plain(q, kv, pos, mode=mode, kv_scale=sc)
+    for n in range(2, 9):
+        outs = [dk.decode_attention_kv_flash(q, kv, pos, mode=mode, kv_scale=sc, splits=n)
+                for _ in range(FLASH_Q_REPEATS)]
+        torch.cuda.synchronize()
+        bad = sum(not torch.equal(o, want) for o in outs)
+        assert bad == 0, f"{bad} of {FLASH_Q_REPEATS} calls on clusters of {n} differ"
+
+
 # ---------------------------------------------------------------------------
 # the w4a8 engine's int4 decode kernels K16 and K17, and the fused int8
 # prefill's K15 (w8a8_matmul_fused) and K2 with silu.  K16 and K17 repeat
@@ -2032,6 +2118,103 @@ def test_moe_mlp_i4_kernel_matches_plain_on_card(m, k, i, n_e, group, bj, act, x
         float((got - want).abs().max())
     assert torch.equal(given, want.to(torch.bfloat16))
     assert float(want.abs().max()) > 0
+
+
+def _moe_codes_plain(xn, packs, scl, bj, group, act):
+    """The plain version's input codes (B, K) and each expert's mid codes
+    (E, B, I) (``fused_moe_mlp_decode_i4_plain``'s, as int8)."""
+    (w1, s1), (w3, s3), _ = packs
+    k, n_e = xn.shape[1], scl.numel() - 1
+    inner = w1.shape[1]
+    s_in = scl[0:1]
+    xi = dk._quant_static(xn.float(), s_in)
+    mids = []
+    for e in range(n_e):
+        rows = slice(e * k // 2, (e + 1) * k // 2)
+        blocks = []
+        for j in range(inner // bj):
+            cols = slice(j * bj, (j + 1) * bj)
+            gate, up = (dk.i4_group_dot_plain(xi, w[rows, cols], s[:, cols], s_in, group,
+                                              row0=e * (k // group)) for w, s in ((w1, s1), (w3, s3)))
+            blocks.append(dk._quant_static(dk._act(act, gate) * up, scl[1 + e:2 + e]))
+        mids.append(torch.cat(blocks, dim=1))
+    return xi.to(torch.int8), torch.stack(mids).to(torch.int8)
+
+
+@pytest.fixture(scope="module")
+def mixtral_moe():
+    """K27's operands at Mixtral-8x7B width (K 4096, I 14336, 8 experts, group
+    128, inner blocks of 512) for 32 rows, and the per-expert transposes."""
+    dev = _card()
+    xn, rw, packs, scl = _moe_operands(32, 4096, 14336, 8, 128, 512, 27, dev, torch.bfloat16)
+    wts = tuple(dk.moe_expert_t(p_, 8) for p_, _ in packs)
+    yield xn, rw, packs, scl, wts
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_moe_mlp_i4_mixtral_width_on_card(m, mixtral_moe):
+    """K27 at Mixtral width, batch 1, 8 and 32: codes identical and output
+    equal to the plain version's, three CUDA launches a call (a captured
+    graph)."""
+    xn, rw, packs, scl, wts = mixtral_moe
+    xn, rw = xn[:m].contiguous(), rw[:m].contiguous()
+    (w1, s1), (w3, s3), (w2, s2) = packs
+    args = (xn, rw, w1, w3, w2, s1, s3, s2, scl)
+    dev = xn.device
+    xi = torch.empty((m, 4096), dtype=torch.int8, device=dev)
+    ai = torch.empty((8, m, 14336), dtype=torch.int8, device=dev)
+    trace = {}
+    got = dk.fused_moe_mlp_decode_i4(*args, w_t=wts, scratch=(xi, ai), trace=trace)
+    torch.cuda.synchronize()
+    want = dk.fused_moe_mlp_decode_i4_plain(*args)
+    xi_w, ai_w = _moe_codes_plain(xn, packs, scl, 512, 128, "silu")
+    assert torch.equal(xi, xi_w) and torch.equal(ai, ai_w)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert set(trace) == {"rows", "splits", "stages"}
+    assert _cuda_launches(lambda: dk.fused_moe_mlp_decode_i4(*args, w_t=wts)) == 3
+
+
+# K27 with each step's cluster forced: (M, K, I, E, group, block_j)
+MOE_FORCED = [(8, 1024, 2048, 8, 128, 512), (5, 512, 1024, 4, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,i,n_e,group,bj", MOE_FORCED)
+def test_moe_forced_splits_on_card(m, k, i, n_e, group, bj):
+    """Every cluster of 1-8 blocks forced on each step (where the step has
+    that many units) equals the planned launch and the plain version, its
+    codes identical; a count the step cannot take raises."""
+    dev = _card()
+    xn, rw, packs, scl = _moe_operands(m, k, i, n_e, group, bj, m + k + 5, dev, torch.bfloat16)
+    (w1, s1), (w3, s3), (w2, s2) = packs
+    args = (xn, rw, w1, w3, w2, s1, s3, s2, scl)
+    kw = dict(block_j=bj, group=group)
+    want = dk.fused_moe_mlp_decode_i4_plain(*args, **kw)
+    xi_w, ai_w = _moe_codes_plain(xn, packs, scl, dk.mlp_i4_block(i, bj), group, "silu")
+    units = ((k // 2) // group, n_e * (i // dk.mlp_i4_block(i, bj)))
+    ran = 0
+    for step in (0, 1):
+        for n in range(1, 9):
+            forced = (n, 0) if step == 0 else (0, n)
+            if n > units[step]:
+                with pytest.raises(ValueError):
+                    dk.fused_moe_mlp_decode_i4(*args, splits=forced, **kw)
+                continue
+            try:
+                xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+                ai = torch.empty((n_e, m, i), dtype=torch.int8, device=dev)
+                got = dk.fused_moe_mlp_decode_i4(*args, splits=forced, scratch=(xi, ai), **kw)
+            except NotImplementedError:  # the step's resident codes do not fit
+                continue
+            torch.cuda.synchronize()
+            assert torch.equal(xi, xi_w) and torch.equal(ai, ai_w), forced
+            assert torch.equal(got, want), (forced, float((got - want).abs().max()))
+            ran += 1
+    assert ran >= 8
+    with pytest.raises(ValueError):
+        dk.fused_moe_mlp_decode_i4(*args, splits=(9, 0), **kw)
 
 
 @pytest.mark.cuda

@@ -428,3 +428,148 @@ def test_mlp_i8_forced_outside_range_raises(splits, stages):
 
 def test_mlp_i8_plan_is_cached():
     assert dk.mlp_i8_plan(8, 4096, 11008, 256, SMS) is dk.mlp_i8_plan(8, 4096, 11008, 256, SMS)
+
+
+# K27 (``moe_i4_plan``): the Mixtral-8x7B MoE MLP (K 4096, I 14336, 8 experts) at its
+# serving batches, and MOE_CASES' widths of tests/test_torch_cuda.py
+MOE_SHAPES = [(m, 4096, 14336, 8, 128, 512) for m in (1, 8, 17, 32, 64)] + [
+    (8, 1024, 2048, 8, 128, 512), (1, 512, 1024, 4, 64, 256), (33, 256, 768, 3, 128, 256),
+    (5, 256, 1024, 4, 128, 512)]
+
+
+def _moe_step_smem(m, k, i, n_e, group, bj, p, pos):
+    """The shared memory of K27's step ``pos`` (0 gate / up, 1 down) under
+    plan ``p``, from the int4 body's Python mirror."""
+    tr, s, st = p["rows"][pos], p["splits"][pos], p["stages"][pos]
+    if pos == 0:
+        per = -(-(k // 2 // group) // s)
+        return dk.i4_step_smem(m, tr, 2, st, per * group, group,
+                               2 * (per + 1) if s == 1 else 4 * per, 0, False)
+    units = n_e * (i // bj)
+    per = -(-units // s)
+    pushed = -(-(units * -(-16 // s) * 4) // 64)  # the owned columns' partials of every unit
+    return dk.i4_step_smem(m, tr, 1, st, per * bj // 2, group, pushed, bj // 2 // group - 1,
+                           False, sa=True)
+
+
+@pytest.mark.parametrize("m,k,i,n_e,group,bj", MOE_SHAPES)
+def test_moe_i4_plan_shapes(m, k, i, n_e, group, bj):
+    """Every shape plans both steps within a block's shared memory; gate /
+    up on the fewest blocks a cluster that fit, down on tiles of at most 16
+    rows, its units (expert, inner block) shared out among at most 8."""
+    bj = dk.mlp_i4_block(i, bj)
+    p = dk.moe_i4_plan(m, k, i, bj, group, n_e, SMS)
+    units = (k // 2 // group, n_e * (i // bj))
+    for pos in (0, 1):
+        assert 1 <= p["splits"][pos] <= min(8, units[pos]) and 2 <= p["stages"][pos] <= 16
+        assert _moe_step_smem(m, k, i, n_e, group, bj, p, pos) <= SMEM
+    assert p["rows"][1] in (8, 16)
+    first = p["splits"][0]
+    assert first == 1 or all(_moe_step_smem(m, k, i, n_e, group, bj, dict(
+        rows=(p["rows"][0],) * 2, splits=(s_, 1), stages=(2, 2)), 0) > SMEM
+        for s_ in range(1, first))
+
+
+def test_moe_i4_plan_mixtral():
+    """Mixtral width, batch 8: gate / up one block a column tile; down's 224
+    units shared out among a cluster of K27_DOWN_SPLIT (fewer than 4 do not
+    fit the partials of their owned columns)."""
+    p = dk.moe_i4_plan(8, 4096, 14336, 512, 128, 8, SMS)
+    assert p["splits"] == (1, dk.K27_DOWN_SPLIT) and p["rows"] == (16, 16)
+
+
+@pytest.mark.parametrize("pos,split", [(0, 1), (0, 2), (0, 4), (1, 2), (1, 4), (1, 8)])
+def test_moe_i4_forced_split_is_kept(pos, split):
+    forced = (split, 0) if pos == 0 else (0, split)
+    p = dk.moe_i4_plan(8, 1024, 2048, 512, 128, 8, SMS, forced)
+    assert p["splits"][pos] == split
+    assert _moe_step_smem(8, 1024, 2048, 8, 128, 512, p, pos) <= SMEM
+
+
+@pytest.mark.parametrize("splits", [(9, 0), (0, 9), (5, 0), (0, 33), (-1, 0)])
+def test_moe_i4_forced_outside_range_raises(splits):
+    """K 1024 has 4 groups a plane for gate / up, 8 experts x 4 inner blocks
+    of 512 for down: 9, 5 and 33 blocks are beyond them."""
+    with pytest.raises(ValueError):
+        dk.moe_i4_plan(8, 1024, 2048, 512, 128, 8, SMS, splits)
+
+
+def test_moe_i4_forced_that_does_not_fit_raises():
+    """At Mixtral width down's partials fit no cluster of fewer than 4."""
+    with pytest.raises(NotImplementedError):
+        dk.moe_i4_plan(8, 4096, 14336, 512, 128, 8, SMS, (0, 2))
+
+
+def test_moe_i4_plan_is_cached():
+    assert dk.moe_i4_plan(8, 4096, 14336, 512, 128, 8, SMS) is dk.moe_i4_plan(
+        8, 4096, 14336, 512, 128, 8, SMS)
+
+
+# K10's quantized formats (``flash_q_plan``): (pairs, g, d, T, attended columns) of the
+# 7B, Mixtral and GQA decode shapes, FLASH_Q_CASES of tests/test_torch_cuda.py and long
+# caches
+FLASH_Q_SHAPES = [(256, 1, 128, 2176, 2111), (64, 4, 128, 2176, 2111), (16, 8, 64, 4224, 4101),
+                  (6, 4, 64, 1152, 901), (4, 2, 32, 8192, 5001), (16, 8, 128, 4224, 4101),
+                  (2, 8, 256, 65536, 65000), (1, 8, 256, 131072, 131000), (32, 1, 32, 128, 9)]
+
+
+@pytest.mark.parametrize("mode", ["i8", "i8c", "i4c"])
+@pytest.mark.parametrize("pairs,g,d,t,cols", FLASH_Q_SHAPES)
+def test_flash_q_plan_shapes(pairs, g, d, t, cols, mode):
+    """Every shape plans within a block's shared memory, never refused: one
+    block a pair where the pairs give 90% of the SMs a block, else the least
+    cluster that does (at most one block a TPU block the columns span),
+    larger where a block's logits would not fit, one block a pair (the
+    online pass) where no cluster fits."""
+    bt = dk._pick_bt(t)
+    p = dk.flash_q_plan(pairs, g, d, mode, t, bt, cols, SMS)
+    n, st = p["splits"], p["stages"]
+    assert 1 <= n <= 8 and 2 <= st <= dk.K10Q_MAX_STAGES
+    nbr = -(-(t // bt) // n) if n > 1 else 1
+    assert dk.flash_q_smem(mode, g, d, bt, nbr, n > 1, st) <= SMEM
+    least = min(next((k for k in range(1, 9) if 10 * pairs * k >= 9 * SMS), 8),
+                -(-cols // bt))
+    assert n >= least or n == 1
+
+
+def test_flash_q_plan_7b_one_block_a_pair_two_an_sm():
+    """The 7B last step: 256 pairs, one block each, two blocks an SM."""
+    for mode in ("i8", "i8c", "i4c"):
+        p = dk.flash_q_plan(256, 1, 128, mode, 2176, 128, 2111, SMS)
+        assert p["splits"] == 1
+        assert dk.flash_q_smem(mode, 1, 128, 128, 1, False, p["stages"]) + 1024 <= 233472 // 2
+
+
+@pytest.mark.parametrize("splits", list(range(1, 9)))
+@pytest.mark.parametrize("mode", ["i8", "i8c", "i4c"])
+def test_flash_q_forced_split_is_kept(mode, splits):
+    for pairs, g, d, t, cols in FLASH_Q_SHAPES[:5]:
+        bt = dk._pick_bt(t)
+        p = dk.flash_q_plan(pairs, g, d, mode, t, bt, cols, SMS, splits)
+        assert p["splits"] == splits
+        nbr = -(-(t // bt) // splits) if splits > 1 else 1
+        assert dk.flash_q_smem(mode, g, d, bt, nbr, splits > 1, p["stages"]) <= SMEM
+
+
+@pytest.mark.parametrize("splits", [9, -1])
+def test_flash_q_plan_refuses_outside_range(splits):
+    with pytest.raises(ValueError, match="splits"):
+        dk.flash_q_plan(16, 8, 64, "i8c", 4224, 384, 4101, SMS, splits)
+
+
+def test_flash_q_forced_cluster_that_does_not_fit_raises():
+    """A 128K-column cache of 8 heads at d 256: two blocks a pair would each
+    keep 64 TPU blocks' logits, beyond shared memory."""
+    with pytest.raises(ValueError):
+        dk.flash_q_plan(1, 8, 256, "i8", 131072, 1024, 131000, SMS, 2)
+
+
+def test_flash_q_plan_is_cached_and_read_only():
+    p = dk.flash_q_plan(256, 1, 128, "i8", 2176, 128, 2111, SMS)
+    assert p is dk.flash_q_plan(256, 1, 128, "i8", 2176, 128, 2111, SMS)
+    size = dk._flash_q_plan.cache_info().currsize
+    for cols in range(1025, 2176, 3):   # a decode loop's pos beyond 8 TPU blocks
+        assert dk.flash_q_plan(256, 1, 128, "i8", 2176, 128, cols, SMS) is p
+    assert dk._flash_q_plan.cache_info().currsize == size
+    with pytest.raises(TypeError):
+        p["splits"] = 2
